@@ -23,20 +23,48 @@ Phases, each of which exits non-zero on failure:
    (patch 1024, overlap 0.5: 36 tiles, two chunks of 32, the last padded);
    the chunked forward's tile probabilities and the masks against the
    all-plain runs in bf16 and in f32.
+4. Train kernels: for each of the six fused stage signatures at 512², bf16,
+   batch 2, seeded weights, every call the train stage's forward and v2
+   backward make of conv_stats (conv1, conv2 with its prologue, the γ|β
+   recompute with its bias, each backward-data conv down to 3 and nh
+   channels), train_tail (with and without the head) and wgrad (with and
+   without the prologue), each held against its plain version on the same
+   inputs.
+5. Stage gradients: the same six stages forward and backward with the
+   kernels, against the same autograd Function on the plain versions (bf16)
+   and against plain autograd of the module composition in f32: output,
+   both batch-stat pairs, every input and parameter gradient.
+6. Trainer (this slice's main path): UNet_R_SS_v2 from
+   configs/config_v1.json at full width, its Adam (lr 1e-4, weight decay
+   1e-7), clip 0.7 and BCEDiceLoss, bf16 activations on f32 parameters,
+   SyntheticDataset(512, 512) through val_transform and BatchLoader at
+   batch 8, train_one_epoch over 2 warm-up and 5 timed steps; ms/step and
+   images/s, kernel launches per step, finite metrics, moved BN statistics;
+   step 1 held against the same step on the plain versions (bf16) and on
+   the plain module composition (f32), as a whole and per fused stage on
+   the inputs and cotangent the kernel step gave it; each kernel call of
+   one steady-state step held against its plain version on its inputs and
+   timed against it, its bound and the library call; a profile of one
+   step.
 
-Prints a ``kernels`` JSON line (launches on the main path — phases 2 and 3
-— error, time per forward, plain time, bound), and ends with
-``{"ok": true, "device": {...}}``. Needs no network; imports no JAX.
+Prints a ``kernels`` JSON line (launches on the main paths — phases 2 and
+3 for the eval kernel, phase 6 for the train kernels — error, time, plain
+time, bound, library time), and ends with ``{"ok": true, "device":
+{...}}``. Every check that fails is printed and the run exits non-zero
+after the last phase. Needs no network; imports no JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import subprocess
 import sys
 import time
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -67,6 +95,28 @@ MASK_SHARE = (0.01, 0.99)
 # H100 SXM peaks (NVIDIA data sheet): bf16 dense tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# Train kernels against their plain versions (phase 4): outputs as REL_TOL /
+# L2_TOL above (both sides round at the same places); the per-channel sums
+# of the rounded outputs within SUMS_TOL of the largest sum (plus SUMS_TOL;
+# a 1-ulp output flip moves a sum of 5e5 terms by ~1e-6 of it); f32 weight
+# gradients within WGRAD_L2_TOL relative L2 (the same bf16 products summed
+# in another order).
+SUMS_TOL, WGRAD_L2_TOL = 1e-3, 1e-3
+# Gradients (phases 5 and 6) are held to the forwards' bar as whole tensors:
+# each input gradient, each batch statistic, the loss, and all parameter
+# gradients as one vector. One parameter's gradient alone may be a sum that
+# cancels (a bias gradient sums a cotangent over ~5e5 pixels), where bf16
+# leaves noise of the order of the value in both paths (measured on the
+# H100: kernel-plain 2.64 × plain-f32 for a 3-element bias gradient 1.4%
+# from f32 in plain bf16); it must stay within GRAD_KP × plain-f32 of the
+# plain run. A zeroed gradient is 1 from plain, a sign-flipped one 2, so the
+# bar tells them apart wherever plain-f32 < 1 / GRAD_KP; where the bf16
+# plain run is further from f32 than that (deep stages of the whole-model
+# step, where a rounding flip moves a max-pool winner) it cannot, and the
+# run says how many such gradients there were.
+GRAD_KP = 3.0
+TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS = 8, 2, 5
+TRAIN_KERNELS = ("conv_stats", "train_tail", "wgrad")
 
 
 def fail(msg: str) -> None:
@@ -134,10 +184,32 @@ def stage_bound_ms(parts, planes, labels, hidden, ncls, weight_bytes):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def calibrate_batchnorm(model, x, block_type) -> None:
+def module_stage(parts, block, spade, final=None):
+    """One stage as the plain module composition (block, SPADE, final)."""
+    y = block(parts)
+    y = spade(y, y)
+    return y if final is None else final(y)
+
+
+@contextlib.contextmanager
+def spade_stages_as(fn):
+    """Route the model's stages (models/ssunet.py ``spade_stage``) to ``fn``
+    while active."""
+    from ssunet_gan_tpu_torch.models import ssunet
+
+    orig = ssunet.spade_stage
+    ssunet.spade_stage = fn
+    try:
+        yield orig
+    finally:
+        ssunet.spade_stage = orig
+
+
+def calibrate_batchnorm(model, x) -> None:
     """Set every BatchNorm's running statistics to the per-channel mean and
-    variance of its input on ``x``, in one pass through the model's module
-    path (the fused stages unfused, so each BatchNorm sees its input)."""
+    variance of its input on ``x``, in one eval pass through the model's
+    module path (the fused stages unfused, so each BatchNorm sees its
+    input)."""
     from ssunet_gan_tpu_torch.ops.norm import BatchNorm
 
     def hook(m, args):
@@ -147,17 +219,491 @@ def calibrate_batchnorm(model, x, block_type) -> None:
 
     handles = [m.register_forward_pre_hook(hook) for m in model.modules()
                if isinstance(m, BatchNorm)]
-    blocks = [m for m in model.modules() if isinstance(m, block_type)]
-    for b in blocks:
-        b.training = True  # the stage dispatch then runs block and SPADE as modules
     try:
-        with torch.no_grad():
+        with spade_stages_as(module_stage), torch.no_grad():
             model(x)
     finally:
         for h in handles:
             h.remove()
-        for b in blocks:
-            b.training = False
+
+
+def profile_kernels(fn, n: int):
+    """(device busy ms, wall ms under the profiler, [(ms, count, name)]) per
+    call of ``fn``, over ``n`` calls: kernel events only (an op's range on
+    the device timeline, a user annotation named after the aten op, repeats
+    its kernels' time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    rows = sorted(((e.self_device_time_total / 1e3 / n, e.count // n, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.key.startswith("aten::")
+                   and e.self_device_time_total > 0),
+                  reverse=True)
+    return sum(r[0] for r in rows), wall_ms, rows
+
+
+# ---------------------------------------------------------------------------
+# Train path (phases 4-6)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def recording(tst):
+    """Record every call of the train kernels' wrappers (name, args, kwargs)
+    while active; the calls run as usual."""
+    calls = []
+    originals = {n: getattr(tst, n) for n in TRAIN_KERNELS}
+
+    def recorder(name):
+        fn = originals[name]
+
+        def rec(*args, **kwargs):
+            calls.append((name, args, kwargs))
+            return fn(*args, **kwargs)
+        return rec
+
+    for n in TRAIN_KERNELS:
+        setattr(tst, n, recorder(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in originals.items():
+            setattr(tst, n, fn)
+
+
+@contextlib.contextmanager
+def plain_train_kernels(tst):
+    """Route the train stage's wrappers to their plain versions."""
+    originals = {n: getattr(tst, n) for n in TRAIN_KERNELS}
+    for n in TRAIN_KERNELS:
+        setattr(tst, n, getattr(tst, n + "_reference"))
+    try:
+        yield
+    finally:
+        for n, fn in originals.items():
+            setattr(tst, n, fn)
+
+
+def _parts(x):
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def describe_call(name, args, kwargs) -> str:
+    if name == "train_tail":
+        f2, parts = args[0], _parts(args[1])
+        head = args[6] if len(args) > 6 else kwargs.get("head")
+        return (f"train_tail {tuple(f2.shape)} parts={[p.shape[-1] for p in parts]}"
+                f" head={head is not None}")
+    parts = _parts(args[0])
+    extra = "".join(f" {k}" for k in ("prologue", "bias") if kwargs.get(k) is not None)
+    cout = args[1].shape[0] if name == "conv_stats" else args[1].shape[-1]
+    return (f"{name} {tuple(parts[0].shape[:3])} in={[p.shape[-1] for p in parts]} "
+            f"out={cout}{extra}")
+
+
+def call_cost(name, args, kwargs):
+    """(FLOPs, bytes) one call must do: the multiply-adds of its products
+    at their real (unpadded) widths; each input read and each output
+    written once."""
+    if name == "train_tail":
+        f2, parts, _, _, _, sp = args[:6]
+        head = args[6] if len(args) > 6 else kwargs.get("head")
+        parts = _parts(parts)
+        n, h, w, c = f2.shape
+        csum = sum(p.shape[-1] for p in parts)
+        lab, nh = sp[0].shape[0], sp[2].shape[0]
+        ncls = 0 if head is None else head[0].shape[0]
+        macs = csum * c + 9 * c * lab + 9 * lab * nh + 9 * nh * 2 * c + c * ncls
+        nbytes = 2 * n * h * w * (c + csum + (ncls or c) + c + lab + nh)
+        return 2.0 * macs * n * h * w, nbytes
+    parts = _parts(args[0])
+    n, h, w = parts[0].shape[:3]
+    cin = sum(p.shape[-1] for p in parts)
+    if name == "conv_stats":
+        cout = args[1].shape[0]
+        nbytes = 2 * (n * h * w * (cin + cout) + 9 * cin * cout)
+    else:  # wgrad: f32 dW out
+        cout = args[1].shape[-1]
+        nbytes = 2 * n * h * w * (cin + cout) + 4 * 9 * cin * cout
+    return 2.0 * 9 * cin * cout * n * h * w, nbytes
+
+
+def bound_of(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def library_call(tst, name, args, kwargs):
+    """One PyTorch call on the same inputs as a yardstick (cuDNN in bf16):
+    the convolution for conv_stats (without the sums), the weight gradient
+    for wgrad; None for train_tail."""
+    import torch.nn.functional as F
+
+    if name == "train_tail":
+        return None
+    parts = _parts(args[0])
+    pro = kwargs.get("prologue")
+    if pro is not None:
+        parts = (tst._prologued(parts[0], pro),)
+    x = torch.cat(parts, -1).permute(0, 3, 1, 2)  # NCHW view, channels-last memory
+    if name == "conv_stats":
+        wt = args[1].to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        b = kwargs.get("bias")
+        b = None if b is None else b.to(torch.bfloat16)
+        return lambda: F.conv2d(x, wt, b, padding=1)
+    g = args[1].permute(0, 3, 1, 2)
+    shape = (g.shape[1], x.shape[1], 3, 3)
+    return lambda: torch.nn.grad.conv2d_weight(x, shape, g, padding=1)
+
+
+def wgrad_f64(parts, g, prologue=None):
+    """The weight gradient of the same bf16 values summed in f64, image by
+    image: the yardstick of the kernel's and the plain version's f32 sums."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+
+    parts = _parts(parts)
+    if prologue is not None:
+        parts = (tst._prologued(parts[0], prologue),)
+    x = torch.cat(parts, -1).permute(0, 3, 1, 2)
+    gt = g.permute(0, 3, 1, 2)
+    shape = (gt.shape[1], x.shape[1], 3, 3)
+    return sum(torch.nn.grad.conv2d_weight(x[i:i + 1].double(), shape, gt[i:i + 1].double(),
+                                           padding=1) for i in range(x.shape[0]))
+
+
+def compare_call(tst, name, args, kwargs):
+    """The kernel and the plain version of one recorded call on its inputs:
+    (max abs err, within tolerance, text)."""
+    got = getattr(tst, name)(*args, **kwargs)
+    want = getattr(tst, name + "_reference")(*args, **kwargs)
+    torch.cuda.synchronize()
+    if name == "wgrad":
+        diff = (got - want).abs().max().item()
+        l2 = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+        ok = l2 <= WGRAD_L2_TOL and bool(torch.isfinite(got).all()) and got.shape == want.shape
+        exact = wgrad_f64(*args, **kwargs)
+        return diff, ok, (f"rel_l2={l2:.3g} max_abs_err={diff:.4g}; from an f64 sum "
+                          f"kernel {rel_l2(got.double(), exact):.3g} plain {rel_l2(want.double(), exact):.3g}")
+    if name == "conv_stats":
+        (out, sums), (w_out, w_sums) = got, want
+        err, scale, l2, ok = close(out, w_out)
+        text = f"max_abs_err={err:.4g} rel_l2={l2:.3g} (max|plain|={scale:.4g})"
+        if w_sums is not None:
+            d = (sums - w_sums).abs().max().item()
+            ok = ok and d <= SUMS_TOL * w_sums.abs().max().item() + SUMS_TOL
+            text += f" sums_err={d:.4g} (max|sum|={w_sums.abs().max().item():.4g})"
+        return err, ok, text
+    worst, oks, texts = 0.0, [], []
+    for what, g, wv in zip(("out", "y", "seg", "actv"), got, want):
+        err, scale, l2, ok = close(g, wv)
+        worst, oks = max(worst, err), oks + [ok and g.shape == wv.shape]
+        texts.append(f"{what} {err:.4g}/{l2:.3g}")
+    return worst, all(oks), "max_abs_err/rel_l2 " + " ".join(texts)
+
+
+def rel_l2(u, v):
+    return ((u.float() - v.float()).norm() / v.float().norm().clamp_min(1e-30)).item()
+
+
+def against_f32_bar(what, kern, plain, f32, check, strict=True) -> bool:
+    """The forwards' bar for one tensor: the kernel no further from f32 than
+    NOISE_RATIO × the plain bf16 path, and kernel-plain no further apart
+    than plain-f32 (relative L2). With ``strict=False`` (one parameter's
+    gradient, where a sum that cancels, such as a bias gradient, leaves
+    bf16 noise of the order of the value itself) ``e_kp ≤ GRAD_KP·e_p``;
+    the parameter gradient as a whole is then held to the strict bar.
+    Returns whether the bar would fail a zeroed gradient (GRAD_KP·e_p < 1)."""
+    e_k, e_p, e_kp = rel_l2(kern, f32), rel_l2(plain, f32), rel_l2(kern, plain)
+    finite = bool(torch.isfinite(kern.float()).all())
+    if strict:
+        ok = finite and e_k <= NOISE_RATIO * e_p and e_kp <= e_p
+    else:
+        ok = finite and e_kp <= GRAD_KP * e_p
+    print(f"{what}: rel_l2 kernel-f32 {e_k:.4g} plain-f32 {e_p:.4g} kernel-plain "
+          f"{e_kp:.4g}{'' if ok else '  <-- FAILED'}")
+    check(ok, f"{what}: kernel-f32 {e_k}, plain-f32 {e_p}, kernel-plain {e_kp}")
+    return GRAD_KP * e_p < 1
+
+
+def gradient_bars(what, names, kern, plain, f32, check) -> None:
+    """Each parameter's gradient (e_kp ≤ GRAD_KP·e_p), then all of them as
+    one vector (strict)."""
+    blind = [n for n, k, p, f in zip(names, kern, plain, f32)
+             if not against_f32_bar(f"{what} d {n}", k, p, f, check, strict=False)]
+    flat = lambda ts: torch.cat([t.float().reshape(-1) for t in ts])
+    against_f32_bar(f"{what} parameter gradient (all {len(names)} tensors)",
+                    flat(kern), flat(plain), flat(f32), check)
+    print(f"{what}: {len(names) - len(blind)} of {len(names)} parameter gradients resolved "
+          f"(plain-f32 < 1/{GRAD_KP:g}, a zeroed gradient fails the bar); not resolved: "
+          f"{', '.join(blind) or 'none'}")
+
+
+def train_phases(dev, cfg, card, sigs, check):
+    """Phases 4-6; returns (launch counts of the main path, max abs error
+    per kernel, per-step time totals per kernel)."""
+    from ssunet_gan_tpu_torch.models import build_model, ssunet
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train
+    from ssunet_gan_tpu_torch.ops.blocks import BasicBlock
+    from ssunet_gan_tpu_torch.ops.conv import Conv2d
+    from ssunet_gan_tpu_torch.ops.spade import SPADE
+
+    ncls, in_ch = cfg["num_classes"], cfg["input_channels"]
+    # ---- phases 4 and 5: train kernels against their plain versions, and
+    # stage gradients, on the six fused stage signatures at batch 2
+    tst = stage_kernel_train
+    train_err = {k: 0.0 for k in TRAIN_KERNELS}
+    for name, chans, planes, lab, nh, head_cls, level in sigs:
+        g = torch.Generator().manual_seed(SEED + 10)
+        block = BasicBlock(sum(chans), planes, generator=g)
+        with torch.no_grad():  # BN affines away from (1, 0)
+            for bn in (block.bn1, block.bn2):
+                bn.weight.copy_(1 + 0.2 * torch.randn(planes, generator=g))
+                bn.bias.copy_(0.2 * torch.randn(planes, generator=g))
+        spade = SPADE("spadebatch3x3", planes, lab, planes / 16, generator=g)
+        final = Conv2d(planes, head_cls, 1, generator=g) if head_cls else None
+        block.to(dev).train()
+        spade.to(dev)
+        mods = (block, spade) + ((final.to(dev),) if final is not None else ())
+        names = [f"{m.__class__.__name__}.{k}" for m in mods for k, _ in m.named_parameters()]
+        params = [p for m in mods for p in m.parameters()]
+        head = None if final is None else (final.weight, final.bias)
+        side = HW >> level
+        xs = [torch.randn((2, side, side, c), generator=g).to(dev) for c in chans]
+        cot = torch.randn((2, side, side, head_cls or planes), generator=g).to(dev)
+
+        def stage_run(dtype):
+            parts = tuple(x.to(dtype).requires_grad_() for x in xs)
+            out, stats = tst.fused_train_stage(parts, block.train_params(),
+                                               spade.stage_params(), head)
+            grads = torch.autograd.grad((out.float() * cot).sum(), [*parts, *params])
+            return [out, *(s for pair in stats for s in pair), *grads]
+
+        def module_run():
+            """Plain autograd of the module composition in f32; the batch
+            statistics from the BatchNorms' inputs."""
+            parts = tuple(x.requires_grad_() for x in xs)
+            seen = []
+            hooks = [bn.register_forward_pre_hook(lambda m, a: seen.append(a[0].detach()))
+                     for bn in (block.bn1, block.bn2)]
+            try:
+                out = module_stage(parts, block, spade, final)
+            finally:
+                for hk in hooks:
+                    hk.remove()
+            stats = [v for t in seen for v in (t.mean((0, 1, 2)), t.var((0, 1, 2)))]
+            grads = torch.autograd.grad((out.float() * cot).sum(), [*parts, *params])
+            return [out, *stats, *grads]
+
+        with recording(tst) as calls:
+            kern = stage_run(torch.bfloat16)
+        torch.cuda.synchronize()
+        for kname, args, kw in calls:
+            err, ok, text = compare_call(tst, kname, args, kw)
+            train_err[kname] = max(train_err[kname], err)
+            print(f"phase 4: {name} {describe_call(kname, args, kw)} {text}")
+            check(ok, f"phase 4: {name} {describe_call(kname, args, kw)}: {text}")
+        print(f"phase 4: {name}: {dict(Counter(c[0] for c in calls))} calls, forward and backward")
+        del calls
+        with plain_train_kernels(tst):
+            plain = stage_run(torch.bfloat16)
+        f32 = module_run()
+        labels = (["out", "mean1", "uvar1", "mean2", "uvar2"]
+                  + [f"d part{i}" for i in range(len(xs))])
+        for lbl, k, p, f in zip(labels, kern, plain, f32):
+            against_f32_bar(f"phase 5: {name} {lbl}", k, p, f, check)
+        n0 = len(labels)
+        gradient_bars(f"phase 5: {name}", names, kern[n0:], plain[n0:], f32[n0:], check)
+        del kern, plain, f32, xs, block, spade, final, params
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: the trainer (this slice's main path)
+    from ssunet_gan_tpu_torch.data.dataset import SyntheticDataset
+    from ssunet_gan_tpu_torch.data.loader import BatchLoader
+    from ssunet_gan_tpu_torch.data.transforms import val_transform
+    from ssunet_gan_tpu_torch.ops.losses import get_loss
+    from ssunet_gan_tpu_torch.ops.norm import BatchNorm
+    from ssunet_gan_tpu_torch.train.optim import build_optimizer, build_scheduler
+    from ssunet_gan_tpu_torch.train.step import make_train_step
+    from ssunet_gan_tpu_torch.train.supervised import train_one_epoch
+
+    def loader(n_steps, seed):
+        ds = SyntheticDataset(n_steps * TRAIN_BATCH, HW, HW, ncls, in_ch,
+                              transform=val_transform(cfg), seed=seed)
+        return BatchLoader(ds, TRAIN_BATCH, shuffle=False, drop_last=True,
+                           num_workers=int(cfg["num_workers"]))
+
+    tmodel = build_model(cfg["arch"], ncls, in_ch, cfg["deep_supervision"], seed=SEED,
+                         device=dev).train()
+    optimizer = build_optimizer(tmodel.parameters(), cfg)
+    loss_fn = get_loss(cfg["loss"])
+    step = make_train_step(tmodel, loss_fn, optimizer, ncls, cfg["deep_supervision"],
+                           clip=float(cfg["clip"]))
+    lr = build_scheduler(cfg).lr(0)
+    pnames = [n for n, _ in tmodel.named_parameters()]
+
+    # step 1 from identical weights and batch: the kernels, the same
+    # autograd Function on the plain versions (bf16), and plain autograd of
+    # the module composition in f32 (independent of the Function's backward)
+    _, img1, mask1, _ = next(iter(loader(1, seed=1)))
+    x1, y1 = torch.from_numpy(img1).to(dev), torch.from_numpy(mask1).to(dev)
+    snapshot = copy.deepcopy(tmodel.state_dict())
+    fused_stage = ssunet.spade_stage
+    fused_ids = {id(getattr(tmodel, s[0])): s[0] for s in sigs}
+    seen = {}
+
+    def capturing_stage(parts, block, spade, final=None):
+        """The model's stage, recording each fused stage's inputs and the
+        cotangent its output receives."""
+        out = fused_stage(parts, block, spade, final)
+        if id(block) in fused_ids:
+            rec = seen[fused_ids[id(block)]] = {
+                "parts": tuple(p.detach() for p in ssunet.as_parts(parts)),
+                "mods": (block, spade, final)}
+            out.register_hook(lambda g: rec.__setitem__("g", g.detach()))
+        return out
+
+    def step1_grads(dtype, stage):
+        tmodel.load_state_dict(snapshot)
+        tmodel.zero_grad(set_to_none=True)
+        with spade_stages_as(stage):
+            out = tmodel(x1.to(dtype))
+            loss = loss_fn(torch.where(torch.isnan(out), torch.zeros_like(out), out), y1)
+            loss.backward()
+        res = [loss.detach()] + [p.grad.detach().clone() for p in tmodel.parameters()]
+        tmodel.zero_grad(set_to_none=True)
+        return res
+
+    kern1 = step1_grads(torch.bfloat16, capturing_stage)
+    with plain_train_kernels(tst):
+        plain1 = step1_grads(torch.bfloat16, fused_stage)
+    f32_1 = step1_grads(torch.float32, module_stage)
+    tmodel.load_state_dict(snapshot)
+    against_f32_bar("phase 6: step 1 loss", kern1[0], plain1[0], f32_1[0], check)
+    gradient_bars("phase 6: step 1", pnames, kern1[1:], plain1[1:], f32_1[1:], check)
+    print(f"phase 6: step 1 loss kernel {kern1[0].item():.6f} plain {plain1[0].item():.6f} "
+          f"f32 {f32_1[0].item():.6f}")
+    del plain1, f32_1
+
+    # each fused stage on the inputs and output cotangent the kernel step
+    # gave it (no bf16 divergence upstream): the model's parameter gradients
+    # from that step against the Function on the plain versions and the f32
+    # module composition on the same inputs and cotangent
+    check(list(seen) == [s[0] for s in sigs] and all("g" in r for r in seen.values()),
+          f"phase 6: step 1 fused stages seen {list(seen)}, expected {[s[0] for s in sigs]}")
+    pindex = {id(p): i for i, p in enumerate(tmodel.parameters())}
+    for name, rec in seen.items():
+        block, spade, final = rec["mods"]
+        parts, g = rec["parts"], rec["g"].float()
+        params = [p for m in rec["mods"] if m is not None for p in m.parameters()]
+        head = None if final is None else (final.weight, final.bias)
+        with plain_train_kernels(tst):
+            out, _ = tst.fused_train_stage(parts, block.train_params(),
+                                           spade.stage_params(), head)
+        plain = torch.autograd.grad((out.float() * g).sum(), params)
+        out = module_stage(tuple(p.float() for p in parts), block, spade, final)
+        f32 = torch.autograd.grad((out.float() * g).sum(), params)
+        gradient_bars(f"phase 6: step 1 {name} on its inputs",
+                      [pnames[pindex[id(p)]] for p in params],
+                      [kern1[1 + pindex[id(p)]] for p in params], plain, f32, check)
+        del out, plain, f32
+    tmodel.load_state_dict(snapshot)
+    del kern1, snapshot, seen
+    torch.cuda.empty_cache()
+
+    # the main path: counts to 0, 2 warm-up steps, 5 timed steps, counts read
+    bns = [m for m in tmodel.modules() if isinstance(m, BatchNorm)]
+    stats_before = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+    for k in tst.launches:
+        tst.launches[k] = 0
+    # per step: six fused stages; forward conv1, conv2 (conv_stats) and the
+    # tail; backward the γ|β recompute and five backward-data convs
+    # (conv_stats) and five weight gradients; no backward-data conv to the
+    # input image (it needs no gradient)
+    per_step = {"conv_stats": 6 * 8 - 1, "train_tail": 6, "wgrad": 6 * 5}
+    warm_log = train_one_epoch(0, cfg, loader(TRAIN_WARM, seed=1), step, lr, device=dev)
+    check(tst.launches == {k: TRAIN_WARM * v for k, v in per_step.items()},
+          f"phase 6: launches in {TRAIN_WARM} warm-up steps {tst.launches} != "
+          f"{TRAIN_WARM} x {per_step}")
+    t0 = time.perf_counter()
+    log = train_one_epoch(1, cfg, loader(TRAIN_STEPS, seed=2), step, lr, device=dev)
+    torch.cuda.synchronize()
+    train_dt = time.perf_counter() - t0
+    counts = dict(tst.launches)
+    steps = TRAIN_WARM + TRAIN_STEPS
+    print(f"phase 6: kernel launches in {steps} steps: {counts} "
+          f"(expected {steps} x {per_step})")
+    check(counts == {k: steps * v for k, v in per_step.items()},
+          f"phase 6: launches {counts} != {steps} x {per_step}")
+    ms_step = train_dt / TRAIN_STEPS * 1e3
+    print(f"phase 6: flagship train step {ms_step:.2f} ms/step, "
+          f"{TRAIN_BATCH * TRAIN_STEPS / train_dt:.2f} images/s (512x512 bf16, batch "
+          f"{TRAIN_BATCH}, Adam, {TRAIN_STEPS} steps after {TRAIN_WARM} warm-up) on {card}")
+    print(f"phase 6: warm-up epoch {warm_log}; timed epoch {log}")
+    finite = all(np.isfinite(v) for lg in (warm_log, log)
+                 for k, v in lg.items() if k != "images_per_sec")
+    check(finite, f"phase 6: metrics not finite: {warm_log} {log}")
+    moved = sum(bool((m.running_mean != b[0]).any() and (m.running_var != b[1]).any())
+                for m, b in zip(bns, stats_before))
+    print(f"phase 6: BN running statistics moved in {moved} of {len(bns)} BatchNorms")
+    check(moved == len(bns), f"phase 6: only {moved} of {len(bns)} BatchNorms moved")
+    del stats_before
+
+    # one steady-state step: each kernel call held against its plain version
+    # on the same inputs (phase 4's tolerances, at the main path's shapes),
+    # and timed against the plain version, its bound and the library call
+    _, img, mask, _ = next(iter(loader(1, seed=3)))
+    xb = torch.from_numpy(img).to(dev).to(torch.bfloat16)
+    yb = torch.from_numpy(mask).to(dev)
+    with recording(tst) as calls:
+        step(xb, yb, lr)
+    torch.cuda.synchronize()
+    totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                  "kinds": set()} for k in TRAIN_KERNELS}
+    for kname, args, kw in calls:
+        err, ok, text = compare_call(tst, kname, args, kw)
+        train_err[kname] = max(train_err[kname], err)
+        print(f"phase 6: batch {TRAIN_BATCH} {describe_call(kname, args, kw)} {text}")
+        check(ok, f"phase 6: batch {TRAIN_BATCH} {describe_call(kname, args, kw)}: {text}")
+        fn, ref = getattr(tst, kname), getattr(tst, kname + "_reference")
+        ms = cuda_ms(lambda: fn(*args, **kw), 3, warmup=1)
+        plain_ms = cuda_ms(lambda: ref(*args, **kw), 1, warmup=1)
+        lib = library_call(tst, kname, args, kw)
+        lib_ms = None if lib is None else cuda_ms(lib, 3, warmup=1)
+        bound, kind = bound_of(*call_cost(kname, args, kw))
+        t = totals[kname]
+        t["ms"] += ms
+        t["plain_ms"] += plain_ms
+        t["bound_ms"] += bound
+        t["library_ms"] += lib_ms or 0.0
+        t["kinds"].add(kind)
+        print(f"train call: {describe_call(kname, args, kw)} ms {ms:.3f} plain {plain_ms:.3f} "
+              f"bound {bound:.3f} ({kind}) library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.3f}'}")
+    del calls
+    torch.cuda.empty_cache()
+    for kname, t in totals.items():
+        print(f"train kernel: {kname} per step ms {t['ms']:.3f} plain {t['plain_ms']:.3f} "
+              f"bound {t['bound_ms']:.3f} library {t['library_ms']:.3f}")
+
+    # where one train step's device time goes
+    n_prof = 1
+    busy, wall_ms, rows = profile_kernels(lambda: step(xb, yb, lr), n_prof)
+    print(f"profile: per train step (batch {TRAIN_BATCH}): device busy {busy:.3f} ms, "
+          f"{sum(r[1] for r in rows)} kernels; {wall_ms:.3f} ms wall under the profiler "
+          f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}), {ms_step:.3f} ms untraced "
+          f"(idle share {max(0.0, 1 - busy / ms_step):.3f})")
+    for ms, count, key in rows[:12]:
+        print(f"profile: {ms:9.3f} ms {count:4d}x {key[:90]}")
+
+    return counts, train_err, totals
 
 
 def main() -> int:
@@ -175,7 +721,7 @@ def main() -> int:
         tile_forward,
     )
     from ssunet_gan_tpu_torch.models import build_model, ssunet
-    from ssunet_gan_tpu_torch.ops import stage_kernel
+    from ssunet_gan_tpu_torch.ops import stage_kernel, stage_kernel_train
     from ssunet_gan_tpu_torch.ops.blocks import BasicBlock
     from ssunet_gan_tpu_torch.ops.conv import Conv2d
     from ssunet_gan_tpu_torch.ops.norm import BatchNorm
@@ -213,11 +759,14 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    _build.build(stage_kernel.SOURCE)
+    sources = (stage_kernel.SOURCE, stage_kernel_train.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
+        list(pool.map(_build.build, sources))
     print(f"phase 0: kernels built in {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_log(stage_kernel.SOURCE).splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    for source in sources:
+        for line in _build.build_log(source).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {source}:", line.strip())
 
     here = os.path.dirname(os.path.abspath(__file__))
     cfg = load_experiment_config(os.path.join(here, "configs", "config_v1.json")).opt_config
@@ -229,8 +778,7 @@ def main() -> int:
                         seed=SEED, device=dev)
     a, b = _norm_consts()
     calib = np.random.default_rng(SEED + 2).integers(0, 256, (2, HW, HW, in_ch), dtype=np.uint8)
-    calibrate_batchnorm(model, torch.from_numpy(calib).to(dev).float() * a.to(dev) + b.to(dev),
-                        BasicBlock)
+    calibrate_batchnorm(model, torch.from_numpy(calib).to(dev).float() * a.to(dev) + b.to(dev))
     sigs = stage_signatures(model.filters, ncls, in_ch)
     max_err = 0.0
     for name, chans, planes, lab, nh, head_cls, level in sigs:
@@ -407,30 +955,10 @@ def main() -> int:
           f"scene masks kernel-f32 {agree_kf} < plain-f32 {agree_pf} - {MASK_SLACK}")
     check(all(MASK_SHARE[0] <= v <= MASK_SHARE[1] for v in shares),
           f"the f32 masks are near-constant ({shares}); the mask check has no power")
-    if failures:
-        fail("; ".join(failures))
-
     # where one tile forward's device time goes (torch.profiler, by kernel)
-    from torch.profiler import ProfilerActivity, profile
-
-    n_prof = 3
     tile_forward(model, x)  # the f32 comparisons left f32 operands kept; repack once
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            tile_forward(model, x)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
-    # kernel events only: an op's range on the device timeline (a user
-    # annotation named after the aten op) repeats its kernels' time
-    rows = sorted(((e.self_device_time_total / 1e3 / n_prof, e.count // n_prof, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   and not e.key.startswith("aten::")
-                   and e.self_device_time_total > 0),
-                  reverse=True)
-    busy = sum(r[0] for r in rows)
+    n_prof = 3
+    busy, wall_ms, rows = profile_kernels(lambda: tile_forward(model, x), n_prof)
     untraced_ms = dt / iters * 1e3
     print(f"profile: per forward (batch {BATCH}, mean of {n_prof}): device busy {busy:.3f} ms, "
           f"{sum(r[1] for r in rows)} kernels; {wall_ms:.3f} ms wall under the profiler "
@@ -438,8 +966,7 @@ def main() -> int:
           f"(idle share {max(0.0, 1 - busy / untraced_ms):.3f})")
     for ms, count, key in rows[:12]:
         print(f"profile: {ms:9.3f} ms {count:4d}x {key[:90]}")
-
-    kernels = [{
+    eval_row = {
         "name": "fused_eval_stage", "route": "cuda",
         "source": f"ssunet_gan_tpu_torch/csrc/{stage_kernel.SOURCE}",
         "replaces": stage_kernel.REPLACES,
@@ -447,7 +974,24 @@ def main() -> int:
         "ms": ms_sum, "plain_ms": plain_sum, "bound_ms": bound_sum,
         "bound_by": "operations" if "operations" in bound_kinds else "bytes",
         "library_ms": None,
-    }]
+    }
+    del model, x, logits_probs, logits_k, logits_p, logits_f, probs_k, probs_p, probs_f, xn
+    torch.cuda.empty_cache()
+
+    counts, train_err, totals = train_phases(dev, cfg, card, sigs, check)
+
+    if failures:
+        fail(f"{len(failures)} checks failed: " + "; ".join(failures[:20]))
+
+    kernels = [eval_row] + [{
+        "name": kname, "route": "cuda",
+        "source": f"ssunet_gan_tpu_torch/csrc/{stage_kernel_train.SOURCE}",
+        "replaces": stage_kernel_train.REPLACES[kname],
+        "launches": counts[kname], "max_abs_err": train_err[kname],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": "operations" if "operations" in t["kinds"] else "bytes",
+        "library_ms": None if kname == "train_tail" else t["library_ms"],
+    } for kname, t in totals.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 A ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with :mod:`ctypes`. The library
 lands in ``_build/`` next to this file (git-ignored), named by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged
-one is reused. Nothing is compiled at import: the first launch builds.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged one is reused. Nothing
+is compiled at import: the first launch builds.
 """
 
 from __future__ import annotations
@@ -45,8 +46,10 @@ def nvcc_path() -> str:
 
 def _lib_path(source: str) -> str:
     h = hashlib.sha256()
-    with open(os.path.join(CSRC, source), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for name in [source] + headers:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")

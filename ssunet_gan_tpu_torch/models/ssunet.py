@@ -1,4 +1,4 @@
-"""The flagship ``UNet_R_SS_v2`` (reference archs.py:559-671), NHWC, eval.
+"""The flagship ``UNet_R_SS_v2`` (reference archs.py:559-671), NHWC.
 
 BasicBlock encoder with self-SPADE after every stage (``SPADE0_0(x0_0,
 x0_0)``); the decoder un-pools the top three levels through the saved
@@ -6,12 +6,15 @@ max-pool codes with bias-free 1×1 channel heads, and upsamples the bottom
 two bilinearly. Module names are the reference's, so its ``model.pth``
 loads with ``load_state_dict``.
 
-Stages that meet the fused kernel's terms (eval, a BasicBlock with a
-shortcut conv, planes ≤ 256, at most two parts — the JAX gate,
-ssunet_gan_tpu/models/ssunet.py:261-293 with stage_kernel.py:128) run
-through :func:`ops.stage_kernel.fused_eval_stage`: conv0_0, conv1_0,
-conv2_0, conv2_1, conv1_1 and conv0_1, the last with ``final`` folded in.
-The deep stages, channel heads, pools and unpools stay plain PyTorch.
+Stages that meet the fused kernels' terms (a BasicBlock with a shortcut
+conv, planes ≤ 256, at most two parts — the JAX gates,
+ssunet_gan_tpu/models/ssunet.py:227-238 and 261-293) run fused: in eval
+through :func:`ops.stage_kernel.fused_eval_stage`, in training through
+:func:`ops.stage_kernel_train.fused_train_stage`, whose batch statistics
+then move the BatchNorms' running averages. In the flagship these are
+conv0_0, conv1_0, conv2_0, conv2_1, conv1_1 and conv0_1, the last with
+``final`` folded in. The deep stages, channel heads, pools and unpools stay
+plain PyTorch (autograd in training).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ssunet_gan_tpu_torch.ops.pool import (
 from ssunet_gan_tpu_torch.ops.resize import upsample_bilinear
 from ssunet_gan_tpu_torch.ops.spade import SPADE
 from ssunet_gan_tpu_torch.ops.stage_kernel import fused_eval_stage, pack_stage
+from ssunet_gan_tpu_torch.ops.stage_kernel_train import fused_train_stage
 
 SPADE_CONTEXT = "spadebatch3x3"  # archs.py:483 (its param-free norm is bypassed)
 FUSED_MAX_PLANES = 256  # the JAX gate's _PACK_MAX_PLANES
@@ -63,8 +67,15 @@ def spade_stage(parts, block: BasicBlock, spade: SPADE,
 
     Returns the stage output, or the logits when ``final`` is given."""
     parts = as_parts(parts)
-    if (not block.training and block.shortcut is not None
-            and block.planes <= FUSED_MAX_PLANES and len(parts) <= 2):
+    if (block.shortcut is not None and block.planes <= FUSED_MAX_PLANES
+            and len(parts) <= 2):
+        if block.training:
+            head = None if final is None else (final.weight, final.bias)
+            out, (st1, st2) = fused_train_stage(parts, block.train_params(),
+                                                spade.stage_params(), head)
+            block.bn1.update_running(*st1)
+            block.bn2.update_running(*st2)
+            return out
         bp, sp, head, packed = _stage_operands(parts, block, spade, final)
         return fused_eval_stage(parts, bp, sp, head, packed)
     y = block(parts)
@@ -113,11 +124,9 @@ class UNetRSSv2(nn.Module):
                            getattr(self, "SPADE" + name), final)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC input → NHWC logits, in the input's dtype (eval only)."""
-        if self.training:
-            raise NotImplementedError(
-                "training is not ported yet (see ROADMAP.md); call model.eval()"
-            )
+        """NHWC input → NHWC logits, in the input's dtype. In training mode
+        the BatchNorms normalize with batch statistics and move their
+        running averages."""
         enc_0 = self._stage("0_0", x)
         enc_1 = self._stage("1_0", max_pool_2x2(enc_0))
         enc_2 = self._stage("2_0", max_pool_2x2(enc_1))

@@ -47,3 +47,11 @@ class BasicBlock(nn.Module):
         ws = None if self.shortcut is None else self.shortcut[0].weight
         return (self.conv1.weight, self.bn1.eval_affine(), self.conv2.weight,
                 self.bn2.eval_affine(), ws)
+
+    def train_params(self):
+        """(w1, (γ1, β1), w2, (γ2, β2), ws or None): the raw parameters —
+        the block half of a fused train stage's parameters (the JAX
+        package's ``BasicBlock(None, True)``)."""
+        ws = None if self.shortcut is None else self.shortcut[0].weight
+        return (self.conv1.weight, (self.bn1.weight, self.bn1.bias),
+                self.conv2.weight, (self.bn2.weight, self.bn2.bias), ws)

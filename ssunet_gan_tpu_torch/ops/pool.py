@@ -5,6 +5,11 @@ un-pools with ``nn.MaxUnpool2d(2, stride=2)`` (reference archs.py:571-572,
 628-659). Indices are kept as a window-local code 0..3 (int8) in row-major
 window order TL, TR, BL, BR; ties go to the first maximum, as torch's flat
 indices do. Odd spatial sizes are floor-cropped (``ceil_mode=False``).
+
+Gradients follow torch's (and the JAX package's custom VJPs): a pool sends
+each window's cotangent to its first-maximum corner alone, ties included
+(autograd of the ``torch.maximum`` chain would split a tie), and the
+unpool gathers that corner.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def _quads(x: torch.Tensor):
@@ -20,14 +26,7 @@ def _quads(x: torch.Tensor):
     return x[:, 0::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 0::2], x[:, 1::2, 1::2]
 
 
-def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
-    """``nn.MaxPool2d(2, 2)`` on NHWC."""
-    a, b, c, d = _quads(x)
-    return torch.maximum(torch.maximum(a, b), torch.maximum(c, d)).contiguous()
-
-
-def max_pool_2x2_with_indices(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``nn.MaxPool2d(2, 2, return_indices=True)`` → (pooled, int8 code)."""
+def _pool(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     a, b, c, d = _quads(x)
     pooled = torch.maximum(torch.maximum(a, b), torch.maximum(c, d)).contiguous()
     code = torch.where(
@@ -36,9 +35,7 @@ def max_pool_2x2_with_indices(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tens
     return pooled, code
 
 
-def max_unpool_2x2(values: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
-    """``nn.MaxUnpool2d(2, stride=2)`` from :func:`max_pool_2x2_with_indices`
-    codes: zeros except at each window's argmax."""
+def _unpool(values: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
     n, h, w, c = values.shape
     out = values.new_zeros((n, 2 * h, 2 * w, c))
     zero = torch.zeros((), dtype=values.dtype, device=values.device)
@@ -47,3 +44,66 @@ def max_unpool_2x2(values: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
     out[:, 1::2, 0::2] = torch.where(code == 2, values, zero)
     out[:, 1::2, 1::2] = torch.where(code == 3, values, zero)
     return out
+
+
+def _gather(g: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
+    a, b, c, d = _quads(g)
+    return torch.where(code == 0, a, torch.where(code == 1, b, torch.where(code == 2, c, d)))
+
+
+class _MaxPool(torch.autograd.Function):
+    """Backward: the cotangent goes to the recorded first-maximum corner of
+    each window only (torch's MaxPool2d; the JAX package's custom VJP,
+    ops/wminor.py:241-276), zeros at a floor-cropped odd row or column."""
+
+    @staticmethod
+    def forward(ctx, x):
+        pooled, code = _pool(x)
+        ctx.save_for_backward(code)
+        ctx.in_shape = x.shape
+        ctx.mark_non_differentiable(code)
+        return pooled, code
+
+    @staticmethod
+    def backward(ctx, g, _):
+        (code,) = ctx.saved_tensors
+        gx = _unpool(g, code)
+        h, w = ctx.in_shape[1:3]
+        return F.pad(gx, (0, 0, 0, w - gx.shape[2], 0, h - gx.shape[1]))
+
+
+class _MaxUnpool(torch.autograd.Function):
+    """Backward: gather each window's recorded corner (ops/wminor.py:279-298)."""
+
+    @staticmethod
+    def forward(ctx, values, code):
+        ctx.save_for_backward(code)
+        return _unpool(values, code)
+
+    @staticmethod
+    def backward(ctx, g):
+        (code,) = ctx.saved_tensors
+        return _gather(g, code), None
+
+
+def _needs_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """``nn.MaxPool2d(2, 2)`` on NHWC."""
+    if _needs_grad(x):
+        return _MaxPool.apply(x)[0]
+    a, b, c, d = _quads(x)
+    return torch.maximum(torch.maximum(a, b), torch.maximum(c, d)).contiguous()
+
+
+def max_pool_2x2_with_indices(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``nn.MaxPool2d(2, 2, return_indices=True)`` → (pooled, int8 code)."""
+    return _MaxPool.apply(x) if _needs_grad(x) else _pool(x)
+
+
+def max_unpool_2x2(values: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
+    """``nn.MaxUnpool2d(2, stride=2)`` from :func:`max_pool_2x2_with_indices`
+    codes: zeros except at each window's argmax."""
+    return _MaxUnpool.apply(values, code) if _needs_grad(values) else _unpool(values, code)

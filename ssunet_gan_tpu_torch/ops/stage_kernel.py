@@ -55,6 +55,29 @@ launches = 0
 _MAX_LAB, _MAX_NH, _MAX_CLS = 8, 16, 8  # csrc/fused_stage.cu limits
 
 
+def _q(t: torch.Tensor, dtype) -> torch.Tensor:
+    """f32 tensor holding ``t``'s values rounded to ``dtype``."""
+    return t.float().to(dtype).float()
+
+
+def spade_tail_reference(y, spade_params, head=None):
+    """The self-SPADE tail on ``y`` (NHWC) in plain PyTorch with the
+    kernels' numerics: seg, act and γ|β rounded to ``y``'s dtype, the
+    modulate in that dtype, the folded head summed in f32. Returns
+    ``(out, seg, act)``; ``out`` is the logits when ``head`` is given."""
+    dtype = y.dtype
+    wx, bx, wm, bm, wg, bg, wb, bb = spade_params
+    seg = conv2d_nhwc(y.float(), _q(wx, dtype), _q(bx, dtype), 1).to(dtype)
+    act = torch.relu(conv2d_nhwc(seg.float(), _q(wm, dtype), _q(bm, dtype), 1)).to(dtype)
+    gamma = conv2d_nhwc(act.float(), _q(wg, dtype), _q(bg, dtype), 1).to(dtype)
+    beta = conv2d_nhwc(act.float(), _q(wb, dtype), _q(bb, dtype), 1).to(dtype)
+    out = y * (1 + gamma) + beta
+    if head is not None:
+        wf, bf = head
+        out = conv2d_nhwc(out.float(), _q(wf, dtype), _q(bf, dtype)).to(dtype)
+    return out, seg, act
+
+
 def fused_stage_reference(parts, block_params, spade_params, head=None):
     """The stage in plain PyTorch (``F.conv2d``), with the kernel's
     numerics: f32 sums over inputs and weights rounded to the activation
@@ -70,29 +93,17 @@ def fused_stage_reference(parts, block_params, spade_params, head=None):
     parts = as_parts(parts)
     dtype = parts[0].dtype
     w1, (s1, t1), w2, (s2, t2), ws = block_params
-    wx, bx, wm, bm, wg, bg, wb, bb = spade_params
-
-    def q(t):
-        return t.float().to(dtype).float()
 
     xs = tuple(p.float() for p in parts)
-    h1 = conv2d_nhwc(xs, q(w1.float() * s1.float()[:, None, None, None]),
-                     padding=1) + q(t1)
+    h1 = conv2d_nhwc(xs, _q(w1.float() * s1.float()[:, None, None, None], dtype),
+                     padding=1) + _q(t1, dtype)
     h1 = torch.relu(h1).to(dtype)
-    y = conv2d_nhwc(h1.float(), q(w2.float() * s2.float()[:, None, None, None]),
-                    padding=1) + q(t2)
+    y = conv2d_nhwc(h1.float(), _q(w2.float() * s2.float()[:, None, None, None], dtype),
+                    padding=1) + _q(t2, dtype)
     if ws is not None:
-        y = y + conv2d_nhwc(xs, q(ws))
+        y = y + conv2d_nhwc(xs, _q(ws, dtype))
     y = torch.relu(y).to(dtype)
-    seg = conv2d_nhwc(y.float(), q(wx), q(bx), 1).to(dtype)
-    act = torch.relu(conv2d_nhwc(seg.float(), q(wm), q(bm), 1)).to(dtype)
-    gamma = conv2d_nhwc(act.float(), q(wg), q(bg), 1).to(dtype)
-    beta = conv2d_nhwc(act.float(), q(wb), q(bb), 1).to(dtype)
-    out = y * (1 + gamma) + beta
-    if head is None:
-        return out
-    wf, bf = head
-    return conv2d_nhwc(out.float(), q(wf), q(bf)).to(dtype)
+    return spade_tail_reference(y, spade_params, head)[0]
 
 
 def _gemm_weight(segments, dtype) -> torch.Tensor:
@@ -107,33 +118,24 @@ def _gemm_weight(segments, dtype) -> torch.Tensor:
     return torch.cat(blocks, 1).to(dtype).contiguous()
 
 
-def pack_stage(part_channels, block_params, spade_params, head, dtype) -> dict:
-    """Fold BN into the weights and lay every operand out for the kernel.
+def split_in(w: torch.Tensor, part_channels):
+    """An OIHW weight sliced along I into one weight per part."""
+    offs = [0]
+    for c in part_channels:
+        offs.append(offs[-1] + c)
+    return [w[:, a:b] for a, b in zip(offs, offs[1:])]
 
-    ``part_channels`` are the channels of the stage's parts; ``dtype`` is
-    the activation dtype the operands are rounded to. The result depends on
-    the weights alone, so a caller whose weights are fixed (eval) makes it
-    once and hands it to :func:`fused_eval_stage` as ``packed``."""
-    w1, (s1, t1), w2, (s2, t2), ws = block_params
+
+def pack_spade(spade_params, head, dtype) -> dict:
+    """The SPADE tail's operands (and the folded head's) laid out for the
+    tail kernels, as f32 holding values rounded to ``dtype``."""
     wx, bx, wm, bm, wg, bg, wb, bb = spade_params
 
-    def q(t):  # f32 operand holding values rounded to the activation dtype
-        return t.float().to(dtype).float().contiguous()
+    def q(t):
+        return _q(t, dtype).contiguous()
 
-    def split(w):  # an OIHW weight sliced along I per part
-        offs = [0]
-        for c in part_channels:
-            offs.append(offs[-1] + c)
-        return [w[:, a:b] for a, b in zip(offs, offs[1:])]
-
-    w1f = w1.float() * s1.float()[:, None, None, None]
-    w2f = w2.float() * s2.float()[:, None, None, None]
-    c, lab, nh = w2.shape[0], wx.shape[0], wm.shape[0]
+    c, lab, nh = wx.shape[1], wx.shape[0], wm.shape[0]
     packed = {
-        "channels": tuple(part_channels), "dtype": dtype, "shortcut": ws is not None,
-        "k1": _gemm_weight(split(w1f), dtype), "b1": q(t1),
-        "k2": _gemm_weight([w2f] + ([] if ws is None else split(ws.float())), dtype),
-        "b2": q(t2),
         "k1s": q(wx.permute(2, 3, 1, 0).reshape(9, c, lab)),
         "b1s": q(bx),
         "k2s": q(wm.permute(2, 3, 1, 0).reshape(9, lab, nh)),
@@ -147,6 +149,28 @@ def pack_stage(part_channels, block_params, spade_params, head, dtype) -> dict:
         wf, bf = head
         packed["kf"] = q(wf[:, :, 0, 0].t())
         packed["bf"] = q(bf)
+    return packed
+
+
+def pack_stage(part_channels, block_params, spade_params, head, dtype) -> dict:
+    """Fold BN into the weights and lay every operand out for the kernel.
+
+    ``part_channels`` are the channels of the stage's parts; ``dtype`` is
+    the activation dtype the operands are rounded to. The result depends on
+    the weights alone, so a caller whose weights are fixed (eval) makes it
+    once and hands it to :func:`fused_eval_stage` as ``packed``."""
+    w1, (s1, t1), w2, (s2, t2), ws = block_params
+    w1f = w1.float() * s1.float()[:, None, None, None]
+    w2f = w2.float() * s2.float()[:, None, None, None]
+    packed = {
+        "channels": tuple(part_channels), "dtype": dtype, "shortcut": ws is not None,
+        "k1": _gemm_weight(split_in(w1f, part_channels), dtype),
+        "b1": _q(t1, dtype).contiguous(),
+        "k2": _gemm_weight([w2f] + ([] if ws is None
+                                    else split_in(ws.float(), part_channels)), dtype),
+        "b2": _q(t2, dtype).contiguous(),
+    }
+    packed.update(pack_spade(spade_params, head, dtype))
     return packed
 
 

@@ -1,0 +1,134 @@
+"""Optimizers and per-epoch LR schedulers with torch semantics, as the JAX
+package builds them (train/optim.py; reference train.py:295-320).
+
+``weight_decay`` is torch's L2 term (``grad += wd·p`` before the moment
+updates), which the JAX package's optax chain reproduces; Adam runs with
+betas (0.9, 0.999) and eps 1e-8; SGD momentum is torch's ``buf = μ·buf +
+grad`` with optional Nesterov. The train step sets the learning rate per
+step (:func:`set_lr`), so a scheduler's move changes nothing else.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Iterable, Optional
+
+import torch
+
+
+def build_optimizer(params: Iterable[torch.nn.Parameter],
+                    config: Dict[str, Any]) -> torch.optim.Optimizer:
+    """``torch.optim.Adam`` or ``SGD`` from the experiment config
+    (train.py:295-301); other names raise NotImplementedError, as in the
+    reference."""
+    wd = float(config.get("weight_decay", 0.0) or 0.0)
+    lr = float(config.get("lr", 1e-3))
+    name = config["optimizer"]
+    if name == "Adam":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=wd)
+    if name == "SGD":
+        mom = float(config.get("momentum", 0.0) or 0.0)
+        nesterov = bool(config.get("nesterov", False)) and mom > 0
+        return torch.optim.SGD(params, lr=lr, momentum=mom, nesterov=nesterov,
+                               weight_decay=wd)
+    raise NotImplementedError(name)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = float(lr)
+
+
+class LRScheduler:
+    """Per-epoch LR schedule: ``lr(epoch)`` is the rate of that epoch.
+    ReduceLROnPlateau is stateful: call :meth:`step_plateau` with the
+    monitored value after each epoch (train.py:430)."""
+
+    def __init__(self, base_lr: float):
+        self.base_lr = float(base_lr)
+
+    def lr(self, epoch: int) -> float:
+        return self.base_lr
+
+    def step_plateau(self, value: float) -> None:
+        return None
+
+
+class ConstantLR(LRScheduler):
+    pass
+
+
+class CosineAnnealingLR(LRScheduler):
+    """torch CosineAnnealingLR's closed form, stepped once per epoch."""
+
+    def __init__(self, base_lr: float, t_max: int, eta_min: float = 0.0):
+        super().__init__(base_lr)
+        self.t_max = int(t_max)
+        self.eta_min = float(eta_min)
+
+    def lr(self, epoch: int) -> float:
+        return self.eta_min + (self.base_lr - self.eta_min) * (
+            1 + math.cos(math.pi * epoch / self.t_max)) / 2
+
+
+class MultiStepLR(LRScheduler):
+    """torch MultiStepLR: × gamma at each milestone epoch."""
+
+    def __init__(self, base_lr: float, milestones, gamma: float = 0.1):
+        super().__init__(base_lr)
+        self.milestones = sorted(int(m) for m in milestones)
+        self.gamma = float(gamma)
+
+    def lr(self, epoch: int) -> float:
+        return self.base_lr * self.gamma ** sum(1 for m in self.milestones if m <= epoch)
+
+
+class ReduceLROnPlateau(LRScheduler):
+    """torch ReduceLROnPlateau (mode 'min', relative threshold)."""
+
+    def __init__(self, base_lr: float, factor: float = 0.1, patience: int = 10,
+                 min_lr: float = 0.0, threshold: float = 1e-4):
+        super().__init__(base_lr)
+        self.factor = float(factor)
+        self.patience = int(patience)
+        self.min_lr = float(min_lr)
+        self.threshold = float(threshold)
+        self.current = float(base_lr)
+        self.best: Optional[float] = None
+        self.num_bad = 0
+
+    def lr(self, epoch: int) -> float:
+        return self.current
+
+    def step_plateau(self, value: float) -> None:
+        value = float(value)
+        if self.best is None or value < self.best * (1 - self.threshold):
+            self.best = value
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+        if self.num_bad > self.patience:
+            self.current = max(self.current * self.factor, self.min_lr)
+            self.num_bad = 0
+
+
+def build_scheduler(config: Dict[str, Any]) -> LRScheduler:
+    """The scheduler of train.py:303-320: only SGD schedules; Adam runs at
+    a constant rate. Unknown SGD schedulers raise, as in the reference."""
+    base_lr = float(config["lr"])
+    if config["optimizer"] != "SGD":
+        return ConstantLR(base_lr)
+    name = config.get("scheduler", "ConstantLR")
+    if name == "CosineAnnealingLR":
+        return CosineAnnealingLR(base_lr, config["epochs"], float(config.get("min_lr", 0.0)))
+    if name == "ReduceLROnPlateau":
+        return ReduceLROnPlateau(base_lr, factor=float(config.get("factor", 0.1)),
+                                 patience=int(config.get("patience", 10)),
+                                 min_lr=float(config.get("min_lr", 0.0)))
+    if name == "MultiStepLR":
+        milestones = [int(e) for e in str(config["milestones"]).split(",")]
+        return MultiStepLR(base_lr, milestones, float(config.get("gamma", 0.1)))
+    if name == "ConstantLR":
+        return ConstantLR(base_lr)
+    raise NotImplementedError(name)

@@ -139,3 +139,163 @@ def test_tile_forward_defaults_to_bf16_on_the_card():
     assert stage_kernel.launches == before + 6
     assert p.device.type == dev.type and p.dtype == torch.bfloat16
     assert p.shape == (2, 32, 32, 3) and torch.isfinite(p.float()).all()
+
+
+# ---- train-stage kernels (csrc/train_stage.cu) against their plain versions.
+# Outputs: the bar above (both sides round to bf16 at the same places). The
+# per-channel sums of the rounded outputs: relative error ≤ 1e-3 of the
+# largest sum plus 1e-3 (a rare 1-ulp output flip moves a sum by ~1e-5 of
+# it). Weight gradients: relative L2 ≤ 1e-3 (the same bf16 products summed
+# in another order).
+
+
+def _bf16(gen, shape, dev, scale=1.0):
+    return (torch.randn(shape, generator=gen) * scale).to(dev, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "chans,cout,nhw,prologue,bias",
+    [
+        ((3,), 64, (2, 40, 36), False, False),      # conv1 of the first block, ragged
+        ((64,), 64, (2, 32, 32), True, False),      # conv2 with the BN1+ReLU prologue
+        ((128, 128), 128, (1, 24, 20), False, False),  # two parts
+        ((8,), 128, (2, 16, 16), False, True),      # γ|β recompute (nh → 2C, bias)
+        ((16,), 3, (2, 16, 16), False, False),      # backward-data to 3 labels
+        ((3,), 16, (1, 9, 13), False, False),       # from 3 channels, odd sizes
+        ((512,), 384, (1, 16, 16), False, False),   # backward-data to the 2-part input
+    ],
+)
+def test_conv_stats_kernel_matches_plain(chans, cout, nhw, prologue, bias):
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(0)
+    n, h, w = nhw
+    parts = tuple(_bf16(gen, (n, h, w, c), dev) for c in chans)
+    wt = (torch.randn((cout, sum(chans), 3, 3), generator=gen) * 0.1).to(dev)
+    b = (torch.randn(cout, generator=gen) * 0.3).to(dev) if bias else None
+    pro = None
+    if prologue:
+        pro = ((torch.rand(chans[0], generator=gen) + 0.5).to(dev),
+               (torch.randn(chans[0], generator=gen) * 0.3).to(dev))
+    before = tst.launches["conv_stats"]
+    out, sums = tst.conv_stats(parts, wt, b, pro)
+    torch.cuda.synchronize()
+    assert tst.launches["conv_stats"] == before + 1
+    want, want_sums = tst.conv_stats_reference(parts, wt, b, pro)
+    errs, ok = _close(out, want)
+    assert ok, errs
+    d = (sums - want_sums).abs().max().item()
+    assert d <= 1e-3 * want_sums.abs().max().item() + 1e-3, d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "chans,planes,labels,nhw,ncls",
+    [
+        ((3,), 64, 3, (2, 40, 36), 0),
+        ((128, 256), 128, 3, (1, 24, 20), 0),
+        ((64, 128), 64, 3, (2, 48, 40), 3),
+    ],
+)
+def test_train_tail_kernel_matches_plain(chans, planes, labels, nhw, ncls):
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(1)
+    n, h, w = nhw
+    parts = tuple(_bf16(gen, (n, h, w, c), dev) for c in chans)
+    f2 = _bf16(gen, (n, h, w, planes), dev)
+    a2 = (torch.rand(planes, generator=gen) + 0.5).to(dev)
+    b2 = (torch.randn(planes, generator=gen) * 0.3).to(dev)
+    ws = (torch.randn((planes, sum(chans), 1, 1), generator=gen) * 0.1).to(dev)
+    spade = SPADE("spadebatch3x3", planes, labels, planes / 16, generator=gen).to(dev)
+    head = None
+    if ncls:
+        final = Conv2d(planes, ncls, 1, generator=gen).to(dev)
+        head = (final.weight, final.bias)
+    sp = spade.stage_params()
+    got = tst.train_tail(f2, parts, a2, b2, ws, sp, head)
+    torch.cuda.synchronize()
+    want = tst.train_tail_reference(f2, parts, a2, b2, ws, sp, head)
+    for name, g, wv in zip(("out", "y", "seg", "actv"), got, want):
+        assert g.shape == wv.shape, name
+        errs, ok = _close(g, wv)
+        assert ok, (name, errs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "chans,cout,nhw,prologue",
+    [
+        ((3,), 64, (2, 40, 36), False),
+        ((64,), 64, (2, 32, 32), True),
+        ((128, 256), 128, (1, 24, 20), False),
+        ((8,), 512, (2, 16, 16), False),     # γ|β weights: 2C rows
+        ((3,), 4, (1, 9, 13), False),        # 3 labels → nh rows
+    ],
+)
+def test_wgrad_kernel_matches_plain(chans, cout, nhw, prologue):
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(2)
+    n, h, w = nhw
+    parts = tuple(_bf16(gen, (n, h, w, c), dev) for c in chans)
+    g = _bf16(gen, (n, h, w, cout), dev)
+    pro = None
+    if prologue:
+        pro = ((torch.rand(chans[0], generator=gen) + 0.5).to(dev),
+               (torch.randn(chans[0], generator=gen) * 0.3).to(dev))
+    got = tst.wgrad(parts, g, pro)
+    torch.cuda.synchronize()
+    want = tst.wgrad_reference(parts, g, pro)
+    assert got.shape == want.shape == (cout, sum(chans), 3, 3)
+    assert got.dtype == torch.float32
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= 1e-3, rel
+
+
+@pytest.mark.gpu
+def test_fused_train_stage_kernel_matches_plain(monkeypatch):
+    """Forward, stats and gradients of one stage with the kernels against
+    the same Function on the plain versions, both in bf16, and against f32:
+    for the output, each statistic, each input gradient and all parameter
+    gradients as one vector, the kernel no further from f32 than 1.1 × the
+    plain bf16 path and no further from it than that path is from f32. One
+    parameter's gradient alone may be a sum that cancels (a bias
+    gradient), where both bf16 paths carry noise of the order of the value:
+    kernel-plain within 3 × plain-f32 (chip_smoke.py's GRAD_KP)."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(3)
+    block = BasicBlock(64 + 128, 64, generator=gen).to(dev)
+    spade = SPADE("spadebatch3x3", 64, 3, 4.0, generator=gen).to(dev)
+    final = Conv2d(64, 3, 1, generator=gen).to(dev)
+    xs = [torch.randn((2, 32, 32, c), generator=gen).to(dev) for c in (64, 128)]
+    cot = torch.randn((2, 32, 32, 3), generator=gen).to(dev)
+    params = [*block.parameters(), *spade.parameters(), *final.parameters()]
+
+    def run(dtype):
+        parts = tuple(x.to(dtype).requires_grad_() for x in xs)
+        out, stats = tst.fused_train_stage(parts, block.train_params(),
+                                           spade.stage_params(),
+                                           (final.weight, final.bias))
+        grads = torch.autograd.grad((out.float() * cot).sum(), [*parts, *params])
+        flat = torch.cat([g.float().reshape(-1) for g in grads[2:]])
+        return [out, *[s for pair in stats for s in pair], *grads[:2], flat], grads[2:]
+
+    kern, kern_p = run(torch.bfloat16)
+    for name in ("conv_stats", "train_tail", "wgrad"):
+        monkeypatch.setattr(tst, name, getattr(tst, name + "_reference"))
+    plain, plain_p = run(torch.bfloat16)
+    f32, f32_p = run(torch.float32)
+    rel = lambda u, v: ((u.float() - v.float()).norm() / v.float().norm()).item()
+    for i, (k, p, f) in enumerate(zip(kern, plain, f32)):
+        e_k, e_p, e_kp = rel(k, f), rel(p, f), rel(k, p)
+        assert torch.isfinite(k.float()).all()
+        assert e_k <= 1.1 * e_p and e_kp <= e_p, (i, e_k, e_p, e_kp)
+    for i, (k, p, f) in enumerate(zip(kern_p, plain_p, f32_p)):
+        assert rel(k, p) <= 3 * rel(p, f), (i, rel(k, p), rel(p, f))

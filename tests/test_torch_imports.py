@@ -16,6 +16,11 @@ MODULES = (
     "ssunet_gan_tpu_torch.compat", "ssunet_gan_tpu_torch._build",
     "ssunet_gan_tpu_torch.models", "ssunet_gan_tpu_torch.ops.stage_kernel",
     "ssunet_gan_tpu_torch.data.tiling", "ssunet_gan_tpu_torch.infer.api",
+    "ssunet_gan_tpu_torch.ops.stage_kernel_train", "ssunet_gan_tpu_torch.ops.losses",
+    "ssunet_gan_tpu_torch.ops.metrics", "ssunet_gan_tpu_torch.data.dataset",
+    "ssunet_gan_tpu_torch.data.loader", "ssunet_gan_tpu_torch.data.transforms",
+    "ssunet_gan_tpu_torch.train.optim", "ssunet_gan_tpu_torch.train.step",
+    "ssunet_gan_tpu_torch.train.supervised",
 )
 
 

@@ -7,6 +7,7 @@ composition flagship pin): eleven stages of f32 convs summed in different
 orders.
 """
 
+import copy
 import json
 import os
 
@@ -109,11 +110,28 @@ def test_default_device_needs_a_card():
         segmentation_inference(model, scene, scene[None], None, config, False)
 
 
-def test_training_mode_is_refused():
-    model = build_model("UNet_R_SS_v2", 3, filters=(8, 8, 8, 8, 8, 8), device="cpu")
-    model.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model(torch.zeros((1, 32, 32, 3)))
+def test_training_forward_matches_jax(flagship, rng):
+    """Train mode: six fused train stages (their plain versions here) and
+    the deep stages on batch statistics, against JAX ``model.apply(...,
+    True, mutable=["batch_stats"])`` (the module composition): logits and
+    every BN running statistic at rtol = atol = 1e-3 (f32; batch statistics
+    over as few as 2 elements at the deepest level amplify the sums'
+    ordering differences)."""
+    model, variables, port = flagship
+    port = copy.deepcopy(port).train()
+    x = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
+    want, updates = jax.jit(lambda v, a: model.apply(v, a, True, mutable=["batch_stats"]))(
+        variables, x)
+    got = port(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-3, atol=1e-3)
+    template = jax.tree_util.tree_map(np.zeros_like, variables)
+    back, _ = convert_torch_state_dict(port.state_dict(), template)
+    want_stats = dict(jax.tree_util.tree_flatten_with_path(updates["batch_stats"])[0])
+    got_stats = dict(jax.tree_util.tree_flatten_with_path(back["batch_stats"])[0])
+    assert got_stats.keys() == want_stats.keys()
+    for path, leaf in want_stats.items():
+        np.testing.assert_allclose(np.asarray(got_stats[path]), np.asarray(leaf), rtol=1e-3,
+                                   atol=1e-3, err_msg=jax.tree_util.keystr(path))
 
 
 def test_stage_operands_follow_the_weights():

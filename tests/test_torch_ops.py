@@ -83,11 +83,47 @@ def test_batchnorm_eval_matches_jax():
     params = {"scale": g.normal(size=6).astype(np.float32),
               "bias": g.normal(size=6).astype(np.float32)}
     want = JBatchNorm(6).apply({"params": params, "batch_stats": stats}, jnp.asarray(x), False)
-    bn = BatchNorm(6)
+    bn = BatchNorm(6).eval()  # a new module trains, as nn.BatchNorm2d does
     bn.load_state_dict({"weight": vec(params["scale"]), "bias": vec(params["bias"]),
                         "running_mean": vec(stats["mean"]), "running_var": vec(stats["var"])})
     np.testing.assert_allclose(bn(torch.from_numpy(x)).detach().numpy(), np.asarray(want),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_train_matches_jax(dtype):
+    """Batch statistics (two-pass, f32), the output in the input's dtype,
+    and the running averages moved with momentum 0.1 and the unbiased
+    variance — also through update_running, the fused stage's entry.
+    f32 to 1e-5; bf16 outputs within one bf16 ulp (8e-3 relative)."""
+    g = np.random.default_rng(6)
+    x = (g.normal(size=(2, 5, 3, 4)) * 2 + 1).astype(np.float32)
+    stats = {"mean": g.normal(size=4).astype(np.float32),
+             "var": (g.random(4) + 0.5).astype(np.float32)}
+    params = {"scale": g.normal(size=4).astype(np.float32),
+              "bias": g.normal(size=4).astype(np.float32)}
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want, upd = JBatchNorm(4).apply({"params": params, "batch_stats": stats},
+                                    jnp.asarray(x, jdt), True, mutable=["batch_stats"])
+    sd = {"weight": vec(params["scale"]), "bias": vec(params["bias"]),
+          "running_mean": vec(stats["mean"]), "running_var": vec(stats["var"])}
+    bn = BatchNorm(4)
+    bn.load_state_dict(sd)
+    got = bn(torch.from_numpy(x).to(dtype))
+    tol = 1e-5 if dtype == torch.float32 else 8e-3
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+    for name, key in (("running_mean", "mean"), ("running_var", "var")):
+        np.testing.assert_allclose(getattr(bn, name).numpy(),
+                                   np.asarray(upd["batch_stats"][key]), rtol=1e-5, atol=1e-6)
+    fused = BatchNorm(4)
+    fused.load_state_dict(sd)
+    xf = torch.from_numpy(x).to(dtype).float()
+    fused.update_running(xf.mean((0, 1, 2)), xf.var((0, 1, 2)))
+    np.testing.assert_allclose(fused.running_var.numpy(), bn.running_var.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(fused.running_mean.numpy(), bn.running_mean.numpy(), rtol=1e-5,
+                               atol=1e-7)
 
 
 def test_spade_matches_jax():

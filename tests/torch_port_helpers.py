@@ -9,26 +9,32 @@ import torch
 
 from ssunet_gan_tpu.ops import stage_kernel as jax_stage_kernel
 from ssunet_gan_tpu.ops import stage_kernel_int8 as jax_stage_kernel_int8
+from ssunet_gan_tpu.ops import stage_kernel_train as jax_stage_kernel_train
 from ssunet_gan_tpu.ops import wminor as jax_wminor
 
 
 @contextlib.contextmanager
-def jax_toggles(fused_stage: bool):
+def jax_toggles(fused_stage: bool, fused_train: bool = False):
     """Set every global mode of the JAX package that the port's tests
     reach, and restore the previous values after (another test in the same
-    worker may leave, e.g., the upsample-backward decomposition on)."""
+    worker may leave, e.g., the upsample-backward decomposition on). The
+    train-stage backward is always the v2 one, the port's."""
     saved = (
         jax_stage_kernel._FUSED_STAGE,
         jax_wminor._LAZY_UPSAMPLE,
         jax_wminor._LAZY_POOL,
         jax_wminor._UP_BWD_DECOMP,
         jax_stage_kernel_int8._INT8_STAGE,
+        jax_stage_kernel_train._FUSED_TRAIN,
+        jax_stage_kernel_train._TRAIN_BWD_V3,
     )
     jax_stage_kernel.set_fused_stage(fused_stage)
     jax_wminor.set_lazy_upsample(False)
     jax_wminor.set_lazy_pool(False)
     jax_wminor.set_up_bwd_decomp(False)
     jax_stage_kernel_int8.set_int8_stage(False)
+    jax_stage_kernel_train.set_fused_train(fused_train)
+    jax_stage_kernel_train.set_train_bwd_v3(False)
     try:
         yield
     finally:
@@ -37,6 +43,8 @@ def jax_toggles(fused_stage: bool):
         jax_wminor.set_lazy_pool(saved[2])
         jax_wminor.set_up_bwd_decomp(saved[3])
         jax_stage_kernel_int8.set_int8_stage(saved[4])
+        jax_stage_kernel_train.set_fused_train(saved[5])
+        jax_stage_kernel_train.set_train_bwd_v3(saved[6])
 
 
 def oihw(kernel_hwio) -> torch.Tensor:
