@@ -24,32 +24,37 @@ Phases, each of which exits non-zero on failure:
    the chunked forward's tile probabilities and the masks against the
    all-plain runs in bf16 and in f32.
 4. Train kernels: for each of the six fused stage signatures at 512², bf16,
-   batch 2, seeded weights, every call the train stage's forward and v2
-   backward make of conv_stats (conv1, conv2 with its prologue, the γ|β
-   recompute with its bias, each backward-data conv down to 3 and nh
-   channels), train_tail (with and without the head) and wgrad (with and
-   without the prologue), each held against its plain version on the same
-   inputs.
-5. Stage gradients: the same six stages forward and backward with the
-   kernels, against the same autograd Function on the plain versions (bf16)
-   and against plain autograd of the module composition in f32: output,
-   both batch-stat pairs, every input and parameter gradient.
-6. Trainer (this slice's main path): UNet_R_SS_v2 from
-   configs/config_v1.json at full width, its Adam (lr 1e-4, weight decay
-   1e-7), clip 0.7 and BCEDiceLoss, bf16 activations on f32 parameters,
-   SyntheticDataset(512, 512) through val_transform and BatchLoader at
-   batch 8, train_one_epoch over 2 warm-up and 5 timed steps; ms/step and
-   images/s, kernel launches per step, finite metrics, moved BN statistics;
-   step 1 held against the same step on the plain versions (bf16) and on
-   the plain module composition (f32), as a whole and per fused stage on
-   the inputs and cotangent the kernel step gave it; each kernel call of
-   one steady-state step held against its plain version on its inputs and
-   timed against it, its bound and the library call; a profile of one
-   step.
+   batch 2, seeded weights, every call the train stage's forward and
+   backward make, each held against its plain version on the same inputs:
+   first with the v2 backward (conv_stats: conv1, conv2 with its prologue,
+   the γ|β recompute, each backward-data conv down to 3 and nh channels;
+   train_tail with and without the head; wgrad with and without the
+   prologue), then with the v3 backward (the forward's calls, and every
+   fused_conv3 and fused_wgrad chain mode).
+5. Stage gradients, after each backward's phase 4: the same six stages
+   forward and backward with the kernels, against the same autograd
+   Function on the plain versions (bf16) and against plain autograd of the
+   module composition in f32: output, both batch-stat pairs, every input
+   and parameter gradient.
+6. Trainer (this slice's main path, the default v3 backward):
+   UNet_R_SS_v2 from configs/config_v1.json at full width, its Adam (lr
+   1e-4, weight decay 1e-7), clip 0.7 and BCEDiceLoss, bf16 activations on
+   f32 parameters, SyntheticDataset(512, 512) through val_transform and
+   BatchLoader at batch 8, train_one_epoch over 2 warm-up and 5 timed
+   steps; ms/step and images/s, kernel launches per step against the
+   derived counts (PER_STEP), finite metrics, moved BN statistics; then
+   V2_STEPS steps with the v2 backward timed beside it (a record); step 1
+   held against the same step on the plain versions (bf16) and on the
+   plain module composition (f32), as a whole and per fused stage on the
+   inputs and cotangent the kernel step gave it; each kernel call of one
+   steady-state v3 step (and the wgrad calls of one v2 step) held against
+   its plain version on its inputs (weight gradients also against an f64
+   sum) and timed against it, its bound and the library call; a profile of
+   one v3 and one v2 step.
 
-Prints a ``kernels`` JSON line (launches on the main paths — phases 2 and
-3 for the eval kernel, phase 6 for the train kernels — error, time, plain
-time, bound, library time), and ends with ``{"ok": true, "device":
+Each phase prints its wall time. Prints a ``kernels`` JSON line (launches on the main paths — phases 2 and
+3 for the eval kernel, phase 6 for the train kernels, where wgrad, v2's
+alone, has none — error, time, plain time, bound, library time), and ends with ``{"ok": true, "device":
 {...}}``. Every check that fails is printed and the run exits non-zero
 after the last phase. Needs no network; imports no JAX.
 """
@@ -116,7 +121,44 @@ SUMS_TOL, WGRAD_L2_TOL = 1e-3, 1e-3
 # run says how many such gradients there were.
 GRAD_KP = 3.0
 TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS = 8, 2, 5
-TRAIN_KERNELS = ("conv_stats", "train_tail", "wgrad")
+V2_STEPS = 3  # the v2 backward's steps timed beside the main path (a record)
+# the train kernels' wrappers: ops/stage_kernel_train.py (forward, v2
+# backward) and ops/train_bwd.py (v3 backward)
+TRAIN_KERNELS = ("conv_stats", "train_tail", "wgrad", "fused_conv3", "fused_wgrad")
+# launches per flagship train step: six fused stages; forward conv1, conv2
+# (conv_stats) and the tail. v3 backward: κ1, κ3-κ6 for each stage and κ7
+# for all but conv0_0 (the input image needs no gradient), five weight
+# gradients each. v2 backward: the γ|β recompute and five backward-data
+# convs (conv_stats, none to the input image), five weight gradients.
+PER_STEP = {
+    "v3": {"conv_stats": 12, "train_tail": 6, "wgrad": 0, "fused_conv3": 6 * 6 - 1,
+           "fused_wgrad": 6 * 5},
+    "v2": {"conv_stats": 12 + 6 * 6 - 1, "train_tail": 6, "wgrad": 6 * 5, "fused_conv3": 0,
+           "fused_wgrad": 0},
+}
+
+
+def kernel_module(name):
+    """The module of a train kernel's wrapper."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train, train_bwd
+
+    return train_bwd if name in train_bwd.launches else stage_kernel_train
+
+
+def reset_launches() -> None:
+    for name in TRAIN_KERNELS:
+        kernel_module(name).launches[name] = 0
+
+
+def read_launches() -> dict:
+    return {name: kernel_module(name).launches[name] for name in TRAIN_KERNELS}
+
+
+def phase_done(what: str, t0: float) -> float:
+    """Print a phase's wall time; returns the clock for the next phase."""
+    t = time.perf_counter()
+    print(f"{what}: wall {t - t0:.1f} s")
+    return t
 
 
 def fail(msg: str) -> None:
@@ -256,11 +298,11 @@ def profile_kernels(fn, n: int):
 
 
 @contextlib.contextmanager
-def recording(tst):
+def recording():
     """Record every call of the train kernels' wrappers (name, args, kwargs)
     while active; the calls run as usual."""
     calls = []
-    originals = {n: getattr(tst, n) for n in TRAIN_KERNELS}
+    originals = {n: getattr(kernel_module(n), n) for n in TRAIN_KERNELS}
 
     def recorder(name):
         fn = originals[name]
@@ -271,29 +313,60 @@ def recording(tst):
         return rec
 
     for n in TRAIN_KERNELS:
-        setattr(tst, n, recorder(n))
+        setattr(kernel_module(n), n, recorder(n))
     try:
         yield calls
     finally:
         for n, fn in originals.items():
-            setattr(tst, n, fn)
+            setattr(kernel_module(n), n, fn)
 
 
 @contextlib.contextmanager
-def plain_train_kernels(tst):
+def plain_train_kernels():
     """Route the train stage's wrappers to their plain versions."""
-    originals = {n: getattr(tst, n) for n in TRAIN_KERNELS}
+    originals = {n: getattr(kernel_module(n), n) for n in TRAIN_KERNELS}
     for n in TRAIN_KERNELS:
-        setattr(tst, n, getattr(tst, n + "_reference"))
+        setattr(kernel_module(n), n, getattr(kernel_module(n), n + "_reference"))
     try:
         yield
     finally:
         for n, fn in originals.items():
-            setattr(tst, n, fn)
+            setattr(kernel_module(n), n, fn)
+
+
+@contextlib.contextmanager
+def train_backward(version: str):
+    """Run the fused train stages' backward ``version`` ("v3" or "v2")."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+
+    before = tst._TRAIN_BWD_V3
+    tst.set_train_bwd_v3(version == "v3")
+    try:
+        yield
+    finally:
+        tst.set_train_bwd_v3(before)
 
 
 def _parts(x):
     return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def _arg(args, kwargs, i, name, default=None):
+    return args[i] if len(args) > i else kwargs.get(name, default)
+
+
+def conv3_call(args, kwargs):
+    """A fused_conv3 call's (mode, src, weight, side, consts, bias, shortcut)."""
+    names = ("mode", "src", "weight", "side", "consts", "bias", "shortcut")
+    defaults = (None, None, None, (), (), None, None)
+    return tuple(_arg(args, kwargs, i, n, d) for i, (n, d) in enumerate(zip(names, defaults)))
+
+
+def wgrad3_call(args, kwargs):
+    """A fused_wgrad call's (mode, x, g, consts, prologue)."""
+    names = ("mode", "x", "g", "consts", "prologue")
+    defaults = (None, None, None, (), None)
+    return tuple(_arg(args, kwargs, i, n, d) for i, (n, d) in enumerate(zip(names, defaults)))
 
 
 def describe_call(name, args, kwargs) -> str:
@@ -302,11 +375,27 @@ def describe_call(name, args, kwargs) -> str:
         head = args[6] if len(args) > 6 else kwargs.get("head")
         return (f"train_tail {tuple(f2.shape)} parts={[p.shape[-1] for p in parts]}"
                 f" head={head is not None}")
+    if name == "fused_conv3":
+        mode, src, weight, side, _, _, shortcut = conv3_call(args, kwargs)
+        return (f"fused_conv3 {mode} {tuple(src[0].shape[:3])} "
+                f"in={[t.shape[-1] for t in _parts(src)]} out={weight.shape[0]}")
+    if name == "fused_wgrad":
+        mode, x, g, _, _ = wgrad3_call(args, kwargs)
+        return (f"fused_wgrad {mode} {tuple(_parts(x)[0].shape[:3])} "
+                f"in={[t.shape[-1] for t in _parts(x)]} g={[t.shape[-1] for t in _parts(g)]}")
     parts = _parts(args[0])
     extra = "".join(f" {k}" for k in ("prologue", "bias") if kwargs.get(k) is not None)
     cout = args[1].shape[0] if name == "conv_stats" else args[1].shape[-1]
     return (f"{name} {tuple(parts[0].shape[:3])} in={[p.shape[-1] for p in parts]} "
             f"out={cout}{extra}")
+
+
+def _nbytes(tensors):
+    """Bytes of the distinct tensors among ``tensors``."""
+    seen = {}
+    for t in tensors:
+        seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
 
 
 def call_cost(name, args, kwargs):
@@ -324,6 +413,22 @@ def call_cost(name, args, kwargs):
         macs = csum * c + 9 * c * lab + 9 * lab * nh + 9 * nh * 2 * c + c * ncls
         nbytes = 2 * n * h * w * (c + csum + (ncls or c) + c + lab + nh)
         return 2.0 * macs * n * h * w, nbytes
+    if name == "fused_conv3":
+        mode, src, weight, side, _, _, shortcut = conv3_call(args, kwargs)
+        src = _parts(src)
+        n, h, w = src[0].shape[:3]
+        cout = weight.shape[0]
+        macs = weight[0].numel() * cout + (0 if shortcut is None else shortcut.numel())
+        nbytes = (_nbytes(list(src) + list(side)) + 2 * (weight.numel() + (
+            0 if shortcut is None else shortcut.numel())) + 2 * n * h * w * cout)
+        return 2.0 * macs * n * h * w, nbytes
+    if name == "fused_wgrad":
+        mode, x, g, _, _ = wgrad3_call(args, kwargs)
+        x, g = _parts(x), _parts(g)
+        n, h, w = x[0].shape[:3]
+        cin = sum(p.shape[-1] for p in x)
+        cout = 2 * g[0].shape[-1] if mode == "gb" else g[0].shape[-1]
+        return 2.0 * 9 * cin * cout * n * h * w, _nbytes(list(x) + list(g)) + 4 * 9 * cin * cout
     parts = _parts(args[0])
     n, h, w = parts[0].shape[:3]
     cin = sum(p.shape[-1] for p in parts)
@@ -341,27 +446,54 @@ def bound_of(flops, nbytes):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def library_call(tst, name, args, kwargs):
+def wgrad_inputs(name, args, kwargs):
+    """A weight gradient call's (input parts, materialized cotangent,
+    prologue)."""
+    if name == "wgrad":
+        return _parts(args[0]), args[1], _arg(args, kwargs, 2, "prologue")
+    from ssunet_gan_tpu_torch.ops import train_bwd as ttb
+
+    mode, x, g, consts, prologue = wgrad3_call(args, kwargs)
+    x = _parts(x)
+    return x, ttb._cotangent(mode, _parts(g), consts, x[0].dtype), prologue
+
+
+def library_call(name, args, kwargs):
     """One PyTorch call on the same inputs as a yardstick (cuDNN in bf16):
-    the convolution for conv_stats (without the sums), the weight gradient
-    for wgrad; None for train_tail."""
+    the convolution for conv_stats (without the sums) and for fused_conv3
+    (its 3×3 conv on the raw sources, without the chains), the weight
+    gradient on the materialized input and cotangent for wgrad and
+    fused_wgrad; None for train_tail."""
     import torch.nn.functional as F
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
 
     if name == "train_tail":
         return None
+    if name == "fused_conv3":
+        mode, src, weight, _, _, bias, _ = conv3_call(args, kwargs)
+        src = _parts(src)
+        srcs = (src[0], src[0]) if mode == "modgrad" else src[:1]
+        x = torch.cat(srcs, -1).permute(0, 3, 1, 2)
+        wt = weight.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        b = None if bias is None else bias.to(torch.bfloat16)
+        return lambda: F.conv2d(x, wt, b, padding=1)
+    if name in ("wgrad", "fused_wgrad"):
+        parts, g, pro = wgrad_inputs(name, args, kwargs)
+        if pro is not None:
+            parts = (tst._prologued(parts[0], pro),)
+        x = torch.cat(parts, -1).permute(0, 3, 1, 2)
+        gt = g.permute(0, 3, 1, 2)
+        shape = (gt.shape[1], x.shape[1], 3, 3)
+        return lambda: torch.nn.grad.conv2d_weight(x, shape, gt, padding=1)
     parts = _parts(args[0])
     pro = kwargs.get("prologue")
     if pro is not None:
         parts = (tst._prologued(parts[0], pro),)
     x = torch.cat(parts, -1).permute(0, 3, 1, 2)  # NCHW view, channels-last memory
-    if name == "conv_stats":
-        wt = args[1].to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        b = kwargs.get("bias")
-        b = None if b is None else b.to(torch.bfloat16)
-        return lambda: F.conv2d(x, wt, b, padding=1)
-    g = args[1].permute(0, 3, 1, 2)
-    shape = (g.shape[1], x.shape[1], 3, 3)
-    return lambda: torch.nn.grad.conv2d_weight(x, shape, g, padding=1)
+    wt = args[1].to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    b = kwargs.get("bias")
+    b = None if b is None else b.to(torch.bfloat16)
+    return lambda: F.conv2d(x, wt, b, padding=1)
 
 
 def wgrad_f64(parts, g, prologue=None):
@@ -379,28 +511,44 @@ def wgrad_f64(parts, g, prologue=None):
                                            padding=1) for i in range(x.shape[0]))
 
 
-def compare_call(tst, name, args, kwargs):
+def sums_close(sums, w_sums):
+    """(largest error, within SUMS_TOL of each row's largest sum)."""
+    errs = [(s - w).abs().max().item() for s, w in zip(sums, w_sums)]
+    ok = all(e <= SUMS_TOL * w.abs().max().item() + SUMS_TOL for e, w in zip(errs, w_sums))
+    return max(errs), ok and bool(torch.isfinite(sums).all()) and sums.shape == w_sums.shape
+
+
+def compare_call(name, args, kwargs):
     """The kernel and the plain version of one recorded call on its inputs:
     (max abs err, within tolerance, text)."""
-    got = getattr(tst, name)(*args, **kwargs)
-    want = getattr(tst, name + "_reference")(*args, **kwargs)
+    mod = kernel_module(name)
+    got = getattr(mod, name)(*args, **kwargs)
+    want = getattr(mod, name + "_reference")(*args, **kwargs)
     torch.cuda.synchronize()
-    if name == "wgrad":
+    if name in ("wgrad", "fused_wgrad"):
         diff = (got - want).abs().max().item()
         l2 = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
         ok = l2 <= WGRAD_L2_TOL and bool(torch.isfinite(got).all()) and got.shape == want.shape
-        exact = wgrad_f64(*args, **kwargs)
+        exact = wgrad_f64(*wgrad_inputs(name, args, kwargs))
         return diff, ok, (f"rel_l2={l2:.3g} max_abs_err={diff:.4g}; from an f64 sum "
                           f"kernel {rel_l2(got.double(), exact):.3g} plain {rel_l2(want.double(), exact):.3g}")
-    if name == "conv_stats":
+    if name in ("conv_stats", "fused_conv3"):
         (out, sums), (w_out, w_sums) = got, want
-        err, scale, l2, ok = close(out, w_out)
-        text = f"max_abs_err={err:.4g} rel_l2={l2:.3g} (max|plain|={scale:.4g})"
-        if w_sums is not None:
-            d = (sums - w_sums).abs().max().item()
-            ok = ok and d <= SUMS_TOL * w_sums.abs().max().item() + SUMS_TOL
-            text += f" sums_err={d:.4g} (max|sum|={w_sums.abs().max().item():.4g})"
-        return err, ok, text
+        outs, w_outs = _parts(out), _parts(w_out)
+        worst, ok, texts = 0.0, len(outs) == len(w_outs), []
+        for o, wo in zip(outs, w_outs):
+            err, scale, l2, o_ok = close(o, wo)
+            worst, ok = max(worst, err), ok and o_ok and o.shape == wo.shape
+            texts.append(f"max_abs_err={err:.4g} rel_l2={l2:.3g} (max|plain|={scale:.4g})")
+        text = " ".join(texts)
+        if (sums is None) != (w_sums is None):
+            ok = False
+        elif w_sums is not None:
+            d, s_ok = sums_close(sums, w_sums)
+            ok = ok and s_ok
+            rows = [round(v, 4) for v in w_sums.abs().amax(1).tolist()]
+            text += f" sums_err={d:.4g} (max|sum| by row {rows})"
+        return worst, ok, text
     worst, oks, texts = 0.0, [], []
     for what, g, wv in zip(("out", "y", "seg", "actv"), got, want):
         err, scale, l2, ok = close(g, wv)
@@ -446,20 +594,15 @@ def gradient_bars(what, names, kern, plain, f32, check) -> None:
           f"{', '.join(blind) or 'none'}")
 
 
-def train_phases(dev, cfg, card, sigs, check):
-    """Phases 4-6; returns (launch counts of the main path, max abs error
-    per kernel, per-step time totals per kernel)."""
-    from ssunet_gan_tpu_torch.models import build_model, ssunet
-    from ssunet_gan_tpu_torch.ops import stage_kernel_train
+def stage_phases(dev, sigs, check, version, train_err):
+    """Phases 4 and 5 with the fused stages' backward ``version``: every
+    train kernel call of the six stages at batch 2 against its plain
+    version, and the stage gradients against plain and f32."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
     from ssunet_gan_tpu_torch.ops.blocks import BasicBlock
     from ssunet_gan_tpu_torch.ops.conv import Conv2d
     from ssunet_gan_tpu_torch.ops.spade import SPADE
 
-    ncls, in_ch = cfg["num_classes"], cfg["input_channels"]
-    # ---- phases 4 and 5: train kernels against their plain versions, and
-    # stage gradients, on the six fused stage signatures at batch 2
-    tst = stage_kernel_train
-    train_err = {k: 0.0 for k in TRAIN_KERNELS}
     for name, chans, planes, lab, nh, head_cls, level in sigs:
         g = torch.Generator().manual_seed(SEED + 10)
         block = BasicBlock(sum(chans), planes, generator=g)
@@ -502,37 +645,110 @@ def train_phases(dev, cfg, card, sigs, check):
             grads = torch.autograd.grad((out.float() * cot).sum(), [*parts, *params])
             return [out, *stats, *grads]
 
-        with recording(tst) as calls:
-            kern = stage_run(torch.bfloat16)
-        torch.cuda.synchronize()
-        for kname, args, kw in calls:
-            err, ok, text = compare_call(tst, kname, args, kw)
-            train_err[kname] = max(train_err[kname], err)
-            print(f"phase 4: {name} {describe_call(kname, args, kw)} {text}")
-            check(ok, f"phase 4: {name} {describe_call(kname, args, kw)}: {text}")
-        print(f"phase 4: {name}: {dict(Counter(c[0] for c in calls))} calls, forward and backward")
-        del calls
-        with plain_train_kernels(tst):
-            plain = stage_run(torch.bfloat16)
+        with train_backward(version):
+            with recording() as calls:
+                kern = stage_run(torch.bfloat16)
+            torch.cuda.synchronize()
+            for kname, args, kw in calls:
+                err, ok, text = compare_call(kname, args, kw)
+                train_err[kname] = max(train_err[kname], err)
+                what = f"phase 4 ({version}): {name} {describe_call(kname, args, kw)}"
+                print(f"{what} {text}")
+                check(ok, f"{what}: {text}")
+            print(f"phase 4 ({version}): {name}: {dict(Counter(c[0] for c in calls))} calls, "
+                  f"forward and backward")
+            del calls
+            with plain_train_kernels():
+                plain = stage_run(torch.bfloat16)
         f32 = module_run()
         labels = (["out", "mean1", "uvar1", "mean2", "uvar2"]
                   + [f"d part{i}" for i in range(len(xs))])
         for lbl, k, p, f in zip(labels, kern, plain, f32):
-            against_f32_bar(f"phase 5: {name} {lbl}", k, p, f, check)
+            against_f32_bar(f"phase 5 ({version}): {name} {lbl}", k, p, f, check)
         n0 = len(labels)
-        gradient_bars(f"phase 5: {name}", names, kern[n0:], plain[n0:], f32[n0:], check)
+        gradient_bars(f"phase 5 ({version}): {name}", names, kern[n0:], plain[n0:], f32[n0:],
+                      check)
         del kern, plain, f32, xs, block, spade, final, params
     torch.cuda.empty_cache()
 
-    # ---- phase 6: the trainer (this slice's main path)
+
+def time_calls(calls, kernels, label, train_err, check):
+    """Hold each recorded call of ``kernels`` against its plain version on
+    its inputs (phase 4's tolerances) and time it against the plain
+    version, its bound and the library call. Returns per-kernel totals."""
+    totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                  "kinds": set(), "calls": 0, "macs": 0.0} for k in kernels}
+    for kname, args, kw in calls:
+        if kname not in kernels:
+            continue
+        err, ok, text = compare_call(kname, args, kw)
+        train_err[kname] = max(train_err[kname], err)
+        what = f"phase 6: {label} batch {TRAIN_BATCH} {describe_call(kname, args, kw)}"
+        print(f"{what} {text}")
+        check(ok, f"{what}: {text}")
+        mod = kernel_module(kname)
+        fn, ref = getattr(mod, kname), getattr(mod, kname + "_reference")
+        ms = cuda_ms(lambda: fn(*args, **kw), 3, warmup=1)
+        plain_ms = cuda_ms(lambda: ref(*args, **kw), 1, warmup=1)
+        lib = library_call(kname, args, kw)
+        lib_ms = None if lib is None else cuda_ms(lib, 3, warmup=1)
+        flops, nbytes = call_cost(kname, args, kw)
+        bound, kind = bound_of(flops, nbytes)
+        t = totals[kname]
+        t["macs"] += flops / 2
+        t["ms"] += ms
+        t["plain_ms"] += plain_ms
+        t["bound_ms"] += bound
+        t["library_ms"] += lib_ms or 0.0
+        t["kinds"].add(kind)
+        t["calls"] += 1
+        print(f"train call: {describe_call(kname, args, kw)} ms {ms:.3f} plain {plain_ms:.3f} "
+              f"bound {bound:.3f} ({kind}) library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.3f}'}")
+    for kname, t in totals.items():
+        print(f"train kernel: {kname} ({label}, {t['calls']} calls) per step ms {t['ms']:.3f} "
+              f"plain {t['plain_ms']:.3f} bound {t['bound_ms']:.3f} "
+              f"library {t['library_ms']:.3f}; {t['macs']:.4g} multiply-adds "
+              f"({2e3 * t['macs'] / PEAK_BF16_FLOPS:.3f} ms at the bf16 peak)")
+    return totals
+
+
+def print_profile(what, step_fn, ms_step):
+    busy, wall_ms, rows = profile_kernels(step_fn, 1)
+    print(f"profile: per train step, {what} (batch {TRAIN_BATCH}): device busy {busy:.3f} ms, "
+          f"{sum(r[1] for r in rows)} kernels; {wall_ms:.3f} ms wall under the profiler "
+          f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}), {ms_step:.3f} ms untraced "
+          f"(idle share {max(0.0, 1 - busy / ms_step):.3f})")
+    for ms, count, key in rows[:14]:
+        print(f"profile: {what} {ms:9.3f} ms {count:4d}x {key[:90]}")
+
+
+def train_phases(dev, cfg, card, sigs, check):
+    """Phases 4-6; returns (launch counts of the main path, max abs error
+    per kernel, per-step time totals per kernel)."""
+    from ssunet_gan_tpu_torch.models import build_model, ssunet
+
+    ncls, in_ch = cfg["num_classes"], cfg["input_channels"]
+    train_err = {k: 0.0 for k in TRAIN_KERNELS}
+    # ---- phases 4 and 5: the v2 backward (kernel 4 and the v2 uses of
+    # kernel 2, off the main path), then the v3 backward (the main path's)
+    t0 = time.perf_counter()
+    for version in ("v2", "v3"):
+        stage_phases(dev, sigs, check, version, train_err)
+        t0 = phase_done(f"phases 4-5 ({version})", t0)
+
+    # ---- phase 6: the trainer (this slice's main path, the v3 backward)
     from ssunet_gan_tpu_torch.data.dataset import SyntheticDataset
     from ssunet_gan_tpu_torch.data.loader import BatchLoader
     from ssunet_gan_tpu_torch.data.transforms import val_transform
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
     from ssunet_gan_tpu_torch.ops.losses import get_loss
     from ssunet_gan_tpu_torch.ops.norm import BatchNorm
     from ssunet_gan_tpu_torch.train.optim import build_optimizer, build_scheduler
     from ssunet_gan_tpu_torch.train.step import make_train_step
     from ssunet_gan_tpu_torch.train.supervised import train_one_epoch
+
+    check(tst._TRAIN_BWD_V3, "phase 6: the default train backward is not v3")
 
     def loader(n_steps, seed):
         ds = SyntheticDataset(n_steps * TRAIN_BATCH, HW, HW, ncls, in_ch,
@@ -582,7 +798,7 @@ def train_phases(dev, cfg, card, sigs, check):
         return res
 
     kern1 = step1_grads(torch.bfloat16, capturing_stage)
-    with plain_train_kernels(tst):
+    with plain_train_kernels():
         plain1 = step1_grads(torch.bfloat16, fused_stage)
     f32_1 = step1_grads(torch.float32, module_stage)
     tmodel.load_state_dict(snapshot)
@@ -604,7 +820,7 @@ def train_phases(dev, cfg, card, sigs, check):
         parts, g = rec["parts"], rec["g"].float()
         params = [p for m in rec["mods"] if m is not None for p in m.parameters()]
         head = None if final is None else (final.weight, final.bias)
-        with plain_train_kernels(tst):
+        with plain_train_kernels():
             out, _ = tst.fused_train_stage(parts, block.train_params(),
                                            spade.stage_params(), head)
         plain = torch.autograd.grad((out.float() * g).sum(), params)
@@ -617,33 +833,29 @@ def train_phases(dev, cfg, card, sigs, check):
     tmodel.load_state_dict(snapshot)
     del kern1, snapshot, seen
     torch.cuda.empty_cache()
+    t0 = phase_done("phase 6 step 1 checks", t0)
 
     # the main path: counts to 0, 2 warm-up steps, 5 timed steps, counts read
+    per_step = PER_STEP["v3"]
     bns = [m for m in tmodel.modules() if isinstance(m, BatchNorm)]
     stats_before = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
-    for k in tst.launches:
-        tst.launches[k] = 0
-    # per step: six fused stages; forward conv1, conv2 (conv_stats) and the
-    # tail; backward the γ|β recompute and five backward-data convs
-    # (conv_stats) and five weight gradients; no backward-data conv to the
-    # input image (it needs no gradient)
-    per_step = {"conv_stats": 6 * 8 - 1, "train_tail": 6, "wgrad": 6 * 5}
+    reset_launches()
     warm_log = train_one_epoch(0, cfg, loader(TRAIN_WARM, seed=1), step, lr, device=dev)
-    check(tst.launches == {k: TRAIN_WARM * v for k, v in per_step.items()},
-          f"phase 6: launches in {TRAIN_WARM} warm-up steps {tst.launches} != "
+    check(read_launches() == {k: TRAIN_WARM * v for k, v in per_step.items()},
+          f"phase 6: launches in {TRAIN_WARM} warm-up steps {read_launches()} != "
           f"{TRAIN_WARM} x {per_step}")
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     log = train_one_epoch(1, cfg, loader(TRAIN_STEPS, seed=2), step, lr, device=dev)
     torch.cuda.synchronize()
-    train_dt = time.perf_counter() - t0
-    counts = dict(tst.launches)
+    train_dt = time.perf_counter() - t1
+    counts = read_launches()
     steps = TRAIN_WARM + TRAIN_STEPS
     print(f"phase 6: kernel launches in {steps} steps: {counts} "
           f"(expected {steps} x {per_step})")
     check(counts == {k: steps * v for k, v in per_step.items()},
           f"phase 6: launches {counts} != {steps} x {per_step}")
     ms_step = train_dt / TRAIN_STEPS * 1e3
-    print(f"phase 6: flagship train step {ms_step:.2f} ms/step, "
+    print(f"phase 6: flagship train step (v3 backward) {ms_step:.2f} ms/step, "
           f"{TRAIN_BATCH * TRAIN_STEPS / train_dt:.2f} images/s (512x512 bf16, batch "
           f"{TRAIN_BATCH}, Adam, {TRAIN_STEPS} steps after {TRAIN_WARM} warm-up) on {card}")
     print(f"phase 6: warm-up epoch {warm_log}; timed epoch {log}")
@@ -656,53 +868,49 @@ def train_phases(dev, cfg, card, sigs, check):
     check(moved == len(bns), f"phase 6: only {moved} of {len(bns)} BatchNorms moved")
     del stats_before
 
+    # the v2 backward beside it in the same call: a record, not a claim
+    with train_backward("v2"):
+        reset_launches()
+        train_one_epoch(0, cfg, loader(1, seed=4), step, lr, device=dev)
+        t1 = time.perf_counter()
+        v2_log = train_one_epoch(1, cfg, loader(V2_STEPS, seed=5), step, lr, device=dev)
+        torch.cuda.synchronize()
+        v2_dt = time.perf_counter() - t1
+        v2_counts = read_launches()
+    ms_step_v2 = v2_dt / V2_STEPS * 1e3
+    check(v2_counts == {k: (1 + V2_STEPS) * v for k, v in PER_STEP["v2"].items()},
+          f"phase 6: v2 launches {v2_counts} != {1 + V2_STEPS} x {PER_STEP['v2']}")
+    print(f"phase 6: flagship train step (v2 backward, record) {ms_step_v2:.2f} ms/step, "
+          f"{TRAIN_BATCH * V2_STEPS / v2_dt:.2f} images/s ({V2_STEPS} steps after 1 warm-up) "
+          f"on {card}; launches {v2_counts}; epoch {v2_log}")
+    t0 = phase_done("phase 6 trainer (v3 main path, v2 record)", t0)
+
     # one steady-state step: each kernel call held against its plain version
     # on the same inputs (phase 4's tolerances, at the main path's shapes),
-    # and timed against the plain version, its bound and the library call
+    # and timed against the plain version, its bound and the library call;
+    # kernel 4 (v2 only) from one v2 step
     _, img, mask, _ = next(iter(loader(1, seed=3)))
     xb = torch.from_numpy(img).to(dev).to(torch.bfloat16)
     yb = torch.from_numpy(mask).to(dev)
-    with recording(tst) as calls:
+    with recording() as calls:
         step(xb, yb, lr)
     torch.cuda.synchronize()
-    totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                  "kinds": set()} for k in TRAIN_KERNELS}
-    for kname, args, kw in calls:
-        err, ok, text = compare_call(tst, kname, args, kw)
-        train_err[kname] = max(train_err[kname], err)
-        print(f"phase 6: batch {TRAIN_BATCH} {describe_call(kname, args, kw)} {text}")
-        check(ok, f"phase 6: batch {TRAIN_BATCH} {describe_call(kname, args, kw)}: {text}")
-        fn, ref = getattr(tst, kname), getattr(tst, kname + "_reference")
-        ms = cuda_ms(lambda: fn(*args, **kw), 3, warmup=1)
-        plain_ms = cuda_ms(lambda: ref(*args, **kw), 1, warmup=1)
-        lib = library_call(tst, kname, args, kw)
-        lib_ms = None if lib is None else cuda_ms(lib, 3, warmup=1)
-        bound, kind = bound_of(*call_cost(kname, args, kw))
-        t = totals[kname]
-        t["ms"] += ms
-        t["plain_ms"] += plain_ms
-        t["bound_ms"] += bound
-        t["library_ms"] += lib_ms or 0.0
-        t["kinds"].add(kind)
-        print(f"train call: {describe_call(kname, args, kw)} ms {ms:.3f} plain {plain_ms:.3f} "
-              f"bound {bound:.3f} ({kind}) library "
-              f"{'none' if lib_ms is None else f'{lib_ms:.3f}'}")
+    totals = time_calls(calls, [k for k in TRAIN_KERNELS if k != "wgrad"], "v3", train_err,
+                        check)
+    del calls
+    with train_backward("v2"), recording() as calls:
+        step(xb, yb, lr)
+    torch.cuda.synchronize()
+    totals.update(time_calls(calls, ["wgrad"], "v2", train_err, check))
     del calls
     torch.cuda.empty_cache()
-    for kname, t in totals.items():
-        print(f"train kernel: {kname} per step ms {t['ms']:.3f} plain {t['plain_ms']:.3f} "
-              f"bound {t['bound_ms']:.3f} library {t['library_ms']:.3f}")
+    t0 = phase_done("phase 6 per-call checks and timing", t0)
 
-    # where one train step's device time goes
-    n_prof = 1
-    busy, wall_ms, rows = profile_kernels(lambda: step(xb, yb, lr), n_prof)
-    print(f"profile: per train step (batch {TRAIN_BATCH}): device busy {busy:.3f} ms, "
-          f"{sum(r[1] for r in rows)} kernels; {wall_ms:.3f} ms wall under the profiler "
-          f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}), {ms_step:.3f} ms untraced "
-          f"(idle share {max(0.0, 1 - busy / ms_step):.3f})")
-    for ms, count, key in rows[:12]:
-        print(f"profile: {ms:9.3f} ms {count:4d}x {key[:90]}")
-
+    # where one train step's device time goes, v3 and v2
+    print_profile("v3", lambda: step(xb, yb, lr), ms_step)
+    with train_backward("v2"):
+        print_profile("v2", lambda: step(xb, yb, lr), ms_step_v2)
+    phase_done("phase 6 profiles", t0)
     return counts, train_err, totals
 
 
@@ -721,7 +929,7 @@ def main() -> int:
         tile_forward,
     )
     from ssunet_gan_tpu_torch.models import build_model, ssunet
-    from ssunet_gan_tpu_torch.ops import stage_kernel, stage_kernel_train
+    from ssunet_gan_tpu_torch.ops import stage_kernel, stage_kernel_train, train_bwd
     from ssunet_gan_tpu_torch.ops.blocks import BasicBlock
     from ssunet_gan_tpu_torch.ops.conv import Conv2d
     from ssunet_gan_tpu_torch.ops.norm import BatchNorm
@@ -759,14 +967,15 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    sources = (stage_kernel.SOURCE, stage_kernel_train.SOURCE)
+    sources = (stage_kernel.SOURCE, stage_kernel_train.SOURCE, train_bwd.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         list(pool.map(_build.build, sources))
     print(f"phase 0: kernels built in {time.perf_counter() - t0:.2f} s")
     for source in sources:
         for line in _build.build_log(source).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {source}:", line.strip())
+    t_phase = time.perf_counter()
 
     here = os.path.dirname(os.path.abspath(__file__))
     cfg = load_experiment_config(os.path.join(here, "configs", "config_v1.json")).opt_config
@@ -866,6 +1075,8 @@ def main() -> int:
         print("stage:", json.dumps(row))
     del parts, pk, full, captured
 
+    t_phase = phase_done("phase 1", t_phase)
+
     # ---- phase 2: flagship tile forward (main path)
     tiles = np.random.default_rng(SEED).integers(0, 256, (BATCH, HW, HW, in_ch), dtype=np.uint8)
     x = torch.from_numpy(tiles).to(dev)
@@ -887,6 +1098,8 @@ def main() -> int:
     print(f"phase 2: flagship tile forward {tiles_per_s:.2f} tiles/s "
           f"(512x512 bf16, batch {BATCH}, {dt / iters * 1e3:.2f} ms/forward) on {card}")
 
+    t_phase = phase_done("phase 2", t_phase)
+
     # ---- phase 3: scene request (main path)
     before = stage_kernel.launches
     t0 = time.perf_counter()
@@ -902,6 +1115,8 @@ def main() -> int:
     print(f"phase 3: scene 2048x2048 -> {len(masks)} masks in {scene_s:.3f} s "
           f"(36 tiles, bf16) on {card}; positive share "
           f"{[round(float((m > 0).mean()), 4) for m in masks]}")
+
+    t_phase = phase_done("phase 3", t_phase)
 
     # ---- comparisons (after the counts were read). The bf16 forward is a
     # sensitive function of where it rounds: a 1-ulp change in a stage can
@@ -978,6 +1193,8 @@ def main() -> int:
     del model, x, logits_probs, logits_k, logits_p, logits_f, probs_k, probs_p, probs_f, xn
     torch.cuda.empty_cache()
 
+    phase_done("phases 2-3 comparisons and profile", t_phase)
+
     counts, train_err, totals = train_phases(dev, cfg, card, sigs, check)
 
     if failures:
@@ -985,8 +1202,8 @@ def main() -> int:
 
     kernels = [eval_row] + [{
         "name": kname, "route": "cuda",
-        "source": f"ssunet_gan_tpu_torch/csrc/{stage_kernel_train.SOURCE}",
-        "replaces": stage_kernel_train.REPLACES[kname],
+        "source": f"ssunet_gan_tpu_torch/csrc/{kernel_module(kname).SOURCE}",
+        "replaces": kernel_module(kname).REPLACES[kname],
         "launches": counts[kname], "max_abs_err": train_err[kname],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "operations" if "operations" in t["kinds"] else "bytes",

@@ -23,11 +23,13 @@ the card every such product of the stage goes through the kernels.
 
 :func:`fused_train_stage` is the stage: forward K1 → stats → K2 with the
 BN1 affine+ReLU prologue → stats → K3, returning the output and the two
-batch-stat pairs for the running averages; backward is the v2 body of
-``_train_bwd_rule`` (:969-1110): every conv and 3×3 weight gradient on the
-kernels, γ|β recomputed from the saved actv, and the pointwise and BN
-chains, the 1×1 shortcut's and head's products and the bias sums as plain
-tensor ops, as the JAX package leaves them to XLA. The rounding points are
+batch-stat pairs for the running averages. Its backward is the v3 one of
+``ops/train_bwd.py`` (the chains inside the kernels of that module) unless
+:func:`set_train_bwd_v3` selects the v2 body of ``_train_bwd_rule``
+(:969-1110): every conv and 3×3 weight gradient on this module's kernels,
+γ|β recomputed from the saved actv, and the pointwise and BN chains, the
+1×1 shortcut's and head's products and the bias sums as plain tensor ops,
+as the JAX package leaves them to XLA. The rounding points are
 the JAX package's: f1, f2, y, seg and actv in the activation dtype, the
 stats from sums of the rounded outputs with the one-pass variance
 ``max(E[x²] − μ², 0)``, the cotangent casts at the same places.
@@ -64,6 +66,17 @@ REPLACES = {
     "wgrad": "ssunet_gan_tpu/ops/stage_kernel_train.py:766",       # _wgrad_w
 }
 BN_EPS = 1e-5
+
+# The backward the stage runs: v3 (ops/train_bwd.py, the chains inside the
+# kernels) by default, as in the JAX package, or v2 (``_train_bwd``).
+_TRAIN_BWD_V3 = True
+
+
+def set_train_bwd_v3(enabled: bool) -> None:
+    """Select the stage's backward: v3 (True, the default) or v2."""
+    global _TRAIN_BWD_V3
+    _TRAIN_BWD_V3 = bool(enabled)
+
 
 # Kernel runs on the card, one per wrapper call that launches its kernel
 # (train_tail's call is two CUDA launches, conv_stats's with sums two).
@@ -267,9 +280,15 @@ def _wgrad_cuda(parts, g, prologue):
                              g.data_ptr(), cout, dw.data_ptr(), kp, n, h, w,
                              torch.cuda.current_stream(dev).cuda_stream), "wgrad")
     launches["wgrad"] += 1
-    # [cout][part, tap, padded channel] -> OIHW
+    return _unpack_dw(dw, channels, cout)
+
+
+def _unpack_dw(dw: torch.Tensor, channels, cout: int) -> torch.Tensor:
+    """The weight-gradient kernels' [cout][part, tap, channel padded to 32]
+    f32 sums as an OIHW weight gradient."""
     blocks, off = [], 0
-    for c, cp in zip(channels, cpad):
+    for c in channels:
+        cp = -(-c // 32) * 32
         blk = dw[:, off:off + 9 * cp].reshape(cout, 3, 3, cp)[..., :c]
         blocks.append(blk.permute(0, 3, 1, 2))
         off += 9 * cp
@@ -466,8 +485,14 @@ class _FusedTrainStage(torch.autograd.Function):
         tensors, saved = ctx.saved_tensors[:n_in], ctx.saved_tensors[n_in:]
         parts, bp, sp, head = _unflatten(ctx.n_parts, ctx.has_head, tensors)
         want_parts = any(ctx.needs_input_grad[2:2 + ctx.n_parts])
-        g_parts, g_bp, g_sp, g_head = _train_bwd(parts, bp, sp, head, saved,
-                                                 g_out.contiguous(), want_parts)
+        from ssunet_gan_tpu_torch.ops import train_bwd  # imports this module
+
+        bwd = _train_bwd
+        if _TRAIN_BWD_V3 and train_bwd.bwd_v3_supported([p.shape[-1] for p in parts],
+                                                        bp[2].shape[0]):
+            bwd = train_bwd.train_bwd_v3
+        g_parts, g_bp, g_sp, g_head = bwd(parts, bp, sp, head, saved, g_out.contiguous(),
+                                          want_parts)
         g_w1, (g_g1, g_be1), g_w2, (g_g2, g_be2), g_ws = g_bp
         grads = (list(g_parts or [None] * ctx.n_parts)
                  + [g_w1, g_g1, g_be1, g_w2, g_g2, g_be2, g_ws, *g_sp]

@@ -257,8 +257,7 @@ def test_wgrad_kernel_matches_plain(chans, cout, nhw, prologue):
     assert rel <= 1e-3, rel
 
 
-@pytest.mark.gpu
-def test_fused_train_stage_kernel_matches_plain(monkeypatch):
+def _stage_kernel_vs_plain(monkeypatch):
     """Forward, stats and gradients of one stage with the kernels against
     the same Function on the plain versions, both in bf16, and against f32:
     for the output, each statistic, each input gradient and all parameter
@@ -268,6 +267,7 @@ def test_fused_train_stage_kernel_matches_plain(monkeypatch):
     gradient), where both bf16 paths carry noise of the order of the value:
     kernel-plain within 3 × plain-f32 (chip_smoke.py's GRAD_KP)."""
     from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+    from ssunet_gan_tpu_torch.ops import train_bwd as ttb
 
     dev = _card()
     gen = torch.Generator().manual_seed(3)
@@ -288,8 +288,10 @@ def test_fused_train_stage_kernel_matches_plain(monkeypatch):
         return [out, *[s for pair in stats for s in pair], *grads[:2], flat], grads[2:]
 
     kern, kern_p = run(torch.bfloat16)
-    for name in ("conv_stats", "train_tail", "wgrad"):
-        monkeypatch.setattr(tst, name, getattr(tst, name + "_reference"))
+    for mod, names in ((tst, ("conv_stats", "train_tail", "wgrad")),
+                       (ttb, ("fused_conv3", "fused_wgrad"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, getattr(mod, name + "_reference"))
     plain, plain_p = run(torch.bfloat16)
     f32, f32_p = run(torch.float32)
     rel = lambda u, v: ((u.float() - v.float()).norm() / v.float().norm()).item()
@@ -299,3 +301,147 @@ def test_fused_train_stage_kernel_matches_plain(monkeypatch):
         assert e_k <= 1.1 * e_p and e_kp <= e_p, (i, e_k, e_p, e_kp)
     for i, (k, p, f) in enumerate(zip(kern_p, plain_p, f32_p)):
         assert rel(k, p) <= 3 * rel(p, f), (i, rel(k, p), rel(p, f))
+
+
+@pytest.mark.gpu
+def test_fused_train_stage_kernel_matches_plain(monkeypatch):
+    """The stage with its default backward, v3 (``_stage_kernel_vs_plain``)."""
+    from ssunet_gan_tpu_torch.ops import train_bwd as ttb
+
+    before = dict(ttb.launches)
+    _stage_kernel_vs_plain(monkeypatch)
+    # κ1, κ3-κ7 and five weight gradients (the kernel run only)
+    assert ttb.launches["fused_conv3"] == before["fused_conv3"] + 6
+    assert ttb.launches["fused_wgrad"] == before["fused_wgrad"] + 5
+
+
+@pytest.mark.gpu
+def test_fused_train_stage_v2_kernel_matches_plain(monkeypatch):
+    """The stage with the v2 backward (``_stage_kernel_vs_plain``)."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+    from ssunet_gan_tpu_torch.ops import train_bwd as ttb
+
+    monkeypatch.setattr(tst, "_TRAIN_BWD_V3", False)
+    before = dict(ttb.launches)
+    _stage_kernel_vs_plain(monkeypatch)
+    assert ttb.launches == before
+
+
+# ---- the v3 backward's kernels (csrc/train_bwd.cu) against their plain
+# versions, bf16, one test per chain mode; the bars of the train kernels
+# above, the stat rows each against their own largest magnitude.
+
+
+def _bn_consts(gen, c, dev, n):
+    """n per-channel f32 constants of BN's backward scale (p, q, r', m', ...)."""
+    return tuple(((torch.rand(c, generator=gen) + 0.5) if i % 2 == 0
+                  else torch.randn(c, generator=gen) * 0.3).to(dev) for i in range(n))
+
+
+CONV3_CASES = [
+    # mode, C (planes), hidden, labels, parts (bn1), (n, h, w)
+    ("gamma", 64, 4, 3, None, (2, 40, 36)),
+    ("modgrad", 128, 8, 3, None, (2, 40, 36)),
+    ("seg", 64, 16, 3, None, (2, 24, 20)),
+    ("pre", 128, 8, 3, None, (2, 40, 36)),
+    ("bn2", 64, 4, 3, None, (2, 40, 36)),
+    ("bn1", 64, 4, 3, (3,), (2, 40, 36)),
+    ("bn1", 64, 4, 3, (64, 128), (1, 24, 20)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,c,nh,lab,parts,nhw", CONV3_CASES,
+                         ids=[f"{m}-{len(p) if p else 1}" for m, _, _, _, p, _ in CONV3_CASES])
+def test_fused_conv3_kernel_matches_plain(mode, c, nh, lab, parts, nhw):
+    from ssunet_gan_tpu_torch.ops import train_bwd as ttb
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(4)
+    n, h, w = nhw
+    band = lambda ch: _bf16(gen, (n, h, w, ch), dev)
+    wt = lambda o, i, k=3: (torch.randn((o, i, k, k), generator=gen) * 0.1).to(dev)
+    side, consts, bias, shortcut, out_ch = (), (), None, None, None
+    if mode == "gamma":
+        src, weight = (band(nh),), wt(2 * c, nh)
+        bias = (torch.randn(2 * c, generator=gen) * 0.3).to(dev)
+    elif mode == "modgrad":
+        src, side, weight = (band(c), band(c)), (band(nh),), wt(nh, 2 * c)
+    elif mode == "seg":
+        src, weight = (band(nh),), wt(lab, nh)
+    elif mode == "pre":
+        src, side, weight = (band(lab),), tuple(band(c) for _ in range(4)), wt(c, lab)
+        consts = _bn_consts(gen, c, dev, 2)
+    elif mode == "bn2":
+        src, side, weight = (band(c), band(c)), (band(c),), wt(c, c)
+        consts = _bn_consts(gen, c, dev, 8)
+    else:
+        csum = sum(parts)
+        src, side, weight = (band(c), band(c)), (band(c),), wt(csum, c)
+        consts = _bn_consts(gen, c, dev, 4)
+        shortcut, out_ch = wt(csum, c, 1), list(parts)
+    before = ttb.launches["fused_conv3"]
+    got, stats = ttb.fused_conv3(mode, src, weight, side, consts, bias, shortcut, out_ch)
+    torch.cuda.synchronize()
+    assert ttb.launches["fused_conv3"] == before + 1
+    want, want_stats = ttb.fused_conv3_reference(mode, src, weight, side, consts, bias,
+                                                 shortcut, out_ch)
+    for g, wv in zip(got if out_ch else (got,), want if out_ch else (want,)):
+        assert g.shape == wv.shape and g.dtype == torch.bfloat16
+        errs, ok = _close(g, wv)
+        assert ok, errs
+    assert (stats is None) == (want_stats is None)
+    if stats is not None:
+        assert stats.shape == want_stats.shape
+        for r, (s, ws) in enumerate(zip(stats, want_stats)):
+            d = (s - ws).abs().max().item()
+            assert d <= 1e-3 * ws.abs().max().item() + 1e-3, (r, d)
+
+
+WGRAD3_CASES = [
+    # mode, x part channels, C (planes), hidden, labels, (n, h, w)
+    ("gb", (8,), 256, 8, 3, (2, 24, 20)),
+    ("mlp", (3,), 64, 4, 3, (2, 40, 36)),
+    ("x2map", (64,), 64, 4, 3, (2, 40, 36)),
+    ("conv2", (64,), 64, 4, 3, (2, 32, 32)),
+    ("conv1", (64, 128), 64, 4, 3, (1, 24, 20)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,xch,c,nh,lab,nhw", WGRAD3_CASES, ids=[m[0] for m in WGRAD3_CASES])
+def test_fused_wgrad_kernel_matches_plain(mode, xch, c, nh, lab, nhw):
+    from ssunet_gan_tpu_torch.ops import train_bwd as ttb
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(5)
+    n, h, w = nhw
+    band = lambda ch: _bf16(gen, (n, h, w, ch), dev)
+    x = tuple(band(cp) for cp in xch)
+    consts, prologue = (), None
+    g = {"gb": lambda: (band(c), band(c)), "mlp": lambda: (band(nh),),
+         "x2map": lambda: (band(lab),)}.get(mode, lambda: (band(c), band(c)))()
+    if mode in ("conv2", "conv1"):
+        consts = _bn_consts(gen, c, dev, 4)
+    if mode == "conv2":
+        prologue = _bn_consts(gen, c, dev, 2)
+    before = ttb.launches["fused_wgrad"]
+    got = ttb.fused_wgrad(mode, x, g, consts, prologue)
+    torch.cuda.synchronize()
+    assert ttb.launches["fused_wgrad"] == before + 1
+    want = ttb.fused_wgrad_reference(mode, x, g, consts, prologue)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= 1e-3, rel
+
+
+@pytest.mark.gpu
+def test_v3_wrappers_refuse_float32():
+    from ssunet_gan_tpu_torch.ops import train_bwd as ttb
+
+    dev = _card()
+    x = torch.zeros((1, 16, 16, 8), device=dev)
+    with pytest.raises(TypeError):
+        ttb.fused_conv3("seg", (x,), torch.zeros((3, 8, 3, 3), device=dev))
+    with pytest.raises(TypeError):
+        ttb.fused_wgrad("mlp", (x,), (x,))

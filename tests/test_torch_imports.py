@@ -20,7 +20,7 @@ MODULES = (
     "ssunet_gan_tpu_torch.ops.metrics", "ssunet_gan_tpu_torch.data.dataset",
     "ssunet_gan_tpu_torch.data.loader", "ssunet_gan_tpu_torch.data.transforms",
     "ssunet_gan_tpu_torch.train.optim", "ssunet_gan_tpu_torch.train.step",
-    "ssunet_gan_tpu_torch.train.supervised",
+    "ssunet_gan_tpu_torch.train.supervised", "ssunet_gan_tpu_torch.ops.train_bwd",
 )
 
 

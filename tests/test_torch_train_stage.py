@@ -12,39 +12,35 @@ package's own eval-stage pin); the per-channel sums rtol 2e-4 with atol
 gradients max |Δ| ≤ 1e-3 · max |JAX| (the JAX package's own gradient bar).
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from ssunet_gan_tpu.ops import stage_kernel_train as jst
-from ssunet_gan_tpu.ops.wminor import to_nhwc
 from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
-from torch_port_helpers import jax_toggles, oihw, vec
+from torch_port_helpers import (
+    STAGES,
+    jax_toggles,
+    nhwc_of_wminor as _nhwc,
+    normal as _normal,
+    oihw,
+    spade_weights as _spade,
+    stage_matches_jax,
+    tensor as _t,
+    vec,
+    wminor as _wminor,
+)
 
 
 @pytest.fixture(autouse=True)
 def _jax_modes():
-    with jax_toggles(fused_stage=True, fused_train=True):
-        yield
-
-
-def _wminor(x):
-    """NHWC numpy → the JAX kernels' (N, H, C, W) view."""
-    return jnp.swapaxes(jnp.asarray(x), 2, 3)
-
-
-def _nhwc(v):
-    return np.swapaxes(np.asarray(v), 2, 3)
-
-
-def _t(x):
-    return torch.from_numpy(np.ascontiguousarray(x, np.float32))
-
-
-def _normal(rng, shape, scale=1.0):
-    return (rng.normal(size=shape) * scale).astype(np.float32)
+    """Both sides run the v2 backward (the port's v3 is tests/test_torch_train_bwd.py's)."""
+    tst.set_train_bwd_v3(False)
+    try:
+        with jax_toggles(fused_stage=True, fused_train=True, train_bwd_v3=False):
+            yield
+    finally:
+        tst.set_train_bwd_v3(True)
 
 
 @pytest.mark.parametrize(
@@ -75,23 +71,6 @@ def test_conv_stats_matches_jax(rng, shapes, c, prologue, bias):
         None if pro is None else (vec(pro[0]), vec(pro[1])))
     np.testing.assert_allclose(got.numpy(), _nhwc(out_v), rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(got_sums.numpy(), np.asarray(sums), rtol=2e-4, atol=2e-3)
-
-
-def _spade(rng, planes, lab, nh):
-    """SPADE weights: HWIO for JAX, OIHW for the port."""
-    hwio = (_normal(rng, (3, 3, planes, lab), 0.1), _normal(rng, (lab,), 0.1),
-            _normal(rng, (3, 3, lab, nh), 0.3), _normal(rng, (nh,), 0.1),
-            _normal(rng, (3, 3, nh, planes), 0.2), _normal(rng, (planes,), 0.1),
-            _normal(rng, (3, 3, nh, planes), 0.2), _normal(rng, (planes,), 0.1))
-    return hwio, tuple(oihw(a) if a.ndim == 4 else vec(a) for a in hwio)
-
-
-STAGES = [
-    (16, 3, [(2, 16, 16, 8)], 4, 0),                       # test_train_kernel.py:48
-    (16, 3, [(1, 16, 16, 8), (1, 16, 16, 16)], 4, 0),      # :49, split-concat
-    (32, 2, [(2, 24, 16, 16)], 8, 0),                      # :50
-    (16, 3, [(1, 16, 16, 8)], 4, 3),                       # :147, folded head
-]
 
 
 @pytest.mark.parametrize("planes,lab,shapes,nh,ncls", STAGES)
@@ -148,69 +127,11 @@ def test_wgrad_matches_jax(rng, n, h, w, cps, c, prologue):
     np.testing.assert_allclose(got.numpy(), oihw(want).numpy(), rtol=1e-4, atol=1e-4)
 
 
-def _stage_bundle(rng, planes, shapes, lab, nh, ncls):
-    """Random raw train parameters: JAX (HWIO) and port (OIHW) forms."""
-    csum = sum(s[-1] for s in shapes)
-    bp = (_normal(rng, (3, 3, csum, planes), 0.2),
-          ((rng.random(planes) + 0.5).astype(np.float32), _normal(rng, (planes,), 0.2)),
-          _normal(rng, (3, 3, planes, planes), 0.1),
-          ((rng.random(planes) + 0.5).astype(np.float32), _normal(rng, (planes,), 0.2)),
-          _normal(rng, (1, 1, csum, planes), 0.3))
-    sp, tsp = _spade(rng, planes, lab, nh)
-    head = thead = None
-    if ncls:
-        head = (_normal(rng, (1, 1, planes, ncls), 0.3), _normal(rng, (ncls,), 0.1))
-        thead = (oihw(head[0]), vec(head[1]))
-    k1, (g1, b1), k2, (g2, b2), ks = bp
-    tbp = (oihw(k1), (vec(g1), vec(b1)), oihw(k2), (vec(g2), vec(b2)), oihw(ks))
-    return bp, sp, head, tbp, tsp, thead
-
-
 @pytest.mark.parametrize("planes,lab,shapes,nh,ncls", STAGES)
 def test_fused_train_stage_matches_jax(rng, planes, lab, shapes, nh, ncls):
     """Forward, batch stats and every gradient against ``jax.vjp``-style
     grads of the JAX fused stage (Pallas interpret mode, v2 backward)."""
-    xs = [_normal(rng, s) for s in shapes]
-    bp, sp, head, tbp, tsp, thead = _stage_bundle(rng, planes, shapes, lab, nh, ncls)
-    n, h, w = shapes[0][:3]
-    cot = _normal(rng, (n, h, w, ncls or planes))
-
-    def jax_loss(parts, bp, sp, head):
-        out, stats = jst.fused_train_stage(parts, bp, sp, head)
-        out = out if head is not None else to_nhwc(out)
-        return jnp.sum(out * cot), (out, stats)
-
-    jparts = tuple(jnp.asarray(x) for x in xs)
-    jbp = jax.tree_util.tree_map(jnp.asarray, bp)
-    jsp = tuple(jnp.asarray(a) for a in sp)
-    jhead = None if head is None else tuple(jnp.asarray(a) for a in head)
-    argnums = (0, 1, 2) if head is None else (0, 1, 2, 3)
-    (_, (want_out, want_stats)), jgrads = jax.value_and_grad(
-        jax_loss, argnums=argnums, has_aux=True)(jparts, jbp, jsp, jhead)
-
-    parts = tuple(_t(x).requires_grad_() for x in xs)
-    params = [t.requires_grad_() for t in
-              (tbp[0], *tbp[1], tbp[2], *tbp[3], tbp[4], *tsp, *(thead or ()))]
-    out, stats = tst.fused_train_stage(parts, tbp, tsp, thead)
-    grads = torch.autograd.grad((out * _t(cot)).sum(), [*parts, *params])
-
-    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), rtol=2e-4, atol=2e-4)
-    for got_pair, want_pair in zip(stats, want_stats):
-        for g, wv in zip(got_pair, want_pair):
-            np.testing.assert_allclose(g.numpy(), np.asarray(wv), rtol=2e-4, atol=2e-4)
-
-    # JAX grads in the port's order and layout: parts, then the parameters
-    jg_parts, (gk1, (gg1, gb1), gk2, (gg2, gb2), gks), jg_sp = jgrads[:3]
-    want = list(jg_parts) + [gk1, gg1, gb1, gk2, gg2, gb2, gks] + list(jg_sp)
-    if head is not None:
-        want += list(jgrads[3])
-    assert len(want) == len(grads)
-    for i, (g, wv) in enumerate(zip(grads, want)):
-        wv = np.asarray(wv, np.float64)
-        if wv.ndim == 4 and g.dim() == 4 and i >= len(parts):
-            wv = oihw(wv).numpy()
-        rel = np.abs(g.double().numpy() - wv).max() / (np.abs(wv).max() + 1e-6)
-        assert rel < 1e-3, (i, rel)
+    stage_matches_jax(rng, planes, lab, shapes, nh, ncls)
 
 
 def test_wrappers_take_the_plain_path_on_the_cpu(rng):

@@ -1,9 +1,11 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
-package: explicit JAX mode toggles, and JAX stage parameters in the port's
-layout."""
+package: explicit JAX mode toggles, JAX stage parameters in the port's
+layout, and the train-stage comparison with the JAX package."""
 
 import contextlib
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -11,14 +13,16 @@ from ssunet_gan_tpu.ops import stage_kernel as jax_stage_kernel
 from ssunet_gan_tpu.ops import stage_kernel_int8 as jax_stage_kernel_int8
 from ssunet_gan_tpu.ops import stage_kernel_train as jax_stage_kernel_train
 from ssunet_gan_tpu.ops import wminor as jax_wminor
+from ssunet_gan_tpu_torch.ops import stage_kernel_train as port_stage_kernel_train
 
 
 @contextlib.contextmanager
-def jax_toggles(fused_stage: bool, fused_train: bool = False):
+def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool = False):
     """Set every global mode of the JAX package that the port's tests
     reach, and restore the previous values after (another test in the same
     worker may leave, e.g., the upsample-backward decomposition on). The
-    train-stage backward is always the v2 one, the port's."""
+    train stage's backward is v2 unless ``train_bwd_v3``; a test holds the
+    port's backward of the same version against it."""
     saved = (
         jax_stage_kernel._FUSED_STAGE,
         jax_wminor._LAZY_UPSAMPLE,
@@ -34,7 +38,7 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False):
     jax_wminor.set_up_bwd_decomp(False)
     jax_stage_kernel_int8.set_int8_stage(False)
     jax_stage_kernel_train.set_fused_train(fused_train)
-    jax_stage_kernel_train.set_train_bwd_v3(False)
+    jax_stage_kernel_train.set_train_bwd_v3(train_bwd_v3)
     try:
         yield
     finally:
@@ -75,3 +79,105 @@ def randomize_batch_stats(variables, seed: int = 7):
 
     return {"params": walk(variables["params"]),
             "batch_stats": walk(variables["batch_stats"])}
+
+
+def wminor(x):
+    """NHWC numpy → the JAX kernels' (N, H, C, W) view."""
+    return jnp.swapaxes(jnp.asarray(x), 2, 3)
+
+
+def nhwc_of_wminor(v):
+    return np.swapaxes(np.asarray(v), 2, 3)
+
+
+def tensor(x) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32))
+
+
+def normal(rng, shape, scale=1.0):
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+def spade_weights(rng, planes, lab, nh):
+    """SPADE weights: HWIO for JAX, OIHW for the port."""
+    hwio = (normal(rng, (3, 3, planes, lab), 0.1), normal(rng, (lab,), 0.1),
+            normal(rng, (3, 3, lab, nh), 0.3), normal(rng, (nh,), 0.1),
+            normal(rng, (3, 3, nh, planes), 0.2), normal(rng, (planes,), 0.1),
+            normal(rng, (3, 3, nh, planes), 0.2), normal(rng, (planes,), 0.1))
+    return hwio, tuple(oihw(a) if a.ndim == 4 else vec(a) for a in hwio)
+
+
+# (planes, labels, part shapes, hidden, head classes) of the train-stage
+# tests (tests/test_train_kernel.py:48-50, :147)
+STAGES = [
+    (16, 3, [(2, 16, 16, 8)], 4, 0),
+    (16, 3, [(1, 16, 16, 8), (1, 16, 16, 16)], 4, 0),      # split-concat
+    (32, 2, [(2, 24, 16, 16)], 8, 0),
+    (16, 3, [(1, 16, 16, 8)], 4, 3),                       # folded head
+]
+
+
+def stage_bundle(rng, planes, shapes, lab, nh, ncls):
+    """Random raw train parameters: JAX (HWIO) and port (OIHW) forms."""
+    csum = sum(s[-1] for s in shapes)
+    bp = (normal(rng, (3, 3, csum, planes), 0.2),
+          ((rng.random(planes) + 0.5).astype(np.float32), normal(rng, (planes,), 0.2)),
+          normal(rng, (3, 3, planes, planes), 0.1),
+          ((rng.random(planes) + 0.5).astype(np.float32), normal(rng, (planes,), 0.2)),
+          normal(rng, (1, 1, csum, planes), 0.3))
+    sp, tsp = spade_weights(rng, planes, lab, nh)
+    head = thead = None
+    if ncls:
+        head = (normal(rng, (1, 1, planes, ncls), 0.3), normal(rng, (ncls,), 0.1))
+        thead = (oihw(head[0]), vec(head[1]))
+    k1, (g1, b1), k2, (g2, b2), ks = bp
+    tbp = (oihw(k1), (vec(g1), vec(b1)), oihw(k2), (vec(g2), vec(b2)), oihw(ks))
+    return bp, sp, head, tbp, tsp, thead
+
+
+def stage_matches_jax(rng, planes, lab, shapes, nh, ncls):
+    """The port's ``fused_train_stage`` against the JAX package's, each with
+    the backward its toggles select: forward and batch stats to rtol = atol
+    = 2e-4, every gradient to max |Δ| ≤ 1e-3 · max |JAX| (the JAX package's
+    own gradient bar)."""
+    xs = [normal(rng, s) for s in shapes]
+    bp, sp, head, tbp, tsp, thead = stage_bundle(rng, planes, shapes, lab, nh, ncls)
+    n, h, w = shapes[0][:3]
+    cot = normal(rng, (n, h, w, ncls or planes))
+
+    def jax_loss(parts, bp, sp, head):
+        out, stats = jax_stage_kernel_train.fused_train_stage(parts, bp, sp, head)
+        out = out if head is not None else jax_wminor.to_nhwc(out)
+        return jnp.sum(out * cot), (out, stats)
+
+    jparts = tuple(jnp.asarray(x) for x in xs)
+    jbp = jax.tree_util.tree_map(jnp.asarray, bp)
+    jsp = tuple(jnp.asarray(a) for a in sp)
+    jhead = None if head is None else tuple(jnp.asarray(a) for a in head)
+    argnums = (0, 1, 2) if head is None else (0, 1, 2, 3)
+    (_, (want_out, want_stats)), jgrads = jax.value_and_grad(
+        jax_loss, argnums=argnums, has_aux=True)(jparts, jbp, jsp, jhead)
+
+    parts = tuple(tensor(x).requires_grad_() for x in xs)
+    params = [t.requires_grad_() for t in
+              (tbp[0], *tbp[1], tbp[2], *tbp[3], tbp[4], *tsp, *(thead or ()))]
+    out, stats = port_stage_kernel_train.fused_train_stage(parts, tbp, tsp, thead)
+    grads = torch.autograd.grad((out * tensor(cot)).sum(), [*parts, *params])
+
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), rtol=2e-4, atol=2e-4)
+    for got_pair, want_pair in zip(stats, want_stats):
+        for g, wv in zip(got_pair, want_pair):
+            np.testing.assert_allclose(g.numpy(), np.asarray(wv), rtol=2e-4, atol=2e-4)
+
+    # JAX grads in the port's order and layout: parts, then the parameters
+    jg_parts, (gk1, (gg1, gb1), gk2, (gg2, gb2), gks), jg_sp = jgrads[:3]
+    want = list(jg_parts) + [gk1, gg1, gb1, gk2, gg2, gb2, gks] + list(jg_sp)
+    if head is not None:
+        want += list(jgrads[3])
+    assert len(want) == len(grads)
+    for i, (g, wv) in enumerate(zip(grads, want)):
+        wv = np.asarray(wv, np.float64)
+        if wv.ndim == 4 and g.dim() == 4 and i >= len(parts):
+            wv = oihw(wv).numpy()
+        rel = np.abs(g.double().numpy() - wv).max() / (np.abs(wv).max() + 1e-6)
+        assert rel < 1e-3, (i, rel)
