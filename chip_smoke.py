@@ -52,9 +52,28 @@ Phases, each of which exits non-zero on failure:
    sum) and timed against it, its bound and the library call; a profile of
    one v3 and one v2 step.
 
+7. int8 stages (phases 7 and 8 run after phase 3, before the train
+   phases): for the same six stage signatures at 512², batch 2, seeded
+   weights and scales, the int8 fused stage on the card against its plain
+   version with bf16 inputs (dynamic and static scales), with QTensor
+   inputs, with s8 emission, and conv0_1 with the folded head: h1 and y bit
+   for bit, outputs to phase 1's bar, emitted s8 equal on at least 99.9% of
+   the elements and never more than one step apart; the deep stages' s8
+   block through ``torch._int_mm`` against its f64 convs, sum for sum.
+8. int8 serving (the second serving path): the BN-calibrated model of phase
+   2 calibrated on the 8 seeded tiles, the scales installed, the int8 mode
+   on; the tile forward at batch 8 (tiles/s, six int8 kernel stages per
+   forward, a profile) and the 2048² scene request, through the same entry
+   points; logits, scene tile probabilities and masks against the int8
+   all-plain forward and the f32 all-plain forward by phase 2-3's bars, with
+   bf16's distances beside them; each int8 stage on the inputs those
+   forwards gave it (the model's weights; the scene chunk's batch 32, and
+   the tile forward's batch 8) against its plain version, and at batch 8
+   timed against it and its bound.
+
 Each phase prints its wall time. Prints a ``kernels`` JSON line (launches on the main paths — phases 2 and
-3 for the eval kernel, phase 6 for the train kernels, where wgrad, v2's
-alone, has none — error, time, plain time, bound, library time), and ends with ``{"ok": true, "device":
+3 for the eval kernel, phase 8 for the int8 eval kernel, phase 6 for the
+train kernels, where wgrad, v2's alone, has none — error, time, plain time, bound, library time), and ends with ``{"ok": true, "device":
 {...}}``. Every check that fails is printed and the run exits non-zero
 after the last phase. Needs no network; imports no JAX.
 """
@@ -99,7 +118,12 @@ MASK_AGREEMENT = 0.95
 MASK_SHARE = (0.01, 0.99)
 # H100 SXM peaks (NVIDIA data sheet): bf16 dense tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_S8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+# An emitted s8 stage output against the plain version's: equal on at least
+# S8_EQUAL of the elements, never more than one step apart (a 1-ulp flip of
+# the bf16 output next to a rounding boundary moves one step).
+S8_EQUAL = 0.999
 # Train kernels against their plain versions (phase 4): outputs as REL_TOL /
 # L2_TOL above (both sides round at the same places); the per-channel sums
 # of the rounded outputs within SUMS_TOL of the largest sum (plus SUMS_TOL;
@@ -226,7 +250,7 @@ def stage_bound_ms(parts, planes, labels, hidden, ncls, weight_bytes):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def module_stage(parts, block, spade, final=None):
+def module_stage(parts, block, spade, final=None, name=None, out_key=None):
     """One stage as the plain module composition (block, SPADE, final)."""
     y = block(parts)
     y = spade(y, y)
@@ -775,7 +799,7 @@ def train_phases(dev, cfg, card, sigs, check):
     fused_ids = {id(getattr(tmodel, s[0])): s[0] for s in sigs}
     seen = {}
 
-    def capturing_stage(parts, block, spade, final=None):
+    def capturing_stage(parts, block, spade, final=None, name=None, out_key=None):
         """The model's stage, recording each fused stage's inputs and the
         cotangent its output receives."""
         out = fused_stage(parts, block, spade, final)
@@ -914,6 +938,328 @@ def train_phases(dev, cfg, card, sigs, check):
     return counts, train_err, totals
 
 
+# ---------------------------------------------------------------------------
+# Eval forwards against the f32 all-plain forward (phases 2-3 and 8)
+# ---------------------------------------------------------------------------
+
+
+def forward_bar(what, kern, plain, ref, check):
+    """A forward's output on the kernels and on the plain versions against
+    the f32 all-plain forward: the kernel no further from f32 than
+    NOISE_RATIO x the plain path, kernel-plain closer than plain-f32
+    (relative L2). Returns (kernel-f32, plain-f32, kernel-plain)."""
+    mx = lambda u, v: (u.float() - v.float()).abs().max().item()
+    e_k, e_p, e_kp = rel_l2(kern, ref), rel_l2(plain, ref), rel_l2(kern, plain)
+    print(f"{what}: rel_l2 kernel-f32 {e_k:.4g}, plain-f32 {e_p:.4g}, kernel-plain "
+          f"{e_kp:.4g}; max_abs kernel-f32 {mx(kern, ref):.4g}, plain-f32 "
+          f"{mx(plain, ref):.4g}, kernel-plain {mx(kern, plain):.4g} "
+          f"(max|f32| {ref.float().abs().max().item():.4g}, "
+          f"mean|f32| {ref.float().abs().mean().item():.4g})")
+    check(bool(torch.isfinite(kern.float()).all()) and kern.shape == ref.shape,
+          f"{what}: not finite or shape {tuple(kern.shape)} != {tuple(ref.shape)}")
+    check(e_k <= NOISE_RATIO * e_p, f"{what}: kernel-f32 {e_k} > {NOISE_RATIO} x plain-f32 {e_p}")
+    check(e_kp <= e_p, f"{what}: kernel-plain {e_kp} > plain-f32 {e_p}")
+    return e_k, e_p, e_kp
+
+
+def mask_bars(what, masks, plain_masks, f32_masks, check):
+    """Scene masks on the kernels, on the plain versions and in f32: the
+    shares of pixels on which they agree, held to the bars at the top.
+    Returns (kernel-plain, kernel-f32, plain-f32)."""
+    agree = lambda ms1, ms2: float(np.mean([np.mean(u == v) for u, v in zip(ms1, ms2)]))
+    agree_kp, agree_kf, agree_pf = (agree(masks, plain_masks), agree(masks, f32_masks),
+                                    agree(plain_masks, f32_masks))
+    shares = [float((m > 0).mean()) for m in f32_masks]
+    print(f"{what}: masks agree kernel-plain {agree_kp:.6f}, kernel-f32 {agree_kf:.6f}, "
+          f"plain-f32 {agree_pf:.6f} of pixels; f32 positive shares "
+          f"{[round(v, 4) for v in shares]}")
+    check(agree_kp >= max(MASK_AGREEMENT, agree_pf),
+          f"{what}: masks kernel-plain agree on {agree_kp} < max({MASK_AGREEMENT}, "
+          f"plain-f32 {agree_pf})")
+    check(agree_kf >= agree_pf - MASK_SLACK,
+          f"{what}: masks kernel-f32 {agree_kf} < plain-f32 {agree_pf} - {MASK_SLACK}")
+    check(all(MASK_SHARE[0] <= v <= MASK_SHARE[1] for v in shares),
+          f"{what}: the f32 masks are near-constant ({shares}); the mask check has no power")
+    return agree_kp, agree_kf, agree_pf
+
+
+def check_masks(masks, what):
+    for m in masks:
+        if m.shape != (2048, 2048) or not set(np.unique(m)) <= {0, 255}:
+            fail(f"{what}: bad mask: shape {m.shape}, values {np.unique(m)[:8]}")
+
+
+# ---------------------------------------------------------------------------
+# int8 eval path (phases 7-8)
+# ---------------------------------------------------------------------------
+
+
+def int8_stage_agrees(what, parts, bp, sp, head, check, **kw) -> float:
+    """One int8 stage call on the card against its plain version: h1 and y
+    bit for bit; the output to phase 1's bar, or (a QTensor) its s8 values
+    to S8_EQUAL. Returns the output's max abs error (dequantized for s8)."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
+
+    got, h1, y = q8.fused_eval_stage_int8(parts, bp, sp, head, intermediates=True, **kw)
+    torch.cuda.synchronize()
+    want, w_h1, w_y = q8.int8_stage_reference(parts, bp, sp, head, intermediates=True, **kw)
+    exact = torch.equal(h1, w_h1), torch.equal(y, w_y)
+    check(all(exact), f"{what}: h1 / y equal the plain version's: {exact}")
+    if isinstance(want, q8.QTensor):
+        d = (got.q.int() - want.q.int()).abs()
+        far, same = d.max().item(), (d == 0).float().mean().item()
+        ok = (isinstance(got, q8.QTensor) and got.scale == want.scale and far <= 1
+              and same >= S8_EQUAL)
+        print(f"{what} h1,y exact {all(exact)}; s8 out equal on {same:.6f}, at most {far} "
+              f"steps apart (scale {want.scale:.5g})")
+        check(ok, f"{what}: emitted s8 equal on {same}, up to {far} steps apart")
+        return far * want.scale
+    err, scale, l2, ok = close(got, want)
+    print(f"{what} h1,y exact {all(exact)}; max_abs_err={err:.4g} rel_l2={l2:.3g} "
+          f"(max|plain|={scale:.4g})")
+    check(ok and got.shape == want.shape, f"{what}: kernel disagrees with plain "
+          f"(err {err}, max {scale}, l2 {l2})")
+    return err
+
+
+def int8_stage_phase(dev, sigs, check) -> float:
+    """Phase 7; returns the largest output error of the int8 stage calls."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
+    from ssunet_gan_tpu_torch.ops.blocks import BasicBlock
+    from ssunet_gan_tpu_torch.ops.conv import Conv2d
+    from ssunet_gan_tpu_torch.ops.norm import BatchNorm
+    from ssunet_gan_tpu_torch.ops.spade import SPADE
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    worst = 0.0
+    for name, chans, planes, lab, nh, head_cls, level in sigs:
+        block = BasicBlock(sum(chans), planes, generator=gen)
+        for m in block.modules():
+            if isinstance(m, BatchNorm):
+                m.running_var.copy_(torch.rand(planes, generator=gen) + 0.5)
+                m.running_mean.copy_(torch.randn(planes, generator=gen) * 0.3)
+        spade = SPADE("spadebatch3x3", planes, lab, planes / 16, generator=gen)
+        head = None
+        if head_cls:
+            final = Conv2d(planes, head_cls, 1, generator=gen).to(dev)
+            head = (final.weight, final.bias)
+        block.to(dev).eval()
+        spade.to(dev)
+        bp, sp = block.stage_params(), spade.stage_params()
+        side = HW >> level
+        parts = tuple(torch.randn((2, side, side, c), generator=gen).to(dev, torch.bfloat16)
+                      for c in chans)
+        what = f"phase 7: {name} parts={chans} planes={planes} {side}x{side}"
+        worst = max(worst, int8_stage_agrees(f"{what} dynamic", parts, bp, sp, head, check))
+        # static scales a little inside the data's range, so some values saturate
+        scales = {f"{name}:{i}": 0.9 * p.float().abs().max().item() for i, p in enumerate(parts)}
+        q8.set_int8_calibration(scales)
+        try:
+            worst = max(worst, int8_stage_agrees(f"{what} static", parts, bp, sp, head, check,
+                                                 calib_key=name))
+            qparts = tuple(q8.QTensor(q8.quantize_tensor(p, scales[f"{name}:{i}"])[0],
+                                      scales[f"{name}:{i}"] / 127.0, torch.bfloat16)
+                           for i, p in enumerate(parts))
+            worst = max(worst, int8_stage_agrees(f"{what} QTensor inputs", qparts, bp, sp, head,
+                                                 check, calib_key=name))
+            if not head_cls:
+                amax = q8.int8_stage_reference(qparts, bp, sp).float().abs().max().item()
+                worst = max(worst, int8_stage_agrees(
+                    f"{what} QTensor inputs, s8 out", qparts, bp, sp, head, check,
+                    calib_key=name, out_abs_max=0.95 * amax))
+        finally:
+            q8.set_int8_calibration(None)
+        del parts, qparts, block, spade
+    # the deep stages' s8 block: its integer convs through the library call
+    # against the f64 convs, at the widths of conv3_1 (level 3, batch 8)
+    qs = tuple(torch.randint(-127, 128, (BATCH, 64, 64, 384), generator=gen).to(dev, torch.int8)
+               for _ in range(2))
+    ws = tuple(torch.randint(-127, 128, (384, 384, 3, 3), generator=gen).to(dev, torch.int8)
+               for _ in qs)
+    same = torch.equal(q8.int_conv(qs, ws, 1, library=True), q8.int_conv(qs, ws, 1))
+    print(f"phase 7: deep s8 block, torch._int_mm sums equal the f64 convs': {same}")
+    check(same, "phase 7: the deep block's library sums differ from the f64 convs'")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def int8_stage_bound_ms(parts, planes, labels, hidden, ncls, out_bytes, weight_bytes):
+    """Least time for one int8 stage call: its s8 multiply-adds (conv1,
+    conv2, shortcut) at the s8 tensor-core peak plus the tail's at the bf16
+    peak, or its bytes (each part as it arrives, s8 or bf16, and the weights
+    read once, the output written once) over HBM bandwidth."""
+    n, h, w = parts[0].shape[:3]
+    cin = sum(p.shape[-1] for p in parts)
+    s8_macs = 9 * cin * planes + 9 * planes * planes + cin * planes
+    tail_macs = 9 * planes * labels + 9 * labels * hidden + 9 * hidden * 2 * planes + planes * ncls
+    t_ops = 2.0 * n * h * w * (s8_macs / PEAK_S8_OPS + tail_macs / PEAK_BF16_FLOPS)
+    in_bytes = sum(int(np.prod(p.shape)) * (1 if hasattr(p, "q") else 2) for p in parts)
+    t_bytes = (in_bytes + weight_bytes + out_bytes) / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, config,
+                       f32, bf16):
+    """Phase 8. ``f32``: the f32 all-plain (logits, tile probabilities,
+    masks); ``bf16``: the bf16 kernel path's numbers of phases 2-3 for the
+    side-by-side lines. Returns kernel 7's row of the ``kernels`` line
+    (without its max_abs_err)."""
+    from ssunet_gan_tpu_torch.infer.api import (
+        _chunked_forward,
+        _norm_consts,
+        segmentation_inference,
+        tile_forward,
+    )
+    from ssunet_gan_tpu_torch.infer.calibrate import calibrate_int8
+    from ssunet_gan_tpu_torch.models import ssunet
+    from ssunet_gan_tpu_torch.ops import stage_kernel, stage_kernel_int8 as q8
+
+    t_phase = time.perf_counter()
+    a, b = _norm_consts()
+    xn = x.float() * a.to(dev) + b.to(dev)
+    scales = calibrate_int8(model, xn.cpu().numpy(), batch_size=BATCH, device=dev)
+    print(f"phase 8: {len(scales)} recorded ranges: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in sorted(scales.items())))
+    check(len(scales) == 18 and all(np.isfinite(v) and v > 0 for v in scales.values()),
+          f"phase 8: expected 18 finite positive ranges, got {scales}")
+    q8.set_int8_stage(True)
+    try:
+        # the main path: counts to 0, the tile forward, the scene request
+        q8.launches = 0
+        bf16_before = stage_kernel.launches
+        warm, iters = 2, 5
+        for _ in range(warm):
+            probs = tile_forward(model, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            probs = tile_forward(model, x)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if q8.launches != 6 * (warm + iters) or stage_kernel.launches != bf16_before:
+            fail(f"phase 8: expected {6 * (warm + iters)} int8 kernel stages and no bf16 one, "
+                 f"counted {q8.launches} and {stage_kernel.launches - bf16_before}")
+        if not torch.isfinite(probs.float()).all() or probs.shape != (BATCH, HW, HW, model.num_classes):
+            fail("phase 8: int8 tile forward output is not finite or has the wrong shape")
+        tiles_per_s = BATCH * iters / dt
+        print(f"phase 8: flagship int8 tile forward {tiles_per_s:.2f} tiles/s (512x512, "
+              f"calibrated int8 stages, bf16 activations, batch {BATCH}, "
+              f"{dt / iters * 1e3:.2f} ms/forward) on {card}; bf16 in this run "
+              f"{bf16['tiles_per_s']:.2f} tiles/s")
+        t0 = time.perf_counter()
+        masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False)
+        scene_s = time.perf_counter() - t0
+        launches = q8.launches
+        if launches != 6 * (warm + iters) + 12:
+            fail(f"phase 8: the scene request ran {launches - 6 * (warm + iters)} int8 kernel "
+                 f"stages, expected 12")
+        check_masks(masks, "phase 8")
+        print(f"phase 8: scene 2048x2048 -> {len(masks)} masks in {scene_s:.3f} s (36 tiles, "
+              f"int8) on {card}; bf16 in this run {bf16['scene_s']:.3f} s; positive share "
+              f"{[round(float((m > 0).mean()), 4) for m in masks]}")
+        t_phase = phase_done("phase 8 main path", t_phase)
+
+        # comparisons, after the counts were read: the same forwards with
+        # every int8 stage on its plain version, and each stage's inputs kept
+        sink = None  # the list that keeps each stage call of one plain forward, or None
+
+        def plain_int8(parts, bp, sp, head=None, calib_key=None, out_abs_max=None, packed=None):
+            if sink is not None and len(sink) < len(sigs):
+                sink.append((parts, bp, sp, head, calib_key, out_abs_max))
+            return q8.int8_stage_reference(parts, bp, sp, head, calib_key, out_abs_max)
+
+        with torch.no_grad():
+            logits_k = model(xn.to(torch.bfloat16))
+        probs_k = _chunked_forward(model, scene_tiles)
+        kernel_stage = ssunet.fused_eval_stage_int8
+        ssunet.fused_eval_stage_int8 = plain_int8
+        try:
+            sink = captured = []  # the tile forward's batch
+            with torch.no_grad():
+                logits_p = model(xn.to(torch.bfloat16))
+            sink = captured_scene = []  # the scene request's first chunk, INFER_BATCH tiles
+            probs_p = _chunked_forward(model, scene_tiles)
+            sink = None
+            plain_masks, _ = segmentation_inference(model, scene, scene_tiles, None, config,
+                                                    False)
+        finally:
+            ssunet.fused_eval_stage_int8 = kernel_stage
+        logits_f, probs_f, f32_masks = f32
+        e_k, e_p, _ = forward_bar("phase 8: int8 logits", logits_k, logits_p, logits_f, check)
+        pe_k, pe_p, _ = forward_bar("phase 8: int8 scene tile probabilities", probs_k, probs_p,
+                                    probs_f, check)
+        _, agree_kf, agree_pf = mask_bars("phase 8: int8", masks, plain_masks, f32_masks, check)
+        print(f"phase 8: distance from the f32 all-plain forward, int8 | bf16 (kernel paths): "
+              f"logits rel_l2 {e_k:.4g} | {bf16['logits']:.4g}; scene tile probabilities "
+              f"{pe_k:.4g} | {bf16['probs']:.4g}; masks agree {agree_kf:.6f} | "
+              f"{bf16['masks']:.6f} (int8 plain: logits {e_p:.4g}, probabilities {pe_p:.4g}, "
+              f"masks {agree_pf:.6f})")
+        del logits_k, logits_p, probs_k, probs_p
+        t_phase = phase_done("phase 8 comparisons", t_phase)
+
+        # each int8 stage on the inputs the forward gave it (model weights,
+        # batch 8): against plain, and timed against plain and its bound
+        for calls in (captured, captured_scene):
+            if [s[0] for s in sigs] != [c[4] for c in calls]:
+                fail(f"phase 8: the int8 forward's fused stages are {[c[4] for c in calls]}")
+        for parts, bp, sp, head, calib_key, out_amax in captured_scene:
+            what = (f"phase 8: {calib_key} batch {parts[0].shape[0]} (scene chunk) model weights, "
+                    f"{'s8' if out_amax is not None else 'bf16'} out")
+            int8_stage_agrees(what, parts, bp, sp, head, check, calib_key=calib_key,
+                              out_abs_max=out_amax)
+        del captured_scene
+        ms_sum = plain_sum = bound_sum = 0.0
+        kinds = set()
+        for (name, chans, planes, lab, nh, head_cls, level), call in zip(sigs, captured):
+            parts, bp, sp, head, calib_key, out_amax = call
+            kw = dict(calib_key=calib_key, out_abs_max=out_amax)
+            forms = ["s8" if isinstance(p, q8.QTensor) else "bf16" for p in parts]
+            what = (f"phase 8: {name} batch {BATCH} model weights, parts {forms}, "
+                    f"{'s8' if out_amax is not None else 'bf16'} out")
+            int8_stage_agrees(what, parts, bp, sp, head, check, **kw)
+            block, spade = getattr(model, name), getattr(model, "SPADE" + name[4:])
+            final = model.final if head_cls else None
+            packed = ssunet._stage_operands(parts, block, spade, final, int8=True)[3]
+            run = lambda: q8.fused_eval_stage_int8(parts, bp, sp, head, packed=packed, **kw)
+            ref = lambda: q8.int8_stage_reference(parts, bp, sp, head, **kw)
+            ms = cuda_ms(run, 10)
+            plain_ms = cuda_ms(ref, 1, warmup=1)
+            side = HW >> level
+            wbytes = sum(t.numel() for t in (bp[0], bp[2], bp[4])) + 5 * 4 * planes
+            wbytes += sum(t.numel() * 4 for t in sp)
+            out_bytes = BATCH * side * side * ((head_cls or planes) * (1 if out_amax else 2))
+            bound, kind = int8_stage_bound_ms(parts, planes, lab, nh, head_cls, out_bytes, wbytes)
+            kinds.add(kind)
+            ms_sum, plain_sum, bound_sum = ms_sum + ms, plain_sum + plain_ms, bound_sum + bound
+            row = dict(stage=name, shape=[BATCH, side, side, sum(chans)], planes=planes,
+                       parts=forms, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=kind)
+            print("int8 stage:", json.dumps(row))
+        del captured
+        t_phase = phase_done("phase 8 per-stage checks and timing", t_phase)
+
+        # where one int8 tile forward's device time goes
+        n_prof = 3
+        busy, wall_ms, rows = profile_kernels(lambda: tile_forward(model, x), n_prof)
+        untraced_ms = dt / iters * 1e3
+        print(f"profile: per int8 forward (batch {BATCH}, mean of {n_prof}): device busy "
+              f"{busy:.3f} ms, {sum(r[1] for r in rows)} kernels; {wall_ms:.3f} ms wall under "
+              f"the profiler (idle share {max(0.0, 1 - busy / wall_ms):.3f}), "
+              f"{untraced_ms:.3f} ms untraced (idle share "
+              f"{max(0.0, 1 - busy / untraced_ms):.3f})")
+        for ms, count, key in rows[:14]:
+            print(f"profile: int8 {ms:9.3f} ms {count:4d}x {key[:90]}")
+        phase_done("phase 8 profile", t_phase)
+    finally:
+        q8.set_int8_stage(False)
+        q8.set_int8_calibration(None)
+    return {
+        "name": "fused_eval_stage_int8", "route": "cuda",
+        "source": f"ssunet_gan_tpu_torch/csrc/{q8.SOURCE}", "replaces": q8.REPLACES,
+        "launches": launches, "ms": ms_sum, "plain_ms": plain_sum, "bound_ms": bound_sum,
+        "bound_by": "operations" if "operations" in kinds else "bytes", "library_ms": None,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
@@ -929,7 +1275,12 @@ def main() -> int:
         tile_forward,
     )
     from ssunet_gan_tpu_torch.models import build_model, ssunet
-    from ssunet_gan_tpu_torch.ops import stage_kernel, stage_kernel_train, train_bwd
+    from ssunet_gan_tpu_torch.ops import (
+        stage_kernel,
+        stage_kernel_int8,
+        stage_kernel_train,
+        train_bwd,
+    )
     from ssunet_gan_tpu_torch.ops.blocks import BasicBlock
     from ssunet_gan_tpu_torch.ops.conv import Conv2d
     from ssunet_gan_tpu_torch.ops.norm import BatchNorm
@@ -967,7 +1318,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    sources = (stage_kernel.SOURCE, stage_kernel_train.SOURCE, train_bwd.SOURCE)
+    sources = (stage_kernel.SOURCE, stage_kernel_train.SOURCE, train_bwd.SOURCE,
+               stage_kernel_int8.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         list(pool.map(_build.build, sources))
     print(f"phase 0: kernels built in {time.perf_counter() - t0:.2f} s")
@@ -1109,9 +1461,7 @@ def main() -> int:
     launches = stage_kernel.launches
     if scene_launches != 6 * 2:
         fail(f"scene request ran {scene_launches} kernel stages, expected 12")
-    for m in masks:
-        if m.shape != (2048, 2048) or not set(np.unique(m)) <= {0, 255}:
-            fail(f"bad mask: shape {m.shape}, values {np.unique(m)[:8]}")
+    check_masks(masks, "phase 3")
     print(f"phase 3: scene 2048x2048 -> {len(masks)} masks in {scene_s:.3f} s "
           f"(36 tiles, bf16) on {card}; positive share "
           f"{[round(float((m > 0).mean()), 4) for m in masks]}")
@@ -1140,36 +1490,10 @@ def main() -> int:
         f32_masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False,
                                               dtype=torch.float32)
 
-    def against_f32(what, kern, plain, ref):
-        rel = lambda u, v: ((u.float() - v.float()).norm() / v.float().norm()).item()
-        mx = lambda u, v: (u.float() - v.float()).abs().max().item()
-        e_k, e_p, e_kp = rel(kern, ref), rel(plain, ref), rel(kern, plain)
-        print(f"{what}: rel_l2 kernel-f32 {e_k:.4g}, plain-f32 {e_p:.4g}, kernel-plain "
-              f"{e_kp:.4g}; max_abs kernel-f32 {mx(kern, ref):.4g}, plain-f32 "
-              f"{mx(plain, ref):.4g}, kernel-plain {mx(kern, plain):.4g} "
-              f"(max|f32| {ref.float().abs().max().item():.4g}, "
-              f"mean|f32| {ref.float().abs().mean().item():.4g})")
-        check(bool(torch.isfinite(kern.float()).all()) and kern.shape == ref.shape,
-              f"{what}: not finite or shape {tuple(kern.shape)} != {tuple(ref.shape)}")
-        check(e_k <= NOISE_RATIO * e_p, f"{what}: kernel-f32 {e_k} > {NOISE_RATIO} x plain-f32 {e_p}")
-        check(e_kp <= e_p, f"{what}: kernel-plain {e_kp} > plain-f32 {e_p}")
-
-    against_f32("phase 2: logits", logits_k, logits_p, logits_f)
-    against_f32("phase 3: scene tile probabilities", probs_k, probs_p, probs_f)
-    agree = lambda ms1, ms2: float(np.mean([np.mean(u == v) for u, v in zip(ms1, ms2)]))
-    agree_kp, agree_kf, agree_pf = (agree(masks, plain_masks), agree(masks, f32_masks),
-                                    agree(plain_masks, f32_masks))
-    shares = [float((m > 0).mean()) for m in f32_masks]
-    print(f"phase 3: masks agree kernel-plain {agree_kp:.6f}, kernel-f32 {agree_kf:.6f}, "
-          f"plain-f32 {agree_pf:.6f} of pixels; f32 positive shares "
-          f"{[round(v, 4) for v in shares]}")
-    check(agree_kp >= max(MASK_AGREEMENT, agree_pf),
-          f"scene masks kernel-plain agree on {agree_kp} < max({MASK_AGREEMENT}, "
-          f"plain-f32 {agree_pf})")
-    check(agree_kf >= agree_pf - MASK_SLACK,
-          f"scene masks kernel-f32 {agree_kf} < plain-f32 {agree_pf} - {MASK_SLACK}")
-    check(all(MASK_SHARE[0] <= v <= MASK_SHARE[1] for v in shares),
-          f"the f32 masks are near-constant ({shares}); the mask check has no power")
+    e_logits = forward_bar("phase 2: logits", logits_k, logits_p, logits_f, check)[0]
+    e_probs = forward_bar("phase 3: scene tile probabilities", probs_k, probs_p, probs_f,
+                          check)[0]
+    agree_kf = mask_bars("phase 3", masks, plain_masks, f32_masks, check)[1]
     # where one tile forward's device time goes (torch.profiler, by kernel)
     tile_forward(model, x)  # the f32 comparisons left f32 operands kept; repack once
     n_prof = 3
@@ -1190,17 +1514,28 @@ def main() -> int:
         "bound_by": "operations" if "operations" in bound_kinds else "bytes",
         "library_ms": None,
     }
-    del model, x, logits_probs, logits_k, logits_p, logits_f, probs_k, probs_p, probs_f, xn
+    del logits_probs, logits_k, logits_p, probs_k, probs_p, xn
     torch.cuda.empty_cache()
+    t_phase = phase_done("phases 2-3 comparisons and profile", t_phase)
 
-    phase_done("phases 2-3 comparisons and profile", t_phase)
+    # ---- phases 7-8: the int8 stages, then int8 serving (the second main path)
+    int8_err = int8_stage_phase(dev, sigs, check)
+    phase_done("phase 7", t_phase)
+    int8_row = int8_serving_phase(
+        dev, card, model, sigs, check, x, scene, scene_tiles, config,
+        f32=(logits_f, probs_f, f32_masks),
+        bf16=dict(tiles_per_s=tiles_per_s, scene_s=scene_s, logits=e_logits, probs=e_probs,
+                  masks=agree_kf))
+    int8_row["max_abs_err"] = int8_err
+    del model, x, logits_f, probs_f, f32_masks
+    torch.cuda.empty_cache()
 
     counts, train_err, totals = train_phases(dev, cfg, card, sigs, check)
 
     if failures:
         fail(f"{len(failures)} checks failed: " + "; ".join(failures[:20]))
 
-    kernels = [eval_row] + [{
+    kernels = [eval_row, int8_row] + [{
         "name": kname, "route": "cuda",
         "source": f"ssunet_gan_tpu_torch/csrc/{kernel_module(kname).SOURCE}",
         "replaces": kernel_module(kname).REPLACES[kname],

@@ -4,7 +4,9 @@ This first slice serves the flagship ``UNet_R_SS_v2``: the eval tile
 forward and whole-scene sliding-window inference with merged masks. The
 six shallow [BasicBlock + self-SPADE] stages run on a hand-written CUDA
 kernel (``ops/stage_kernel.py``, ``csrc/fused_stage.cu``); everything else
-is plain PyTorch.
+is plain PyTorch. The package also trains it (``ops/stage_kernel_train.py``,
+``ops/train_bwd.py``) and serves it through calibrated int8 stages
+(``ops/stage_kernel_int8.py``, ``infer/calibrate.py``).
 
 Tensors at the public functions are NHWC, as in the JAX package, and
 parameters carry the reference's torch module names (OIHW weights), so a

@@ -597,6 +597,8 @@ struct TailArgs {
   const float* bf;   // [ncls]
   int ncls;
   bf16* out;         // [n, h, w, c] or [n, h, w, ncls]
+  signed char* out_q;  // [n, h, w, c] s8: clip(round(out * q_inv)) instead of out, or null
+  float q_inv;
   bf16* seg_out;     // [n, h, w, lab] or null
   bf16* act_out;     // [n, h, w, nh] or null
 };
@@ -776,7 +778,6 @@ spade_tail_kernel(const TailArgs a) {
     }
     if (!valid) continue;
     const uint4* yp = reinterpret_cast<const uint4*>(a.y + pix * C + c0);
-    uint4* op = reinterpret_cast<uint4*>(a.out + pix * C + c0);
 #pragma unroll
     for (int q = 0; q < GB_CC / 8; ++q) {
       float yv[8];
@@ -795,9 +796,25 @@ spade_tail_kernel(const TailArgs a) {
 #pragma unroll
           for (int k = 0; k < MAX_CLS; ++k)
             if (k < a.ncls) lg[k] += o[j] * kfbuf[(8 * q + j) * a.ncls + k];
+      } else if (a.out_q != nullptr) {
+        // the stage output as s8 at the calibrated output scale (round
+        // half to even of the bf16 value times the inverse scale)
+        uint32_t w2[2];
+#pragma unroll
+        for (int hq = 0; hq < 2; ++hq) {
+          uint32_t v = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float r = fminf(fmaxf(rintf(__fmul_rn(o[4 * hq + j], a.q_inv)), -127.f), 127.f);
+            v |= ((uint32_t)(uint8_t)(signed char)(int)r) << (8 * j);
+          }
+          w2[hq] = v;
+        }
+        *reinterpret_cast<uint2*>(a.out_q + pix * C + c0 + 8 * q) = make_uint2(w2[0], w2[1]);
       } else {
-        op[q] = make_uint4(pack2(o[0], o[1]), pack2(o[2], o[3]),
-                           pack2(o[4], o[5]), pack2(o[6], o[7]));
+        reinterpret_cast<uint4*>(a.out + pix * C + c0)[q] =
+            make_uint4(pack2(o[0], o[1]), pack2(o[2], o[3]), pack2(o[4], o[5]),
+                       pack2(o[6], o[7]));
       }
     }
   }
@@ -809,15 +826,19 @@ spade_tail_kernel(const TailArgs a) {
   }
 }
 
-// Validate and launch the tail; seg and act may be null (no saves).
-int launch_spade_tail(const void* y, int n, int h, int wd, int c, const void* k1s,
-                      const void* b1s, int lab, const void* k2s, const void* b2s,
-                      int nh, const void* kgb, const void* bgb, const void* kf,
-                      const void* bf, int ncls, void* out, void* seg, void* act,
-                      void* stream) {
+// Validate and launch the tail; seg and act may be null (no saves). With
+// out_q the stage output leaves as s8 (out is then unused and may be null;
+// no folded head).
+int launch_spade_tail_q(const void* y, int n, int h, int wd, int c, const void* k1s,
+                        const void* b1s, int lab, const void* k2s, const void* b2s,
+                        int nh, const void* kgb, const void* bgb, const void* kf,
+                        const void* bf, int ncls, void* out, void* out_q, float q_inv,
+                        void* seg, void* act, void* stream) {
   if (c % GB_CC != 0 || lab < 1 || lab > MAX_LAB || nh < 1 || nh > MAX_NH ||
       (kf != nullptr && (ncls < 1 || ncls > MAX_CLS)) || n <= 0 || h <= 0 ||
-      wd <= 0 || (uintptr_t)y % 16 != 0 || (uintptr_t)out % 16 != 0)
+      wd <= 0 || (uintptr_t)y % 16 != 0 ||
+      (out_q != nullptr ? (kf != nullptr || (uintptr_t)out_q % 8 != 0)
+                        : (out == nullptr || (uintptr_t)out % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   TailArgs a;
   a.y = static_cast<const bf16*>(y);
@@ -836,6 +857,8 @@ int launch_spade_tail(const void* y, int n, int h, int wd, int c, const void* k1
   a.bf = static_cast<const float*>(bf);
   a.ncls = kf != nullptr ? ncls : 0;
   a.out = static_cast<bf16*>(out);
+  a.out_q = static_cast<signed char*>(out_q);
+  a.q_inv = q_inv;
   a.seg_out = static_cast<bf16*>(seg);
   a.act_out = static_cast<bf16*>(act);
   const size_t smem = tail_smem_bytes(lab, nh, a.ncls);
@@ -846,6 +869,15 @@ int launch_spade_tail(const void* y, int n, int h, int wd, int c, const void* k1
                   (unsigned)n);
   spade_tail_kernel<<<grid, TAIL_THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+int launch_spade_tail(const void* y, int n, int h, int wd, int c, const void* k1s,
+                      const void* b1s, int lab, const void* k2s, const void* b2s,
+                      int nh, const void* kgb, const void* bgb, const void* kf,
+                      const void* bf, int ncls, void* out, void* seg, void* act,
+                      void* stream) {
+  return launch_spade_tail_q(y, n, h, wd, c, k1s, b1s, lab, k2s, b2s, nh, kgb, bgb, kf, bf,
+                             ncls, out, nullptr, 0.f, seg, act, stream);
 }
 
 // Fill the sources of a conv or wgrad; returns the K they span, or -1.

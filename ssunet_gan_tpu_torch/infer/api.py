@@ -9,8 +9,13 @@ model card says (api:330), and tiles are divided by 255 once more after
 ``Normalize`` (api:362-367) — folded here, with ``Normalize``, into one
 per-channel affine applied to uint8 tiles on the device.
 
-Tile preparation (crop + 1024→512 resize, cv2 or the native tile server)
-and the ground-truth mask branch are not ported yet (ROADMAP.md).
+With the int8 mode on (:func:`configure_int8`, or
+:func:`ops.stage_kernel_int8.set_int8_stage`) the same entry points serve
+through the int8 stages, unchanged.
+
+Tile preparation (crop + 1024→512 resize, cv2 or the native tile server),
+model loading from a model card and the ground-truth mask branch are not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -25,6 +30,30 @@ from ssunet_gan_tpu_torch.data.tiling import grid_coords, merge_patches_device
 from ssunet_gan_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 
 INFER_BATCH = 32  # tiles per forward call
+
+
+def configure_int8(config: Dict, model_dir: Optional[str] = None) -> bool:
+    """Apply a model card's ``"int8"`` key (the JAX package's
+    ``infer/api.py:80-83, 129-138``): switch the int8 stage mode to it and,
+    when it is on and ``model_dir`` holds ``int8_scales.json``
+    (:mod:`infer.calibrate`), install those static scales; without the file
+    the int8 stages quantize dynamically. A card without the key changes
+    nothing. Returns whether the int8 mode is on."""
+    from ssunet_gan_tpu_torch.infer.calibrate import load_calibration
+    from ssunet_gan_tpu_torch.ops.stage_kernel_int8 import (
+        int8_stage_enabled,
+        set_int8_calibration,
+        set_int8_stage,
+    )
+
+    if "int8" in config:
+        set_int8_stage(bool(config["int8"]))
+        if config["int8"] and model_dir is not None:
+            scales = load_calibration(model_dir)
+            if scales is not None:
+                set_int8_calibration(scales)
+                print("=> int8 static calibration installed (%d ranges)" % len(scales))
+    return int8_stage_enabled()
 
 
 def effective_patch_size(h: int, w: int, p_size: int) -> int:

@@ -10,6 +10,12 @@ Gradients follow torch's (and the JAX package's custom VJPs): a pool sends
 each window's cotangent to its first-maximum corner alone, ties included
 (autograd of the ``torch.maximum`` chain would split a tie), and the
 unpool gathers that corner.
+
+A producer-quantized activation (:class:`ops.stage_kernel_int8.QTensor`)
+pools on its s8 payload and keeps its scale: max-pooling commutes with
+symmetric quantization (the JAX package's ``ops/wminor.py`` ``pool2x2``).
+Its codes are those of the s8 values, where ties are common and go to the
+first maximum as everywhere. The unpool takes plain tensors.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ssunet_gan_tpu_torch.ops.stage_kernel_int8 import QTensor
 
 
 def _quads(x: torch.Tensor):
@@ -90,16 +98,22 @@ def _needs_grad(t: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and t.requires_grad
 
 
-def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
-    """``nn.MaxPool2d(2, 2)`` on NHWC."""
+def max_pool_2x2(x):
+    """``nn.MaxPool2d(2, 2)`` on NHWC (a tensor or a QTensor)."""
+    if isinstance(x, QTensor):
+        return QTensor(max_pool_2x2(x.q), x.scale, x.dtype)
     if _needs_grad(x):
         return _MaxPool.apply(x)[0]
     a, b, c, d = _quads(x)
     return torch.maximum(torch.maximum(a, b), torch.maximum(c, d)).contiguous()
 
 
-def max_pool_2x2_with_indices(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``nn.MaxPool2d(2, 2, return_indices=True)`` → (pooled, int8 code)."""
+def max_pool_2x2_with_indices(x) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``nn.MaxPool2d(2, 2, return_indices=True)`` → (pooled, int8 code);
+    a QTensor pools to a QTensor."""
+    if isinstance(x, QTensor):
+        pooled, code = _pool(x.q)
+        return QTensor(pooled, x.scale, x.dtype), code
     return _MaxPool.apply(x) if _needs_grad(x) else _pool(x)
 
 

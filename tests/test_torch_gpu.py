@@ -1,6 +1,6 @@
-"""The port's CUDA fused-stage kernel against its plain PyTorch version, on
-the card. Every test here needs a CUDA card and skips without one; run them
-on the card with ``python -m pytest tests/test_torch_gpu.py --noconftest -q``
+"""The port's CUDA kernels (the fused eval stage, the train kernels, the int8
+fused stage) against their plain PyTorch versions, on the card. Every test
+here needs a CUDA card and skips without one; run them on the card with ``python -m pytest tests/test_torch_gpu.py --noconftest -q``
 (``tests/conftest.py`` imports JAX, which the card's machine lacks).
 
 Tolerance: both sides round h1, y, seg, act and γ|β to bf16 and differ
@@ -445,3 +445,155 @@ def test_v3_wrappers_refuse_float32():
         ttb.fused_conv3("seg", (x,), torch.zeros((3, 8, 3, 3), device=dev))
     with pytest.raises(TypeError):
         ttb.fused_wgrad("mlp", (x,), (x,))
+
+
+# ---------------------------------------------------------------------------
+# The int8 fused stage (ops/stage_kernel_int8.py): launches A and B sum s8
+# products exactly in s32 and repeat the plain version's f32 roundings, so
+# h1 and y must equal the plain version's bit for bit; the bf16 SPADE tail
+# keeps the tolerance above, and an emitted s8 output equals the plain
+# version's on >= 99.9% of the elements and is never more than one step off.
+# ---------------------------------------------------------------------------
+
+
+def _int8_stage(dev, chans, planes, labels, nhw, ncls, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    block = BasicBlock(sum(chans), planes, generator=gen)
+    _randomize_bn(block, gen)
+    spade = SPADE("spadebatch3x3", planes, labels, planes / 16, generator=gen)
+    head = None
+    if ncls:
+        final = Conv2d(planes, ncls, 1, generator=gen)
+        head = (final.weight.to(dev), final.bias.to(dev))
+    block.to(dev).eval()
+    spade.to(dev)
+    n, h, w = nhw
+    parts = tuple(torch.randn((n, h, w, c), generator=gen).to(dev, torch.bfloat16)
+                  for c in chans)
+    return parts, block.stage_params(), spade.stage_params(), head
+
+
+def _int8_both(parts, bp, sp, head, **kw):
+    from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
+
+    before = q8.launches
+    got = q8.fused_eval_stage_int8(parts, bp, sp, head, intermediates=True, **kw)
+    torch.cuda.synchronize()
+    assert q8.launches == before + 1
+    want = q8.int8_stage_reference(parts, bp, sp, head, intermediates=True, **kw)
+    assert torch.equal(got[1], want[1]), "h1 differs from the plain version"
+    assert torch.equal(got[2], want[2]), "y differs from the plain version"
+    return got[0], want[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "chans,planes,labels,nhw,ncls,th,mode",
+    [
+        ((3,), 64, 3, (2, 40, 36), 0, 8, "dynamic"),         # 3-channel first block, 5 bands
+        ((64,), 128, 3, (1, 32, 32), 0, None, "static"),     # encoder, one band
+        ((128, 128), 128, 3, (1, 24, 20), 0, 8, "qtensor"),  # decoder, QTensor parts, 3 bands
+        ((256, 256), 256, 3, (2, 16, 16), 0, None, "emit"),  # widest stage, s8 output
+        ((64, 128), 64, 3, (2, 48, 40), 3, 16, "dynamic"),   # folded head, 3 bands
+        ((32, 48), 64, 2, (1, 9, 13), 2, None, "static"),    # odd sizes, M tail < 128
+        ((64,), 128, 3, (2, 128, 16), 0, None, "emit"),      # two bands of 64, s8 output
+    ],
+)
+def test_int8_stage_kernel_matches_plain(chans, planes, labels, nhw, ncls, th, mode):
+    from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
+
+    dev = _card()
+    parts, bp, sp, head = _int8_stage(dev, chans, planes, labels, nhw, ncls)
+    kw = {"th": th}
+    try:
+        if mode == "static":
+            q8.set_int8_calibration({f"s:{i}": 2.5 for i in range(len(parts))})
+            kw["calib_key"] = "s"
+        if mode == "qtensor":
+            parts = tuple(q8.QTensor(q8.quantize_tensor(p, 3.0)[0], 3.0 / 127.0, torch.bfloat16)
+                          for p in parts)
+        if mode == "emit":
+            kw["out_abs_max"] = 6.0
+        got, want = _int8_both(parts, bp, sp, head, **kw)
+    finally:
+        q8.set_int8_calibration(None)
+    if mode == "emit":
+        assert got.scale == want.scale and got.q.dtype == torch.int8
+        d = (got.q.int() - want.q.int()).abs()
+        assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
+    else:
+        n, h, w = nhw
+        assert got.shape == want.shape == (n, h, w, ncls or planes)
+        errs, ok = _close(got, want)
+        assert ok, errs
+
+
+@pytest.mark.gpu
+def test_int8_stage_kernel_refuses_float32():
+    from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
+
+    dev = _card()
+    block = BasicBlock(64, 128).to(dev)
+    spade = SPADE("spadebatch3x3", 128, 3, 8.0).to(dev)
+    x = torch.zeros((1, 16, 16, 64), device=dev)
+    with pytest.raises(TypeError):
+        q8.fused_eval_stage_int8((x,), block.stage_params(), spade.stage_params())
+
+
+@pytest.mark.gpu
+def test_int8_block_library_route_is_exact():
+    """The deep block's integer convs through torch._int_mm equal the f64
+    convs, sum for sum."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(0)
+    qs = tuple(torch.randint(-127, 128, (2, 16, 16, c), generator=gen).to(dev, torch.int8)
+               for c in (384, 384))
+    ws = tuple(torch.randint(-127, 128, (512, 384, 3, 3), generator=gen).to(dev, torch.int8)
+               for _ in qs)
+    assert torch.equal(q8.int_conv(qs, ws, 1, library=True), q8.int_conv(qs, ws, 1))
+    w1 = tuple(w[:, :, :1, :1].contiguous() for w in ws)
+    assert torch.equal(q8.int_conv(qs, w1, 0, library=True), q8.int_conv(qs, w1, 0))
+
+
+@pytest.mark.gpu
+def test_int8_flagship_forward_kernel_matches_plain(monkeypatch):
+    """Full-width flagship at 64x64, calibrated int8: six int8 kernel stages
+    per forward and s8 between the encoder stages; the logits against the
+    same forward with every stage on the plain version and against f32, by
+    the bf16 forward's bar (the kernel no further from f32 than 1.25 times
+    the plain int8 forward, kernel and plain closer than plain and f32)."""
+    from ssunet_gan_tpu_torch.infer.calibrate import calibrate_int8
+    from ssunet_gan_tpu_torch.models import ssunet
+    from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
+
+    dev = _card()
+    model = build_model("UNet_R_SS_v2", 3, 3, seed=0, device=dev)
+    x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+    monkeypatch.setattr(ssunet, "fused_eval_stage",
+                        lambda parts, bp, sp, head=None, packed=None:
+                        stage_kernel.fused_stage_reference(parts, bp, sp, head))
+    try:
+        with torch.no_grad():
+            f32 = model(x)  # the all-plain f32 forward
+        calibrate_int8(model, x.cpu().numpy(), batch_size=2)
+        q8.set_int8_stage(True)
+        before = q8.launches
+        with torch.no_grad():
+            got = model(x.to(torch.bfloat16))
+        torch.cuda.synchronize()
+        assert q8.launches == before + 6
+        monkeypatch.setattr(
+            ssunet, "fused_eval_stage_int8",
+            lambda parts, bp, sp, head=None, calib_key=None, out_abs_max=None, packed=None:
+            q8.int8_stage_reference(parts, bp, sp, head, calib_key, out_abs_max))
+        with torch.no_grad():
+            plain = model(x.to(torch.bfloat16))
+    finally:
+        q8.set_int8_stage(False)
+        q8.set_int8_calibration(None)
+    rel = lambda u, v: ((u.float() - v.float()).norm() / v.float().norm()).item()
+    e_k, e_p, e_kp = rel(got, f32), rel(plain, f32), rel(got, plain)
+    assert torch.isfinite(got.float()).all() and got.shape == f32.shape
+    assert e_k <= 1.25 * e_p and e_kp <= e_p, (e_k, e_p, e_kp)

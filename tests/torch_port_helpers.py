@@ -17,12 +17,16 @@ from ssunet_gan_tpu_torch.ops import stage_kernel_train as port_stage_kernel_tra
 
 
 @contextlib.contextmanager
-def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool = False):
+def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool = False,
+                int8_stage: bool = False):
     """Set every global mode of the JAX package that the port's tests
     reach, and restore the previous values after (another test in the same
     worker may leave, e.g., the upsample-backward decomposition on). The
     train stage's backward is v2 unless ``train_bwd_v3``; a test holds the
-    port's backward of the same version against it."""
+    port's backward of the same version against it. ``int8_stage`` turns the
+    JAX package's int8 eval mode on; its calibration scales, record sink and
+    forced band height start cleared and are restored after, whatever the
+    test installed."""
     saved = (
         jax_stage_kernel._FUSED_STAGE,
         jax_wminor._LAZY_UPSAMPLE,
@@ -31,14 +35,20 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
         jax_stage_kernel_int8._INT8_STAGE,
         jax_stage_kernel_train._FUSED_TRAIN,
         jax_stage_kernel_train._TRAIN_BWD_V3,
+        jax_stage_kernel_int8._CALIB_SCALES,
+        jax_stage_kernel_int8._RECORD_SINK,
+        jax_stage_kernel._BAND_ROWS,
     )
     jax_stage_kernel.set_fused_stage(fused_stage)
     jax_wminor.set_lazy_upsample(False)
     jax_wminor.set_lazy_pool(False)
     jax_wminor.set_up_bwd_decomp(False)
-    jax_stage_kernel_int8.set_int8_stage(False)
+    jax_stage_kernel_int8.set_int8_stage(int8_stage)
     jax_stage_kernel_train.set_fused_train(fused_train)
     jax_stage_kernel_train.set_train_bwd_v3(train_bwd_v3)
+    jax_stage_kernel_int8.set_int8_calibration(None)
+    jax_stage_kernel_int8.set_record_sink(None)
+    jax_stage_kernel.set_band_rows(None)
     try:
         yield
     finally:
@@ -49,6 +59,9 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
         jax_stage_kernel_int8.set_int8_stage(saved[4])
         jax_stage_kernel_train.set_fused_train(saved[5])
         jax_stage_kernel_train.set_train_bwd_v3(saved[6])
+        jax_stage_kernel_int8.set_int8_calibration(saved[7])
+        jax_stage_kernel_int8.set_record_sink(saved[8])
+        jax_stage_kernel.set_band_rows(saved[9])
 
 
 def oihw(kernel_hwio) -> torch.Tensor:
