@@ -71,9 +71,34 @@ Phases, each of which exits non-zero on failure:
    the tile forward's batch 8) against its plain version, and at batch 8
    timed against it and its bound.
 
+9. Bottleneck stages (phases 9 and 10 run after phase 8): the fused
+   bottleneck stage on the card against its plain version for UNet_B_SS's
+   six fused-stage signatures and one identity-shortcut stage at 512²,
+   bf16, batch 2, seeded weights; then with the model's own weights on each
+   stage's own inputs at the scene request's batch 32, and each stage timed
+   at batch 8 against its plain version and its bound.
+10. UNet_B_SS serving (the third serving path): ``build_model("UNet_B_SS",
+   3)`` at full width with BN statistics calibrated as in phase 2, the tile
+   forward at batch 8 (tiles/s, six bottleneck kernel stages per forward, a
+   profile) and the 2048² scene request, through the same entry points;
+   logits, scene tile probabilities and masks against the all-plain
+   forwards in bf16 and f32 by phase 2-3's bars. Then UNet_R_SS at full
+   width: batch-8 tile forwards, six kernel stages of the BasicBlock eval
+   kernel per forward, logits to the same bar.
+11. The standalone self-SPADE (after phase 6): the fused self-SPADE stage
+   against its plain version on the six level-0-2 activation shapes of
+   UNet_B_SS (batch 2, seeded), and its backward against autograd of the
+   plain composition on the same inputs; UNet_B_SS's trainer at 512², batch
+   8, with ``set_fused_spade("pallas")``: 2 warm-up and 3 timed steps
+   through ``train_one_epoch`` (six kernel launches per step), 3 steps with
+   the mode off timed beside them; then each of one step's six calls on its
+   own inputs against plain, timed against plain and its bound. The mode is
+   restored after.
+
 Each phase prints its wall time. Prints a ``kernels`` JSON line (launches on the main paths — phases 2 and
 3 for the eval kernel, phase 8 for the int8 eval kernel, phase 6 for the
-train kernels, where wgrad, v2's alone, has none — error, time, plain time, bound, library time), and ends with ``{"ok": true, "device":
+train kernels, where wgrad, v2's alone, has none, phase 10 for the
+bottleneck kernel, phase 11's trainer for the self-SPADE kernel — error, time, plain time, bound, library time), and ends with ``{"ok": true, "device":
 {...}}``. Every check that fails is printed and the run exits non-zero
 after the last phase. Needs no network; imports no JAX.
 """
@@ -82,6 +107,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import os
 import subprocess
@@ -146,6 +172,9 @@ SUMS_TOL, WGRAD_L2_TOL = 1e-3, 1e-3
 GRAD_KP = 3.0
 TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS = 8, 2, 5
 V2_STEPS = 3  # the v2 backward's steps timed beside the main path (a record)
+# UNet_B_SS's trainer with the fused self-SPADE (phase 11): warm-up and timed
+# steps, and the steps with the mode off timed beside them
+SPADE_WARM, SPADE_STEPS, SPADE_OFF_STEPS = 2, 3, 3
 # the train kernels' wrappers: ops/stage_kernel_train.py (forward, v2
 # backward) and ops/train_bwd.py (v3 backward)
 TRAIN_KERNELS = ("conv_stats", "train_tail", "wgrad", "fused_conv3", "fused_wgrad")
@@ -207,6 +236,15 @@ def close(got: torch.Tensor, want: torch.Tensor):
     return err, scale, l2, ok and bool(torch.isfinite(got.float()).all())
 
 
+def settle() -> None:
+    """Before a timed region: collect Python garbage now and let the card
+    drain. A full collection that falls inside a timed loop stalls the host
+    (measured: one forward's enqueue 387 ms instead of ~50, after the
+    profiler's event objects of earlier phases became garbage)."""
+    gc.collect()
+    torch.cuda.synchronize()
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -258,17 +296,31 @@ def module_stage(parts, block, spade, final=None, name=None, out_key=None):
 
 
 @contextlib.contextmanager
+def patched(module, name, fn):
+    """``module.name`` set to ``fn`` while active."""
+    orig = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield orig
+    finally:
+        setattr(module, name, orig)
+
+
+def random_bn_stats(module, gen) -> None:
+    from ssunet_gan_tpu_torch.ops.norm import BatchNorm
+
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.running_var.copy_(torch.rand(m.running_var.shape, generator=gen) + 0.5)
+            m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=gen) * 0.3)
+
+
 def spade_stages_as(fn):
     """Route the model's stages (models/ssunet.py ``spade_stage``) to ``fn``
     while active."""
     from ssunet_gan_tpu_torch.models import ssunet
 
-    orig = ssunet.spade_stage
-    ssunet.spade_stage = fn
-    try:
-        yield orig
-    finally:
-        ssunet.spade_stage = orig
+    return patched(ssunet, "spade_stage", fn)
 
 
 def calibrate_batchnorm(model, x) -> None:
@@ -868,6 +920,7 @@ def train_phases(dev, cfg, card, sigs, check):
     check(read_launches() == {k: TRAIN_WARM * v for k, v in per_step.items()},
           f"phase 6: launches in {TRAIN_WARM} warm-up steps {read_launches()} != "
           f"{TRAIN_WARM} x {per_step}")
+    settle()
     t1 = time.perf_counter()
     log = train_one_epoch(1, cfg, loader(TRAIN_STEPS, seed=2), step, lr, device=dev)
     torch.cuda.synchronize()
@@ -896,6 +949,7 @@ def train_phases(dev, cfg, card, sigs, check):
     with train_backward("v2"):
         reset_launches()
         train_one_epoch(0, cfg, loader(1, seed=4), step, lr, device=dev)
+        settle()
         t1 = time.perf_counter()
         v2_log = train_one_epoch(1, cfg, loader(V2_STEPS, seed=5), step, lr, device=dev)
         torch.cuda.synchronize()
@@ -1027,17 +1081,13 @@ def int8_stage_phase(dev, sigs, check) -> float:
     from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
     from ssunet_gan_tpu_torch.ops.blocks import BasicBlock
     from ssunet_gan_tpu_torch.ops.conv import Conv2d
-    from ssunet_gan_tpu_torch.ops.norm import BatchNorm
     from ssunet_gan_tpu_torch.ops.spade import SPADE
 
     gen = torch.Generator().manual_seed(SEED + 20)
     worst = 0.0
     for name, chans, planes, lab, nh, head_cls, level in sigs:
         block = BasicBlock(sum(chans), planes, generator=gen)
-        for m in block.modules():
-            if isinstance(m, BatchNorm):
-                m.running_var.copy_(torch.rand(planes, generator=gen) + 0.5)
-                m.running_mean.copy_(torch.randn(planes, generator=gen) * 0.3)
+        random_bn_stats(block, gen)
         spade = SPADE("spadebatch3x3", planes, lab, planes / 16, generator=gen)
         head = None
         if head_cls:
@@ -1130,7 +1180,7 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
         warm, iters = 2, 5
         for _ in range(warm):
             probs = tile_forward(model, x)
-        torch.cuda.synchronize()
+        settle()
         t0 = time.perf_counter()
         for _ in range(iters):
             probs = tile_forward(model, x)
@@ -1146,6 +1196,7 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
               f"calibrated int8 stages, bf16 activations, batch {BATCH}, "
               f"{dt / iters * 1e3:.2f} ms/forward) on {card}; bf16 in this run "
               f"{bf16['tiles_per_s']:.2f} tiles/s")
+        settle()
         t0 = time.perf_counter()
         masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False)
         scene_s = time.perf_counter() - t0
@@ -1259,6 +1310,445 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
         "bound_by": "operations" if "operations" in kinds else "bytes", "library_ms": None,
     }
 
+# ---------------------------------------------------------------------------
+# UNet_B_SS and UNet_R_SS serving, the bottleneck stage (phases 9-10)
+# ---------------------------------------------------------------------------
+
+
+def bneck_signatures(f, num_classes, input_channels):
+    """(name, part channels, planes, labels, hidden, head classes, level) of
+    UNet_B_SS's six fused stages, in the forward's order."""
+    nh = lambda c: int(max(c / 16, 4))
+    return [
+        ("conv0_0", (input_channels,), f[0], num_classes, nh(f[0]), 0, 0),
+        ("conv1_0", (f[0],), f[1], num_classes, nh(f[1]), 0, 1),
+        ("conv2_0", (f[1],), f[2], num_classes, nh(f[2]), 0, 2),
+        ("conv2_2", (f[2], f[3]), f[2], num_classes, nh(f[2]), 0, 2),
+        ("conv1_3", (f[1], f[2]), f[1], num_classes, nh(f[1]), 0, 1),
+        ("conv0_4", (f[0], f[1]), f[0], num_classes, nh(f[0]), num_classes, 0),
+    ]
+
+
+def spade_macs(planes, labels, hidden):
+    """Multiply-adds per pixel of the self-SPADE's three 3×3 convs."""
+    return 9 * planes * labels + 9 * labels * hidden + 9 * hidden * 2 * planes
+
+
+def bneck_bound_ms(parts, planes, labels, hidden, ncls, weight_bytes, identity):
+    """Least time for one bottleneck stage call: its multiply-adds at the
+    bf16 tensor-core peak, or its bytes (inputs and weights read once, the
+    output written once) over HBM bandwidth."""
+    n, h, w = parts[0].shape[:3]
+    cin = sum(p.shape[-1] for p in parts)
+    macs = (cin * planes + 9 * planes * planes + planes * planes
+            + (0 if identity else cin * planes) + spade_macs(planes, labels, hidden)
+            + planes * ncls)
+    nbytes = (sum(p.numel() * p.element_size() for p in parts) + weight_bytes
+              + n * h * w * (ncls or planes) * 2)
+    return bound_of(2.0 * macs * n * h * w, nbytes)
+
+
+def bneck_stage_phase(dev, model, sigs, scene_tiles, check):
+    """Phase 9; returns kernel 8's row of the ``kernels`` line without its
+    launches."""
+    from ssunet_gan_tpu_torch.infer.api import INFER_BATCH, _norm_consts
+    from ssunet_gan_tpu_torch.models import ssunet
+    from ssunet_gan_tpu_torch.ops import stage_kernel_bneck as kb
+    from ssunet_gan_tpu_torch.ops.blocks import Bottleneck
+    from ssunet_gan_tpu_torch.ops.conv import Conv2d
+    from ssunet_gan_tpu_torch.ops.spade import SPADE
+
+    gen = torch.Generator().manual_seed(SEED + 30)
+    worst = 0.0
+    identity = ("identity", (sigs[1][2],), sigs[1][2], sigs[1][3], sigs[1][4], 0, 1)
+    for name, chans, planes, lab, nh, head_cls, level in sigs + [identity]:
+        block = Bottleneck(sum(chans), planes, generator=gen)
+        check((block.shortcut is None) == (name == "identity"),
+              f"phase 9: {name}: unexpected shortcut kind")
+        random_bn_stats(block, gen)
+        spade = SPADE("spadebatch3x3", planes, lab, planes / 16, generator=gen)
+        head = None
+        if head_cls:
+            final = Conv2d(planes, head_cls, 1, generator=gen).to(dev)
+            head = (final.weight, final.bias)
+        block.to(dev).eval()
+        spade.to(dev)
+        side = HW >> level
+        parts = tuple(torch.randn((2, side, side, c), generator=gen).to(dev, torch.bfloat16)
+                      for c in chans)
+        bp, sp = block.stage_params(), spade.stage_params()
+        got = kb.fused_eval_stage_bneck(parts, bp, sp, head)
+        torch.cuda.synchronize()
+        want = kb.fused_bneck_reference(parts, bp, sp, head)
+        err, scale, l2, ok = close(got, want)
+        print(f"phase 9: {name} parts={chans} planes={planes} {side}x{side} "
+              f"max_abs_err={err:.4g} max_rel_err={err / max(scale, 1e-30):.4g} "
+              f"rel_l2={l2:.3g} (max|plain|={scale:.4g})")
+        check(ok and got.shape == want.shape,
+              f"phase 9: {name}: kernel disagrees with plain (err {err}, max {scale}, l2 {l2})")
+        worst = max(worst, err)
+        del parts, got, want, block, spade
+
+    # the model's weights and each stage's own inputs, from an all-plain
+    # forward over the scene's first chunk: checked at the scene request's
+    # batch (INFER_BATCH), timed at the tile forward's (BATCH)
+    captured = []
+
+    def capture(parts, bp, sp, head=None, packed=None):
+        captured.append(tuple(p.clone() for p in parts))
+        return kb.fused_bneck_reference(parts, bp, sp, head)
+
+    a, b = _norm_consts()
+    chunk = torch.from_numpy(scene_tiles[:INFER_BATCH]).to(dev).float() * a.to(dev) + b.to(dev)
+    with patched(ssunet, "fused_eval_stage_bneck", capture), torch.no_grad():
+        model(chunk.to(torch.bfloat16))
+    del chunk
+    if [tuple(p.shape[-1] for p in c) for c in captured] != [s[1] for s in sigs]:
+        fail(f"phase 9: the forward's bottleneck stages are not the expected six: "
+             f"{[[tuple(p.shape) for p in c] for c in captured]}")
+    ms_sum = plain_sum = bound_sum = 0.0
+    kinds = set()
+    for (name, chans, planes, lab, nh, head_cls, level), full in zip(sigs, captured):
+        side = HW >> level
+        block, spade = getattr(model, name), getattr(model, "SPADE" + name[4:])
+        head = (model.final.weight, model.final.bias) if head_cls else None
+        bp, sp = block.stage_params(), spade.stage_params()
+        pk = kb.pack_stage_bneck(chans, bp, sp, head, torch.bfloat16)
+        err, scale, l2, ok = close(kb.fused_eval_stage_bneck(full, bp, sp, head, pk),
+                                   kb.fused_bneck_reference(full, bp, sp, head))
+        print(f"phase 9: {name} batch {INFER_BATCH} model weights max_abs_err={err:.4g} "
+              f"rel_l2={l2:.3g} (max|plain|={scale:.4g})")
+        check(ok, f"phase 9: {name} at batch {INFER_BATCH}: kernel disagrees with plain "
+              f"(err {err}, max {scale}, l2 {l2})")
+        worst = max(worst, err)
+        parts = tuple(p[:BATCH] for p in full)
+        ms = cuda_ms(lambda: kb.fused_eval_stage_bneck(parts, bp, sp, head, pk), 10)
+        plain_ms = cuda_ms(lambda: kb.fused_bneck_reference(parts, bp, sp, head), 3, warmup=1)
+        wbytes = sum(t.numel() * 2 for t in (bp[0], bp[2], bp[4], bp[6]) if t is not None)
+        wbytes += sum(t.numel() * 4 for t in sp)
+        bound, kind = bneck_bound_ms(parts, planes, lab, nh, head_cls, wbytes, bp[6] is None)
+        kinds.add(kind)
+        ms_sum, plain_sum, bound_sum = ms_sum + ms, plain_sum + plain_ms, bound_sum + bound
+        row = dict(stage=name, shape=[BATCH, side, side, sum(chans)], planes=planes,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=kind)
+        print("bneck stage:", json.dumps(row))
+    del captured, full, parts, pk
+    torch.cuda.empty_cache()
+    return {
+        "name": "fused_eval_stage_bneck", "route": "cuda",
+        "source": f"ssunet_gan_tpu_torch/csrc/{kb.SOURCE}", "replaces": kb.REPLACES,
+        "max_abs_err": worst, "ms": ms_sum, "plain_ms": plain_sum, "bound_ms": bound_sum,
+        "bound_by": "operations" if "operations" in kinds else "bytes", "library_ms": None,
+    }
+
+
+def bneck_serving_phase(dev, card, model, x, scene, scene_tiles, config, check) -> int:
+    """Phase 10 for UNet_B_SS; returns kernel 8's launches on this main path."""
+    from ssunet_gan_tpu_torch.infer.api import (
+        _chunked_forward,
+        _norm_consts,
+        segmentation_inference,
+        tile_forward,
+    )
+    from ssunet_gan_tpu_torch.models import ssunet
+    from ssunet_gan_tpu_torch.ops import stage_kernel, stage_kernel_bneck as kb
+
+    t_phase = time.perf_counter()
+    ncls = model.num_classes
+    # the main path: counts to 0, the tile forward, the scene request
+    kb.launches = 0
+    other_before = stage_kernel.launches
+    warm, iters = 2, 5
+    for _ in range(warm):
+        probs = tile_forward(model, x)
+    settle()
+    enqueue = []  # host time of each forward's enqueue, no synchronization
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        t1 = time.perf_counter()
+        probs = tile_forward(model, x)
+        enqueue.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if kb.launches != 6 * (warm + iters) or stage_kernel.launches != other_before:
+        fail(f"phase 10: expected {6 * (warm + iters)} bottleneck kernel stages and no "
+             f"BasicBlock one, counted {kb.launches} and {stage_kernel.launches - other_before}")
+    if not torch.isfinite(probs.float()).all() or probs.shape != (BATCH, HW, HW, ncls):
+        fail("phase 10: UNet_B_SS tile forward output is not finite or has the wrong shape")
+    print(f"phase 10: UNet_B_SS tile forward {BATCH * iters / dt:.2f} tiles/s (512x512 bf16, "
+          f"batch {BATCH}, {dt / iters * 1e3:.2f} ms/forward) on {card}")
+    print(f"phase 10: host ms to enqueue each timed forward {[round(v, 2) for v in enqueue]}")
+    forwards = warm + iters
+    settle()
+    t0 = time.perf_counter()
+    masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False)
+    scene_s = time.perf_counter() - t0
+    launches = kb.launches
+    if launches != 6 * forwards + 12:
+        fail(f"phase 10: the scene request ran {launches - 6 * forwards} bottleneck "
+             f"kernel stages, expected 12")
+    check_masks(masks, "phase 10")
+    print(f"phase 10: UNet_B_SS scene 2048x2048 -> {len(masks)} masks in {scene_s:.3f} s "
+          f"(36 tiles, bf16) on {card}; positive share "
+          f"{[round(float((m > 0).mean()), 4) for m in masks]}")
+    t_phase = phase_done("phase 10 main path", t_phase)
+
+    # comparisons, after the counts were read: every bottleneck stage on its
+    # plain version (bf16), and the f32 forward, which the gate sends to the
+    # module composition
+    def plain_bneck(parts, bp, sp, head=None, packed=None):
+        return kb.fused_bneck_reference(parts, bp, sp, head)
+
+    a, b = _norm_consts()
+    xn = x.float() * a.to(dev) + b.to(dev)
+    with torch.no_grad():
+        logits_k = model(xn.to(torch.bfloat16))
+    probs_k = _chunked_forward(model, scene_tiles)
+    with patched(ssunet, "fused_eval_stage_bneck", plain_bneck), torch.no_grad():
+        logits_p = model(xn.to(torch.bfloat16))
+        probs_p = _chunked_forward(model, scene_tiles)
+        plain_masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False)
+    before = kb.launches
+    with torch.no_grad():
+        logits_f = model(xn)
+    probs_f = _chunked_forward(model, scene_tiles, torch.float32)
+    f32_masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False,
+                                          dtype=torch.float32)
+    check(kb.launches == before, "phase 10: an f32 forward launched the bf16 kernel")
+    forward_bar("phase 10: UNet_B_SS logits", logits_k, logits_p, logits_f, check)
+    forward_bar("phase 10: UNet_B_SS scene tile probabilities", probs_k, probs_p, probs_f, check)
+    mask_bars("phase 10: UNet_B_SS", masks, plain_masks, f32_masks, check)
+    del logits_k, logits_p, logits_f, probs_k, probs_p, probs_f, xn
+    torch.cuda.empty_cache()
+    t_phase = phase_done("phase 10 comparisons", t_phase)
+
+    n_prof = 3
+    busy, wall_ms, rows = profile_kernels(lambda: tile_forward(model, x), n_prof)
+    untraced_ms = dt / iters * 1e3
+    print(f"profile: per UNet_B_SS forward (batch {BATCH}, mean of {n_prof}): device busy "
+          f"{busy:.3f} ms, {sum(r[1] for r in rows)} kernels; {wall_ms:.3f} ms wall under "
+          f"the profiler (idle share {max(0.0, 1 - busy / wall_ms):.3f}), "
+          f"{untraced_ms:.3f} ms untraced (idle share "
+          f"{max(0.0, 1 - busy / untraced_ms):.3f})")
+    for ms, count, key in rows[:12]:
+        print(f"profile: UNet_B_SS {ms:9.3f} ms {count:4d}x {key[:90]}")
+    phase_done("phase 10 profile", t_phase)
+    return launches
+
+
+def rss_forward_phase(dev, card, cfg, x, calib, check) -> None:
+    """Phase 10's second model: UNet_R_SS at full width through the tile
+    forward, six stages of the BasicBlock eval kernel per forward, logits
+    against the all-plain forwards in bf16 and f32."""
+    from ssunet_gan_tpu_torch.infer.api import _norm_consts, tile_forward
+    from ssunet_gan_tpu_torch.models import build_model, ssunet
+    from ssunet_gan_tpu_torch.ops import stage_kernel, stage_kernel_bneck as kb
+
+    t_phase = time.perf_counter()
+    model = build_model("UNet_R_SS", cfg["num_classes"], cfg["input_channels"], seed=SEED,
+                        device=dev)
+    calibrate_batchnorm(model, calib)
+    before, bneck_before = stage_kernel.launches, kb.launches
+    warm, iters = 1, 3
+    for _ in range(warm):
+        probs = tile_forward(model, x)
+    settle()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        probs = tile_forward(model, x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ran = stage_kernel.launches - before
+    if ran != 6 * (warm + iters) or kb.launches != bneck_before:
+        fail(f"phase 10: UNet_R_SS ran {ran} kernel stages in {warm + iters} forwards, "
+             f"expected 6 each (and {kb.launches - bneck_before} bottleneck ones, expected 0)")
+    if not torch.isfinite(probs.float()).all() or probs.shape != (BATCH, HW, HW, model.num_classes):
+        fail("phase 10: UNet_R_SS tile forward output is not finite or has the wrong shape")
+    print(f"phase 10: UNet_R_SS tile forward {BATCH * iters / dt:.2f} tiles/s (512x512 bf16, "
+          f"batch {BATCH}, {dt / iters * 1e3:.2f} ms/forward, six kernel stages each) on {card}")
+    a, b = _norm_consts()
+    xn = x.float() * a.to(dev) + b.to(dev)
+
+    def plain_stage(parts, bp, sp, head=None, packed=None):
+        return stage_kernel.fused_stage_reference(parts, bp, sp, head)
+
+    with torch.no_grad():
+        logits_k = model(xn.to(torch.bfloat16))
+        with patched(ssunet, "fused_eval_stage", plain_stage):
+            logits_p = model(xn.to(torch.bfloat16))
+            logits_f = model(xn)
+    forward_bar("phase 10: UNet_R_SS logits", logits_k, logits_p, logits_f, check)
+    del model, logits_k, logits_p, logits_f
+    torch.cuda.empty_cache()
+    phase_done("phase 10 UNet_R_SS", t_phase)
+
+
+# ---------------------------------------------------------------------------
+# The standalone self-SPADE stage and UNet_B_SS's trainer (phase 11)
+# ---------------------------------------------------------------------------
+
+
+def spade_call_agrees(what, x, params, check) -> float:
+    """One fused self-SPADE call on the card against its plain version, to
+    phase 1's bar; returns the max abs error."""
+    from ssunet_gan_tpu_torch.ops import spade_kernel as sk
+
+    got = sk.fused_spade_stage(x, *params)
+    torch.cuda.synchronize()
+    want = sk.self_spade_reference(x, params)
+    err, scale, l2, ok = close(got, want)
+    print(f"{what} max_abs_err={err:.4g} rel_l2={l2:.3g} (max|plain|={scale:.4g})")
+    check(ok and got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: kernel disagrees with plain (err {err}, max {scale}, l2 {l2})")
+    return err
+
+
+def spade_phase(dev, card, cfg, sigs, check):
+    """Phase 11; returns kernel 9's row of the ``kernels`` line."""
+    from ssunet_gan_tpu_torch.data.dataset import SyntheticDataset
+    from ssunet_gan_tpu_torch.data.loader import BatchLoader
+    from ssunet_gan_tpu_torch.data.transforms import val_transform
+    from ssunet_gan_tpu_torch.models import build_model
+    from ssunet_gan_tpu_torch.ops import spade as spade_mod
+    from ssunet_gan_tpu_torch.ops import spade_kernel as sk
+    from ssunet_gan_tpu_torch.ops.losses import get_loss
+    from ssunet_gan_tpu_torch.ops.spade import SPADE
+    from ssunet_gan_tpu_torch.train.optim import build_optimizer, build_scheduler
+    from ssunet_gan_tpu_torch.train.step import make_train_step
+    from ssunet_gan_tpu_torch.train.supervised import train_one_epoch
+
+    t_phase = time.perf_counter()
+    ncls, in_ch = cfg["num_classes"], cfg["input_channels"]
+    gen = torch.Generator().manual_seed(SEED + 40)
+    worst = 0.0
+    # the six level-0-2 activations, batch 2, seeded: forward against plain,
+    # backward against autograd of the plain composition on the same inputs
+    for name, _, planes, lab, nh, _, level in sigs:
+        side = HW >> level
+        spade = SPADE("spadebatch3x3", planes, lab, planes / 16, generator=gen).to(dev)
+        params = spade.stage_params()
+        x = torch.randn((2, side, side, planes), generator=gen).to(dev, torch.bfloat16)
+        cot = torch.randn((2, side, side, planes), generator=gen).to(dev, torch.bfloat16)
+        what = f"phase 11: SPADE{name[4:]} {planes} channels {side}x{side} batch 2"
+        with torch.no_grad():
+            worst = max(worst, spade_call_agrees(what, x, params, check))
+        xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+        grads = torch.autograd.grad(sk.fused_spade_stage(xk, *params), [xk, *params], cot)
+        plain = torch.autograd.grad(sk.self_spade_composition(xp, *params), [xp, *params], cot)
+        torch.cuda.synchronize()
+        l2s = [rel_l2(g, p) for g, p in zip(grads, plain)]
+        oks = [close(g, p)[3] and g.shape == p.shape for g, p in zip(grads, plain)]
+        print(f"{what} backward: rel_l2 from autograd of the plain composition, x and the "
+              f"eight parameters: {[float(f'{v:.3g}') for v in l2s]}")
+        check(all(oks), f"{what}: backward disagrees with the plain composition's: {l2s}")
+        del x, cot, xk, xp, grads, plain, spade
+    torch.cuda.empty_cache()
+    t_phase = phase_done("phase 11 kernel checks", t_phase)
+
+    # UNet_B_SS's trainer, the mode "pallas": the main path of kernel 9
+    def loader(n_steps, seed):
+        ds = SyntheticDataset(n_steps * TRAIN_BATCH, HW, HW, ncls, in_ch,
+                              transform=val_transform(cfg), seed=seed)
+        return BatchLoader(ds, TRAIN_BATCH, shuffle=False, drop_last=True,
+                           num_workers=int(cfg["num_workers"]))
+
+    tmodel = build_model("UNet_B_SS", ncls, in_ch, cfg["deep_supervision"], seed=SEED,
+                         device=dev).train()
+    step = make_train_step(tmodel, get_loss(cfg["loss"]),
+                           build_optimizer(tmodel.parameters(), cfg), ncls,
+                           cfg["deep_supervision"], clip=float(cfg["clip"]))
+    lr = build_scheduler(cfg).lr(0)
+    mode_before = sk._FUSED
+    try:
+        sk.set_fused_spade("pallas")
+        sk.launches = 0
+        warm_log = train_one_epoch(0, cfg, loader(SPADE_WARM, seed=1), step, lr, device=dev)
+        check(sk.launches == 6 * SPADE_WARM,
+              f"phase 11: {sk.launches} self-SPADE launches in {SPADE_WARM} warm-up steps, "
+              f"expected 6 each")
+        settle()
+        t1 = time.perf_counter()
+        log = train_one_epoch(1, cfg, loader(SPADE_STEPS, seed=2), step, lr, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        launches = sk.launches
+        steps = SPADE_WARM + SPADE_STEPS
+        print(f"phase 11: self-SPADE kernel launches in {steps} steps: {launches} "
+              f"(expected {steps} x 6)")
+        check(launches == 6 * steps, f"phase 11: launches {launches} != {steps} x 6")
+        finite = all(np.isfinite(v) for lg in (warm_log, log)
+                     for k, v in lg.items() if k != "images_per_sec")
+        check(finite, f"phase 11: metrics not finite: {warm_log} {log}")
+        ms_step = dt / SPADE_STEPS * 1e3
+        print(f"phase 11: UNet_B_SS train step, fused self-SPADE {ms_step:.2f} ms/step, "
+              f"{TRAIN_BATCH * SPADE_STEPS / dt:.2f} images/s (512x512 bf16, batch "
+              f"{TRAIN_BATCH}, Adam, {SPADE_STEPS} steps after {SPADE_WARM} warm-up) on {card}; "
+              f"warm-up epoch {warm_log}; timed epoch {log}")
+        t_phase = phase_done("phase 11 trainer (fused self-SPADE)", t_phase)
+
+        # the mode off beside it in the same call: a record, not a claim
+        sk.set_fused_spade("off")
+        train_one_epoch(2, cfg, loader(1, seed=3), step, lr, device=dev)
+        settle()
+        t1 = time.perf_counter()
+        off_log = train_one_epoch(3, cfg, loader(SPADE_OFF_STEPS, seed=4), step, lr, device=dev)
+        torch.cuda.synchronize()
+        off_dt = time.perf_counter() - t1
+        check(sk.launches == launches, "phase 11: the mode off launched the self-SPADE kernel")
+        print(f"phase 11: UNet_B_SS train step, SPADE composition (mode off, record) "
+              f"{off_dt / SPADE_OFF_STEPS * 1e3:.2f} ms/step, "
+              f"{TRAIN_BATCH * SPADE_OFF_STEPS / off_dt:.2f} images/s ({SPADE_OFF_STEPS} steps "
+              f"after 1 warm-up) on {card}; epoch {off_log}")
+        t_phase = phase_done("phase 11 trainer (mode off)", t_phase)
+
+        # one step's six calls on their own inputs: against plain, and timed
+        sk.set_fused_spade("pallas")
+        _, img, mask, _ = next(iter(loader(1, seed=5)))
+        xb = torch.from_numpy(img).to(dev).to(torch.bfloat16)
+        yb = torch.from_numpy(mask).to(dev)
+        calls = []
+
+        def capture(x, *params):
+            calls.append((x.detach(), tuple(p.detach() for p in params)))
+            return sk.fused_spade_stage(x, *params)
+
+        with patched(spade_mod, "fused_spade_stage", capture):
+            step(xb, yb, lr)
+        torch.cuda.synchronize()
+        # where one UNet_B_SS train step's device time goes
+        print_profile("UNet_B_SS, fused self-SPADE", lambda: step(xb, yb, lr), ms_step)
+    finally:
+        sk.set_fused_spade(mode_before)
+    want_shapes = [(TRAIN_BATCH, HW >> s[6], HW >> s[6], s[2]) for s in sigs]
+    if [tuple(c[0].shape) for c in calls] != want_shapes:
+        fail(f"phase 11: the step's self-SPADE calls are {[tuple(c[0].shape) for c in calls]}, "
+             f"expected {want_shapes}")
+    ms_sum = plain_sum = bound_sum = 0.0
+    kinds = set()
+    for (name, _, planes, lab, nh, _, level), (x, params) in zip(sigs, calls):
+        what = f"phase 11: SPADE{name[4:]} batch {TRAIN_BATCH} on the step's own input"
+        with torch.no_grad():
+            worst = max(worst, spade_call_agrees(what, x, params, check))
+            ms = cuda_ms(lambda: sk.fused_spade_stage(x, *params), 10)
+            plain_ms = cuda_ms(lambda: sk.self_spade_reference(x, params), 3, warmup=1)
+        nbytes = 2 * x.numel() * 2 + sum(p.numel() * 4 for p in params)
+        bound, kind = bound_of(2.0 * spade_macs(planes, lab, nh) * x.numel() / planes, nbytes)
+        kinds.add(kind)
+        ms_sum, plain_sum, bound_sum = ms_sum + ms, plain_sum + plain_ms, bound_sum + bound
+        row = dict(stage="SPADE" + name[4:], shape=list(x.shape), ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound, bound_by=kind)
+        print("spade stage:", json.dumps(row))
+    del calls, tmodel, step, xb, yb
+    torch.cuda.empty_cache()
+    phase_done("phase 11 per-call checks and timing", t_phase)
+    return {
+        "name": "fused_spade_stage", "route": "cuda",
+        "source": f"ssunet_gan_tpu_torch/csrc/{sk.SOURCE}", "replaces": sk.REPLACES,
+        "launches": launches, "max_abs_err": worst, "ms": ms_sum, "plain_ms": plain_sum,
+        "bound_ms": bound_sum, "bound_by": "operations" if "operations" in kinds else "bytes",
+        "library_ms": None,
+    }
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1276,14 +1766,15 @@ def main() -> int:
     )
     from ssunet_gan_tpu_torch.models import build_model, ssunet
     from ssunet_gan_tpu_torch.ops import (
+        spade_kernel,
         stage_kernel,
+        stage_kernel_bneck,
         stage_kernel_int8,
         stage_kernel_train,
         train_bwd,
     )
     from ssunet_gan_tpu_torch.ops.blocks import BasicBlock
     from ssunet_gan_tpu_torch.ops.conv import Conv2d
-    from ssunet_gan_tpu_torch.ops.norm import BatchNorm
     from ssunet_gan_tpu_torch.ops.spade import SPADE
 
     torch.backends.cudnn.allow_tf32 = False  # the plain f32 convs stay f32
@@ -1293,16 +1784,10 @@ def main() -> int:
     def plain_stage(parts, bp, sp, head=None, packed=None):
         return stage_kernel.fused_stage_reference(parts, bp, sp, head)
 
-    @contextlib.contextmanager
     def stages_through(fn=plain_stage):
         """Route the model's fused stages to ``fn`` (the plain version by
         default), for comparisons."""
-        orig = ssunet.fused_eval_stage
-        ssunet.fused_eval_stage = fn
-        try:
-            yield
-        finally:
-            ssunet.fused_eval_stage = orig
+        return patched(ssunet, "fused_eval_stage", fn)
 
     failures = []
 
@@ -1319,7 +1804,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     sources = (stage_kernel.SOURCE, stage_kernel_train.SOURCE, train_bwd.SOURCE,
-               stage_kernel_int8.SOURCE)
+               stage_kernel_int8.SOURCE, stage_kernel_bneck.SOURCE, spade_kernel.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         list(pool.map(_build.build, sources))
     print(f"phase 0: kernels built in {time.perf_counter() - t0:.2f} s")
@@ -1339,15 +1824,13 @@ def main() -> int:
                         seed=SEED, device=dev)
     a, b = _norm_consts()
     calib = np.random.default_rng(SEED + 2).integers(0, 256, (2, HW, HW, in_ch), dtype=np.uint8)
-    calibrate_batchnorm(model, torch.from_numpy(calib).to(dev).float() * a.to(dev) + b.to(dev))
+    calib = torch.from_numpy(calib).to(dev).float() * a.to(dev) + b.to(dev)
+    calibrate_batchnorm(model, calib)
     sigs = stage_signatures(model.filters, ncls, in_ch)
     max_err = 0.0
     for name, chans, planes, lab, nh, head_cls, level in sigs:
         block = BasicBlock(sum(chans), planes, generator=gen)
-        for m in block.modules():
-            if isinstance(m, BatchNorm):
-                m.running_var.copy_(torch.rand(planes, generator=gen) + 0.5)
-                m.running_mean.copy_(torch.randn(planes, generator=gen) * 0.3)
+        random_bn_stats(block, gen)
         spade = SPADE("spadebatch3x3", planes, lab, planes / 16, generator=gen)
         head = None
         if head_cls:
@@ -1439,6 +1922,7 @@ def main() -> int:
     torch.cuda.synchronize()
     if stage_kernel.launches != 6 * warm:
         fail(f"expected 6 kernel stages per forward, counted {stage_kernel.launches} in {warm}")
+    settle()
     t0 = time.perf_counter()
     for _ in range(iters):
         logits_probs = tile_forward(model, x)
@@ -1454,6 +1938,7 @@ def main() -> int:
 
     # ---- phase 3: scene request (main path)
     before = stage_kernel.launches
+    settle()
     t0 = time.perf_counter()
     masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False)
     scene_s = time.perf_counter() - t0
@@ -1527,10 +2012,29 @@ def main() -> int:
         bf16=dict(tiles_per_s=tiles_per_s, scene_s=scene_s, logits=e_logits, probs=e_probs,
                   masks=agree_kf))
     int8_row["max_abs_err"] = int8_err
-    del model, x, logits_f, probs_f, f32_masks
+    del model, logits_f, probs_f, f32_masks
+    torch.cuda.empty_cache()
+
+    # ---- phases 9-10: the bottleneck stage, then UNet_B_SS serving (the
+    # third serving path) and UNet_R_SS's forward
+    t_phase = time.perf_counter()
+    model_b = build_model("UNet_B_SS", ncls, in_ch, seed=SEED, device=dev)
+    calibrate_batchnorm(model_b, calib)
+    bsigs = bneck_signatures(model_b.filters, ncls, in_ch)
+    bneck_row = bneck_stage_phase(dev, model_b, bsigs, scene_tiles, check)
+    phase_done("phase 9", t_phase)
+    bneck_row["launches"] = bneck_serving_phase(dev, card, model_b, x, scene, scene_tiles,
+                                                config, check)
+    del model_b
+    torch.cuda.empty_cache()
+    rss_forward_phase(dev, card, cfg, x, calib, check)
+    del x, calib
     torch.cuda.empty_cache()
 
     counts, train_err, totals = train_phases(dev, cfg, card, sigs, check)
+
+    # ---- phase 11: the standalone self-SPADE and UNet_B_SS's trainer
+    spade_row = spade_phase(dev, card, cfg, bsigs, check)
 
     if failures:
         fail(f"{len(failures)} checks failed: " + "; ".join(failures[:20]))
@@ -1543,7 +2047,7 @@ def main() -> int:
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "operations" if "operations" in t["kinds"] else "bytes",
         "library_ms": None if kname == "train_tail" else t["library_ms"],
-    } for kname, t in totals.items()]
+    } for kname, t in totals.items()] + [bneck_row, spade_row]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,11 @@
 
 :func:`from_jax_variables` is the inverse of the JAX package's torch →
 flax converter (ssunet_gan_tpu/compat/torch_loader.py:27-77, 179-204) for
-the flagship's leaves: HWIO ``kernel`` → OIHW ``weight``, BN ``scale``/
+the ss-UNets' leaves: HWIO ``kernel`` → OIHW ``weight``, BN ``scale``/
 ``bias`` → ``weight``/``bias``, ``mean``/``var`` → ``running_mean``/
-``running_var``, ``shortcut_conv`` → ``shortcut.0`` and ``mlp_shared`` →
-``mlp_shared.0``. It takes plain nested dicts of numpy arrays, so it needs
+``running_var``, ``shortcut_conv`` → ``shortcut.0``, ``shortcut_bn`` →
+``shortcut.1`` (the Bottleneck's, parameters and statistics) and
+``mlp_shared`` → ``mlp_shared.0``. It takes plain nested dicts of numpy arrays, so it needs
 no JAX.
 """
 
@@ -20,6 +21,7 @@ import torch
 # flax module path → torch module path (inverse of torch_loader's rules)
 _INVERSE_RENAMES = (
     (r"(^|\.)shortcut_conv\.", r"\1shortcut.0."),
+    (r"(^|\.)shortcut_bn\.", r"\1shortcut.1."),
     (r"(^|\.)mlp_shared\.", r"\1mlp_shared.0."),
 )
 

@@ -10,6 +10,12 @@ Two reference quirks are the behaviour:
 
 ``nhidden`` is ``int(max(nhidden, 4))`` with callers passing
 ``nb_filter/ss_scale`` as a float (archs.py:486).
+
+The forward dispatches on :func:`ops.spade_kernel.fused_spade_mode` as the
+JAX package's does (ops/spade.py:108-127): ``"pallas"`` sends a self-SPADE
+(``segmap is x``) that the gate admits to the fused kernel, ``"fast"`` and
+``"pallas"`` compute γ|β as one 1×1 conv over the im2col of actv, and
+``"off"`` (the default) is the composition.
 """
 
 from __future__ import annotations
@@ -21,6 +27,12 @@ import torch
 from torch import nn
 
 from ssunet_gan_tpu_torch.ops.conv import Conv2d
+from ssunet_gan_tpu_torch.ops.spade_kernel import (
+    fast_gamma_beta_modulate,
+    fused_spade_mode,
+    fused_spade_stage,
+    fused_spade_supported,
+)
 
 _CONFIG_RE = re.compile(r"spade(\D+)(\d)x\d")
 _KNOWN_NORMS = ("instance", "syncbatch", "batch")
@@ -51,6 +63,7 @@ class SPADE(nn.Module):
         _, ks = parse_spade_config(config_text)
         nh = int(max(nhidden, 4))
         pw = ks // 2
+        self.ks, self.label_nc, self.nhidden = ks, label_nc, nh
         self.x2map = Conv2d(norm_nc, label_nc, ks, pw, generator=generator)
         self.mlp_shared = nn.Sequential(
             Conv2d(label_nc, nh, ks, pw, generator=generator), nn.ReLU()
@@ -60,7 +73,15 @@ class SPADE(nn.Module):
 
     def forward(self, x: torch.Tensor, segmap: torch.Tensor) -> torch.Tensor:
         normalized = x  # param-free norm bypassed (normalization.py:110)
+        mode = fused_spade_mode()
+        if (mode == "pallas" and segmap is x
+                and fused_spade_supported(x, self.ks, self.label_nc, self.nhidden)):
+            return fused_spade_stage(x, *self.stage_params())
         actv = self.mlp_shared(self.x2map(segmap))
+        if mode in ("fast", "pallas") and self.ks == 3:
+            return fast_gamma_beta_modulate(normalized, actv, self.mlp_gamma.weight,
+                                            self.mlp_gamma.bias, self.mlp_beta.weight,
+                                            self.mlp_beta.bias)
         gamma = self.mlp_gamma(actv)
         beta = self.mlp_beta(actv)
         return normalized * (1 + gamma) + beta

@@ -1,0 +1,240 @@
+"""Fused eval-mode [Bottleneck + self-SPADE] stage: CUDA kernel and plain version.
+
+Replaces the TPU kernel ``ssunet_gan_tpu/ops/stage_kernel.py``
+``fused_eval_stage_bneck`` (:1603 → ``_bneck_call`` :1694 →
+``pl.pallas_call`` :1761, body ``_make_bneck_kernel`` :1335 with
+``ops/spade_kernel.py`` ``_spade_tail``); the JAX package keeps it inside
+its stage-kernel module, the port gives it a module of its own. For a stage
+with parts x = (skip[, up]), NHWC and of one H×W, and every BatchNorm
+folded into its weights:
+
+    h1  = relu(conv1x1(x; K1·s1) + t1)
+    h2  = relu(conv3x3(h1; K2·s2) + t2)
+    y   = relu(conv1x1(h2; K3·s3) + shortcut(x) + (t3 + ts))
+    out = self-SPADE tail of y          [logits = conv1x1(out; Kf) + bf]
+
+with ``shortcut(x) = conv1x1(x; Ks·ss)`` or, for ``in_planes == planes``,
+x itself (the parts' concatenation; then ``ts = 0``).
+
+What bounds it on the H100: only conv2 sits above the bf16 ridge point;
+the 1×1 convs are bound by the bytes of their inputs and outputs, so at
+64-256 planes the stage is bound by the activations it moves. The kernel
+(``csrc/bneck_stage.cu``) runs the three convs as the shared implicit GEMM
+on ``mma.sync`` bf16 tensor cores with f32 sums, a 1×1 conv being a
+K-segment of one tap; conv3 and the shortcut are K-segments of one GEMM, so
+they share one accumulator and one rounding. Four launches from one host
+call; h1, h2 and y go through device memory, the tail's seg, act and γ|β
+stay on chip. The TPU devices (W-minor layout, lane packing, band heights
+and their probe cache, halo carry, stacked seg dots, lookahead grids,
+upsample-on-read) answer the TPU's constraints and are not ported.
+
+Numerics match the TPU kernel: the BN scales are folded into the weights
+in f32, then weights and biases are rounded to the activation dtype;
+``t3 + ts`` is added in f32 and rounded once; each conv zero-pads its own
+input at the image border (h1 outside the image is 0, not relu(t1)); sums
+run in f32; h1, h2, y and the tail's intermediates are rounded to the
+activation dtype.
+
+:func:`bneck_supported` is the one gate: the model's dispatch and the
+wrapper both call it. :func:`fused_eval_stage_bneck` decides by the
+tensors' device: CPU tensors take :func:`fused_bneck_reference`; CUDA
+tensors launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from ssunet_gan_tpu_torch import _build
+from ssunet_gan_tpu_torch.ops.conv import as_parts, conv2d_nhwc
+from ssunet_gan_tpu_torch.ops.stage_kernel import (
+    _gemm_weight,
+    _ptr,
+    _q,
+    pack_spade,
+    spade_tail_reference,
+    split_in,
+)
+
+SOURCE = "bneck_stage.cu"
+REPLACES = "ssunet_gan_tpu/ops/stage_kernel.py:1603"  # fused_eval_stage_bneck
+
+# Fused bottleneck stages run on the card, one per stage (four CUDA launches each).
+launches = 0
+
+# the kernel's limits (csrc/stage_common.cuh: the tail's channel chunk and
+# label, hidden and class bounds; the JAX gate's widest fused stage)
+MAX_PLANES, PLANES_MULTIPLE = 256, 32
+MAX_LAB, MAX_NH, MAX_CLS = 8, 16, 8
+
+
+def bneck_supported(parts, planes: int, labels: int, hidden: int, classes: int = 0) -> bool:
+    """Whether the fused bottleneck stage takes this stage: at most two NHWC
+    parts of one N×H×W, device and dtype, planes ≤ 256, labels ≤ 8, hidden
+    ≤ 16, head classes ≤ 8; on a CUDA device also planes a multiple of 32
+    and bfloat16 (the kernel's terms; the plain version on the CPU has
+    neither). What it refuses runs the module composition."""
+    parts = as_parts(parts)
+    x0 = parts[0]
+    if not 1 <= len(parts) <= 2 or any(
+            p.dim() != 4 or p.shape[:3] != x0.shape[:3] or p.device != x0.device
+            or p.dtype != x0.dtype for p in parts):
+        return False
+    if planes > MAX_PLANES or labels > MAX_LAB or hidden > MAX_NH or classes > MAX_CLS:
+        return False
+    if x0.device.type == "cuda":
+        return planes % PLANES_MULTIPLE == 0 and x0.dtype == torch.bfloat16
+    return x0.device.type == "cpu"
+
+
+def _folded(block_params, dtype):
+    """The three convs' weights with their BN scales folded in (f32, then
+    rounded to ``dtype``), the shortcut's likewise (None for the identity),
+    and the three biases rounded to ``dtype`` (``t3 + ts`` summed in f32
+    first), all as f32 tensors."""
+    w1, (s1, t1), w2, (s2, t2), w3, (s3, t3), ws, asb = block_params
+
+    def fold(w, s):
+        return _q(w.float() * s.float()[:, None, None, None], dtype)
+
+    wsf, b3 = None, t3.float()
+    if ws is not None:
+        ss, ts = asb
+        wsf, b3 = fold(ws, ss), b3 + ts.float()
+    return (fold(w1, s1), fold(w2, s2), fold(w3, s3), wsf,
+            _q(t1, dtype), _q(t2, dtype), _q(b3, dtype))
+
+
+def fused_bneck_reference(parts, block_params, spade_params, head=None):
+    """The stage in plain PyTorch (``F.conv2d``), with the kernel's numerics:
+    f32 sums over inputs and weights rounded to the activation dtype,
+    conv3 and the shortcut in one f32 sum, intermediates rounded to the
+    dtype. NHWC in and out.
+
+    ``block_params``: ``(w1, (s1, t1), w2, (s2, t2), w3, (s3, t3), ws,
+    (ss, ts))`` — OIHW weights and folded BN affines, ``ws`` and ``(ss,
+    ts)`` None for the identity shortcut (:meth:`ops.blocks.Bottleneck
+    .stage_params`). ``spade_params`` and ``head`` as in
+    :func:`ops.stage_kernel.fused_stage_reference`.
+
+    On the card, compare with TF32 off (``torch.backends.cudnn.allow_tf32``)
+    or the f32 convs lose ~3 digits."""
+    parts = as_parts(parts)
+    dtype = parts[0].dtype
+    k1, k2, k3, ks, b1, b2, b3 = _folded(block_params, dtype)
+    xs = tuple(p.float() for p in parts)
+    h1 = torch.relu(conv2d_nhwc(xs, k1) + b1).to(dtype)
+    h2 = torch.relu(conv2d_nhwc(h1.float(), k2, padding=1) + b2).to(dtype)
+    y = conv2d_nhwc(h2.float(), k3) + b3
+    if ks is not None:
+        y = y + conv2d_nhwc(xs, ks)
+    else:
+        if sum(x.shape[-1] for x in xs) != k3.shape[0]:
+            raise ValueError("an identity shortcut needs parts of planes channels in all")
+        y = y + (xs[0] if len(xs) == 1 else torch.cat(xs, -1))
+    y = torch.relu(y).to(dtype)
+    return spade_tail_reference(y, spade_params, head)[0]
+
+
+def pack_stage_bneck(part_channels, block_params, spade_params, head, dtype) -> dict:
+    """Fold BN into the weights and lay every operand out for the kernel:
+    ``k1`` [planes][Σ pad32(part)], ``k2`` [planes][9·planes], ``k3``
+    [planes][planes + Σ pad32(part)] — conv3's columns, then the
+    shortcut's, or a unit matrix for the identity (exact in bf16) — and the
+    f32 biases. The result depends on the weights alone, so a caller whose
+    weights are fixed (eval) makes it once and hands it to
+    :func:`fused_eval_stage_bneck` as ``packed``."""
+    part_channels = tuple(part_channels)
+    k1, k2, k3, ks, b1, b2, b3 = _folded(block_params, dtype)
+    planes = k2.shape[0]
+    if ks is None:
+        if sum(part_channels) != planes:
+            raise ValueError("an identity shortcut needs parts of planes channels in all")
+        ks = torch.eye(planes, dtype=k3.dtype, device=k3.device)[:, :, None, None]
+    packed = {
+        "channels": part_channels, "dtype": dtype,
+        "k1": _gemm_weight(split_in(k1, part_channels), dtype),
+        "b1": b1.contiguous(),
+        "k2": _gemm_weight([k2], dtype),
+        "b2": b2.contiguous(),
+        "k3": _gemm_weight([k3] + split_in(ks, part_channels), dtype),
+        "b3": b3.contiguous(),
+    }
+    packed.update(pack_spade(spade_params, head, dtype))
+    return packed
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ssu_bneck_stage.argtypes = [p, i, p, i, i, i, i, i, p, i, p, p, i, p, p, i, p,
+                                    p, p, p, p, p, i, p, p, i, p, p, p, p, i, p, p]
+    lib.ssu_bneck_stage.restype = i
+    return lib
+
+
+def _run_cuda(parts: Tuple[torch.Tensor, ...], pk: dict) -> torch.Tensor:
+    global launches
+    x0 = parts[0]
+    dev, dtype = x0.device, x0.dtype
+    n, h, w = x0.shape[:3]
+    c = pk["k2"].shape[0]
+    lab, nh = pk["k1s"].shape[2], pk["k2s"].shape[2]
+    ncls = 0 if pk["kf"] is None else pk["kf"].shape[1]
+    if not bneck_supported(parts, c, lab, nh, ncls):
+        raise ValueError(
+            f"the CUDA bottleneck stage does not take this stage: parts "
+            f"{[(tuple(p.shape), p.dtype) for p in parts]}, planes={c} (a multiple of "
+            f"{PLANES_MULTIPLE}, <= {MAX_PLANES}), labels={lab} (<= {MAX_LAB}), hidden={nh} "
+            f"(<= {MAX_NH}), classes={ncls} (<= {MAX_CLS}); bfloat16 only")
+    if any(not p.is_contiguous() for p in parts):
+        raise ValueError("stage parts must be contiguous NHWC tensors")
+    if pk["channels"] != tuple(p.shape[-1] for p in parts) or pk["dtype"] != dtype:
+        raise ValueError(f"packed operands are for parts of {pk['channels']} channels "
+                         f"in {pk['dtype']}, got {[tuple(p.shape) for p in parts]} {dtype}")
+    for t in pk.values():
+        if isinstance(t, torch.Tensor) and t.device != dev:
+            raise ValueError("stage weights must lie on the parts' device")
+    x1 = parts[1] if len(parts) > 1 else None
+    with torch.cuda.device(dev):
+        h1, h2, y = (torch.empty((n, h, w, c), dtype=dtype, device=dev) for _ in range(3))
+        out = torch.empty((n, h, w, ncls or c), dtype=dtype, device=dev)
+        err = _lib().ssu_bneck_stage(
+            x0.data_ptr(), x0.shape[-1], _ptr(x1), 0 if x1 is None else x1.shape[-1],
+            n, h, w, c, _ptr(pk["k1"]), pk["k1"].shape[1], _ptr(pk["b1"]),
+            _ptr(pk["k2"]), pk["k2"].shape[1], _ptr(pk["b2"]),
+            _ptr(pk["k3"]), pk["k3"].shape[1], _ptr(pk["b3"]),
+            _ptr(h1), _ptr(h2), _ptr(y), _ptr(pk["k1s"]), _ptr(pk["b1s"]), lab,
+            _ptr(pk["k2s"]), _ptr(pk["b2s"]), nh, _ptr(pk["kgb"]), _ptr(pk["bgb"]),
+            _ptr(pk["kf"]), _ptr(pk["bf"]), ncls, _ptr(out),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused bottleneck stage launch failed: cudaError {err}")
+    launches += 1
+    return out
+
+
+def fused_eval_stage_bneck(parts, block_params, spade_params, head=None,
+                           packed: Optional[dict] = None) -> torch.Tensor:
+    """Eval [Bottleneck + self-SPADE] stage (+ folded head), NHWC in/out.
+
+    Arguments as in :func:`fused_bneck_reference`; ``packed``, if given, is
+    :func:`pack_stage_bneck` of the same weights, which spares the CUDA path
+    its packing. CPU tensors run the plain version; CUDA tensors run the
+    hand-written kernel, or raise for what :func:`bneck_supported`
+    refuses."""
+    parts = as_parts(parts)
+    dev = parts[0].device
+    if dev.type == "cpu":
+        return fused_bneck_reference(parts, block_params, spade_params, head)
+    if dev.type == "cuda":
+        if packed is None:
+            packed = pack_stage_bneck(tuple(p.shape[-1] for p in parts), block_params,
+                                      spade_params, head, parts[0].dtype)
+        return _run_cuda(parts, packed)
+    raise ValueError(f"fused bottleneck stage has no path for device {dev}")

@@ -597,3 +597,135 @@ def test_int8_flagship_forward_kernel_matches_plain(monkeypatch):
     e_k, e_p, e_kp = rel(got, f32), rel(plain, f32), rel(got, plain)
     assert torch.isfinite(got.float()).all() and got.shape == f32.shape
     assert e_k <= 1.25 * e_p and e_kp <= e_p, (e_k, e_p, e_kp)
+
+
+# ---- the bottleneck stage (kernel 8) and the standalone self-SPADE (kernel 9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "chans,planes,labels,nhw,ncls",
+    [
+        ((3,), 64, 3, (2, 40, 36), 0),          # 3-channel first block, ragged tiles
+        ((64,), 128, 3, (1, 32, 32), 0),        # encoder
+        ((128,), 128, 3, (2, 24, 20), 0),       # identity shortcut
+        ((256, 512), 256, 3, (1, 16, 16), 0),   # widest fused stage, two parts
+        ((64, 128), 64, 3, (2, 48, 40), 3),     # folded final head
+        ((32, 32), 64, 2, (1, 9, 13), 2),       # odd sizes, identity over two parts
+        ((32, 64), 64, 2, (1, 9, 13), 2),       # odd sizes, M tail < 128
+    ],
+)
+def test_bneck_stage_kernel_matches_plain(chans, planes, labels, nhw, ncls):
+    from ssunet_gan_tpu_torch.ops import stage_kernel_bneck
+    from ssunet_gan_tpu_torch.ops.blocks import Bottleneck
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(0)
+    block = Bottleneck(sum(chans), planes, generator=gen)
+    _randomize_bn(block, gen)
+    spade = SPADE("spadebatch3x3", planes, labels, planes / 16, generator=gen)
+    head = None
+    if ncls:
+        final = Conv2d(planes, ncls, 1, generator=gen)
+        head = (final.weight.to(dev), final.bias.to(dev))
+    block.to(dev).eval()
+    spade.to(dev)
+    n, h, w = nhw
+    parts = tuple(torch.randn((n, h, w, c), generator=gen).to(dev, torch.bfloat16)
+                  for c in chans)
+    before = stage_kernel_bneck.launches
+    got = stage_kernel_bneck.fused_eval_stage_bneck(parts, block.stage_params(),
+                                                    spade.stage_params(), head)
+    torch.cuda.synchronize()
+    assert stage_kernel_bneck.launches == before + 1
+    want = stage_kernel_bneck.fused_bneck_reference(parts, block.stage_params(),
+                                                    spade.stage_params(), head)
+    assert got.shape == want.shape == (n, h, w, ncls or planes)
+    errs, ok = _close(got, want)
+    assert ok, errs
+
+
+@pytest.mark.gpu
+def test_bneck_stage_kernel_refuses_float32_and_the_model_composes_it():
+    """The wrapper raises for f32 on the card; the model's gate sends an f32
+    forward to the module composition instead (no launch)."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_bneck
+    from ssunet_gan_tpu_torch.ops.blocks import Bottleneck
+
+    dev = _card()
+    block = Bottleneck(64, 128).to(dev).eval()
+    spade = SPADE("spadebatch3x3", 128, 3, 8.0).to(dev)
+    x = torch.zeros((1, 16, 16, 64), device=dev)
+    with pytest.raises(ValueError):
+        stage_kernel_bneck.fused_eval_stage_bneck((x,), block.stage_params(),
+                                                  spade.stage_params())
+    model = build_model("UNet_B_SS", 3, filters=(32, 64, 96, 288, 320), seed=0, device=dev)
+    x = torch.randn((1, 32, 32, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+    before = stage_kernel_bneck.launches
+    with torch.no_grad():
+        f32 = model(x)
+        assert stage_kernel_bneck.launches == before
+        got = model(x.bfloat16())
+    torch.cuda.synchronize()
+    assert stage_kernel_bneck.launches == before + 6
+    rel = ((got.float() - f32).norm() / f32.norm()).item()
+    assert torch.isfinite(got.float()).all() and rel < 0.2, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,labels,nh,nhw", [
+    (64, 3, 4, (2, 40, 36)), (128, 3, 8, (1, 32, 32)), (256, 3, 16, (2, 16, 16)),
+    (32, 2, 4, (1, 9, 13)),
+])
+def test_spade_stage_kernel_matches_plain_forward_and_backward(c, labels, nh, nhw):
+    """Forward against the plain version; backward against autograd of the
+    plain composition on the same inputs (the same cuDNN calls, so equal to
+    the forward's bar at the least)."""
+    from ssunet_gan_tpu_torch.ops import spade_kernel
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(0)
+    spade = SPADE("spadebatch3x3", c, labels, float(nh), generator=gen).to(dev)
+    n, h, w = nhw
+    x = torch.randn((n, h, w, c), generator=gen).to(dev, torch.bfloat16).requires_grad_()
+    cot = torch.randn((n, h, w, c), generator=gen).to(dev, torch.bfloat16)
+    params = spade.stage_params()
+    before = spade_kernel.launches
+    got = spade_kernel.fused_spade_stage(x, *params)
+    torch.cuda.synchronize()
+    assert spade_kernel.launches == before + 1
+    want = spade_kernel.self_spade_reference(x.detach(), params)
+    errs, ok = _close(got, want)
+    assert ok, errs
+    grads = torch.autograd.grad(got, [x, *params], cot)
+    x2 = x.detach().clone().requires_grad_()
+    plain = torch.autograd.grad(spade_kernel.self_spade_composition(x2, *params),
+                                [x2, *params], cot)
+    for g, p in zip(grads, plain):
+        errs, ok = _close(g, p)
+        assert ok and g.shape == p.shape and g.dtype == p.dtype, errs
+
+
+@pytest.mark.gpu
+def test_spade_module_pallas_mode_launches_only_for_self_spade():
+    from ssunet_gan_tpu_torch.ops import spade_kernel
+
+    dev = _card()
+    spade = SPADE("spadebatch3x3", 64, 3, 4.0, generator=torch.Generator().manual_seed(0)).to(dev)
+    x = torch.randn((1, 32, 32, 64), generator=torch.Generator().manual_seed(1))
+    x = x.to(dev, torch.bfloat16)
+    with torch.no_grad():
+        off = spade(x, x)
+        spade_kernel.set_fused_spade("pallas")
+        try:
+            before = spade_kernel.launches
+            got = spade(x, x)
+            assert spade_kernel.launches == before + 1
+            spade(x, x.clone())          # a general segmap: the composition
+            xf = x.float()
+            spade(xf, xf)                # f32 on the card: refused by the gate
+            assert spade_kernel.launches == before + 1
+        finally:
+            spade_kernel.set_fused_spade(None)
+    errs, ok = _close(got, off)
+    assert ok, errs

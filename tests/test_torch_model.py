@@ -92,8 +92,10 @@ def test_build_model_from_config():
 
 
 def test_unported_arch_names_the_roadmap():
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        build_model("UNet_B_SS", 3, device="cpu")
+    with pytest.raises(KeyError, match="not ported yet.*SSUNet.*ROADMAP.md"):
+        build_model("SSUNet", 3, device="cpu")
+    with pytest.raises(KeyError, match="unknown.*ROADMAP.md"):
+        build_model("UNet_X", 3, device="cpu")
 
 
 def test_default_device_needs_a_card():

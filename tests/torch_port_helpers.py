@@ -8,17 +8,21 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from flax import linen as nn
 
+from ssunet_gan_tpu.models import ssunet as jax_ssunet
+from ssunet_gan_tpu.ops import spade_kernel as jax_spade_kernel
 from ssunet_gan_tpu.ops import stage_kernel as jax_stage_kernel
 from ssunet_gan_tpu.ops import stage_kernel_int8 as jax_stage_kernel_int8
 from ssunet_gan_tpu.ops import stage_kernel_train as jax_stage_kernel_train
 from ssunet_gan_tpu.ops import wminor as jax_wminor
+from ssunet_gan_tpu.ops.conv import Conv2d as JConv2d
 from ssunet_gan_tpu_torch.ops import stage_kernel_train as port_stage_kernel_train
 
 
 @contextlib.contextmanager
 def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool = False,
-                int8_stage: bool = False):
+                int8_stage: bool = False, fused_spade=None):
     """Set every global mode of the JAX package that the port's tests
     reach, and restore the previous values after (another test in the same
     worker may leave, e.g., the upsample-backward decomposition on). The
@@ -26,7 +30,8 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
     port's backward of the same version against it. ``int8_stage`` turns the
     JAX package's int8 eval mode on; its calibration scales, record sink and
     forced band height start cleared and are restored after, whatever the
-    test installed."""
+    test installed. ``fused_spade`` is the JAX package's SPADE mode (None or
+    False: the composition, True: "fast", or "pallas")."""
     saved = (
         jax_stage_kernel._FUSED_STAGE,
         jax_wminor._LAZY_UPSAMPLE,
@@ -38,6 +43,7 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
         jax_stage_kernel_int8._CALIB_SCALES,
         jax_stage_kernel_int8._RECORD_SINK,
         jax_stage_kernel._BAND_ROWS,
+        jax_spade_kernel._FUSED,
     )
     jax_stage_kernel.set_fused_stage(fused_stage)
     jax_wminor.set_lazy_upsample(False)
@@ -49,6 +55,7 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
     jax_stage_kernel_int8.set_int8_calibration(None)
     jax_stage_kernel_int8.set_record_sink(None)
     jax_stage_kernel.set_band_rows(None)
+    jax_spade_kernel.set_fused_spade(fused_spade)
     try:
         yield
     finally:
@@ -62,6 +69,7 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
         jax_stage_kernel_int8.set_int8_calibration(saved[7])
         jax_stage_kernel_int8.set_record_sink(saved[8])
         jax_stage_kernel.set_band_rows(saved[9])
+        jax_spade_kernel.set_fused_spade(saved[10])
 
 
 def oihw(kernel_hwio) -> torch.Tensor:
@@ -72,6 +80,16 @@ def oihw(kernel_hwio) -> torch.Tensor:
 
 def vec(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32))
+
+
+def bneck_bundle(jbp):
+    """A JAX Bottleneck bundle ``(k1, (s1, t1), k2, (s2, t2), k3, (s3, t3),
+    ks, (ss, ts))`` in the port's layout: OIHW weights, f32 vectors; the
+    identity shortcut's ``ks`` and affine stay None."""
+    k1, a1, k2, a2, k3, a3, ks, asb = jbp
+    pair = lambda a: (vec(a[0]), vec(a[1]))
+    return (oihw(k1), pair(a1), oihw(k2), pair(a2), oihw(k3), pair(a3),
+            None if ks is None else oihw(ks), None if asb is None else pair(asb))
 
 
 def randomize_batch_stats(variables, seed: int = 7):
@@ -118,6 +136,64 @@ def spade_weights(rng, planes, lab, nh):
             normal(rng, (3, 3, nh, planes), 0.2), normal(rng, (planes,), 0.1),
             normal(rng, (3, 3, nh, planes), 0.2), normal(rng, (planes,), 0.1))
     return hwio, tuple(oihw(a) if a.ndim == 4 else vec(a) for a in hwio)
+
+
+# The JAX package's UNetBSS and UNetRSS fix their widths; these subclasses
+# repeat their bodies at narrow widths, through the package's own stage
+# dispatch, for the model tests.
+B_FILTERS = (8, 16, 32, 48, 64)
+R_FILTERS = (8, 16, 32, 48, 64, 96)
+
+
+class NarrowUNetBSS(jax_ssunet.UNetBSS):
+    """The JAX ``UNetBSS`` body (models/ssunet.py:396-427) at ``B_FILTERS``."""
+
+    @nn.compact
+    def __call__(self, x, train: bool = True):
+        f, ss, C = B_FILTERS, 16, self.num_classes
+        qpool, up, spade_stage = jax_ssunet._qpool, jax_ssunet._up, jax_ssunet._spade_stage
+
+        def stage(xin, i, bname, sname):
+            return spade_stage(xin, f[i], C, ss, bname, sname, train, block="bneck")[0]
+
+        x0_0 = stage(x, 0, "conv0_0", "SPADE0_0")
+        x1_0 = stage(qpool(x0_0, train), 1, "conv1_0", "SPADE1_0")
+        x2_0 = stage(qpool(x1_0, train), 2, "conv2_0", "SPADE2_0")
+        x3_0 = stage(qpool(x2_0, train), 3, "conv3_0", "SPADE3_0")
+        x4_0 = stage(qpool(x3_0, train), 4, "conv4_0", "SPADE4_0")
+        x3_1 = stage((x3_0, up(x4_0, True)), 3, "conv3_1", "SPADE3_1")
+        x2_2 = stage((x2_0, up(x3_1, train)), 2, "conv2_2", "SPADE2_2")
+        x1_3 = stage((x1_0, up(x2_2, train)), 1, "conv1_3", "SPADE1_3")
+        return spade_stage(
+            (x0_0, up(x1_3, train)), f[0], C, ss, "conv0_4", "SPADE0_4", train,
+            final_conv=JConv2d(self.num_classes, 1, name="final", in_channels=f[0]),
+            block="bneck")[1]
+
+
+class NarrowUNetRSS(jax_ssunet.UNetRSS):
+    """The JAX ``UNetRSS`` body (models/ssunet.py:438-471) at ``R_FILTERS``."""
+
+    @nn.compact
+    def __call__(self, x, train: bool = True):
+        f, ss, C = R_FILTERS, 16, self.num_classes
+        qpool, up = jax_ssunet._qpool, jax_ssunet._up
+
+        def stage(xin, feat, bname, sname, out_key=None, final_conv=None):
+            return jax_ssunet._spade_stage(xin, feat, C, ss, bname, sname, train,
+                                           final_conv=final_conv, out_calib_key=out_key)
+
+        x0_0 = stage(x, f[0], "conv0_0", "SPADE0_0", "conv0_4:0")[0]
+        x1_0 = stage(qpool(x0_0, train), f[1], "conv1_0", "SPADE1_0", "conv1_3:0")[0]
+        x2_0 = stage(qpool(x1_0, train), f[2], "conv2_0", "SPADE2_0", "conv2_2:0")[0]
+        x3_0 = stage(qpool(x2_0, train), f[3], "conv3_0", "SPADE3_0", "conv3_1:0")[0]
+        x4_0 = stage(qpool(x3_0, train), f[4], "conv4_0", "SPADE4_0", "conv4_1:0")[0]
+        x5_0 = stage(qpool(x4_0, train), f[5], "conv5_0", "SPADE5_0")[0]
+        x4_1 = stage((x4_0, up(x5_0, train, "conv4_1:1")), f[4], "conv4_1", "SPADE4_1")[0]
+        x3_1 = stage((x3_0, up(x4_1, train, "conv3_1:1")), f[3], "conv3_1", "SPADE3_1")[0]
+        x2_2 = stage((x2_0, up(x3_1, train, "conv2_2:1")), f[2], "conv2_2", "SPADE2_2")[0]
+        x1_3 = stage((x1_0, up(x2_2, train, "conv1_3:1")), f[1], "conv1_3", "SPADE1_3")[0]
+        return stage((x0_0, up(x1_3, train, "conv0_4:1")), f[0], "conv0_4", "SPADE0_4",
+                     final_conv=jax_ssunet._final_conv(self.num_classes, in_channels=f[0]))[1]
 
 
 # (planes, labels, part shapes, hidden, head classes) of the train-stage
