@@ -18,7 +18,9 @@ Phases, each of which exits non-zero on failure:
    logits are O(1), as in a trained model, instead of shrinking stage by
    stage), 512² bf16 tiles, batch 8; tiles/s, six kernel runs per
    forward, logits against the all-plain forward on the card in bf16 and
-   in f32.
+   in f32 (an f32 forward on the card runs every stage through the module
+   composition, which the stage gate sends f32 to); and that f32 forward
+   at batch 1 against the CPU's, with no kernel stage launched.
 3. Scene request: segmentation_inference on a seeded 2048² uint8 scene
    (patch 1024, overlap 0.5: 36 tiles, two chunks of 32, the last padded);
    the chunked forward's tile probabilities and the masks against the
@@ -49,8 +51,9 @@ Phases, each of which exits non-zero on failure:
    inputs and cotangent the kernel step gave it; each kernel call of one
    steady-state v3 step (and the wgrad calls of one v2 step) held against
    its plain version on its inputs (weight gradients also against an f64
-   sum) and timed against it, its bound and the library call; a profile of
-   one v3 and one v2 step.
+   sum) and timed against it, its bound and the library call, with a
+   ``train mode:`` line per chain mode of fused_conv3 and fused_wgrad; a
+   profile of one v3 and one v2 step.
 
 7. int8 stages (phases 7 and 8 run after phase 3, before the train
    phases): for the same six stage signatures at 512², batch 2, seeded
@@ -138,6 +141,13 @@ REL_TOL, ABS_TOL, L2_TOL = 2e-2, 1e-3, 1e-2
 # MASK_AGREEMENT of the pixels (a kernel that keeps only the logits' sign
 # agrees on about half).
 NOISE_RATIO = 1.1
+# An f32 forward on the card (the stage gate refuses f32: the module
+# composition, TF32 off) against the same forward on the CPU: the same f32
+# arithmetic in another summation order, relative L2 of the logits. A last-
+# bit difference can move a max-pool's winner, which the unpool carries
+# to another pixel (measured on the H100 at 512²: 1.47e-3); bf16 forwards
+# are ~0.1 apart.
+F32_CARD_TOL = 1e-2
 MASK_SLACK = 0.002
 MASK_AGREEMENT = 0.95
 # a mask check has power only where the masks are not near-constant
@@ -754,6 +764,7 @@ def time_calls(calls, kernels, label, train_err, check):
     version, its bound and the library call. Returns per-kernel totals."""
     totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                   "kinds": set(), "calls": 0, "macs": 0.0} for k in kernels}
+    by_mode = {}  # (kernel, chain mode) of kernels 5 and 6: the per-mode sub-table
     for kname, args, kw in calls:
         if kname not in kernels:
             continue
@@ -778,9 +789,16 @@ def time_calls(calls, kernels, label, train_err, check):
         t["library_ms"] += lib_ms or 0.0
         t["kinds"].add(kind)
         t["calls"] += 1
+        if kname in ("fused_conv3", "fused_wgrad"):
+            m = by_mode.setdefault((kname, _arg(args, kw, 0, "mode")), [0, 0.0, 0.0, 0.0, 0.0])
+            for i, v in enumerate((1, ms, plain_ms, bound, lib_ms or 0.0)):
+                m[i] += v
         print(f"train call: {describe_call(kname, args, kw)} ms {ms:.3f} plain {plain_ms:.3f} "
               f"bound {bound:.3f} ({kind}) library "
               f"{'none' if lib_ms is None else f'{lib_ms:.3f}'}")
+    for (kname, mode), (n, ms, plain_ms, bound, lib_ms) in sorted(by_mode.items()):
+        print(f"train mode: {kname} {mode} ({label}, {n} calls) per step ms {ms:.3f} "
+              f"plain {plain_ms:.3f} bound {bound:.3f} library {lib_ms:.3f}")
     for kname, t in totals.items():
         print(f"train kernel: {kname} ({label}, {t['calls']} calls) per step ms {t['ms']:.3f} "
               f"plain {t['plain_ms']:.3f} bound {t['bound_ms']:.3f} "
@@ -1974,6 +1992,30 @@ def main() -> int:
         plain_masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False)
         f32_masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False,
                                               dtype=torch.float32)
+
+    # fault 3.1: an f32 forward on the card runs every stage through the
+    # module composition (the gate refuses f32, no kernel launches); the
+    # same forward on the CPU with the fused eval stages off is its yardstick
+    before = stage_kernel.launches
+    with torch.no_grad():
+        f32_card = model(xn[:1]).cpu()
+    cpu_model = copy.deepcopy(model).cpu()
+    stage_kernel.set_fused_stage(False)
+    try:
+        with torch.no_grad():
+            f32_cpu = cpu_model(xn[:1].cpu())
+    finally:
+        stage_kernel.set_fused_stage(None)
+    e_f32 = rel_l2(f32_card, f32_cpu)
+    print(f"phase 2: f32 flagship forward on the card through the composition ("
+          f"{stage_kernel.launches - before} kernel stages) against the CPU f32 forward: "
+          f"rel_l2 {e_f32:.4g} (bar {F32_CARD_TOL:g}), max|CPU| "
+          f"{f32_cpu.abs().max().item():.4g}")
+    check(stage_kernel.launches == before and bool(torch.isfinite(f32_card).all())
+          and e_f32 <= F32_CARD_TOL,
+          f"phase 2: f32 card forward: {stage_kernel.launches - before} kernel stages, "
+          f"rel_l2 {e_f32} from the CPU forward")
+    del cpu_model, f32_card, f32_cpu
 
     e_logits = forward_bar("phase 2: logits", logits_k, logits_p, logits_f, check)[0]
     e_probs = forward_bar("phase 3: scene tile probabilities", probs_k, probs_p, probs_f,

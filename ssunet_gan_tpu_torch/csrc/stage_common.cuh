@@ -110,113 +110,13 @@ __device__ __forceinline__ void k_step(const Src* src, int nsrc, int kt, int& s,
 
 // ---------------------------------------------------------------------------
 // The conv core: implicit-GEMM conv3x3/1x1 over up to three sources, with a
-// bias [+ ReLU] or residual epilogue and optional per-block channel sums
-// (CONV_STD), or one of the v3 backward's chains (train_bwd.cu): a
-// two-tensor prologue on source 0 and an epilogue over output-aligned bands
-// with up to four rows of sums. Each mode is its own instantiation.
+// bias [+ ReLU] or residual epilogue and optional per-block channel sums.
+// (The v3 backward's chain convs have their own core, bwd_core.cuh.)
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 128;            // pixels per block
 constexpr int BN = 64;             // output channels per block
 constexpr int CONV_THREADS = 128;  // 4 warps, 2 x 2, 64 x 32 each
-
-enum ConvMode {
-  CONV_STD = 0,      // the prologue relu(x*a + b), bias [+ ReLU] or residual
-  CONV_MODGRAD = 1,  // src0 * pro_f rounded; where(band0 > 0, round(acc), 0); sum
-  CONV_PRE = 2,      // gp = where(y > 0, g*(1+gamma) + round(acc)); 4 sums
-  CONV_BN2 = 3,      // BN-backward prologue; where(f1*a + b > 0, round(acc), 0); 2 sums
-  CONV_BN1 = 4,      // BN-backward prologue; round(round(acc3x3) + acc1x1), two outputs
-};
-
-template <int MODE>
-__host__ __device__ constexpr int conv_stat_rows() {
-  return MODE == CONV_STD ? 2 : MODE == CONV_MODGRAD ? 1 : MODE == CONV_PRE ? 4
-       : MODE == CONV_BN2 ? 2 : 0;
-}
-
-// What the chain modes read and write besides ConvArgs.
-struct ChainArgs {
-  const bf16* pro_f;    // [m][src0.c]: y (MODGRAD), f (BN2, BN1) at the source pixel
-  int pro_vec;          // 16-byte loads of pro_f allowed
-  const float* cst[8];  // per-channel f32 constants (BN2, BN1: p, q, r', m' first)
-  const bf16* band[4];  // [m][cout] output-aligned: actv | g, gamma, y, f2 | f1
-  bf16* out1;           // BN1: channels >= split go here, [m][cout - split]
-  int split;            // BN1: channels written to ConvArgs.out
-  int k_round;          // BN1: K steps of the 3x3 segment; acc is rounded after them
-};
-
-// Eight raw channels c0..c0+7 of a [pix][c] tensor as floats (zeros past c).
-__device__ __forceinline__ void raw8(const bf16* base, int c, int vec, long long pix,
-                                     int c0, float* f) {
-  const bf16* p = base + (pix * c + c0);
-  if (vec && c0 + 8 <= c) {
-    unpack8(*reinterpret_cast<const uint4*>(p), f);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) f[j] = c0 + j < c ? __bfloat162float(p[j]) : 0.f;
-  }
-}
-
-// The BN-backward chain's four per-channel constants (p, q, r', m'), staged
-// in shared memory once per block: [4][CHAIN_MAX_C], read eight channels at
-// a time as float4s.
-constexpr int CHAIN_MAX_C = 512;
-
-// p*(g - q - (f*r' - m')) with the f32 roundings of the plain version.
-__device__ __forceinline__ float bn_chain(float g, float f, float p, float q, float r,
-                                          float m) {
-  const float t = __fsub_rn(g, q);
-  const float u = __fsub_rn(__fmul_rn(f, r), m);
-  return __fmul_rn(p, __fsub_rn(t, u));
-}
-
-// Fill cs[k][0, n) with the constants cst[k][base + i] (zeros past valid).
-__device__ __forceinline__ void stage_bn_consts(float (*cs)[CHAIN_MAX_C],
-                                                const float* const* cst, int base, int n,
-                                                int valid, int nthreads) {
-  for (int i = threadIdx.x; i < 4 * n; i += nthreads) {
-    const int k = i / n, c = i - k * n;
-    cs[k][c] = c < valid ? cst[k][base + c] : 0.f;
-  }
-}
-
-// The BN-backward chain on eight channels c0.. (zeros at channels >= valid),
-// the constants read as float4s from cs at column off (a multiple of 4).
-__device__ __forceinline__ void bn_chain8(const float* g, const float* f,
-                                          const float (*cs)[CHAIN_MAX_C], int off, int c0,
-                                          int valid, float* o) {
-#pragma unroll
-  for (int h = 0; h < 8; h += 4) {
-    const float4 p = *reinterpret_cast<const float4*>(&cs[0][off + h]);
-    const float4 q = *reinterpret_cast<const float4*>(&cs[1][off + h]);
-    const float4 r = *reinterpret_cast<const float4*>(&cs[2][off + h]);
-    const float4 m = *reinterpret_cast<const float4*>(&cs[3][off + h]);
-    o[h] = c0 + h < valid ? bn_chain(g[h], f[h], p.x, q.x, r.x, m.x) : 0.f;
-    o[h + 1] = c0 + h + 1 < valid ? bn_chain(g[h + 1], f[h + 1], p.y, q.y, r.y, m.y) : 0.f;
-    o[h + 2] = c0 + h + 2 < valid ? bn_chain(g[h + 2], f[h + 2], p.z, q.z, r.z, m.z) : 0.f;
-    o[h + 3] = c0 + h + 3 < valid ? bn_chain(g[h + 3], f[h + 3], p.w, q.w, r.w, m.w) : 0.f;
-  }
-}
-
-// Source 0 of a chain mode, eight channels of one in-image pixel: g*y
-// (MODGRAD) or the BN-backward chain (BN2, BN1; constants in cs), rounded to
-// bf16; channels past S.c stay 0.
-template <int MODE>
-__device__ __forceinline__ uint4 load8_chain(const Src& S, long long pix, int c0,
-                                             const ChainArgs& ch,
-                                             const float (*cs)[CHAIN_MAX_C]) {
-  float g[8], f[8], o[8];
-  raw8(S.ptr, S.c, S.vec, pix, c0, g);
-  raw8(ch.pro_f, S.c, ch.pro_vec, pix, c0, f);
-  if (MODE == CONV_MODGRAD) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[j] = __fmul_rn(g[j], f[j]);
-  } else {
-    bn_chain8(g, f, cs, c0, c0, S.c, o);
-  }
-  return make_uint4(pack2(o[0], o[1]), pack2(o[2], o[3]), pack2(o[4], o[5]),
-                    pack2(o[6], o[7]));
-}
 
 // Sum NS rows of per-thread channel sums over the block's 128 pixels and
 // write them as this block's partials, [NS][cout][gridDim.x].
@@ -275,19 +175,12 @@ struct ConvArgs {
   long long m;         // n * h * w
 };
 
-template <int MODE>
-__device__ __forceinline__ void conv_body(const ConvArgs& args, const ChainArgs& ch) {
-  constexpr int NS = conv_stat_rows<MODE>();
+__global__ void __launch_bounds__(CONV_THREADS)
+conv_kernel(const ConvArgs args) {
+  constexpr int NS = 2;
   __shared__ __align__(16) bf16 As[2][BM][LDS];
   __shared__ __align__(16) bf16 Bs[2][BN][LDS];
-  __shared__ float red[2][NS > 0 ? NS : 1][BN];
-  constexpr bool BN_PRO = MODE == CONV_BN2 || MODE == CONV_BN1;
-  __shared__ __align__(16) float cs_raw[BN_PRO ? 4 * CHAIN_MAX_C : 4];
-  const auto cs = reinterpret_cast<float (*)[CHAIN_MAX_C]>(cs_raw);  // [4][CHAIN_MAX_C]
-  if constexpr (BN_PRO) {
-    stage_bn_consts(cs, ch.cst, 0, args.src[0].cpad, args.src[0].c, CONV_THREADS);
-    __syncthreads();
-  }
+  __shared__ float red[2][NS][BN];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -332,14 +225,8 @@ __device__ __forceinline__ void conv_body(const ConvArgs& args, const ChainArgs&
     for (int i = 0; i < 4; ++i) {
       const int ih = a_oh[i] + dy - pad, iw = a_ow[i] + dx - pad;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (a_ok[i] && ih >= 0 && ih < H && iw >= 0 && iw < W && c0 < S.c) {
-        const long long pix = a_img[i] + (long long)ih * W + iw;
-        if constexpr (MODE == CONV_MODGRAD || MODE == CONV_BN2 || MODE == CONV_BN1)
-          v = s == 0 ? load8_chain<MODE>(S, pix, c0, ch, cs)
-                     : load8(S, pix, c0, nullptr, nullptr);
-        else
-          v = load8(S, pix, c0, pa, pb);
-      }
+      if (a_ok[i] && ih >= 0 && ih < H && iw >= 0 && iw < W && c0 < S.c)
+        v = load8(S, a_img[i] + (long long)ih * W + iw, c0, pa, pb);
       ra[i] = v;
     }
 #pragma unroll
@@ -398,171 +285,70 @@ __device__ __forceinline__ void conv_body(const ConvArgs& args, const ChainArgs&
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) mma_bf16_16816(acc[mi][ni], af[mi], bfr[ni]);
     }
-    if constexpr (MODE == CONV_BN1) {
-      // the 3x3 sum is rounded before the 1x1 shortcut segment adds to it
-      if (kt == ch.k_round - 1) {
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mi][ni][e] = bf16r(acc[mi][ni][e]);
-      }
-    }
     if (kt + 1 < ktiles) store_tile(cur ^ 1);
     __syncthreads();
   }
 
   const bool pair_store = (args.cout & 1) == 0;
-  float st[NS > 0 ? NS : 1][4][2];
+  float st[NS][4][2];
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
     for (int r = 0; r < NS; ++r) st[r][ni][0] = st[r][ni][1] = 0.f;
 
-  if constexpr (MODE == CONV_STD) {
-    // [+ bias | residual affine + ReLU], round to bf16, NHWC store, per-channel
-    // sums (and sums of squares) of the rounded values
+  // [+ bias | residual affine + ReLU], round to bf16, NHWC store, per-channel
+  // sums (and sums of squares) of the rounded values
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int ch0 = n0 + wn * 32 + ni * 8 + 2 * t;
-      float bv[2] = {0.f, 0.f}, rav[2] = {0.f, 0.f}, rbv[2] = {0.f, 0.f};
+  for (int ni = 0; ni < 4; ++ni) {
+    const int ch0 = n0 + wn * 32 + ni * 8 + 2 * t;
+    float bv[2] = {0.f, 0.f}, rav[2] = {0.f, 0.f}, rbv[2] = {0.f, 0.f};
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (ch0 + e >= args.cout) continue;
-        if (args.bias != nullptr) bv[e] = args.bias[ch0 + e];
-        if (args.res != nullptr) {
-          rav[e] = args.res_a[ch0 + e];
-          rbv[e] = args.res_b[ch0 + e];
-        }
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const long long m = m0 + wm * 64 + mi * 16 + g + 8 * half;
-          if (m >= args.m || ch0 >= args.cout) continue;
-          float o[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float v = acc[mi][ni][2 * half + e] + bv[e];
-            if (args.relu) v = fmaxf(v, 0.f);
-            if (args.res != nullptr && ch0 + e < args.cout) {
-              const float r = __bfloat162float(args.res[m * args.cout + ch0 + e]);
-              v = fmaxf(__fadd_rn(__fadd_rn(__fmul_rn(r, rav[e]), rbv[e]),
-                                  acc[mi][ni][2 * half + e]), 0.f);
-            }
-            o[e] = bf16r(v);
-          }
-          bf16* op = args.out + m * args.cout + ch0;
-          if (pair_store) {
-            *reinterpret_cast<__nv_bfloat162*>(op) = __floats2bfloat162_rn(o[0], o[1]);
-          } else {
-            op[0] = __float2bfloat16_rn(o[0]);
-            if (ch0 + 1 < args.cout) op[1] = __float2bfloat16_rn(o[1]);
-          }
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            if (ch0 + e >= args.cout) continue;
-            st[0][ni][e] += o[e];
-            st[1][ni][e] += o[e] * o[e];
-          }
-        }
+    for (int e = 0; e < 2; ++e) {
+      if (ch0 + e >= args.cout) continue;
+      if (args.bias != nullptr) bv[e] = args.bias[ch0 + e];
+      if (args.res != nullptr) {
+        rav[e] = args.res_a[ch0 + e];
+        rbv[e] = args.res_b[ch0 + e];
       }
     }
-  } else {
-    // the chains: masks and BN terms from the bands and constants at the
-    // output's pixels, sums of the values the plain version sums
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int ch0 = n0 + wn * 32 + ni * 8 + 2 * t;
-      float k0[2] = {0.f, 0.f}, k1[2] = {0.f, 0.f}, k2[2] = {0.f, 0.f}, k3[2] = {0.f, 0.f};
+    for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (ch0 + e >= args.cout) continue;
-        if (MODE == CONV_PRE) {  // r2, mean2 * r2
-          k0[e] = ch.cst[0][ch0 + e];
-          k1[e] = ch.cst[1][ch0 + e];
-        } else if (MODE == CONV_BN2) {  // a1, b1, r1, mean1 * r1
-          k0[e] = ch.cst[4][ch0 + e];
-          k1[e] = ch.cst[5][ch0 + e];
-          k2[e] = ch.cst[6][ch0 + e];
-          k3[e] = ch.cst[7][ch0 + e];
+      for (int half = 0; half < 2; ++half) {
+        const long long m = m0 + wm * 64 + mi * 16 + g + 8 * half;
+        if (m >= args.m || ch0 >= args.cout) continue;
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = acc[mi][ni][2 * half + e] + bv[e];
+          if (args.relu) v = fmaxf(v, 0.f);
+          if (args.res != nullptr && ch0 + e < args.cout) {
+            const float r = __bfloat162float(args.res[m * args.cout + ch0 + e]);
+            v = fmaxf(__fadd_rn(__fadd_rn(__fmul_rn(r, rav[e]), rbv[e]),
+                                acc[mi][ni][2 * half + e]), 0.f);
+          }
+          o[e] = bf16r(v);
         }
-      }
+        bf16* op = args.out + m * args.cout + ch0;
+        if (pair_store) {
+          *reinterpret_cast<__nv_bfloat162*>(op) = __floats2bfloat162_rn(o[0], o[1]);
+        } else {
+          op[0] = __float2bfloat16_rn(o[0]);
+          if (ch0 + 1 < args.cout) op[1] = __float2bfloat16_rn(o[1]);
+        }
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const long long m = m0 + wm * 64 + mi * 16 + g + 8 * half;
-          if (m >= args.m || ch0 >= args.cout) continue;
-          float o[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            o[e] = 0.f;
-            if (ch0 + e >= args.cout) continue;
-            const long long idx = m * args.cout + ch0 + e;
-            const float r = bf16r(acc[mi][ni][2 * half + e]);
-            if constexpr (MODE == CONV_MODGRAD) {
-              o[e] = __bfloat162float(ch.band[0][idx]) > 0.f ? r : 0.f;
-              st[0][ni][e] += o[e];
-            } else if constexpr (MODE == CONV_PRE) {
-              const float gf = __bfloat162float(ch.band[0][idx]);
-              const float gm = __bfloat162float(ch.band[1][idx]);
-              const float yf = __bfloat162float(ch.band[2][idx]);
-              const float f2 = __bfloat162float(ch.band[3][idx]);
-              const float gy = __fadd_rn(__fmul_rn(gf, __fadd_rn(1.f, gm)), r);
-              const float gp = yf > 0.f ? gy : 0.f;
-              const float xh = __fsub_rn(__fmul_rn(f2, k0[e]), k1[e]);
-              o[e] = bf16r(gp);
-              st[0][ni][e] += gp;
-              st[1][ni][e] += gp * xh;
-              st[2][ni][e] += gf * yf;
-              st[3][ni][e] += gf;
-            } else if constexpr (MODE == CONV_BN2) {
-              const float f1 = __bfloat162float(ch.band[0][idx]);
-              const float pre = __fadd_rn(__fmul_rn(f1, k0[e]), k1[e]);
-              const float xh = __fsub_rn(__fmul_rn(f1, k2[e]), k3[e]);
-              o[e] = pre > 0.f ? r : 0.f;
-              st[0][ni][e] += o[e];
-              st[1][ni][e] += o[e] * xh;
-            } else {  // CONV_BN1: acc = round(3x3 sum) + the 1x1 shortcut's
-              o[e] = r;
-            }
-          }
-          if constexpr (MODE == CONV_BN1) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int c = ch0 + e;
-              if (c >= args.cout) continue;
-              if (c < ch.split)
-                args.out[m * ch.split + c] = __float2bfloat16_rn(o[e]);
-              else
-                ch.out1[m * (args.cout - ch.split) + c - ch.split] = __float2bfloat16_rn(o[e]);
-            }
-          } else {
-            bf16* op = args.out + m * args.cout + ch0;
-            if (pair_store) {
-              *reinterpret_cast<__nv_bfloat162*>(op) = __floats2bfloat162_rn(o[0], o[1]);
-            } else {
-              op[0] = __float2bfloat16_rn(o[0]);
-              if (ch0 + 1 < args.cout) op[1] = __float2bfloat16_rn(o[1]);
-            }
-          }
+        for (int e = 0; e < 2; ++e) {
+          if (ch0 + e >= args.cout) continue;
+          st[0][ni][e] += o[e];
+          st[1][ni][e] += o[e] * o[e];
         }
       }
     }
   }
-  if constexpr (NS > 0) {
-    if (args.partial == nullptr) return;  // uniform across the block
-    block_partials<NS>(st, red, n0, args.cout, args.partial);
-  }
+  if (args.partial == nullptr) return;  // uniform across the block
+  block_partials<NS>(st, red, n0, args.cout, args.partial);
 }
 
-__global__ void __launch_bounds__(CONV_THREADS)
-conv_kernel(const ConvArgs args) {
-  conv_body<CONV_STD>(args, ChainArgs{});
-}
 
 // ---------------------------------------------------------------------------
 // The self-SPADE tail on a 16x16 output tile (+ an optional folded 1x1

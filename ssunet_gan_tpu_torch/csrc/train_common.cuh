@@ -1,11 +1,9 @@
 // Shared device code of the port's train kernels (train_stage.cu,
 // train_bwd.cu), on top of stage_common.cuh: the reduction of the conv
-// core's per-block sums, and the weight-gradient core, a GEMM over the
-// pixels (M = dW rows, N = taps x input channels, K = N*H*W) split across
-// blocks and summed into dW with f32 atomics. The cotangent side of the
-// weight gradient is read as it is (G_RAW) or rebuilt in the loader from
-// saved tensors (the v3 backward's chains, train_bwd.cu); each is its own
-// instantiation. Everything is in an anonymous namespace.
+// cores' per-block sums, and the v2 backward's weight-gradient core, a GEMM
+// over the pixels (M = dW rows, N = taps x input channels, K = N*H*W)
+// split across blocks and summed into dW with f32 atomics. Everything is in
+// an anonymous namespace.
 
 #pragma once
 
@@ -51,7 +49,7 @@ struct WgradArgs {
   int nsrc;
   const float* pro_a;  // [src0.c] prologue on source 0, or null
   const float* pro_b;
-  const bf16* g;       // [m][cout] (G_RAW), [m][c_g] (the chains)
+  const bf16* g;       // [m][cout]
   int cout;
   int gvec;            // 16-byte loads of g allowed
   float* dw;           // [cout][kp], summed into with atomics
@@ -61,51 +59,7 @@ struct WgradArgs {
   long long per_split;  // pixels per blockIdx.z, a multiple of BK
 };
 
-// How the cotangent rows are read.
-enum GMode {
-  G_RAW = 0,      // g as it is
-  G_MODGRAD = 1,  // rows [0, c_g): round(g*g2); rows [c_g, 2c_g): g
-  G_BN = 2,       // round(p*(g - q - (g2*r' - m'))), the BN-backward chain
-};
-
-struct WgradChain {
-  const bf16* g2;       // [m][c_g]: y (G_MODGRAD) or f (G_BN)
-  const float* cst[4];  // G_BN: p, q, r', m'
-  int c_g;              // channels of g and g2
-  int vec;              // 16-byte loads of g and g2 allowed
-};
-
-// Rows c..c+7 of a chain mode's cotangent at pixel p, rounded to bf16;
-// rows past cout stay 0.
-template <int GM>
-__device__ __forceinline__ uint4 gload8(const WgradArgs& a, const WgradChain& wc,
-                                        const float (*cs)[CHAIN_MAX_C], int r0,
-                                        long long p, int c) {
-  const int C = wc.c_g;
-  float o[8];
-  if (GM == G_MODGRAD && c >= C) {
-    raw8(a.g, C, wc.vec, p, c - C, o);  // zeros past C, i.e. past cout = 2C
-  } else {
-    float g[8], f[8];
-    raw8(a.g, C, wc.vec, p, c, g);
-    raw8(wc.g2, C, wc.vec, p, c, f);
-    if (GM == G_MODGRAD) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {  // a group may straddle C (C not a multiple of 8)
-        const int cj = c + j;
-        o[j] = cj < C ? __fmul_rn(g[j], f[j])
-                      : (cj < 2 * C ? __bfloat162float(a.g[p * C + cj - C]) : 0.f);
-      }
-    } else {
-      bn_chain8(g, f, cs, c - r0, c, C, o);
-    }
-  }
-  return make_uint4(pack2(o[0], o[1]), pack2(o[2], o[3]), pack2(o[4], o[5]),
-                    pack2(o[6], o[7]));
-}
-
-template <int GM>
-__device__ __forceinline__ void wgrad_body(const WgradArgs& args, const WgradChain& wc) {
+__device__ __forceinline__ void wgrad_body(const WgradArgs& args) {
   // operands stored transposed (row = dW row or column, col = pixel), so
   // the MMA fragments read pixel pairs as in the conv kernel
   __shared__ __align__(16) unsigned short As[2][WM][LDS];
@@ -123,14 +77,6 @@ __device__ __forceinline__ void wgrad_body(const WgradArgs& args, const WgradCha
   if (p_begin >= p_end) return;
   const int H = args.h, W = args.w;
   const long long hw = (long long)H * W;
-  // G_BN: the chain's constants for this block's WM rows
-  __shared__ __align__(16) float cs_raw[GM == G_BN ? 4 * CHAIN_MAX_C : 4];
-  const auto cs = reinterpret_cast<float (*)[CHAIN_MAX_C]>(cs_raw);  // [4][CHAIN_MAX_C]
-  if constexpr (GM == G_BN) {
-    stage_bn_consts(cs, wc.cst, r0, WM, args.cout - r0, WG_THREADS);
-    __syncthreads();
-  }
-
   // each thread loads one pixel row (pl) of the step: 8 channels of g at
   // two offsets, 8 channels of each of the two K chunks
   const int pl = tid >> 2, grp = tid & 3;
@@ -165,22 +111,18 @@ __device__ __forceinline__ void wgrad_body(const WgradArgs& args, const WgradCha
       const int c = r0 + grp * 8 + 32 * i;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (ok && c < args.cout) {
-        if constexpr (GM == G_RAW) {
-          const bf16* gp = args.g + (p * args.cout + c);
-          if (args.gvec && c + 8 <= args.cout) {
-            v = *reinterpret_cast<const uint4*>(gp);
-          } else {
-            const unsigned short* ps = reinterpret_cast<const unsigned short*>(gp);
-            unsigned short e[8];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) e[j] = (c + j < args.cout) ? ps[j] : 0;
-            v.x = e[0] | ((uint32_t)e[1] << 16);
-            v.y = e[2] | ((uint32_t)e[3] << 16);
-            v.z = e[4] | ((uint32_t)e[5] << 16);
-            v.w = e[6] | ((uint32_t)e[7] << 16);
-          }
+        const bf16* gp = args.g + (p * args.cout + c);
+        if (args.gvec && c + 8 <= args.cout) {
+          v = *reinterpret_cast<const uint4*>(gp);
         } else {
-          v = gload8<GM>(args, wc, cs, r0, p, c);
+          const unsigned short* ps = reinterpret_cast<const unsigned short*>(gp);
+          unsigned short e[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) e[j] = (c + j < args.cout) ? ps[j] : 0;
+          v.x = e[0] | ((uint32_t)e[1] << 16);
+          v.y = e[2] | ((uint32_t)e[3] << 16);
+          v.z = e[4] | ((uint32_t)e[5] << 16);
+          v.w = e[6] | ((uint32_t)e[7] << 16);
         }
       }
       ra[i] = v;

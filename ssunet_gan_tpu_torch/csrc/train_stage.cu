@@ -46,7 +46,7 @@ namespace {
 
 __global__ void __launch_bounds__(WG_THREADS)
 wgrad_kernel(const WgradArgs args) {
-  wgrad_body<G_RAW>(args, WgradChain{});
+  wgrad_body(args);
 }
 
 }  // namespace

@@ -11,12 +11,17 @@ and upsamples the bottom two bilinearly. ``UNet_R_SS``: six BasicBlock
 levels and a bilinear decoder. ``UNet_B_SS``: five Bottleneck levels and a
 bilinear decoder.
 
-BasicBlock stages that meet the fused kernels' terms (a shortcut conv,
-planes ≤ 256, at most two parts — the JAX gates,
-ssunet_gan_tpu/models/ssunet.py:227-238 and 261-293) run fused: in eval
+BasicBlock stages with a shortcut conv that the one gate
+:func:`ops.stage_kernel.stage_supported` admits run fused (the JAX
+dispatch, ssunet_gan_tpu/models/ssunet.py:227-238 and 261-293, with
+:func:`ops.stage_kernel.set_fused_stage` and
+:func:`ops.stage_kernel_train.set_fused_train` as its toggles): in eval
 through :func:`ops.stage_kernel.fused_eval_stage`, in training through
 :func:`ops.stage_kernel_train.fused_train_stage`, whose batch statistics
-then move the BatchNorms' running averages. In the flagship these are
+then move the BatchNorms' running averages. What the gate refuses (f32 on
+the card, planes not a multiple of 32, more than 8 labels or classes,
+more than 16 hidden channels) runs the module composition, as in JAX
+(:316-330). In the flagship these are
 conv0_0, conv1_0, conv2_0, conv2_1, conv1_1 and conv0_1, the last with
 ``final`` folded in; in ``UNet_R_SS`` conv0_0, conv1_0, conv2_0, conv2_2,
 conv1_3 and conv0_4. Bottleneck stages that
@@ -54,7 +59,12 @@ from ssunet_gan_tpu_torch.ops.pool import (
 )
 from ssunet_gan_tpu_torch.ops.resize import _lerp, upsample_bilinear
 from ssunet_gan_tpu_torch.ops.spade import SPADE
-from ssunet_gan_tpu_torch.ops.stage_kernel import fused_eval_stage, pack_stage
+from ssunet_gan_tpu_torch.ops.stage_kernel import (
+    fused_eval_stage,
+    fused_stage_enabled,
+    pack_stage,
+    stage_supported,
+)
 from ssunet_gan_tpu_torch.ops.stage_kernel_bneck import (
     bneck_supported,
     fused_eval_stage_bneck,
@@ -72,7 +82,7 @@ from ssunet_gan_tpu_torch.ops.stage_kernel_int8 import (
     record_sink,
     record_stage_inputs,
 )
-from ssunet_gan_tpu_torch.ops.stage_kernel_train import fused_train_stage
+from ssunet_gan_tpu_torch.ops.stage_kernel_train import fused_train_enabled, fused_train_stage
 
 SPADE_CONTEXT = "spadebatch3x3"  # archs.py:483 (its param-free norm is bypassed)
 FUSED_MAX_PLANES = 256  # the JAX gate's _PACK_MAX_PLANES
@@ -154,9 +164,13 @@ def spade_stage(parts, block, spade: SPADE,
             bp, sp, head, packed = _stage_operands(parts, block, spade, final)
             return fused_eval_stage_bneck(parts, bp, sp, head, packed)
         return _composition(parts, block, spade, final)
+    int8 = not block.training and int8_stage_enabled()
     fused = (block.shortcut is not None and block.planes <= FUSED_MAX_PLANES
-             and len(parts) <= 2)
-    if not block.training and int8_stage_enabled():
+             and (fused_train_enabled() if block.training else fused_stage_enabled())
+             and stage_supported(parts, block.planes, spade.label_nc, spade.nhidden,
+                                 0 if final is None else final.weight.shape[0],
+                                 train=block.training, int8=int8))
+    if int8:
         am = None if final is not None else _out_amax(out_key)
         if fused:
             bp, sp, head, packed = _stage_operands(parts, block, spade, final, int8=True)

@@ -29,9 +29,14 @@ image border, sums run in f32, h1/y/seg/act/γ|β are rounded to the
 activation dtype, weights and biases are rounded to it too, and the
 modulate runs in the activation dtype.
 
+:func:`stage_supported` is the one gate of the BasicBlock stage kernels
+(this eval stage, the train stage of ``ops/stage_kernel_train.py`` and the
+int8 stage of ``ops/stage_kernel_int8.py``): the model's dispatch and the
+three wrappers call it, and what it refuses runs the module composition.
+:func:`set_fused_stage` turns the fused eval stages off (the JAX toggle).
 :func:`fused_eval_stage` decides by the tensors' device: CPU tensors take
 :func:`fused_stage_reference`; CUDA tensors launch the kernel (bf16 only)
-or raise.
+or raise for what the gate refuses.
 """
 
 from __future__ import annotations
@@ -52,7 +57,79 @@ REPLACES = "ssunet_gan_tpu/ops/stage_kernel.py:1182"  # fused_eval_stage
 # Fused stages run on the card, one per stage (three CUDA launches each).
 launches = 0
 
-_MAX_LAB, _MAX_NH, _MAX_CLS = 8, 16, 8  # csrc/fused_stage.cu limits
+_MAX_LAB, _MAX_NH, _MAX_CLS = 8, 16, 8  # csrc/stage_common.cuh: the tail's limits
+MAX_PLANES = 256  # the JAX gate's widest fused stage
+PLANES_MULTIPLE = 32  # csrc/stage_common.cuh: the tail's channel chunk
+
+# The fused eval stages (this one and the int8 one): on unless set to False
+# (JAX ``set_fused_stage``, ssunet_gan_tpu/ops/stage_kernel.py:84, whose
+# default is on for the TPU; the card's default is on).
+_FUSED_STAGE: Optional[bool] = None
+
+
+def set_fused_stage(enabled: Optional[bool]) -> None:
+    """Fused eval stages on (True, or None: the default) or off (False:
+    every BasicBlock stage of an eval forward runs the module composition,
+    the int8 mode's deep s8 block)."""
+    global _FUSED_STAGE
+    _FUSED_STAGE = enabled
+
+
+def fused_stage_enabled() -> bool:
+    return _FUSED_STAGE is None or bool(_FUSED_STAGE)
+
+
+def _pack_factor(n: int, w: int) -> int:
+    """Images the JAX eval kernel packs side by side on its 128 lanes."""
+    return 128 // w if w < 128 and 128 % w == 0 and n % (128 // w) == 0 else 1
+
+
+def stage_supported(parts, planes: int, labels: int, hidden: int, classes: int = 0, *,
+                    train: bool = False, int8: bool = False) -> bool:
+    """Whether the BasicBlock stage kernel that would run for these parts
+    (eval, ``train`` or ``int8``) takes the stage. Always: one or two NHWC
+    parts (tensors or QTensors) of one N×H×W, device and dtype, and planes
+    ≤ ``MAX_PLANES``. On a CUDA device, the kernels' own limits: bfloat16,
+    contiguous parts, planes a multiple of 32, labels ≤ 8, hidden ≤ 16,
+    classes ≤ 8, and for training what the v3 backward takes
+    (``ops/train_bwd.py`` ``bwd_v3_supported``). On the CPU, what the JAX
+    gate takes there (``fused_stage_supported`` with its interpret-mode
+    terms, ssunet_gan_tpu/ops/stage_kernel.py:438; its probe passes in
+    interpret mode): H a multiple of 8, and W ≥ 8 after the eval path's
+    lane packing. The JAX gate's VMEM estimate answers the TPU's memory and
+    is not ported. What it refuses runs the module composition."""
+    parts = as_parts(parts)
+    x0 = parts[0]
+    if not 1 <= len(parts) <= 2 or any(
+            len(p.shape) != 4 or tuple(p.shape[:3]) != tuple(x0.shape[:3])
+            or p.device != x0.device or p.dtype != x0.dtype for p in parts):
+        return False
+    if planes > MAX_PLANES:
+        return False
+    n, h, w = x0.shape[:3]
+    if x0.device.type == "cuda":
+        if (x0.dtype != torch.bfloat16 or planes % PLANES_MULTIPLE or labels > _MAX_LAB
+                or hidden > _MAX_NH or classes > _MAX_CLS
+                or not all(getattr(p, "q", p).is_contiguous() for p in parts)):
+            return False
+        if train:
+            from ssunet_gan_tpu_torch.ops.train_bwd import bwd_v3_supported
+
+            return bwd_v3_supported([p.shape[-1] for p in parts], planes)
+        return True
+    if x0.device.type != "cpu":
+        return False
+    wp = w if train else w * _pack_factor(n, w)
+    return h % 8 == 0 and h >= 8 and wp >= 8
+
+
+def _refused(parts, c, lab, nh, ncls, **kw) -> ValueError:
+    return ValueError(
+        f"the CUDA stage kernel does not take this stage (stage_supported): parts "
+        f"{[(tuple(p.shape), p.dtype) for p in parts]}, planes={c} (a multiple of "
+        f"{PLANES_MULTIPLE}, <= {MAX_PLANES}), labels={lab} (<= {_MAX_LAB}), hidden={nh} "
+        f"(<= {_MAX_NH}), classes={ncls} (<= {_MAX_CLS}), bfloat16, contiguous"
+        + (f", {kw}" if kw else ""))
 
 
 def _q(t: torch.Tensor, dtype) -> torch.Tensor:
@@ -200,33 +277,20 @@ def _run_cuda(parts: Tuple[torch.Tensor, ...], pk: dict) -> torch.Tensor:
     global launches
     x0 = parts[0]
     dev, dtype = x0.device, x0.dtype
+    n, h, w = x0.shape[:3]
+    c = pk["k2"].shape[0]
+    lab, nh = pk["k1s"].shape[2], pk["k2s"].shape[2]
+    ncls = 0 if pk["kf"] is None else pk["kf"].shape[1]
     if dtype != torch.bfloat16:
         raise TypeError(f"the CUDA fused stage takes bfloat16 tensors, got {dtype}")
-    if len(parts) > 2:
-        raise ValueError(f"the fused stage takes at most 2 parts, got {len(parts)}")
-    n, h, w = x0.shape[:3]
-    for p in parts:
-        if p.device != dev or p.dtype != dtype or p.dim() != 4:
-            raise ValueError("stage parts must be 4-D NHWC tensors of one device and dtype")
-        if tuple(p.shape[:3]) != (n, h, w):
-            raise ValueError(f"stage parts differ in N, H or W: {[tuple(q.shape) for q in parts]}")
-        if not p.is_contiguous():
-            raise ValueError("stage parts must be contiguous NHWC tensors")
+    if not stage_supported(parts, c, lab, nh, ncls):
+        raise _refused(parts, c, lab, nh, ncls)
     if pk["channels"] != tuple(p.shape[-1] for p in parts) or pk["dtype"] != dtype:
         raise ValueError(f"packed operands are for parts of {pk['channels']} channels "
                          f"in {pk['dtype']}, got {[tuple(p.shape) for p in parts]} {dtype}")
     for t in pk.values():
         if isinstance(t, torch.Tensor) and t.device != dev:
             raise ValueError("stage weights must lie on the parts' device")
-    c = pk["k2"].shape[0]
-    lab, nh = pk["k1s"].shape[2], pk["k2s"].shape[2]
-    ncls = 0 if pk["kf"] is None else pk["kf"].shape[1]
-    if c % 32 or lab > _MAX_LAB or nh > _MAX_NH or ncls > _MAX_CLS:
-        raise ValueError(
-            f"unsupported stage widths: planes={c} (multiple of 32), "
-            f"labels={lab} (<= {_MAX_LAB}), hidden={nh} (<= {_MAX_NH}), "
-            f"classes={ncls} (<= {_MAX_CLS})"
-        )
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -264,7 +328,8 @@ def fused_eval_stage(parts, block_params, spade_params, head=None,
     Arguments as in :func:`fused_stage_reference`; ``packed``, if given, is
     :func:`pack_stage` of the same weights, which spares the CUDA path its
     packing. CPU tensors run the plain version; CUDA tensors run the
-    hand-written kernel, or raise for what it does not take."""
+    hand-written kernel, or raise for what :func:`stage_supported`
+    refuses."""
     parts = as_parts(parts)
     dev = parts[0].device
     if dev.type == "cpu":

@@ -55,13 +55,12 @@ import torch.nn.functional as F
 from ssunet_gan_tpu_torch import _build
 from ssunet_gan_tpu_torch.ops.conv import as_parts
 from ssunet_gan_tpu_torch.ops.stage_kernel import (
-    _MAX_CLS,
-    _MAX_LAB,
-    _MAX_NH,
     _ptr,
+    _refused,
     pack_spade,
     spade_tail_reference,
     split_in,
+    stage_supported,
 )
 
 SOURCE = "int8_stage.cu"
@@ -535,12 +534,6 @@ def _run_cuda(qparts, scales, dtype, pk: dict, th: int, out_abs_max, intermediat
     c = pk["wq2"].shape[0]
     lab, nh = pk["k1s"].shape[2], pk["k2s"].shape[2]
     ncls = 0 if pk["kf"] is None else pk["kf"].shape[1]
-    if c % 32 or lab > _MAX_LAB or nh > _MAX_NH or ncls > _MAX_CLS:
-        raise ValueError(
-            f"unsupported stage widths: planes={c} (multiple of 32), "
-            f"labels={lab} (<= {_MAX_LAB}), hidden={nh} (<= {_MAX_NH}), "
-            f"classes={ncls} (<= {_MAX_CLS})"
-        )
     if h % th:
         raise ValueError(f"band height {th} does not divide H = {h}")
     if out_abs_max is not None and ncls:
@@ -595,8 +588,8 @@ def fused_eval_stage_int8(parts, block_params, spade_params, head=None,
     its packing. The stage inputs are quantized here with plain tensor ops
     (static calibrated scales, else dynamic per-tensor ones; a
     :class:`QTensor` arrives quantized). CPU tensors run the plain version;
-    CUDA tensors run the hand-written kernel, or raise for what it does not
-    take."""
+    CUDA tensors run the hand-written kernel, or raise for what
+    :func:`ops.stage_kernel.stage_supported` refuses."""
     parts = as_parts(parts)
     dev = parts[0].device
     if dev.type == "cpu":
@@ -606,6 +599,10 @@ def fused_eval_stage_int8(parts, block_params, spade_params, head=None,
         dtype = parts[0].dtype
         if dtype != torch.bfloat16:
             raise TypeError(f"the CUDA int8 stage takes bfloat16 activations, got {dtype}")
+        widths = (block_params[2].shape[0], spade_params[0].shape[0],
+                  spade_params[2].shape[0], 0 if head is None else head[0].shape[0])
+        if not stage_supported(parts, *widths, int8=True):
+            raise _refused(parts, *widths, int8=True)
         qparts, scales, _ = _quantize_parts(parts, calib_key)
         if packed is None:
             packed = pack_stage_int8(block_params, spade_params, head, dtype)

@@ -54,9 +54,11 @@ from ssunet_gan_tpu_torch.ops.stage_kernel import (
     _MAX_NH,
     _gemm_weight,
     _q,
+    _refused,
     pack_spade,
     spade_tail_reference,
     split_in,
+    stage_supported,
 )
 
 SOURCE = "train_stage.cu"
@@ -76,6 +78,24 @@ def set_train_bwd_v3(enabled: bool) -> None:
     """Select the stage's backward: v3 (True, the default) or v2."""
     global _TRAIN_BWD_V3
     _TRAIN_BWD_V3 = bool(enabled)
+
+
+# The fused train stage: on unless set to False (JAX ``set_fused_train``,
+# ssunet_gan_tpu/ops/stage_kernel_train.py:100, whose default is on for one
+# TPU; the card's default is on).
+_FUSED_TRAIN: Optional[bool] = None
+
+
+def set_fused_train(enabled: Optional[bool]) -> None:
+    """Fused train stages on (True, or None: the default) or off (False:
+    every BasicBlock stage of a training forward runs the module
+    composition under autograd)."""
+    global _FUSED_TRAIN
+    _FUSED_TRAIN = enabled
+
+
+def fused_train_enabled() -> bool:
+    return _FUSED_TRAIN is None or bool(_FUSED_TRAIN)
 
 
 # Kernel runs on the card, one per wrapper call that launches its kernel
@@ -517,11 +537,18 @@ def fused_train_stage(parts, block_params, spade_params, head=None):
     ``block_params`` = ``(w1, (γ1, β1), w2, (γ2, β2), ws)``, the raw
     parameters of :meth:`BasicBlock.train_params` (the shortcut ``ws`` must
     exist); ``spade_params`` as :meth:`SPADE.stage_params`; ``head`` =
-    ``(wf, bf)`` or None. Gradients flow to every part and parameter."""
+    ``(wf, bf)`` or None. Gradients flow to every part and parameter. On
+    the card it raises for what :func:`ops.stage_kernel.stage_supported`
+    refuses."""
     parts = tuple(p.contiguous() for p in as_parts(parts))
     w1, (g1, be1), w2, (g2, be2), ws = block_params
     if ws is None:
         raise ValueError("the fused train stage needs the block's shortcut conv")
+    if _device(parts[0], "fused_train_stage") == "cuda":
+        widths = (w2.shape[0], spade_params[0].shape[0], spade_params[2].shape[0],
+                  0 if head is None else head[0].shape[0])
+        if not stage_supported(parts, *widths, train=True):
+            raise _refused(parts, *widths, train=True)
     tensors = (*parts, w1, g1, be1, w2, g2, be2, ws, *spade_params,
                *(() if head is None else head))
     out, m1, u1, m2, u2 = _FusedTrainStage.apply(len(parts), head is not None, *tensors)

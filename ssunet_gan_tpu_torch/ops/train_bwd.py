@@ -54,17 +54,17 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from ssunet_gan_tpu_torch import _build
 from ssunet_gan_tpu_torch.ops.conv import as_parts, conv2d_nhwc
-from ssunet_gan_tpu_torch.ops.stage_kernel import _gemm_weight, _q, split_in
+from ssunet_gan_tpu_torch.ops.stage_kernel import _q, split_in
 from ssunet_gan_tpu_torch.ops.stage_kernel_train import (
     BN_EPS,
     _check,
     _check_nhwc,
     _device,
     _ptr,
-    _unpack_dw,
     _vec,
     wgrad_reference,
 )
@@ -204,13 +204,43 @@ _CONV_INTS = ("c0", "k0", "c1", "k1", "kp", "n", "h", "w", "cout", "split")
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssu_conv3_blocks.argtypes = [ll]
+    lib.ssu_conv3_blocks.argtypes = [i, i, i, i, i]
     lib.ssu_conv3_blocks.restype = ll
     lib.ssu_fused_conv3.argtypes = [i, p, p, p]
     lib.ssu_fused_conv3.restype = i
-    lib.ssu_fused_wgrad.argtypes = [i, p, i, p, i, p, p, p, p, p, i, i, p, i, i, i, i, p]
+    lib.ssu_fused_wgrad.argtypes = [i, p, i, p, i, p, p, p, p, p, i, i, p, i, i, i, p]
     lib.ssu_fused_wgrad.restype = i
     return lib
+
+
+def _chunk(mode: str, c: int) -> int:
+    """Channels per K chunk of a conv source (csrc/bwd_core.cuh): 32 for
+    the chain modes (their sources have the stage's planes), else a narrow
+    source's 8 or 16 channels whole, so its taps pack into K, else 32."""
+    return 32 if mode in ("modgrad", "bn2", "bn1") or c > 16 else 8 if c <= 8 else 16
+
+
+def _conv3_weight(segments, dtype, cc: int) -> torch.Tensor:
+    """[cout][K] weight operand of the conv3 kernel: per segment (OIHW,
+    3×3 or 1×1), per chunk of ``cc`` input channels, (tap, channel) with
+    channels zero-padded to the chunk, each chunk zero-padded to a multiple
+    of 32 K values. One zero fill and one copy per segment."""
+    cout = segments[0].shape[0]
+    geo = []  # (taps, chunks, K per chunk) of each segment
+    for w in segments:
+        taps, nch = w.shape[2] * w.shape[3], -(-w.shape[1] // cc)
+        geo.append((taps, nch, -(-taps * cc // 32) * 32))
+    wt = torch.zeros((cout, sum(n * k for _, n, k in geo)), dtype=dtype, device=segments[0].device)
+    k0 = 0
+    for w, (taps, nch, kc) in zip(segments, geo):
+        cin = w.shape[1]
+        dst = wt[:, k0:k0 + nch * kc].view(cout, nch, kc)[:, :, :taps * cc]
+        src = w.permute(0, 2, 3, 1).reshape(cout, taps, cin)
+        if cin % cc:
+            src = F.pad(src, (0, nch * cc - cin))
+        dst.view(cout, nch, taps, cc).copy_(src.reshape(cout, taps, nch, cc).transpose(1, 2))
+        k0 += nch * kc
+    return wt
 
 
 def _conv3_cuda(mode, src, weight, side, consts, bias, shortcut, out_ch):
@@ -247,13 +277,13 @@ def _conv3_cuda(mode, src, weight, side, consts, bias, shortcut, out_ch):
         raise ValueError(f"fused_conv3 {mode}: outputs {out_ch} for {cout} channels")
     lib = _lib()
     with torch.cuda.device(dev):
-        wt = _gemm_weight(segments, dtype)
+        wt = _conv3_weight(segments, dtype, _chunk(mode, c_in))
         cvs = [_vec(c) for c in consts]
         outs = [torch.empty((n, h, w, c), dtype=dtype, device=dev) for c in out_ch]
         partial = sums = None
         if rows:
             kr = 2 if kmode == 0 else rows  # the plain conv always sums (Σ, Σx²)
-            nb = lib.ssu_conv3_blocks(n * h * w)
+            nb = lib.ssu_conv3_blocks(kmode, cout, n, h, w)
             partial = torch.empty(kr * cout * nb, dtype=torch.float32, device=dev)
             sums = torch.empty((kr, cout), dtype=torch.float32, device=dev)
         b = None if bias is None else _q(bias, dtype).contiguous()
@@ -285,8 +315,6 @@ def _wgrad_cuda(mode, x, g, consts, prologue):
     if len(g) == 2 and g[1].shape[-1] != g[0].shape[-1]:
         raise ValueError(f"fused_wgrad {mode}: g-side tensors differ in channels")
     channels = [p.shape[-1] for p in x]
-    cpad = [-(-c // 32) * 32 for c in channels]
-    kp = 9 * sum(cpad)
     c_g = g[0].shape[-1]
     cout = 2 * c_g if mode == "gb" else c_g
     dev = g[0].device
@@ -295,16 +323,18 @@ def _wgrad_cuda(mode, x, g, consts, prologue):
         pa, pb = (None, None) if prologue is None else map(_vec, prologue)
         cvs = [_vec(c) for c in consts]
         carr = (ctypes.c_void_p * 4)(*([c.data_ptr() for c in cvs] + [None] * (4 - len(cvs))))
-        dw = torch.zeros((cout, kp), dtype=torch.float32, device=dev)
+        # the kernel sums its blocks' f32 partial sums into dW (OIHW) with f64
+        # atomics, so the order of hundreds of adds per element costs nothing
+        dw = torch.zeros((cout, sum(channels), 3, 3), dtype=torch.float64, device=dev)
         x1 = x[1] if len(x) > 1 else None
         _check(lib.ssu_fused_wgrad(gmode, x[0].data_ptr(), channels[0], _ptr(x1),
                                    channels[1] if x1 is not None else 0, _ptr(pa), _ptr(pb),
                                    g[0].data_ptr(), _ptr(g[1] if len(g) > 1 else None), carr,
-                                   cout, c_g, dw.data_ptr(), kp, n, h, w,
+                                   cout, c_g, dw.data_ptr(), n, h, w,
                                    torch.cuda.current_stream(dev).cuda_stream),
                f"fused_wgrad {mode}")
     launches["fused_wgrad"] += 1
-    return _unpack_dw(dw, channels, cout)
+    return dw.float()
 
 
 # ---------------------------------------------------------------------------
@@ -337,7 +367,7 @@ def fused_wgrad(mode, x, g, consts=(), prologue=None):
 # ---------------------------------------------------------------------------
 
 
-# csrc/stage_common.cuh CHAIN_MAX_C: the BN chains' constants per block
+# csrc/bwd_core.cuh CHAIN_MAX_C: the BN chains' constants per block
 MAX_PLANES = 512
 
 

@@ -60,13 +60,14 @@ def train_one_epoch(epoch: int, config: Dict, loader, train_step, lr: float,
 
 
 def evaluate(config: Dict, loader, eval_step, device="cuda") -> Dict[str, float]:
-    """Mean metrics of ``eval_step`` over ``loader`` (images in bf16 when
-    ``config["mixed_precision"]``, the dtype the card's kernels take)."""
+    """Mean metrics of ``eval_step`` over ``loader``, the images in the
+    loader's dtype as the JAX package passes them (f32: on the card the
+    BasicBlock stages then run the module composition, as the stage gate
+    refuses f32). ``config`` is accepted for the JAX signature."""
     device = resolve_device(device)
     meters, events = [], []
-    img_dtype = torch.bfloat16 if config.get("mixed_precision") else torch.float32
     for _, img, mask, _ in loader:
-        x = torch.from_numpy(img).to(device).to(img_dtype)
+        x = torch.from_numpy(img).to(device)
         meters.append(eval_step(x, torch.from_numpy(mask).to(device)))
         _mark_step(events, device)
     return _epoch_mean(meters)

@@ -92,6 +92,33 @@ def test_fused_stage_kernel_refuses_float32():
 
 
 @pytest.mark.gpu
+def test_flagship_f32_forward_runs_the_composition():
+    """The stage gate refuses f32 on the card, so an f32 forward runs every
+    stage through the module composition (no kernel stage) and agrees with
+    the CPU's f32 forward with the fused stages off: the same f32 modules
+    in another summation order (TF32 off), to chip_smoke.py's bar of 1e-2
+    relative L2 (a last-bit difference can move a max-pool's winner)."""
+    import copy
+
+    dev = _card()
+    model = build_model("UNet_R_SS_v2", 3, 3, seed=0, device=dev).eval()
+    cpu_model = copy.deepcopy(model).cpu()
+    x = torch.randn((1, 64, 64, 3), generator=torch.Generator().manual_seed(2))
+    before = stage_kernel.launches
+    with torch.no_grad():
+        got = model(x.to(dev)).cpu()
+    assert stage_kernel.launches == before
+    stage_kernel.set_fused_stage(False)
+    try:
+        with torch.no_grad():
+            want = cpu_model(x)
+    finally:
+        stage_kernel.set_fused_stage(None)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm()).item() <= 1e-2
+
+
+@pytest.mark.gpu
 def test_flagship_forward_kernel_matches_plain(monkeypatch):
     """Full-width flagship at 64×64: six kernel stages per forward, logits
     against the same forward with every stage on the plain version, in bf16
@@ -292,6 +319,9 @@ def _stage_kernel_vs_plain(monkeypatch):
                        (ttb, ("fused_conv3", "fused_wgrad"))):
         for name in names:
             monkeypatch.setattr(mod, name, getattr(mod, name + "_reference"))
+    # the f32 run: the same Function on the plain versions, past the gate
+    # (which refuses f32 on the card, where the model runs the composition)
+    monkeypatch.setattr(tst, "stage_supported", lambda *a, **k: True)
     plain, plain_p = run(torch.bfloat16)
     f32, f32_p = run(torch.float32)
     rel = lambda u, v: ((u.float() - v.float()).norm() / v.float().norm()).item()
@@ -347,12 +377,24 @@ CONV3_CASES = [
     ("bn2", 64, 4, 3, None, (2, 40, 36)),
     ("bn1", 64, 4, 3, (3,), (2, 40, 36)),
     ("bn1", 64, 4, 3, (64, 128), (1, 24, 20)),
+    # the edges of the 8x16 output tile: W not a multiple of 16, W < 16,
+    # H = 1, batch 3 (tiles never cross images)
+    ("bn2", 64, 4, 3, None, (2, 12, 5)),
+    ("modgrad", 64, 4, 3, None, (1, 1, 20)),
+    ("pre", 64, 4, 3, None, (3, 9, 21)),
+    ("bn1", 128, 8, 3, (128, 256), (1, 12, 20)),  # cout 384 > 256: two N blocks
+    # the flagship's narrow widths: labels 3, hidden 4 and 16
+    ("gamma", 256, 16, 3, None, (2, 10, 18)),     # 2C = 512: two N blocks
+    ("modgrad", 256, 16, 3, None, (2, 10, 18)),
+    ("seg", 64, 4, 3, None, (3, 9, 21)),
+    ("pre", 256, 16, 3, None, (1, 16, 16)),
+    ("bn2", 256, 16, 3, None, (2, 16, 16)),
 ]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode,c,nh,lab,parts,nhw", CONV3_CASES,
-                         ids=[f"{m}-{len(p) if p else 1}" for m, _, _, _, p, _ in CONV3_CASES])
+                         ids=[f"{i}-{m}" for i, (m, *_) in enumerate(CONV3_CASES)])
 def test_fused_conv3_kernel_matches_plain(mode, c, nh, lab, parts, nhw):
     from ssunet_gan_tpu_torch.ops import train_bwd as ttb
 
@@ -405,11 +447,23 @@ WGRAD3_CASES = [
     ("x2map", (64,), 64, 4, 3, (2, 40, 36)),
     ("conv2", (64,), 64, 4, 3, (2, 32, 32)),
     ("conv1", (64, 128), 64, 4, 3, (1, 24, 20)),
+    # the edges of the 8x16 pixel tile: W not a multiple of 16, W < 16,
+    # H = 1, batch 3 (tiles never cross images); conv2 with its prologue
+    ("conv2", (128,), 128, 8, 3, (2, 12, 5)),
+    ("x2map", (128,), 128, 8, 3, (1, 1, 20)),
+    ("conv1", (3,), 64, 4, 3, (3, 9, 21)),        # the 3-channel image input
+    ("conv1", (128, 256), 128, 8, 3, (1, 12, 20)),
+    # the flagship's narrow widths: labels 3, hidden 4 and 16
+    ("gb", (4,), 64, 4, 3, (3, 17, 33)),
+    ("gb", (16,), 256, 16, 3, (2, 16, 16)),
+    ("mlp", (3,), 256, 16, 3, (2, 16, 16)),
+    ("x2map", (256,), 256, 16, 3, (2, 16, 16)),
 ]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode,xch,c,nh,lab,nhw", WGRAD3_CASES, ids=[m[0] for m in WGRAD3_CASES])
+@pytest.mark.parametrize("mode,xch,c,nh,lab,nhw", WGRAD3_CASES,
+                         ids=[f"{i}-{m[0]}" for i, m in enumerate(WGRAD3_CASES)])
 def test_fused_wgrad_kernel_matches_plain(mode, xch, c, nh, lab, nhw):
     from ssunet_gan_tpu_torch.ops import train_bwd as ttb
 
