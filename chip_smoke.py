@@ -49,11 +49,13 @@ Phases, each of which exits non-zero on failure:
    held against the same step on the plain versions (bf16) and on the
    plain module composition (f32), as a whole and per fused stage on the
    inputs and cotangent the kernel step gave it; each kernel call of one
-   steady-state v3 step (and the wgrad calls of one v2 step) held against
-   its plain version on its inputs (weight gradients also against an f64
-   sum) and timed against it, its bound and the library call, with a
-   ``train mode:`` line per chain mode of fused_conv3 and fused_wgrad; a
-   profile of one v3 and one v2 step.
+   steady-state v3 step (and the conv_stats and wgrad calls of one v2 step)
+   held against its plain version on its inputs (weight gradients also
+   against an f64 sum) and timed against it, its bound and the library
+   call, with a ``train mode:`` line per call type (the chain modes of
+   fused_conv3 and fused_wgrad; conv_stats's conv1 encoder, conv1 decoder
+   and conv2, and on the v2 step its γ|β recompute and backward-data convs;
+   wgrad's five v2 weight gradients); a profile of one v3 and one v2 step.
 
 7. int8 stages (phases 7 and 8 run after phase 3, before the train
    phases): for the same six stage signatures at 512², batch 2, seeded
@@ -199,6 +201,11 @@ PER_STEP = {
     "v2": {"conv_stats": 12 + 6 * 6 - 1, "train_tail": 6, "wgrad": 6 * 5, "fused_conv3": 0,
            "fused_wgrad": 0},
 }
+# the v2 backward's calls per stage, in its order (ops/stage_kernel_train.py
+# _train_bwd): the weight gradients, and the backward-data convs after the
+# γ|β recompute (none to the input image at conv0_0)
+WGRAD_V2 = ("γ|β", "mlp", "x2map", "conv2", "conv1")
+BWD_DATA_V2 = ("to actv", "to seg", "to y", "to h1", "to input")
 
 
 def kernel_module(name):
@@ -758,14 +765,41 @@ def stage_phases(dev, sigs, check, version, train_err):
     torch.cuda.empty_cache()
 
 
+def call_types(calls):
+    """The type of each recorded call, for the per-type sub-tables: a chain
+    mode for fused_conv3 and fused_wgrad; for conv_stats the forward's conv1
+    (encoder: one part; decoder: two), conv2 (with the prologue), and on a
+    v2 step the γ|β recompute (with the bias) and the backward-data convs
+    after it (no sums), by their place; for wgrad its place among a stage's
+    five v2 weight gradients. None for train_tail."""
+    types, n_wgrad, n_data = [], 0, 0
+    for kname, args, kw in calls:
+        kind = None
+        if kname in ("fused_conv3", "fused_wgrad"):
+            kind = _arg(args, kw, 0, "mode")
+        elif kname == "wgrad":
+            kind, n_wgrad = WGRAD_V2[n_wgrad % len(WGRAD_V2)], n_wgrad + 1
+        elif kname == "conv_stats":
+            if _arg(args, kw, 3, "prologue") is not None:
+                kind = "conv2 (prologue)"
+            elif _arg(args, kw, 2, "bias") is not None:
+                kind, n_data = "γ|β recompute", 0
+            elif not _arg(args, kw, 4, "stats", True):
+                kind, n_data = f"backward-data {BWD_DATA_V2[n_data]}", n_data + 1
+            else:
+                kind = "conv1 decoder" if len(_parts(args[0])) == 2 else "conv1 encoder"
+        types.append(kind)
+    return types
+
+
 def time_calls(calls, kernels, label, train_err, check):
     """Hold each recorded call of ``kernels`` against its plain version on
     its inputs (phase 4's tolerances) and time it against the plain
     version, its bound and the library call. Returns per-kernel totals."""
     totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                   "kinds": set(), "calls": 0, "macs": 0.0} for k in kernels}
-    by_mode = {}  # (kernel, chain mode) of kernels 5 and 6: the per-mode sub-table
-    for kname, args, kw in calls:
+    by_type = {}  # (kernel, call type): the per-type sub-tables
+    for (kname, args, kw), ctype in zip(calls, call_types(calls)):
         if kname not in kernels:
             continue
         err, ok, text = compare_call(kname, args, kw)
@@ -789,15 +823,15 @@ def time_calls(calls, kernels, label, train_err, check):
         t["library_ms"] += lib_ms or 0.0
         t["kinds"].add(kind)
         t["calls"] += 1
-        if kname in ("fused_conv3", "fused_wgrad"):
-            m = by_mode.setdefault((kname, _arg(args, kw, 0, "mode")), [0, 0.0, 0.0, 0.0, 0.0])
+        if ctype is not None:
+            m = by_type.setdefault((kname, ctype), [0, 0.0, 0.0, 0.0, 0.0])
             for i, v in enumerate((1, ms, plain_ms, bound, lib_ms or 0.0)):
                 m[i] += v
         print(f"train call: {describe_call(kname, args, kw)} ms {ms:.3f} plain {plain_ms:.3f} "
               f"bound {bound:.3f} ({kind}) library "
               f"{'none' if lib_ms is None else f'{lib_ms:.3f}'}")
-    for (kname, mode), (n, ms, plain_ms, bound, lib_ms) in sorted(by_mode.items()):
-        print(f"train mode: {kname} {mode} ({label}, {n} calls) per step ms {ms:.3f} "
+    for (kname, ctype), (n, ms, plain_ms, bound, lib_ms) in sorted(by_type.items()):
+        print(f"train mode: {kname} {ctype} ({label}, {n} calls) per step ms {ms:.3f} "
               f"plain {plain_ms:.3f} bound {bound:.3f} library {lib_ms:.3f}")
     for kname, t in totals.items():
         print(f"train kernel: {kname} ({label}, {t['calls']} calls) per step ms {t['ms']:.3f} "
@@ -813,7 +847,7 @@ def print_profile(what, step_fn, ms_step):
           f"{sum(r[1] for r in rows)} kernels; {wall_ms:.3f} ms wall under the profiler "
           f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}), {ms_step:.3f} ms untraced "
           f"(idle share {max(0.0, 1 - busy / ms_step):.3f})")
-    for ms, count, key in rows[:14]:
+    for ms, count, key in rows[:20]:
         print(f"profile: {what} {ms:9.3f} ms {count:4d}x {key[:90]}")
 
 
@@ -984,7 +1018,8 @@ def train_phases(dev, cfg, card, sigs, check):
     # one steady-state step: each kernel call held against its plain version
     # on the same inputs (phase 4's tolerances, at the main path's shapes),
     # and timed against the plain version, its bound and the library call;
-    # kernel 4 (v2 only) from one v2 step
+    # kernel 4 (v2 only) from one v2 step, beside that step's conv_stats
+    # calls (a record: the kernels line keeps the v3 step's)
     _, img, mask, _ = next(iter(loader(1, seed=3)))
     xb = torch.from_numpy(img).to(dev).to(torch.bfloat16)
     yb = torch.from_numpy(mask).to(dev)
@@ -997,7 +1032,8 @@ def train_phases(dev, cfg, card, sigs, check):
     with train_backward("v2"), recording() as calls:
         step(xb, yb, lr)
     torch.cuda.synchronize()
-    totals.update(time_calls(calls, ["wgrad"], "v2", train_err, check))
+    totals["wgrad"] = time_calls(calls, ["conv_stats", "wgrad"], "v2", train_err,
+                                 check)["wgrad"]
     del calls
     torch.cuda.empty_cache()
     t0 = phase_done("phase 6 per-call checks and timing", t0)
@@ -2083,7 +2119,8 @@ def main() -> int:
 
     kernels = [eval_row, int8_row] + [{
         "name": kname, "route": "cuda",
-        "source": f"ssunet_gan_tpu_torch/csrc/{kernel_module(kname).SOURCE}",
+        "source": "ssunet_gan_tpu_torch/csrc/" + getattr(
+            kernel_module(kname), "KERNEL_SOURCE", {}).get(kname, kernel_module(kname).SOURCE),
         "replaces": kernel_module(kname).REPLACES[kname],
         "launches": counts[kname], "max_abs_err": train_err[kname],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -1,25 +1,27 @@
-// The v3 backward's conv and weight-gradient cores (train_bwd.cu), built for
-// Hopper around the TPU kernels' structure (ssunet_gan_tpu/ops/train_bwd.py
-// _make_fused_kernel :60, _make_wgrad_fused_kernel :291): a block owns a
-// spatial tile of one image, brings the tile's (TH+2) x (TW+2) input window
-// into shared memory with cp.async, applies the chain to each value of the
-// window once, and reads the nine taps as nine shifted views of that window
-// through ldmatrix, whose per-lane row addresses take any pixel shift.
+// The conv and weight-gradient cores of the train kernels (train_bwd.cu),
+// built for Hopper around the TPU kernels' structure (ssunet_gan_tpu/ops/
+// train_bwd.py _make_fused_kernel :60, _make_wgrad_fused_kernel :291): a
+// block owns a spatial tile of one image, brings the tile's (TH+2) x (TW+2)
+// input window into shared memory with cp.async, applies the chain to each
+// value of the window once, and reads the nine taps as nine shifted views of
+// that window through ldmatrix, whose per-lane row addresses take any pixel
+// shift.
 //
-//   conv3 (kernel 5): M = the 8 x 16 (16 x 16 for N tiles <= 16) output
-//     pixels of the tile, N = up to 256 output channels (NT), K = segments
-//     x chunks x (tap, 8-channel group). Per K chunk (32 channels, or the
-//     whole 8/16 of a narrow source) the window and, for a chain segment,
-//     the chain's second tensor arrive through cp.async into a ring of
-//     window slots; the weights stream in a 4-deep ring of 32-wide K slices
-//     (the chain modes: two slots of 96, a row of three taps). The epilogue's
-//     bands come with the last K stage (pre, modgrad).
-//   wgrad (kernel 6): dW^T = x-taps^T . cot over the pixels: M = 9 taps x one
-//     input chunk (the (tap, group) pairs of the window), N = up to 32 dW
-//     rows, K = the block's pixels, walked one 8 x 16 tile per stage (a
-//     3-deep ring of x windows and cotangent tiles). The cotangent chain and
-//     the x-side prologue run once per value in shared memory; narrow dW
-//     rows (3 labels, 4-16 hidden) sit on the MMA's 8-wide N side.
+//   conv3 (kernels 2 and 5): M = the 8 x 16 (16 x 16 for N tiles <= 16,
+//     and <= 64 in the plain modes) output pixels of the tile, N = up to
+//     256 output channels (NT), K = segments x chunks x (tap, 8-channel
+//     group). Per K chunk (32 channels, or the whole 8/16 of a narrow
+//     source) the window and, for a chain segment, the chain's second
+//     tensor arrive through cp.async into a ring of window slots; the
+//     weights stream in a 4-deep ring of 32-wide K slices (the chain modes:
+//     two slots of 96, a row of three taps). The epilogue's bands come with
+//     the last K stage (pre, modgrad).
+//   wgrad (kernels 4 and 6): dW^T = x-taps^T . cot over the pixels: M = 9
+//     taps x one input chunk (the (tap, group) pairs of the window), N = up
+//     to 32 dW rows, K = the block's pixels, walked one 8 x 16 tile per
+//     stage (a 3-deep ring of x windows and cotangent tiles). The cotangent
+//     chain and the x-side prologue run once per value in shared memory;
+//     narrow dW rows (3 labels, 4-16 hidden) sit on the MMA's 8-wide N side.
 //
 // Narrow sources pack taps x channels into K (or M): the k8 groups are
 // (tap, 8-channel group) pairs, so 3 labels take 9 groups (80 K values with
@@ -86,11 +88,17 @@ enum ConvMode {
   CONV_PRE = 2,      // gp = where(y > 0, g*(1+gamma) + round(acc)); 4 sums
   CONV_BN2 = 3,      // BN-backward prologue; where(f1*a + b > 0, round(acc), 0); 2 sums
   CONV_BN1 = 4,      // BN-backward prologue; round(round(acc3x3) + acc1x1), two outputs
+  CONV_AFF = 5,      // prologue relu(x*a + b) (BN + ReLU), then as CONV_STD
 };
+
+// The plain modes: conv_stats's convs, and gamma and seg.
+__host__ __device__ constexpr bool conv3_plain(int mode) {
+  return mode == CONV_STD || mode == CONV_AFF;
+}
 
 template <int MODE>
 __host__ __device__ constexpr int conv_stat_rows() {
-  return MODE == CONV_STD ? 2 : MODE == CONV_MODGRAD ? 1 : MODE == CONV_PRE ? 4
+  return conv3_plain(MODE) ? 2 : MODE == CONV_MODGRAD ? 1 : MODE == CONV_PRE ? 4
        : MODE == CONV_BN2 ? 2 : 0;
 }
 
@@ -101,7 +109,8 @@ enum GMode {
   G_BN = 2,       // round(p*(g - q - (g2*r' - m'))), the BN-backward chain
 };
 
-// The BN chains' per-channel constants, staged per block: at most this many.
+// The prologues' per-channel constants (the BN chains', the affine's),
+// staged per block: at most this many channels.
 constexpr int CHAIN_MAX_C = 512;
 
 // p*(g - q - (f*r' - m')) with the f32 roundings of the plain version.
@@ -206,6 +215,12 @@ constexpr int RING_NARROW = 4;
 // block of the SM's two (bn2 measured slower at 16 rows on the H100), and
 // for "pre", whose epilogue stages four bands.
 constexpr int TALL_NT = 16;
+// The plain modes (conv_stats, gamma, seg) take 16-row tiles up to an N
+// tile of 64: at 64 channels a 16 x 16 tile with 2 x 4 warps measured
+// faster than an 8 x 16 one on the H100 (the flagship's level-0 convs),
+// while 16-row tiles at 128 channels measured slower; a deeper weight ring
+// and other warp layouts changed nothing.
+constexpr int TALL_PLAIN_NT = 64;
 constexpr int CC_WIDE = 32;                 // the chain modes' chunk (sources of planes)
 constexpr int WST_WIDE = CC_WIDE + 8;
 constexpr int KS_ROW = 3 * CC_WIDE;         // a chain mode's 3x3 stage
@@ -221,10 +236,14 @@ __host__ __device__ constexpr int conv3_ring(int mode) {
 }
 __host__ __device__ constexpr int conv3_ks(int mode) { return conv3_chain(mode) ? KS_ROW : KS; }
 __host__ __device__ constexpr int conv3_th(int mode, int nt) {
-  return mode != CONV_PRE && nt <= TALL_NT ? 16 : 8;
+  return mode != CONV_PRE && nt <= (conv3_plain(mode) ? TALL_PLAIN_NT : TALL_NT) ? 16 : 8;
 }
 __host__ __device__ constexpr int conv3_wpix(int mode, int nt) {
   return (conv3_th(mode, nt) + 2) * WW;
+}
+// The 8 warps of a block as WARPS_M (tile rows) x WARPS_N (output channels).
+__host__ __device__ constexpr int conv3_warps_m(int mode, int nt) {
+  return 8 / (nt < 64 ? 1 : conv3_th(mode, nt) == 16 ? 2 : 4);
 }
 
 struct Seg3 {
@@ -274,17 +293,22 @@ __host__ __device__ constexpr bool conv3_band_smem(int mode) {
   return mode == CONV_PRE || mode == CONV_MODGRAD;
 }
 
-// Dynamic shared memory of a conv3 launch (bytes): BN constants, stat rows,
-// the window ring, the chain tensor's window ring, the bn1 shortcut's tile
+// Dynamic shared memory of a conv3 launch (bytes): prologue constants
+// (rows of c0 rounded up to 32), stat rows (one set per warp row), the
+// window ring, the chain tensor's window ring, the bn1 shortcut's tile
 // ring, the weight ring, the staged bands.
+__host__ __device__ constexpr int conv3_cs_rows(int mode) {
+  return (mode == CONV_BN2 || mode == CONV_BN1) ? 4 : mode == CONV_AFF ? 2 : 0;
+}
 __host__ __device__ inline int conv3_cs_floats(int mode, int c0) {
-  return (mode == CONV_BN2 || mode == CONV_BN1) ? 4 * ((c0 + 31) / 32 * 32) : 0;
+  return conv3_cs_rows(mode) * ((c0 + 31) / 32 * 32);
 }
 
 __host__ __device__ inline int conv3_smem(int mode, int nt, int ns, int c0, int cc, int wst) {
   const int wr = conv3_wring(mode), wpix = conv3_wpix(mode, nt), tpix = conv3_th(mode, nt) * TW;
   const int ring = conv3_ring(mode);
-  return 4 * conv3_cs_floats(mode, c0) + 4 * ns * nt + 2 * wr * wpix * wst +
+  return 4 * conv3_cs_floats(mode, c0) + 4 * conv3_warps_m(mode, nt) * ns * nt +
+         2 * wr * wpix * wst +
          (conv3_chain(mode) ? 2 * wr * wpix * cc : 0) +
          (mode == CONV_BN1 ? 2 * ring * tpix * WST_WIDE : 0) +
          2 * ring * nt * (conv3_ks(mode) + 8) +
@@ -321,6 +345,9 @@ __device__ __forceinline__ void conv3_body(const Conv3Args& a) {
   constexpr int NS = conv_stat_rows<MODE>();
   constexpr bool BN_PRO = MODE == CONV_BN2 || MODE == CONV_BN1;
   constexpr bool CHAIN = BN_PRO || MODE == CONV_MODGRAD;
+  constexpr bool AFF = MODE == CONV_AFF;  // a prologue without a chain tensor
+  constexpr bool PLAIN = conv3_plain(MODE);  // round(acc [+ bias]); 2 sums
+  constexpr int NCS = conv3_cs_rows(MODE);
   constexpr int THc = conv3_th(MODE, NT);
   constexpr int WPIXc = conv3_wpix(MODE, NT);
   constexpr int TPIXc = THc * TW;
@@ -328,8 +355,8 @@ __device__ __forceinline__ void conv3_body(const Conv3Args& a) {
   constexpr int RW = conv3_ring(MODE);
   constexpr int KSW = conv3_ks(MODE);  // the widest stage
   constexpr int WSTGc = KSW + 8;
-  constexpr int WARPS_N = NT < 64 ? 1 : THc == 16 ? 2 : 4;
-  constexpr int WARPS_M = 8 / WARPS_N;
+  constexpr int WARPS_M = conv3_warps_m(MODE, NT);
+  constexpr int WARPS_N = 8 / WARPS_M;
   constexpr int MI = THc / WARPS_M;  // tile rows per warp, one m16 fragment each
   constexpr int WN = NT / WARPS_N;
   constexpr int NI = WN / 8;
@@ -344,10 +371,10 @@ __device__ __forceinline__ void conv3_body(const Conv3Args& a) {
   const int wst = CHAIN ? WST_WIDE : a.wst;
   const int ngrp = cc / 8;
   const int c0ch = a.seg[0].c;
-  float* cs = reinterpret_cast<float*>(bwd_smem);  // [4][csn]
-  const int csn = conv3_cs_floats(MODE, c0ch) / 4;
-  float* red = cs + 4 * csn;                                  // [NS][NT]
-  bf16* win = reinterpret_cast<bf16*>(red + NS * NT);        // [WR][WPIXc][wst]
+  float* cs = reinterpret_cast<float*>(bwd_smem);  // [NCS][csn]
+  const int csn = NCS > 0 ? (c0ch + 31) / 32 * 32 : 0;
+  float* red = cs + NCS * csn;                                // [WARPS_M][NS][NT]
+  bf16* win = reinterpret_cast<bf16*>(red + WARPS_M * NS * NT);  // [WR][WPIXc][wst]
   bf16* pro = win + WR * WPIXc * wst;                       // [WR][WPIXc][cc]
   bf16* sct = pro + (CHAIN ? WR * WPIXc * cc : 0);          // [RW][TPIXc][WST_WIDE]
   bf16* wts = sct + (MODE == CONV_BN1 ? RW * TPIXc * WST_WIDE : 0);  // [RW][NT][WSTGc]
@@ -363,14 +390,12 @@ __device__ __forceinline__ void conv3_body(const Conv3Args& a) {
   const int oh0 = th_i * THc, ow0 = tw_i * TW;
   const int n0 = blockIdx.y * NT;
 
-  if constexpr (BN_PRO) {
-    for (int i = tid; i < 4 * csn; i += CORE_THREADS) {
+  if constexpr (NCS > 0) {
+    for (int i = tid; i < NCS * csn; i += CORE_THREADS) {
       const int k = i / csn, c = i - k * csn;
       cs[i] = c < c0ch ? a.cst[k][c] : 0.f;
     }
   }
-  if constexpr (NS > 0)
-    for (int i = tid; i < NS * NT; i += CORE_THREADS) red[i] = 0.f;
 
   const int nstage = a.seg[0].nchunk * a.seg[0].spc +
                      (a.nseg > 1 ? a.seg[1].nchunk * a.seg[1].spc : 0);
@@ -491,10 +516,11 @@ __device__ __forceinline__ void conv3_body(const Conv3Args& a) {
     advance(ahead);
     bf16* wb = win + (cur.gchunk % WR) * WPIXc * wst;
     const bool one = MODE == CONV_BN1 && cur.sg == 1;
-    if constexpr (CHAIN) {
+    if constexpr (CHAIN || AFF) {
       if (cur.j == 0 && cur.sg == 0) {
-        // the chain, once per window value; outside the image the window
-        // keeps its 0 (a zero-padded conv input), as do channels past c
+        // the chain (the affine), once per window value; outside the image
+        // the window keeps its 0 (a zero-padded conv input), as do channels
+        // past c (their constants are 0)
         const bf16* pb = pro + (cur.gchunk % WR) * WPIXc * cc;
         const int cb = cur.chunk * cc;
         for (int i = tid; i < WPIXc * ngrp; i += CORE_THREADS) {
@@ -505,8 +531,18 @@ __device__ __forceinline__ void conv3_body(const Conv3Args& a) {
           if (ih < 0 || ih >= H || iw < 0 || iw >= W || c0 >= c0ch) continue;
           float g[8], f[8], o[8];
           sload8(wb + px * wst + piece * 8, g);
-          sload8(pb + px * cc + piece * 8, f);
-          if constexpr (MODE == CONV_MODGRAD) {
+          if constexpr (CHAIN) sload8(pb + px * cc + piece * 8, f);
+          if constexpr (AFF) {  // relu(x*a + b), each operation rounded
+#pragma unroll
+            for (int h4 = 0; h4 < 8; h4 += 4) {
+              const float4 pa = *reinterpret_cast<const float4*>(cs + c0 + h4);
+              const float4 pb4 = *reinterpret_cast<const float4*>(cs + csn + c0 + h4);
+              o[h4] = fmaxf(__fadd_rn(__fmul_rn(g[h4], pa.x), pb4.x), 0.f);
+              o[h4 + 1] = fmaxf(__fadd_rn(__fmul_rn(g[h4 + 1], pa.y), pb4.y), 0.f);
+              o[h4 + 2] = fmaxf(__fadd_rn(__fmul_rn(g[h4 + 2], pa.z), pb4.z), 0.f);
+              o[h4 + 3] = fmaxf(__fadd_rn(__fmul_rn(g[h4 + 3], pa.w), pb4.w), 0.f);
+            }
+          } else if constexpr (MODE == CONV_MODGRAD) {
 #pragma unroll
             for (int q = 0; q < 8; ++q) o[q] = __fmul_rn(g[q], f[q]);
           } else {
@@ -521,7 +557,6 @@ __device__ __forceinline__ void conv3_body(const Conv3Args& a) {
               o[h4 + 2] = bn_chain(g[h4 + 2], f[h4 + 2], p.z, q.z, r.z, m.z);
               o[h4 + 3] = bn_chain(g[h4 + 3], f[h4 + 3], p.w, q.w, r.w, m.w);
             }
-            // channels past c keep 0 (their constants are 0, p among them)
           }
           sstore8(wb + px * wst + piece * 8, o);
         }
@@ -602,7 +637,7 @@ __device__ __forceinline__ void conv3_body(const Conv3Args& a) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       if (ch0 + e >= a.cout) continue;
-      if (MODE == CONV_STD) {
+      if (PLAIN) {
         if (a.bias != nullptr) k0[e] = a.bias[ch0 + e];
       } else if (MODE == CONV_PRE) {  // r2, mean2 * r2
         k0[e] = a.cst[0][ch0 + e];
@@ -645,7 +680,7 @@ __device__ __forceinline__ void conv3_body(const Conv3Args& a) {
           o[e] = 0.f;
           if (ch0 + e >= a.cout) continue;
           const float v = acc[mi][ni][2 * half + e];
-          if constexpr (MODE == CONV_STD) {
+          if constexpr (PLAIN) {
             o[e] = bf16r(v + k0[e]);
             st[0][e] += o[e];
             st[1][e] += o[e] * o[e];
@@ -702,7 +737,9 @@ __device__ __forceinline__ void conv3_body(const Conv3Args& a) {
       }
     }
     if constexpr (NS > 0) {
-      // over the 8 row groups of the warp, then the warps sharing the column
+      // over the 8 row groups of the warp; each warp row's sums get their
+      // own slots, added in a fixed order below (the batch statistics come
+      // out the same from run to run)
 #pragma unroll
       for (int off = 4; off < 32; off <<= 1)
 #pragma unroll
@@ -713,7 +750,7 @@ __device__ __forceinline__ void conv3_body(const Conv3Args& a) {
 #pragma unroll
         for (int r = 0; r < NS; ++r)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) atomicAdd(&red[r * NT + cl + e], st[r][e]);
+          for (int e = 0; e < 2; ++e) red[(wm * NS + r) * NT + cl + e] = st[r][e];
       }
     }
   }
@@ -723,8 +760,10 @@ __device__ __forceinline__ void conv3_body(const Conv3Args& a) {
     const long long nb = gridDim.x;
     for (int i = tid; i < NS * NT; i += CORE_THREADS) {
       const int r = i / NT, c = i - r * NT;
-      if (n0 + c < a.cout)
-        a.partial[((long long)r * a.cout + n0 + c) * nb + blockIdx.x] = red[i];
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS_M; ++w) v += red[w * NS * NT + i];
+      if (n0 + c < a.cout) a.partial[((long long)r * a.cout + n0 + c) * nb + blockIdx.x] = v;
     }
   }
 }

@@ -1,14 +1,14 @@
 // Shared device code of the port's fused-stage kernels (fused_stage.cu,
-// train_stage.cu): bf16 helpers, the implicit-GEMM conv core on mma.sync
-// m16n8k16 bf16 tensor cores with f32 sums, and the self-SPADE tail with its
-// launcher. Everything is in an anonymous namespace, so each source gets
-// its own copy and nothing is exported. The conv core: M = pixels (128 per
-// block), N = output channels (64 per block), K = sources x taps x input
-// channels padded to 32, each split-concat part or 1x1 shortcut read
-// through its own pointer, a register double buffer feeding two
-// shared-memory stages. Numerics: each
-// conv zero-pads its own input at the image border (a prologue applies to
-// in-image values only), sums run in f32, outputs are rounded to bf16.
+// bneck_stage.cu, train_stage.cu; its bf16 helpers also serve the others):
+// bf16 helpers, the implicit-GEMM conv core on mma.sync m16n8k16 bf16
+// tensor cores with f32 sums, and the self-SPADE tail with its launcher.
+// Everything is in an anonymous namespace, so each source gets its own copy
+// and nothing is exported. The conv core: M = pixels (128 per block), N =
+// output channels (64 per block), K = sources x taps x input channels
+// padded to 32, each split-concat part or 1x1 shortcut read through its own
+// pointer, a register double buffer feeding two shared-memory stages.
+// Numerics: each conv zero-pads its own input at the image border, sums run
+// in f32, outputs are rounded to bf16.
 
 #pragma once
 
@@ -59,36 +59,16 @@ struct Src {
   int vec;    // 16-byte loads allowed
 };
 
-// Eight channels c0..c0+7 of one pixel of a source (zeros past S.c), with
-// the optional prologue relu(x*a + b) rounded to bf16.
-__device__ __forceinline__ uint4 load8(const Src& S, long long pix, int c0,
-                                       const float* pa, const float* pb) {
+// Eight channels c0..c0+7 of one pixel of a source (zeros past S.c).
+__device__ __forceinline__ uint4 load8(const Src& S, long long pix, int c0) {
   const bf16* p = S.ptr + (pix * S.c + c0);
-  uint4 v;
-  if (S.vec && c0 + 8 <= S.c) {
-    v = *reinterpret_cast<const uint4*>(p);
-  } else {
-    const unsigned short* ps = reinterpret_cast<const unsigned short*>(p);
-    unsigned short e[8];
+  if (S.vec && c0 + 8 <= S.c) return *reinterpret_cast<const uint4*>(p);
+  const unsigned short* ps = reinterpret_cast<const unsigned short*>(p);
+  unsigned short e[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) e[j] = (c0 + j < S.c) ? ps[j] : 0;
-    v.x = e[0] | ((uint32_t)e[1] << 16);
-    v.y = e[2] | ((uint32_t)e[3] << 16);
-    v.z = e[4] | ((uint32_t)e[5] << 16);
-    v.w = e[6] | ((uint32_t)e[7] << 16);
-  }
-  if (pa != nullptr) {
-    float f[8];
-    unpack8(v, f);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = c0 + j;
-      f[j] = c < S.c ? fmaxf(__fadd_rn(__fmul_rn(f[j], pa[c]), pb[c]), 0.f) : 0.f;
-    }
-    v = make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]),
-                   pack2(f[6], f[7]));
-  }
-  return v;
+  for (int j = 0; j < 8; ++j) e[j] = (c0 + j < S.c) ? ps[j] : 0;
+  return make_uint4(e[0] | ((uint32_t)e[1] << 16), e[2] | ((uint32_t)e[3] << 16),
+                    e[4] | ((uint32_t)e[5] << 16), e[6] | ((uint32_t)e[7] << 16));
 }
 
 // Map a K step of 32 to (source, tap, first channel) for sources laid out
@@ -110,52 +90,13 @@ __device__ __forceinline__ void k_step(const Src* src, int nsrc, int kt, int& s,
 
 // ---------------------------------------------------------------------------
 // The conv core: implicit-GEMM conv3x3/1x1 over up to three sources, with a
-// bias [+ ReLU] or residual epilogue and optional per-block channel sums.
-// (The v3 backward's chain convs have their own core, bwd_core.cuh.)
+// bias [+ ReLU] or residual epilogue: the eval stages' convs and the train
+// tail's residual conv. (The train convs have their own core, bwd_core.cuh.)
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 128;            // pixels per block
 constexpr int BN = 64;             // output channels per block
 constexpr int CONV_THREADS = 128;  // 4 warps, 2 x 2, 64 x 32 each
-
-// Sum NS rows of per-thread channel sums over the block's 128 pixels and
-// write them as this block's partials, [NS][cout][gridDim.x].
-template <int NS>
-__device__ __forceinline__ void block_partials(float (&s)[NS][4][2], float (*red)[NS][BN],
-                                               int n0, int cout, float* partial) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3, wm = warp >> 1, wn = warp & 1;
-  // sum over the 8 row groups of the warp (lanes with equal t), then over
-  // the two warps that share these columns
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1)
-#pragma unroll
-        for (int r = 0; r < NS; ++r)
-          s[r][ni][e] += __shfl_xor_sync(0xffffffffu, s[r][ni][e], off);
-  if (g == 0) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = wn * 32 + ni * 8 + 2 * t + e;
-#pragma unroll
-        for (int r = 0; r < NS; ++r) red[wm][r][col] = s[r][ni][e];
-      }
-  }
-  __syncthreads();
-  if (tid < BN && n0 + tid < cout) {
-    const long long nb = gridDim.x;
-#pragma unroll
-    for (int r = 0; r < NS; ++r)
-      partial[((long long)r * cout + n0 + tid) * nb + blockIdx.x] =
-          red[0][r][tid] + red[1][r][tid];
-  }
-}
-
 
 struct ConvArgs {
   Src src[MAX_SRC];
@@ -163,13 +104,10 @@ struct ConvArgs {
   const bf16* wt;      // [cout][kp], K = sources x taps x cpad
   int kp;
   const float* bias;   // [cout] or null
-  const float* pro_a;  // [src0.c] prologue on source 0, or null
-  const float* pro_b;
   const bf16* res;     // [m][cout]: out = relu(res*res_a + res_b + acc), or null
   const float* res_a;
   const float* res_b;
   bf16* out;           // [m][cout]
-  float* partial;      // [rows][cout][gridDim.x] per-block sums, or null
   int relu;            // ReLU after the bias (the eval stage's folded BN + ReLU)
   int h, w, cout;
   long long m;         // n * h * w
@@ -177,10 +115,8 @@ struct ConvArgs {
 
 __global__ void __launch_bounds__(CONV_THREADS)
 conv_kernel(const ConvArgs args) {
-  constexpr int NS = 2;
   __shared__ __align__(16) bf16 As[2][BM][LDS];
   __shared__ __align__(16) bf16 Bs[2][BN][LDS];
-  __shared__ float red[2][NS][BN];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -219,14 +155,12 @@ conv_kernel(const ConvArgs args) {
     const int pad = S.ksize == 3 ? 1 : 0;
     const int dy = S.ksize == 3 ? tap / 3 : 0;
     const int dx = S.ksize == 3 ? tap % 3 : 0;
-    const float* pa = s == 0 ? args.pro_a : nullptr;
-    const float* pb = s == 0 ? args.pro_b : nullptr;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int ih = a_oh[i] + dy - pad, iw = a_ow[i] + dx - pad;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (a_ok[i] && ih >= 0 && ih < H && iw >= 0 && iw < W && c0 < S.c)
-        v = load8(S, a_img[i] + (long long)ih * W + iw, c0, pa, pb);
+        v = load8(S, a_img[i] + (long long)ih * W + iw, c0);
       ra[i] = v;
     }
 #pragma unroll
@@ -290,14 +224,8 @@ conv_kernel(const ConvArgs args) {
   }
 
   const bool pair_store = (args.cout & 1) == 0;
-  float st[NS][4][2];
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-    for (int r = 0; r < NS; ++r) st[r][ni][0] = st[r][ni][1] = 0.f;
 
-  // [+ bias | residual affine + ReLU], round to bf16, NHWC store, per-channel
-  // sums (and sums of squares) of the rounded values
+  // [+ bias | residual affine + ReLU], round to bf16, NHWC store
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) {
     const int ch0 = n0 + wn * 32 + ni * 8 + 2 * t;
@@ -336,17 +264,9 @@ conv_kernel(const ConvArgs args) {
           op[0] = __float2bfloat16_rn(o[0]);
           if (ch0 + 1 < args.cout) op[1] = __float2bfloat16_rn(o[1]);
         }
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (ch0 + e >= args.cout) continue;
-          st[0][ni][e] += o[e];
-          st[1][ni][e] += o[e] * o[e];
-        }
       }
     }
   }
-  if (args.partial == nullptr) return;  // uniform across the block
-  block_partials<NS>(st, red, n0, args.cout, args.partial);
 }
 
 

@@ -1,6 +1,8 @@
-// The v3 backward of the training-mode fused stage on Hopper (sm_90a): the
-// port of the TPU kernels of ssunet_gan_tpu/ops/train_bwd.py, which run the
-// backward's pointwise and BatchNorm chains inside the convs next to them:
+// The train kernels on the Hopper cores of bwd_core.cuh (sm_90a): the
+// v3 backward of the training-mode fused stage, the TPU kernels of
+// ssunet_gan_tpu/ops/train_bwd.py, which run the backward's pointwise and
+// BatchNorm chains inside the convs next to them, and the forward's convs
+// and the v2 weight gradient of ssunet_gan_tpu/ops/stage_kernel_train.py:
 //
 //   fused_conv3  <- fused_conv3_call (:167, body _make_fused_kernel :60)
 //       out = epilogue(conv3x3(prologue(src))), stat rows of the epilogue's
@@ -22,34 +24,49 @@
 //                               then g_pre through the 1x1 shortcut's weight as
 //                               a second K-segment added to the rounded 3x3 sum;
 //                               each part's gradient through its own pointer
+//   conv_stats   <- stage_kernel_train.py _conv_stats_call (:232, body
+//                   _make_conv_kernel :159)
+//       out = round(conv3x3(parts; W) [+ b]), one or two parts of any widths
+//       as K-segments (CONV_STD), or a single part through relu(x*a + b)
+//       first (CONV_AFF: conv2's BN1 + ReLU, applied once per window value,
+//       the image border's padding left 0); (sum, sum of squares) of the
+//       rounded output. The forward's conv1 and conv2 (12 launches per
+//       flagship step, ~1.2e12 multiply-adds: 2.437 ms at 989 TFLOP/s),
+//       and the v2 backward's gamma|beta recompute and backward-data convs.
 //   fused_wgrad  <- fused_wgrad_call (:374, body _make_wgrad_fused_kernel :291)
 //       dW of a 3x3 conv whose input is the saved tensor (optionally
 //       relu(x*a + b), conv2's input) and whose cotangent is rebuilt in the
 //       cotangent tile: as it is (G_RAW), [round(g0*y) ; g0] (G_MODGRAD) or
-//       the BN-backward chain (G_BN); one instantiation each.
+//       the BN-backward chain (G_BN); one instantiation each. G_RAW is also
+//       the v2 weight gradient, stage_kernel_train.py _wgrad_w (:766, body
+//       _make_wgrad_kernel :664): dW of up to two parts, the cotangent as
+//       it is.
 //
-// What bounds them on the H100: the backward-data convs and the weight
-// gradients carry the backward's multiply-adds at an arithmetic intensity
-// far above the bf16 ridge point (~295 FLOP/byte), so they are bound by
-// tensor-core operations; the chains themselves are bytes. The design
-// (bwd_core.cuh) keeps every chain out of device memory and evaluates each
-// chain value once per block that reads it: a block owns a spatial tile of
-// one image, its input window arrives through a 3-deep cp.async ring, the
-// chain runs once over the window in shared memory, and the nine taps are
-// shifted ldmatrix reads of that window. The conv covers up to 256 output
-// channels per block; the weight gradient covers the nine taps of one input
-// chunk per block, with narrow dW rows on the MMA's 8-wide side and narrow
-// inputs packed as (tap, 8 channels) groups. Epilogues run on the
-// accumulators; stat rows are reduced per block in shared memory and summed
-// by stats_reduce_kernel.
+// What bounds them on the H100: the convs and the weight gradients carry
+// the train step's multiply-adds at an arithmetic intensity far above the
+// bf16 ridge point (~295 FLOP/byte), so they are bound by tensor-core
+// operations; the chains themselves are bytes. The design (bwd_core.cuh)
+// keeps every chain out of device memory and evaluates each chain value
+// once per block that reads it: a block owns a spatial tile of one image,
+// its input window arrives through a cp.async ring, the chain runs once
+// over the window in shared memory, and the nine taps are shifted ldmatrix
+// reads of that window, so each input value is read once per N block (not
+// once per tap). The conv covers up to 256 output channels per block; the
+// weight gradient covers the nine taps of one input chunk per block, with
+// narrow dW rows on the MMA's 8-wide side and narrow inputs packed as (tap,
+// 8 channels) groups. Epilogues run on the accumulators; stat rows are
+// reduced per block in shared memory and summed by stats_reduce_kernel.
 //
 // Numerics follow the TPU kernels and the port's plain versions
-// (ops/train_bwd.py): each conv zero-pads its own input at the image
-// border, so a prologue runs on in-image pixels only and padded channels
-// stay 0; the f32 chain arithmetic rounds each operation (no fused
-// multiply-adds) as the plain version does; bf16 roundings at the JAX
-// package's points; masks compare f32 values of bf16 tensors; the weight
-// gradient moves its MMA sums into round-to-nearest f32 sums every 4 steps.
+// (ops/train_bwd.py, ops/stage_kernel_train.py): each conv zero-pads its
+// own input at the image border, so a prologue runs on in-image pixels only
+// and padded channels stay 0; the f32 chain arithmetic rounds each
+// operation (no fused multiply-adds) as the plain version does; bf16
+// roundings at the JAX package's points; masks compare f32 values of bf16
+// tensors; the stat rows' block partials are summed in a fixed order, the
+// blocks' in f64 (the batch statistics come out the same from run to run);
+// the weight gradient moves its MMA sums into round-to-nearest f32 sums
+// every 4 steps and sums its blocks' partials with f64 atomics.
 //
 // Plain C interface (loaded with ctypes); every entry point returns the
 // cudaError_t of its launches.
@@ -108,11 +125,12 @@ int cdiv(int a, int b) { return (a + b - 1) / b; }
 // memory beside a second block.
 int conv3_nt(int mode, int cout) {
   if (mode == CONV_PRE) return 64;
-  static const int std_nt[] = {8, 16, 64, 128, 256};
+  static const int plain_nt[] = {8, 16, 64, 128, 192, 256};
   static const int narrow_nt[] = {8, 16, 64};
   static const int wide_nt[] = {64, 128, 192, 256};
-  const int* nts = mode == CONV_STD ? std_nt : mode == CONV_MODGRAD ? narrow_nt : wide_nt;
-  const int k = mode == CONV_STD ? 5 : mode == CONV_MODGRAD ? 3 : 4;
+  const bool plain = conv3_plain(mode);
+  const int* nts = plain ? plain_nt : mode == CONV_MODGRAD ? narrow_nt : wide_nt;
+  const int k = plain ? 6 : mode == CONV_MODGRAD ? 3 : 4;
   const int per = cdiv(cout, cdiv(cout, nts[k - 1]));
   for (int i = 0; i < k; ++i)
     if (per <= nts[i]) return nts[i];
@@ -121,17 +139,15 @@ int conv3_nt(int mode, int cout) {
 
 template <int MODE>
 cudaError_t conv3_by_nt(int nt, const Conv3Args& a, dim3 grid, int smem, cudaStream_t s) {
-  if constexpr (MODE == CONV_STD || MODE == CONV_MODGRAD) {
+  if constexpr (conv3_plain(MODE) || MODE == CONV_MODGRAD) {
     if (nt == 8) return launch_conv3<MODE, 8>(a, grid, smem, s);
     if (nt == 16) return launch_conv3<MODE, 16>(a, grid, smem, s);
   }
   if (nt == 64) return launch_conv3<MODE, 64>(a, grid, smem, s);
   if constexpr (MODE != CONV_MODGRAD && MODE != CONV_PRE) {
     if (nt == 128) return launch_conv3<MODE, 128>(a, grid, smem, s);
-    if (nt == 256) return launch_conv3<MODE, 256>(a, grid, smem, s);
-  }
-  if constexpr (MODE == CONV_BN2 || MODE == CONV_BN1) {
     if (nt == 192) return launch_conv3<MODE, 192>(a, grid, smem, s);
+    if (nt == 256) return launch_conv3<MODE, 256>(a, grid, smem, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -182,22 +198,26 @@ long long ssu_conv3_blocks(int mode, int cout, int n, int h, int w) {
   return (long long)n * cdiv(h, conv3_th(mode, conv3_nt(mode, cout))) * cdiv(w, TW);
 }
 
-// One chain-mode conv (mode: a ConvMode). p and d hold the pointers and
+// One conv of the core (mode: a ConvMode). p and d hold the pointers and
 // integers named by P_* and I_*; a pointer that a mode does not use may be
-// null. With stats (and partial, [rows][cout][ssu_conv3_blocks(n, h, w)]
-// f32), stats[r][c] is the mode's r-th sum over the pixels.
+// null. CONV_STD takes one or two 3x3 parts of any widths, CONV_AFF one part
+// with its prologue's a and b in cst[0], cst[1]. With stats (and partial,
+// [rows][cout][ssu_conv3_blocks(n, h, w)] f32), stats[r][c] is the mode's
+// r-th sum over the pixels.
 int ssu_fused_conv3(int mode, void* const* p, const int* d, void* stream) {
   Conv3Args a = {};
   const int cout = d[I_COUT];
-  const bool two_src = mode == CONV_MODGRAD || mode == CONV_BN1;
+  const bool two_src = mode == CONV_MODGRAD || mode == CONV_BN1;  // required
   const bool chain = conv3_chain(mode);
   const int nbands = conv3_nbands(mode);
-  const int ncst = mode == CONV_PRE ? 2 : mode == CONV_BN2 ? 8 : mode == CONV_BN1 ? 4 : 0;
+  const int ncst = mode == CONV_PRE ? 2 : mode == CONV_BN2 ? 8 : mode == CONV_BN1 ? 4
+                 : mode == CONV_AFF ? 2 : 0;
   const int c0 = d[I_C0], c1 = d[I_C1];
-  bool ok = mode >= CONV_STD && mode <= CONV_BN1 && c0 > 0 && (c1 > 0) == two_src &&
-            (!two_src || c1 == c0) && cout >= 1 && aligned16(p[P_W]) && d[I_N] > 0 &&
-            d[I_H] > 0 && d[I_W] > 0 && (d[I_K0] == 3) &&
-            (!two_src || d[I_K1] == (mode == CONV_BN1 ? 1 : 3)) &&
+  const bool has1 = c1 > 0;
+  bool ok = mode >= CONV_STD && mode <= CONV_AFF && c0 > 0 && c1 >= 0 &&
+            (two_src ? has1 && c1 == c0 : !has1 || mode == CONV_STD) && cout >= 1 &&
+            aligned16(p[P_W]) && d[I_N] > 0 && d[I_H] > 0 && d[I_W] > 0 && (d[I_K0] == 3) &&
+            (!has1 || d[I_K1] == (mode == CONV_BN1 ? 1 : 3)) &&
             (!chain || p[P_PRO_F] != nullptr) && p[P_SRC0] != nullptr &&
             p[P_OUT0] != nullptr && (p[P_STATS] == nullptr) == (p[P_PARTIAL] == nullptr);
   if (mode == CONV_BN1)
@@ -206,17 +226,19 @@ int ssu_fused_conv3(int mode, void* const* p, const int* d, void* stream) {
   else
     ok = ok && d[I_SPLIT] == cout;
   if (mode == CONV_MODGRAD) ok = ok && p[P_SRC1] == p[P_SRC0];
-  if (mode == CONV_BN2 || mode == CONV_BN1) ok = ok && c0 <= CHAIN_MAX_C;
+  if (conv3_cs_rows(mode) > 0) ok = ok && c0 <= CHAIN_MAX_C;
   for (int i = 0; i < nbands; ++i) ok = ok && p[P_BAND + i] != nullptr;
   for (int i = 0; i < ncst; ++i) ok = ok && p[P_CST + i] != nullptr;
   if (!ok) return (int)cudaErrorInvalidValue;
 
+  // the parts share the chunk width: the wider part's
   a.cc = chain ? CC_WIDE : chunk_channels(c0);
+  if (!chain && has1 && chunk_channels(c1) > a.cc) a.cc = chunk_channels(c1);
   a.wst = win_stride(a.cc);
   const bool pro_vec = !chain || aligned16(p[P_PRO_F]);
   int kp = fill_seg(a.seg[0], p[P_SRC0], c0, 3, a.cc, conv3_ks(mode), pro_vec);
   a.nseg = 1;
-  if (two_src) {
+  if (has1) {
     const int k1 = d[I_K1];
     kp += fill_seg(a.seg[1], p[P_SRC1], c1, k1, a.cc, k1 == 3 ? conv3_ks(mode) : KS, true);
     a.nseg = 2;
@@ -245,7 +267,7 @@ int ssu_fused_conv3(int mode, void* const* p, const int* d, void* stream) {
 
   const long long nb = ssu_conv3_blocks(mode, cout, a.n, a.h, a.w);
   const dim3 grid((unsigned)nb, (unsigned)cdiv(cout, nt));
-  const int rows = mode == CONV_STD ? 2 : mode == CONV_MODGRAD ? 1 : mode == CONV_PRE ? 4
+  const int rows = conv3_plain(mode) ? 2 : mode == CONV_MODGRAD ? 1 : mode == CONV_PRE ? 4
                  : mode == CONV_BN2 ? 2 : 0;
   const int smem = conv3_smem(mode, nt, rows, c0, a.cc, a.wst);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
@@ -256,7 +278,8 @@ int ssu_fused_conv3(int mode, void* const* p, const int* d, void* stream) {
     case CONV_MODGRAD: e = conv3_by_nt<CONV_MODGRAD>(nt, a, grid, smem, s); break;
     case CONV_PRE: e = conv3_by_nt<CONV_PRE>(nt, a, grid, smem, s); break;
     case CONV_BN2: e = conv3_by_nt<CONV_BN2>(nt, a, grid, smem, s); break;
-    default: e = conv3_by_nt<CONV_BN1>(nt, a, grid, smem, s); break;
+    case CONV_BN1: e = conv3_by_nt<CONV_BN1>(nt, a, grid, smem, s); break;
+    default: e = conv3_by_nt<CONV_AFF>(nt, a, grid, smem, s); break;
   }
   if (e != cudaSuccess || p[P_STATS] == nullptr) return (int)e;
   stats_reduce_kernel<<<dim3((unsigned)cout, (unsigned)rows), RED_THREADS, 0, s>>>(
@@ -268,7 +291,7 @@ int ssu_fused_conv3(int mode, void* const* p, const int* d, void* stream) {
 // f64, zeroed by the caller, cin the parts' channels summed); x = up to two
 // parts, a single one optionally relu(x*a + b); the cotangent (gmode: a
 // GMode) from g and g2, [m][c_g] each, and cst (four pointers; G_BN: p, q,
-// r', m').
+// r', m'). G_RAW with c_g == cout is conv_stats's weight gradient (wgrad).
 int ssu_fused_wgrad(int gmode, const void* s0, int c0, const void* s1, int c1,
                     const void* pro_a, const void* pro_b, const void* g, const void* g2,
                     const void* const* cst, int cout, int c_g, void* dw, int n, int h,

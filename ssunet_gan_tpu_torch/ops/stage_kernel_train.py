@@ -15,9 +15,16 @@ that the v2 analytic backward (``_train_bwd_rule``) runs:
 - :func:`wgrad` ← ``_wgrad_w`` (:766): the f32 weight gradient of a 3×3
   conv, with the optional prologue recomputing conv2's input.
 
-The kernels are ``csrc/train_stage.cu``: mma.sync bf16 implicit-GEMM convs
-and a pixel-split GEMM for the weight gradient (what bounds them, and the
-design, are in the source's header). On the TPU the shape envelopes of
+:func:`conv_stats` and :func:`wgrad` run on the Hopper cores of
+``csrc/bwd_core.cuh`` (``csrc/train_bwd.cu``, launched through
+``ops/train_bwd.py`` ``launch_conv3`` / ``launch_wgrad``): the conv in
+spatial tiles with each input value brought into shared memory once per
+block through ``cp.async`` and the taps read as shifted ``ldmatrix`` views
+(one or two parts as K-segments; the prologue applied once per window
+value), the weight gradient as a GEMM over the pixels with f64 sums.
+:func:`train_tail` is ``csrc/train_stage.cu`` (the residual conv of
+``csrc/stage_common.cuh`` and the SPADE tail). What bounds them, and the
+designs, are in the sources' headers. On the TPU the shape envelopes of
 ``_wgrad_w`` and ``_convT_w`` send some products to XLA (VMEM limits); on
 the card every such product of the stage goes through the kernels.
 
@@ -61,7 +68,9 @@ from ssunet_gan_tpu_torch.ops.stage_kernel import (
     stage_supported,
 )
 
-SOURCE = "train_stage.cu"
+SOURCE = "train_stage.cu"  # train_tail's; _lib() loads it
+# each kernel's source: conv_stats and wgrad run on csrc/bwd_core.cuh's cores
+KERNEL_SOURCE = {"conv_stats": "train_bwd.cu", "train_tail": SOURCE, "wgrad": "train_bwd.cu"}
 REPLACES = {
     "conv_stats": "ssunet_gan_tpu/ops/stage_kernel_train.py:232",  # _conv_stats_call
     "train_tail": "ssunet_gan_tpu/ops/stage_kernel_train.py:435",  # _tail_call
@@ -170,14 +179,9 @@ def wgrad_reference(parts, g, prologue=None):
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssu_conv_stats_blocks.argtypes = [ll]
-    lib.ssu_conv_stats_blocks.restype = ll
-    lib.ssu_conv_stats.argtypes = [p, i, i, p, i, i, p, i, i, p, i, p, p, p, p, p, p,
-                                   p, p, p, i, i, i, i, p]
-    lib.ssu_conv_stats.restype = i
-    lib.ssu_wgrad.argtypes = [p, i, p, i, p, p, p, i, p, i, i, i, i, p]
-    lib.ssu_wgrad.restype = i
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ssu_conv_res.argtypes = [p, i, p, i, p, i, p, i, p, p, p, p, i, i, i, i, p]
+    lib.ssu_conv_res.restype = i
     lib.ssu_spade_tail_train.argtypes = [p, i, i, i, i, p, p, i, p, p, i, p, p, p,
                                          p, i, p, p, p, p]
     lib.ssu_spade_tail_train.restype = i
@@ -212,36 +216,21 @@ def _check_nhwc(tensors, what: str, max_parts: int = 2) -> Tuple[int, int, int]:
     return tuple(x0.shape[:3])
 
 
-def _sources(parts, ksize: int):
-    src = [(p.data_ptr(), p.shape[-1], ksize) for p in parts]
-    return [v for s in src + [(None, 0, 0)] * (3 - len(src)) for v in s]
-
-
 def _conv_cuda(parts, weight, bias, prologue, stats):
-    n, h, w = _check_nhwc(parts, "conv_stats")
+    _check_nhwc(parts, "conv_stats")
     channels = [p.shape[-1] for p in parts]
-    cout = weight.shape[0]
     if tuple(weight.shape[1:]) != (sum(channels), 3, 3):
         raise ValueError(f"weight {tuple(weight.shape)} does not fit parts of {channels}")
     if prologue is not None and len(parts) != 1:
         raise ValueError("the prologue takes a single input")
-    dev, dtype = parts[0].device, parts[0].dtype
-    lib = _lib()
-    with torch.cuda.device(dev):
-        wt = _gemm_weight(split_in(weight, channels), dtype)
-        b = None if bias is None else _q(bias, dtype).contiguous()
-        pa, pb = (None, None) if prologue is None else map(_vec, prologue)
-        out = torch.empty((n, h, w, cout), dtype=dtype, device=dev)
-        partial = sums = None
-        if stats:
-            nb = lib.ssu_conv_stats_blocks(n * h * w)
-            partial = torch.empty(2 * cout * nb, dtype=torch.float32, device=dev)
-            sums = torch.empty((2, cout), dtype=torch.float32, device=dev)
-        _check(lib.ssu_conv_stats(*_sources(parts, 3), _ptr(wt), wt.shape[1], _ptr(b),
-                                  _ptr(pa), _ptr(pb), None, None, None, _ptr(out),
-                                  _ptr(partial), _ptr(sums), n, h, w, cout,
-                                  torch.cuda.current_stream(dev).cuda_stream),
-               "conv_stats")
+    from ssunet_gan_tpu_torch.ops import train_bwd  # imports this module
+
+    # one K-segment per part; the prologue's a and b are the core's constants
+    kmode = train_bwd.K_STD if prologue is None else train_bwd.K_AFF
+    (out,), sums = train_bwd.launch_conv3(kmode, [(p, 3) for p in parts],
+                                          split_in(weight, channels),
+                                          consts=() if prologue is None else prologue,
+                                          bias=bias, rows=2 if stats else 0)
     launches["conv_stats"] += 1
     return out, sums
 
@@ -265,9 +254,10 @@ def _tail_cuda(f2, parts, a2, b2, ws, spade_params, head):
         wst = _gemm_weight(split_in(ws, channels), dtype)
         a2f, b2f = _vec(a2), _vec(b2)
         y = torch.empty_like(f2)
-        _check(lib.ssu_conv_stats(*_sources(parts, 1), _ptr(wst), wst.shape[1], None,
-                                  None, None, _ptr(f2), _ptr(a2f), _ptr(b2f), _ptr(y),
-                                  None, None, n, h, w, c, stream), "train tail y")
+        src = [v for p in parts for v in (p.data_ptr(), p.shape[-1])]
+        src += [None, 0] * (3 - len(parts))
+        _check(lib.ssu_conv_res(*src, _ptr(wst), wst.shape[1], _ptr(f2), _ptr(a2f),
+                                _ptr(b2f), _ptr(y), n, h, w, c, stream), "train tail y")
         pk = pack_spade(spade_params, head, dtype)
         out = torch.empty((n, h, w, ncls or c), dtype=dtype, device=dev)
         seg = torch.empty((n, h, w, lab), dtype=dtype, device=dev)
@@ -283,36 +273,13 @@ def _tail_cuda(f2, parts, a2, b2, ws, spade_params, head):
 
 
 def _wgrad_cuda(parts, g, prologue):
-    n, h, w = _check_nhwc(tuple(parts) + (g,), "wgrad", max_parts=3)
-    if prologue is not None and len(parts) != 1:
-        raise ValueError("the prologue takes a single input")
-    channels = [p.shape[-1] for p in parts]
-    cpad = [-(-c // 32) * 32 for c in channels]
-    kp, cout = 9 * sum(cpad), g.shape[-1]
-    dev = g.device
-    lib = _lib()
-    with torch.cuda.device(dev):
-        pa, pb = (None, None) if prologue is None else map(_vec, prologue)
-        dw = torch.zeros((cout, kp), dtype=torch.float32, device=dev)
-        p1 = parts[1] if len(parts) > 1 else None
-        _check(lib.ssu_wgrad(parts[0].data_ptr(), channels[0], _ptr(p1),
-                             channels[1] if p1 is not None else 0, _ptr(pa), _ptr(pb),
-                             g.data_ptr(), cout, dw.data_ptr(), kp, n, h, w,
-                             torch.cuda.current_stream(dev).cuda_stream), "wgrad")
+    _check_nhwc(tuple(parts) + (g,), "wgrad", max_parts=3)
+    from ssunet_gan_tpu_torch.ops import train_bwd  # imports this module
+
+    # the weight-gradient core with the cotangent as it is (G_RAW)
+    dw = train_bwd.launch_wgrad(0, parts, (g,), (), prologue, g.shape[-1])
     launches["wgrad"] += 1
-    return _unpack_dw(dw, channels, cout)
-
-
-def _unpack_dw(dw: torch.Tensor, channels, cout: int) -> torch.Tensor:
-    """The weight-gradient kernels' [cout][part, tap, channel padded to 32]
-    f32 sums as an OIHW weight gradient."""
-    blocks, off = [], 0
-    for c in channels:
-        cp = -(-c // 32) * 32
-        blk = dw[:, off:off + 9 * cp].reshape(cout, 3, 3, cp)[..., :c]
-        blocks.append(blk.permute(0, 3, 1, 2))
-        off += 9 * cp
-    return torch.cat(blocks, 1).contiguous()
+    return dw
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,11 @@ and β bias gradients sum unrounded f32 products; x̂ enters as ``f·r − μ·r
 The head's products and the shortcut's weight gradient stay plain tensor
 ops, as the JAX package leaves them to XLA.
 
+:func:`launch_conv3` and :func:`launch_wgrad` launch the two cores
+(``csrc/bwd_core.cuh``); ``ops/stage_kernel_train.py``'s ``conv_stats``
+(kernel modes ``K_STD`` and ``K_AFF``) and ``wgrad`` (the cotangent as it
+is) run on them too, counted under their own names.
+
 Each wrapper decides by the tensors' device: CPU tensors take the plain
 version; CUDA tensors launch the kernel (bf16 only) or raise.
 """
@@ -79,6 +84,11 @@ REPLACES = {
 # (a fused_conv3 call with stat rows is two CUDA launches).
 launches = {"fused_conv3": 0, "fused_wgrad": 0}
 
+# csrc/bwd_core.cuh ConvMode of conv_stats (ops/stage_kernel_train.py),
+# which runs on the same core: a plain conv of one or two parts, and one
+# with the prologue relu(x·a + b)
+K_STD, K_AFF = 0, 5
+
 # mode: (kernel mode, conv sources, side bands, constants, stat rows)
 CONV_MODES = {
     "gamma": (0, 1, 0, 0, 0),
@@ -88,6 +98,8 @@ CONV_MODES = {
     "bn2": (3, 2, 1, 8, 2),
     "bn1": (4, 2, 1, 4, 0),
 }
+# the kernel modes whose sources have the stage's planes, in 32-channel chunks
+_K_CHAIN = {CONV_MODES[m][0] for m in ("modgrad", "bn2", "bn1")}
 # mode: (g-side kernel mode, g tensors, constants)
 WGRAD_MODES = {
     "gb": (1, 2, 0),
@@ -213,11 +225,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _chunk(mode: str, c: int) -> int:
-    """Channels per K chunk of a conv source (csrc/bwd_core.cuh): 32 for
-    the chain modes (their sources have the stage's planes), else a narrow
-    source's 8 or 16 channels whole, so its taps pack into K, else 32."""
-    return 32 if mode in ("modgrad", "bn2", "bn1") or c > 16 else 8 if c <= 8 else 16
+def conv3_chunk(kmode: int, channels) -> int:
+    """Channels per K chunk of the conv core's 3×3 sources of ``channels``
+    (csrc/bwd_core.cuh ``chunk_channels``, shared by the parts): 32 for the
+    chain modes (their sources have the stage's planes), else the widest
+    part's: a narrow part's 8 or 16 channels whole, so its taps pack into
+    K, else 32."""
+    if kmode in _K_CHAIN:
+        return 32
+    return max(8 if c <= 8 else 16 if c <= 16 else 32 for c in channels)
 
 
 def _conv3_weight(segments, dtype, cc: int) -> torch.Tensor:
@@ -245,8 +261,7 @@ def _conv3_weight(segments, dtype, cc: int) -> torch.Tensor:
 
 def _conv3_cuda(mode, src, weight, side, consts, bias, shortcut, out_ch):
     kmode, _, _, _, rows = CONV_MODES[mode]
-    n, h, w = _check_nhwc(tuple(src) + tuple(side), f"fused_conv3 {mode}", max_parts=5)
-    dev, dtype = src[0].device, src[0].dtype
+    _check_nhwc(tuple(src) + tuple(side), f"fused_conv3 {mode}", max_parts=5)
     cout = weight.shape[0]
     c_in = src[0].shape[-1]
     # (tensor, kernel size) of each K-segment, its weight, the prologue's second tensor
@@ -275,17 +290,38 @@ def _conv3_cuda(mode, src, weight, side, consts, bias, shortcut, out_ch):
     out_ch = tuple(out_ch) if split_out else (cout,)
     if sum(out_ch) != cout or len(out_ch) > 2 or (len(out_ch) > 1 and mode != "bn1"):
         raise ValueError(f"fused_conv3 {mode}: outputs {out_ch} for {cout} channels")
+    # the plain conv always sums (Σ, Σx²); "seg" keeps Σ
+    outs, sums = launch_conv3(kmode, sources, segments, pro_f=pro_f, consts=consts,
+                              bands=bands, bias=bias, out_ch=out_ch,
+                              rows=2 if rows and kmode == K_STD else rows)
+    launches["fused_conv3"] += 1
+    return (tuple(outs) if split_out else outs[0]), None if sums is None else sums[:rows]
+
+
+def launch_conv3(kmode, sources, segments, pro_f=None, consts=(), bands=(), bias=None,
+                 out_ch=None, rows=0):
+    """One launch of the conv core (``ssu_fused_conv3``) in kernel mode
+    ``kmode``: ``sources`` are ``(tensor, kernel size)`` K-segments (NHWC,
+    bf16, one N×H×W), ``segments`` their OIHW weights, packed by
+    :func:`_conv3_weight` at the core's chunk width. Returns the outputs
+    (one per ``out_ch`` entry, default one of all output channels) and the
+    ``rows`` stat rows (or None); the caller counts the launch."""
+    x0 = sources[0][0]
+    n, h, w = x0.shape[:3]
+    dev, dtype = x0.device, x0.dtype
+    cout = segments[0].shape[0]
+    out_ch = out_ch or (cout,)
     lib = _lib()
     with torch.cuda.device(dev):
-        wt = _conv3_weight(segments, dtype, _chunk(mode, c_in))
+        cc = conv3_chunk(kmode, [t.shape[-1] for t, k in sources if k == 3])
+        wt = _conv3_weight(segments, dtype, cc)
         cvs = [_vec(c) for c in consts]
         outs = [torch.empty((n, h, w, c), dtype=dtype, device=dev) for c in out_ch]
         partial = sums = None
         if rows:
-            kr = 2 if kmode == 0 else rows  # the plain conv always sums (Σ, Σx²)
             nb = lib.ssu_conv3_blocks(kmode, cout, n, h, w)
-            partial = torch.empty(kr * cout * nb, dtype=torch.float32, device=dev)
-            sums = torch.empty((kr, cout), dtype=torch.float32, device=dev)
+            partial = torch.empty(rows * cout * nb, dtype=torch.float32, device=dev)
+            sums = torch.empty((rows, cout), dtype=torch.float32, device=dev)
         b = None if bias is None else _q(bias, dtype).contiguous()
         ptrs = {"src0": sources[0][0], "src1": sources[1][0] if len(sources) > 1 else None,
                 "weight": wt, "bias": b, "pro_f": pro_f,
@@ -300,23 +336,32 @@ def _conv3_cuda(mode, src, weight, side, consts, bias, shortcut, out_ch):
         parr = (ctypes.c_void_p * len(_CONV_PTRS))(*(_ptr(ptrs.get(k)) for k in _CONV_PTRS))
         iarr = (ctypes.c_int * len(_CONV_INTS))(*(ints[k] for k in _CONV_INTS))
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _check(lib.ssu_fused_conv3(kmode, parr, iarr, stream), f"fused_conv3 {mode}")
-    launches["fused_conv3"] += 1
-    return (tuple(outs) if split_out else outs[0]), None if sums is None else sums[:rows]
+        _check(lib.ssu_fused_conv3(kmode, parr, iarr, stream), f"conv core (mode {kmode})")
+    return outs, sums
 
 
 def _wgrad_cuda(mode, x, g, consts, prologue):
     gmode = WGRAD_MODES[mode][0]
-    n, h, w = _check_nhwc(tuple(x) + tuple(g), f"fused_wgrad {mode}", max_parts=4)
-    if len(x) > 2:
-        raise ValueError(f"fused_wgrad takes at most 2 input parts, got {len(x)}")
-    if prologue is not None and len(x) != 1:
-        raise ValueError("the prologue takes a single input")
+    _check_nhwc(tuple(x) + tuple(g), f"fused_wgrad {mode}", max_parts=4)
     if len(g) == 2 and g[1].shape[-1] != g[0].shape[-1]:
         raise ValueError(f"fused_wgrad {mode}: g-side tensors differ in channels")
+    cout = 2 * g[0].shape[-1] if mode == "gb" else g[0].shape[-1]
+    dw = launch_wgrad(gmode, x, g, consts, prologue, cout)
+    launches["fused_wgrad"] += 1
+    return dw
+
+
+def launch_wgrad(gmode, x, g, consts, prologue, cout):
+    """One launch of the weight-gradient core (``ssu_fused_wgrad``) with
+    cotangent mode ``gmode`` (0: ``g[0]`` as it is): dW (OIHW, f32) of
+    ``cout`` rows over the input parts ``x`` (≤ 2; ``prologue`` only on a
+    single part). The caller counts the launch."""
+    if len(x) > 2:
+        raise ValueError(f"the weight gradient takes at most 2 input parts, got {len(x)}")
+    if prologue is not None and len(x) != 1:
+        raise ValueError("the prologue takes a single input")
     channels = [p.shape[-1] for p in x]
-    c_g = g[0].shape[-1]
-    cout = 2 * c_g if mode == "gb" else c_g
+    n, h, w = x[0].shape[:3]
     dev = g[0].device
     lib = _lib()
     with torch.cuda.device(dev):
@@ -330,10 +375,9 @@ def _wgrad_cuda(mode, x, g, consts, prologue):
         _check(lib.ssu_fused_wgrad(gmode, x[0].data_ptr(), channels[0], _ptr(x1),
                                    channels[1] if x1 is not None else 0, _ptr(pa), _ptr(pb),
                                    g[0].data_ptr(), _ptr(g[1] if len(g) > 1 else None), carr,
-                                   cout, c_g, dw.data_ptr(), n, h, w,
+                                   cout, g[0].shape[-1], dw.data_ptr(), n, h, w,
                                    torch.cuda.current_stream(dev).cuda_stream),
-               f"fused_wgrad {mode}")
-    launches["fused_wgrad"] += 1
+               f"weight-gradient core (mode {gmode})")
     return dw.float()
 
 

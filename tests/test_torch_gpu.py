@@ -168,7 +168,8 @@ def test_tile_forward_defaults_to_bf16_on_the_card():
     assert p.shape == (2, 32, 32, 3) and torch.isfinite(p.float()).all()
 
 
-# ---- train-stage kernels (csrc/train_stage.cu) against their plain versions.
+# ---- train-stage kernels (conv_stats and wgrad on csrc/bwd_core.cuh's cores,
+# train_tail in csrc/train_stage.cu) against their plain versions.
 # Outputs: the bar above (both sides round to bf16 at the same places). The
 # per-channel sums of the rounded outputs: relative error ≤ 1e-3 of the
 # largest sum plus 1e-3 (a rare 1-ulp output flip moves a sum by ~1e-5 of
@@ -191,10 +192,26 @@ def _bf16(gen, shape, dev, scale=1.0):
         ((16,), 3, (2, 16, 16), False, False),      # backward-data to 3 labels
         ((3,), 16, (1, 9, 13), False, False),       # from 3 channels, odd sizes
         ((512,), 384, (1, 16, 16), False, False),   # backward-data to the 2-part input
+        # the forward's conv1 at the flagship's widths, small images
+        ((64,), 128, (2, 12, 20), False, False),
+        ((128,), 256, (1, 10, 18), False, False),
+        ((64, 128), 64, (2, 12, 20), False, False),
+        ((128, 256), 128, (1, 10, 18), False, False),
+        ((256, 256), 256, (1, 8, 16), False, False),
+        # conv2 with the prologue at 128 and 256 planes
+        ((128,), 128, (2, 10, 20), True, False),
+        ((256,), 256, (1, 12, 18), True, False),
+        # narrow images: W = 5, H = 1, batch 3
+        ((64, 128), 64, (3, 7, 5), False, False),
+        ((128,), 128, (3, 1, 21), True, False),
+        ((3,), 64, (3, 1, 5), False, False),
     ],
 )
 def test_conv_stats_kernel_matches_plain(chans, cout, nhw, prologue, bias):
+    """conv_stats on the conv core of csrc/bwd_core.cuh (counted as
+    conv_stats, not as the v3 backward's fused_conv3)."""
     from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+    from ssunet_gan_tpu_torch.ops import train_bwd as ttb
 
     dev = _card()
     gen = torch.Generator().manual_seed(0)
@@ -206,10 +223,11 @@ def test_conv_stats_kernel_matches_plain(chans, cout, nhw, prologue, bias):
     if prologue:
         pro = ((torch.rand(chans[0], generator=gen) + 0.5).to(dev),
                (torch.randn(chans[0], generator=gen) * 0.3).to(dev))
-    before = tst.launches["conv_stats"]
+    before, before3 = tst.launches["conv_stats"], ttb.launches["fused_conv3"]
     out, sums = tst.conv_stats(parts, wt, b, pro)
     torch.cuda.synchronize()
     assert tst.launches["conv_stats"] == before + 1
+    assert ttb.launches["fused_conv3"] == before3
     want, want_sums = tst.conv_stats_reference(parts, wt, b, pro)
     errs, ok = _close(out, want)
     assert ok, errs
@@ -261,10 +279,15 @@ def test_train_tail_kernel_matches_plain(chans, planes, labels, nhw, ncls):
         ((128, 256), 128, (1, 24, 20), False),
         ((8,), 512, (2, 16, 16), False),     # γ|β weights: 2C rows
         ((3,), 4, (1, 9, 13), False),        # 3 labels → nh rows
+        ((64, 128), 64, (2, 12, 20), False),  # the decoder's conv1: two parts
+        ((256,), 256, (1, 10, 18), True),    # conv2 at 256 planes with the prologue
     ],
 )
 def test_wgrad_kernel_matches_plain(chans, cout, nhw, prologue):
+    """wgrad on the weight-gradient core of csrc/bwd_core.cuh (counted as
+    wgrad, not as the v3 backward's fused_wgrad)."""
     from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+    from ssunet_gan_tpu_torch.ops import train_bwd as ttb
 
     dev = _card()
     gen = torch.Generator().manual_seed(2)
@@ -275,8 +298,11 @@ def test_wgrad_kernel_matches_plain(chans, cout, nhw, prologue):
     if prologue:
         pro = ((torch.rand(chans[0], generator=gen) + 0.5).to(dev),
                (torch.randn(chans[0], generator=gen) * 0.3).to(dev))
+    before, before6 = tst.launches["wgrad"], ttb.launches["fused_wgrad"]
     got = tst.wgrad(parts, g, pro)
     torch.cuda.synchronize()
+    assert tst.launches["wgrad"] == before + 1
+    assert ttb.launches["fused_wgrad"] == before6
     want = tst.wgrad_reference(parts, g, pro)
     assert got.shape == want.shape == (cout, sum(chans), 3, 3)
     assert got.dtype == torch.float32
