@@ -32,7 +32,8 @@ Phases, each of which exits non-zero on failure:
    the γ|β recompute, each backward-data conv down to 3 and nh channels;
    train_tail with and without the head; wgrad with and without the
    prologue), then with the v3 backward (the forward's calls, and every
-   fused_conv3 and fused_wgrad chain mode).
+   fused_conv3 and fused_wgrad chain mode), the v3 pass also at two
+   signatures with SSUNet's hidden widths 32 and 64 (WIDE_HIDDEN_SIGS).
 5. Stage gradients, after each backward's phase 4: the same six stages
    forward and backward with the kernels, against the same autograd
    Function on the plain versions (bf16) and against plain autograd of the
@@ -46,9 +47,11 @@ Phases, each of which exits non-zero on failure:
    steps; ms/step and images/s, kernel launches per step against the
    derived counts (PER_STEP), finite metrics, moved BN statistics; then
    V2_STEPS steps with the v2 backward timed beside it (a record); step 1
-   held against the same step on the plain versions (bf16) and on the
-   plain module composition (f32), as a whole and per fused stage on the
-   inputs and cotangent the kernel step gave it; each kernel call of one
+   on STEP1_BATCHES seeded batches held against the same step on the plain
+   versions (bf16) and on the plain module composition (f32), each
+   whole-model bar on distances pooled over the batches (STEP1_*), and
+   per fused stage on the inputs and cotangent the kernel step gave it
+   (batch 1); each kernel call of one
    steady-state v3 step (and the conv_stats and wgrad calls of one v2 step)
    held against its plain version on its inputs (weight gradients also
    against an f64 sum) and timed against it, its bound and the library
@@ -95,10 +98,16 @@ Phases, each of which exits non-zero on failure:
    UNet_B_SS (batch 2, seeded), and its backward against autograd of the
    plain composition on the same inputs; UNet_B_SS's trainer at 512², batch
    8, with ``set_fused_spade("pallas")``: 2 warm-up and 3 timed steps
-   through ``train_one_epoch`` (six kernel launches per step), 3 steps with
-   the mode off timed beside them; then each of one step's six calls on its
-   own inputs against plain, timed against plain and its bound. The mode is
-   restored after.
+   through ``train_one_epoch`` (one kernel launch per step for each SPADE
+   the gate takes: all nine since the tail takes hidden widths up to 64),
+   3 steps with the mode off timed beside them; then each of one step's
+   calls on its own inputs against plain, timed against plain and its
+   bound. The mode is
+   restored after. The SPADE tail alone at SSUNet's hidden widths
+   (WIDE_TAILS: 512², batch 8, seeded) against its plain version.
+
+Each path's profile also gives a ``tail:`` line: the shared SPADE tail
+kernel's time and launches per forward or step beside its bound.
 
 Each phase prints its wall time. Prints a ``kernels`` JSON line (launches on the main paths — phases 2 and
 3 for the eval kernel, phase 8 for the int8 eval kernel, phase 6 for the
@@ -182,11 +191,34 @@ SUMS_TOL, WGRAD_L2_TOL = 1e-3, 1e-3
 # step, where a rounding flip moves a max-pool winner) it cannot, and the
 # run says how many such gradients there were.
 GRAD_KP = 3.0
+# Step 1 of the whole-model trainer (phase 6) on STEP1_BATCHES seeded
+# batches (seeds 1.. of SyntheticDataset), each distance pooled over them
+# (sums of squares added before the ratio). One batch's kernel-f32 against
+# plain-f32 is a draw between two correct bf16 paths: on the H100 the
+# one-batch bars failed 3 of 8 batches with correct kernels
+# (tools/torch_step1_bars.py), the pooled ones none. The bars: the loss
+# kernel-plain <= plain-f32; each parameter gradient kernel-plain <=
+# GRAD_KP x plain-f32; all of them as one vector strict (NOISE_RATIO); and
+# each gradient of at least STEP1_SCALE_MIN elements, the scale bar
+# |<k-p, p>| / ||p||² <= STEP1_SCALE_KP x plain-f32: the part of the
+# kernel's difference along the gradient itself, which a scaled or
+# partly dropped gradient moves and the bf16 noise does little (measured
+# with correct kernels: at most 0.40 x plain-f32 over 4 batches; a conv1
+# weight gradient scaled by 1.05 near the loss, 1.09 x).
+STEP1_BATCHES = 4
+STEP1_SCALE_KP = 0.8
+STEP1_SCALE_MIN = 64
 TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS = 8, 2, 5
 V2_STEPS = 3  # the v2 backward's steps timed beside the main path (a record)
 # UNet_B_SS's trainer with the fused self-SPADE (phase 11): warm-up and timed
 # steps, and the steps with the mode off timed beside them
 SPADE_WARM, SPADE_STEPS, SPADE_OFF_STEPS = 2, 3, 3
+# the tail alone at SSUNet's wide hidden widths (phase 11): (planes, hidden)
+WIDE_TAILS = ((128, 32), (128, 64), (256, 32), (256, 64))
+# phase 4's v3 pass also holds every train kernel call at these
+# signatures, SSUNet's hidden widths, against its plain version
+WIDE_HIDDEN_SIGS = [("hidden32", (64,), 128, 3, 32, 0, 1),
+                    ("hidden64", (128,), 256, 3, 64, 0, 2)]
 # the train kernels' wrappers: ops/stage_kernel_train.py (forward, v2
 # backward) and ops/train_bwd.py (v3 backward)
 TRAIN_KERNELS = ("conv_stats", "train_tail", "wgrad", "fused_conv3", "fused_wgrad")
@@ -383,6 +415,31 @@ def profile_kernels(fn, n: int):
                    and e.self_device_time_total > 0),
                   reverse=True)
     return sum(r[0] for r in rows), wall_ms, rows
+
+
+def tail_calls(sigs, batch, out_bytes=2, saves=False):
+    """The SPADE tail's calls on a path, from the fused stages' signatures:
+    (N, H, W, planes, labels, hidden, head classes, bytes per output value,
+    saves)."""
+    return [(batch, HW >> lv, HW >> lv, planes, lab, nh, ncls, out_bytes, saves)
+            for _, _, planes, lab, nh, ncls, lv in sigs]
+
+
+def tail_line(path, per, rows, calls) -> None:
+    """A ``tail:`` line: the SPADE tail kernel's device time and launches
+    from a profile's rows (per forward or step), beside its bound: y read
+    once, the output (logits, or s8) and the saves written once, over HBM
+    bandwidth, or its multiply-adds at the bf16 tensor-core peak."""
+    flops = nbytes = 0.0
+    for n, h, w, c, lab, nh, ncls, ob, saves in calls:
+        px = n * h * w
+        flops += 2.0 * px * (spade_macs(c, lab, nh) + c * ncls)
+        nbytes += px * (2 * c + (2 * ncls if ncls else ob * c) + (2 * (lab + nh) if saves else 0))
+    bound, kind = bound_of(flops, nbytes)
+    tail = [r for r in rows if "spade_tail" in r[2]]
+    print("tail:", json.dumps(dict(path=path, per=per, ms=sum(r[0] for r in tail),
+                                   launches=sum(r[1] for r in tail), bound_ms=bound,
+                                   bound_by=kind)))
 
 
 # ---------------------------------------------------------------------------
@@ -687,6 +744,62 @@ def gradient_bars(what, names, kern, plain, f32, check) -> None:
           f"{', '.join(blind) or 'none'}")
 
 
+def step1_sums(kern, plain, f32) -> np.ndarray:
+    """Per tensor of one step 1 (the loss, then each parameter gradient):
+    ||k-p||², ||p-f||², ||k-f||², ||p||², ||f||² in f64, 1 where the
+    kernel's tensor is finite, the projections <k-p, p>, <p-f, f>, and the
+    tensor's element count, for the kernel (k), plain (p) and f32 (f) runs.
+    Summed over batches, they give the pooled distances of
+    :func:`step1_bars`."""
+    rows = []
+    for k, p, f in zip(kern, plain, f32):
+        k, p, f = k.double(), p.double(), f.double()
+        rows.append(torch.stack([(k - p).square().sum(), (p - f).square().sum(),
+                                 (k - f).square().sum(), p.square().sum(), f.square().sum(),
+                                 torch.isfinite(k).all().double(), ((k - p) * p).sum(),
+                                 ((p - f) * f).sum(), torch.tensor(float(k.numel()),
+                                                                   dtype=torch.float64,
+                                                                   device=k.device)]))
+    return torch.stack(rows).cpu().numpy()
+
+
+def step1_bars(sums, names, pooled=True):
+    """The step-1 bars on the per-batch sums of :func:`step1_sums` (shape
+    batches × tensors × 9). ``pooled``: each distance over all the batches
+    at once, the bars of STEP1_* (above); else the one-batch bars of
+    chip_smoke.py before them (the loss strict, each gradient e_kp ≤
+    GRAD_KP·e_p, all gradients strict), for the record. Returns (ok, [(what,
+    e_k, e_p, e_kp, held)], names of the single gradients that failed)."""
+    s = np.asarray(sums, dtype=np.float64)
+    tot = s.sum(0)  # sums of squares and projections over the batches
+    finite = s[..., 5].min(0) > 0
+
+    def ratios(t):
+        kp2, pf2, kf2, p2, f2 = t[:5]
+        e = lambda a, b: float(np.sqrt(a / max(b, 1e-300)))
+        return e(kf2, f2), e(pf2, f2), e(kp2, p2)
+
+    rows = []
+    e_k, e_p, e_kp = ratios(tot[0])
+    held = bool(finite[0]) and (e_kp <= e_p if pooled
+                                else e_k <= NOISE_RATIO * e_p and e_kp <= e_p)
+    rows.append(("loss", e_k, e_p, e_kp, held))
+    bad = []
+    for i, n in enumerate(names):
+        t = tot[1 + i]
+        e_k, e_p, e_kp = ratios(t)
+        ok = bool(finite[1 + i]) and e_kp <= GRAD_KP * e_p
+        if pooled and s[0, 1 + i, 8] >= STEP1_SCALE_MIN:
+            ok = ok and abs(t[6]) / max(t[3], 1e-300) <= STEP1_SCALE_KP * e_p
+        if not ok:
+            bad.append(n)
+    e_k, e_p, e_kp = ratios(tot[1:].sum(0))
+    rows.append((f"all {len(names)} parameter gradients", e_k, e_p, e_kp,
+                 bool(finite[1:].all()) and e_k <= NOISE_RATIO * e_p and e_kp <= e_p))
+    rows.append(("each parameter gradient", float("nan"), float("nan"), float("nan"), not bad))
+    return all(r[4] for r in rows), rows, bad
+
+
 def stage_phases(dev, sigs, check, version, train_err):
     """Phases 4 and 5 with the fused stages' backward ``version``: every
     train kernel call of the six stages at batch 2 against its plain
@@ -703,7 +816,7 @@ def stage_phases(dev, sigs, check, version, train_err):
             for bn in (block.bn1, block.bn2):
                 bn.weight.copy_(1 + 0.2 * torch.randn(planes, generator=g))
                 bn.bias.copy_(0.2 * torch.randn(planes, generator=g))
-        spade = SPADE("spadebatch3x3", planes, lab, planes / 16, generator=g)
+        spade = SPADE("spadebatch3x3", planes, lab, float(nh), generator=g)
         final = Conv2d(planes, head_cls, 1, generator=g) if head_cls else None
         block.to(dev).train()
         spade.to(dev)
@@ -849,6 +962,7 @@ def print_profile(what, step_fn, ms_step):
           f"(idle share {max(0.0, 1 - busy / ms_step):.3f})")
     for ms, count, key in rows[:20]:
         print(f"profile: {what} {ms:9.3f} ms {count:4d}x {key[:90]}")
+    return rows
 
 
 def train_phases(dev, cfg, card, sigs, check):
@@ -862,7 +976,8 @@ def train_phases(dev, cfg, card, sigs, check):
     # kernel 2, off the main path), then the v3 backward (the main path's)
     t0 = time.perf_counter()
     for version in ("v2", "v3"):
-        stage_phases(dev, sigs, check, version, train_err)
+        stage_phases(dev, sigs + (WIDE_HIDDEN_SIGS if version == "v3" else []), check, version,
+                     train_err)
         t0 = phase_done(f"phases 4-5 ({version})", t0)
 
     # ---- phase 6: the trainer (this slice's main path, the v3 backward)
@@ -893,11 +1008,10 @@ def train_phases(dev, cfg, card, sigs, check):
     lr = build_scheduler(cfg).lr(0)
     pnames = [n for n, _ in tmodel.named_parameters()]
 
-    # step 1 from identical weights and batch: the kernels, the same
-    # autograd Function on the plain versions (bf16), and plain autograd of
-    # the module composition in f32 (independent of the Function's backward)
-    _, img1, mask1, _ = next(iter(loader(1, seed=1)))
-    x1, y1 = torch.from_numpy(img1).to(dev), torch.from_numpy(mask1).to(dev)
+    # step 1 from identical weights on STEP1_BATCHES seeded batches: the
+    # kernels, the same autograd Function on the plain versions (bf16), and
+    # plain autograd of the module composition in f32 (independent of the
+    # Function's backward); the bars pool each distance over the batches
     snapshot = copy.deepcopy(tmodel.state_dict())
     fused_stage = ssunet.spade_stage
     fused_ids = {id(getattr(tmodel, s[0])): s[0] for s in sigs}
@@ -914,27 +1028,42 @@ def train_phases(dev, cfg, card, sigs, check):
             out.register_hook(lambda g: rec.__setitem__("g", g.detach()))
         return out
 
-    def step1_grads(dtype, stage):
+    def step1_grads(x, y, dtype, stage):
         tmodel.load_state_dict(snapshot)
         tmodel.zero_grad(set_to_none=True)
         with spade_stages_as(stage):
-            out = tmodel(x1.to(dtype))
-            loss = loss_fn(torch.where(torch.isnan(out), torch.zeros_like(out), out), y1)
+            out = tmodel(x.to(dtype))
+            loss = loss_fn(torch.where(torch.isnan(out), torch.zeros_like(out), out), y)
             loss.backward()
         res = [loss.detach()] + [p.grad.detach().clone() for p in tmodel.parameters()]
         tmodel.zero_grad(set_to_none=True)
         return res
 
-    kern1 = step1_grads(torch.bfloat16, capturing_stage)
-    with plain_train_kernels():
-        plain1 = step1_grads(torch.bfloat16, fused_stage)
-    f32_1 = step1_grads(torch.float32, module_stage)
+    sums = []
+    for seed in range(1, STEP1_BATCHES + 1):
+        batches = iter(loader(1, seed=seed))
+        _, img, mask, _ = next(batches)
+        batches.close()  # its producer thread ends now, not at a garbage collection
+        x1, y1 = torch.from_numpy(img).to(dev), torch.from_numpy(mask).to(dev)
+        # batch 1 also records each fused stage's inputs and cotangent
+        kern = step1_grads(x1, y1, torch.bfloat16, capturing_stage if seed == 1 else fused_stage)
+        with plain_train_kernels():
+            plain = step1_grads(x1, y1, torch.bfloat16, fused_stage)
+        f32 = step1_grads(x1, y1, torch.float32, module_stage)
+        sums.append(step1_sums(kern, plain, f32))
+        print(f"phase 6: step 1 batch {seed} loss kernel {kern[0].item():.6f} plain "
+              f"{plain[0].item():.6f} f32 {f32[0].item():.6f}")
+        if seed == 1:
+            kern1 = kern
+        del kern, plain, f32
     tmodel.load_state_dict(snapshot)
-    against_f32_bar("phase 6: step 1 loss", kern1[0], plain1[0], f32_1[0], check)
-    gradient_bars("phase 6: step 1", pnames, kern1[1:], plain1[1:], f32_1[1:], check)
-    print(f"phase 6: step 1 loss kernel {kern1[0].item():.6f} plain {plain1[0].item():.6f} "
-          f"f32 {f32_1[0].item():.6f}")
-    del plain1, f32_1
+    ok, rows, bad = step1_bars(sums, pnames)
+    what = f"phase 6: step 1 over batches 1-{STEP1_BATCHES} (pooled)"
+    for name, e_k, e_p, e_kp, held in rows:
+        print(f"{what} {name}: rel_l2 kernel-f32 {e_k:.4g} plain-f32 {e_p:.4g} kernel-plain "
+              f"{e_kp:.4g}{'' if held else '  <-- FAILED'}")
+    print(f"{what}: single parameter gradients failing: {', '.join(bad) or 'none'}")
+    check(ok, f"{what}: bars {[r[0] for r in rows if not r[4]]}, gradients {bad}")
 
     # each fused stage on the inputs and output cotangent the kernel step
     # gave it (no bf16 divergence upstream): the model's parameter gradients
@@ -1039,7 +1168,9 @@ def train_phases(dev, cfg, card, sigs, check):
     t0 = phase_done("phase 6 per-call checks and timing", t0)
 
     # where one train step's device time goes, v3 and v2
-    print_profile("v3", lambda: step(xb, yb, lr), ms_step)
+    rows = print_profile("v3", lambda: step(xb, yb, lr), ms_step)
+    tail_line("kernel 3: flagship train step (v3)", "step", rows,
+              tail_calls(sigs, TRAIN_BATCH, saves=True))
     with train_backward("v2"):
         print_profile("v2", lambda: step(xb, yb, lr), ms_step_v2)
     phase_done("phase 6 profiles", t0)
@@ -1315,8 +1446,11 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
         del captured_scene
         ms_sum = plain_sum = bound_sum = 0.0
         kinds = set()
+        tails = []
         for (name, chans, planes, lab, nh, head_cls, level), call in zip(sigs, captured):
             parts, bp, sp, head, calib_key, out_amax = call
+            tails += tail_calls([(name, chans, planes, lab, nh, head_cls, level)], BATCH,
+                                1 if out_amax is not None else 2)
             kw = dict(calib_key=calib_key, out_abs_max=out_amax)
             forms = ["s8" if isinstance(p, q8.QTensor) else "bf16" for p in parts]
             what = (f"phase 8: {name} batch {BATCH} model weights, parts {forms}, "
@@ -1353,6 +1487,7 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
               f"{max(0.0, 1 - busy / untraced_ms):.3f})")
         for ms, count, key in rows[:14]:
             print(f"profile: int8 {ms:9.3f} ms {count:4d}x {key[:90]}")
+        tail_line("kernel 7: flagship int8 forward", "forward", rows, tails)
         phase_done("phase 8 profile", t_phase)
     finally:
         q8.set_int8_stage(False)
@@ -1496,7 +1631,7 @@ def bneck_stage_phase(dev, model, sigs, scene_tiles, check):
     }
 
 
-def bneck_serving_phase(dev, card, model, x, scene, scene_tiles, config, check) -> int:
+def bneck_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, check) -> int:
     """Phase 10 for UNet_B_SS; returns kernel 8's launches on this main path."""
     from ssunet_gan_tpu_torch.infer.api import (
         _chunked_forward,
@@ -1586,6 +1721,7 @@ def bneck_serving_phase(dev, card, model, x, scene, scene_tiles, config, check) 
           f"{max(0.0, 1 - busy / untraced_ms):.3f})")
     for ms, count, key in rows[:12]:
         print(f"profile: UNet_B_SS {ms:9.3f} ms {count:4d}x {key[:90]}")
+    tail_line("kernel 8: UNet_B_SS bf16 forward", "forward", rows, tail_calls(sigs, BATCH))
     phase_done("phase 10 profile", t_phase)
     return launches
 
@@ -1697,6 +1833,24 @@ def spade_phase(dev, card, cfg, sigs, check):
         check(all(oks), f"{what}: backward disagrees with the plain composition's: {l2s}")
         del x, cot, xk, xp, grads, plain, spade
     torch.cuda.empty_cache()
+    # the tail alone at SSUNet's hidden widths, beyond the flagship's 4-16:
+    # 512², batch 8, seeded weights and inputs, to phase 1's bar
+    cgen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    for planes, nh in WIDE_TAILS:
+        spade = SPADE("spadebatch3x3", planes, 3, float(nh), generator=gen).to(dev)
+        params = spade.stage_params()
+        x = torch.randn((BATCH, HW, HW, planes), generator=cgen, device=dev).to(torch.bfloat16)
+        what = f"phase 11: the tail alone, {planes} channels, hidden {nh}, {HW}x{HW} batch {BATCH}"
+        with torch.no_grad():
+            spade_call_agrees(what, x, params, check)
+            ms = cuda_ms(lambda: sk.fused_spade_stage(x, *params), 5)
+        bound, kind = bound_of(2.0 * spade_macs(planes, 3, nh) * x.numel() / planes,
+                               2 * x.numel() * 2)
+        row = dict(path=f"the tail alone, {planes} channels, hidden {nh}", per="call", ms=ms,
+                   launches=1, bound_ms=bound, bound_by=kind)
+        print("tail:", json.dumps(row))
+        del x, spade, params
+    torch.cuda.empty_cache()
     t_phase = phase_done("phase 11 kernel checks", t_phase)
 
     # UNet_B_SS's trainer, the mode "pallas": the main path of kernel 9
@@ -1712,14 +1866,21 @@ def spade_phase(dev, card, cfg, sigs, check):
                            build_optimizer(tmodel.parameters(), cfg), ncls,
                            cfg["deep_supervision"], clip=float(cfg["clip"]))
     lr = build_scheduler(cfg).lr(0)
+    # one launch per step for each SPADE whose self-SPADE the gate takes
+    # (all nine of UNet_B_SS's: planes 64-1024, hidden 4-64)
+    per_step = sum(
+        sk.fused_spade_supported(
+            torch.empty((1, 1, 1, m.x2map.weight.shape[1]), dtype=torch.bfloat16, device=dev),
+            m.ks, m.label_nc, m.nhidden)
+        for m in tmodel.modules() if isinstance(m, SPADE))
     mode_before = sk._FUSED
     try:
         sk.set_fused_spade("pallas")
         sk.launches = 0
         warm_log = train_one_epoch(0, cfg, loader(SPADE_WARM, seed=1), step, lr, device=dev)
-        check(sk.launches == 6 * SPADE_WARM,
+        check(sk.launches == per_step * SPADE_WARM,
               f"phase 11: {sk.launches} self-SPADE launches in {SPADE_WARM} warm-up steps, "
-              f"expected 6 each")
+              f"expected {per_step} each")
         settle()
         t1 = time.perf_counter()
         log = train_one_epoch(1, cfg, loader(SPADE_STEPS, seed=2), step, lr, device=dev)
@@ -1728,8 +1889,9 @@ def spade_phase(dev, card, cfg, sigs, check):
         launches = sk.launches
         steps = SPADE_WARM + SPADE_STEPS
         print(f"phase 11: self-SPADE kernel launches in {steps} steps: {launches} "
-              f"(expected {steps} x 6)")
-        check(launches == 6 * steps, f"phase 11: launches {launches} != {steps} x 6")
+              f"(expected {steps} x {per_step})")
+        check(launches == per_step * steps,
+              f"phase 11: launches {launches} != {steps} x {per_step}")
         finite = all(np.isfinite(v) for lg in (warm_log, log)
                      for k, v in lg.items() if k != "images_per_sec")
         check(finite, f"phase 11: metrics not finite: {warm_log} {log}")
@@ -1770,17 +1932,20 @@ def spade_phase(dev, card, cfg, sigs, check):
             step(xb, yb, lr)
         torch.cuda.synchronize()
         # where one UNet_B_SS train step's device time goes
-        print_profile("UNet_B_SS, fused self-SPADE", lambda: step(xb, yb, lr), ms_step)
+        rows = print_profile("UNet_B_SS, fused self-SPADE", lambda: step(xb, yb, lr), ms_step)
+        tail_line("kernel 9: UNet_B_SS train step (\"pallas\")", "step", rows,
+                  [(*x.shape, p[0].shape[0], p[2].shape[0], 0, 2, False) for x, p in calls])
     finally:
         sk.set_fused_spade(mode_before)
-    want_shapes = [(TRAIN_BATCH, HW >> s[6], HW >> s[6], s[2]) for s in sigs]
-    if [tuple(c[0].shape) for c in calls] != want_shapes:
+    if len(calls) != per_step or any(x.shape[0] != TRAIN_BATCH for x, _ in calls):
         fail(f"phase 11: the step's self-SPADE calls are {[tuple(c[0].shape) for c in calls]}, "
-             f"expected {want_shapes}")
+             f"expected {per_step} at batch {TRAIN_BATCH}")
     ms_sum = plain_sum = bound_sum = 0.0
     kinds = set()
-    for (name, _, planes, lab, nh, _, level), (x, params) in zip(sigs, calls):
-        what = f"phase 11: SPADE{name[4:]} batch {TRAIN_BATCH} on the step's own input"
+    for x, params in calls:
+        planes, lab, nh = x.shape[-1], params[0].shape[0], params[2].shape[0]
+        what = (f"phase 11: the self-SPADE of {planes} channels at {x.shape[1]}x{x.shape[2]}, "
+                f"batch {TRAIN_BATCH}, on the step's own input")
         with torch.no_grad():
             worst = max(worst, spade_call_agrees(what, x, params, check))
             ms = cuda_ms(lambda: sk.fused_spade_stage(x, *params), 10)
@@ -1789,8 +1954,8 @@ def spade_phase(dev, card, cfg, sigs, check):
         bound, kind = bound_of(2.0 * spade_macs(planes, lab, nh) * x.numel() / planes, nbytes)
         kinds.add(kind)
         ms_sum, plain_sum, bound_sum = ms_sum + ms, plain_sum + plain_ms, bound_sum + bound
-        row = dict(stage="SPADE" + name[4:], shape=list(x.shape), ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound, bound_by=kind)
+        row = dict(stage=f"SPADE {planes} channels", shape=list(x.shape), ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=kind)
         print("spade stage:", json.dumps(row))
     del calls, tmodel, step, xb, yb
     torch.cuda.empty_cache()
@@ -2068,6 +2233,7 @@ def main() -> int:
           f"(idle share {max(0.0, 1 - busy / untraced_ms):.3f})")
     for ms, count, key in rows[:12]:
         print(f"profile: {ms:9.3f} ms {count:4d}x {key[:90]}")
+    tail_line("kernel 1: flagship bf16 forward", "forward", rows, tail_calls(sigs, BATCH))
     eval_row = {
         "name": "fused_eval_stage", "route": "cuda",
         "source": f"ssunet_gan_tpu_torch/csrc/{stage_kernel.SOURCE}",
@@ -2101,8 +2267,8 @@ def main() -> int:
     bsigs = bneck_signatures(model_b.filters, ncls, in_ch)
     bneck_row = bneck_stage_phase(dev, model_b, bsigs, scene_tiles, check)
     phase_done("phase 9", t_phase)
-    bneck_row["launches"] = bneck_serving_phase(dev, card, model_b, x, scene, scene_tiles,
-                                                config, check)
+    bneck_row["launches"] = bneck_serving_phase(dev, card, model_b, bsigs, x, scene,
+                                                scene_tiles, config, check)
     del model_b
     torch.cuda.empty_cache()
     rss_forward_phase(dev, card, cfg, x, calib, check)

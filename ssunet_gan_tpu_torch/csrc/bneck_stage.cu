@@ -73,9 +73,9 @@ extern "C" {
 int ssu_bneck_stage(const void* x0, int c0, const void* x1, int c1, int n, int h,
                     int wd, int c, const void* k1, int kp1, const void* b1,
                     const void* k2, int kp2, const void* b2, const void* k3, int kp3,
-                    const void* b3, void* h1, void* h2, void* y, const void* k1s,
+                    const void* b3, void* h1, void* h2, void* y, const void* k1t,
                     const void* b1s, int lab, const void* k2s, const void* b2s, int nh,
-                    const void* kgb, const void* bgb, const void* kf, const void* bf,
+                    const void* kgbt, const void* bgb, const void* kft, const void* bf,
                     int ncls, void* out, void* stream) {
   if (n <= 0 || h <= 0 || wd <= 0 || c <= 0 || c0 <= 0 || c1 < 0)
     return (int)cudaErrorInvalidValue;
@@ -101,7 +101,7 @@ int ssu_bneck_stage(const void* x0, int c0, const void* x1, int c1, int n, int h
     const int e = launch_conv(ptrs, chans, ks, k3, kp3, b3, y, n, h, wd, c, st);
     if (e != 0) return e;
   }
-  return launch_spade_tail(y, n, h, wd, c, k1s, b1s, lab, k2s, b2s, nh, kgb, bgb, kf, bf,
+  return launch_spade_tail(y, n, h, wd, c, k1t, b1s, lab, k2s, b2s, nh, kgbt, bgb, kft, bf,
                            ncls, out, nullptr, nullptr, st);
 }
 

@@ -19,11 +19,10 @@
 // accumulation (M = pixels, N = output channels, K = taps x input
 // channels); the split-concat parts and the 1x1 shortcut are extra
 // K-segments of the same GEMM, read through their own pointers, so no
-// concatenated tensor is ever built. The SPADE tail's narrow convs
-// (3 labels, <= 16 hidden channels) would waste tensor-core tiles; they run
-// as f32 FMAs on a 16x16 output tile with a 3-pixel halo staged in shared
-// memory. wgmma/TMA pipelines and one-pass fusion of the stage are later
-// work (see ROADMAP.md).
+// concatenated tensor is ever built. The SPADE tail (stage_common.cuh) runs
+// seg and g|b as mma.sync GEMMs on a 16x16 output tile with a 3-pixel halo
+// staged in shared memory, act as f32 FMAs. wgmma/TMA pipelines and
+// one-pass fusion of the stage are later work (see ROADMAP.md).
 //
 // Numerics follow the TPU kernel: every conv zero-pads its own input at the
 // image border (intermediates outside the image are zeroed, never
@@ -67,13 +66,14 @@ int ssu_conv_bn_relu(const void* s0, int c0, int k0, const void* s1, int c1,
   return (int)cudaGetLastError();
 }
 
-// Self-SPADE tail (+ folded head when kf != null) of one stage.
-int ssu_spade_tail(const void* y, int n, int h, int wd, int c, const void* k1s,
+// Self-SPADE tail (+ folded head when kft != null) of one stage; the
+// operands as ops/stage_kernel.py pack_spade lays them out.
+int ssu_spade_tail(const void* y, int n, int h, int wd, int c, const void* k1t,
                    const void* b1s, int lab, const void* k2s, const void* b2s,
-                   int nh, const void* kgb, const void* bgb, const void* kf,
+                   int nh, const void* kgbt, const void* bgb, const void* kft,
                    const void* bf, int ncls, void* out, void* stream) {
-  return launch_spade_tail(y, n, h, wd, c, k1s, b1s, lab, k2s, b2s, nh, kgb, bgb,
-                           kf, bf, ncls, out, nullptr, nullptr, stream);
+  return launch_spade_tail(y, n, h, wd, c, k1t, b1s, lab, k2s, b2s, nh, kgbt, bgb,
+                           kft, bf, ncls, out, nullptr, nullptr, stream);
 }
 
 }  // extern "C"

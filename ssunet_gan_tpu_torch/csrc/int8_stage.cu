@@ -489,13 +489,13 @@ int ssu_q_conv2(const void* qh1, int c, int th, const void* s0, int c0, const vo
 }
 
 // Launch C: the self-SPADE tail on y: the stage output in bf16 (out), the
-// folded head's logits (out, kf != null), or the output as s8 (out_q,
+// folded head's logits (out, kft != null), or the output as s8 (out_q,
 // clip(round(out * q_inv))).
-int ssu_q_spade_tail(const void* y, int n, int h, int wd, int c, const void* k1s,
+int ssu_q_spade_tail(const void* y, int n, int h, int wd, int c, const void* k1t,
                      const void* b1s, int lab, const void* k2s, const void* b2s, int nh,
-                     const void* kgb, const void* bgb, const void* kf, const void* bf,
+                     const void* kgbt, const void* bgb, const void* kft, const void* bf,
                      int ncls, void* out, void* out_q, float q_inv, void* stream) {
-  return launch_spade_tail_q(y, n, h, wd, c, k1s, b1s, lab, k2s, b2s, nh, kgb, bgb, kf, bf,
+  return launch_spade_tail_q(y, n, h, wd, c, k1t, b1s, lab, k2s, b2s, nh, kgbt, bgb, kft, bf,
                              ncls, out, out_q, q_inv, nullptr, nullptr, stream);
 }
 

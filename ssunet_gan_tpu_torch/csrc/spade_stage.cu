@@ -17,8 +17,8 @@
 // What bounds it on the H100: 2*(9*C*labels + 9*labels*hidden +
 // 18*hidden*C) operations a pixel over 4*C bytes a pixel is about 40 FLOP
 // a byte at C = 64, hidden = 4, far under the ridge point: bound by bytes.
-// The narrow convs (3 labels, <= 16 hidden channels) would waste
-// tensor-core tiles and run as f32 FMAs.
+// seg and g|b run on mma.sync tensor cores, act on f32 FMAs (see
+// stage_common.cuh).
 //
 // Numerics follow the TPU kernel: each conv zero-pads its own input at the
 // image border, sums run in f32, seg, act and g|b are rounded to bf16, the
@@ -30,11 +30,13 @@
 
 extern "C" {
 
-// k1s: [9][c][lab], k2s: [9][lab][nh], kgb: [9*nh][2c], biases f32.
-int ssu_spade_stage(const void* x, int n, int h, int wd, int c, const void* k1s,
+// The operands as ops/stage_kernel.py pack_spade lays them out: k1t bf16
+// [8][9][c], k2s f32 [9][lab][nh], kgbt bf16 [2c][K] (g and b interleaved per
+// 8 channels), biases f32.
+int ssu_spade_stage(const void* x, int n, int h, int wd, int c, const void* k1t,
                     const void* b1s, int lab, const void* k2s, const void* b2s, int nh,
-                    const void* kgb, const void* bgb, void* out, void* stream) {
-  return launch_spade_tail(x, n, h, wd, c, k1s, b1s, lab, k2s, b2s, nh, kgb, bgb, nullptr,
+                    const void* kgbt, const void* bgb, void* out, void* stream) {
+  return launch_spade_tail(x, n, h, wd, c, k1t, b1s, lab, k2s, b2s, nh, kgbt, bgb, nullptr,
                            nullptr, 0, out, nullptr, nullptr, stream);
 }
 

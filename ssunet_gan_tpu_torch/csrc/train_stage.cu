@@ -15,8 +15,8 @@
 // conv is the implicit GEMM of stage_common.cuh on mma.sync m16n8k16 bf16
 // tensor cores with f32 sums (M = pixels, N = output channels, K = parts x
 // input channels, each part read through its own pointer; shared with
-// fused_stage.cu); the SPADE tail is stage_common.cuh's (f32 FMAs on a
-// 16x16 output tile) with the seg and actv saves.
+// fused_stage.cu); the SPADE tail is stage_common.cuh's (seg and g|b on
+// mma.sync tensor cores, a 16x16 output tile) with the seg and actv saves.
 //
 // Numerics follow the TPU kernel: sums run in f32, y and the tail's
 // intermediates are rounded to bf16.
@@ -58,17 +58,17 @@ int ssu_conv_res(const void* s0, int c0, const void* s1, int c1, const void* s2,
   return (int)cudaGetLastError();
 }
 
-// The train tail's SPADE half (+ folded head when kf != null) on y; saves
+// The train tail's SPADE half (+ folded head when kft != null) on y; saves
 // seg and actv.
 int ssu_spade_tail_train(const void* y, int n, int h, int wd, int c,
-                         const void* k1s, const void* b1s, int lab,
+                         const void* k1t, const void* b1s, int lab,
                          const void* k2s, const void* b2s, int nh,
-                         const void* kgb, const void* bgb, const void* kf,
+                         const void* kgbt, const void* bgb, const void* kft,
                          const void* bf, int ncls, void* out, void* seg,
                          void* act, void* stream) {
   if (seg == nullptr || act == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_spade_tail(y, n, h, wd, c, k1s, b1s, lab, k2s, b2s, nh, kgb, bgb,
-                           kf, bf, ncls, out, seg, act, stream);
+  return launch_spade_tail(y, n, h, wd, c, k1t, b1s, lab, k2s, b2s, nh, kgbt, bgb,
+                           kft, bf, ncls, out, seg, act, stream);
 }
 
 }  // extern "C"

@@ -40,7 +40,14 @@ import torch.nn.functional as F
 
 from ssunet_gan_tpu_torch import _build
 from ssunet_gan_tpu_torch.ops.conv import conv2d_nhwc
-from ssunet_gan_tpu_torch.ops.stage_kernel import _ptr, pack_spade, spade_tail_reference
+from ssunet_gan_tpu_torch.ops.stage_kernel import (
+    TAIL_MAX_HIDDEN,
+    TAIL_MAX_LAB,
+    _ptr,
+    pack_spade,
+    spade_tail_reference,
+    tail_args,
+)
 
 SOURCE = "spade_stage.cu"
 REPLACES = "ssunet_gan_tpu/ops/spade_kernel.py:518"  # fused_spade_stage
@@ -48,9 +55,9 @@ REPLACES = "ssunet_gan_tpu/ops/spade_kernel.py:518"  # fused_spade_stage
 # Fused self-SPADE stages run on the card (one CUDA launch each).
 launches = 0
 
-# the kernel's limits (csrc/stage_common.cuh: the tail's channel chunk and
-# its label and hidden bounds)
-CHANNEL_MULTIPLE, MAX_LAB, MAX_NH = 32, 8, 16
+# the kernel's channel chunk (csrc/stage_common.cuh); its label and hidden
+# bounds are the tail's (stage_kernel.TAIL_MAX_*)
+CHANNEL_MULTIPLE = 32
 
 _FUSED = None
 
@@ -74,14 +81,16 @@ def fused_spade_mode() -> str:
 
 def fused_spade_supported(x: torch.Tensor, ks: int, labels: int, hidden: int) -> bool:
     """Whether :func:`fused_spade_stage` takes this self-SPADE: 3×3 convs on
-    a 4-D NHWC tensor, labels ≤ 8, hidden ≤ 16; on a CUDA device also
-    channels a multiple of 32 and bfloat16 (the kernel's terms; the plain
-    version on the CPU has neither). What it refuses runs the module's
-    other paths."""
-    if ks != 3 or x.dim() != 4 or labels > MAX_LAB or hidden > MAX_NH:
+    a 4-D NHWC tensor, labels ≤ 8; on a CUDA device also channels a
+    multiple of 32, hidden within the tail's ``TAIL_MAX_HIDDEN`` and
+    bfloat16 (the kernel's terms; the plain version on the CPU has none of
+    them, and like the JAX gate no hidden term). What it refuses runs the
+    module's other paths."""
+    if ks != 3 or x.dim() != 4 or labels > TAIL_MAX_LAB:
         return False
     if x.device.type == "cuda":
-        return x.shape[-1] % CHANNEL_MULTIPLE == 0 and x.dtype == torch.bfloat16
+        return (x.shape[-1] % CHANNEL_MULTIPLE == 0 and hidden <= TAIL_MAX_HIDDEN
+                and x.dtype == torch.bfloat16)
     return x.device.type == "cpu"
 
 
@@ -135,7 +144,8 @@ def _run_cuda(x: torch.Tensor, spade_params) -> torch.Tensor:
     if not fused_spade_supported(x, spade_params[0].shape[-1], lab, nh):
         raise ValueError(
             f"the CUDA self-SPADE stage does not take x {tuple(x.shape)} {x.dtype}, "
-            f"labels={lab} (<= {MAX_LAB}), hidden={nh} (<= {MAX_NH}): 3x3 convs, channels "
+            f"labels={lab} (<= {TAIL_MAX_LAB}), hidden={nh} (<= {TAIL_MAX_HIDDEN}): 3x3 convs, "
+            f"channels "
             f"a multiple of {CHANNEL_MULTIPLE}, bfloat16 only")
     if spade_params[0].shape[1] != x.shape[-1]:
         raise ValueError(f"x2map takes {spade_params[0].shape[1]} channels, x has {x.shape[-1]}")
@@ -147,9 +157,7 @@ def _run_cuda(x: torch.Tensor, spade_params) -> torch.Tensor:
     with torch.cuda.device(x.device):
         out = torch.empty_like(x)
         err = _lib().ssu_spade_stage(
-            x.data_ptr(), n, h, w, c, _ptr(pk["k1s"]), _ptr(pk["b1s"]), lab,
-            _ptr(pk["k2s"]), _ptr(pk["b2s"]), nh, _ptr(pk["kgb"]), _ptr(pk["bgb"]),
-            out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), n, h, w, c, *tail_args(pk)[:8], out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused self-SPADE stage launch failed: cudaError {err}")
     launches += 1

@@ -57,7 +57,11 @@ REPLACES = "ssunet_gan_tpu/ops/stage_kernel.py:1182"  # fused_eval_stage
 # Fused stages run on the card, one per stage (three CUDA launches each).
 launches = 0
 
-_MAX_LAB, _MAX_NH, _MAX_CLS = 8, 16, 8  # csrc/stage_common.cuh: the tail's limits
+# csrc/stage_common.cuh TAIL_MAX_LAB, TAIL_MAX_NH, TAIL_MAX_CLS: the SPADE
+# tail kernel's limits (seg's and the head's N is one 8-wide MMA tile; act
+# and the streamed γ|β weights fill shared memory at 64 hidden channels).
+# Every gate of a kernel that ends in the tail reads them here.
+TAIL_MAX_LAB, TAIL_MAX_HIDDEN, TAIL_MAX_CLS = 8, 64, 8
 MAX_PLANES = 256  # the JAX gate's widest fused stage
 PLANES_MULTIPLE = 32  # csrc/stage_common.cuh: the tail's channel chunk
 
@@ -90,8 +94,8 @@ def stage_supported(parts, planes: int, labels: int, hidden: int, classes: int =
     (eval, ``train`` or ``int8``) takes the stage. Always: one or two NHWC
     parts (tensors or QTensors) of one N×H×W, device and dtype, and planes
     ≤ ``MAX_PLANES``. On a CUDA device, the kernels' own limits: bfloat16,
-    contiguous parts, planes a multiple of 32, labels ≤ 8, hidden ≤ 16,
-    classes ≤ 8, and for training what the v3 backward takes
+    contiguous parts, planes a multiple of 32, labels, hidden and classes
+    within the tail's ``TAIL_MAX_*``, and for training what the v3 backward takes
     (``ops/train_bwd.py`` ``bwd_v3_supported``). On the CPU, what the JAX
     gate takes there (``fused_stage_supported`` with its interpret-mode
     terms, ssunet_gan_tpu/ops/stage_kernel.py:438; its probe passes in
@@ -108,8 +112,8 @@ def stage_supported(parts, planes: int, labels: int, hidden: int, classes: int =
         return False
     n, h, w = x0.shape[:3]
     if x0.device.type == "cuda":
-        if (x0.dtype != torch.bfloat16 or planes % PLANES_MULTIPLE or labels > _MAX_LAB
-                or hidden > _MAX_NH or classes > _MAX_CLS
+        if (x0.dtype != torch.bfloat16 or planes % PLANES_MULTIPLE or labels > TAIL_MAX_LAB
+                or hidden > TAIL_MAX_HIDDEN or classes > TAIL_MAX_CLS
                 or not all(getattr(p, "q", p).is_contiguous() for p in parts)):
             return False
         if train:
@@ -127,8 +131,8 @@ def _refused(parts, c, lab, nh, ncls, **kw) -> ValueError:
     return ValueError(
         f"the CUDA stage kernel does not take this stage (stage_supported): parts "
         f"{[(tuple(p.shape), p.dtype) for p in parts]}, planes={c} (a multiple of "
-        f"{PLANES_MULTIPLE}, <= {MAX_PLANES}), labels={lab} (<= {_MAX_LAB}), hidden={nh} "
-        f"(<= {_MAX_NH}), classes={ncls} (<= {_MAX_CLS}), bfloat16, contiguous"
+        f"{PLANES_MULTIPLE}, <= {MAX_PLANES}), labels={lab} (<= {TAIL_MAX_LAB}), hidden={nh} "
+        f"(<= {TAIL_MAX_HIDDEN}), classes={ncls} (<= {TAIL_MAX_CLS}), bfloat16, contiguous"
         + (f", {kw}" if kw else ""))
 
 
@@ -203,30 +207,71 @@ def split_in(w: torch.Tensor, part_channels):
     return [w[:, a:b] for a, b in zip(offs, offs[1:])]
 
 
+def tail_gb_steps(hidden: int) -> int:
+    """k16 steps of the tail kernel's γ|β GEMM (csrc/stage_common.cuh
+    ``tail_gb_steps``): K runs over (tap, 8-channel group of hidden) pairs,
+    two per step, the last pair padded when their count is odd."""
+    return (9 * -(-hidden // 8) + 1) // 2
+
+
 def pack_spade(spade_params, head, dtype) -> dict:
-    """The SPADE tail's operands (and the folded head's) laid out for the
-    tail kernels, as f32 holding values rounded to ``dtype``."""
+    """The SPADE tail's operands (and the folded head's) as the tail kernel
+    reads them (``csrc/stage_common.cuh`` ``TailArgs``), rounded to
+    ``dtype``: the GEMM operands in ``dtype``, the biases and act's FMA
+    weights as f32 holding rounded values.
+
+    ``k1t`` [8][9][C]: x2map, labels padded to 8 (seg's N), tap-major then
+    channel (seg's K). ``k2s`` [9][labels][hidden]: mlp_shared. ``kgbt``
+    [2C][16·steps]: mlp_gamma and mlp_beta as N rows interleaved per 8
+    output channels (rows 16i..16i+7 γ of channels 8i..8i+7, the next 8
+    rows β of the same channels), K over (tap, 8-channel group of hidden)
+    with zeros past hidden and in the odd last pair. ``kft`` [8][C]: the
+    head's 1×1 weight, classes padded to 8; ``bgb`` is γ's bias then β's."""
     wx, bx, wm, bm, wg, bg, wb, bb = spade_params
+    lab, c, nh = wx.shape[0], wx.shape[1], wm.shape[0]
 
     def q(t):
         return _q(t, dtype).contiguous()
 
-    c, lab, nh = wx.shape[1], wx.shape[0], wm.shape[0]
+    def gemm_b(w):  # (C, hidden, 3, 3) → [C][K]: (tap, group, channel), padded
+        ngrp = -(-nh // 8)
+        k = w.float().permute(0, 2, 3, 1).reshape(c, 9, nh)
+        k = F.pad(k, (0, 8 * ngrp - nh)).reshape(c, 72 * ngrp)
+        return F.pad(k, (0, 16 * tail_gb_steps(nh) - 72 * ngrp))
+
+    c8 = -(-c // 8) * 8  # whole 8-channel groups (the card's C is a multiple of 32)
+    gb = torch.stack([F.pad(gemm_b(w), (0, 0, 0, c8 - c)).reshape(c8 // 8, 8, -1)
+                      for w in (wg, wb)], 1).reshape(2 * c8, -1)
     packed = {
-        "k1s": q(wx.permute(2, 3, 1, 0).reshape(9, c, lab)),
+        "k1t": F.pad(wx.float().permute(0, 2, 3, 1).reshape(lab, 9, c),
+                     (0, 0, 0, 0, 0, max(8 - lab, 0))).to(dtype).contiguous(),
         "b1s": q(bx),
         "k2s": q(wm.permute(2, 3, 1, 0).reshape(9, lab, nh)),
         "b2s": q(bm),
-        "kgb": q(torch.cat([wg.permute(2, 3, 1, 0).reshape(9 * nh, c),
-                            wb.permute(2, 3, 1, 0).reshape(9 * nh, c)], 1)),
+        "kgbt": gb.to(dtype).contiguous(),
         "bgb": q(torch.cat([bg, bb])),
-        "kf": None, "bf": None,
+        "kft": None, "bf": None,
     }
     if head is not None:
         wf, bf = head
-        packed["kf"] = q(wf[:, :, 0, 0].t())
+        packed["kft"] = F.pad(wf.float()[:, :, 0, 0], (0, 0, 0, max(8 - wf.shape[0], 0))).to(
+            dtype).contiguous()
         packed["bf"] = q(bf)
     return packed
+
+
+def tail_widths(pk: dict):
+    """(labels, hidden, head classes) of :func:`pack_spade`'s operands."""
+    return pk["k2s"].shape[1], pk["k2s"].shape[2], 0 if pk["bf"] is None else pk["bf"].shape[0]
+
+
+def tail_args(pk: dict) -> tuple:
+    """The tail's operand arguments of the C entry points, from
+    :func:`pack_spade`'s dict: (k1t, b1s, labels, k2s, b2s, hidden, kgbt,
+    bgb, kft, bf, classes)."""
+    lab, nh, ncls = tail_widths(pk)
+    return (_ptr(pk["k1t"]), _ptr(pk["b1s"]), lab, _ptr(pk["k2s"]), _ptr(pk["b2s"]), nh,
+            _ptr(pk["kgbt"]), _ptr(pk["bgb"]), _ptr(pk["kft"]), _ptr(pk["bf"]), ncls)
 
 
 def pack_stage(part_channels, block_params, spade_params, head, dtype) -> dict:
@@ -279,8 +324,7 @@ def _run_cuda(parts: Tuple[torch.Tensor, ...], pk: dict) -> torch.Tensor:
     dev, dtype = x0.device, x0.dtype
     n, h, w = x0.shape[:3]
     c = pk["k2"].shape[0]
-    lab, nh = pk["k1s"].shape[2], pk["k2s"].shape[2]
-    ncls = 0 if pk["kf"] is None else pk["kf"].shape[1]
+    lab, nh, ncls = tail_widths(pk)
     if dtype != torch.bfloat16:
         raise TypeError(f"the CUDA fused stage takes bfloat16 tensors, got {dtype}")
     if not stage_supported(parts, c, lab, nh, ncls):
@@ -311,11 +355,7 @@ def _run_cuda(parts: Tuple[torch.Tensor, ...], pk: dict) -> torch.Tensor:
                                     _ptr(pk["b2"]), _ptr(y), n, h, w, c,
                                     stream), "conv2")
         out = torch.empty((n, h, w, ncls or c), dtype=dtype, device=dev)
-        _check(lib.ssu_spade_tail(_ptr(y), n, h, w, c, _ptr(pk["k1s"]),
-                                  _ptr(pk["b1s"]), lab, _ptr(pk["k2s"]),
-                                  _ptr(pk["b2s"]), nh, _ptr(pk["kgb"]),
-                                  _ptr(pk["bgb"]), _ptr(pk["kf"]),
-                                  _ptr(pk["bf"]), ncls, _ptr(out), stream),
+        _check(lib.ssu_spade_tail(_ptr(y), n, h, w, c, *tail_args(pk), _ptr(out), stream),
                "SPADE tail")
     launches += 1
     return out

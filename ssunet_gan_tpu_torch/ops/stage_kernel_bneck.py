@@ -52,12 +52,17 @@ import torch
 from ssunet_gan_tpu_torch import _build
 from ssunet_gan_tpu_torch.ops.conv import as_parts, conv2d_nhwc
 from ssunet_gan_tpu_torch.ops.stage_kernel import (
+    TAIL_MAX_CLS,
+    TAIL_MAX_HIDDEN,
+    TAIL_MAX_LAB,
     _gemm_weight,
     _ptr,
     _q,
     pack_spade,
     spade_tail_reference,
     split_in,
+    tail_args,
+    tail_widths,
 )
 
 SOURCE = "bneck_stage.cu"
@@ -66,28 +71,30 @@ REPLACES = "ssunet_gan_tpu/ops/stage_kernel.py:1603"  # fused_eval_stage_bneck
 # Fused bottleneck stages run on the card, one per stage (four CUDA launches each).
 launches = 0
 
-# the kernel's limits (csrc/stage_common.cuh: the tail's channel chunk and
-# label, hidden and class bounds; the JAX gate's widest fused stage)
+# the kernel's limits (csrc/stage_common.cuh: the tail's channel chunk; the
+# JAX gate's widest fused stage); label, hidden and class bounds are the
+# tail's (stage_kernel.TAIL_MAX_*)
 MAX_PLANES, PLANES_MULTIPLE = 256, 32
-MAX_LAB, MAX_NH, MAX_CLS = 8, 16, 8
 
 
 def bneck_supported(parts, planes: int, labels: int, hidden: int, classes: int = 0) -> bool:
     """Whether the fused bottleneck stage takes this stage: at most two NHWC
-    parts of one N×H×W, device and dtype, planes ≤ 256, labels ≤ 8, hidden
-    ≤ 16, head classes ≤ 8; on a CUDA device also planes a multiple of 32
-    and bfloat16 (the kernel's terms; the plain version on the CPU has
-    neither). What it refuses runs the module composition."""
+    parts of one N×H×W, device and dtype, planes ≤ 256, labels ≤ 8, head
+    classes ≤ 8; on a CUDA device also planes a multiple of 32, hidden
+    within the tail's ``TAIL_MAX_HIDDEN`` and bfloat16 (the kernel's terms;
+    the plain version on the CPU has none of them, and like the JAX gate
+    no hidden term). What it refuses runs the module composition."""
     parts = as_parts(parts)
     x0 = parts[0]
     if not 1 <= len(parts) <= 2 or any(
             p.dim() != 4 or p.shape[:3] != x0.shape[:3] or p.device != x0.device
             or p.dtype != x0.dtype for p in parts):
         return False
-    if planes > MAX_PLANES or labels > MAX_LAB or hidden > MAX_NH or classes > MAX_CLS:
+    if planes > MAX_PLANES or labels > TAIL_MAX_LAB or classes > TAIL_MAX_CLS:
         return False
     if x0.device.type == "cuda":
-        return planes % PLANES_MULTIPLE == 0 and x0.dtype == torch.bfloat16
+        return (planes % PLANES_MULTIPLE == 0 and hidden <= TAIL_MAX_HIDDEN
+                and x0.dtype == torch.bfloat16)
     return x0.device.type == "cpu"
 
 
@@ -184,14 +191,14 @@ def _run_cuda(parts: Tuple[torch.Tensor, ...], pk: dict) -> torch.Tensor:
     dev, dtype = x0.device, x0.dtype
     n, h, w = x0.shape[:3]
     c = pk["k2"].shape[0]
-    lab, nh = pk["k1s"].shape[2], pk["k2s"].shape[2]
-    ncls = 0 if pk["kf"] is None else pk["kf"].shape[1]
+    lab, nh, ncls = tail_widths(pk)
     if not bneck_supported(parts, c, lab, nh, ncls):
         raise ValueError(
             f"the CUDA bottleneck stage does not take this stage: parts "
             f"{[(tuple(p.shape), p.dtype) for p in parts]}, planes={c} (a multiple of "
-            f"{PLANES_MULTIPLE}, <= {MAX_PLANES}), labels={lab} (<= {MAX_LAB}), hidden={nh} "
-            f"(<= {MAX_NH}), classes={ncls} (<= {MAX_CLS}); bfloat16 only")
+            f"{PLANES_MULTIPLE}, <= {MAX_PLANES}), labels={lab} (<= {TAIL_MAX_LAB}), "
+            f"hidden={nh} (<= {TAIL_MAX_HIDDEN}), classes={ncls} (<= {TAIL_MAX_CLS}); "
+            f"bfloat16 only")
     if any(not p.is_contiguous() for p in parts):
         raise ValueError("stage parts must be contiguous NHWC tensors")
     if pk["channels"] != tuple(p.shape[-1] for p in parts) or pk["dtype"] != dtype:
@@ -209,9 +216,7 @@ def _run_cuda(parts: Tuple[torch.Tensor, ...], pk: dict) -> torch.Tensor:
             n, h, w, c, _ptr(pk["k1"]), pk["k1"].shape[1], _ptr(pk["b1"]),
             _ptr(pk["k2"]), pk["k2"].shape[1], _ptr(pk["b2"]),
             _ptr(pk["k3"]), pk["k3"].shape[1], _ptr(pk["b3"]),
-            _ptr(h1), _ptr(h2), _ptr(y), _ptr(pk["k1s"]), _ptr(pk["b1s"]), lab,
-            _ptr(pk["k2s"]), _ptr(pk["b2s"]), nh, _ptr(pk["kgb"]), _ptr(pk["bgb"]),
-            _ptr(pk["kf"]), _ptr(pk["bf"]), ncls, _ptr(out),
+            _ptr(h1), _ptr(h2), _ptr(y), *tail_args(pk), _ptr(out),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused bottleneck stage launch failed: cudaError {err}")

@@ -61,6 +61,8 @@ from ssunet_gan_tpu_torch.ops.stage_kernel import (
     spade_tail_reference,
     split_in,
     stage_supported,
+    tail_args,
+    tail_widths,
 )
 
 SOURCE = "int8_stage.cu"
@@ -532,8 +534,7 @@ def _run_cuda(qparts, scales, dtype, pk: dict, th: int, out_abs_max, intermediat
         raise ValueError(f"packed operands are for {pk['k1f'].shape[1]} input channels, "
                          f"got parts of {chans}")
     c = pk["wq2"].shape[0]
-    lab, nh = pk["k1s"].shape[2], pk["k2s"].shape[2]
-    ncls = 0 if pk["kf"] is None else pk["kf"].shape[1]
+    ncls = tail_widths(pk)[2]
     if h % th:
         raise ValueError(f"band height {th} does not divide H = {h}")
     if out_abs_max is not None and ncls:
@@ -566,10 +567,8 @@ def _run_cuda(qparts, scales, dtype, pk: dict, th: int, out_abs_max, intermediat
         else:
             s_out, inv = _out_scale(out_abs_max)
             out_q = torch.empty((n, h, w, c), dtype=torch.int8, device=dev)
-        _check(lib.ssu_q_spade_tail(_ptr(y), n, h, w, c, _ptr(pk["k1s"]), _ptr(pk["b1s"]), lab,
-                                    _ptr(pk["k2s"]), _ptr(pk["b2s"]), nh, _ptr(pk["kgb"]),
-                                    _ptr(pk["bgb"]), _ptr(pk["kf"]), _ptr(pk["bf"]), ncls,
-                                    _ptr(out), _ptr(out_q), inv, stream), "SPADE tail")
+        _check(lib.ssu_q_spade_tail(_ptr(y), n, h, w, c, *tail_args(pk), _ptr(out), _ptr(out_q),
+                                    inv, stream), "SPADE tail")
     launches += 1
     if out_q is not None:
         out = QTensor(out_q, s_out, dtype)

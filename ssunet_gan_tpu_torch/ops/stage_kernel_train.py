@@ -56,9 +56,9 @@ import torch
 from ssunet_gan_tpu_torch import _build
 from ssunet_gan_tpu_torch.ops.conv import as_parts, conv2d_nhwc
 from ssunet_gan_tpu_torch.ops.stage_kernel import (
-    _MAX_CLS,
-    _MAX_LAB,
-    _MAX_NH,
+    TAIL_MAX_CLS,
+    TAIL_MAX_HIDDEN,
+    TAIL_MAX_LAB,
     _gemm_weight,
     _q,
     _refused,
@@ -66,6 +66,7 @@ from ssunet_gan_tpu_torch.ops.stage_kernel import (
     spade_tail_reference,
     split_in,
     stage_supported,
+    tail_args,
 )
 
 SOURCE = "train_stage.cu"  # train_tail's; _lib() loads it
@@ -243,10 +244,10 @@ def _tail_cuda(f2, parts, a2, b2, ws, spade_params, head):
         raise ValueError(f"shortcut {tuple(ws.shape)} does not fit parts of {channels}")
     lab, nh = spade_params[0].shape[0], spade_params[2].shape[0]
     ncls = 0 if head is None else head[0].shape[0]
-    if c % 32 or lab > _MAX_LAB or nh > _MAX_NH or ncls > _MAX_CLS:
+    if c % 32 or lab > TAIL_MAX_LAB or nh > TAIL_MAX_HIDDEN or ncls > TAIL_MAX_CLS:
         raise ValueError(f"unsupported stage widths: planes={c} (multiple of 32), "
-                         f"labels={lab} (<= {_MAX_LAB}), hidden={nh} (<= {_MAX_NH}), "
-                         f"classes={ncls} (<= {_MAX_CLS})")
+                         f"labels={lab} (<= {TAIL_MAX_LAB}), hidden={nh} "
+                         f"(<= {TAIL_MAX_HIDDEN}), classes={ncls} (<= {TAIL_MAX_CLS})")
     dev, dtype = f2.device, f2.dtype
     lib = _lib()
     with torch.cuda.device(dev):
@@ -262,11 +263,8 @@ def _tail_cuda(f2, parts, a2, b2, ws, spade_params, head):
         out = torch.empty((n, h, w, ncls or c), dtype=dtype, device=dev)
         seg = torch.empty((n, h, w, lab), dtype=dtype, device=dev)
         act = torch.empty((n, h, w, nh), dtype=dtype, device=dev)
-        _check(lib.ssu_spade_tail_train(_ptr(y), n, h, w, c, _ptr(pk["k1s"]),
-                                        _ptr(pk["b1s"]), lab, _ptr(pk["k2s"]),
-                                        _ptr(pk["b2s"]), nh, _ptr(pk["kgb"]),
-                                        _ptr(pk["bgb"]), _ptr(pk["kf"]), _ptr(pk["bf"]),
-                                        ncls, _ptr(out), _ptr(seg), _ptr(act), stream),
+        _check(lib.ssu_spade_tail_train(_ptr(y), n, h, w, c, *tail_args(pk), _ptr(out),
+                                        _ptr(seg), _ptr(act), stream),
                "train tail SPADE")
     launches["train_tail"] += 1
     return out, y, seg, act

@@ -45,6 +45,7 @@ from torch_port_helpers import (
     jax_toggles,
     oihw,
     randomize_batch_stats,
+    tail_from_packed,
     vec,
 )
 
@@ -195,7 +196,8 @@ def test_gate_and_wrapper_refusals():
     assert not ok((x, torch.zeros((1, 4, 4, 4))), 16, 3, 4)  # parts of two sizes
     assert not ok((x, x.bfloat16()), 16, 3, 4)               # parts of two dtypes
     assert not ok((x,), 512, 3, 4)                           # planes
-    assert not ok((x,), 16, 9, 4) and not ok((x,), 16, 3, 32) and not ok((x,), 16, 3, 4, 9)
+    assert not ok((x,), 16, 9, 4) and not ok((x,), 16, 3, 4, 9)  # labels, classes > 8
+    assert ok((x,), 16, 3, 32) and ok((x,), 16, 3, 128)  # no hidden term on the CPU, as JAX
     meta = torch.zeros((1, 8, 8, 4), device="meta")
     assert not ok((meta,), 16, 3, 4)
     with pytest.raises(ValueError):  # neither CPU nor CUDA: no path is chosen
@@ -253,12 +255,7 @@ def test_pack_stage_bneck_layout_is_the_kernels_gemm(chans, ncls):
         h1 = torch.relu(xcat @ pk["k1"].t() + pk["b1"])
         h2 = torch.relu(_im2col(h1, 9) @ pk["k2"].t() + pk["b2"])
         y = torch.relu(torch.cat([h2, xcat], -1) @ pk["k3"].t() + pk["b3"])
-        seg = _im2col(y, 9) @ pk["k1s"].reshape(-1, labels) + pk["b1s"]
-        act = torch.relu(_im2col(seg, 9) @ pk["k2s"].reshape(9 * labels, -1) + pk["b2s"])
-        gb = _im2col(act, 9) @ pk["kgb"] + pk["bgb"]
-        out = y * (1 + gb[..., :planes]) + gb[..., planes:]
-        if ncls:
-            out = out @ pk["kf"] + pk["bf"]
+        out = tail_from_packed(y, pk)  # the tail's operands in its kernel's K orders
         want = stage_kernel_bneck.fused_bneck_reference(parts, bp, sp, head)
         composed = spade(block(parts), block(parts))
         if ncls:

@@ -23,7 +23,7 @@ from ssunet_gan_tpu.train.supervised import evaluate as jax_evaluate
 from ssunet_gan_tpu.utils import jit_init
 from ssunet_gan_tpu_torch.compat import from_jax_variables
 from ssunet_gan_tpu_torch.models import build_model, ssunet
-from ssunet_gan_tpu_torch.ops import losses, spade_kernel, stage_kernel
+from ssunet_gan_tpu_torch.ops import losses, spade_kernel, stage_kernel, stage_kernel_bneck
 from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
 from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
 from ssunet_gan_tpu_torch.ops.blocks import BasicBlock
@@ -68,7 +68,8 @@ CARD_CASES = [
     ([OnCard((2, 16, 16, 64))], 48, 3, 3, 0, (False,) * 3),                   # planes % 32
     ([OnCard((2, 16, 16, 64))], 288, 3, 16, 0, (False,) * 3),                 # planes > 256
     ([OnCard((2, 16, 16, 64))], 128, 9, 8, 0, (False,) * 3),                  # labels > 8
-    ([OnCard((2, 16, 16, 64))], 128, 3, 17, 0, (False,) * 3),                 # hidden > 16
+    ([OnCard((2, 16, 16, 64))], 128, 3, 64, 0, (True, True, True)),          # hidden 64 (SSUNet)
+    ([OnCard((2, 16, 16, 64))], 128, 3, 65, 0, (False,) * 3),                 # hidden > 64
     ([OnCard((2, 16, 16, 64))], 128, 3, 8, 9, (False,) * 3),                  # classes > 8
     ([OnCard((2, 16, 16, 8))] * 3, 64, 3, 4, 0, (False,) * 3),                # three parts
     ([OnCard((2, 16, 16, 8)), OnCard((2, 8, 16, 8))], 64, 3, 4, 0, (False,) * 3),  # N, H, W
@@ -86,6 +87,24 @@ def test_gate_on_the_card_is_the_kernels_limits(parts, planes, lab, nh, ncls, wa
                                              int8=int8)
                 for train, int8 in ((False, False), (True, False), (False, True)))
     assert got == want
+
+
+class OnCard4D(OnCard):
+    """An OnCard tensor the kernel 8 and 9 gates can ask for its rank."""
+
+    def dim(self):
+        return len(self.shape)
+
+
+@pytest.mark.parametrize("nh,want", [(4, True), (32, True), (64, True), (65, False)])
+def test_tail_gates_on_the_card_read_the_tail_limit(nh, want):
+    """Every gate of a kernel that ends in the SPADE tail takes hidden
+    widths up to the tail's TAIL_MAX_HIDDEN on the card."""
+    x = OnCard4D((2, 16, 16, 64))
+    assert stage_kernel.TAIL_MAX_HIDDEN == 64
+    assert stage_kernel.stage_supported([x], 64, 3, nh) == want
+    assert stage_kernel_bneck.bneck_supported((x,), 64, 3, nh) == want
+    assert spade_kernel.fused_spade_supported(x, 3, 3, nh) == want
 
 
 # (part shapes, dtype, planes, labels, hidden, classes, eval, train)

@@ -536,11 +536,12 @@ def test_v3_wrappers_refuse_float32():
 # ---------------------------------------------------------------------------
 
 
-def _int8_stage(dev, chans, planes, labels, nhw, ncls, seed=0):
+def _int8_stage(dev, chans, planes, labels, nhw, ncls, seed=0, nh=None):
     gen = torch.Generator().manual_seed(seed)
     block = BasicBlock(sum(chans), planes, generator=gen)
     _randomize_bn(block, gen)
-    spade = SPADE("spadebatch3x3", planes, labels, planes / 16, generator=gen)
+    spade = SPADE("spadebatch3x3", planes, labels, planes / 16 if nh is None else float(nh),
+                  generator=gen)
     head = None
     if ncls:
         final = Conv2d(planes, ncls, 1, generator=gen)
@@ -784,6 +785,88 @@ def test_spade_stage_kernel_matches_plain_forward_and_backward(c, labels, nh, nh
     for g, p in zip(grads, plain):
         errs, ok = _close(g, p)
         assert ok and g.shape == p.shape and g.dtype == p.dtype, errs
+
+
+# The SPADE tail kernel (csrc/stage_common.cuh spade_tail_kernel) through
+# each entry point that launches it: (path, planes, labels, hidden, N·H·W).
+# "spade": the self-SPADE stage, the tail alone (bf16 out); "head": the eval
+# stage with the folded head; "s8": the int8 stage emitting s8; "saves": the
+# train tail with its seg and act saves.
+TAIL_CASES = [
+    ("spade", 64, 3, 4, (2, 40, 36)),      # the flagship's level 0, ragged tiles
+    ("spade", 128, 3, 8, (3, 32, 32)),     # level 1, batch 3
+    ("spade", 256, 3, 16, (2, 16, 16)),    # level 2
+    ("spade", 128, 3, 32, (2, 32, 48)),    # SSUNet's wide hidden widths
+    ("spade", 256, 3, 64, (2, 32, 32)),
+    ("spade", 64, 8, 64, (3, 9, 13)),      # widest labels and hidden, odd sizes
+    ("spade", 32, 3, 24, (1, 9, 13)),      # an odd count of 8-channel groups
+    ("head", 64, 3, 32, (2, 24, 20)),
+    ("head", 128, 3, 64, (3, 9, 13)),
+    ("s8", 128, 3, 32, (2, 16, 24)),
+    ("s8", 256, 3, 64, (3, 9, 13)),
+    ("saves", 64, 3, 32, (2, 24, 20)),
+    ("saves", 128, 3, 64, (3, 9, 13)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path,c,labels,nh,nhw", TAIL_CASES,
+                         ids=[f"{p}-c{c}-lab{lab}-nh{nh}-{'x'.join(map(str, s))}"
+                              for p, c, lab, nh, s in TAIL_CASES])
+def test_tail_kernel_matches_plain(path, c, labels, nh, nhw):
+    """The tail against its plain version at the stage bar (s8: equal on
+    99.9% of the elements, one step apart at most; int8's h1 and y bit for
+    bit), each entry point's launch counter moved once."""
+    from ssunet_gan_tpu_torch.ops import spade_kernel
+    from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(3)
+    n, h, w = nhw
+    if path == "s8":
+        parts, bp, sp, head = _int8_stage(dev, (c,), c, labels, nhw, 0, seed=3, nh=nh)
+        got, want = _int8_both(parts, bp, sp, head, out_abs_max=6.0)
+        d = (got.q.int() - want.q.int()).abs()
+        assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
+        return
+    spade = SPADE("spadebatch3x3", c, labels, float(nh), generator=gen).to(dev)
+    assert spade.nhidden == nh
+    sp = spade.stage_params()
+    if path == "spade":
+        x = _bf16(gen, (n, h, w, c), dev)
+        before = spade_kernel.launches
+        got = [spade_kernel.fused_spade_stage(x, *sp)]
+        torch.cuda.synchronize()
+        assert spade_kernel.launches == before + 1
+        want = [spade_kernel.self_spade_reference(x, sp)]
+    elif path == "head":
+        block = BasicBlock(c, c, generator=gen)
+        _randomize_bn(block, gen)
+        block.to(dev).eval()
+        final = Conv2d(c, 3, 1, generator=gen).to(dev)
+        head = (final.weight, final.bias)
+        parts = (_bf16(gen, (n, h, w, c), dev),)
+        before = stage_kernel.launches
+        got = [stage_kernel.fused_eval_stage(parts, block.stage_params(), sp, head)]
+        torch.cuda.synchronize()
+        assert stage_kernel.launches == before + 1
+        want = [stage_kernel.fused_stage_reference(parts, block.stage_params(), sp, head)]
+    else:
+        parts = (_bf16(gen, (n, h, w, c), dev),)
+        f2 = _bf16(gen, (n, h, w, c), dev)
+        a2 = (torch.rand(c, generator=gen) + 0.5).to(dev)
+        b2 = (torch.randn(c, generator=gen) * 0.3).to(dev)
+        ws = (torch.randn((c, c, 1, 1), generator=gen) * 0.1).to(dev)
+        before = tst.launches["train_tail"]
+        got = tst.train_tail(f2, parts, a2, b2, ws, sp, None)
+        torch.cuda.synchronize()
+        assert tst.launches["train_tail"] == before + 1
+        want = tst.train_tail_reference(f2, parts, a2, b2, ws, sp, None)
+    for name, g, wv in zip(("out", "y", "seg", "actv"), got, want):
+        assert g.shape == wv.shape, name
+        errs, ok = _close(g, wv)
+        assert ok, (name, errs)
 
 
 @pytest.mark.gpu

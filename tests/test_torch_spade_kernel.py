@@ -155,7 +155,8 @@ def test_gate_refusals():
     ok = spade_kernel.fused_spade_supported
     assert ok(x, 3, 3, 4) and ok(x, 3, 8, 16)
     assert not ok(x, 1, 3, 4)            # 1×1 SPADE convs
-    assert not ok(x, 3, 9, 4) and not ok(x, 3, 3, 32)
+    assert not ok(x, 3, 9, 4)            # labels > 8
+    assert ok(x, 3, 3, 32) and ok(x, 3, 3, 128)  # no hidden term on the CPU, as the JAX gate
     assert not ok(x[0], 3, 3, 4)         # not NHWC
     assert not ok(torch.zeros((1, 8, 8, 16), device="meta"), 3, 3, 4)
     with pytest.raises(ValueError):      # neither CPU nor CUDA: no path is chosen
@@ -212,19 +213,25 @@ def test_spade_module_modes_match_jax(rng, monkeypatch, mode, segmap):
 
 
 def test_wide_hidden_takes_the_fast_path(monkeypatch, rng):
-    """hidden > 16 is past the kernel's limit: ``"pallas"`` restructures γ|β
-    and does not call the fused stage."""
-    port = spade.SPADE("spadebatch3x3", 32, 3, 32.0)
-    counts = {}
+    """hidden 32 (SSUNet's widths) is within the tail kernel's limit:
+    ``"pallas"`` takes the fused stage, the fast path, on both sides, and
+    the port matches JAX (its kernel in interpret mode)."""
+    c, lab, nh = 32, 3, 32
+    jmod, variables, port = _module_pair(rng, c, lab, nh, c)
+    counts, jcounts = {}, {}
     for name in ("fused_spade_stage", "fast_gamma_beta_modulate"):
         _count(monkeypatch, spade, name, counts)
-    x = tensor(rng.normal(size=(1, 8, 8, 32)).astype(np.float32))
+        _count(monkeypatch, jax_spade, name, jcounts)
+    spade_kernel.set_fused_spade("pallas")
+    jax_spade_kernel.set_fused_spade("pallas")
+    x = rng.normal(size=(1, 8, 8, c)).astype(np.float32)
+    jx = jnp.asarray(x)
+    want = np.asarray(jmod.apply(variables, jx, jx))
+    tx = tensor(x)
     with torch.no_grad():
-        off = port(x, x)
-        spade_kernel.set_fused_spade("pallas")
-        got = port(x, x)
-    assert counts == {"fast_gamma_beta_modulate": 1}
-    np.testing.assert_allclose(got.numpy(), off.numpy(), rtol=3e-5, atol=3e-5)
+        got = port(tx, tx)
+    assert counts == jcounts == {"fused_spade_stage": 1}
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-5, atol=3e-5)
 
 
 def _leaves(tree):

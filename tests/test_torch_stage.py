@@ -18,7 +18,7 @@ from ssunet_gan_tpu.ops.blocks import BasicBlock as JBasicBlock
 from ssunet_gan_tpu.ops.spade import SPADE as JSPADE
 from ssunet_gan_tpu.ops.stage_kernel import fused_eval_stage as jax_fused_eval_stage
 from ssunet_gan_tpu_torch.ops import stage_kernel
-from torch_port_helpers import jax_toggles, oihw, randomize_batch_stats, vec
+from torch_port_helpers import jax_toggles, oihw, randomize_batch_stats, tail_from_packed, vec
 
 
 @pytest.fixture(autouse=True)
@@ -150,12 +150,7 @@ def test_pack_stage_layout_is_the_kernels_gemm(chans, ncls):
         a2 = torch.cat([_im2col(h1, 9, pad32(planes))]
                        + [_im2col(p, 1, pad32(p.shape[-1])) for p in parts], -1)
         y = torch.relu(a2 @ pk["k2"].t() + pk["b2"])
-        seg = _im2col(y, 9) @ pk["k1s"].reshape(-1, labels) + pk["b1s"]
-        act = torch.relu(_im2col(seg, 9) @ pk["k2s"].reshape(9 * labels, -1) + pk["b2s"])
-        gb = _im2col(act, 9) @ pk["kgb"] + pk["bgb"]
-        out = y * (1 + gb[..., :planes]) + gb[..., planes:]
-        if ncls:
-            out = out @ pk["kf"] + pk["bf"]
+        out = tail_from_packed(y, pk)  # the tail's operands in its kernel's K orders
         want = stage_kernel.fused_stage_reference(parts, bp, sp, head)
     assert out.shape == want.shape == (2, 6, 7, ncls or planes)
     np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-4, atol=1e-4)

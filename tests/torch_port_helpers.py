@@ -270,3 +270,38 @@ def stage_matches_jax(rng, planes, lab, shapes, nh, ncls):
             wv = oihw(wv).numpy()
         rel = np.abs(g.double().numpy() - wv).max() / (np.abs(wv).max() + 1e-6)
         assert rel < 1e-3, (i, rel)
+
+
+def tail_from_packed(y: torch.Tensor, pk: dict) -> torch.Tensor:
+    """The SPADE tail (+ folded head) on ``y`` from ``pack_spade``'s operands
+    walked in the tail kernel's K orders (csrc/stage_common.cuh), in f32
+    and without roundings: seg's K is (tap, channel) against ``k1t``'s 8
+    label rows; act's FMAs run over (tap, label); γ|β's K is (tap, 8-channel
+    group of hidden) pairs padded to whole k16 steps, and its N rows
+    interleave γ and β per 8 channels; the head's N is ``kft``'s 8 rows."""
+    from ssunet_gan_tpu_torch.ops.spade_kernel import im2col_3x3
+    from ssunet_gan_tpu_torch.ops.stage_kernel import tail_gb_steps, tail_widths
+
+    n, h, w, c = y.shape
+    lab, nh, ncls = tail_widths(pk)
+    k1t = pk["k1t"].float()
+    assert k1t.shape == (max(8, lab), 9, c)
+    seg = im2col_3x3(y) @ k1t.reshape(-1, 9 * c).t()
+    assert not seg[..., lab:].any()  # the padded label rows are zero
+    seg = seg[..., :lab] + pk["b1s"]
+    act = torch.relu(im2col_3x3(seg) @ pk["k2s"].reshape(9 * lab, nh) + pk["b2s"])
+    groups, steps = -(-nh // 8), tail_gb_steps(nh)
+    a = torch.nn.functional.pad(act, (0, 8 * groups - nh))
+    a = im2col_3x3(a)  # k8 group q = tap · groups + group
+    a = torch.nn.functional.pad(a, (0, 16 * steps - 72 * groups))
+    kgbt = pk["kgbt"].float()
+    assert kgbt.shape[1] == 16 * steps and kgbt.shape[0] % 16 == 0
+    gb = (a @ kgbt.t()).reshape(n, h, w, -1, 2, 8)  # (8-channel group, γ|β, channel)
+    gamma = gb[..., 0, :].reshape(n, h, w, -1)[..., :c] + pk["bgb"][:c]
+    beta = gb[..., 1, :].reshape(n, h, w, -1)[..., :c] + pk["bgb"][c:]
+    out = y * (1 + gamma) + beta
+    if ncls:
+        kft = pk["kft"].float()
+        assert kft.shape == (max(8, ncls), c) and not kft[ncls:].any()
+        out = out @ kft[:ncls].t() + pk["bf"]
+    return out
