@@ -11,7 +11,12 @@ Phases, each of which exits non-zero on failure:
    PyTorch version for the flagship's six fused-stage signatures at 512²,
    bf16, batch 2, seeded weights; then again with the model's own weights
    at the scene request's batch 32 (INFER_BATCH), and each stage timed at
-   the tile forward's batch 8.
+   the tile forward's batch 8; then each of the stages' conv launches
+   alone at batch 8 on the stage's own inputs (the eval conv core,
+   ``ops/stage_kernel.py`` ``eval_conv``) against its per-launch plain
+   version to the same bar, timed beside its bound and the ``F.conv2d``
+   call of the same convs (a ``conv:`` line each, and their sum per
+   forward).
 2. Flagship tile forward: UNet_R_SS_v2 at the widths of
    configs/config_v1.json, seeded weights with every BatchNorm's
    statistics set from a seeded calibration batch (so activations and
@@ -84,7 +89,8 @@ Phases, each of which exits non-zero on failure:
    six fused-stage signatures and one identity-shortcut stage at 512²,
    bf16, batch 2, seeded weights; then with the model's own weights on each
    stage's own inputs at the scene request's batch 32, and each stage timed
-   at batch 8 against its plain version and its bound.
+   at batch 8 against its plain version and its bound; then each of its
+   three conv launches alone as in phase 1 (``conv:`` lines).
 10. UNet_B_SS serving (the third serving path): ``build_model("UNet_B_SS",
    3)`` at full width with BN statistics calibrated as in phase 2, the tile
    forward at batch 8 (tiles/s, six bottleneck kernel stages per forward, a
@@ -107,7 +113,9 @@ Phases, each of which exits non-zero on failure:
    (WIDE_TAILS: 512², batch 8, seeded) against its plain version.
 
 Each path's profile also gives a ``tail:`` line: the shared SPADE tail
-kernel's time and launches per forward or step beside its bound.
+kernel's time and launches per forward or step beside its bound; the
+flagship and UNet_B_SS forwards and the flagship train step a ``conv
+profile:`` line: the eval conv core's time and launches.
 
 Each phase prints its wall time. Prints a ``kernels`` JSON line (launches on the main paths — phases 2 and
 3 for the eval kernel, phase 8 for the int8 eval kernel, phase 6 for the
@@ -440,6 +448,99 @@ def tail_line(path, per, rows, calls) -> None:
     print("tail:", json.dumps(dict(path=path, per=per, ms=sum(r[0] for r in tail),
                                    launches=sum(r[1] for r in tail), bound_ms=bound,
                                    bound_by=kind)))
+
+
+def hgmma_counts(lib: str) -> dict:
+    """HGMMA instructions (wgmma in SASS) per eval conv core instantiation
+    of a built library, from ``cuobjdump -sass`` beside nvcc; None when the
+    toolkit has no cuobjdump."""
+    from ssunet_gan_tpu_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    counts, fn = {}, None
+    for line in subprocess.run([tool, "-sass", lib], capture_output=True, text=True).stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "eval_conv_core" in fn:
+                counts[fn] = 0
+        elif fn in counts and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def conv_profile_line(path, per, rows) -> None:
+    """A ``conv profile:`` line: the eval conv core's device time and
+    launches from a profile's rows (per forward or step)."""
+    conv = [r for r in rows if "eval_conv_core" in r[2]]
+    print("conv profile:", json.dumps(dict(path=path, per=per, ms=sum(r[0] for r in conv),
+                                           launches=sum(r[1] for r in conv))))
+
+
+def library_conv(sources, conv):
+    """The launch's convs as ``F.conv2d`` calls in bf16, channels-last: one
+    over the main segments' sources concatenated (outside the timed region)
+    with the bias, one over the shortcut's, added, then ReLU. The library
+    yardstick, timed only and never called by the port."""
+    import torch.nn.functional as F
+
+    main = conv["main"]
+
+    def operands(xs, ws):
+        x = torch.cat(xs, -1).permute(0, 3, 1, 2)  # NCHW view, channels-last memory
+        w = torch.cat(ws, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        return x, w, w.shape[-1] // 2
+
+    x0, w0, p0 = operands(sources[:main], conv["oihw"][:main])
+    short = operands(sources[main:], conv["oihw"][main:]) if main < len(sources) else None
+    bias = None if conv["bias"] is None else conv["bias"].to(torch.bfloat16)
+
+    def run():
+        y = F.conv2d(x0, w0, bias, padding=p0)
+        if short is not None:
+            y += F.conv2d(short[0], short[1], padding=short[2])
+        return torch.relu_(y)
+    return run
+
+
+def conv_launch_lines(path, launches, check):
+    """Each conv launch of a path's stages alone on its own inputs: the eval
+    conv core (``ops/stage_kernel.py`` ``eval_conv``) against its per-launch
+    plain version to phase 1's bar, timed beside its bound (multiply-adds at
+    the bf16 peak, or each input and the weight read and the output written
+    once over HBM bandwidth) and the library call. ``launches``: (stage,
+    launch, sources, packed conv). Prints a ``conv:`` line each and their
+    sum (per forward); returns the largest max abs error."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel
+
+    total = dict(ms=0.0, bound_ms=0.0, library_ms=0.0, launches=0)
+    kinds, worst = set(), 0.0
+    for stage, name, sources, conv in launches:
+        got = stage_kernel.eval_conv(sources, conv)
+        want = stage_kernel.eval_conv_reference(sources, conv["oihw"], conv["bias"], conv["main"])
+        err, scale, l2, ok = close(got, want)
+        check(ok, f"{path}: {stage} {name}: the conv core disagrees with its plain version "
+              f"(err {err}, max {scale}, l2 {l2})")
+        worst = max(worst, err)
+        n, h, w = sources[0].shape[:3]
+        kk = sum(c * k * k for c, k in conv["segs"])
+        flops = 2.0 * n * h * w * conv["cout"] * kk
+        nbytes = sum(s.numel() * 2 for s in sources) + 2 * conv["cout"] * (kk + n * h * w)
+        bound, kind = bound_of(flops, nbytes)
+        kinds.add(kind)
+        ms = cuda_ms(lambda: stage_kernel.eval_conv(sources, conv), 20)
+        lib_ms = cuda_ms(library_conv(sources, conv), 20)
+        for k, v in (("ms", ms), ("bound_ms", bound), ("library_ms", lib_ms), ("launches", 1)):
+            total[k] += v
+        print("conv:", json.dumps(dict(
+            path=path, stage=stage, launch=name, shape=[n, h, w],
+            segments=[list(s) for s in conv["segs"]], cout=conv["cout"], nt=conv["nt"],
+            max_abs_err=err, rel_l2=l2, ms=ms, bound_ms=bound, bound_by=kind,
+            library_ms=lib_ms)))
+    print("conv:", json.dumps(dict(path=path, per="forward", **total,
+                                   bound_by="operations" if "operations" in kinds else "bytes")))
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1171,6 +1272,7 @@ def train_phases(dev, cfg, card, sigs, check):
     rows = print_profile("v3", lambda: step(xb, yb, lr), ms_step)
     tail_line("kernel 3: flagship train step (v3)", "step", rows,
               tail_calls(sigs, TRAIN_BATCH, saves=True))
+    conv_profile_line("kernel 3: flagship train step (v3), the residual conv", "step", rows)
     with train_backward("v2"):
         print_profile("v2", lambda: step(xb, yb, lr), ms_step_v2)
     phase_done("phase 6 profiles", t0)
@@ -1542,7 +1644,7 @@ def bneck_stage_phase(dev, model, sigs, scene_tiles, check):
     launches."""
     from ssunet_gan_tpu_torch.infer.api import INFER_BATCH, _norm_consts
     from ssunet_gan_tpu_torch.models import ssunet
-    from ssunet_gan_tpu_torch.ops import stage_kernel_bneck as kb
+    from ssunet_gan_tpu_torch.ops import stage_kernel, stage_kernel_bneck as kb
     from ssunet_gan_tpu_torch.ops.blocks import Bottleneck
     from ssunet_gan_tpu_torch.ops.conv import Conv2d
     from ssunet_gan_tpu_torch.ops.spade import SPADE
@@ -1597,6 +1699,7 @@ def bneck_stage_phase(dev, model, sigs, scene_tiles, check):
              f"{[[tuple(p.shape) for p in c] for c in captured]}")
     ms_sum = plain_sum = bound_sum = 0.0
     kinds = set()
+    conv_launches = []  # each stage's conv launches at batch 8 (conv: lines)
     for (name, chans, planes, lab, nh, head_cls, level), full in zip(sigs, captured):
         side = HW >> level
         block, spade = getattr(model, name), getattr(model, "SPADE" + name[4:])
@@ -1621,7 +1724,12 @@ def bneck_stage_phase(dev, model, sigs, scene_tiles, check):
         row = dict(stage=name, shape=[BATCH, side, side, sum(chans)], planes=planes,
                    ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=kind)
         print("bneck stage:", json.dumps(row))
-    del captured, full, parts, pk
+        h1 = stage_kernel.eval_conv(parts, pk["conv1"])
+        h2 = stage_kernel.eval_conv((h1,), pk["conv2"])
+        conv_launches += [(name, "conv1", parts, pk["conv1"]), (name, "conv2", (h1,), pk["conv2"]),
+                          (name, "conv3", (h2,) + parts, pk["conv3"])]
+    worst = max(worst, conv_launch_lines("kernel 8", conv_launches, check))
+    del captured, full, parts, pk, h1, h2, conv_launches
     torch.cuda.empty_cache()
     return {
         "name": "fused_eval_stage_bneck", "route": "cuda",
@@ -1722,6 +1830,7 @@ def bneck_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, c
     for ms, count, key in rows[:12]:
         print(f"profile: UNet_B_SS {ms:9.3f} ms {count:4d}x {key[:90]}")
     tail_line("kernel 8: UNet_B_SS bf16 forward", "forward", rows, tail_calls(sigs, BATCH))
+    conv_profile_line("kernel 8: UNet_B_SS bf16 forward", "forward", rows)
     phase_done("phase 10 profile", t_phase)
     return launches
 
@@ -2027,9 +2136,17 @@ def main() -> int:
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         list(pool.map(_build.build, sources))
     print(f"phase 0: kernels built in {time.perf_counter() - t0:.2f} s")
+    for source in (stage_kernel.SOURCE, stage_kernel_bneck.SOURCE, stage_kernel_train.SOURCE):
+        counts = hgmma_counts(_build.build(source))
+        if counts is None:
+            print(f"phase 0: no cuobjdump beside nvcc; the SASS of {source} is not read")
+            continue
+        print(f"phase 0: HGMMA in {source}'s eval conv core: {sorted(counts.values())}")
+        check(len(counts) > 0 and all(counts.values()),
+              f"phase 0: {source}: an eval conv core instantiation without wgmma: {counts}")
     for source in sources:
         for line in _build.build_log(source).splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(k in line for k in ("registers", "spill", "Compiling entry", "wgmma")):
                 print(f"  ptxas {source}:", line.strip())
     t_phase = time.perf_counter()
 
@@ -2100,6 +2217,7 @@ def main() -> int:
              f"{[[tuple(p.shape) for p in c] for c in captured]}")
     ms_sum = plain_sum = bound_sum = 0.0
     bound_kinds = set()
+    conv_launches = []  # each stage's conv launches at batch 8 (conv: lines)
     for (name, chans, planes, lab, nh, head_cls, level), full in zip(sigs, captured):
         side = HW >> level
         block, spade = getattr(model, name), getattr(model, "SPADE" + name[4:])
@@ -2127,7 +2245,11 @@ def main() -> int:
         row = dict(stage=name, shape=[BATCH, side, side, sum(chans)], planes=planes,
                    ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=kind)
         print("stage:", json.dumps(row))
-    del parts, pk, full, captured
+        h1 = stage_kernel.eval_conv(parts, pk["conv1"])
+        conv_launches += [(name, "conv1", parts, pk["conv1"]),
+                          (name, "conv2", (h1,) + (parts if pk["shortcut"] else ()), pk["conv2"])]
+    max_err = max(max_err, conv_launch_lines("kernel 1", conv_launches, check))
+    del parts, pk, full, captured, h1, conv_launches
 
     t_phase = phase_done("phase 1", t_phase)
 
@@ -2234,6 +2356,7 @@ def main() -> int:
     for ms, count, key in rows[:12]:
         print(f"profile: {ms:9.3f} ms {count:4d}x {key[:90]}")
     tail_line("kernel 1: flagship bf16 forward", "forward", rows, tail_calls(sigs, BATCH))
+    conv_profile_line("kernel 1: flagship bf16 forward", "forward", rows)
     eval_row = {
         "name": "fused_eval_stage", "route": "cuda",
         "source": f"ssunet_gan_tpu_torch/csrc/{stage_kernel.SOURCE}",

@@ -1,12 +1,15 @@
 """PyTorch/CUDA port of ssunet_gan_tpu for NVIDIA Hopper (H100).
 
-This first slice serves the flagship ``UNet_R_SS_v2``: the eval tile
-forward and whole-scene sliding-window inference with merged masks. The
-six shallow [BasicBlock + self-SPADE] stages run on a hand-written CUDA
-kernel (``ops/stage_kernel.py``, ``csrc/fused_stage.cu``); everything else
-is plain PyTorch. The package also trains it (``ops/stage_kernel_train.py``,
-``ops/train_bwd.py``) and serves it through calibrated int8 stages
-(``ops/stage_kernel_int8.py``, ``infer/calibrate.py``).
+It serves ``UNet_R_SS_v2`` (the flagship), ``UNet_R_SS`` and ``UNet_B_SS``:
+the eval tile forward and whole-scene sliding-window inference with merged
+masks, in bf16 or through calibrated int8 stages (``ops/stage_kernel_int8.py``,
+``infer/calibrate.py``), and it trains the flagship and ``UNet_B_SS``
+(``ops/stage_kernel_train.py``, ``ops/train_bwd.py``, ``train/``). Each of the nine TPU kernels of the JAX
+package has a hand-written CUDA counterpart under ``csrc/``: the fused
+[BasicBlock + self-SPADE] eval stage (``ops/stage_kernel.py``), the
+Bottleneck one (``ops/stage_kernel_bneck.py``), the int8 stage, the train
+stage's kernels, the v3 backward's kernels and the self-SPADE stage
+(``ops/spade_kernel.py``); everything else is plain PyTorch.
 
 Tensors at the public functions are NHWC, as in the JAX package, and
 parameters carry the reference's torch module names (OIHW weights), so a

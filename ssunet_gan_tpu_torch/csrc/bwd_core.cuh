@@ -26,11 +26,13 @@
 // Narrow sources pack taps x channels into K (or M): the k8 groups are
 // (tap, 8-channel group) pairs, so 3 labels take 9 groups (80 K values with
 // the padding to 16), not 9 x 32. mma.sync m16n8k16 bf16 with f32 sums;
-// wgmma is the next step (ROADMAP.md). Everything is in an anonymous
+// wgmma, as eval_conv.cuh runs it for the eval convs, is the next step
+// here (ROADMAP.md 2b.6). Everything is in an anonymous
 // namespace.
 
 #pragma once
 
+#include "conv_tile.cuh"
 #include "train_common.cuh"
 
 namespace {
@@ -102,22 +104,9 @@ __device__ __forceinline__ void band2(const bf16* b, long long m, int cout, int 
   }
 }
 
-// Eight channels c0..c0+7 of pixel pix of a [pix][c] tensor into shared
-// memory element by element (sources whose rows are not 16-byte pieces);
-// zeros past c and when !valid.
-__device__ __forceinline__ void scalar8(bf16* dst, const bf16* base, int c, long long pix,
-                                        int c0, bool valid) {
-  const unsigned short* ps = reinterpret_cast<const unsigned short*>(base) + pix * c + c0;
-  unsigned short e[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) e[j] = (valid && c0 + j < c) ? ps[j] : 0;
-  *reinterpret_cast<uint4*>(dst) =
-      make_uint4(e[0] | ((uint32_t)e[1] << 16), e[2] | ((uint32_t)e[3] << 16),
-                 e[4] | ((uint32_t)e[5] << 16), e[6] | ((uint32_t)e[7] << 16));
-}
-
 // ---------------------------------------------------------------------------
-// Tile geometry shared by both cores
+// Tile geometry shared by both cores (the chunk widths and the element-wise
+// window loader are conv_tile.cuh's, shared with eval_conv.cuh)
 // ---------------------------------------------------------------------------
 
 constexpr int TH = 8;                       // tile rows
@@ -133,10 +122,6 @@ constexpr int CORE_THREADS = 256;           // 8 warps
 // Window row stride (halves) for a chunk of cc channels: consecutive pixels
 // land on distinct 16-byte slots of a 128-byte line (conflict-free ldmatrix).
 __host__ __device__ inline int win_stride(int cc) { return cc == 8 ? 8 : cc + 8; }
-
-// Channels per chunk of a source of c channels: 8 or 16 for a narrow one
-// (taps x channels packed), else 32.
-__host__ __device__ inline int chunk_channels(int c) { return c <= 8 ? 8 : c <= 16 ? 16 : 32; }
 
 // (tap, 8-channel group) of k8 group q of a chunk with ngrp groups per tap;
 // groups past the last real one read the centre tap's first group (finite
@@ -181,7 +166,6 @@ constexpr int TALL_PLAIN_NT = 64;
 constexpr int CC_WIDE = 32;                 // the chain modes' chunk (sources of planes)
 constexpr int WST_WIDE = CC_WIDE + 8;
 constexpr int KS_ROW = 3 * CC_WIDE;         // a chain mode's 3x3 stage
-constexpr int SMEM_MAX = 232448;            // dynamic shared memory of one block (227 KB)
 
 // The modes with a chain prologue read sources of `planes` channels, in
 // chunks of 32; the others (narrow sources) take their chunk from c.

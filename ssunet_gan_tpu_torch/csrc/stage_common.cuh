@@ -1,14 +1,11 @@
-// Shared device code of the port's fused-stage kernels (fused_stage.cu,
-// bneck_stage.cu, train_stage.cu; its bf16 helpers also serve the others):
-// bf16 helpers, the implicit-GEMM conv core on mma.sync m16n8k16 bf16
-// tensor cores with f32 sums, and the self-SPADE tail with its launcher.
-// Everything is in an anonymous namespace, so each source gets its own copy
-// and nothing is exported. The conv core: M = pixels (128 per block), N =
-// output channels (64 per block), K = sources x taps x input channels
-// padded to 32, each split-concat part or 1x1 shortcut read through its own
-// pointer, a register double buffer feeding two shared-memory stages.
-// Numerics: each conv zero-pads its own input at the image border, sums run
-// in f32, outputs are rounded to bf16.
+// Shared device code of the port's stage kernels (every csrc/*.cu includes
+// it, directly or through conv_tile.cuh): the bf16 helpers, the mma.sync
+// and PTX helpers (cp.async, ldmatrix), and the self-SPADE tail with its
+// launcher (kernels 1, 3, 7, 8 and 9 end in it). The convs run on the cores
+// of eval_conv.cuh (the eval stages, the train tail's residual) and
+// bwd_core.cuh (the train kernels). Everything is in an anonymous
+// namespace, so each source gets its own copy and nothing is exported.
+// Numerics: sums run in f32, outputs are rounded to bf16.
 
 #pragma once
 
@@ -46,229 +43,6 @@ __device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-
-constexpr int BK = 32;        // K (conv) or pixels (wgrad) per pipeline step
-constexpr int LDS = BK + 8;   // padded shared row (halves)
-constexpr int MAX_SRC = 3;
-
-struct Src {
-  const bf16* ptr;
-  int c;      // channels
-  int cpad;   // channels rounded up to BK (weight / dW layout)
-  int ksize;  // 3 or 1
-  int vec;    // 16-byte loads allowed
-};
-
-// Eight channels c0..c0+7 of one pixel of a source (zeros past S.c).
-__device__ __forceinline__ uint4 load8(const Src& S, long long pix, int c0) {
-  const bf16* p = S.ptr + (pix * S.c + c0);
-  if (S.vec && c0 + 8 <= S.c) return *reinterpret_cast<const uint4*>(p);
-  const unsigned short* ps = reinterpret_cast<const unsigned short*>(p);
-  unsigned short e[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) e[j] = (c0 + j < S.c) ? ps[j] : 0;
-  return make_uint4(e[0] | ((uint32_t)e[1] << 16), e[2] | ((uint32_t)e[3] << 16),
-                    e[4] | ((uint32_t)e[5] << 16), e[6] | ((uint32_t)e[7] << 16));
-}
-
-// Map a K step of 32 to (source, tap, first channel) for sources laid out
-// source-major, tap-major, channel (padded to BK).
-__device__ __forceinline__ void k_step(const Src* src, int nsrc, int kt, int& s,
-                                       int& tap, int& c0) {
-  s = 0;
-  int rem = kt;
-  while (s < nsrc - 1) {
-    const int steps = (src[s].cpad / BK) * src[s].ksize * src[s].ksize;
-    if (rem < steps) break;
-    rem -= steps;
-    ++s;
-  }
-  const int nchunk = src[s].cpad / BK;
-  tap = rem / nchunk;
-  c0 = (rem - tap * nchunk) * BK;
-}
-
-// ---------------------------------------------------------------------------
-// The conv core: implicit-GEMM conv3x3/1x1 over up to three sources, with a
-// bias [+ ReLU] or residual epilogue: the eval stages' convs and the train
-// tail's residual conv. (The train convs have their own core, bwd_core.cuh.)
-// ---------------------------------------------------------------------------
-
-constexpr int BM = 128;            // pixels per block
-constexpr int BN = 64;             // output channels per block
-constexpr int CONV_THREADS = 128;  // 4 warps, 2 x 2, 64 x 32 each
-
-struct ConvArgs {
-  Src src[MAX_SRC];
-  int nsrc;
-  const bf16* wt;      // [cout][kp], K = sources x taps x cpad
-  int kp;
-  const float* bias;   // [cout] or null
-  const bf16* res;     // [m][cout]: out = relu(res*res_a + res_b + acc), or null
-  const float* res_a;
-  const float* res_b;
-  bf16* out;           // [m][cout]
-  int relu;            // ReLU after the bias (the eval stage's folded BN + ReLU)
-  int h, w, cout;
-  long long m;         // n * h * w
-};
-
-__global__ void __launch_bounds__(CONV_THREADS)
-conv_kernel(const ConvArgs args) {
-  __shared__ __align__(16) bf16 As[2][BM][LDS];
-  __shared__ __align__(16) bf16 Bs[2][BN][LDS];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int H = args.h, W = args.w;
-  const long long hw = (long long)H * W;
-
-  // This thread loads 8 consecutive K values (one 16-byte group kg) of four
-  // A rows and two B rows per step; the rows stay fixed across K.
-  const int kg = tid & 3;
-  long long a_img[4];
-  int a_oh[4], a_ow[4];
-  bool a_ok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + (tid >> 2) + 32 * i;
-    a_ok[i] = m < args.m;
-    const long long img = a_ok[i] ? m / hw : 0;
-    const long long rem = a_ok[i] ? m - img * hw : 0;
-    a_img[i] = img * hw;
-    a_oh[i] = (int)(rem / W);
-    a_ow[i] = (int)(rem - (long long)a_oh[i] * W);
-  }
-
-  const int ktiles = args.kp / BK;
-  uint4 ra[4], rb[2];
-
-  auto load_tile = [&](int kt) {
-    int s, tap, cb;
-    k_step(args.src, args.nsrc, kt, s, tap, cb);
-    const Src S = args.src[s];
-    const int c0 = cb + kg * 8;
-    const int pad = S.ksize == 3 ? 1 : 0;
-    const int dy = S.ksize == 3 ? tap / 3 : 0;
-    const int dx = S.ksize == 3 ? tap % 3 : 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ih = a_oh[i] + dy - pad, iw = a_ow[i] + dx - pad;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (a_ok[i] && ih >= 0 && ih < H && iw >= 0 && iw < W && c0 < S.c)
-        v = load8(S, a_img[i] + (long long)ih * W + iw, c0);
-      ra[i] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int n = n0 + (tid >> 2) + 32 * i;
-      rb[i] = n < args.cout
-                  ? *reinterpret_cast<const uint4*>(
-                        args.wt + (long long)n * args.kp + kt * BK + kg * 8)
-                  : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-
-  auto store_tile = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<uint4*>(&As[buf][(tid >> 2) + 32 * i][kg * 8]) = ra[i];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<uint4*>(&Bs[buf][(tid >> 2) + 32 * i][kg * 8]) = rb[i];
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  load_tile(0);
-  store_tile(0);
-  __syncthreads();
-
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < ktiles) load_tile(kt + 1);  // in flight during the MMAs
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int r = wm * 64 + mi * 16 + g;
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(&As[cur][r][kk + 2 * t]);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(&As[cur][r + 8][kk + 2 * t]);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(&As[cur][r][kk + 8 + 2 * t]);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(&As[cur][r + 8][kk + 8 + 2 * t]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int nn = wn * 32 + ni * 8 + g;
-        bfr[ni][0] = *reinterpret_cast<const uint32_t*>(&Bs[cur][nn][kk + 2 * t]);
-        bfr[ni][1] = *reinterpret_cast<const uint32_t*>(&Bs[cur][nn][kk + 8 + 2 * t]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16_16816(acc[mi][ni], af[mi], bfr[ni]);
-    }
-    if (kt + 1 < ktiles) store_tile(cur ^ 1);
-    __syncthreads();
-  }
-
-  const bool pair_store = (args.cout & 1) == 0;
-
-  // [+ bias | residual affine + ReLU], round to bf16, NHWC store
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int ch0 = n0 + wn * 32 + ni * 8 + 2 * t;
-    float bv[2] = {0.f, 0.f}, rav[2] = {0.f, 0.f}, rbv[2] = {0.f, 0.f};
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      if (ch0 + e >= args.cout) continue;
-      if (args.bias != nullptr) bv[e] = args.bias[ch0 + e];
-      if (args.res != nullptr) {
-        rav[e] = args.res_a[ch0 + e];
-        rbv[e] = args.res_b[ch0 + e];
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const long long m = m0 + wm * 64 + mi * 16 + g + 8 * half;
-        if (m >= args.m || ch0 >= args.cout) continue;
-        float o[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float v = acc[mi][ni][2 * half + e] + bv[e];
-          if (args.relu) v = fmaxf(v, 0.f);
-          if (args.res != nullptr && ch0 + e < args.cout) {
-            const float r = __bfloat162float(args.res[m * args.cout + ch0 + e]);
-            v = fmaxf(__fadd_rn(__fadd_rn(__fmul_rn(r, rav[e]), rbv[e]),
-                                acc[mi][ni][2 * half + e]), 0.f);
-          }
-          o[e] = bf16r(v);
-        }
-        bf16* op = args.out + m * args.cout + ch0;
-        if (pair_store) {
-          *reinterpret_cast<__nv_bfloat162*>(op) = __floats2bfloat162_rn(o[0], o[1]);
-        } else {
-          op[0] = __float2bfloat16_rn(o[0]);
-          if (ch0 + 1 < args.cout) op[1] = __float2bfloat16_rn(o[1]);
-        }
-      }
-    }
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // PTX helpers: cp.async (zero-fill), ldmatrix (the tail's and bwd_core.cuh's)
@@ -783,25 +557,6 @@ int launch_spade_tail(const void* y, int n, int h, int wd, int c, const void* k1
                       void* stream) {
   return launch_spade_tail_q(y, n, h, wd, c, k1t, b1s, lab, k2s, b2s, nh, kgbt, bgb, kft, bf,
                              ncls, out, nullptr, 0.f, seg, act, stream);
-}
-
-// Fill the sources of a conv or wgrad; returns the K they span, or -1.
-int fill_sources(Src* src, int max_src, int& nsrc, const void* const* ptrs,
-                 const int* chans, const int* ks) {
-  nsrc = 0;
-  int ksum = 0;
-  for (int i = 0; i < max_src; ++i) {
-    if (chans[i] <= 0) continue;
-    if (ks[i] != 1 && ks[i] != 3) return -1;
-    Src& s = src[nsrc++];
-    s.ptr = static_cast<const bf16*>(ptrs[i]);
-    s.c = chans[i];
-    s.cpad = (chans[i] + BK - 1) / BK * BK;
-    s.ksize = ks[i];
-    s.vec = (chans[i] % 8 == 0) && ((uintptr_t)ptrs[i] % 16 == 0);
-    ksum += s.cpad * ks[i] * ks[i];
-  }
-  return nsrc == 0 ? -1 : ksum;
 }
 
 }  // namespace

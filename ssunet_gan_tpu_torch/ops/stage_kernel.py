@@ -15,14 +15,19 @@ the weights:
 
 What bounds it on the H100: the two big convs carry ~95% of the
 multiply-adds at an arithmetic intensity far above the bf16 ridge point, so
-the stage is bound by tensor-core operations, not bytes. The kernel
-(``csrc/fused_stage.cu``) therefore runs conv1 and conv2+shortcut as an
-implicit GEMM on ``mma.sync`` bf16 tensor cores with f32 sums, reading the
-split-concat parts and the shortcut through their own pointers (no
-``torch.cat``), and keeps the SPADE tail's seg, act and γ|β in shared
-memory and registers. Three launches per stage; h1 and y go through device
-memory. The TPU devices (W-minor layout, lane packing, bias tiles, band
-probing) answer the TPU's constraints and are not ported.
+the stage is bound by tensor-core operations, not bytes. Both convs run on
+the eval conv core (``csrc/eval_conv.cuh``, shared with kernels 8 and 3):
+a block owns a spatial tile and every output channel, a chunk's halo window
+arrives once through ``cp.async``, the nine taps are shifted ``wgmma``
+matrix descriptors into it (m64nNk16, f32 sums), and the weights come
+packed once per model (:func:`pack_eval_conv`) in the order their
+descriptor reads them. The split-concat parts and the shortcut are
+K-segments read through their own pointers (no ``torch.cat``);
+:func:`eval_conv_reference` is one launch in plain PyTorch. The SPADE tail
+keeps seg, act and γ|β in shared memory and registers. Three launches per
+stage (``csrc/fused_stage.cu``); h1 and y go through device memory. The
+TPU devices (W-minor layout, lane packing, bias tiles, band probing)
+answer the TPU's constraints and are not ported.
 
 Numerics match the TPU kernel: each conv zero-pads its own input at the
 image border, sums run in f32, h1/y/seg/act/γ|β are rounded to the
@@ -43,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -187,16 +193,157 @@ def fused_stage_reference(parts, block_params, spade_params, head=None):
     return spade_tail_reference(y, spade_params, head)[0]
 
 
-def _gemm_weight(segments, dtype) -> torch.Tensor:
-    """[cout][K] GEMM operand of the conv kernel: per segment, tap-major
-    (dy, dx) then input channel, channels zero-padded to a multiple of 32."""
+# The eval conv core (csrc/eval_conv.cuh): the N of its instantiations, the
+# output channels padded up to one (at 64 the weights are wgmma's A, 64 rows)
+EVAL_NT = (64, 128, 192, 256)
+
+# Eval conv launches on the card (kernel 1's two per stage and the
+# per-launch timing both come through :func:`eval_conv`; kernel 8's three
+# launch from its own entry point, kernel 3's residual from its own).
+conv_launches = 0
+
+
+def eval_nt(cout: int) -> int:
+    """The N instantiation of the eval conv core for ``cout`` channels."""
+    for nt in EVAL_NT:
+        if cout <= nt:
+            return nt
+    raise ValueError(f"the eval conv core takes at most {EVAL_NT[-1]} output channels, got {cout}")
+
+
+def eval_chunk(c: int) -> int:
+    """Channels per K chunk of a source of ``c`` channels (csrc/conv_tile.cuh
+    ``chunk_channels``): 8 or 16 whole when narrow (a 3×3 source's taps then
+    pack into K), else 32."""
+    return 8 if c <= 8 else 16 if c <= 16 else 32
+
+
+def _descriptor_order(segments, nt: int):
+    """The segments' weights laid out in the core's order (dtype kept)."""
+    cout = segments[0].shape[0]
     blocks = []
     for w in segments:
-        cout, cin, kh, kw = w.shape
-        wt = w.permute(0, 2, 3, 1)  # (cout, kh, kw, cin)
-        wt = F.pad(wt, (0, -(-cin // 32) * 32 - cin))
-        blocks.append(wt.reshape(cout, -1))
-    return torch.cat(blocks, 1).to(dtype).contiguous()
+        cin, k = w.shape[1], w.shape[2]
+        cc, taps = eval_chunk(cin), k * k
+        ngrp, nch = cc // 8, -(-cin // cc)
+        steps = (taps * ngrp + 1) // 2
+        x = w.permute(0, 2, 3, 1).reshape(cout, taps, cin)
+        x = F.pad(x, (0, nch * cc - cin, 0, 0, 0, nt - cout))
+        x = x.reshape(nt, taps, nch, ngrp, 8).permute(2, 1, 3, 0, 4).reshape(nch, taps * ngrp, nt, 8)
+        x = F.pad(x, (0, 0, 0, 0, 0, 2 * steps - taps * ngrp))
+        x = x.reshape(nch, steps, 2, nt // 8, 8, 8).permute(0, 1, 3, 2, 4, 5)
+        blocks.append(x.reshape(nch * steps, nt // 8, 2, 8, 8))
+    return torch.cat(blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_index(shapes, nt: int, device) -> torch.Tensor:
+    """For each element of the packed weight, its index into the segments'
+    flattened weights behind one leading zero (0: a padding zero)."""
+    ids, off = [], 1
+    for shape in shapes:
+        n = math.prod(shape)
+        ids.append(torch.arange(off, off + n, dtype=torch.float64).reshape(shape))
+        off += n
+    return _descriptor_order(ids, nt).long().to(device)
+
+
+def eval_conv_weight(segments, nt: int, dtype) -> torch.Tensor:
+    """The eval conv core's weight operand [steps][nt/8][2][8][8] in the
+    order its wgmma descriptor reads it: per K-segment (an OIHW weight, 3×3
+    or 1×1), per chunk of :func:`eval_chunk` input channels, per k16 step of
+    two (tap, 8-channel group) pairs — tap-major, the chunk's channel groups
+    within a tap, a last odd pair padded with zeros — the step's K-major
+    core matrices: output channels in groups of 8 (rows past the weight's
+    zero), then the two k8 halves, then 8 rows of 8 K values. One gather
+    through an index laid out once per shape."""
+    w0 = segments[0]
+    idx = _layout_index(tuple(tuple(w.shape) for w in segments), nt, w0.device)
+    flat = torch.cat([_zero(w0.device, w0.dtype)] + [w.reshape(-1) for w in segments])
+    return flat[idx].to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _zero(device, dtype) -> torch.Tensor:
+    return torch.zeros(1, device=device, dtype=dtype)
+
+
+def pack_eval_conv(segments, bias, dtype, main: Optional[int] = None) -> dict:
+    """One eval conv launch's operands: ``segments`` are the OIHW weights of
+    its K-segments (f32; the packed weight rounds them to ``dtype``),
+    ``bias`` the f32 bias or None, ``main`` the leading segments that the
+    plain version sums as one conv before the bias (default all; the rest,
+    a shortcut, is added after); the weights are kept for the plain
+    version."""
+    cout = segments[0].shape[0]
+    nt = eval_nt(cout)
+    w = eval_conv_weight(segments, nt, dtype)
+    return {"w": w, "nt": nt, "steps": w.shape[0], "cout": cout,
+            "segs": tuple((s.shape[1], s.shape[2]) for s in segments),
+            "bias": None if bias is None else bias.float().contiguous(),
+            "main": len(segments) if main is None else main, "oihw": tuple(segments)}
+
+
+def eval_conv_reference(sources, weights, bias=None, main: Optional[int] = None, res=None):
+    """One launch of the eval conv core in plain PyTorch: NHWC ``sources``
+    with their OIHW ``weights`` (3×3 zero-padded at the border, or 1×1),
+    the first ``main`` (default all) summed as one conv in f32 [+ bias],
+    the rest added after; then ReLU, or with ``res = (r, a, b)`` the
+    residual ``relu(r·a + b + acc)``; one rounding to the sources' dtype.
+    The kernels' plain versions (:func:`fused_stage_reference`,
+    ``stage_kernel_bneck.fused_bneck_reference``,
+    ``stage_kernel_train.train_tail_reference``) are compositions of it."""
+    dtype = sources[0].dtype
+    main = len(sources) if main is None else main
+
+    def conv(xs, ws):
+        return conv2d_nhwc(tuple(x.float() for x in xs), torch.cat(list(ws), 1),
+                           padding=ws[0].shape[-1] // 2)
+
+    acc = conv(sources[:main], weights[:main])
+    if bias is not None:
+        acc = acc + bias
+    if main < len(sources):
+        acc = acc + conv(sources[main:], weights[main:])
+    if res is None:
+        return torch.relu(acc).to(dtype)
+    r, a, b = res
+    return torch.relu(r.float() * a.float() + b.float() + acc).to(dtype)
+
+
+def conv_args(sources, conv: dict) -> tuple:
+    """The K-segment arguments of the eval conv core's C entry points:
+    (count, pointers, channels, kernel sizes), after checking the sources
+    against the packed operands."""
+    segs = tuple((s.shape[-1], k) for s, (_, k) in zip(sources, conv["segs"]))
+    if len(sources) != len(conv["segs"]) or segs != conv["segs"]:
+        raise ValueError(f"the conv's weights are packed for {conv['segs']}, got sources of "
+                         f"{[tuple(s.shape) for s in sources]}")
+    n = len(sources)
+    return (n, (ctypes.c_void_p * n)(*(s.data_ptr() for s in sources)),
+            (ctypes.c_int * n)(*(c for c, _ in segs)), (ctypes.c_int * n)(*(k for _, k in segs)))
+
+
+def eval_conv(sources, conv: dict) -> torch.Tensor:
+    """One launch of the eval conv core (bias + ReLU epilogue) on CUDA
+    tensors: ``sources`` NHWC bf16 of one N×H×W, ``conv`` from
+    :func:`pack_eval_conv` on their device. Returns the NHWC bf16 output;
+    counts the launch in ``conv_launches``."""
+    global conv_launches
+    x0 = sources[0]
+    n, h, w = x0.shape[:3]
+    if x0.device.type != "cuda" or any(
+            s.dtype != torch.bfloat16 or s.device != x0.device or tuple(s.shape[:3]) != (n, h, w)
+            or not s.is_contiguous() for s in sources):
+        raise ValueError("eval_conv takes contiguous bf16 NHWC CUDA tensors of one N×H×W")
+    out = torch.empty((n, h, w, conv["cout"]), dtype=x0.dtype, device=x0.device)
+    with torch.cuda.device(x0.device):
+        _check(_lib().ssu_eval_conv(*conv_args(sources, conv), conv["nt"], _ptr(conv["w"]),
+                                    conv["steps"], _ptr(conv["bias"]), _ptr(out), n, h, w,
+                                    conv["cout"], torch.cuda.current_stream(x0.device).cuda_stream),
+               "conv")
+    conv_launches += 1
+    return out
 
 
 def split_in(w: torch.Tensor, part_channels):
@@ -282,15 +429,13 @@ def pack_stage(part_channels, block_params, spade_params, head, dtype) -> dict:
     the weights alone, so a caller whose weights are fixed (eval) makes it
     once and hands it to :func:`fused_eval_stage` as ``packed``."""
     w1, (s1, t1), w2, (s2, t2), ws = block_params
-    w1f = w1.float() * s1.float()[:, None, None, None]
-    w2f = w2.float() * s2.float()[:, None, None, None]
+    w1f = _q(w1.float() * s1.float()[:, None, None, None], dtype)
+    w2f = _q(w2.float() * s2.float()[:, None, None, None], dtype)
+    short = [] if ws is None else split_in(_q(ws, dtype), part_channels)
     packed = {
         "channels": tuple(part_channels), "dtype": dtype, "shortcut": ws is not None,
-        "k1": _gemm_weight(split_in(w1f, part_channels), dtype),
-        "b1": _q(t1, dtype).contiguous(),
-        "k2": _gemm_weight([w2f] + ([] if ws is None
-                                    else split_in(ws.float(), part_channels)), dtype),
-        "b2": _q(t2, dtype).contiguous(),
+        "conv1": pack_eval_conv(split_in(w1f, part_channels), _q(t1, dtype), dtype),
+        "conv2": pack_eval_conv([w2f] + short, _q(t2, dtype), dtype, main=1),
     }
     packed.update(pack_spade(spade_params, head, dtype))
     return packed
@@ -300,9 +445,8 @@ def pack_stage(part_channels, block_params, spade_params, head, dtype) -> dict:
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssu_conv_bn_relu.argtypes = [p, i, i, p, i, i, p, i, i, p, i, p, p,
-                                     i, i, i, i, p]
-    lib.ssu_conv_bn_relu.restype = i
+    lib.ssu_eval_conv.argtypes = [i, p, p, p, i, p, i, p, p, i, i, i, i, p]
+    lib.ssu_eval_conv.restype = i
     lib.ssu_spade_tail.argtypes = [p, i, i, i, i, p, p, i, p, p, i, p, p,
                                    p, p, i, p, p]
     lib.ssu_spade_tail.restype = i
@@ -318,12 +462,21 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def packed_tensors(pk: dict):
+    """The tensors of a packed stage, the convs' operands included."""
+    for v in pk.values():
+        if isinstance(v, dict):
+            yield from packed_tensors(v)
+        elif isinstance(v, torch.Tensor):
+            yield v
+
+
 def _run_cuda(parts: Tuple[torch.Tensor, ...], pk: dict) -> torch.Tensor:
     global launches
     x0 = parts[0]
     dev, dtype = x0.device, x0.dtype
     n, h, w = x0.shape[:3]
-    c = pk["k2"].shape[0]
+    c = pk["conv2"]["cout"]
     lab, nh, ncls = tail_widths(pk)
     if dtype != torch.bfloat16:
         raise TypeError(f"the CUDA fused stage takes bfloat16 tensors, got {dtype}")
@@ -332,31 +485,14 @@ def _run_cuda(parts: Tuple[torch.Tensor, ...], pk: dict) -> torch.Tensor:
     if pk["channels"] != tuple(p.shape[-1] for p in parts) or pk["dtype"] != dtype:
         raise ValueError(f"packed operands are for parts of {pk['channels']} channels "
                          f"in {pk['dtype']}, got {[tuple(p.shape) for p in parts]} {dtype}")
-    for t in pk.values():
-        if isinstance(t, torch.Tensor) and t.device != dev:
-            raise ValueError("stage weights must lie on the parts' device")
-    lib = _lib()
+    if any(t.device != dev for t in packed_tensors(pk)):
+        raise ValueError("stage weights must lie on the parts' device")
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        h1 = torch.empty((n, h, w, c), dtype=dtype, device=dev)
-        src = [(p.data_ptr(), p.shape[-1], 3) for p in parts]
-        src += [(None, 0, 0)] * (3 - len(src))
-        _check(lib.ssu_conv_bn_relu(*[v for s in src for v in s],
-                                    _ptr(pk["k1"]), pk["k1"].shape[1],
-                                    _ptr(pk["b1"]), _ptr(h1), n, h, w, c,
-                                    stream), "conv1")
-        y = torch.empty_like(h1)
-        src = [(h1.data_ptr(), c, 3)]
-        if pk["shortcut"]:
-            src += [(p.data_ptr(), p.shape[-1], 1) for p in parts]
-        src += [(None, 0, 0)] * (3 - len(src))
-        _check(lib.ssu_conv_bn_relu(*[v for s in src for v in s],
-                                    _ptr(pk["k2"]), pk["k2"].shape[1],
-                                    _ptr(pk["b2"]), _ptr(y), n, h, w, c,
-                                    stream), "conv2")
+        h1 = eval_conv(parts, pk["conv1"])
+        y = eval_conv((h1,) + (parts if pk["shortcut"] else ()), pk["conv2"])
         out = torch.empty((n, h, w, ncls or c), dtype=dtype, device=dev)
-        _check(lib.ssu_spade_tail(_ptr(y), n, h, w, c, *tail_args(pk), _ptr(out), stream),
-               "SPADE tail")
+        _check(_lib().ssu_spade_tail(_ptr(y), n, h, w, c, *tail_args(pk), _ptr(out),
+                                     torch.cuda.current_stream(dev).cuda_stream), "SPADE tail")
     launches += 1
     return out
 

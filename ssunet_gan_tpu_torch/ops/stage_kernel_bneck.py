@@ -19,14 +19,16 @@ x itself (the parts' concatenation; then ``ts = 0``).
 What bounds it on the H100: only conv2 sits above the bf16 ridge point;
 the 1×1 convs are bound by the bytes of their inputs and outputs, so at
 64-256 planes the stage is bound by the activations it moves. The kernel
-(``csrc/bneck_stage.cu``) runs the three convs as the shared implicit GEMM
-on ``mma.sync`` bf16 tensor cores with f32 sums, a 1×1 conv being a
-K-segment of one tap; conv3 and the shortcut are K-segments of one GEMM, so
-they share one accumulator and one rounding. Four launches from one host
-call; h1, h2 and y go through device memory, the tail's seg, act and γ|β
-stay on chip. The TPU devices (W-minor layout, lane packing, band heights
-and their probe cache, halo carry, stacked seg dots, lookahead grids,
-upsample-on-read) answer the TPU's constraints and are not ported.
+(``csrc/bneck_stage.cu``) runs the three convs on the eval conv core of
+``csrc/eval_conv.cuh`` (``wgmma`` over a spatial tile with every output
+channel; the 1×1 launches load no halo, so each input pixel is read once
+and each output written once), a 1×1 conv being a K-segment of one tap;
+conv3 and the shortcut are K-segments of one sum, so they share one
+accumulator and one rounding. Four launches from one host call; h1, h2
+and y go through device memory, the tail's seg, act and γ|β stay on chip.
+The TPU devices (W-minor layout, lane packing, band heights and their probe
+cache, halo carry, stacked seg dots, lookahead grids, upsample-on-read)
+answer the TPU's constraints and are not ported.
 
 Numerics match the TPU kernel: the BN scales are folded into the weights
 in f32, then weights and biases are rounded to the activation dtype;
@@ -55,10 +57,11 @@ from ssunet_gan_tpu_torch.ops.stage_kernel import (
     TAIL_MAX_CLS,
     TAIL_MAX_HIDDEN,
     TAIL_MAX_LAB,
-    _gemm_weight,
     _ptr,
     _q,
+    pack_eval_conv,
     pack_spade,
+    packed_tensors,
     spade_tail_reference,
     split_in,
     tail_args,
@@ -149,11 +152,12 @@ def fused_bneck_reference(parts, block_params, spade_params, head=None):
 
 def pack_stage_bneck(part_channels, block_params, spade_params, head, dtype) -> dict:
     """Fold BN into the weights and lay every operand out for the kernel:
-    ``k1`` [planes][Σ pad32(part)], ``k2`` [planes][9·planes], ``k3``
-    [planes][planes + Σ pad32(part)] — conv3's columns, then the
-    shortcut's, or a unit matrix for the identity (exact in bf16) — and the
-    f32 biases. The result depends on the weights alone, so a caller whose
-    weights are fixed (eval) makes it once and hands it to
+    the three convs' operands (``ops/stage_kernel.py`` ``pack_eval_conv``):
+    ``conv1`` over the parts, ``conv2`` over h1, ``conv3`` over h2 then the
+    parts through the shortcut's weight or, for the identity, a unit matrix
+    (exact in bf16); each with its f32 bias (``t3 + ts`` summed in f32 and
+    rounded once). The result depends on the weights alone, so a caller
+    whose weights are fixed (eval) makes it once and hands it to
     :func:`fused_eval_stage_bneck` as ``packed``."""
     part_channels = tuple(part_channels)
     k1, k2, k3, ks, b1, b2, b3 = _folded(block_params, dtype)
@@ -164,12 +168,9 @@ def pack_stage_bneck(part_channels, block_params, spade_params, head, dtype) -> 
         ks = torch.eye(planes, dtype=k3.dtype, device=k3.device)[:, :, None, None]
     packed = {
         "channels": part_channels, "dtype": dtype,
-        "k1": _gemm_weight(split_in(k1, part_channels), dtype),
-        "b1": b1.contiguous(),
-        "k2": _gemm_weight([k2], dtype),
-        "b2": b2.contiguous(),
-        "k3": _gemm_weight([k3] + split_in(ks, part_channels), dtype),
-        "b3": b3.contiguous(),
+        "conv1": pack_eval_conv(split_in(k1, part_channels), b1, dtype),
+        "conv2": pack_eval_conv([k2], b2, dtype),
+        "conv3": pack_eval_conv([k3] + split_in(ks, part_channels), b3, dtype, main=1),
     }
     packed.update(pack_spade(spade_params, head, dtype))
     return packed
@@ -179,7 +180,7 @@ def pack_stage_bneck(part_channels, block_params, spade_params, head, dtype) -> 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssu_bneck_stage.argtypes = [p, i, p, i, i, i, i, i, p, i, p, p, i, p, p, i, p,
+    lib.ssu_bneck_stage.argtypes = [p, i, p, i, i, i, i, i, i, p, i, p, p, i, p, p, i, p,
                                     p, p, p, p, p, i, p, p, i, p, p, p, p, i, p, p]
     lib.ssu_bneck_stage.restype = i
     return lib
@@ -190,7 +191,7 @@ def _run_cuda(parts: Tuple[torch.Tensor, ...], pk: dict) -> torch.Tensor:
     x0 = parts[0]
     dev, dtype = x0.device, x0.dtype
     n, h, w = x0.shape[:3]
-    c = pk["k2"].shape[0]
+    c = pk["conv2"]["cout"]
     lab, nh, ncls = tail_widths(pk)
     if not bneck_supported(parts, c, lab, nh, ncls):
         raise ValueError(
@@ -204,18 +205,18 @@ def _run_cuda(parts: Tuple[torch.Tensor, ...], pk: dict) -> torch.Tensor:
     if pk["channels"] != tuple(p.shape[-1] for p in parts) or pk["dtype"] != dtype:
         raise ValueError(f"packed operands are for parts of {pk['channels']} channels "
                          f"in {pk['dtype']}, got {[tuple(p.shape) for p in parts]} {dtype}")
-    for t in pk.values():
-        if isinstance(t, torch.Tensor) and t.device != dev:
-            raise ValueError("stage weights must lie on the parts' device")
+    if any(t.device != dev for t in packed_tensors(pk)):
+        raise ValueError("stage weights must lie on the parts' device")
     x1 = parts[1] if len(parts) > 1 else None
     with torch.cuda.device(dev):
         h1, h2, y = (torch.empty((n, h, w, c), dtype=dtype, device=dev) for _ in range(3))
         out = torch.empty((n, h, w, ncls or c), dtype=dtype, device=dev)
         err = _lib().ssu_bneck_stage(
             x0.data_ptr(), x0.shape[-1], _ptr(x1), 0 if x1 is None else x1.shape[-1],
-            n, h, w, c, _ptr(pk["k1"]), pk["k1"].shape[1], _ptr(pk["b1"]),
-            _ptr(pk["k2"]), pk["k2"].shape[1], _ptr(pk["b2"]),
-            _ptr(pk["k3"]), pk["k3"].shape[1], _ptr(pk["b3"]),
+            n, h, w, c, pk["conv2"]["nt"], _ptr(pk["conv1"]["w"]), pk["conv1"]["steps"],
+            _ptr(pk["conv1"]["bias"]), _ptr(pk["conv2"]["w"]), pk["conv2"]["steps"],
+            _ptr(pk["conv2"]["bias"]), _ptr(pk["conv3"]["w"]), pk["conv3"]["steps"],
+            _ptr(pk["conv3"]["bias"]),
             _ptr(h1), _ptr(h2), _ptr(y), *tail_args(pk), _ptr(out),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

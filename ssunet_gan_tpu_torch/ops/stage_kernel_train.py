@@ -22,11 +22,13 @@ spatial tiles with each input value brought into shared memory once per
 block through ``cp.async`` and the taps read as shifted ``ldmatrix`` views
 (one or two parts as K-segments; the prologue applied once per window
 value), the weight gradient as a GEMM over the pixels with f64 sums.
-:func:`train_tail` is ``csrc/train_stage.cu`` (the residual conv of
-``csrc/stage_common.cuh`` and the SPADE tail). What bounds them, and the
-designs, are in the sources' headers. On the TPU the shape envelopes of
-``_wgrad_w`` and ``_convT_w`` send some products to XLA (VMEM limits); on
-the card every such product of the stage goes through the kernels.
+:func:`train_tail` is ``csrc/train_stage.cu``: the residual conv on the
+eval conv core of ``csrc/eval_conv.cuh`` (``ops/stage_kernel.py``
+``pack_eval_conv`` packs its weight at every call), then the SPADE tail.
+What bounds them, and the designs, are in the sources' headers. On the TPU
+the shape envelopes of ``_wgrad_w`` and ``_convT_w`` send some products to
+XLA (VMEM limits); on the card every such product of the stage goes
+through the kernels.
 
 :func:`fused_train_stage` is the stage: forward K1 → stats → K2 with the
 BN1 affine+ReLU prologue → stats → K3, returning the output and the two
@@ -59,9 +61,10 @@ from ssunet_gan_tpu_torch.ops.stage_kernel import (
     TAIL_MAX_CLS,
     TAIL_MAX_HIDDEN,
     TAIL_MAX_LAB,
-    _gemm_weight,
     _q,
     _refused,
+    conv_args,
+    pack_eval_conv,
     pack_spade,
     spade_tail_reference,
     split_in,
@@ -181,7 +184,7 @@ def wgrad_reference(parts, g, prologue=None):
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssu_conv_res.argtypes = [p, i, p, i, p, i, p, i, p, p, p, p, i, i, i, i, p]
+    lib.ssu_conv_res.argtypes = [i, p, p, i, p, i, p, p, p, p, i, i, i, i, p]
     lib.ssu_conv_res.restype = i
     lib.ssu_spade_tail_train.argtypes = [p, i, i, i, i, p, p, i, p, p, i, p, p, p,
                                          p, i, p, p, p, p]
@@ -252,13 +255,13 @@ def _tail_cuda(f2, parts, a2, b2, ws, spade_params, head):
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        wst = _gemm_weight(split_in(ws, channels), dtype)
+        conv = pack_eval_conv(split_in(ws.float(), channels), None, dtype)
         a2f, b2f = _vec(a2), _vec(b2)
         y = torch.empty_like(f2)
-        src = [v for p in parts for v in (p.data_ptr(), p.shape[-1])]
-        src += [None, 0] * (3 - len(parts))
-        _check(lib.ssu_conv_res(*src, _ptr(wst), wst.shape[1], _ptr(f2), _ptr(a2f),
-                                _ptr(b2f), _ptr(y), n, h, w, c, stream), "train tail y")
+        nseg, ptrs, chans, _ = conv_args(parts, conv)  # all 1x1
+        _check(lib.ssu_conv_res(nseg, ptrs, chans, conv["nt"], _ptr(conv["w"]),
+                                conv["steps"], _ptr(f2), _ptr(a2f), _ptr(b2f), _ptr(y), n, h, w,
+                                c, stream), "train tail y")
         pk = pack_spade(spade_params, head, dtype)
         out = torch.empty((n, h, w, ncls or c), dtype=dtype, device=dev)
         seg = torch.empty((n, h, w, lab), dtype=dtype, device=dev)

@@ -63,7 +63,7 @@ import torch.nn.functional as F
 
 from ssunet_gan_tpu_torch import _build
 from ssunet_gan_tpu_torch.ops.conv import as_parts, conv2d_nhwc
-from ssunet_gan_tpu_torch.ops.stage_kernel import _q, split_in
+from ssunet_gan_tpu_torch.ops.stage_kernel import _q, eval_chunk, split_in
 from ssunet_gan_tpu_torch.ops.stage_kernel_train import (
     BN_EPS,
     _check,
@@ -233,7 +233,7 @@ def conv3_chunk(kmode: int, channels) -> int:
     K, else 32."""
     if kmode in _K_CHAIN:
         return 32
-    return max(8 if c <= 8 else 16 if c <= 16 else 32 for c in channels)
+    return max(eval_chunk(c) for c in channels)
 
 
 def _conv3_weight(segments, dtype, cc: int) -> torch.Tensor:

@@ -42,6 +42,7 @@ from torch_port_helpers import (
     NarrowUNetBSS,
     NarrowUNetRSS,
     bneck_bundle,
+    conv_from_packed,
     jax_toggles,
     oihw,
     randomize_batch_stats,
@@ -210,27 +211,15 @@ def test_gate_and_wrapper_refusals():
                                             spade.stage_params(), None, torch.float32)
 
 
-def _im2col(x, taps, cpad=None):
-    """NHWC → (N, H, W, taps·C'): tap-major (dy, dx) row-major, then channel,
-    channels zero-padded to ``cpad`` — the kernel's K order."""
-    n, h, w, c = x.shape
-    if cpad:
-        x = torch.nn.functional.pad(x, (0, cpad - c))
-    if taps == 1:
-        return x
-    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
-    return torch.cat([xp[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)], -1)
-
-
 @pytest.mark.parametrize("chans,ncls",
                          [((3,), 0), ((8, 40), 0), ((32,), 0), ((8, 24), 0), ((8, 40), 3)],
                          ids=["rgb", "two-parts", "identity", "identity-two-parts", "head"])
 def test_pack_stage_bneck_layout_is_the_kernels_gemm(chans, ncls):
     """The CUDA path's operands from ``pack_stage_bneck`` (f32, so exact),
-    used as the kernel uses them — the three convs as GEMMs over padded K
-    segments, conv3 and the shortcut (or the identity's unit matrix) in one
-    product — reproduce the plain stage; f32 tolerance 1e-4 for the
-    different summation order."""
+    used as the kernels use them — the three convs walked in the eval conv
+    core's K order (``conv_from_packed``), conv3 and the shortcut (or the
+    identity's unit matrix) in one sum — reproduce the plain stage; f32
+    tolerance 1e-4 for the different summation order."""
     gen = torch.Generator().manual_seed(0)
     planes, labels = 32, 3
     block = Bottleneck(sum(chans), planes, generator=gen).eval()
@@ -248,13 +237,12 @@ def test_pack_stage_bneck_layout_is_the_kernels_gemm(chans, ncls):
     bp, sp = block.stage_params(), spade.stage_params()
     with torch.no_grad():
         pk = stage_kernel_bneck.pack_stage_bneck(chans, bp, sp, head, torch.float32)
-        pad32 = lambda c: -(-c // 32) * 32
-        xcat = torch.cat([_im2col(p, 1, pad32(p.shape[-1])) for p in parts], -1)
-        assert pk["k1"].shape == (planes, xcat.shape[-1])
-        assert pk["k3"].shape == (planes, planes + xcat.shape[-1])
-        h1 = torch.relu(xcat @ pk["k1"].t() + pk["b1"])
-        h2 = torch.relu(_im2col(h1, 9) @ pk["k2"].t() + pk["b2"])
-        y = torch.relu(torch.cat([h2, xcat], -1) @ pk["k3"].t() + pk["b3"])
+        c1, c2, c3 = pk["conv1"], pk["conv2"], pk["conv3"]
+        assert c1["segs"] == tuple((c, 1) for c in chans) and c2["segs"] == ((planes, 3),)
+        assert c3["segs"] == ((planes, 1),) + c1["segs"]
+        h1 = torch.relu(conv_from_packed(parts, c1) + c1["bias"])
+        h2 = torch.relu(conv_from_packed((h1,), c2) + c2["bias"])
+        y = torch.relu(conv_from_packed((h2,) + parts, c3) + c3["bias"])
         out = tail_from_packed(y, pk)  # the tail's operands in its kernel's K orders
         want = stage_kernel_bneck.fused_bneck_reference(parts, bp, sp, head)
         composed = spade(block(parts), block(parts))
@@ -371,7 +359,7 @@ def test_stage_operands_follow_the_bottleneck_weights():
     with torch.no_grad():
         first = model(x)
         kept = model.conv1_0._fused_operands  # an identity-shortcut stage (8 → 8)
-        assert model.conv1_0.shortcut is None and "k3" in kept[4]
+        assert model.conv1_0.shortcut is None and "conv3" in kept[4]
         assert torch.equal(model(x), first)
         assert model.conv1_0._fused_operands is kept
         model.load_state_dict(other.state_dict())

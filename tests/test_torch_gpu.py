@@ -81,6 +81,81 @@ def test_fused_stage_kernel_matches_plain(chans, planes, labels, nhw, ncls):
     assert ok, errs
 
 
+# The eval conv core (csrc/eval_conv.cuh), one launch against its plain
+# version: (source channels, kernel sizes, cout, segments summed before the
+# bias, identity shortcut over the 1x1 segments after the first)
+EVAL_CONV_CASES = {
+    "3x3-rgb": ((3,), (3,), 64, None, False),
+    "3x3-64": ((64,), (3,), 128, None, False),
+    "3x3-two-unequal-parts": ((128, 256), (3, 3), 128, None, False),
+    "3x3-and-1x1-shortcut": ((256, 128, 256), (3, 1, 1), 256, 1, False),
+    "1x1-and-identity": ((64, 32, 32), (1, 1, 1), 64, 1, True),
+    "1x1-two-parts": ((256, 512), (1, 1), 256, None, False),
+    "planes-32": ((32,), (3,), 32, None, False),
+    "planes-96": ((96, 48), (3, 1), 96, 1, False),
+    "planes-192": ((16, 64), (3, 3), 192, None, False),
+    # narrow sources over many tiles: a k16 step's padded half must not read
+    # past the window (uninitialized shared memory times a zero weight can
+    # be a NaN)
+    "3x3-rgb-many-tiles": ((3,), (3,), 64, None, False, (2, 128, 96)),
+    "1x1-rgb-many-tiles": ((3, 8), (1, 1), 256, None, False, (2, 64, 96)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(EVAL_CONV_CASES))
+def test_eval_conv_kernel_matches_plain(name):
+    from ssunet_gan_tpu_torch.ops.stage_kernel import split_in
+
+    dev = _card()
+    chans, ks, cout, main, identity, *nhw = EVAL_CONV_CASES[name]
+    gen = torch.Generator().manual_seed(5)
+    n, h, w = nhw[0] if nhw else (3, 9, 13)
+    sources = tuple(torch.randn((n, h, w, c), generator=gen).to(dev, torch.bfloat16)
+                    for c in chans)
+    weights = [(torch.randn((cout, c, k, k), generator=gen) / (c * k * k) ** 0.5).bfloat16()
+               .float().to(dev) for c, k in zip(chans, ks)]
+    if identity:
+        weights[1:] = split_in(torch.eye(cout, device=dev)[:, :, None, None], chans[1:])
+    bias = (torch.randn(cout, generator=gen) * 0.1).bfloat16().float().to(dev)
+    conv = stage_kernel.pack_eval_conv(weights, bias, torch.bfloat16, main)
+    before = stage_kernel.conv_launches
+    got = stage_kernel.eval_conv(sources, conv)
+    torch.cuda.synchronize()
+    assert stage_kernel.conv_launches == before + 1
+    want = stage_kernel.eval_conv_reference(sources, weights, bias, main)
+    assert got.shape == want.shape == (n, h, w, cout)
+    errs, ok = _close(got, want)
+    assert ok, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chans,planes", [((3,), 64), ((128, 256), 128), ((96,), 256),
+                                          ((16, 48), 32)])
+def test_eval_conv_residual_matches_plain(chans, planes):
+    """The residual epilogue (the train tail's y) on the eval conv core."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+    from ssunet_gan_tpu_torch.ops.stage_kernel import _q, split_in
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(6)
+    n, h, w = 3, 9, 13
+    parts = tuple(_bf16(gen, (n, h, w, c), dev) for c in chans)
+    f2 = _bf16(gen, (n, h, w, planes), dev)
+    a2 = (torch.rand(planes, generator=gen) + 0.5).to(dev)
+    b2 = (torch.randn(planes, generator=gen) * 0.3).to(dev)
+    ws = (torch.randn((planes, sum(chans), 1, 1), generator=gen) * 0.1).to(dev)
+    sp = SPADE("spadebatch3x3", planes, 3, planes / 16, generator=gen).to(dev).stage_params()
+    before = tst.launches["train_tail"]
+    y = tst.train_tail(f2, parts, a2, b2, ws, sp)[1]
+    torch.cuda.synchronize()
+    assert tst.launches["train_tail"] == before + 1
+    want = stage_kernel.eval_conv_reference(parts, split_in(_q(ws, torch.bfloat16), chans),
+                                            res=(f2, a2, b2))
+    errs, ok = _close(y, want)
+    assert ok, errs
+
+
 @pytest.mark.gpu
 def test_fused_stage_kernel_refuses_float32():
     dev = _card()

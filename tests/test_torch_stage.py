@@ -18,7 +18,14 @@ from ssunet_gan_tpu.ops.blocks import BasicBlock as JBasicBlock
 from ssunet_gan_tpu.ops.spade import SPADE as JSPADE
 from ssunet_gan_tpu.ops.stage_kernel import fused_eval_stage as jax_fused_eval_stage
 from ssunet_gan_tpu_torch.ops import stage_kernel
-from torch_port_helpers import jax_toggles, oihw, randomize_batch_stats, tail_from_packed, vec
+from torch_port_helpers import (
+    conv_from_packed,
+    jax_toggles,
+    oihw,
+    randomize_batch_stats,
+    tail_from_packed,
+    vec,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -106,25 +113,13 @@ def test_cuda_wrapper_refuses_unsupported_device():
         stage_kernel.fused_eval_stage((x,), None, None)
 
 
-def _im2col(x, taps, cpad=None):
-    """NHWC → (N, H, W, taps·C'): tap-major (dy, dx) row-major, then channel,
-    channels zero-padded to ``cpad`` — the kernel's K order."""
-    n, h, w, c = x.shape
-    if cpad:
-        x = torch.nn.functional.pad(x, (0, cpad - c))
-    if taps == 1:
-        return x
-    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
-    cols = [xp[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)]
-    return torch.cat(cols, -1)
-
-
 @pytest.mark.parametrize("chans,ncls", [((3,), 0), ((8, 40), 0), ((8, 40), 3)])
 def test_pack_stage_layout_is_the_kernels_gemm(chans, ncls):
     """The CUDA path's operands from ``pack_stage`` (f32, so exact), used as
-    the kernel uses them — conv1/conv2 as im2col GEMMs over padded K
-    segments, the SPADE tail's convs tap by tap — reproduce the plain
-    stage; f32 tolerance 1e-4 for the different summation order."""
+    the kernels use them — conv1/conv2 walked in the eval conv core's K
+    order (``conv_from_packed``), the SPADE tail's convs tap by tap —
+    reproduce the plain stage; f32 tolerance 1e-4 for the different
+    summation order."""
     from ssunet_gan_tpu_torch.ops.blocks import BasicBlock
     from ssunet_gan_tpu_torch.ops.spade import SPADE
 
@@ -144,12 +139,11 @@ def test_pack_stage_layout_is_the_kernels_gemm(chans, ncls):
     with torch.no_grad():
         pk = stage_kernel.pack_stage(chans, bp, sp, head, torch.float32)
         assert pk["channels"] == chans and pk["shortcut"]
-        pad32 = lambda c: -(-c // 32) * 32
-        a1 = torch.cat([_im2col(p, 9, pad32(p.shape[-1])) for p in parts], -1)
-        h1 = torch.relu(a1 @ pk["k1"].t() + pk["b1"])
-        a2 = torch.cat([_im2col(h1, 9, pad32(planes))]
-                       + [_im2col(p, 1, pad32(p.shape[-1])) for p in parts], -1)
-        y = torch.relu(a2 @ pk["k2"].t() + pk["b2"])
+        c1, c2 = pk["conv1"], pk["conv2"]
+        assert c1["segs"] == tuple((c, 3) for c in chans)
+        assert c2["segs"] == ((planes, 3),) + tuple((c, 1) for c in chans)
+        h1 = torch.relu(conv_from_packed(parts, c1) + c1["bias"])
+        y = torch.relu(conv_from_packed((h1,) + parts, c2) + c2["bias"])
         out = tail_from_packed(y, pk)  # the tail's operands in its kernel's K orders
         want = stage_kernel.fused_stage_reference(parts, bp, sp, head)
     assert out.shape == want.shape == (2, 6, 7, ncls or planes)

@@ -305,3 +305,40 @@ def tail_from_packed(y: torch.Tensor, pk: dict) -> torch.Tensor:
         assert kft.shape == (max(8, ncls), c) and not kft[ncls:].any()
         out = out @ kft[:ncls].t() + pk["bf"]
     return out
+
+
+def conv_from_packed(sources, conv: dict) -> torch.Tensor:
+    """The eval conv core's sum (before its bias and epilogue) from the
+    packed weight of ``pack_eval_conv``, walked in the kernel's K order
+    (csrc/eval_conv.cuh), in f32: per K-segment, per chunk of
+    ``eval_chunk`` channels, per k16 step and k8 half, the (tap, 8-channel
+    group) pair's shifted input values (zero ring for a 3×3 segment)
+    against that half's core matrices [N/8][8][8]. A pair past the chunk's
+    last reads the centre tap's first group, as the kernel does, so a
+    nonzero padding weight shows. Output channels past ``cout`` must be 0."""
+    import torch.nn.functional as F
+
+    from ssunet_gan_tpu_torch.ops.stage_kernel import eval_chunk
+
+    w, nt = conv["w"].float(), conv["nt"]
+    assert w.shape[1:] == (nt // 8, 2, 8, 8)
+    n, h, wd = sources[0].shape[:3]
+    acc = torch.zeros((n, h, wd, nt))
+    step = 0
+    for x, (c, k) in zip(sources, conv["segs"]):
+        assert x.shape[-1] == c
+        cc, taps = eval_chunk(c), k * k
+        ngrp, nch = cc // 8, -(-c // cc)
+        xp = F.pad(x.float(), (0, nch * cc - c) + ((1, 1, 1, 1) if k == 3 else ()))
+        for ch in range(nch):
+            for s in range((taps * ngrp + 1) // 2):
+                for half in range(2):
+                    q = 2 * s + half
+                    tap, grp = divmod(q, ngrp) if q < taps * ngrp else (taps // 2, 0)
+                    dy, dx = divmod(tap, 3) if k == 3 else (0, 0)
+                    c0 = ch * cc + grp * 8
+                    acc += xp[:, dy:dy + h, dx:dx + wd, c0:c0 + 8] @ w[step, :, half].reshape(nt, 8).t()
+                step += 1
+    assert step == w.shape[0] == conv["steps"]
+    assert not acc[..., conv["cout"]:].any()  # the padded N rows are zero
+    return acc[..., :conv["cout"]]
