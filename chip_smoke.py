@@ -6,7 +6,11 @@
 Phases, each of which exits non-zero on failure:
 
 0. Identify the card (name and power limit from nvidia-smi, torch and CUDA
-   versions) and build the CUDA kernels from ssunet_gan_tpu_torch/csrc/.
+   versions) and build the CUDA kernels from ssunet_gan_tpu_torch/csrc/
+   (one nvcc per source, all at once); count the wgmma instructions of each
+   conv core instantiation in SASS (HGMMA in the eval conv core, IGMMA in
+   the s8 conv core) and print every kernel's ptxas registers and spills,
+   failing on a spill in the s8 conv core.
 1. Kernel check: the fused eval stage on the card against its plain
    PyTorch version for the flagship's six fused-stage signatures at 512²,
    bf16, batch 2, seeded weights; then again with the model's own weights
@@ -82,7 +86,13 @@ Phases, each of which exits non-zero on failure:
    bf16's distances beside them; each int8 stage on the inputs those
    forwards gave it (the model's weights; the scene chunk's batch 32, and
    the tile forward's batch 8) against its plain version, and at batch 8
-   timed against it and its bound.
+   timed against it and its bound; then each bf16 input's one-pass
+   quantization and each conv launch of the six stages (launches A and B
+   of the s8 conv core) alone on the stage's own inputs against its
+   per-launch plain version by ``torch.equal``, timed beside its bound and
+   ``torch._int_mm`` over the materialized tap operand (``quant:`` and
+   ``s8 conv:`` lines, and their sums per forward). The main path counts
+   its s8 conv core launches (two per stage) and quantization passes.
 
 9. Bottleneck stages (phases 9 and 10 run after phase 8): the fused
    bottleneck stage on the card against its plain version for UNet_B_SS's
@@ -115,7 +125,8 @@ Phases, each of which exits non-zero on failure:
 Each path's profile also gives a ``tail:`` line: the shared SPADE tail
 kernel's time and launches per forward or step beside its bound; the
 flagship and UNet_B_SS forwards and the flagship train step a ``conv
-profile:`` line: the eval conv core's time and launches.
+profile:`` line: the eval conv core's time and launches; the int8 forward
+an ``s8 conv profile:`` and a ``quant profile:`` line.
 
 Each phase prints its wall time. Prints a ``kernels`` JSON line (launches on the main paths — phases 2 and
 3 for the eval kernel, phase 8 for the int8 eval kernel, phase 6 for the
@@ -450,9 +461,10 @@ def tail_line(path, per, rows, calls) -> None:
                                    bound_by=kind)))
 
 
-def hgmma_counts(lib: str) -> dict:
-    """HGMMA instructions (wgmma in SASS) per eval conv core instantiation
-    of a built library, from ``cuobjdump -sass`` beside nvcc; None when the
+def hgmma_counts(lib: str, core: str = "eval_conv_core", op: str = "HGMMA") -> dict:
+    """wgmma instructions in SASS (``op``: HGMMA for bf16, IGMMA for s8) per
+    instantiation of a conv core (the eval conv core, or ``s8_conv_core``)
+    in a built library, from ``cuobjdump -sass`` beside nvcc; None when the
     toolkit has no cuobjdump."""
     from ssunet_gan_tpu_torch import _build
 
@@ -463,19 +475,35 @@ def hgmma_counts(lib: str) -> dict:
     for line in subprocess.run([tool, "-sass", lib], capture_output=True, text=True).stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if "eval_conv_core" in fn:
+            if core in fn:
                 counts[fn] = 0
-        elif fn in counts and "HGMMA" in line:
+        elif fn in counts and op in line:
             counts[fn] += 1
     return counts
 
 
-def conv_profile_line(path, per, rows) -> None:
-    """A ``conv profile:`` line: the eval conv core's device time and
-    launches from a profile's rows (per forward or step)."""
-    conv = [r for r in rows if "eval_conv_core" in r[2]]
-    print("conv profile:", json.dumps(dict(path=path, per=per, ms=sum(r[0] for r in conv),
-                                           launches=sum(r[1] for r in conv))))
+def ptxas_spills(log: str, core: str) -> dict:
+    """Bytes of spill stores and loads per instantiation of a kernel, from
+    nvcc's ``-Xptxas -v`` output (each "Compiling entry function" line comes
+    before that kernel's stack and spill line)."""
+    spills, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if core in line else None
+        elif fn is not None and "spill stores" in line:
+            words = line.replace(",", "").split()
+            spills[fn] = (int(words[words.index("spill") - 2]), int(words[-4]))
+            fn = None
+    return spills
+
+
+def conv_profile_line(path, per, rows, cores=("eval_conv_core",), what="conv profile:") -> None:
+    """A ``conv profile:`` line: the device time and launches of the kernels
+    named ``cores`` from a profile's rows (per forward or step); by default
+    the eval conv core's."""
+    conv = [r for r in rows if any(c in r[2] for c in cores)]
+    print(what, json.dumps(dict(path=path, per=per, ms=sum(r[0] for r in conv),
+                                launches=sum(r[1] for r in conv))))
 
 
 def library_conv(sources, conv):
@@ -692,8 +720,10 @@ def call_cost(name, args, kwargs):
     return 2.0 * 9 * cin * cout * n * h * w, nbytes
 
 
-def bound_of(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound_of(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    """(ms, kind): the larger of the operations at ``peak`` (bf16 tensor
+    cores by default) and the bytes at HBM bandwidth."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1435,6 +1465,154 @@ def int8_stage_bound_ms(parts, planes, labels, hidden, ncls, out_bytes, weight_b
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def library_int_mm(sources, weights):
+    """``torch._int_mm`` over the materialized tap operand of s8 NHWC
+    sources and their OIHW weights (3×3 zero-padded, or 1×1), as
+    ``int_conv``'s library route builds it (K padded to a multiple of 8):
+    the GEMM alone, timed only and never called by the port."""
+    import torch.nn.functional as F
+
+    from ssunet_gan_tpu_torch.ops.stage_kernel_int8 import tap_operand
+
+    cout, k = weights[0].shape[0], weights[0].shape[-1]
+    a = tap_operand(sources, k, k // 2)
+    wmat = torch.cat([wp.permute(2, 3, 1, 0).reshape(-1, cout) for wp in weights])
+    pad = -a.shape[1] % 8
+    a = F.pad(a, (0, pad)).contiguous()
+    wmat = F.pad(wmat, (0, 0, 0, pad)).contiguous()
+    return lambda: torch._int_mm(a, wmat)
+
+
+def int8_quant_lines(model, x, check) -> int:
+    """Every one-pass quantization (``quantize_tensor``) of one int8 tile
+    forward of ``x`` on the main path (batch 8): the fused stages' bf16
+    parts and the deep s8 blocks' bf16 parts and f32 h1 (dynamic scale),
+    each on the tensor the forward gave it, held against
+    ``quantize_reference`` by ``torch.equal``, the scale included, and
+    timed beside its plain version and its bound (one read of the input and
+    one s8 write over HBM bandwidth). Prints ``quant:`` lines and their sum
+    per forward. Returns the quantizations one forward needs, counted from
+    the stages' inputs (each part that is not a QTensor, and each deep
+    block's h1), independently of ``quant_launches``."""
+    from ssunet_gan_tpu_torch.infer.api import tile_forward
+    from ssunet_gan_tpu_torch.models import ssunet
+    from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
+
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, launches=0)
+    need, stage = [0], [None]  # the quantizations the stages need; (name, kind, parts)
+    kernel, fused, deep = q8.quantize_tensor, ssunet.fused_eval_stage_int8, ssunet.int8_block
+
+    def checked(t, abs_max=None):
+        name, kind, parts = stage[0]
+        i = next((i for i, p in enumerate(parts) if p is t), None)
+        q, s = kernel(t, abs_max)
+        w_q, w_s = q8.quantize_reference(t, abs_max)
+        exact = torch.equal(q, w_q) and (torch.equal(s, w_s) if abs_max is None else s == w_s)
+        what = "h1" if i is None else f"part {i}"
+        check(exact, f"phase 8: {name} {what}: the quantization kernel differs from plain")
+        ms = cuda_ms(lambda: kernel(t, abs_max), 20)
+        plain_ms = cuda_ms(lambda: q8.quantize_reference(t, abs_max), 5)
+        bound = t.numel() * (t.element_size() + 1) / PEAK_BYTES * 1e3
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound), ("launches", 1)):
+            total[k] += v
+        print("quant:", json.dumps(dict(
+            stage=name, stage_kind=kind, input=what, shape=list(t.shape),
+            dtype=str(t.dtype).replace("torch.", ""),
+            scale="static" if abs_max is not None else "dynamic", exact=exact, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by="bytes")))
+        return q, s
+
+    def entered(name, kind, parts, extra):
+        parts = ssunet.as_parts(parts)
+        stage[0] = (name, kind, parts)
+        need[0] += sum(not isinstance(p, q8.QTensor) for p in parts) + extra
+
+    def fused_stage(parts, *a, **kw):
+        entered(kw["calib_key"], "fused", parts, 0)
+        return fused(parts, *a, **kw)
+
+    def deep_block(parts, *a, **kw):
+        entered(kw["calib_key"], "deep", parts, 1)  # and its h1
+        return deep(parts, *a, **kw)
+
+    q8.quantize_tensor, ssunet.fused_eval_stage_int8 = checked, fused_stage
+    ssunet.int8_block = deep_block
+    try:
+        tile_forward(model, x)
+    finally:
+        q8.quantize_tensor, ssunet.fused_eval_stage_int8, ssunet.int8_block = kernel, fused, deep
+    check(total["launches"] == need[0],
+          f"phase 8: one int8 forward quantized {total['launches']} inputs, its stages need "
+          f"{need[0]}")
+    print("quant:", json.dumps(dict(per="forward", **total, bound_by="bytes")))
+    return need[0]
+
+
+def int8_conv_launch_lines(stages, check):
+    """Each conv launch of the int8 stages alone on the stage's own inputs
+    (``stages``: name, parts, packed stage, calibration key; batch 8):
+    launches A and B of the s8 conv core (``s8_conv1``, ``s8_conv2``,
+    launch Q between them) against their per-launch plain versions by
+    ``torch.equal``; each timed beside its bound (s8 multiply-adds at the
+    s8 peak, or each input and the weight read and each output written
+    once over HBM bandwidth) and the library time (``torch._int_mm`` over
+    the materialized tap operand: launch B's 3×3 over q(h1) and shortcut as
+    two GEMMs). Prints ``s8 conv:`` lines and their sum per forward."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
+
+    total = dict(ms=0.0, bound_ms=0.0, library_ms=0.0, launches=0)
+    kinds = set()
+    for name, parts, pk, calib_key in stages:
+        qparts, scales, _ = q8._quantize_parts(parts, calib_key)
+        chans = tuple(q.shape[-1] for q in qparts)
+        ops = q8._scaled_operands(pk, chans, scales, qparts[0].device)
+        n, h, w = qparts[0].shape[:3]
+        m = n * h * w
+        th = q8.band_rows(h)
+        conv1, conv2 = ops["conv1"], ops["conv2"]
+        cout = conv1["cout"]
+        h1, rowmax = q8.s8_conv1(qparts, conv1, ops["d1"], pk["t1"])
+        qh1, bandscale = q8.band_quant(h1, rowmax, th)
+        y = q8.s8_conv2(qh1, bandscale, qparts, conv2, pk["d2"], ops["ds"], pk["t2"])
+        torch.cuda.synchronize()
+        w_h1, w_rowmax = q8.s8_conv1_reference(qparts, conv1, ops["d1"], pk["t1"])
+        w_y = q8.s8_conv2_reference(qh1, bandscale, qparts, conv2, pk["d2"], ops["ds"], pk["t2"])
+        qimg = qh1[:, :, 1:th + 1].reshape(n, h, w, cout)
+        qbytes = sum(q.numel() for q in qparts)
+        launches = [
+            ("A", torch.equal(h1, w_h1) and torch.equal(rowmax, w_rowmax), conv1,
+             lambda: q8.s8_conv1(qparts, conv1, ops["d1"], pk["t1"]),
+             [library_int_mm(qparts, conv1["oihw"])],
+             2.0 * m * cout * 9 * sum(chans),
+             qbytes + conv1["w"].numel() + 2 * m * cout + 4 * n * h),
+            ("B", torch.equal(y, w_y), conv2,
+             lambda: q8.s8_conv2(qh1, bandscale, qparts, conv2, pk["d2"], ops["ds"], pk["t2"]),
+             [library_int_mm(qparts, conv2["oihw"][:-1]),
+              library_int_mm((qimg,), conv2["oihw"][-1:])],
+             2.0 * m * cout * (9 * cout + sum(chans)),
+             qh1.numel() + qbytes + conv2["w"].numel() + 2 * m * cout),
+        ]
+        del w_h1, w_rowmax, w_y
+        for launch, exact, conv, run, libs, flops, nbytes in launches:
+            check(exact, f"phase 8: {name} launch {launch}: the s8 conv core differs from its "
+                  f"plain version")
+            ms = cuda_ms(run, 20)
+            lib_ms = sum(cuda_ms(f, 20) for f in libs)
+            del libs
+            bound, kind = bound_of(flops, nbytes, PEAK_S8_OPS)
+            kinds.add(kind)
+            for k, v in (("ms", ms), ("bound_ms", bound), ("library_ms", lib_ms), ("launches", 1)):
+                total[k] += v
+            print("s8 conv:", json.dumps(dict(
+                stage=name, launch=launch, shape=[n, h, w], parts=list(chans), cout=cout,
+                nt=conv["nt"], nblk=conv["nblk"], exact=exact, ms=ms, bound_ms=bound,
+                bound_by=kind, library_ms=lib_ms)))
+        del launches, h1, rowmax, qh1, bandscale, y, qimg, ops
+        torch.cuda.empty_cache()
+    print("s8 conv:", json.dumps(dict(per="forward", **total,
+                                      bound_by="operations" if "operations" in kinds else "bytes")))
+
+
 def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, config,
                        f32, bf16):
     """Phase 8. ``f32``: the f32 all-plain (logits, tile probabilities,
@@ -1462,7 +1640,7 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
     q8.set_int8_stage(True)
     try:
         # the main path: counts to 0, the tile forward, the scene request
-        q8.launches = 0
+        q8.launches = q8.conv_launches = q8.quant_launches = 0
         bf16_before = stage_kernel.launches
         warm, iters = 2, 5
         for _ in range(warm):
@@ -1487,15 +1665,30 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
         t0 = time.perf_counter()
         masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False)
         scene_s = time.perf_counter() - t0
-        launches = q8.launches
+        launches, conv_launches, quant_launches = q8.launches, q8.conv_launches, q8.quant_launches
         if launches != 6 * (warm + iters) + 12:
             fail(f"phase 8: the scene request ran {launches - 6 * (warm + iters)} int8 kernel "
                  f"stages, expected 12")
+        forwards = warm + iters + 2
+        print(f"phase 8: main path launches: {launches} int8 stages, {conv_launches} s8 conv "
+              f"core launches, {quant_launches} one-pass quantizations "
+              f"({quant_launches / forwards:g} per forward of a batch)")
+        if conv_launches != 2 * launches:
+            fail(f"phase 8: the s8 conv core ran {conv_launches} times for {launches} stages "
+                 f"(expected two each)")
         check_masks(masks, "phase 8")
         print(f"phase 8: scene 2048x2048 -> {len(masks)} masks in {scene_s:.3f} s (36 tiles, "
               f"int8) on {card}; bf16 in this run {bf16['scene_s']:.3f} s; positive share "
               f"{[round(float((m > 0).mean()), 4) for m in masks]}")
         t_phase = phase_done("phase 8 main path", t_phase)
+
+        # after the counts were read: every quantization of one more tile
+        # forward against plain, and the count the main path needed
+        need = int8_quant_lines(model, x, check)
+        if quant_launches != need * forwards:
+            fail(f"phase 8: the quantization kernel ran {quant_launches} times on the main path, "
+                 f"its stages need {need} per forward ({need * forwards} in all)")
+        t_phase = phase_done("phase 8 quantization checks", t_phase)
 
         # comparisons, after the counts were read: the same forwards with
         # every int8 stage on its plain version, and each stage's inputs kept
@@ -1549,6 +1742,7 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
         ms_sum = plain_sum = bound_sum = 0.0
         kinds = set()
         tails = []
+        launch_stages = []  # each stage's inputs and packed operands, for the s8 conv: lines
         for (name, chans, planes, lab, nh, head_cls, level), call in zip(sigs, captured):
             parts, bp, sp, head, calib_key, out_amax = call
             tails += tail_calls([(name, chans, planes, lab, nh, head_cls, level)], BATCH,
@@ -1575,7 +1769,10 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
             row = dict(stage=name, shape=[BATCH, side, side, sum(chans)], planes=planes,
                        parts=forms, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=kind)
             print("int8 stage:", json.dumps(row))
+            launch_stages.append((name, parts, packed, calib_key))
         del captured
+        int8_conv_launch_lines(launch_stages, check)
+        del launch_stages
         t_phase = phase_done("phase 8 per-stage checks and timing", t_phase)
 
         # where one int8 tile forward's device time goes
@@ -1590,6 +1787,10 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
         for ms, count, key in rows[:14]:
             print(f"profile: int8 {ms:9.3f} ms {count:4d}x {key[:90]}")
         tail_line("kernel 7: flagship int8 forward", "forward", rows, tails)
+        conv_profile_line("kernel 7: flagship int8 forward", "forward", rows, ("s8_conv_core",),
+                          "s8 conv profile:")
+        conv_profile_line("kernel 7: flagship int8 forward", "forward", rows,
+                          ("q_quant_kernel", "q_absmax_kernel"), "quant profile:")
         phase_done("phase 8 profile", t_phase)
     finally:
         q8.set_int8_stage(False)
@@ -2144,10 +2345,21 @@ def main() -> int:
         print(f"phase 0: HGMMA in {source}'s eval conv core: {sorted(counts.values())}")
         check(len(counts) > 0 and all(counts.values()),
               f"phase 0: {source}: an eval conv core instantiation without wgmma: {counts}")
+    counts = hgmma_counts(_build.build(stage_kernel_int8.SOURCE), "s8_conv_core", "IGMMA")
+    if counts is not None:
+        print(f"phase 0: IGMMA in {stage_kernel_int8.SOURCE}'s s8 conv core: "
+              f"{sorted(counts.values())}")
+        check(len(counts) > 0 and all(counts.values()),
+              f"phase 0: an s8 conv core instantiation without wgmma: {counts}")
     for source in sources:
         for line in _build.build_log(source).splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling entry", "wgmma")):
                 print(f"  ptxas {source}:", line.strip())
+    spills = ptxas_spills(_build.build_log(stage_kernel_int8.SOURCE), "s8_conv_core")
+    print(f"phase 0: s8 conv core instantiations {len(spills)}, spill bytes (stores, loads) "
+          f"{sorted(spills.values())}")
+    check(len(spills) > 0 and not any(st or ld for st, ld in spills.values()),
+          f"phase 0: the s8 conv core spills: {spills}")
     t_phase = time.perf_counter()
 
     here = os.path.dirname(os.path.abspath(__file__))

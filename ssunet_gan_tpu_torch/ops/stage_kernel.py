@@ -211,33 +211,35 @@ def eval_nt(cout: int) -> int:
     raise ValueError(f"the eval conv core takes at most {EVAL_NT[-1]} output channels, got {cout}")
 
 
-def eval_chunk(c: int) -> int:
+def eval_chunk(c: int, group: int = 8) -> int:
     """Channels per K chunk of a source of ``c`` channels (csrc/conv_tile.cuh
-    ``chunk_channels``): 8 or 16 whole when narrow (a 3×3 source's taps then
-    pack into K), else 32."""
-    return 8 if c <= 8 else 16 if c <= 16 else 32
+    ``chunk_channels``): one or two channel groups of ``group`` whole when
+    narrow (a 3×3 source's taps then pack into K), else four. Groups are 8
+    channels in bf16 (16 bytes), 16 in s8 (csrc/int8_conv.cuh)."""
+    return group if c <= group else 2 * group if c <= 2 * group else 4 * group
 
 
-def _descriptor_order(segments, nt: int):
+def _descriptor_order(segments, nt: int, group: int = 8):
     """The segments' weights laid out in the core's order (dtype kept)."""
     cout = segments[0].shape[0]
     blocks = []
     for w in segments:
         cin, k = w.shape[1], w.shape[2]
-        cc, taps = eval_chunk(cin), k * k
-        ngrp, nch = cc // 8, -(-cin // cc)
+        cc, taps = eval_chunk(cin, group), k * k
+        ngrp, nch = cc // group, -(-cin // cc)
         steps = (taps * ngrp + 1) // 2
         x = w.permute(0, 2, 3, 1).reshape(cout, taps, cin)
         x = F.pad(x, (0, nch * cc - cin, 0, 0, 0, nt - cout))
-        x = x.reshape(nt, taps, nch, ngrp, 8).permute(2, 1, 3, 0, 4).reshape(nch, taps * ngrp, nt, 8)
+        x = x.reshape(nt, taps, nch, ngrp, group).permute(2, 1, 3, 0, 4).reshape(
+            nch, taps * ngrp, nt, group)
         x = F.pad(x, (0, 0, 0, 0, 0, 2 * steps - taps * ngrp))
-        x = x.reshape(nch, steps, 2, nt // 8, 8, 8).permute(0, 1, 3, 2, 4, 5)
-        blocks.append(x.reshape(nch * steps, nt // 8, 2, 8, 8))
+        x = x.reshape(nch, steps, 2, nt // 8, 8, group).permute(0, 1, 3, 2, 4, 5)
+        blocks.append(x.reshape(nch * steps, nt // 8, 2, 8, group))
     return torch.cat(blocks)
 
 
 @functools.lru_cache(maxsize=None)
-def _layout_index(shapes, nt: int, device) -> torch.Tensor:
+def _layout_index(shapes, nt: int, device, group: int = 8) -> torch.Tensor:
     """For each element of the packed weight, its index into the segments'
     flattened weights behind one leading zero (0: a padding zero)."""
     ids, off = [], 1
@@ -245,10 +247,10 @@ def _layout_index(shapes, nt: int, device) -> torch.Tensor:
         n = math.prod(shape)
         ids.append(torch.arange(off, off + n, dtype=torch.float64).reshape(shape))
         off += n
-    return _descriptor_order(ids, nt).long().to(device)
+    return _descriptor_order(ids, nt, group).long().to(device)
 
 
-def eval_conv_weight(segments, nt: int, dtype) -> torch.Tensor:
+def eval_conv_weight(segments, nt: int, dtype, group: int = 8) -> torch.Tensor:
     """The eval conv core's weight operand [steps][nt/8][2][8][8] in the
     order its wgmma descriptor reads it: per K-segment (an OIHW weight, 3×3
     or 1×1), per chunk of :func:`eval_chunk` input channels, per k16 step of
@@ -256,9 +258,11 @@ def eval_conv_weight(segments, nt: int, dtype) -> torch.Tensor:
     within a tap, a last odd pair padded with zeros — the step's K-major
     core matrices: output channels in groups of 8 (rows past the weight's
     zero), then the two k8 halves, then 8 rows of 8 K values. One gather
-    through an index laid out once per shape."""
+    through an index laid out once per shape. With ``group`` 16 the same
+    order for the s8 core's k32 steps of (tap, 16-channel group) pairs:
+    [steps][nt/8][2][8][16]."""
     w0 = segments[0]
-    idx = _layout_index(tuple(tuple(w.shape) for w in segments), nt, w0.device)
+    idx = _layout_index(tuple(tuple(w.shape) for w in segments), nt, w0.device, group)
     flat = torch.cat([_zero(w0.device, w0.dtype)] + [w.reshape(-1) for w in segments])
     return flat[idx].to(dtype)
 

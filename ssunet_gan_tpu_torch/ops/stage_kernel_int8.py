@@ -15,11 +15,17 @@ Replaces the TPU kernel ``ssunet_gan_tpu/ops/stage_kernel_int8.py``
 
 What bounds it on the H100: as in the bf16 stage the two big convs carry
 ~95% of the multiply-adds, far above the s8 ridge point, so the stage is
-bound by tensor-core operations. The kernel (``csrc/int8_stage.cu``) runs
-conv1 and conv2 + shortcut as implicit GEMMs on ``mma.sync`` s8 tensor cores
-with exact s32 sums; a small launch between them turns the per-row maxima
-of h1 into band scales and writes q(h1) band by band; the SPADE tail is the
-bf16 stage's, with an epilogue that emits s8 at a calibrated output scale.
+bound by tensor-core operations. The kernel (``csrc/int8_stage.cu``) first
+quantizes each bf16 input in one pass (:func:`quantize_tensor`), then runs
+conv1 and conv2 + shortcut on the s8 conv core (``csrc/int8_conv.cuh``:
+``wgmma`` m64nNk32 with both operands in shared memory, exact s32 sums; the
+weights packed once per model in the descriptor's order, :func:`pack_s8_conv`);
+a small launch between them turns the per-row maxima of h1 into band
+scales and writes q(h1) band by band; the SPADE tail is the bf16 stage's,
+with an epilogue that emits s8 at a calibrated output scale. Each conv
+launch has its plain version (:func:`s8_conv1_reference`,
+:func:`band_quant_reference`, :func:`s8_conv2_reference`), which composes
+to :func:`int8_stage_reference`'s h1 and y bit for bit.
 
 Numerics choices of the port (where the TPU kernel left room):
 
@@ -32,7 +38,8 @@ Numerics choices of the port (where the TPU kernel left room):
   the scale of the band that owns it (the TPU kernel's own halo-carry mode
   makes the same kind of choice). With one band the two agree.
 - Integer sums are exact everywhere (f64 convs in the plain version, s32 on
-  the card), so launches A and B agree with the plain version bit for bit.
+  the card), so launches A and B agree with the plain version bit for bit;
+  so do the quantized inputs (an IEEE division, round half to even).
 - The on-read pool and upsample seams, lane packing, pair dots and halo
   carry are TPU scheduling devices and are not ported.
 
@@ -57,6 +64,7 @@ from ssunet_gan_tpu_torch.ops.conv import as_parts
 from ssunet_gan_tpu_torch.ops.stage_kernel import (
     _ptr,
     _refused,
+    eval_conv_weight,
     pack_spade,
     spade_tail_reference,
     split_in,
@@ -68,8 +76,13 @@ from ssunet_gan_tpu_torch.ops.stage_kernel import (
 SOURCE = "int8_stage.cu"
 REPLACES = "ssunet_gan_tpu/ops/stage_kernel_int8.py:740"  # fused_eval_stage_int8
 
-# int8 fused stages run on the card, one per stage (four CUDA launches each).
+# int8 fused stages run on the card, one per stage (four CUDA launches each,
+# after the quantization of its bf16 inputs).
 launches = 0
+# launches A and B of the s8 conv core (csrc/int8_conv.cuh), two per stage
+conv_launches = 0
+# one-pass quantizations of a CUDA tensor (launch P, csrc/int8_stage.cu)
+quant_launches = 0
 
 TH_CANDIDATES = (64, 32, 16, 8)
 
@@ -189,15 +202,45 @@ def static_scale(abs_max: float) -> float:
     return float(max(np.float32(abs_max) / np.float32(127.0), np.float32(1e-12)))
 
 
-def quantize_tensor(x: torch.Tensor, abs_max: Optional[float] = None):
-    """Per-tensor symmetric s8 quantization: ``(q, scale)`` with
-    ``x ≈ q·scale``, q ∈ [−127, 127]. With ``abs_max`` (a calibrated range)
-    the scale is static, a Python float, and values beyond the range
+def quantize_reference(x: torch.Tensor, abs_max: Optional[float] = None):
+    """Per-tensor symmetric s8 quantization in plain PyTorch: ``(q, scale)``
+    with ``x ≈ q·scale``, q ∈ [−127, 127]. With ``abs_max`` (a calibrated
+    range) the scale is static, a Python float, and values beyond the range
     saturate; without it the scale is the tensor's own abs-max over 127, a
     0-dim tensor on ``x``'s device (no host sync)."""
     xf = x.float()
     s = _over_127(xf.abs().max()) if abs_max is None else static_scale(abs_max)
     return _round_clip(xf / _f32(s, x.device)), s
+
+
+def quantize_tensor(x: torch.Tensor, abs_max: Optional[float] = None):
+    """:func:`quantize_reference` on the tensor's device: CPU tensors take
+    it; a bf16 or f32 CUDA tensor takes the one-pass kernel (launch P of
+    ``csrc/int8_stage.cu``: ``clip(rint(x / s), ±127)``, under a dynamic
+    scale after an abs-max pass that leaves the scale in device memory, so
+    no host sync), which agrees with it bit for bit; anything else raises.
+    Counts ``quant_launches``."""
+    global quant_launches
+    if x.device.type == "cpu":
+        return quantize_reference(x, abs_max)
+    if x.device.type != "cuda" or x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the quantization kernel takes bf16 or f32 CUDA tensors, got "
+                        f"{x.dtype} on {x.device}")
+    x = x.contiguous()
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    lib, n, f32 = _lib(), x.numel(), int(x.dtype == torch.float32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if abs_max is None:
+            work = torch.zeros(2, dtype=torch.int32, device=x.device)
+            s = torch.empty((), dtype=torch.float32, device=x.device)
+            _check(lib.ssu_q_absmax(_ptr(x), n, f32, _ptr(work), _ptr(s), stream), "abs-max")
+            _check(lib.ssu_q_quant(_ptr(x), n, f32, _ptr(s), 0.0, _ptr(q), stream), "quantize")
+        else:
+            s = static_scale(abs_max)
+            _check(lib.ssu_q_quant(_ptr(x), n, f32, None, s, _ptr(q), stream), "quantize")
+    quant_launches += 1
+    return q, s
 
 
 def quant_rows(w: torch.Tensor):
@@ -222,18 +265,21 @@ def band_rows(h: int) -> int:
     return h
 
 
-def _quantize_parts(parts: Sequence[Part], calib_key: Optional[str]):
+def _quantize_parts(parts: Sequence[Part], calib_key: Optional[str], quantize=None):
     """(s8 parts, scales, activation dtype). A QTensor part brings its
     producer's scale (the stage's own calibrated key is ignored for it); a
-    tensor part is quantized with the calibrated range under
+    tensor part is quantized by ``quantize`` (:func:`quantize_tensor` when
+    None, looked up at call time) with the calibrated range under
     ``"<calib_key>:<i>"`` if installed, else dynamically."""
+    if quantize is None:
+        quantize = quantize_tensor
     qs, scales = [], []
     for i, p in enumerate(parts):
         if isinstance(p, QTensor):
             qs.append(p.q)
             scales.append(float(np.float32(p.scale)))  # the f32 value consumers fold in
         else:
-            q, s = quantize_tensor(p, _calibrated(calib_key, i))
+            q, s = quantize(p, _calibrated(calib_key, i))
             qs.append(q)
             scales.append(s)
     return tuple(qs), tuple(scales), parts[0].dtype
@@ -291,6 +337,21 @@ def _int_mm_fits(m: int, k: int, n: int) -> bool:
     return hasattr(torch, "_int_mm") and m > 16 and k % 8 == 0 and n % 8 == 0
 
 
+def tap_operand(qparts, k: int, padding: int) -> torch.Tensor:
+    """The gathered tap operand of s8 NHWC split-concat parts for a k×k
+    conv: (N·H·W, k²·ΣC) s8, part by part, taps (dy, dx) major, then the
+    part's channels (the K order of the weights' ``permute(2, 3, 1, 0)``)."""
+    n, h, w = qparts[0].shape[:3]
+    cols = []
+    for q in qparts:
+        if k == 1:
+            cols.append(q)
+        else:
+            qp = F.pad(q, (0, 0, padding, padding, padding, padding))
+            cols += [qp[:, dy:dy + h, dx:dx + w] for dy in range(k) for dx in range(k)]
+    return torch.cat(cols, -1).reshape(n * h * w, -1)
+
+
 def int_conv(qparts, wparts, padding: int, library: bool = False) -> torch.Tensor:
     """Exact integer stride-1 conv of s8 NHWC split-concat parts with s8
     OIHW weights (one per part): the sums as f64 NHWC (every value an exact
@@ -306,15 +367,7 @@ def int_conv(qparts, wparts, padding: int, library: bool = False) -> torch.Tenso
         per = max(1, _INT_MM_CHUNK // (h * w * ktot))
         outs = []
         for i in range(0, n, per):
-            cols = []
-            for q in qparts:
-                qi = q[i:i + per]
-                if k == 1:
-                    cols.append(qi)
-                else:
-                    qp = F.pad(qi, (0, 0, padding, padding, padding, padding))
-                    cols += [qp[:, dy:dy + h, dx:dx + w] for dy in range(k) for dx in range(k)]
-            a = torch.cat(cols, -1).reshape(-1, ktot)
+            a = tap_operand([q[i:i + per] for q in qparts], k, padding)
             outs.append(torch._int_mm(a, wmat).reshape(-1, h, w, cout))
         return torch.cat(outs).double()
     per = max(1, (1 << 28) // (h * w * max(q.shape[-1] for q in qparts)))
@@ -414,7 +467,7 @@ def int8_stage_reference(parts, block_params, spade_params, head=None,
         raise ValueError("a stage with the folded head emits logits, not s8")
     dev = parts[0].device
     chans = tuple(p.shape[-1] for p in parts)
-    qparts, scales, dtype = _quantize_parts(parts, calib_key)
+    qparts, scales, dtype = _quantize_parts(parts, calib_key, quantize_reference)
     folded = fold_block(block_params)
     wq1, d1, wqs, ds = fold_input_scales(folded, chans, scales, dev)
     n, h, w = qparts[0].shape[:3]
@@ -443,29 +496,168 @@ def int8_stage_reference(parts, block_params, spade_params, head=None,
 
 
 # ---------------------------------------------------------------------------
-# The fused stage: CUDA kernel.
+# The fused stage: CUDA kernel. Launches A and B run on the s8 conv core
+# (csrc/int8_conv.cuh); below, its operands, its per-launch plain versions
+# and the wrappers, then the whole stage.
 # ---------------------------------------------------------------------------
 
-_G, _STEP = 16, 64  # channels per 16-byte K group, bytes of K per pipeline step
+# The N of launch A's instantiations (the output channels padded up to one)
+# and of launch B's N blocks: B keeps two s32 sums (the 3×3's and the
+# shortcut's), so its blocks are at most 128 channels wide (256 run as two).
+S8_NT_H1 = (64, 128, 192, 256)
+S8_NT_Y = (64, 128)
+S8_GROUP = 16  # s8 channels of one K core matrix (16 bytes)
 
 
-def _pad_to(t: torch.Tensor, mult: int) -> torch.Tensor:
-    return F.pad(t, (0, -t.shape[-1] % mult))
+def s8_nt(cout: int, launch: str) -> Tuple[int, int]:
+    """(N, N blocks) of the s8 conv core for ``cout`` output channels:
+    launch ``"h1"`` (A) one block of the smallest N in ``S8_NT_H1`` that
+    holds them, launch ``"y"`` (B) blocks of 64 or 128."""
+    if launch == "h1":
+        for nt in S8_NT_H1:
+            if cout <= nt:
+                return nt, 1
+        raise ValueError(f"the s8 conv core takes at most {S8_NT_H1[-1]} output channels, "
+                         f"got {cout}")
+    nt = S8_NT_Y[0] if cout <= S8_NT_Y[0] else S8_NT_Y[1]
+    return nt, -(-cout // nt)
 
 
-def _gemm_rows(rows: torch.Tensor, taps: int) -> torch.Tensor:
-    """(C, taps·I) tap-major rows → the kernel's K layout of one source:
-    per tap, channels zero-padded to a multiple of 16."""
-    c = rows.shape[0]
-    return _pad_to(rows.reshape(c, taps, -1), _G).reshape(c, -1)
+def s8_conv_weight(segments, nt: int, nblk: int = 1) -> torch.Tensor:
+    """The s8 conv core's weight operand [nblk·steps][nt/8][2][8][16] in the
+    order its wgmma descriptor reads it: N block by N block (output channels
+    b·nt ..), the ``eval_conv_weight`` order with 16-channel groups — per
+    K-segment (an s8 OIHW weight), per chunk of 16, 32 or 64 input channels,
+    per k32 step of two (tap, 16-channel group) pairs, the step's K-major
+    core matrices (8 output channels × 16 K values, the two K halves side
+    by side); zeros past each segment's channels, the block's channels and
+    the chunk's last pair."""
+    return torch.cat([eval_conv_weight([w[b * nt:(b + 1) * nt] for w in segments], nt,
+                                       torch.int8, S8_GROUP) for b in range(nblk)])
+
+
+def pack_s8_conv(segments, launch: str) -> dict:
+    """One launch's weight operand: ``segments`` are the s8 OIHW weights of
+    its K-segments in the kernel's K order (launch ``"h1"``: conv1's 3×3 per
+    part; ``"y"``: the shortcut's 1×1 per part, then conv2's 3×3, summed
+    apart), kept for the plain versions."""
+    cout = segments[0].shape[0]
+    nt, nblk = s8_nt(cout, launch)
+    w = s8_conv_weight(segments, nt, nblk)
+    return {"w": w, "nt": nt, "nblk": nblk, "steps": w.shape[0] // nblk, "cout": cout,
+            "segs": tuple((s.shape[1], s.shape[2]) for s in segments), "oihw": tuple(segments)}
+
+
+def s8_conv1_reference(qparts, conv: dict, d1, t1, dtype=torch.bfloat16):
+    """Launch A in plain PyTorch: ``(h1, rowmax)``, h1 =
+    relu(f32(conv3x3_s8(qx))·d1 + t1) in ``dtype`` (exact integer sums,
+    :func:`int_conv`), rowmax (N, H) f32 the maximum of each image row of
+    h1."""
+    acc = int_conv(qparts, conv["oihw"], 1).float()
+    h1 = torch.relu(acc * d1 + t1).to(dtype)
+    return h1, h1.float().amax((2, 3))
+
+
+def band_quant_reference(h1, rowmax, th: int):
+    """Launch Q in plain PyTorch: ``(q(h1), band scales)``, the band-local
+    s8 buffer (N, H/th, th + 2, W, C) (band b's rows b·th − 1 .. b·th + th,
+    zeros outside the image) and the scales (N, H/th) from the row maxima
+    of the band's rows and four halo rows each side."""
+    n, h, w, c = h1.shape
+    nb = h // th
+    qh1 = torch.zeros((n, nb, th + 2, w, c), dtype=torch.int8, device=h1.device)
+    scales = []
+    for i in range(nb):
+        s = _over_127(rowmax[:, max(i * th - 4, 0):min(i * th + th + 4, h)].amax(1))
+        a0, a1 = max(i * th - 1, 0), min(i * th + th + 1, h)
+        qh1[:, i, a0 - i * th + 1:a1 - i * th + 1] = _round_clip(
+            h1[:, a0:a1].float() / s[:, None, None, None])
+        scales.append(s)
+    return qh1, torch.stack(scales, 1)
+
+
+def s8_conv2_reference(qh1, bandscale, qparts, conv: dict, d2, ds, t2, dtype=torch.bfloat16):
+    """Launch B in plain PyTorch: y = relu(f32(conv3x3_s8(q_b(h1)))·(d2·s_b)
+    + f32(conv1x1_s8(qx))·ds + t2) in ``dtype``, band by band of the
+    band-local buffer ``qh1`` (:func:`band_quant_reference`), each f32 step
+    rounded in the kernel's order."""
+    nb, th = qh1.shape[1], qh1.shape[2] - 2
+    wsc, w2 = conv["oihw"][:-1], conv["oihw"][-1]
+    accs = int_conv(qparts, wsc, 0).float() * ds
+    bands = []
+    for i in range(nb):
+        acc2 = int_conv((qh1[:, i],), (w2,), 1)[:, 1:th + 1].float()
+        s = bandscale[:, i][:, None, None, None]
+        bands.append(acc2 * (d2 * s) + accs[:, i * th:(i + 1) * th] + t2)
+    return torch.relu(torch.cat(bands, 1)).to(dtype)
+
+
+def _s8_sources(sources, conv: dict):
+    """The parts' (pointer, channels) pairs after checking them against the
+    packed operands (``conv["segs"]``: the parts' widths, then launch B's
+    3×3 segment)."""
+    segs = conv["segs"][:len(sources)]
+    if tuple(s.shape[-1] for s in sources) != tuple(c for c, _ in segs):
+        raise ValueError(f"the conv's weights are packed for {conv['segs']}, got parts of "
+                         f"{[tuple(s.shape) for s in sources]}")
+    if len(sources) > 2:
+        raise ValueError(f"the s8 conv core takes at most 2 parts, got {len(sources)}")
+    src = [(s.data_ptr(), s.shape[-1]) for s in sources] + [(None, 0)] * (2 - len(sources))
+    return [v for p in src for v in p]
+
+
+def s8_conv1(qparts, conv: dict, d1, t1):
+    """Launch A on the card: ``(h1, rowmax)`` as :func:`s8_conv1_reference`
+    (bf16 h1), from contiguous s8 NHWC CUDA parts and :func:`pack_s8_conv`'s
+    ``"h1"`` operand. Counts ``conv_launches``."""
+    global conv_launches
+    n, h, w = qparts[0].shape[:3]
+    dev = qparts[0].device
+    h1 = torch.empty((n, h, w, conv["cout"]), dtype=torch.bfloat16, device=dev)
+    rowmax = torch.zeros((n, h), dtype=torch.float32, device=dev)
+    _check(_lib().ssu_s8_conv1(*_s8_sources(qparts, conv), conv["nt"], _ptr(conv["w"]),
+                               conv["steps"], _ptr(d1), _ptr(t1), _ptr(h1),
+                               _ptr(rowmax), n, h, w, conv["cout"],
+                               torch.cuda.current_stream(dev).cuda_stream), "conv1")
+    conv_launches += 1
+    return h1, rowmax
+
+
+def band_quant(h1, rowmax, th: int):
+    """Launch Q on the card: ``(q(h1), band scales)`` as
+    :func:`band_quant_reference`."""
+    n, h, w, c = h1.shape
+    qh1 = torch.empty((n, h // th, th + 2, w, c), dtype=torch.int8, device=h1.device)
+    bandscale = torch.empty((n, h // th), dtype=torch.float32, device=h1.device)
+    _check(_lib().ssu_q_band(_ptr(h1), _ptr(rowmax), _ptr(qh1), _ptr(bandscale), n, h, w, c, th,
+                             torch.cuda.current_stream(h1.device).cuda_stream),
+           "band quantization")
+    return qh1, bandscale
+
+
+def s8_conv2(qh1, bandscale, qparts, conv: dict, d2, ds, t2):
+    """Launch B on the card: y as :func:`s8_conv2_reference` (bf16), from
+    :func:`band_quant`'s buffer and scales, the s8 parts and
+    :func:`pack_s8_conv`'s ``"y"`` operand. Counts ``conv_launches``."""
+    global conv_launches
+    n, nb, th, w, c = qh1.shape
+    th -= 2
+    y = torch.empty((n, nb * th, w, conv["cout"]), dtype=torch.bfloat16, device=qh1.device)
+    if conv["segs"][-1] != (c, 3) or len(conv["segs"]) != len(qparts) + 1:
+        raise ValueError(f"the conv's weights are packed for {conv['segs']}, got q(h1) of {c}")
+    _check(_lib().ssu_s8_conv2(*_s8_sources(qparts, conv), _ptr(qh1), c, th, conv["nt"],
+                               _ptr(conv["w"]), conv["steps"], conv["nblk"], _ptr(d2), _ptr(ds),
+                               _ptr(t2), _ptr(bandscale), _ptr(y), n, nb * th, w, conv["cout"],
+                               torch.cuda.current_stream(qh1.device).cuda_stream), "conv2")
+    conv_launches += 1
+    return y
 
 
 def pack_stage_int8(block_params, spade_params, head, dtype) -> dict:
     """The operands of the CUDA stage that do not depend on the input
-    scales (kept by a caller whose weights are fixed): the folded block,
-    conv2's s8 rows in the kernel's K layout, the SPADE tail's operands."""
+    scales (kept by a caller whose weights are fixed): the folded block and
+    the SPADE tail's operands."""
     pk = fold_block(block_params)
-    pk["k2"] = _pad_to(_gemm_rows(pk["wq2"], 9), _STEP)
     pk["dtype"] = dtype
     pk.update(pack_spade(spade_params, head, dtype))
     pk["_scaled"] = None  # (static scales, operands) of the last static call
@@ -473,18 +665,18 @@ def pack_stage_int8(block_params, spade_params, head, dtype) -> dict:
 
 
 def _scaled_operands(pk: dict, chans, scales, dev) -> dict:
-    """conv1's and conv2 + shortcut's GEMM operands for these input scales.
-    Static scales (Python floats) make them a per-model constant, kept on
-    ``pk``; dynamic ones are rebuilt on the device every call."""
+    """Launch A's and B's s8 operands for these input scales
+    (:func:`pack_s8_conv`). Static scales (Python floats) make them a
+    per-model constant, kept on ``pk``; dynamic ones are rebuilt on the
+    device every call (no host sync)."""
     static = all(not isinstance(s, torch.Tensor) for s in scales)
     key = (tuple(chans), tuple(scales)) if static else None
     if static and pk["_scaled"] is not None and pk["_scaled"][0] == key:
         return pk["_scaled"][1]
     wq1, d1, wqs, ds = fold_input_scales(pk, chans, scales, dev)
     ops = {
-        "k1": _pad_to(torch.cat([_gemm_rows(r, 9) for r in wq1], 1), _STEP).contiguous(),
-        "k2": _pad_to(torch.cat([pk["k2"]] + [_gemm_rows(r, 1) for r in wqs], 1),
-                      _STEP).contiguous(),
+        "conv1": pack_s8_conv([_oihw3x3(r) for r in wq1], "h1"),
+        "conv2": pack_s8_conv([r[:, :, None, None] for r in wqs] + [_oihw3x3(pk["wq2"])], "y"),
         "d1": d1.contiguous(), "ds": ds.contiguous(),
     }
     if static:
@@ -496,11 +688,15 @@ def _scaled_operands(pk: dict, chans, scales, dev) -> dict:
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ssu_q_conv1.argtypes = [p, i, p, i, p, i, p, p, p, p, i, i, i, i, p]
+    ll = ctypes.c_longlong
+    lib.ssu_q_absmax.argtypes = [p, ll, i, p, p, p]
+    lib.ssu_q_quant.argtypes = [p, ll, i, p, f, p, p]
+    lib.ssu_s8_conv1.argtypes = [p, i, p, i, i, p, i, p, p, p, p, i, i, i, i, p]
     lib.ssu_q_band.argtypes = [p, p, p, p, i, i, i, i, i, p]
-    lib.ssu_q_conv2.argtypes = [p, i, i, p, i, p, i, p, i, p, p, p, p, p, i, i, i, i, p]
+    lib.ssu_s8_conv2.argtypes = [p, i, p, i, p, i, i, i, p, i, i, p, p, p, p, p, i, i, i, i, p]
     lib.ssu_q_spade_tail.argtypes = [p, i, i, i, i, p, p, i, p, p, i, p, p, p, p, i, p, p, f, p]
-    for fn in (lib.ssu_q_conv1, lib.ssu_q_band, lib.ssu_q_conv2, lib.ssu_q_spade_tail):
+    for fn in (lib.ssu_q_absmax, lib.ssu_q_quant, lib.ssu_s8_conv1, lib.ssu_q_band,
+               lib.ssu_s8_conv2, lib.ssu_q_spade_tail):
         fn.restype = i
     return lib
 
@@ -540,26 +736,11 @@ def _run_cuda(qparts, scales, dtype, pk: dict, th: int, out_abs_max, intermediat
     if out_abs_max is not None and ncls:
         raise ValueError("a stage with the folded head emits logits, not s8")
     ops = _scaled_operands(pk, chans, scales, dev)
-    nb = h // th
-    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        src = [(q.data_ptr(), q.shape[-1]) for q in qparts]
-        src += [(None, 0)] * (2 - len(src))
-        flat = [v for s in src for v in s]
-        h1 = torch.empty((n, h, w, c), dtype=dtype, device=dev)
-        rowmax = torch.zeros((n, h), dtype=torch.float32, device=dev)
-        _check(lib.ssu_q_conv1(*flat, _ptr(ops["k1"]), ops["k1"].shape[1], _ptr(ops["d1"]),
-                               _ptr(pk["t1"]), _ptr(h1), _ptr(rowmax), n, h, w, c, stream),
-               "conv1")
-        qh1 = torch.empty((n, nb, th + 2, w, c), dtype=torch.int8, device=dev)
-        bandscale = torch.empty((n, nb), dtype=torch.float32, device=dev)
-        _check(lib.ssu_q_band(_ptr(h1), _ptr(rowmax), _ptr(qh1), _ptr(bandscale), n, h, w, c,
-                              th, stream), "band quantization")
-        y = torch.empty_like(h1)
-        _check(lib.ssu_q_conv2(_ptr(qh1), c, th, *flat, _ptr(ops["k2"]), ops["k2"].shape[1],
-                               _ptr(pk["d2"]), _ptr(ops["ds"]), _ptr(pk["t2"]),
-                               _ptr(bandscale), _ptr(y), n, h, w, c, stream), "conv2")
+        h1, rowmax = s8_conv1(qparts, ops["conv1"], ops["d1"], pk["t1"])
+        qh1, bandscale = band_quant(h1, rowmax, th)
+        y = s8_conv2(qh1, bandscale, qparts, ops["conv2"], pk["d2"], ops["ds"], pk["t2"])
         out = out_q = None
         inv = 0.0
         if out_abs_max is None:
@@ -567,8 +748,8 @@ def _run_cuda(qparts, scales, dtype, pk: dict, th: int, out_abs_max, intermediat
         else:
             s_out, inv = _out_scale(out_abs_max)
             out_q = torch.empty((n, h, w, c), dtype=torch.int8, device=dev)
-        _check(lib.ssu_q_spade_tail(_ptr(y), n, h, w, c, *tail_args(pk), _ptr(out), _ptr(out_q),
-                                    inv, stream), "SPADE tail")
+        _check(_lib().ssu_q_spade_tail(_ptr(y), n, h, w, c, *tail_args(pk), _ptr(out),
+                                       _ptr(out_q), inv, stream), "SPADE tail")
     launches += 1
     if out_q is not None:
         out = QTensor(out_q, s_out, dtype)
@@ -584,9 +765,10 @@ def fused_eval_stage_int8(parts, block_params, spade_params, head=None,
 
     Arguments as in :func:`int8_stage_reference`; ``packed``, if given, is
     :func:`pack_stage_int8` of the same weights, which spares the CUDA path
-    its packing. The stage inputs are quantized here with plain tensor ops
-    (static calibrated scales, else dynamic per-tensor ones; a
-    :class:`QTensor` arrives quantized). CPU tensors run the plain version;
+    its packing. The stage inputs are quantized here by
+    :func:`quantize_tensor` (static calibrated scales, else dynamic
+    per-tensor ones; a :class:`QTensor` arrives quantized). CPU tensors run
+    the plain version;
     CUDA tensors run the hand-written kernel, or raise for what
     :func:`ops.stage_kernel.stage_supported` refuses."""
     parts = as_parts(parts)

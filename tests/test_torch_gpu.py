@@ -684,6 +684,87 @@ def test_int8_stage_kernel_matches_plain(chans, planes, labels, nhw, ncls, th, m
         assert ok, errs
 
 
+# The s8 conv core (csrc/int8_conv.cuh) alone, launch by launch, against its
+# per-launch plain versions: exact s32 sums and the same f32 roundings, so
+# h1, rowmax and y are equal bit for bit. (parts' widths, output channels,
+# N x H x W, band rows for launch B)
+S8_CONV_CASES = {
+    "rgb-n64": ((3,), 64, (2, 40, 36), 8),
+    "w16-n128": ((16,), 128, (1, 32, 24), 32),
+    "w20-n192": ((20,), 192, (1, 16, 24), 16),
+    "3+20-n256": ((3, 20), 256, (1, 24, 16), 8),  # th = 8: tiles of 16 rows idle half
+    "64+128-n128": ((64, 128), 128, (2, 16, 16), 16),
+    "128+128-n256": ((128, 128), 256, (1, 16, 16), 16),
+    "64-n64-th=H=12": ((64,), 64, (2, 12, 20), 12),  # one band, shorter than a tile
+    "48-n128-th=H=36": ((48,), 128, (1, 36, 8), 36),  # one band of 36: 3 tiles down
+    "96-n96-many-tiles": ((96,), 96, (3, 64, 72), 64),
+    "256-n256-many-tiles": ((256,), 256, (3, 64, 48), 32),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(S8_CONV_CASES))
+def test_s8_conv_core_matches_plain(name):
+    from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
+
+    dev = _card()
+    chans, cout, (n, h, w), th = S8_CONV_CASES[name]
+    gen = torch.Generator().manual_seed(7)
+    s8 = lambda *shape: torch.randint(-127, 128, shape, generator=gen).to(torch.int8).to(dev)
+    qparts = tuple(s8(n, h, w, c) for c in chans)
+    conv1 = q8.pack_s8_conv([s8(cout, c, 3, 3) for c in chans], "h1")
+    conv2 = q8.pack_s8_conv([s8(cout, c, 1, 1) for c in chans] + [s8(cout, cout, 3, 3)], "y")
+    vec = lambda scale: (torch.rand(cout, generator=gen) * scale).to(dev)
+    d1, t1, d2, ds, t2 = vec(1e-5), vec(0.5) - 0.2, vec(1e-2), vec(1e-5), vec(0.5) - 0.2
+    before = q8.conv_launches
+    h1, rowmax = q8.s8_conv1(qparts, conv1, d1, t1)
+    qh1, bandscale = q8.band_quant(h1, rowmax, th)
+    y = q8.s8_conv2(qh1, bandscale, qparts, conv2, d2, ds, t2)
+    torch.cuda.synchronize()
+    assert q8.conv_launches == before + 2
+    want_h1, want_rowmax = q8.s8_conv1_reference(qparts, conv1, d1, t1)
+    assert torch.equal(h1, want_h1) and torch.equal(rowmax, want_rowmax)
+    assert h1.max() > 0 and (h1 == 0).any()  # ReLU both ways
+    want_qh1, want_bs = q8.band_quant_reference(h1, rowmax, th)
+    assert torch.equal(qh1, want_qh1) and torch.equal(bandscale, want_bs)
+    want_y = q8.s8_conv2_reference(qh1, bandscale, qparts, conv2, d2, ds, t2)
+    assert y.shape == (n, h, w, cout) and torch.equal(y, want_y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("abs_max", [None, 63.5, 3.0], ids=["dynamic", "static", "saturating"])
+def test_quantize_kernel_matches_plain(dtype, abs_max):
+    """Launch P (one pass; a dynamic scale from the abs-max pass, in device
+    memory) against ``quantize_reference``: the same s8 values and scale.
+    Values at exact half steps of the scale 0.5 (static 63.5 / 127) round
+    to even; a range of 3.0 saturates; an odd element count and a view that
+    is not 16-byte aligned take the element-wise path."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(3)
+    halves = (torch.arange(-200, 200) * 0.5 + 0.25).to(dtype)  # x / 0.5 = k + 0.5
+    xs = [
+        (torch.randn((2, 33, 17, 24), generator=gen) * 4).to(dtype).to(dev),
+        torch.cat([halves, -halves]).to(dev),
+        (torch.randn(1001, generator=gen) * 10).to(dtype).to(dev)[3:],  # misaligned, odd
+    ]
+    for x in xs:
+        before = q8.quant_launches
+        q, s = q8.quantize_tensor(x, abs_max)
+        torch.cuda.synchronize()
+        assert q8.quant_launches == before + 1
+        want_q, want_s = q8.quantize_reference(x, abs_max)
+        assert q.dtype == torch.int8 and torch.equal(q, want_q)
+        if abs_max is None:
+            assert isinstance(s, torch.Tensor) and s.is_cuda and torch.equal(s, want_s)
+        else:
+            assert s == want_s
+    with pytest.raises(TypeError):
+        q8.quantize_tensor(torch.zeros(8, dtype=torch.float16, device=dev))
+
+
 @pytest.mark.gpu
 def test_int8_stage_kernel_refuses_float32():
     from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8

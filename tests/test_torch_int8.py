@@ -35,7 +35,7 @@ from ssunet_gan_tpu_torch.models import build_model, ssunet
 from ssunet_gan_tpu_torch.ops import pool as port_pool
 from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
 from test_torch_stage import _jax_composition, _stage
-from torch_port_helpers import jax_toggles, oihw, randomize_batch_stats, vec
+from torch_port_helpers import jax_toggles, oihw, randomize_batch_stats, s8_conv_from_packed, vec
 
 # the narrow flagship: every block has a shortcut conv, and the fused gates
 # of the two packages split it alike at 32x32 (levels 0-2 fused, 3-5 deep)
@@ -232,39 +232,71 @@ def test_int8_stage_refuses_what_it_does_not_take():
 
 
 def test_kernel_gemm_layout_is_the_plain_convs(rng):
-    """The CUDA path's packed s8 operands, used as the kernel uses them
-    (conv1 and conv2 + shortcut as GEMMs over K in 16-channel groups per
-    tap, each source padded as the kernel pads it), give the plain version's
-    integer sums exactly."""
-    st = _stage(rng, 16, 3, [(1, 8, 8, 3), (1, 8, 8, 20)], 4.0, 0)
-    chans = (3, 20)
-    tq, ts = zip(*(q8.quantize_tensor(torch.from_numpy(x)) for x in st["xs"]))
-    pk = q8.pack_stage_int8(st["tbp"], st["tsp"], None, torch.float32)
-    ops = q8._scaled_operands(pk, chans, ts, torch.device("cpu"))
-    assert ops["k1"].shape[1] % 64 == 0 and ops["k2"].shape[1] % 64 == 0
+    """The CUDA path's packed s8 operands (``pack_s8_conv``), walked in the
+    s8 conv core's K order (``s8_conv_from_packed``: per N block, chunk and
+    k32 step, the (tap, 16-channel group) pairs against their core
+    matrices), give the plain version's integer sums exactly: conv1 over a
+    3-channel part and over two unequal parts (3 + 20), and launch B's
+    shortcut over the parts with conv2's 3×3 as its second sum, also at 160
+    output channels (two N blocks of 128)."""
+    for shapes, planes in (([(1, 8, 8, 3)], 16), ([(1, 8, 8, 3), (1, 8, 8, 20)], 16),
+                           ([(1, 8, 8, 40)], 160)):
+        st = _stage(rng, planes, 3, shapes, 4.0, 0)
+        chans = tuple(s[-1] for s in shapes)
+        tq, ts = zip(*(q8.quantize_tensor(torch.from_numpy(x)) for x in st["xs"]))
+        pk = q8.pack_stage_int8(st["tbp"], st["tsp"], None, torch.float32)
+        ops = q8._scaled_operands(pk, chans, ts, torch.device("cpu"))
+        w1, _, ws, _ = q8.fold_input_scales(pk, chans, ts, torch.device("cpu"))
+        conv1, conv2 = ops["conv1"], ops["conv2"]
+        assert conv1["segs"] == tuple((c, 3) for c in chans)
+        assert conv2["segs"] == tuple((c, 1) for c in chans) + ((planes, 3),)
+        assert conv2["nblk"] == -(-planes // 128) and conv2["nt"] == (64 if planes <= 64 else 128)
+        want1 = q8.int_conv(tq, [q8._oihw3x3(r) for r in w1], 1)
+        assert torch.equal(sum(s8_conv_from_packed(tq, conv1)), want1)
+        qh = torch.from_numpy(rng.integers(-127, 128, (1, 8, 8, planes)).astype(np.int8))
+        sums = s8_conv_from_packed(tq + (qh,), conv2)
+        assert torch.equal(sum(sums[:-1]), q8.int_conv(tq, [r[:, :, None, None] for r in ws], 0))
+        assert torch.equal(sums[-1], q8.int_conv((qh,), (q8._oihw3x3(pk["wq2"]),), 1))
 
-    def taps(q, k):  # NHWC s8 -> (N, H, W, k*k*C16), tap-major, channels padded to 16
-        n, h, w, c = q.shape
-        q = torch.nn.functional.pad(q.double(), (0, -c % 16))
-        if k == 1:
-            return q
-        qp = torch.nn.functional.pad(q, (0, 0, 1, 1, 1, 1))
-        return torch.cat([qp[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)], -1)
 
-    def pad64(a):
-        return torch.nn.functional.pad(a, (0, -a.shape[-1] % 64))
+# (part shapes, planes, band rows, calibrated): one band and several, a band
+# of 8 rows, one band of H = 12 (no candidate divides it)
+COMPOSE_CASES = {
+    "one_part_dynamic": ([(2, 16, 16, 8)], 16, None, False),
+    "two_parts_static": ([(1, 16, 16, 3), (1, 16, 16, 20)], 32, None, True),
+    "four_bands": ([(1, 32, 16, 8)], 16, 8, False),
+    "one_band_of_12": ([(2, 12, 8, 16)], 32, None, True),
+}
 
-    w1, _, ws, _ = q8.fold_input_scales(pk, chans, ts, torch.device("cpu"))
-    a1 = pad64(torch.cat([taps(q, 3) for q in tq], -1))
-    want1 = q8.int_conv(tq, [q8._oihw3x3(r) for r in w1], 1)
-    assert torch.equal(a1 @ ops["k1"].double().t(), want1)
-    qh = torch.from_numpy(rng.integers(-127, 128, (1, 8, 8, 16)).astype(np.int8))
-    a2 = torch.cat([pad64(taps(qh, 3))] + [taps(q, 1) for q in tq], -1)
-    a2 = pad64(a2)
-    got2 = a2 @ ops["k2"].double().t()
-    want2 = (q8.int_conv((qh,), (q8._oihw3x3(pk["wq2"]),), 1)
-             + q8.int_conv(tq, [r[:, :, None, None] for r in ws], 0))
-    assert torch.equal(got2, want2)
+
+@pytest.mark.parametrize("case", list(COMPOSE_CASES))
+def test_per_launch_plain_versions_compose_to_the_stage(rng, case):
+    """Launches A, Q and B in plain PyTorch (``s8_conv1_reference``,
+    ``band_quant_reference``, ``s8_conv2_reference``, the card's per-launch
+    yardsticks), fed the packed operands as the CUDA path builds them,
+    compose to ``int8_stage_reference``'s h1 and y bit for bit."""
+    shapes, planes, th, static = COMPOSE_CASES[case]
+    st = _stage(rng, planes, 3, shapes, 4.0, 0)
+    parts = tuple(torch.from_numpy(x) for x in st["xs"])
+    chans = tuple(s[-1] for s in shapes)
+    calib_key = None
+    if static:
+        calib_key = "s"
+        q8.set_int8_calibration({f"s:{i}": 0.9 * float(np.abs(x).max())
+                                 for i, x in enumerate(st["xs"])})
+    qparts, scales, dtype = q8._quantize_parts(parts, calib_key, q8.quantize_reference)
+    pk = q8.pack_stage_int8(st["tbp"], st["tsp"], None, dtype)
+    ops = q8._scaled_operands(pk, chans, scales, torch.device("cpu"))
+    th = q8.band_rows(shapes[0][1]) if th is None else th
+    h1, rowmax = q8.s8_conv1_reference(qparts, ops["conv1"], ops["d1"], pk["t1"], dtype)
+    qh1, bandscale = q8.band_quant_reference(h1, rowmax, th)
+    assert qh1.shape == (shapes[0][0], shapes[0][1] // th, th + 2) + tuple(h1.shape[2:])
+    y = q8.s8_conv2_reference(qh1, bandscale, qparts, ops["conv2"], pk["d2"], ops["ds"],
+                              pk["t2"], dtype)
+    _, want_h1, want_y = q8.int8_stage_reference(parts, st["tbp"], st["tsp"], None, calib_key,
+                                                 th=th, intermediates=True)
+    assert torch.equal(rowmax, want_h1.float().amax((2, 3)))
+    assert torch.equal(h1, want_h1) and torch.equal(y, want_y)
 
 
 # ---- (c) the deep stages' s8 block -----------------------------------------

@@ -342,3 +342,46 @@ def conv_from_packed(sources, conv: dict) -> torch.Tensor:
     assert step == w.shape[0] == conv["steps"]
     assert not acc[..., conv["cout"]:].any()  # the padded N rows are zero
     return acc[..., :conv["cout"]]
+
+
+def s8_conv_from_packed(sources, conv: dict):
+    """The s8 conv core's integer sums, one per K-segment, from the packed
+    weight of ``pack_s8_conv``, walked in the kernel's K order
+    (csrc/int8_conv.cuh), in f64 (exact): per N block, per K-segment, per
+    chunk of ``eval_chunk(c, 16)`` channels, per k32 step and K half, the
+    (tap, 16-channel group) pair's shifted s8 input values (zero ring for a
+    3×3 segment) against that half's core matrices [N/8][8][16]. A half
+    past the chunk's last pair re-reads the first half's values, as the
+    kernel does, so a nonzero padding weight shows. Output channels past
+    ``cout`` must be 0."""
+    import torch.nn.functional as F
+
+    from ssunet_gan_tpu_torch.ops.stage_kernel import eval_chunk
+
+    nt, nblk, steps = conv["nt"], conv["nblk"], conv["steps"]
+    w = conv["w"].double()
+    assert conv["w"].dtype == torch.int8 and w.shape == (nblk * steps, nt // 8, 2, 8, 16)
+    n, h, wd = sources[0].shape[:3]
+    sums = [torch.zeros((n, h, wd, nblk * nt), dtype=torch.float64) for _ in sources]
+    for b in range(nblk):
+        step = b * steps
+        for i, (x, (c, k)) in enumerate(zip(sources, conv["segs"])):
+            assert x.shape[-1] == c and x.dtype == torch.int8
+            cc, taps = eval_chunk(c, 16), k * k
+            ngrp, nch = cc // 16, -(-c // cc)
+            xp = F.pad(x.double(), (0, nch * cc - c) + ((1, 1, 1, 1) if k == 3 else ()))
+            for ch in range(nch):
+                for s in range((taps * ngrp + 1) // 2):
+                    for half in range(2):
+                        q = 2 * s + half
+                        tap, grp = divmod(q if q < taps * ngrp else 2 * s, ngrp)
+                        dy, dx = divmod(tap, 3) if k == 3 else (0, 0)
+                        c0 = ch * cc + grp * 16
+                        wt = w[step, :, half].reshape(nt, 16).t()
+                        sums[i][..., b * nt:(b + 1) * nt] += (
+                            xp[:, dy:dy + h, dx:dx + wd, c0:c0 + 16] @ wt)
+                    step += 1
+        assert step == (b + 1) * steps
+    for sm in sums:
+        assert not sm[..., conv["cout"]:].any()  # the padded N rows are zero
+    return [sm[..., :conv["cout"]] for sm in sums]
