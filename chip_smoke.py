@@ -122,17 +122,50 @@ Phases, each of which exits non-zero on failure:
    restored after. The SPADE tail alone at SSUNet's hidden widths
    (WIDE_TAILS: 512², batch 8, seeded) against its plain version.
 
+12. SSUNet (after phase 10): ``build_model("SSUNet", 3)`` at full width
+   (filters 32-512) with BN statistics calibrated as in phase 2 and the
+   head's bias centred on the same batch (so no class's mask is
+   near-constant), through the same functions as the flagship: phase 1's
+   stage checks (its eight fused VGG stage signatures, no shortcut, conv
+   biases folded into the BN offsets, 32-256 planes, hidden 8-64, at batch
+   2 with seeded weights, kernel 7's h1 and y bit for bit too; then with
+   the model's weights on each stage's own inputs at batch 32, timed at
+   batch 8, each conv launch alone), phases 2-3's bf16 main path (8
+   kernel-1 stages per forward) and comparisons, phase 8's int8 serving
+   (the model's own 17 ranges; 8 kernel-7 stages and conv4_0's deep s8
+   block, without its residual, per forward; every quantization counted
+   and checked) and phase 11's trainer with ``set_fused_spade("pallas")``
+   (8 kernel-9 launches per step).
+13. The training entry point (last): ``run_experiment`` on
+   configs/config_v1.json's opt_config with its paths in a temporary
+   directory (the flagship at 512², batch 8, Adam, bf16) over 16 synthetic
+   scenes for 2 epochs, train kernel launches per step against PER_STEP,
+   ``log.csv`` and the flat model card (no PyYAML), a resume for a third
+   epoch, ``model.pth`` reloaded into a fresh model with a tile forward
+   equal bit for bit to the saved model's; then one epoch on each of two
+   PNG trees of 16 / 4 / 4 images at 512² written by ``data/png.py`` (the
+   same pixels, every row Sub, as ``cv2.imwrite`` writes at its defaults,
+   or Paeth: the decoder's two paths), with ``train_transform`` on and
+   each tree's decode time per item (``png decode:``); seconds per epoch
+   split into loader wait and steps; then ``python -m
+   ssunet_gan_tpu_torch.cli.train`` in a process of its own for one epoch
+   on the Sub tree.
+
 Each path's profile also gives a ``tail:`` line: the shared SPADE tail
 kernel's time and launches per forward or step beside its bound; the
 flagship and UNet_B_SS forwards and the flagship train step a ``conv
 profile:`` line: the eval conv core's time and launches; the int8 forward
 an ``s8 conv profile:`` and a ``quant profile:`` line.
 
-Each phase prints its wall time. Prints a ``kernels`` JSON line (launches on the main paths — phases 2 and
-3 for the eval kernel, phase 8 for the int8 eval kernel, phase 6 for the
-train kernels, where wgrad, v2's alone, has none, phase 10 for the
-bottleneck kernel, phase 11's trainer for the self-SPADE kernel — error, time, plain time, bound, library time), and ends with ``{"ok": true, "device":
-{...}}``. Every check that fails is printed and the run exits non-zero
+Each phase prints its wall time. Prints a ``kernels`` JSON line
+(launches on the main paths — phases 2 and 3 for the eval kernel, phase 8
+for the int8 eval kernel, phase 6 for the train kernels, where wgrad, v2's
+alone, has none, phase 10 for the bottleneck kernel, phase 11's trainer
+for the self-SPADE kernel; with SSUNet's (phase 12: kernels 1, 7 and 9)
+and the entry point's (phase 13: kernels 2, 3, 5 and 6) added, and each
+row's ``launches_by_path`` — error, time, plain time, bound, library
+time), and ends with ``{"ok": true, "device": {...}}``. Every check that
+fails is printed and the run exits non-zero
 after the last phase. Needs no network; imports no JAX.
 """
 
@@ -340,13 +373,14 @@ def stage_signatures(f, num_classes, input_channels):
     ]
 
 
-def stage_bound_ms(parts, planes, labels, hidden, ncls, weight_bytes):
+def stage_bound_ms(parts, planes, labels, hidden, ncls, weight_bytes, shortcut=True):
     """Least time for one stage call: the larger of its bytes (inputs and
     weights read once, output written once) over HBM bandwidth and its
-    operations over the bf16 tensor-core peak."""
+    operations over the bf16 tensor-core peak (a VGG stage,
+    ``shortcut=False``, has no 1×1 shortcut)."""
     n, h, w = parts[0].shape[:3]
     cin = sum(p.shape[-1] for p in parts)
-    macs = (9 * cin * planes + 9 * planes * planes + cin * planes
+    macs = (9 * cin * planes + 9 * planes * planes + (cin * planes if shortcut else 0)
             + 9 * planes * labels + 9 * labels * hidden + 9 * hidden * 2 * planes
             + planes * ncls)
     flops = 2.0 * macs * n * h * w
@@ -411,6 +445,17 @@ def calibrate_batchnorm(model, x) -> None:
     finally:
         for h in handles:
             h.remove()
+
+
+def center_head(model, x) -> None:
+    """Shift the final 1x1 conv's bias so that each class's logit has
+    median 0 over ``x`` (the module path, as ``calibrate_batchnorm``
+    runs it): with random weights a head of ``Conv2d``'s default init, as
+    SSUNet's, leaves a class's mask near-constant, and the mask bars have
+    no power there."""
+    with spade_stages_as(module_stage), torch.no_grad():
+        logits = model(x)
+        model.final.bias.sub_(logits.reshape(-1, logits.shape[-1]).float().median(0).values)
 
 
 def profile_kernels(fn, n: int):
@@ -569,6 +614,236 @@ def conv_launch_lines(path, launches, check):
     print("conv:", json.dumps(dict(path=path, per="forward", **total,
                                    bound_by="operations" if "operations" in kinds else "bytes")))
     return worst
+
+
+# ---------------------------------------------------------------------------
+# The eval stages and bf16 serving (phases 1-3, and SSUNet's in phase 12)
+# ---------------------------------------------------------------------------
+
+
+def plain_stage(parts, bp, sp, head=None, packed=None):
+    """The fused eval stage's plain version, with its wrapper's signature."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel
+
+    return stage_kernel.fused_stage_reference(parts, bp, sp, head)
+
+
+def seeded_stage_phase(dev, sigs, block_cls, gen, phase, check, int8=False):
+    """Each fused stage signature at 512², batch 2, seeded weights (a
+    ``block_cls`` conv block with random BN statistics, the signature's
+    SPADE, the head where it has one) and inputs: kernel 1 against its
+    plain version to the stage bar; with ``int8`` also kernel 7 (dynamic
+    scales: h1 and y bit for bit). Returns the largest max abs errors
+    (kernel 1, kernel 7)."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel
+    from ssunet_gan_tpu_torch.ops.conv import Conv2d
+    from ssunet_gan_tpu_torch.ops.spade import SPADE
+
+    worst = [0.0, 0.0]
+    for name, chans, planes, lab, nh, head_cls, level in sigs:
+        block = block_cls(sum(chans), planes, generator=gen)
+        random_bn_stats(block, gen)
+        spade = SPADE("spadebatch3x3", planes, lab, float(nh), generator=gen)
+        head = None
+        if head_cls:
+            final = Conv2d(planes, head_cls, 1, generator=gen).to(dev)
+            head = (final.weight, final.bias)
+        block.to(dev).eval()
+        spade.to(dev)
+        side = HW >> level
+        parts = tuple(torch.randn((2, side, side, c), generator=gen).to(dev, torch.bfloat16)
+                      for c in chans)
+        bp, sp = block.stage_params(), spade.stage_params()
+        got = stage_kernel.fused_eval_stage(parts, bp, sp, head)
+        torch.cuda.synchronize()
+        want = plain_stage(parts, bp, sp, head)
+        err, scale, l2, ok = close(got, want)
+        what = f"{phase}: {name} parts={chans} planes={planes} hidden={nh} {side}x{side}"
+        print(f"{what} batch 2 max_abs_err={err:.4g} max_rel_err={err / max(scale, 1e-30):.4g} "
+              f"rel_l2={l2:.3g} (max|plain|={scale:.4g})")
+        check(ok and got.shape == want.shape,
+              f"{what}: kernel 1 disagrees with plain (err {err}, max {scale}, l2 {l2})")
+        worst[0] = max(worst[0], err)
+        if int8:
+            worst[1] = max(worst[1], int8_stage_agrees(f"{what} batch 2 int8 dynamic", parts, bp,
+                                                       sp, head, check))
+        del parts, got, want, block, spade
+    torch.cuda.empty_cache()
+    return tuple(worst)
+
+
+def model_stage_phase(dev, model, sigs, scene_tiles, phase, name, check) -> dict:
+    """Each fused stage of ``model`` with the model's weights on its own
+    inputs, captured from an all-plain forward over the scene request's
+    first chunk: checked at that batch (INFER_BATCH) against the plain
+    version, timed at the tile forward's (BATCH) beside the plain version
+    and the bound (``stage:`` lines and their sum per forward), then each
+    of its conv launches alone at BATCH (``conv:`` lines). Returns kernel
+    1's numbers for the ``kernels`` line (without its launches)."""
+    from ssunet_gan_tpu_torch.infer.api import INFER_BATCH, _norm_consts
+    from ssunet_gan_tpu_torch.models import ssunet
+    from ssunet_gan_tpu_torch.ops import stage_kernel
+
+    a, b = _norm_consts()
+    chunk = torch.from_numpy(scene_tiles[:INFER_BATCH]).to(dev).float() * a.to(dev) + b.to(dev)
+    captured = []
+
+    def capture(parts, bp, sp, head=None, packed=None):
+        captured.append(tuple(p.clone() for p in parts))
+        return plain_stage(parts, bp, sp, head)
+
+    with patched(ssunet, "fused_eval_stage", capture), torch.no_grad():
+        model(chunk.to(torch.bfloat16))
+    del chunk
+    if [tuple(p.shape[-1] for p in c) for c in captured] != [s[1] for s in sigs]:
+        fail(f"{phase}: {name}'s fused stages are not the expected {len(sigs)}: "
+             f"{[[tuple(p.shape) for p in c] for c in captured]}")
+    ms_sum = plain_sum = bound_sum = worst = 0.0
+    kinds, conv_launches = set(), []  # each stage's conv launches at BATCH (conv: lines)
+    for (stage, chans, planes, lab, nh, head_cls, level), full in zip(sigs, captured):
+        side = HW >> level
+        block, spade = getattr(model, stage), getattr(model, "SPADE" + stage[4:])
+        head = (model.final.weight, model.final.bias) if head_cls else None
+        bp, sp = block.stage_params(), spade.stage_params()
+        pk = stage_kernel.pack_stage(chans, bp, sp, head, torch.bfloat16)
+        check(pk["shortcut"] == (bp[4] is not None),
+              f"{phase}: {stage} packed shortcut {pk['shortcut']}, the block has "
+              f"{'one' if bp[4] is not None else 'none'}")
+        err, scale, l2, ok = close(stage_kernel.fused_eval_stage(full, bp, sp, head, pk),
+                                   plain_stage(full, bp, sp, head))
+        print(f"{phase}: {stage} batch {full[0].shape[0]} model weights max_abs_err={err:.4g} "
+              f"rel_l2={l2:.3g} (max|plain|={scale:.4g})")
+        check(ok, f"{phase}: {stage} at batch {full[0].shape[0]}: kernel 1 disagrees with plain "
+              f"(err {err}, max {scale}, l2 {l2})")
+        worst = max(worst, err)
+        parts = tuple(p[:BATCH] for p in full)
+        ms = cuda_ms(lambda: stage_kernel.fused_eval_stage(parts, bp, sp, head, pk), 10)
+        plain_ms = cuda_ms(lambda: plain_stage(parts, bp, sp, head), 3, warmup=1)
+        wbytes = sum(t.numel() * 2 for t in (bp[0], bp[2], bp[4]) if t is not None)
+        wbytes += sum(t.numel() * 4 for t in sp)
+        bound, kind = stage_bound_ms(parts, planes, lab, nh, head_cls, wbytes,
+                                     shortcut=bp[4] is not None)
+        kinds.add(kind)
+        ms_sum, plain_sum, bound_sum = ms_sum + ms, plain_sum + plain_ms, bound_sum + bound
+        print("stage:", json.dumps(dict(model=name, stage=stage,
+                                        shape=[BATCH, side, side, sum(chans)], planes=planes,
+                                        hidden=nh, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                        bound_by=kind)))
+        h1 = stage_kernel.eval_conv(parts, pk["conv1"])
+        conv_launches += [(stage, "conv1", parts, pk["conv1"]),
+                          (stage, "conv2", (h1,) + (parts if pk["shortcut"] else ()), pk["conv2"])]
+    bound_by = "operations" if "operations" in kinds else "bytes"
+    print("stage:", json.dumps(dict(model=name, per="forward", ms=ms_sum, plain_ms=plain_sum,
+                                    bound_ms=bound_sum, bound_by=bound_by)))
+    worst = max(worst, conv_launch_lines(f"kernel 1: {name}", conv_launches, check))
+    del captured, conv_launches, parts, full, pk, h1
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "ms": ms_sum, "plain_ms": plain_sum, "bound_ms": bound_sum,
+            "bound_by": bound_by}
+
+
+def bf16_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, check, name,
+                       phases) -> dict:
+    """A model's bf16 main path: kernel-1 counts to 0, the tile forward at
+    batch 8 (``len(sigs)`` kernel-1 stages per forward) and the 2048² scene
+    request (two chunks), through the entry points; after the counts were
+    read, the kernel path and the all-plain path (bf16) against the f32
+    all-plain forward by the forward and mask bars, and a profile of the
+    tile forward. ``phases``: the labels of the tile forward and the scene
+    request. Returns the main path's launches, tiles/s, scene seconds and
+    distances from f32, and the f32 forwards (logits, tile probabilities,
+    masks) for the int8 path."""
+    from ssunet_gan_tpu_torch.infer.api import (
+        _chunked_forward,
+        _norm_consts,
+        segmentation_inference,
+        tile_forward,
+    )
+    from ssunet_gan_tpu_torch.models import ssunet
+    from ssunet_gan_tpu_torch.ops import stage_kernel
+
+    tile_p, scene_p = phases
+    per = len(sigs)
+    ncls = model.num_classes
+    t_phase = time.perf_counter()
+    stage_kernel.launches = 0
+    warm, iters = 2, 5
+    for _ in range(warm):  # the entry point's defaults: bf16 on the card
+        probs = tile_forward(model, x)
+    settle()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        probs = tile_forward(model, x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    tile_launches = stage_kernel.launches
+    check(tile_launches == per * (warm + iters),
+          f"{tile_p}: {tile_launches} kernel-1 stages in {warm + iters} {name} tile forwards, "
+          f"expected {per} each")
+    check(bool(torch.isfinite(probs.float()).all()) and probs.shape == (BATCH, HW, HW, ncls),
+          f"{tile_p}: {name} tile forward output is not finite or has the wrong shape")
+    tiles_per_s = BATCH * iters / dt
+    print(f"{tile_p}: {name} tile forward {tiles_per_s:.2f} tiles/s (512x512 bf16, batch "
+          f"{BATCH}, {dt / iters * 1e3:.2f} ms/forward, {per} kernel-1 stages each) on {card}")
+    t_phase = phase_done(tile_p, t_phase)
+
+    settle()
+    t0 = time.perf_counter()
+    masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False)
+    scene_s = time.perf_counter() - t0
+    launches = stage_kernel.launches
+    check(launches - tile_launches == 2 * per,
+          f"{scene_p}: the {name} scene request ran {launches - tile_launches} kernel-1 stages, "
+          f"expected {2 * per}")
+    check_masks(masks, scene_p)
+    print(f"{scene_p}: {name} scene 2048x2048 -> {len(masks)} masks in {scene_s:.3f} s (36 tiles, "
+          f"bf16) on {card}; positive share {[round(float((m > 0).mean()), 4) for m in masks]}")
+    t_phase = phase_done(scene_p, t_phase)
+
+    # comparisons, after the counts were read. The bf16 forward is a
+    # sensitive function of where it rounds: a 1-ulp change in a stage can
+    # move a max-pool's winner, which the unpool then carries to another
+    # pixel, so two correct bf16 forwards differ by several percent. The
+    # kernel's and the plain version's bf16 outputs are therefore both held
+    # against the f32 all-plain forward (tolerances at the top).
+    a, b = _norm_consts()
+    xn = x.float() * a.to(dev) + b.to(dev)
+    with torch.no_grad():
+        logits_k = model(xn.to(torch.bfloat16))
+    probs_k = _chunked_forward(model, scene_tiles)  # batch 32, padded chunk
+    with patched(ssunet, "fused_eval_stage", plain_stage), torch.no_grad():
+        logits_p = model(xn.to(torch.bfloat16))
+        probs_p = _chunked_forward(model, scene_tiles)
+        plain_masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False)
+    before = stage_kernel.launches
+    with torch.no_grad():
+        logits_f = model(xn)
+    probs_f = _chunked_forward(model, scene_tiles, torch.float32)
+    f32_masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False,
+                                          dtype=torch.float32)
+    check(stage_kernel.launches == before, f"{tile_p}: an f32 {name} forward launched kernel 1")
+    e_logits = forward_bar(f"{tile_p}: {name} logits", logits_k, logits_p, logits_f, check)[0]
+    e_probs = forward_bar(f"{scene_p}: {name} scene tile probabilities", probs_k, probs_p,
+                          probs_f, check)[0]
+    agree_kf = mask_bars(f"{scene_p}: {name}", masks, plain_masks, f32_masks, check)[1]
+    del logits_k, logits_p, probs_k, probs_p, xn
+    # where one tile forward's device time goes (torch.profiler, by kernel)
+    tile_forward(model, x)  # the f32 comparisons left f32 operands kept; repack once
+    n_prof = 3
+    busy, wall_ms, rows = profile_kernels(lambda: tile_forward(model, x), n_prof)
+    untraced_ms = dt / iters * 1e3
+    print(f"profile: per {name} forward (batch {BATCH}, mean of {n_prof}): device busy "
+          f"{busy:.3f} ms, {sum(r[1] for r in rows)} kernels; {wall_ms:.3f} ms wall under the "
+          f"profiler (idle share {max(0.0, 1 - busy / wall_ms):.3f}), {untraced_ms:.3f} ms "
+          f"untraced (idle share {max(0.0, 1 - busy / untraced_ms):.3f})")
+    for ms, count, key in rows[:12]:
+        print(f"profile: {name} {ms:9.3f} ms {count:4d}x {key[:90]}")
+    tail_line(f"kernel 1: {name} bf16 forward", "forward", rows, tail_calls(sigs, BATCH))
+    conv_profile_line(f"kernel 1: {name} bf16 forward", "forward", rows)
+    torch.cuda.empty_cache()
+    phase_done(f"{tile_p} {name} bf16 comparisons and profile", t_phase)
+    return dict(launches=launches, tiles_per_s=tiles_per_s, scene_s=scene_s, logits=e_logits,
+                probs=e_probs, masks=agree_kf, f32=(logits_f, probs_f, f32_masks))
 
 
 # ---------------------------------------------------------------------------
@@ -1450,14 +1725,16 @@ def int8_stage_phase(dev, sigs, check) -> float:
     return worst
 
 
-def int8_stage_bound_ms(parts, planes, labels, hidden, ncls, out_bytes, weight_bytes):
+def int8_stage_bound_ms(parts, planes, labels, hidden, ncls, out_bytes, weight_bytes,
+                        shortcut=True):
     """Least time for one int8 stage call: its s8 multiply-adds (conv1,
-    conv2, shortcut) at the s8 tensor-core peak plus the tail's at the bf16
-    peak, or its bytes (each part as it arrives, s8 or bf16, and the weights
-    read once, the output written once) over HBM bandwidth."""
+    conv2, and the shortcut where the block has one) at the s8 tensor-core
+    peak plus the tail's at the bf16 peak, or its bytes (each part as it
+    arrives, s8 or bf16, and the weights read once, the output written
+    once) over HBM bandwidth."""
     n, h, w = parts[0].shape[:3]
     cin = sum(p.shape[-1] for p in parts)
-    s8_macs = 9 * cin * planes + 9 * planes * planes + cin * planes
+    s8_macs = 9 * cin * planes + 9 * planes * planes + (cin * planes if shortcut else 0)
     tail_macs = 9 * planes * labels + 9 * labels * hidden + 9 * hidden * 2 * planes + planes * ncls
     t_ops = 2.0 * n * h * w * (s8_macs / PEAK_S8_OPS + tail_macs / PEAK_BF16_FLOPS)
     in_bytes = sum(int(np.prod(p.shape)) * (1 if hasattr(p, "q") else 2) for p in parts)
@@ -1483,7 +1760,7 @@ def library_int_mm(sources, weights):
     return lambda: torch._int_mm(a, wmat)
 
 
-def int8_quant_lines(model, x, check) -> int:
+def int8_quant_lines(model, x, check, phase) -> int:
     """Every one-pass quantization (``quantize_tensor``) of one int8 tile
     forward of ``x`` on the main path (batch 8): the fused stages' bf16
     parts and the deep s8 blocks' bf16 parts and f32 h1 (dynamic scale),
@@ -1509,7 +1786,7 @@ def int8_quant_lines(model, x, check) -> int:
         w_q, w_s = q8.quantize_reference(t, abs_max)
         exact = torch.equal(q, w_q) and (torch.equal(s, w_s) if abs_max is None else s == w_s)
         what = "h1" if i is None else f"part {i}"
-        check(exact, f"phase 8: {name} {what}: the quantization kernel differs from plain")
+        check(exact, f"{phase}: {name} {what}: the quantization kernel differs from plain")
         ms = cuda_ms(lambda: kernel(t, abs_max), 20)
         plain_ms = cuda_ms(lambda: q8.quantize_reference(t, abs_max), 5)
         bound = t.numel() * (t.element_size() + 1) / PEAK_BYTES * 1e3
@@ -1542,27 +1819,30 @@ def int8_quant_lines(model, x, check) -> int:
     finally:
         q8.quantize_tensor, ssunet.fused_eval_stage_int8, ssunet.int8_block = kernel, fused, deep
     check(total["launches"] == need[0],
-          f"phase 8: one int8 forward quantized {total['launches']} inputs, its stages need "
+          f"{phase}: one int8 forward quantized {total['launches']} inputs, its stages need "
           f"{need[0]}")
     print("quant:", json.dumps(dict(per="forward", **total, bound_by="bytes")))
     return need[0]
 
 
-def int8_conv_launch_lines(stages, check):
+def int8_conv_launch_lines(stages, check, phase):
     """Each conv launch of the int8 stages alone on the stage's own inputs
-    (``stages``: name, parts, packed stage, calibration key; batch 8):
+    (``stages``: name, parts, packed stage, calibration key, whether the
+    block has a shortcut; batch 8):
     launches A and B of the s8 conv core (``s8_conv1``, ``s8_conv2``,
     launch Q between them) against their per-launch plain versions by
     ``torch.equal``; each timed beside its bound (s8 multiply-adds at the
     s8 peak, or each input and the weight read and each output written
     once over HBM bandwidth) and the library time (``torch._int_mm`` over
     the materialized tap operand: launch B's 3×3 over q(h1) and shortcut as
-    two GEMMs). Prints ``s8 conv:`` lines and their sum per forward."""
+    two GEMMs). Prints ``s8 conv:`` lines and their sum per forward. A
+    stage without a shortcut (VGG) runs launch B with zero shortcut
+    columns; its bound and library call count the 3×3 alone."""
     from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
 
     total = dict(ms=0.0, bound_ms=0.0, library_ms=0.0, launches=0)
     kinds = set()
-    for name, parts, pk, calib_key in stages:
+    for name, parts, pk, calib_key, shortcut in stages:
         qparts, scales, _ = q8._quantize_parts(parts, calib_key)
         chans = tuple(q.shape[-1] for q in qparts)
         ops = q8._scaled_operands(pk, chans, scales, qparts[0].device)
@@ -1587,14 +1867,14 @@ def int8_conv_launch_lines(stages, check):
              qbytes + conv1["w"].numel() + 2 * m * cout + 4 * n * h),
             ("B", torch.equal(y, w_y), conv2,
              lambda: q8.s8_conv2(qh1, bandscale, qparts, conv2, pk["d2"], ops["ds"], pk["t2"]),
-             [library_int_mm(qparts, conv2["oihw"][:-1]),
-              library_int_mm((qimg,), conv2["oihw"][-1:])],
-             2.0 * m * cout * (9 * cout + sum(chans)),
-             qh1.numel() + qbytes + conv2["w"].numel() + 2 * m * cout),
+             ([library_int_mm(qparts, conv2["oihw"][:-1])] if shortcut else [])
+             + [library_int_mm((qimg,), conv2["oihw"][-1:])],
+             2.0 * m * cout * (9 * cout + (sum(chans) if shortcut else 0)),
+             qh1.numel() + (qbytes if shortcut else 0) + conv2["w"].numel() + 2 * m * cout),
         ]
         del w_h1, w_rowmax, w_y
         for launch, exact, conv, run, libs, flops, nbytes in launches:
-            check(exact, f"phase 8: {name} launch {launch}: the s8 conv core differs from its "
+            check(exact, f"{phase}: {name} launch {launch}: the s8 conv core differs from its "
                   f"plain version")
             ms = cuda_ms(run, 20)
             lib_ms = sum(cuda_ms(f, 20) for f in libs)
@@ -1604,21 +1884,52 @@ def int8_conv_launch_lines(stages, check):
             for k, v in (("ms", ms), ("bound_ms", bound), ("library_ms", lib_ms), ("launches", 1)):
                 total[k] += v
             print("s8 conv:", json.dumps(dict(
-                stage=name, launch=launch, shape=[n, h, w], parts=list(chans), cout=cout,
+                path=phase, stage=name, launch=launch, shape=[n, h, w], parts=list(chans), cout=cout,
                 nt=conv["nt"], nblk=conv["nblk"], exact=exact, ms=ms, bound_ms=bound,
                 bound_by=kind, library_ms=lib_ms)))
         del launches, h1, rowmax, qh1, bandscale, y, qimg, ops
         torch.cuda.empty_cache()
-    print("s8 conv:", json.dumps(dict(per="forward", **total,
+    print("s8 conv:", json.dumps(dict(path=phase, per="forward", **total,
                                       bound_by="operations" if "operations" in kinds else "bytes")))
 
 
+# the decoder stages whose up part is a bilinear upsample, which records the
+# abs-max of its half-height tensor under "<stage>:1:half" (the flagship's
+# deeper decoders un-pool); SSUNet's decoders all upsample bilinearly
+FLAGSHIP_BILINEAR = ("conv1_1", "conv0_1")
+# the stages the int8 mode sends through the deep s8 block ({stage: with the
+# residual}): the flagship's levels 3-5, SSUNet's conv4_0 (512 planes, a
+# VGG block without a residual)
+FLAGSHIP_DEEP = {s: True for s in ("conv3_0", "conv4_0", "conv5_0", "conv4_1", "conv3_1")}
+SSUNET_DEEP = {"conv4_0": False}
+
+
+def expected_ranges(model, bilinear) -> set:
+    """The keys a calibration pass of ``model`` records, from its stage
+    modules alone: each stage's parts (``"<stage>:0"``, and ``":1"`` for a
+    decoder stage ``conv<l>_<k>`` with k > 0, which takes a skip and an up
+    part) and the ``":half"`` key of each bilinear decoder's up part."""
+    keys = set()
+    for name, _ in model.named_children():
+        if name.startswith("conv") and "_" in name and name[4:].replace("_", "").isdigit():
+            keys.add(f"{name}:0")
+            if int(name.split("_")[1]) > 0:
+                keys.add(f"{name}:1")
+    return keys | {f"{name}:1:half" for name in bilinear}
+
+
 def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, config,
-                       f32, bf16):
-    """Phase 8. ``f32``: the f32 all-plain (logits, tile probabilities,
-    masks); ``bf16``: the bf16 kernel path's numbers of phases 2-3 for the
-    side-by-side lines. Returns kernel 7's row of the ``kernels`` line
-    (without its max_abs_err)."""
+                       f32, bf16, phase, name, bilinear, deep):
+    """A model's int8 serving path (phase 8 for the flagship, phase 12 for
+    SSUNet): calibrate, then the main path (``len(sigs)`` kernel-7 stages
+    and the ``deep`` s8 blocks per forward), every quantization, the
+    forwards against plain and f32, each stage and s8 conv launch on its
+    own inputs, a profile. ``f32``: the f32 all-plain (logits, tile
+    probabilities, masks); ``bf16``: the bf16 kernel path's numbers for the
+    side-by-side lines; ``bilinear``: the decoders whose up part records a
+    ``":half"`` range; ``deep``: {stage: residual} of the stages the s8
+    block takes. Returns kernel 7's row of the ``kernels`` line, its
+    max_abs_err over this phase's stage checks."""
     from ssunet_gan_tpu_torch.infer.api import (
         _chunked_forward,
         _norm_consts,
@@ -1633,62 +1944,82 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
     a, b = _norm_consts()
     xn = x.float() * a.to(dev) + b.to(dev)
     scales = calibrate_int8(model, xn.cpu().numpy(), batch_size=BATCH, device=dev)
-    print(f"phase 8: {len(scales)} recorded ranges: "
+    print(f"{phase}: {name}: {len(scales)} recorded ranges: "
           + ", ".join(f"{k} {v:.4g}" for k, v in sorted(scales.items())))
-    check(len(scales) == 18 and all(np.isfinite(v) and v > 0 for v in scales.values()),
-          f"phase 8: expected 18 finite positive ranges, got {scales}")
+    want = expected_ranges(model, bilinear)
+    check(set(scales) == want and all(np.isfinite(v) and v > 0 for v in scales.values()),
+          f"{phase}: expected the {len(want)} ranges {sorted(want)} finite and positive, got "
+          f"{scales}")
+    per = len(sigs)
+    worst = 0.0
+    deep_runs = []  # (stage, residual) of each deep s8 block the main path ran
+    int8_block = ssunet.int8_block
+
+    def counted_block(parts, bp, calib_key=None, residual=True):
+        deep_runs.append((calib_key, residual))
+        return int8_block(parts, bp, calib_key=calib_key, residual=residual)
+
     q8.set_int8_stage(True)
     try:
         # the main path: counts to 0, the tile forward, the scene request
-        q8.launches = q8.conv_launches = q8.quant_launches = 0
-        bf16_before = stage_kernel.launches
-        warm, iters = 2, 5
-        for _ in range(warm):
-            probs = tile_forward(model, x)
-        settle()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            probs = tile_forward(model, x)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        if q8.launches != 6 * (warm + iters) or stage_kernel.launches != bf16_before:
-            fail(f"phase 8: expected {6 * (warm + iters)} int8 kernel stages and no bf16 one, "
-                 f"counted {q8.launches} and {stage_kernel.launches - bf16_before}")
-        if not torch.isfinite(probs.float()).all() or probs.shape != (BATCH, HW, HW, model.num_classes):
-            fail("phase 8: int8 tile forward output is not finite or has the wrong shape")
-        tiles_per_s = BATCH * iters / dt
-        print(f"phase 8: flagship int8 tile forward {tiles_per_s:.2f} tiles/s (512x512, "
-              f"calibrated int8 stages, bf16 activations, batch {BATCH}, "
-              f"{dt / iters * 1e3:.2f} ms/forward) on {card}; bf16 in this run "
-              f"{bf16['tiles_per_s']:.2f} tiles/s")
-        settle()
-        t0 = time.perf_counter()
-        masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False)
-        scene_s = time.perf_counter() - t0
-        launches, conv_launches, quant_launches = q8.launches, q8.conv_launches, q8.quant_launches
-        if launches != 6 * (warm + iters) + 12:
-            fail(f"phase 8: the scene request ran {launches - 6 * (warm + iters)} int8 kernel "
-                 f"stages, expected 12")
+        with patched(ssunet, "int8_block", counted_block):
+            q8.launches = q8.conv_launches = q8.quant_launches = 0
+            bf16_before = stage_kernel.launches
+            warm, iters = 2, 5
+            for _ in range(warm):
+                probs = tile_forward(model, x)
+            settle()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                probs = tile_forward(model, x)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            tile_launches = q8.launches
+            settle()
+            t0 = time.perf_counter()
+            masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False)
+            scene_s = time.perf_counter() - t0
+            launches, conv_launches, quant_launches = (q8.launches, q8.conv_launches,
+                                                       q8.quant_launches)
         forwards = warm + iters + 2
-        print(f"phase 8: main path launches: {launches} int8 stages, {conv_launches} s8 conv "
-              f"core launches, {quant_launches} one-pass quantizations "
-              f"({quant_launches / forwards:g} per forward of a batch)")
-        if conv_launches != 2 * launches:
-            fail(f"phase 8: the s8 conv core ran {conv_launches} times for {launches} stages "
-                 f"(expected two each)")
-        check_masks(masks, "phase 8")
-        print(f"phase 8: scene 2048x2048 -> {len(masks)} masks in {scene_s:.3f} s (36 tiles, "
-              f"int8) on {card}; bf16 in this run {bf16['scene_s']:.3f} s; positive share "
+        check(tile_launches == per * (warm + iters) and stage_kernel.launches == bf16_before,
+              f"{phase}: {tile_launches} int8 kernel stages and "
+              f"{stage_kernel.launches - bf16_before} bf16 ones in {warm + iters} {name} tile "
+              f"forwards, expected {per} and 0 each")
+        check(launches - tile_launches == 2 * per,
+              f"{phase}: the {name} scene request ran {launches - tile_launches} int8 kernel "
+              f"stages, expected {2 * per}")
+        check(Counter(deep_runs) == Counter({k: forwards for k in deep.items()}),
+              f"{phase}: deep s8 blocks {Counter(deep_runs)}, expected {deep} once per forward "
+              f"({forwards} forwards)")
+        check(bool(torch.isfinite(probs.float()).all())
+              and probs.shape == (BATCH, HW, HW, model.num_classes),
+              f"{phase}: {name} int8 tile forward output is not finite or has the wrong shape")
+        tiles_per_s = BATCH * iters / dt
+        print(f"{phase}: {name} int8 tile forward {tiles_per_s:.2f} tiles/s (512x512, "
+              f"calibrated int8 stages, bf16 activations, batch {BATCH}, "
+              f"{dt / iters * 1e3:.2f} ms/forward, {per} kernel-7 stages and {len(deep)} deep s8 "
+              f"blocks each) on {card}; bf16 in this run {bf16['tiles_per_s']:.2f} tiles/s")
+        print(f"{phase}: {name} main path launches: {launches} int8 stages, {conv_launches} s8 "
+              f"conv core launches, {quant_launches} one-pass quantizations "
+              f"({quant_launches / forwards:g} per forward of a batch), deep s8 blocks "
+              f"{dict(Counter(deep_runs))}")
+        check(conv_launches == 2 * launches,
+              f"{phase}: the s8 conv core ran {conv_launches} times for {launches} stages "
+              f"(expected two each)")
+        check_masks(masks, phase)
+        print(f"{phase}: {name} scene 2048x2048 -> {len(masks)} masks in {scene_s:.3f} s (36 "
+              f"tiles, int8) on {card}; bf16 in this run {bf16['scene_s']:.3f} s; positive share "
               f"{[round(float((m > 0).mean()), 4) for m in masks]}")
-        t_phase = phase_done("phase 8 main path", t_phase)
+        t_phase = phase_done(f"{phase} {name} int8 main path", t_phase)
 
         # after the counts were read: every quantization of one more tile
         # forward against plain, and the count the main path needed
-        need = int8_quant_lines(model, x, check)
-        if quant_launches != need * forwards:
-            fail(f"phase 8: the quantization kernel ran {quant_launches} times on the main path, "
-                 f"its stages need {need} per forward ({need * forwards} in all)")
-        t_phase = phase_done("phase 8 quantization checks", t_phase)
+        need = int8_quant_lines(model, x, check, phase)
+        check(quant_launches == need * forwards,
+              f"{phase}: the quantization kernel ran {quant_launches} times on the main path, "
+              f"its stages need {need} per forward ({need * forwards} in all)")
+        t_phase = phase_done(f"{phase} {name} quantization checks", t_phase)
 
         # comparisons, after the counts were read: the same forwards with
         # every int8 stage on its plain version, and each stage's inputs kept
@@ -1716,43 +2047,46 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
         finally:
             ssunet.fused_eval_stage_int8 = kernel_stage
         logits_f, probs_f, f32_masks = f32
-        e_k, e_p, _ = forward_bar("phase 8: int8 logits", logits_k, logits_p, logits_f, check)
-        pe_k, pe_p, _ = forward_bar("phase 8: int8 scene tile probabilities", probs_k, probs_p,
-                                    probs_f, check)
-        _, agree_kf, agree_pf = mask_bars("phase 8: int8", masks, plain_masks, f32_masks, check)
-        print(f"phase 8: distance from the f32 all-plain forward, int8 | bf16 (kernel paths): "
+        e_k, e_p, _ = forward_bar(f"{phase}: {name} int8 logits", logits_k, logits_p, logits_f,
+                                  check)
+        pe_k, pe_p, _ = forward_bar(f"{phase}: {name} int8 scene tile probabilities", probs_k,
+                                    probs_p, probs_f, check)
+        _, agree_kf, agree_pf = mask_bars(f"{phase}: {name} int8", masks, plain_masks, f32_masks,
+                                          check)
+        print(f"{phase}: {name} distance from the f32 all-plain forward, int8 | bf16 (kernel paths): "
               f"logits rel_l2 {e_k:.4g} | {bf16['logits']:.4g}; scene tile probabilities "
               f"{pe_k:.4g} | {bf16['probs']:.4g}; masks agree {agree_kf:.6f} | "
               f"{bf16['masks']:.6f} (int8 plain: logits {e_p:.4g}, probabilities {pe_p:.4g}, "
               f"masks {agree_pf:.6f})")
         del logits_k, logits_p, probs_k, probs_p
-        t_phase = phase_done("phase 8 comparisons", t_phase)
+        t_phase = phase_done(f"{phase} {name} int8 comparisons", t_phase)
 
         # each int8 stage on the inputs the forward gave it (model weights,
         # batch 8): against plain, and timed against plain and its bound
         for calls in (captured, captured_scene):
             if [s[0] for s in sigs] != [c[4] for c in calls]:
-                fail(f"phase 8: the int8 forward's fused stages are {[c[4] for c in calls]}")
+                fail(f"{phase}: the {name} int8 forward's fused stages are "
+                     f"{[c[4] for c in calls]}")
         for parts, bp, sp, head, calib_key, out_amax in captured_scene:
-            what = (f"phase 8: {calib_key} batch {parts[0].shape[0]} (scene chunk) model weights, "
-                    f"{'s8' if out_amax is not None else 'bf16'} out")
-            int8_stage_agrees(what, parts, bp, sp, head, check, calib_key=calib_key,
-                              out_abs_max=out_amax)
+            what = (f"{phase}: {calib_key} batch {parts[0].shape[0]} (scene chunk) model "
+                    f"weights, {'s8' if out_amax is not None else 'bf16'} out")
+            worst = max(worst, int8_stage_agrees(what, parts, bp, sp, head, check,
+                                                 calib_key=calib_key, out_abs_max=out_amax))
         del captured_scene
         ms_sum = plain_sum = bound_sum = 0.0
         kinds = set()
         tails = []
         launch_stages = []  # each stage's inputs and packed operands, for the s8 conv: lines
-        for (name, chans, planes, lab, nh, head_cls, level), call in zip(sigs, captured):
+        for (stage, chans, planes, lab, nh, head_cls, level), call in zip(sigs, captured):
             parts, bp, sp, head, calib_key, out_amax = call
-            tails += tail_calls([(name, chans, planes, lab, nh, head_cls, level)], BATCH,
+            tails += tail_calls([(stage, chans, planes, lab, nh, head_cls, level)], BATCH,
                                 1 if out_amax is not None else 2)
             kw = dict(calib_key=calib_key, out_abs_max=out_amax)
             forms = ["s8" if isinstance(p, q8.QTensor) else "bf16" for p in parts]
-            what = (f"phase 8: {name} batch {BATCH} model weights, parts {forms}, "
+            what = (f"{phase}: {stage} batch {BATCH} model weights, parts {forms}, "
                     f"{'s8' if out_amax is not None else 'bf16'} out")
-            int8_stage_agrees(what, parts, bp, sp, head, check, **kw)
-            block, spade = getattr(model, name), getattr(model, "SPADE" + name[4:])
+            worst = max(worst, int8_stage_agrees(what, parts, bp, sp, head, check, **kw))
+            block, spade = getattr(model, stage), getattr(model, "SPADE" + stage[4:])
             final = model.final if head_cls else None
             packed = ssunet._stage_operands(parts, block, spade, final, int8=True)[3]
             run = lambda: q8.fused_eval_stage_int8(parts, bp, sp, head, packed=packed, **kw)
@@ -1760,46 +2094,49 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
             ms = cuda_ms(run, 10)
             plain_ms = cuda_ms(ref, 1, warmup=1)
             side = HW >> level
-            wbytes = sum(t.numel() for t in (bp[0], bp[2], bp[4])) + 5 * 4 * planes
+            shortcut = bp[4] is not None
+            wbytes = sum(t.numel() for t in (bp[0], bp[2], bp[4]) if t is not None) + 5 * 4 * planes
             wbytes += sum(t.numel() * 4 for t in sp)
             out_bytes = BATCH * side * side * ((head_cls or planes) * (1 if out_amax else 2))
-            bound, kind = int8_stage_bound_ms(parts, planes, lab, nh, head_cls, out_bytes, wbytes)
+            bound, kind = int8_stage_bound_ms(parts, planes, lab, nh, head_cls, out_bytes, wbytes,
+                                              shortcut)
             kinds.add(kind)
             ms_sum, plain_sum, bound_sum = ms_sum + ms, plain_sum + plain_ms, bound_sum + bound
-            row = dict(stage=name, shape=[BATCH, side, side, sum(chans)], planes=planes,
+            row = dict(model=name, stage=stage, shape=[BATCH, side, side, sum(chans)], planes=planes,
                        parts=forms, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=kind)
             print("int8 stage:", json.dumps(row))
-            launch_stages.append((name, parts, packed, calib_key))
+            launch_stages.append((stage, parts, packed, calib_key, shortcut))
         del captured
-        int8_conv_launch_lines(launch_stages, check)
+        int8_conv_launch_lines(launch_stages, check, phase)
         del launch_stages
-        t_phase = phase_done("phase 8 per-stage checks and timing", t_phase)
+        t_phase = phase_done(f"{phase} {name} int8 per-stage checks and timing", t_phase)
 
         # where one int8 tile forward's device time goes
         n_prof = 3
         busy, wall_ms, rows = profile_kernels(lambda: tile_forward(model, x), n_prof)
         untraced_ms = dt / iters * 1e3
-        print(f"profile: per int8 forward (batch {BATCH}, mean of {n_prof}): device busy "
+        print(f"profile: per {name} int8 forward (batch {BATCH}, mean of {n_prof}): device busy "
               f"{busy:.3f} ms, {sum(r[1] for r in rows)} kernels; {wall_ms:.3f} ms wall under "
               f"the profiler (idle share {max(0.0, 1 - busy / wall_ms):.3f}), "
               f"{untraced_ms:.3f} ms untraced (idle share "
               f"{max(0.0, 1 - busy / untraced_ms):.3f})")
         for ms, count, key in rows[:14]:
-            print(f"profile: int8 {ms:9.3f} ms {count:4d}x {key[:90]}")
-        tail_line("kernel 7: flagship int8 forward", "forward", rows, tails)
-        conv_profile_line("kernel 7: flagship int8 forward", "forward", rows, ("s8_conv_core",),
+            print(f"profile: {name} int8 {ms:9.3f} ms {count:4d}x {key[:90]}")
+        tail_line(f"kernel 7: {name} int8 forward", "forward", rows, tails)
+        conv_profile_line(f"kernel 7: {name} int8 forward", "forward", rows, ("s8_conv_core",),
                           "s8 conv profile:")
-        conv_profile_line("kernel 7: flagship int8 forward", "forward", rows,
+        conv_profile_line(f"kernel 7: {name} int8 forward", "forward", rows,
                           ("q_quant_kernel", "q_absmax_kernel"), "quant profile:")
-        phase_done("phase 8 profile", t_phase)
+        phase_done(f"{phase} {name} int8 profile", t_phase)
     finally:
         q8.set_int8_stage(False)
         q8.set_int8_calibration(None)
     return {
         "name": "fused_eval_stage_int8", "route": "cuda",
         "source": f"ssunet_gan_tpu_torch/csrc/{q8.SOURCE}", "replaces": q8.REPLACES,
-        "launches": launches, "ms": ms_sum, "plain_ms": plain_sum, "bound_ms": bound_sum,
-        "bound_by": "operations" if "operations" in kinds else "bytes", "library_ms": None,
+        "launches": launches, "max_abs_err": worst, "ms": ms_sum, "plain_ms": plain_sum,
+        "bound_ms": bound_sum, "bound_by": "operations" if "operations" in kinds else "bytes",
+        "library_ms": None,
     }
 
 # ---------------------------------------------------------------------------
@@ -2068,10 +2405,6 @@ def rss_forward_phase(dev, card, cfg, x, calib, check) -> None:
           f"batch {BATCH}, {dt / iters * 1e3:.2f} ms/forward, six kernel stages each) on {card}")
     a, b = _norm_consts()
     xn = x.float() * a.to(dev) + b.to(dev)
-
-    def plain_stage(parts, bp, sp, head=None, packed=None):
-        return stage_kernel.fused_stage_reference(parts, bp, sp, head)
-
     with torch.no_grad():
         logits_k = model(xn.to(torch.bfloat16))
         with patched(ssunet, "fused_eval_stage", plain_stage):
@@ -2105,17 +2438,9 @@ def spade_call_agrees(what, x, params, check) -> float:
 
 def spade_phase(dev, card, cfg, sigs, check):
     """Phase 11; returns kernel 9's row of the ``kernels`` line."""
-    from ssunet_gan_tpu_torch.data.dataset import SyntheticDataset
-    from ssunet_gan_tpu_torch.data.loader import BatchLoader
-    from ssunet_gan_tpu_torch.data.transforms import val_transform
     from ssunet_gan_tpu_torch.models import build_model
-    from ssunet_gan_tpu_torch.ops import spade as spade_mod
     from ssunet_gan_tpu_torch.ops import spade_kernel as sk
-    from ssunet_gan_tpu_torch.ops.losses import get_loss
     from ssunet_gan_tpu_torch.ops.spade import SPADE
-    from ssunet_gan_tpu_torch.train.optim import build_optimizer, build_scheduler
-    from ssunet_gan_tpu_torch.train.step import make_train_step
-    from ssunet_gan_tpu_torch.train.supervised import train_one_epoch
 
     t_phase = time.perf_counter()
     ncls, in_ch = cfg["num_classes"], cfg["input_channels"]
@@ -2164,32 +2489,63 @@ def spade_phase(dev, card, cfg, sigs, check):
     t_phase = phase_done("phase 11 kernel checks", t_phase)
 
     # UNet_B_SS's trainer, the mode "pallas": the main path of kernel 9
+    tmodel = build_model("UNet_B_SS", ncls, in_ch, cfg["deep_supervision"], seed=SEED,
+                         device=dev)
+    row = pallas_trainer_phase(dev, card, cfg, tmodel, "UNet_B_SS", "phase 11", check,
+                               off_steps=SPADE_OFF_STEPS)
+    del tmodel
+    torch.cuda.empty_cache()
+    row["max_abs_err"] = max(row["max_abs_err"], worst)
+    del row["per_step"]
+    return row
+
+
+def pallas_trainer_phase(dev, card, cfg, model, name, phase, check, off_steps=0) -> dict:
+    """``model``'s trainer at 512², batch 8, with ``set_fused_spade("pallas")``
+    (the main path of kernel 9): SPADE_WARM warm-up and SPADE_STEPS timed
+    steps through ``train_one_epoch``, one kernel launch per step for each
+    SPADE the gate takes; ``off_steps`` steps with the mode off timed beside
+    them (a record); a profile of one step; then each of that step's calls
+    on its own inputs against plain, timed against plain and its bound. The
+    mode is restored after. Returns kernel 9's row of the ``kernels`` line,
+    and ``per_step``, the SPADEs the gate takes."""
+    from ssunet_gan_tpu_torch.data.dataset import SyntheticDataset
+    from ssunet_gan_tpu_torch.data.loader import BatchLoader
+    from ssunet_gan_tpu_torch.data.transforms import val_transform
+    from ssunet_gan_tpu_torch.ops import spade as spade_mod
+    from ssunet_gan_tpu_torch.ops import spade_kernel as sk
+    from ssunet_gan_tpu_torch.ops.losses import get_loss
+    from ssunet_gan_tpu_torch.ops.spade import SPADE
+    from ssunet_gan_tpu_torch.train.optim import build_optimizer, build_scheduler
+    from ssunet_gan_tpu_torch.train.step import make_train_step
+    from ssunet_gan_tpu_torch.train.supervised import train_one_epoch
+
+    t_phase = time.perf_counter()
+    ncls, in_ch = cfg["num_classes"], cfg["input_channels"]
+
     def loader(n_steps, seed):
         ds = SyntheticDataset(n_steps * TRAIN_BATCH, HW, HW, ncls, in_ch,
                               transform=val_transform(cfg), seed=seed)
         return BatchLoader(ds, TRAIN_BATCH, shuffle=False, drop_last=True,
                            num_workers=int(cfg["num_workers"]))
 
-    tmodel = build_model("UNet_B_SS", ncls, in_ch, cfg["deep_supervision"], seed=SEED,
-                         device=dev).train()
-    step = make_train_step(tmodel, get_loss(cfg["loss"]),
-                           build_optimizer(tmodel.parameters(), cfg), ncls,
-                           cfg["deep_supervision"], clip=float(cfg["clip"]))
+    model.train()
+    step = make_train_step(model, get_loss(cfg["loss"]), build_optimizer(model.parameters(), cfg),
+                           ncls, cfg["deep_supervision"], clip=float(cfg["clip"]))
     lr = build_scheduler(cfg).lr(0)
     # one launch per step for each SPADE whose self-SPADE the gate takes
-    # (all nine of UNet_B_SS's: planes 64-1024, hidden 4-64)
     per_step = sum(
         sk.fused_spade_supported(
             torch.empty((1, 1, 1, m.x2map.weight.shape[1]), dtype=torch.bfloat16, device=dev),
             m.ks, m.label_nc, m.nhidden)
-        for m in tmodel.modules() if isinstance(m, SPADE))
+        for m in model.modules() if isinstance(m, SPADE))
     mode_before = sk._FUSED
     try:
         sk.set_fused_spade("pallas")
         sk.launches = 0
         warm_log = train_one_epoch(0, cfg, loader(SPADE_WARM, seed=1), step, lr, device=dev)
         check(sk.launches == per_step * SPADE_WARM,
-              f"phase 11: {sk.launches} self-SPADE launches in {SPADE_WARM} warm-up steps, "
+              f"{phase}: {sk.launches} self-SPADE launches in {SPADE_WARM} warm-up steps, "
               f"expected {per_step} each")
         settle()
         t1 = time.perf_counter()
@@ -2198,36 +2554,37 @@ def spade_phase(dev, card, cfg, sigs, check):
         dt = time.perf_counter() - t1
         launches = sk.launches
         steps = SPADE_WARM + SPADE_STEPS
-        print(f"phase 11: self-SPADE kernel launches in {steps} steps: {launches} "
+        print(f"{phase}: {name} self-SPADE kernel launches in {steps} steps: {launches} "
               f"(expected {steps} x {per_step})")
         check(launches == per_step * steps,
-              f"phase 11: launches {launches} != {steps} x {per_step}")
+              f"{phase}: {name} launches {launches} != {steps} x {per_step}")
         finite = all(np.isfinite(v) for lg in (warm_log, log)
                      for k, v in lg.items() if k != "images_per_sec")
-        check(finite, f"phase 11: metrics not finite: {warm_log} {log}")
+        check(finite, f"{phase}: metrics not finite: {warm_log} {log}")
         ms_step = dt / SPADE_STEPS * 1e3
-        print(f"phase 11: UNet_B_SS train step, fused self-SPADE {ms_step:.2f} ms/step, "
+        print(f"{phase}: {name} train step, fused self-SPADE {ms_step:.2f} ms/step, "
               f"{TRAIN_BATCH * SPADE_STEPS / dt:.2f} images/s (512x512 bf16, batch "
-              f"{TRAIN_BATCH}, Adam, {SPADE_STEPS} steps after {SPADE_WARM} warm-up) on {card}; "
-              f"warm-up epoch {warm_log}; timed epoch {log}")
-        t_phase = phase_done("phase 11 trainer (fused self-SPADE)", t_phase)
+              f"{TRAIN_BATCH}, Adam, {SPADE_STEPS} steps after {SPADE_WARM} warm-up, {per_step} "
+              f"kernel-9 launches per step) on {card}; warm-up epoch {warm_log}; timed epoch {log}")
+        t_phase = phase_done(f"{phase} {name} trainer (fused self-SPADE)", t_phase)
 
-        # the mode off beside it in the same call: a record, not a claim
-        sk.set_fused_spade("off")
-        train_one_epoch(2, cfg, loader(1, seed=3), step, lr, device=dev)
-        settle()
-        t1 = time.perf_counter()
-        off_log = train_one_epoch(3, cfg, loader(SPADE_OFF_STEPS, seed=4), step, lr, device=dev)
-        torch.cuda.synchronize()
-        off_dt = time.perf_counter() - t1
-        check(sk.launches == launches, "phase 11: the mode off launched the self-SPADE kernel")
-        print(f"phase 11: UNet_B_SS train step, SPADE composition (mode off, record) "
-              f"{off_dt / SPADE_OFF_STEPS * 1e3:.2f} ms/step, "
-              f"{TRAIN_BATCH * SPADE_OFF_STEPS / off_dt:.2f} images/s ({SPADE_OFF_STEPS} steps "
-              f"after 1 warm-up) on {card}; epoch {off_log}")
-        t_phase = phase_done("phase 11 trainer (mode off)", t_phase)
+        if off_steps:  # the mode off beside it in the same call: a record, not a claim
+            sk.set_fused_spade("off")
+            train_one_epoch(2, cfg, loader(1, seed=3), step, lr, device=dev)
+            settle()
+            t1 = time.perf_counter()
+            off_log = train_one_epoch(3, cfg, loader(off_steps, seed=4), step, lr, device=dev)
+            torch.cuda.synchronize()
+            off_dt = time.perf_counter() - t1
+            check(sk.launches == launches,
+                  f"{phase}: the mode off launched the self-SPADE kernel")
+            print(f"{phase}: {name} train step, SPADE composition (mode off, record) "
+                  f"{off_dt / off_steps * 1e3:.2f} ms/step, "
+                  f"{TRAIN_BATCH * off_steps / off_dt:.2f} images/s ({off_steps} steps "
+                  f"after 1 warm-up) on {card}; epoch {off_log}")
+            t_phase = phase_done(f"{phase} {name} trainer (mode off)", t_phase)
 
-        # one step's six calls on their own inputs: against plain, and timed
+        # one step's calls on their own inputs: against plain, and timed
         sk.set_fused_spade("pallas")
         _, img, mask, _ = next(iter(loader(1, seed=5)))
         xb = torch.from_numpy(img).to(dev).to(torch.bfloat16)
@@ -2241,21 +2598,21 @@ def spade_phase(dev, card, cfg, sigs, check):
         with patched(spade_mod, "fused_spade_stage", capture):
             step(xb, yb, lr)
         torch.cuda.synchronize()
-        # where one UNet_B_SS train step's device time goes
-        rows = print_profile("UNet_B_SS, fused self-SPADE", lambda: step(xb, yb, lr), ms_step)
-        tail_line("kernel 9: UNet_B_SS train step (\"pallas\")", "step", rows,
+        # where one train step's device time goes
+        rows = print_profile(f"{name}, fused self-SPADE", lambda: step(xb, yb, lr), ms_step)
+        tail_line(f"kernel 9: {name} train step (\"pallas\")", "step", rows,
                   [(*x.shape, p[0].shape[0], p[2].shape[0], 0, 2, False) for x, p in calls])
     finally:
         sk.set_fused_spade(mode_before)
     if len(calls) != per_step or any(x.shape[0] != TRAIN_BATCH for x, _ in calls):
-        fail(f"phase 11: the step's self-SPADE calls are {[tuple(c[0].shape) for c in calls]}, "
+        fail(f"{phase}: the step's self-SPADE calls are {[tuple(c[0].shape) for c in calls]}, "
              f"expected {per_step} at batch {TRAIN_BATCH}")
-    ms_sum = plain_sum = bound_sum = 0.0
+    ms_sum = plain_sum = bound_sum = worst = 0.0
     kinds = set()
     for x, params in calls:
         planes, lab, nh = x.shape[-1], params[0].shape[0], params[2].shape[0]
-        what = (f"phase 11: the self-SPADE of {planes} channels at {x.shape[1]}x{x.shape[2]}, "
-                f"batch {TRAIN_BATCH}, on the step's own input")
+        what = (f"{phase}: {name}'s self-SPADE of {planes} channels (hidden {nh}) at "
+                f"{x.shape[1]}x{x.shape[2]}, batch {TRAIN_BATCH}, on the step's own input")
         with torch.no_grad():
             worst = max(worst, spade_call_agrees(what, x, params, check))
             ms = cuda_ms(lambda: sk.fused_spade_stage(x, *params), 10)
@@ -2264,19 +2621,335 @@ def spade_phase(dev, card, cfg, sigs, check):
         bound, kind = bound_of(2.0 * spade_macs(planes, lab, nh) * x.numel() / planes, nbytes)
         kinds.add(kind)
         ms_sum, plain_sum, bound_sum = ms_sum + ms, plain_sum + plain_ms, bound_sum + bound
-        row = dict(stage=f"SPADE {planes} channels", shape=list(x.shape), ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound, bound_by=kind)
+        row = dict(model=name, stage=f"SPADE {planes} channels", shape=list(x.shape), hidden=nh,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=kind)
         print("spade stage:", json.dumps(row))
-    del calls, tmodel, step, xb, yb
+    del calls, step, xb, yb
     torch.cuda.empty_cache()
-    phase_done("phase 11 per-call checks and timing", t_phase)
+    phase_done(f"{phase} {name} per-call checks and timing", t_phase)
     return {
         "name": "fused_spade_stage", "route": "cuda",
         "source": f"ssunet_gan_tpu_torch/csrc/{sk.SOURCE}", "replaces": sk.REPLACES,
         "launches": launches, "max_abs_err": worst, "ms": ms_sum, "plain_ms": plain_sum,
         "bound_ms": bound_sum, "bound_by": "operations" if "operations" in kinds else "bytes",
-        "library_ms": None,
+        "library_ms": None, "per_step": per_step,
     }
+
+
+# ---------------------------------------------------------------------------
+# SSUNet (phase 12) and the training entry point (phase 13)
+# ---------------------------------------------------------------------------
+
+# the training entry point (phase 13): synthetic train scenes (two steps of
+# batch 8 per epoch) and the PNG tree of the CLI run (train / val / test)
+ENTRY_SYNTHETIC, ENTRY_EPOCHS = 16, 2
+CLI_SPLITS = (("training", 16), ("validation", 4), ("test", 4))
+
+
+def ssunet_signatures(f, num_classes, input_channels):
+    """(name, part channels, planes, labels, hidden, head classes, level)
+    of SSUNet's eight fused VGG stages, in the forward's order (conv4_0, 512
+    planes, runs the composition)."""
+    nh = lambda c: int(max(c / 4, 4))
+    return [
+        ("conv0_0", (input_channels,), f[0], num_classes, nh(f[0]), 0, 0),
+        ("conv1_0", (f[0],), f[1], num_classes, nh(f[1]), 0, 1),
+        ("conv2_0", (f[1],), f[2], num_classes, nh(f[2]), 0, 2),
+        ("conv3_0", (f[2],), f[3], num_classes, nh(f[3]), 0, 3),
+        ("conv3_1", (f[3], f[4]), f[3], num_classes, nh(f[3]), 0, 3),
+        ("conv2_2", (f[2], f[3]), f[2], num_classes, nh(f[2]), 0, 2),
+        ("conv1_3", (f[1], f[2]), f[1], num_classes, nh(f[1]), 0, 1),
+        ("conv0_4", (f[0], f[1]), f[0], num_classes, nh(f[0]), num_classes, 0),
+    ]
+
+
+def ssunet_phase(dev, card, cfg, calib, x, scene, scene_tiles, config, check):
+    """Phase 12: SSUNet at full width through the phases the flagship runs
+    (1-3, 8, and 11's trainer). Returns {kernel: (launches, max abs
+    error)} for kernels 1, 7 and 9 on its main paths."""
+    from ssunet_gan_tpu_torch.models import build_model
+    from ssunet_gan_tpu_torch.ops import stage_kernel
+    from ssunet_gan_tpu_torch.ops.blocks import VGGBlock
+
+    t_phase = time.perf_counter()
+    ncls, in_ch = cfg["num_classes"], cfg["input_channels"]
+    model = build_model("SSUNet", ncls, in_ch, seed=SEED, device=dev)
+    calibrate_batchnorm(model, calib)
+    center_head(model, calib)
+    sigs = ssunet_signatures(model.filters, ncls, in_ch)
+    check(model.conv4_0.planes > stage_kernel.MAX_PLANES,
+          "phase 12: conv4_0 was expected past the fused stage's planes")
+    gen = torch.Generator().manual_seed(SEED + 50)
+    seeded = seeded_stage_phase(dev, sigs, VGGBlock, gen, "phase 12", check, int8=True)
+    t_phase = phase_done("phase 12 VGG stages, seeded", t_phase)
+    stages = model_stage_phase(dev, model, sigs, scene_tiles, "phase 12", "SSUNet", check)
+    phase_done("phase 12 VGG stages, model weights", t_phase)
+
+    serve = bf16_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, check,
+                               "SSUNet", ("phase 12", "phase 12"))
+    int8_row = int8_serving_phase(
+        dev, card, model, sigs, check, x, scene, scene_tiles, config, serve.pop("f32"), serve,
+        "phase 12", "SSUNet", [s[0] for s in sigs if len(s[1]) == 2], SSUNET_DEEP)
+    torch.cuda.empty_cache()
+
+    # training: kernel 9 on every SPADE the gate takes (the eight of 32-256
+    # planes; conv4_0's hidden 128 is past the tail's limit), the VGG blocks
+    # through plain autograd
+    spade_row = pallas_trainer_phase(dev, card, cfg, model, "SSUNet", "phase 12", check)
+    check(spade_row["per_step"] == len(sigs),
+          f"phase 12: the SPADE gate takes {spade_row['per_step']} of SSUNet's nine")
+    del model
+    torch.cuda.empty_cache()
+    return {
+        "fused_eval_stage": (serve["launches"], max(seeded[0], stages["max_abs_err"])),
+        "fused_eval_stage_int8": (int8_row["launches"], max(seeded[1], int8_row["max_abs_err"])),
+        "fused_spade_stage": (spade_row["launches"], spade_row["max_abs_err"]),
+    }
+
+
+def write_png_tree(root, name, splits, size, num_classes, in_ch, filter_type):
+    """The reference's directory layout of PNGs written by the port's codec
+    (``data/png.py``, every row with ``filter_type``) from seeded synthetic
+    scenes: BGR images, one 0/255 mask per class."""
+    from ssunet_gan_tpu_torch.data.dataset import SyntheticDataset
+    from ssunet_gan_tpu_torch.data.png import write_image
+
+    for k, (split, n) in enumerate(splits):
+        ds = SyntheticDataset(n, size, size, num_classes, in_ch, seed=100 + k)
+        for i in range(n):
+            img, _, mask, _ = ds[i]
+            img_dir = os.path.join(root, name, "images", split)
+            os.makedirs(img_dir, exist_ok=True)
+            write_image(os.path.join(img_dir, f"{i:04d}.png"), img, filter_type)
+            for c in range(num_classes):
+                d = os.path.join(root, name, "annotations", split, str(c))
+                os.makedirs(d, exist_ok=True)
+                write_image(os.path.join(d, f"{i:04d}.png"),
+                            (mask[..., c] * 255).astype(np.uint8), filter_type)
+
+
+def png_decode_line(root, name, split, card) -> None:
+    """A ``png decode:`` line: ``data/png.py``'s time per item of a split
+    (its image and its masks, as ``SegmentationDataset`` reads them) and
+    the part of it that is zlib's inflate, the floor of any decoder (the
+    rest is the unfilter: the row path or the anti-diagonal walk, by the
+    files' filters)."""
+    import zlib
+
+    from ssunet_gan_tpu_torch.data import png
+
+    img_dir = os.path.join(root, name, "images", split)
+    ids = sorted(os.listdir(img_dir))
+    ann = os.path.join(root, name, "annotations", split)
+    mask_dirs = sorted(os.path.join(ann, d) for d in os.listdir(ann))
+    decode_s = inflate_s = 0.0
+    kinds, shape = set(), None
+    for i in ids:
+        for path in [os.path.join(img_dir, i)] + [os.path.join(d, i) for d in mask_dirs]:
+            with open(path, "rb") as f:
+                data = f.read()
+            t0 = time.perf_counter()
+            x = png.decode_png(data)
+            t1 = time.perf_counter()
+            raw = zlib.decompress(b"".join(body for kind, body in png._chunks(data)
+                                           if kind == b"IDAT"))
+            decode_s, inflate_s = decode_s + t1 - t0, inflate_s + time.perf_counter() - t1
+            shape = shape or list(x.shape)  # the image's
+            kinds |= set(np.frombuffer(raw, np.uint8).reshape(x.shape[0], -1)[:, 0].tolist())
+    n = len(ids)
+    print("png decode:", json.dumps(dict(
+        tree=name, split=split, items=n, masks_per_item=len(mask_dirs), image_shape=shape,
+        filters=sorted(kinds), ms_per_item=decode_s / n * 1e3,
+        inflate_ms_per_item=inflate_s / n * 1e3, card=card)))
+
+
+def entry_point_phase(dev, card, here, check, overrides=None):
+    """Phase 13: ``run_experiment`` on config_v1.json's opt_config (the
+    flagship at 512², batch 8, Adam, bf16) with its paths in a temporary
+    directory, its resume, ``model.pth`` reloaded, one epoch on PNG files
+    (the loader's wait on decoded data), and the CLI on the same files.
+    ``overrides`` replace opt_config keys (a rehearsal on the CPU makes the
+    tiles small). Returns the train kernels' launches on this path."""
+    import tempfile
+
+    from ssunet_gan_tpu_torch.config import load_experiment_config, load_flat_card
+    from ssunet_gan_tpu_torch.data import png
+    from ssunet_gan_tpu_torch.infer.api import tile_forward
+    from ssunet_gan_tpu_torch.models import build_model
+    from ssunet_gan_tpu_torch.train import checkpoint as ckpt
+    from ssunet_gan_tpu_torch.train import supervised
+
+    t_phase = time.perf_counter()
+    config_path = os.path.join(here, "configs", "config_v1.json")
+    overrides = dict(overrides or {})
+    size = int(overrides.get("input_h", HW))
+    per_step = PER_STEP["v3"]
+    tiles = torch.from_numpy(np.random.default_rng(SEED + 60).integers(
+        0, 256, (BATCH, size, size, 3), dtype=np.uint8)).to(dev)
+    saved_probs = {}
+    save_model = ckpt.save_model
+
+    def save_and_probe(model_dir, model):
+        """Save, then run the tile forward of the model as saved."""
+        path = save_model(model_dir, model)
+        with torch.no_grad():
+            saved_probs["probs"] = tile_forward(model, tiles, device=dev).clone()
+        return path
+
+    epochs = []  # (epoch, train s, loader wait s, eval s)
+    loader_cls, train_epoch, evaluate = (supervised.BatchLoader, supervised.train_one_epoch,
+                                         supervised.evaluate)
+    waits = [0.0]
+
+    class TimedLoader(loader_cls):
+        def __iter__(self):
+            it = super().__iter__()
+            while True:
+                t = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                if self.shuffle:  # the train split
+                    waits[0] += time.perf_counter() - t
+                yield batch
+
+    def timed_epoch(epoch, *args, **kwargs):
+        waits[0] = 0.0
+        t = time.perf_counter()
+        out = train_epoch(epoch, *args, **kwargs)
+        epochs.append([epoch, time.perf_counter() - t, waits[0], 0.0])
+        return out
+
+    def timed_eval(*args, **kwargs):
+        t = time.perf_counter()
+        out = evaluate(*args, **kwargs)
+        epochs[-1][3] += time.perf_counter() - t
+        return out
+
+    yaml_before = sys.modules.get("yaml", None)
+    sys.modules["yaml"] = None  # the card machine has no PyYAML: write the flat card
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            patched(ckpt, "save_model", save_and_probe), \
+            patched(supervised, "BatchLoader", TimedLoader), \
+            patched(supervised, "train_one_epoch", timed_epoch), \
+            patched(supervised, "evaluate", timed_eval):
+        try:
+            cfg = load_experiment_config(config_path)
+            cfg.opt_config.update(overrides)
+            cfg.file_path.model_path = os.path.join(tmp, "models")
+            cfg.file_path.checkpoint_path = os.path.join(tmp, "checkpoint")
+            reset_launches()
+            _, best_iou, log = supervised.run_experiment(cfg, synthetic=ENTRY_SYNTHETIC,
+                                                         epochs_override=ENTRY_EPOCHS, device=dev)
+            counts = read_launches()
+            steps = ENTRY_EPOCHS * (ENTRY_SYNTHETIC // cfg.opt_config["batch_size"])
+            print(f"phase 13: run_experiment on config_v1.json (the flagship 512x512, batch 8, "
+                  f"Adam, bf16), {ENTRY_EPOCHS} epochs of {ENTRY_SYNTHETIC} synthetic scenes: train "
+                  f"kernel launches {counts} in {steps} steps; log {dict(log)}")
+            check(counts == {k: steps * v for k, v in per_step.items()},
+                  f"phase 13: launches {counts} != {steps} x {per_step}")
+            mdir = cfg.model_dir()
+            with open(os.path.join(mdir, "log.csv")) as f:
+                rows = f.read().splitlines()
+            check(rows[0] == "epoch,lr,loss,iou,dice,val_loss,val_iou,val_dice" and len(rows) == 3,
+                  f"phase 13: log.csv {rows}")
+            with open(os.path.join(mdir, "config.yml")) as f:
+                card_text = f.read()
+            check(load_flat_card(card_text) == cfg.opt_config,
+                  "phase 13: the flat model card does not read back as the opt_config")
+            check(os.path.isfile(os.path.join(mdir, "model.pth")) and "probs" in saved_probs,
+                  f"phase 13: no model.pth saved (best val IoU {best_iou})")
+            t_phase = phase_done("phase 13 run_experiment", t_phase)
+
+            # resume for a third epoch
+            cfg.opt_config["resume"] = True
+            reset_launches()
+            _, _, log3 = supervised.run_experiment(cfg, synthetic=ENTRY_SYNTHETIC,
+                                                   epochs_override=ENTRY_EPOCHS + 1, device=dev)
+            more = read_launches()
+            resumed = ENTRY_SYNTHETIC // cfg.opt_config["batch_size"]
+            print(f"phase 13: resumed: epochs {log3['epoch']}, launches {more}")
+            check(log3["epoch"] == [ENTRY_EPOCHS]
+                  and more == {k: resumed * v for k, v in per_step.items()},
+                  f"phase 13: the resume ran epochs {log3['epoch']} with launches {more}")
+            for k in counts:
+                launches[k] = counts[k] + more[k]
+            fresh = build_model(cfg.opt_config["arch"], cfg.opt_config["num_classes"], 3,
+                                seed=SEED + 61, device=dev)
+            report = ckpt.load_model(mdir, fresh)
+            with torch.no_grad():
+                probs = tile_forward(fresh, tiles, device=dev)
+            same = torch.equal(probs, saved_probs["probs"])
+            print(f"phase 13: model.pth into a fresh model: {len(report['loaded'])} tensors "
+                  f"loaded, missing {report['missing']}, unmatched {report['unmatched']}; tile "
+                  f"forward equal to the saved model's bit for bit: {same}")
+            check(same and not report["missing"] and not report["unmatched"],
+                  "phase 13: the model reloaded from model.pth differs from the saved one")
+            del fresh, probs
+            t_phase = phase_done("phase 13 resume and reload", t_phase)
+
+            # one epoch on each of two PNG trees, the same pixels: Sub rows,
+            # as cv2.imwrite writes at its defaults (the decoder's row
+            # path; the tree the CLI reads below), and Paeth rows (its
+            # anti-diagonal walk, which libpng's adaptive filters take)
+            png_root = os.path.join(tmp, "inputs")
+            base, sources = cfg.name, ["synthetic"] * len(epochs)
+            steps = CLI_SPLITS[0][1] // cfg.opt_config["batch_size"]
+            for tree, filter_type in (("pngs", png.SUB), ("pngs_paeth", png.PAETH)):
+                write_png_tree(png_root, tree, CLI_SPLITS, size, cfg.opt_config["num_classes"],
+                               cfg.opt_config["input_channels"], filter_type)
+                png_decode_line(png_root, tree, CLI_SPLITS[0][0], card)
+                cfg.file_path.input_path = png_root
+                cfg.opt_config.update(resume=False, dataset=tree, val_dataset=tree,
+                                      name=f"{base}_{tree}")
+                reset_launches()
+                supervised.run_experiment(cfg, epochs_override=1, device=dev)
+                more = read_launches()
+                check(more == {k: steps * v for k, v in per_step.items()},
+                      f"phase 13: the epoch on {tree} ran launches {more}, expected {steps} x "
+                      f"{per_step}")
+                for k in counts:
+                    launches[k] += more[k]
+                sources.append(f"PNG ({tree})")
+            for (epoch, train_s, wait_s, eval_s), data in zip(epochs, sources):
+                print(f"phase 13: {data} epoch {epoch}: train {train_s:.3f} s (loader wait "
+                      f"{wait_s:.3f} s, {wait_s / train_s:.3f} of it; steps "
+                      f"{train_s - wait_s:.3f} s), val + test evaluation {eval_s:.3f} s on {card}")
+            t_phase = phase_done("phase 13 PNG epochs", t_phase)
+        finally:
+            if yaml_before is None:
+                sys.modules.pop("yaml", None)
+            else:
+                sys.modules["yaml"] = yaml_before
+
+        # the CLI on PNG files, in a process of its own
+        with open(config_path) as f:
+            raw = json.load(f)
+        raw["file_path"] = {"input_path": os.path.join(tmp, "inputs"),
+                            "model_path": os.path.join(tmp, "cli_models"),
+                            "output_path": os.path.join(tmp, "outputs"),
+                            "checkpoint_path": os.path.join(tmp, "cli_checkpoint")}
+        raw["opt_config"].update(overrides, epochs=1, dataset="pngs", val_dataset="pngs")
+        cli_config = os.path.join(tmp, "cli.json")
+        with open(cli_config, "w") as f:
+            json.dump(raw, f)
+        env = dict(os.environ, PYTHONPATH=here)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ssunet_gan_tpu_torch.cli.train",
+                               "--config", cli_config, "--device", dev.type], cwd=here, env=env, capture_output=True,
+                              text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        tail = [ln for ln in proc.stdout.splitlines() if " - iou " in ln or "saved" in ln]
+        print(f"phase 13: python -m ssunet_gan_tpu_torch.cli.train on {sum(n for _, n in CLI_SPLITS)}"
+              f" PNGs at {size}x{size} (train_transform on): exit {proc.returncode} in {cli_s:.1f} s "
+              f"on {card}; {tail}")
+        check(proc.returncode == 0,
+              f"phase 13: the CLI exited {proc.returncode}: {proc.stdout[-1500:]} "
+              f"{proc.stderr[-3000:]}")
+    phase_done("phase 13 CLI", t_phase)
+    return launches
 
 
 def main() -> int:
@@ -2286,14 +2959,8 @@ def main() -> int:
     from ssunet_gan_tpu_torch import _build
     from ssunet_gan_tpu_torch.config import load_experiment_config
     from ssunet_gan_tpu_torch.data.tiling import extract_patches, grid_coords
-    from ssunet_gan_tpu_torch.infer.api import (
-        INFER_BATCH,
-        _chunked_forward,
-        _norm_consts,
-        segmentation_inference,
-        tile_forward,
-    )
-    from ssunet_gan_tpu_torch.models import build_model, ssunet
+    from ssunet_gan_tpu_torch.infer.api import INFER_BATCH, _norm_consts
+    from ssunet_gan_tpu_torch.models import build_model
     from ssunet_gan_tpu_torch.ops import (
         spade_kernel,
         stage_kernel,
@@ -2303,20 +2970,10 @@ def main() -> int:
         train_bwd,
     )
     from ssunet_gan_tpu_torch.ops.blocks import BasicBlock
-    from ssunet_gan_tpu_torch.ops.conv import Conv2d
-    from ssunet_gan_tpu_torch.ops.spade import SPADE
 
     torch.backends.cudnn.allow_tf32 = False  # the plain f32 convs stay f32
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-
-    def plain_stage(parts, bp, sp, head=None, packed=None):
-        return stage_kernel.fused_stage_reference(parts, bp, sp, head)
-
-    def stages_through(fn=plain_stage):
-        """Route the model's fused stages to ``fn`` (the plain version by
-        default), for comparisons."""
-        return patched(ssunet, "fused_eval_stage", fn)
 
     failures = []
 
@@ -2367,41 +3024,6 @@ def main() -> int:
     ncls, in_ch = cfg["num_classes"], cfg["input_channels"]
     gen = torch.Generator().manual_seed(SEED)
 
-    # ---- phase 1: kernel against plain, six signatures, 512² batch 2
-    model = build_model(cfg["arch"], ncls, in_ch, cfg["deep_supervision"],
-                        seed=SEED, device=dev)
-    a, b = _norm_consts()
-    calib = np.random.default_rng(SEED + 2).integers(0, 256, (2, HW, HW, in_ch), dtype=np.uint8)
-    calib = torch.from_numpy(calib).to(dev).float() * a.to(dev) + b.to(dev)
-    calibrate_batchnorm(model, calib)
-    sigs = stage_signatures(model.filters, ncls, in_ch)
-    max_err = 0.0
-    for name, chans, planes, lab, nh, head_cls, level in sigs:
-        block = BasicBlock(sum(chans), planes, generator=gen)
-        random_bn_stats(block, gen)
-        spade = SPADE("spadebatch3x3", planes, lab, planes / 16, generator=gen)
-        head = None
-        if head_cls:
-            final = Conv2d(planes, head_cls, 1, generator=gen).to(dev)
-            head = (final.weight, final.bias)
-        block.to(dev).eval()
-        spade.to(dev)
-        side = HW >> level
-        parts = tuple(torch.randn((2, side, side, c), generator=gen).to(dev, torch.bfloat16)
-                      for c in chans)
-        got = stage_kernel.fused_eval_stage(parts, block.stage_params(),
-                                            spade.stage_params(), head)
-        torch.cuda.synchronize()
-        want = stage_kernel.fused_stage_reference(parts, block.stage_params(),
-                                                  spade.stage_params(), head)
-        err, scale, l2, ok = close(got, want)
-        print(f"phase 1: {name} parts={chans} planes={planes} {side}x{side} "
-              f"max_abs_err={err:.4g} max_rel_err={err / max(scale, 1e-30):.4g} "
-              f"rel_l2={l2:.3g} (max|plain|={scale:.4g})")
-        if not ok:
-            fail(f"{name}: kernel disagrees with plain (err {err}, max {scale}, l2 {l2})")
-        max_err = max(max_err, err)
-
     # the scene request of phase 3: 36 tiles of 512² from a 2048² scene
     scene = np.random.default_rng(SEED + 1).integers(0, 256, (2048, 2048, in_ch), dtype=np.uint8)
     config = {"patch_size": 1024, "patch_overlap": 0.5, "num_classes": ncls,
@@ -2411,126 +3033,30 @@ def main() -> int:
     if len(coords) != 36 or -(-len(coords) // INFER_BATCH) != 2:
         fail(f"expected 36 tiles in 2 chunks, got {len(coords)}")
 
-    # the model's weights and each stage's own inputs, captured from an
-    # all-plain forward over the scene's first chunk: checked at the scene
-    # request's batch (INFER_BATCH), timed at the tile forward's (BATCH)
-    captured = []
-
-    def capture(parts, bp, sp, head=None, packed=None):
-        captured.append(tuple(p.clone() for p in parts))
-        return plain_stage(parts, bp, sp, head)
-
-    chunk = torch.from_numpy(scene_tiles[:INFER_BATCH]).to(dev).float() * a.to(dev) + b.to(dev)
-    with stages_through(capture), torch.no_grad():
-        model(chunk.to(torch.bfloat16))
-    del chunk
-    if [tuple(p.shape[-1] for p in c) for c in captured] != [s[1] for s in sigs]:
-        fail(f"the forward's fused stages are not the expected six: "
-             f"{[[tuple(p.shape) for p in c] for c in captured]}")
-    ms_sum = plain_sum = bound_sum = 0.0
-    bound_kinds = set()
-    conv_launches = []  # each stage's conv launches at batch 8 (conv: lines)
-    for (name, chans, planes, lab, nh, head_cls, level), full in zip(sigs, captured):
-        side = HW >> level
-        block, spade = getattr(model, name), getattr(model, "SPADE" + name[4:])
-        head = (model.final.weight, model.final.bias) if head_cls else None
-        bp, sp = block.stage_params(), spade.stage_params()
-        pk = stage_kernel.pack_stage(chans, bp, sp, head, torch.bfloat16)
-        err, scale, l2, ok = close(stage_kernel.fused_eval_stage(full, bp, sp, head, pk),
-                                   stage_kernel.fused_stage_reference(full, bp, sp, head))
-        print(f"phase 1: {name} batch {INFER_BATCH} model weights max_abs_err={err:.4g} "
-              f"rel_l2={l2:.3g} (max|plain|={scale:.4g})")
-        if not ok:
-            fail(f"{name} at batch {INFER_BATCH}: kernel disagrees with plain "
-                 f"(err {err}, max {scale}, l2 {l2})")
-        max_err = max(max_err, err)
-        parts = tuple(p[:BATCH] for p in full)
-        run = lambda: stage_kernel.fused_eval_stage(parts, bp, sp, head, pk)
-        plain = lambda: stage_kernel.fused_stage_reference(parts, bp, sp, head)
-        ms = cuda_ms(run, 10)
-        plain_ms = cuda_ms(plain, 3, warmup=1)
-        wbytes = sum(t.numel() * 2 for t in (bp[0], bp[2]) + ((bp[4],) if bp[4] is not None else ()))
-        wbytes += sum(t.numel() * 4 for t in sp)
-        bound, kind = stage_bound_ms(parts, planes, lab, nh, head_cls, wbytes)
-        bound_kinds.add(kind)
-        ms_sum, plain_sum, bound_sum = ms_sum + ms, plain_sum + plain_ms, bound_sum + bound
-        row = dict(stage=name, shape=[BATCH, side, side, sum(chans)], planes=planes,
-                   ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=kind)
-        print("stage:", json.dumps(row))
-        h1 = stage_kernel.eval_conv(parts, pk["conv1"])
-        conv_launches += [(name, "conv1", parts, pk["conv1"]),
-                          (name, "conv2", (h1,) + (parts if pk["shortcut"] else ()), pk["conv2"])]
-    max_err = max(max_err, conv_launch_lines("kernel 1", conv_launches, check))
-    del parts, pk, full, captured, h1, conv_launches
-
+    # ---- phase 1: kernel against plain, six signatures, 512² batch 2, then
+    # the model's weights on each stage's own inputs
+    model = build_model(cfg["arch"], ncls, in_ch, cfg["deep_supervision"],
+                        seed=SEED, device=dev)
+    a, b = _norm_consts()
+    calib = np.random.default_rng(SEED + 2).integers(0, 256, (2, HW, HW, in_ch), dtype=np.uint8)
+    calib = torch.from_numpy(calib).to(dev).float() * a.to(dev) + b.to(dev)
+    calibrate_batchnorm(model, calib)
+    sigs = stage_signatures(model.filters, ncls, in_ch)
+    seeded_err = seeded_stage_phase(dev, sigs, BasicBlock, gen, "phase 1", check)[0]
+    stages = model_stage_phase(dev, model, sigs, scene_tiles, "phase 1", "flagship", check)
     t_phase = phase_done("phase 1", t_phase)
 
-    # ---- phase 2: flagship tile forward (main path)
+    # ---- phases 2-3: the flagship tile forward and scene request (main path)
     tiles = np.random.default_rng(SEED).integers(0, 256, (BATCH, HW, HW, in_ch), dtype=np.uint8)
     x = torch.from_numpy(tiles).to(dev)
-    stage_kernel.launches = 0
-    warm, iters = 2, 5
-    for _ in range(warm):  # the entry point's defaults: bf16 on the card
-        logits_probs = tile_forward(model, x)
-    torch.cuda.synchronize()
-    if stage_kernel.launches != 6 * warm:
-        fail(f"expected 6 kernel stages per forward, counted {stage_kernel.launches} in {warm}")
-    settle()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        logits_probs = tile_forward(model, x)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    tiles_per_s = BATCH * iters / dt
-    if stage_kernel.launches != 6 * (warm + iters):
-        fail(f"expected {6 * (warm + iters)} kernel stages, counted {stage_kernel.launches}")
-    print(f"phase 2: flagship tile forward {tiles_per_s:.2f} tiles/s "
-          f"(512x512 bf16, batch {BATCH}, {dt / iters * 1e3:.2f} ms/forward) on {card}")
-
-    t_phase = phase_done("phase 2", t_phase)
-
-    # ---- phase 3: scene request (main path)
-    before = stage_kernel.launches
-    settle()
-    t0 = time.perf_counter()
-    masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False)
-    scene_s = time.perf_counter() - t0
-    scene_launches = stage_kernel.launches - before
-    launches = stage_kernel.launches
-    if scene_launches != 6 * 2:
-        fail(f"scene request ran {scene_launches} kernel stages, expected 12")
-    check_masks(masks, "phase 3")
-    print(f"phase 3: scene 2048x2048 -> {len(masks)} masks in {scene_s:.3f} s "
-          f"(36 tiles, bf16) on {card}; positive share "
-          f"{[round(float((m > 0).mean()), 4) for m in masks]}")
-
-    t_phase = phase_done("phase 3", t_phase)
-
-    # ---- comparisons (after the counts were read). The bf16 forward is a
-    # sensitive function of where it rounds: a 1-ulp change in a stage can
-    # move a max-pool's winner, which the unpool then carries to another
-    # pixel, so two correct bf16 forwards differ by several percent. The
-    # kernel's and the plain version's bf16 outputs are therefore both held
-    # against the f32 all-plain forward (tolerances at the top).
-    if (not torch.isfinite(logits_probs.float()).all()
-            or logits_probs.shape != (BATCH, HW, HW, ncls)):
-        fail("tile forward output is not finite or has the wrong shape")
-    xn = x.float() * a.to(dev) + b.to(dev)
-    with torch.no_grad():
-        logits_k = model(xn.to(torch.bfloat16))
-    probs_k = _chunked_forward(model, scene_tiles)  # batch 32, padded chunk
-    with stages_through(), torch.no_grad():
-        logits_p = model(xn.to(torch.bfloat16))
-        logits_f = model(xn)
-        probs_p = _chunked_forward(model, scene_tiles)
-        probs_f = _chunked_forward(model, scene_tiles, torch.float32)
-        plain_masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False)
-        f32_masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False,
-                                              dtype=torch.float32)
+    serve = bf16_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, check,
+                               "flagship", ("phase 2", "phase 3"))
+    t_phase = time.perf_counter()
 
     # fault 3.1: an f32 forward on the card runs every stage through the
     # module composition (the gate refuses f32, no kernel launches); the
     # same forward on the CPU with the fused eval stages off is its yardstick
+    xn = x.float() * a.to(dev) + b.to(dev)
     before = stage_kernel.launches
     with torch.no_grad():
         f32_card = model(xn[:1]).cpu()
@@ -2550,48 +3076,23 @@ def main() -> int:
           and e_f32 <= F32_CARD_TOL,
           f"phase 2: f32 card forward: {stage_kernel.launches - before} kernel stages, "
           f"rel_l2 {e_f32} from the CPU forward")
-    del cpu_model, f32_card, f32_cpu
-
-    e_logits = forward_bar("phase 2: logits", logits_k, logits_p, logits_f, check)[0]
-    e_probs = forward_bar("phase 3: scene tile probabilities", probs_k, probs_p, probs_f,
-                          check)[0]
-    agree_kf = mask_bars("phase 3", masks, plain_masks, f32_masks, check)[1]
-    # where one tile forward's device time goes (torch.profiler, by kernel)
-    tile_forward(model, x)  # the f32 comparisons left f32 operands kept; repack once
-    n_prof = 3
-    busy, wall_ms, rows = profile_kernels(lambda: tile_forward(model, x), n_prof)
-    untraced_ms = dt / iters * 1e3
-    print(f"profile: per forward (batch {BATCH}, mean of {n_prof}): device busy {busy:.3f} ms, "
-          f"{sum(r[1] for r in rows)} kernels; {wall_ms:.3f} ms wall under the profiler "
-          f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}), {untraced_ms:.3f} ms untraced "
-          f"(idle share {max(0.0, 1 - busy / untraced_ms):.3f})")
-    for ms, count, key in rows[:12]:
-        print(f"profile: {ms:9.3f} ms {count:4d}x {key[:90]}")
-    tail_line("kernel 1: flagship bf16 forward", "forward", rows, tail_calls(sigs, BATCH))
-    conv_profile_line("kernel 1: flagship bf16 forward", "forward", rows)
+    del cpu_model, f32_card, f32_cpu, xn
     eval_row = {
         "name": "fused_eval_stage", "route": "cuda",
         "source": f"ssunet_gan_tpu_torch/csrc/{stage_kernel.SOURCE}",
-        "replaces": stage_kernel.REPLACES,
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms_sum, "plain_ms": plain_sum, "bound_ms": bound_sum,
-        "bound_by": "operations" if "operations" in bound_kinds else "bytes",
-        "library_ms": None,
+        "replaces": stage_kernel.REPLACES, "launches": serve["launches"], **stages,
+        "max_abs_err": max(stages["max_abs_err"], seeded_err), "library_ms": None,
     }
-    del logits_probs, logits_k, logits_p, probs_k, probs_p, xn
-    torch.cuda.empty_cache()
-    t_phase = phase_done("phases 2-3 comparisons and profile", t_phase)
+    t_phase = phase_done("phase 2 f32 card forward", t_phase)
 
     # ---- phases 7-8: the int8 stages, then int8 serving (the second main path)
     int8_err = int8_stage_phase(dev, sigs, check)
     phase_done("phase 7", t_phase)
     int8_row = int8_serving_phase(
-        dev, card, model, sigs, check, x, scene, scene_tiles, config,
-        f32=(logits_f, probs_f, f32_masks),
-        bf16=dict(tiles_per_s=tiles_per_s, scene_s=scene_s, logits=e_logits, probs=e_probs,
-                  masks=agree_kf))
-    int8_row["max_abs_err"] = int8_err
-    del model, logits_f, probs_f, f32_masks
+        dev, card, model, sigs, check, x, scene, scene_tiles, config, serve.pop("f32"), serve,
+        "phase 8", "flagship", FLAGSHIP_BILINEAR, FLAGSHIP_DEEP)
+    int8_row["max_abs_err"] = max(int8_row["max_abs_err"], int8_err)
+    del model, serve
     torch.cuda.empty_cache()
 
     # ---- phases 9-10: the bottleneck stage, then UNet_B_SS serving (the
@@ -2607,6 +3108,9 @@ def main() -> int:
     del model_b
     torch.cuda.empty_cache()
     rss_forward_phase(dev, card, cfg, x, calib, check)
+
+    # ---- phase 12: SSUNet (kernels 1, 7 and 9 on its VGG stages)
+    ssunet_runs = ssunet_phase(dev, card, cfg, calib, x, scene, scene_tiles, config, check)
     del x, calib
     torch.cuda.empty_cache()
 
@@ -2614,6 +3118,9 @@ def main() -> int:
 
     # ---- phase 11: the standalone self-SPADE and UNet_B_SS's trainer
     spade_row = spade_phase(dev, card, cfg, bsigs, check)
+
+    # ---- phase 13: the training entry point (kernels 2, 3, 5 and 6)
+    entry_counts = entry_point_phase(dev, card, here, check)
 
     if failures:
         fail(f"{len(failures)} checks failed: " + "; ".join(failures[:20]))
@@ -2628,6 +3135,20 @@ def main() -> int:
         "bound_by": "operations" if "operations" in t["kinds"] else "bytes",
         "library_ms": None if kname == "train_tail" else t["library_ms"],
     } for kname, t in totals.items()] + [bneck_row, spade_row]
+    # each row's launches on every main path that runs it: the flagship's
+    # (phases 2-3, 6, 8, 10-11) and SSUNet's (phase 12), the entry point's
+    # (phase 13)
+    for row in kernels:
+        paths = {"flagship" if row["name"] not in ("fused_eval_stage_bneck", "fused_spade_stage")
+                 else "UNet_B_SS": row["launches"]}
+        if row["name"] in ssunet_runs:
+            n, err = ssunet_runs[row["name"]]
+            paths["SSUNet"] = n
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        if row["name"] in entry_counts:
+            paths["run_experiment"] = entry_counts[row["name"]]
+        row["launches"] = sum(paths.values())
+        row["launches_by_path"] = paths
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,45 +1,52 @@
 """The self-SPADE U-Nets, NHWC: the flagship ``UNet_R_SS_v2`` (reference
-archs.py:559-671), ``UNet_R_SS`` (archs.py:469-556) and ``UNet_B_SS``
-(archs.py:346-406). Every stage is a conv block followed by a SPADE
-conditioned on the block's own output (``SPADE0_0(x0_0, x0_0)``). Module
-names are the reference's, so its ``model.pth`` loads with
-``load_state_dict``.
+archs.py:559-671), ``UNet_R_SS`` (archs.py:469-556), ``UNet_B_SS``
+(archs.py:346-406) and ``SSUNet`` (archs.py:673-743). Every stage is a conv
+block followed by a SPADE conditioned on the block's own output
+(``SPADE0_0(x0_0, x0_0)``). Module names are the reference's, so its
+``model.pth`` loads with ``load_state_dict``.
 
 ``UNet_R_SS_v2``: BasicBlock encoder; the decoder un-pools the top three
 levels through the saved max-pool codes with bias-free 1×1 channel heads,
 and upsamples the bottom two bilinearly. ``UNet_R_SS``: six BasicBlock
 levels and a bilinear decoder. ``UNet_B_SS``: five Bottleneck levels and a
-bilinear decoder.
+bilinear decoder. ``SSUNet``: five VGG levels (filters 32-512, ``ss_scale``
+4) and a bilinear decoder.
 
-BasicBlock stages with a shortcut conv that the one gate
+BasicBlock stages with a shortcut conv and VGG stages that the one gate
 :func:`ops.stage_kernel.stage_supported` admits run fused (the JAX
 dispatch, ssunet_gan_tpu/models/ssunet.py:227-238 and 261-293, with
 :func:`ops.stage_kernel.set_fused_stage` and
 :func:`ops.stage_kernel_train.set_fused_train` as its toggles): in eval
-through :func:`ops.stage_kernel.fused_eval_stage`, in training through
+through :func:`ops.stage_kernel.fused_eval_stage` (a VGG stage with no
+shortcut, its conv biases folded into the BN offsets), in training, for
+the BasicBlock stages only and not under remat
+(:func:`ops.blocks.set_remat`), through
 :func:`ops.stage_kernel_train.fused_train_stage`, whose batch statistics
 then move the BatchNorms' running averages. What the gate refuses (f32 on
 the card, planes not a multiple of 32, more than 8 labels or classes,
-more than 16 hidden channels) runs the module composition, as in JAX
-(:316-330). In the flagship these are
+more than ``TAIL_MAX_HIDDEN`` (64) hidden channels) runs the module
+composition, as in JAX (:316-330). In the flagship these are
 conv0_0, conv1_0, conv2_0, conv2_1, conv1_1 and conv0_1, the last with
 ``final`` folded in; in ``UNet_R_SS`` conv0_0, conv1_0, conv2_0, conv2_2,
-conv1_3 and conv0_4. Bottleneck stages that
+conv1_3 and conv0_4; in ``SSUNet`` every stage but conv4_0 (512 planes).
+Bottleneck stages that
 :func:`ops.stage_kernel_bneck.bneck_supported` admits run in eval through
 :func:`ops.stage_kernel_bneck.fused_eval_stage_bneck` (the same six names
 in ``UNet_B_SS``); in training, and in the int8 mode, they are the module
-composition (JAX models/ssunet.py:246-260, 323-329), whose SPADE follows
-:func:`ops.spade_kernel.set_fused_spade`. The deep stages, channel heads,
-pools and unpools stay plain PyTorch (autograd in training).
+composition (JAX models/ssunet.py:246-260, 323-329). The composition's
+SPADE follows :func:`ops.spade_kernel.set_fused_spade`. The deep stages,
+channel heads, pools and unpools stay plain PyTorch (autograd in
+training).
 
 With the int8 mode on (:func:`ops.stage_kernel_int8.set_int8_stage`) the
 eval forward dispatches as the JAX package's does (models/ssunet.py:214-322):
-the fused stages run :func:`ops.stage_kernel_int8.fused_eval_stage_int8`,
-the deep stages the s8 block with the bf16 SPADE after it, and under static
-calibration the encoder stages emit their outputs as s8 at the scale their
-skip consumer recorded, so pools and consumers read s8. While a record sink
-is active every stage runs the plain composition and records its inputs'
-ranges (:mod:`infer.calibrate`).
+the fused stages run :func:`ops.stage_kernel_int8.fused_eval_stage_int8`
+(a VGG stage with zero shortcut columns), the deep stages the s8 block
+(without the residual for a VGG block) with the bf16 SPADE after it, and
+under static calibration the encoder stages emit their outputs as s8 at
+the scale their skip consumer recorded, so pools and consumers read s8.
+While a record sink is active every stage runs the plain composition and
+records its inputs' ranges (:mod:`infer.calibrate`).
 """
 
 from __future__ import annotations
@@ -50,7 +57,13 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ssunet_gan_tpu_torch.ops.blocks import BasicBlock, Bottleneck
+from ssunet_gan_tpu_torch.ops.blocks import (
+    BasicBlock,
+    Bottleneck,
+    VGGBlock,
+    maybe_remat,
+    remat_enabled,
+)
 from ssunet_gan_tpu_torch.ops.conv import Conv2d, as_parts
 from ssunet_gan_tpu_torch.ops.pool import (
     max_pool_2x2,
@@ -132,7 +145,7 @@ def _dequantized(parts):
 
 
 def _composition(parts, block, spade: SPADE, final: Optional[Conv2d]):
-    y = block(parts)
+    y = maybe_remat(block, parts)
     y = spade(y, y)
     return y if final is None else final(y)
 
@@ -140,8 +153,8 @@ def _composition(parts, block, spade: SPADE, final: Optional[Conv2d]):
 def spade_stage(parts, block, spade: SPADE,
                 final: Optional[Conv2d] = None, name: Optional[str] = None,
                 out_key: Optional[str] = None):
-    """One stage: conv block (BasicBlock or Bottleneck, told by the block's
-    class) + self-SPADE [+ the final 1×1 conv].
+    """One stage: conv block (BasicBlock, VGGBlock or Bottleneck, told by
+    the block's class) + self-SPADE [+ the final 1×1 conv].
 
     ``name`` is the stage's calibration key (its block's module name) and
     ``out_key`` the calibration key of its output's consumer; both matter
@@ -165,8 +178,16 @@ def spade_stage(parts, block, spade: SPADE,
             return fused_eval_stage_bneck(parts, bp, sp, head, packed)
         return _composition(parts, block, spade, final)
     int8 = not block.training and int8_stage_enabled()
-    fused = (block.shortcut is not None and block.planes <= FUSED_MAX_PLANES
-             and (fused_train_enabled() if block.training else fused_stage_enabled())
+    vgg = isinstance(block, VGGBlock)
+    # a BasicBlock's fused packing needs its shortcut conv; a VGG block has
+    # none (zero shortcut columns); training fuses BasicBlock stages only,
+    # and not under remat, whose composition bounds the memory (JAX :227-293)
+    if block.training:
+        mode = not vgg and fused_train_enabled() and not remat_enabled()
+    else:
+        mode = fused_stage_enabled()
+    fused = ((vgg or block.shortcut is not None) and block.planes <= FUSED_MAX_PLANES
+             and mode
              and stage_supported(parts, block.planes, spade.label_nc, spade.nhidden,
                                  0 if final is None else final.weight.shape[0],
                                  train=block.training, int8=int8))
@@ -179,7 +200,7 @@ def spade_stage(parts, block, spade: SPADE,
         # a deep stage: s8 convs, the SPADE composition after them, and
         # producer-side s8 emission where the output's range is calibrated
         with torch.no_grad():
-            y = int8_block(parts, block.stage_params(), calib_key=name)
+            y = int8_block(parts, block.stage_params(), calib_key=name, residual=not vgg)
         y = spade(y, y)
         if am is not None:
             return emit_s8(y, am)
@@ -362,3 +383,44 @@ class UNetBSS(_SelfSpadeUNet):
         x2_2 = self._stage("2_2", (x2_0, _up(x3_1)))
         x1_3 = self._stage("1_3", (x1_0, _up(x2_2)))
         return self._stage("0_4", (x0_0, _up(x1_3)), self.final)
+
+
+class SSUNet(_SelfSpadeUNet):
+    """VGGBlock U-Net with self-SPADE at every stage and a bilinear decoder
+    (reference archs.py:673-743; JAX models/ssunet.py:346-391). ``filters``
+    defaults to the reference widths (archs.py:680). ``final`` keeps
+    ``Conv2d``'s default init, as the JAX model builds it (:380-382)."""
+
+    BLOCK = VGGBlock
+    SS = 4  # archs.py:689
+
+    def __init__(self, num_classes: int, input_channels: int = 3,
+                 deep_supervision: bool = False,
+                 filters: Sequence[int] = (32, 64, 128, 256, 512),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        f = tuple(filters)
+        g = generator
+        self.num_classes = num_classes
+        self.filters = f
+        for name, in_ch, planes in (
+                ("0_0", input_channels, f[0]), ("1_0", f[0], f[1]), ("2_0", f[1], f[2]),
+                ("3_0", f[2], f[3]), ("4_0", f[3], f[4]),
+                ("3_1", f[3] + f[4], f[3]), ("2_2", f[2] + f[3], f[2]),
+                ("1_3", f[1] + f[2], f[1]), ("0_4", f[0] + f[1], f[0])):
+            self._add_stage(name, in_ch, planes, g)
+        self.final = Conv2d(f[0], num_classes, 1, generator=g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC input → NHWC logits, in the input's dtype."""
+        # the encoder stages name their skip consumer's input (int8 mode);
+        # x4_0 feeds only the bilinear upsample and stays in the float dtype
+        x0_0 = self._stage("0_0", x, out_key="conv0_4:0")
+        x1_0 = self._stage("1_0", max_pool_2x2(x0_0), out_key="conv1_3:0")
+        x2_0 = self._stage("2_0", max_pool_2x2(x1_0), out_key="conv2_2:0")
+        x3_0 = self._stage("3_0", max_pool_2x2(x2_0), out_key="conv3_1:0")
+        x4_0 = self._stage("4_0", max_pool_2x2(x3_0))
+        x3_1 = self._stage("3_1", (x3_0, _up(x4_0, "conv3_1:1")))
+        x2_2 = self._stage("2_2", (x2_0, _up(x3_1, "conv2_2:1")))
+        x1_3 = self._stage("1_3", (x1_0, _up(x2_2, "conv1_3:1")))
+        return self._stage("0_4", (x0_0, _up(x1_3, "conv0_4:1")), self.final)

@@ -12,10 +12,13 @@ statistics, two-pass in f32 (the biased variance), returns the activation
 dtype, and moves the running statistics with the unbiased variance.
 :meth:`BatchNorm.update_running` is that update alone, for the fused train
 stage, which computes the batch statistics itself (ops/norm.py:65-73).
+:func:`frozen_running` holds the running statistics still while a block's
+forward is recomputed for its backward (``ops/blocks.py`` ``maybe_remat``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
@@ -24,7 +27,24 @@ from torch import nn
 MOMENTUM = 0.1  # torch's running-average rate
 
 
+@contextlib.contextmanager
+def frozen_running(module: nn.Module):
+    """The running statistics of every BatchNorm in ``module`` do not move
+    while active (training forwards still normalize with batch
+    statistics)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.frozen = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.frozen = False
+
+
 class BatchNorm(nn.Module):
+    frozen = False  # see frozen_running
+
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
@@ -43,6 +63,8 @@ class BatchNorm(nn.Module):
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, unbiased_var: torch.Tensor) -> None:
         """running = (1 − MOMENTUM)·running + MOMENTUM·batch (torch)."""
+        if self.frozen:
+            return
         m = MOMENTUM
         self.running_mean.copy_((1 - m) * self.running_mean + m * mean.float())
         self.running_var.copy_((1 - m) * self.running_var + m * unbiased_var.float())

@@ -10,6 +10,12 @@ Reference quirks kept as behaviour:
 - deep supervision averages the loss over the heads and scores the last
   head on all channels (train.py:84-95).
 
+``accum_steps`` > 1 (the JAX package's, train/step.py:133-165) splits the
+batch into interleaved microbatches (rows j, k+j, 2k+j, …), each forward
+and backward in training mode, so the BatchNorms' running statistics move
+once per microbatch; the gradients are averaged, then come one clamp and
+one optimizer step, and the metrics are the microbatches' means.
+
 The metrics stay on the device: the step never waits for the card.
 """
 
@@ -50,11 +56,12 @@ def make_train_step(model, loss_fn: Callable, optimizer: torch.optim.Optimizer,
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``step(image, target, lr) -> metrics`` over NHWC batches on the
     model's device: forward in training mode (BatchNorm running statistics
-    move), loss, backward, clamp, optimizer step. ``metrics`` holds device
-    tensors (loss, iou, dice)."""
-    if accum_steps != 1:
-        raise NotImplementedError(
-            "accum_steps > 1 is not ported yet; see ROADMAP.md")
+    move), loss, backward, clamp, optimizer step; in ``accum_steps``
+    microbatches, each with its own forward and backward, before the one
+    update. ``metrics`` holds device tensors (loss, iou, dice)."""
+    k = int(accum_steps)
+    if k < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if mesh is not None:
         raise NotImplementedError(
             "the data-parallel step (mesh=) is not ported yet; see ROADMAP.md")
@@ -64,9 +71,20 @@ def make_train_step(model, loss_fn: Callable, optimizer: torch.optim.Optimizer,
         model.train()
         set_lr(optimizer, lr)
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics = _forward_loss(model, loss_fn, num_classes, deep_supervision,
-                                      image, target)
-        loss.backward()
+        if k == 1:
+            loss, metrics = _forward_loss(model, loss_fn, num_classes, deep_supervision,
+                                          image, target)
+            loss.backward()
+        else:
+            if image.shape[0] % k:
+                raise ValueError(f"batch {image.shape[0]} not divisible by accum_steps={k}")
+            micro = []
+            for j in range(k):
+                loss, m = _forward_loss(model, loss_fn, num_classes, deep_supervision,
+                                        image[j::k], target[j::k])
+                (loss / k).backward()  # the sum of the k gradients / k: their mean
+                micro.append(m)
+            metrics = {key: torch.stack([m[key] for m in micro]).mean() for key in micro[0]}
         if clip and clip > 0:
             with torch.no_grad():
                 for p in params:

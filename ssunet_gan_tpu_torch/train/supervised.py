@@ -1,20 +1,45 @@
-"""The supervised epoch loop (the JAX package's train/supervised.py
-``train_one_epoch`` :115, ``evaluate`` :143, ``_epoch_mean`` :56).
+"""The supervised trainer (the JAX package's train/supervised.py; the
+reference's train.py):
+
+    python -m ssunet_gan_tpu_torch.cli.train --config configs/config_v1.json [--device cpu]
+
+:func:`run_experiment` reads the 3-section config, writes the model card
+``<model_path>/<name>/config.yml``, builds the model, optimizer, scheduler
+and step, trains epoch by epoch on the file-backed splits (or synthetic
+scenes) and after each epoch evaluates the val and test splits, steps the
+plateau scheduler on the val loss, rewrites ``log.csv`` (the JAX package's
+columns, through the ``csv`` module), keeps the best model by val IoU in
+``model.pth`` and the resume state in ``train_state.pth`` +
+``train_meta.json`` (:mod:`train.checkpoint`), writes TensorBoard scalars
+where ``tensorboardX`` imports, and stops early as configured. With
+``resume`` it restarts after the saved epoch; ``profile_epoch`` traces that
+epoch with ``torch.profiler`` into ``<checkpoint_path>/<name>/profile``.
 
 The host keeps at most two steps in flight before it waits for the card
 (supervised.py:135-136), and reads the metrics once per epoch.
-``run_experiment`` (log.csv, TensorBoard, checkpoints) is not ported yet
-(ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import argparse
+import csv
+import os
 import time
-from typing import Dict, List
+from collections import OrderedDict
+from typing import Dict, List, Optional
 
 import torch
 
 from ssunet_gan_tpu_torch import resolve_device
+from ssunet_gan_tpu_torch.config import ExperimentConfig, dump_model_card, load_experiment_config
+from ssunet_gan_tpu_torch.data.dataset import (
+    SegmentationDataset,
+    SyntheticDataset,
+    list_split_ids,
+)
+from ssunet_gan_tpu_torch.data.loader import BatchLoader
+from ssunet_gan_tpu_torch.data.transforms import train_transform, val_transform
+from ssunet_gan_tpu_torch.train import checkpoint as ckpt
 
 
 def _epoch_mean(metric_list: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
@@ -71,3 +96,197 @@ def evaluate(config: Dict, loader, eval_step, device="cuda") -> Dict[str, float]
         meters.append(eval_step(x, torch.from_numpy(mask).to(device)))
         _mark_step(events, device)
     return _epoch_mean(meters)
+
+
+LOG_COLUMNS = ("epoch", "lr", "loss", "iou", "dice", "val_loss", "val_iou", "val_dice")
+
+
+def save_tensorboard(writer, train_log, val_log, test_log, epoch) -> None:
+    """9 scalars per epoch (train.py:44-53)."""
+    if writer is None:
+        return
+    for split, log in (("train", train_log), ("val", val_log), ("test", test_log)):
+        writer.add_scalar(f"loss/{split}_loss", log["loss"], epoch)
+        writer.add_scalar(f"iou/{split}_iou", log["iou"], epoch)
+        writer.add_scalar(f"dice/{split}_dice", log["dice"], epoch)
+
+
+def build_datasets(cfg: ExperimentConfig, synthetic: Optional[int] = None):
+    """The train / val / test datasets of the reference's directory layout
+    (train.py:356-385), the train split through :func:`train_transform`;
+    ``synthetic=N`` gives N seeded synthetic train scenes and N // 4 each
+    for val and test instead."""
+    config = cfg.opt_config
+    if synthetic:
+        def make(n, tf, seed):
+            return SyntheticDataset(n, config["input_h"], config["input_w"],
+                                    config["num_classes"], config["input_channels"],
+                                    transform=tf, seed=seed)
+
+        return (make(synthetic, train_transform(config), 1),
+                make(max(synthetic // 4, 1), val_transform(config), 2),
+                make(max(synthetic // 4, 1), val_transform(config), 3))
+    root = cfg.file_path.input_path
+    sets = []
+    for split, key, tf in (("training", "dataset", train_transform(config)),
+                           ("validation", "val_dataset", val_transform(config)),
+                           ("test", "val_dataset", val_transform(config))):
+        name = config[key]
+        sets.append(SegmentationDataset(
+            img_ids=list_split_ids(root, name, split, config["img_ext"]),
+            img_dir=os.path.join(root, name, "images", split),
+            mask_dir=os.path.join(root, name, "annotations", split),
+            img_ext=config["img_ext"], mask_ext=config["mask_ext"],
+            num_classes=config["num_classes"], input_channels=config["input_channels"],
+            transform=tf))
+    return tuple(sets)
+
+
+def _tensorboard_writer(logdir: str):
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:  # TensorBoard is optional, as in the JAX package
+        return None
+    return SummaryWriter(logdir=logdir)
+
+
+def _write_log(path: str, log: Dict[str, list]) -> None:
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(LOG_COLUMNS)
+        w.writerows(zip(*(log[k] for k in LOG_COLUMNS)))
+
+
+def run_experiment(cfg: ExperimentConfig, synthetic: Optional[int] = None,
+                   epochs_override: Optional[int] = None, mesh=None,
+                   use_tensorboard: bool = True, device="cuda"):
+    """The full experiment loop on ``device``; returns ``(model, best_iou,
+    log)`` with ``log`` the columns of ``log.csv``. ``mesh`` (data-parallel
+    training) is not ported yet (ROADMAP.md)."""
+    from ssunet_gan_tpu_torch.models import build_model
+    from ssunet_gan_tpu_torch.ops.blocks import set_remat
+    from ssunet_gan_tpu_torch.ops.losses import get_loss
+    from ssunet_gan_tpu_torch.ops.spade_kernel import set_fused_spade
+    from ssunet_gan_tpu_torch.train.optim import build_optimizer, build_scheduler
+    from ssunet_gan_tpu_torch.train.step import make_eval_step, make_train_step
+    from ssunet_gan_tpu_torch.utils import count_params, seed_everything
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "the data-parallel trainer (mesh=) is not ported yet; see ROADMAP.md")
+    dev = resolve_device(device)
+    config = cfg.opt_config
+    checkpoint_folder = cfg.file_path.checkpoint_path
+    model_dir = cfg.model_dir()
+    os.makedirs(model_dir, exist_ok=True)
+    os.makedirs(checkpoint_folder, exist_ok=True)
+    writer = (_tensorboard_writer(os.path.join(checkpoint_folder, config["name"]))
+              if use_tensorboard else None)
+
+    print("-" * 20)
+    for key in config:
+        print("%s: %s" % (key, config[key]))
+    print("-" * 20)
+    dump_model_card(config, model_dir)
+
+    loss_fn = get_loss(config["loss"])
+    if config.get("remat"):
+        set_remat(True)
+    if "fused_spade" in config:
+        set_fused_spade(bool(config["fused_spade"]))  # True: "fast", as in JAX
+    model = build_model(config["arch"], config["num_classes"], config["input_channels"],
+                        config["deep_supervision"], seed=seed_everything(), device=dev)
+    optimizer = build_optimizer(model.parameters(), config)
+    print("=> creating model %s (%d params)" % (config["arch"], count_params(model)))
+    scheduler = build_scheduler(config)
+    accum_steps = int(config.get("accum_steps", 1) or 1)
+    train_step = make_train_step(model, loss_fn, optimizer, config["num_classes"],
+                                 config["deep_supervision"],
+                                 clip=float(config.get("clip", 0.0) or 0.0),
+                                 accum_steps=accum_steps)
+    eval_step = make_eval_step(model, loss_fn, config["num_classes"],
+                               config["deep_supervision"])
+
+    train_ds, val_ds, test_ds = build_datasets(cfg, synthetic)
+    batch_size = max(config["batch_size"] // accum_steps * accum_steps, accum_steps)
+    num_workers = int(config.get("num_workers", 3))
+    train_loader = BatchLoader(train_ds, batch_size, shuffle=True, drop_last=True,
+                               num_workers=num_workers)
+    val_loader = BatchLoader(val_ds, 1, num_workers=num_workers)
+    test_loader = BatchLoader(test_ds, 1, num_workers=num_workers)
+
+    start_epoch, best_iou = 0, 0.0
+    if config.get("resume") and ckpt.has_train_state(model_dir):
+        meta = ckpt.restore_train_state(model_dir, model, optimizer)
+        start_epoch = int(meta.get("epoch", -1)) + 1
+        best_iou = float(meta.get("best_iou", 0.0))
+        print(f"=> resumed from epoch {start_epoch} (best_iou {best_iou:.4f})")
+
+    log = OrderedDict((k, []) for k in LOG_COLUMNS)
+    trigger = 0
+    best_dice = iou_at_best_dice = 0.0
+    epochs = epochs_override if epochs_override is not None else config["epochs"]
+    profile_epoch = config.get("profile_epoch", -1)
+
+    for epoch in range(start_epoch, epochs):
+        print("{:s} Epoch [{:d}/{:d}]".format(config["arch"], epoch, epochs))
+        lr = scheduler.lr(epoch)
+        print("learning rate {:d}: {:f}".format(epoch, lr))
+        if epoch == profile_epoch:
+            from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda"
+                                             else [])
+            trace_dir = os.path.join(checkpoint_folder, config["name"], "profile")
+            with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(trace_dir)):
+                train_log = train_one_epoch(epoch, config, train_loader, train_step, lr, dev)
+        else:
+            train_log = train_one_epoch(epoch, config, train_loader, train_step, lr, dev)
+        val_log = evaluate(config, val_loader, eval_step, dev)
+        scheduler.step_plateau(val_log["loss"])
+        test_log = evaluate(config, test_loader, eval_step, dev)
+
+        if best_dice < test_log["dice"]:
+            best_dice, iou_at_best_dice = test_log["dice"], test_log["iou"]
+        print("loss %.4f - iou %.4f - dice %.4f - val_loss %.4f - val_iou %.4f - "
+              "val_dice %.4f - test_iou %.4f - test_dice %.4f - Best_dice %.4f - "
+              "iou_AtBestDice %.4f (%.1f img/s)"
+              % (train_log["loss"], train_log["iou"], train_log["dice"], val_log["loss"],
+                 val_log["iou"], val_log["dice"], test_log["iou"], test_log["dice"],
+                 best_dice, iou_at_best_dice, train_log["images_per_sec"]))
+        save_tensorboard(writer, train_log, val_log, test_log, epoch)
+
+        for k, v in zip(LOG_COLUMNS, (epoch, lr, train_log["loss"], train_log["iou"],
+                                      train_log["dice"], val_log["loss"], val_log["iou"],
+                                      val_log["dice"])):
+            log[k].append(v)
+        _write_log(os.path.join(model_dir, "log.csv"), log)
+
+        trigger += 1
+        if val_log["iou"] > best_iou:
+            ckpt.save_model(model_dir, model)
+            best_iou = val_log["iou"]
+            print("=> saved best model")
+            trigger = 0
+        ckpt.save_train_state(model_dir, model, optimizer, epoch, {"best_iou": best_iou})
+
+        if config.get("early_stopping", -1) >= 0 and trigger >= config["early_stopping"]:
+            print("=> early stopping")
+            break
+
+    if writer is not None:
+        writer.close()
+    return model, best_iou, log
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description="supervised segmentation trainer")
+    parser.add_argument("--config", default=None, required=True, help="config file")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to train on (default: cuda)")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    run_experiment(load_experiment_config(args.config), device=args.device)

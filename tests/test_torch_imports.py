@@ -24,7 +24,9 @@ MODULES = (
     "ssunet_gan_tpu_torch.ops.stage_kernel_int8", "ssunet_gan_tpu_torch.infer.calibrate",
     "ssunet_gan_tpu_torch.ops.stage_kernel_bneck", "ssunet_gan_tpu_torch.ops.spade_kernel",
     "ssunet_gan_tpu_torch.ops.spade", "ssunet_gan_tpu_torch.ops.blocks",
-    "ssunet_gan_tpu_torch.models.ssunet",
+    "ssunet_gan_tpu_torch.models.ssunet", "ssunet_gan_tpu_torch.data.png",
+    "ssunet_gan_tpu_torch.utils", "ssunet_gan_tpu_torch.train.checkpoint",
+    "ssunet_gan_tpu_torch.cli.train",
 )
 
 

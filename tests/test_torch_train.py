@@ -165,7 +165,9 @@ def test_schedulers_match_jax(config):
 
 def test_synthetic_data_matches_jax():
     """Items bit-equal to the JAX package's; loader batches (no shuffle)
-    equal; the train pipeline's cv2 transforms name the roadmap."""
+    equal; the train pipeline on the raw items with one seed on both sides
+    takes the same branches (the generators stay in step) and agrees within
+    tests/test_torch_cli_train.py's bar."""
     cfg = {"input_h": 32, "input_w": 32}
     ours = SyntheticDataset(5, 32, 32, 3, transform=val_transform(cfg), seed=2)
     theirs = jdataset.SyntheticDataset(5, 32, 32, 3, transform=jtransforms.val_transform(cfg),
@@ -183,8 +185,17 @@ def test_synthetic_data_matches_jax():
             np.testing.assert_array_equal(a, b)
         assert gb[3] == wb[3]
     assert len(BatchLoader(ours, 2, drop_last=True)) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_transform(cfg)
+    from test_torch_cli_train import TRAIN_TF_BAR
+
+    raw = SyntheticDataset(5, 32, 32, 3, seed=2)
+    mine, jax_tf = train_transform(cfg), jtransforms.train_transform(cfg)
+    r1, r2 = np.random.default_rng(7), np.random.default_rng(7)
+    for i in range(len(raw)):
+        img, mask = raw[i][0], raw[i][2].astype(np.uint8)
+        a, b = mine(image=img, mask=mask, rng=r1), jax_tf(image=img, mask=mask, rng=r2)
+        assert r1.bit_generator.state == r2.bit_generator.state
+        assert np.abs(a["image"] - b["image"]).max() <= TRAIN_TF_BAR
+        assert (a["mask"] != b["mask"]).mean() <= 1e-3
 
 
 FILTERS = (8, 16, 32, 48, 64, 64)  # conv5_0 has no shortcut: a plain train stage
@@ -268,9 +279,8 @@ def test_train_steps_match_jax(train_pair, config):
 def test_train_step_refuses_what_is_not_ported():
     port = build_model("UNet_R_SS_v2", 3, filters=(8, 8, 8, 8, 8, 8), device="cpu")
     opt = optim.build_optimizer(port.parameters(), {"optimizer": "Adam", "lr": 1e-3})
-    for kw in ({"accum_steps": 2}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_train_step(port, losses.bce_dice_loss, opt, 3, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_train_step(port, losses.bce_dice_loss, opt, 3, mesh=object())
 
 
 def test_eval_step_matches_jax(train_pair):

@@ -11,6 +11,7 @@ import torch
 from flax import linen as nn
 
 from ssunet_gan_tpu.models import ssunet as jax_ssunet
+from ssunet_gan_tpu.ops import blocks as jax_blocks
 from ssunet_gan_tpu.ops import spade_kernel as jax_spade_kernel
 from ssunet_gan_tpu.ops import stage_kernel as jax_stage_kernel
 from ssunet_gan_tpu.ops import stage_kernel_int8 as jax_stage_kernel_int8
@@ -22,7 +23,7 @@ from ssunet_gan_tpu_torch.ops import stage_kernel_train as port_stage_kernel_tra
 
 @contextlib.contextmanager
 def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool = False,
-                int8_stage: bool = False, fused_spade=None):
+                int8_stage: bool = False, fused_spade=None, remat: bool = False):
     """Set every global mode of the JAX package that the port's tests
     reach, and restore the previous values after (another test in the same
     worker may leave, e.g., the upsample-backward decomposition on). The
@@ -31,7 +32,9 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
     JAX package's int8 eval mode on; its calibration scales, record sink and
     forced band height start cleared and are restored after, whatever the
     test installed. ``fused_spade`` is the JAX package's SPADE mode (None or
-    False: the composition, True: "fast", or "pallas")."""
+    False: the composition, True: "fast", or "pallas"). ``remat`` is the
+    JAX package's per-block rematerialization (``ops/blocks.py``
+    ``set_remat``)."""
     saved = (
         jax_stage_kernel._FUSED_STAGE,
         jax_wminor._LAZY_UPSAMPLE,
@@ -44,6 +47,7 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
         jax_stage_kernel_int8._RECORD_SINK,
         jax_stage_kernel._BAND_ROWS,
         jax_spade_kernel._FUSED,
+        jax_blocks._REMAT,
     )
     jax_stage_kernel.set_fused_stage(fused_stage)
     jax_wminor.set_lazy_upsample(False)
@@ -56,6 +60,7 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
     jax_stage_kernel_int8.set_record_sink(None)
     jax_stage_kernel.set_band_rows(None)
     jax_spade_kernel.set_fused_spade(fused_spade)
+    jax_blocks.set_remat(remat)
     try:
         yield
     finally:
@@ -70,6 +75,7 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
         jax_stage_kernel_int8.set_record_sink(saved[8])
         jax_stage_kernel.set_band_rows(saved[9])
         jax_spade_kernel.set_fused_spade(saved[10])
+        jax_blocks.set_remat(saved[11])
 
 
 def oihw(kernel_hwio) -> torch.Tensor:
@@ -143,6 +149,7 @@ def spade_weights(rng, planes, lab, nh):
 # dispatch, for the model tests.
 B_FILTERS = (8, 16, 32, 48, 64)
 R_FILTERS = (8, 16, 32, 48, 64, 96)
+S_FILTERS = (8, 16, 32, 48, 64)
 
 
 class NarrowUNetBSS(jax_ssunet.UNetBSS):
@@ -194,6 +201,32 @@ class NarrowUNetRSS(jax_ssunet.UNetRSS):
         x1_3 = stage((x1_0, up(x2_2, train, "conv1_3:1")), f[1], "conv1_3", "SPADE1_3")[0]
         return stage((x0_0, up(x1_3, train, "conv0_4:1")), f[0], "conv0_4", "SPADE0_4",
                      final_conv=jax_ssunet._final_conv(self.num_classes, in_channels=f[0]))[1]
+
+
+class NarrowSSUNet(jax_ssunet.SSUNet):
+    """The JAX ``SSUNet`` body (models/ssunet.py:356-391) at ``S_FILTERS``."""
+
+    @nn.compact
+    def __call__(self, x, train: bool = True):
+        f, ss, C = S_FILTERS, 4, self.num_classes
+        qpool, up = jax_ssunet._qpool, jax_ssunet._up
+
+        def stage(xin, i, bname, sname, out_key=None):
+            return jax_ssunet._spade_stage(xin, f[i], C, ss, bname, sname, train, block="vgg",
+                                           out_calib_key=out_key)[0]
+
+        x0_0 = stage(x, 0, "conv0_0", "SPADE0_0", "conv0_4:0")
+        x1_0 = stage(qpool(x0_0, train), 1, "conv1_0", "SPADE1_0", "conv1_3:0")
+        x2_0 = stage(qpool(x1_0, train), 2, "conv2_0", "SPADE2_0", "conv2_2:0")
+        x3_0 = stage(qpool(x2_0, train), 3, "conv3_0", "SPADE3_0", "conv3_1:0")
+        x4_0 = stage(qpool(x3_0, train), 4, "conv4_0", "SPADE4_0")
+        x3_1 = stage((x3_0, up(x4_0, train, "conv3_1:1")), 3, "conv3_1", "SPADE3_1")
+        x2_2 = stage((x2_0, up(x3_1, train, "conv2_2:1")), 2, "conv2_2", "SPADE2_2")
+        x1_3 = stage((x1_0, up(x2_2, train, "conv1_3:1")), 1, "conv1_3", "SPADE1_3")
+        return jax_ssunet._spade_stage(
+            (x0_0, up(x1_3, train, "conv0_4:1")), f[0], C, ss, "conv0_4", "SPADE0_4", train,
+            final_conv=JConv2d(self.num_classes, 1, name="final", in_channels=f[0]),
+            block="vgg")[1]
 
 
 # (planes, labels, part shapes, hidden, head classes) of the train-stage
