@@ -373,12 +373,13 @@ def stage_signatures(f, num_classes, input_channels):
     ]
 
 
-def stage_bound_ms(parts, planes, labels, hidden, ncls, weight_bytes, shortcut=True):
+def stage_bound_ms(parts, planes, labels, hidden, ncls, weight_bytes, shortcut=True, shape=None):
     """Least time for one stage call: the larger of its bytes (inputs and
     weights read once, output written once) over HBM bandwidth and its
     operations over the bf16 tensor-core peak (a VGG stage,
-    ``shortcut=False``, has no 1×1 shortcut)."""
-    n, h, w = parts[0].shape[:3]
+    ``shortcut=False``, has no 1×1 shortcut). ``shape``: the output's
+    N×H×W where the parts hold a seam (default the first part's)."""
+    n, h, w = shape or parts[0].shape[:3]
     cin = sum(p.shape[-1] for p in parts)
     macs = (9 * cin * planes + 9 * planes * planes + (cin * planes if shortcut else 0)
             + 9 * planes * labels + 9 * labels * hidden + 9 * hidden * 2 * planes
@@ -390,11 +391,63 @@ def stage_bound_ms(parts, planes, labels, hidden, ncls, weight_bytes, shortcut=T
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def module_stage(parts, block, spade, final=None, name=None, out_key=None):
-    """One stage as the plain module composition (block, SPADE, final)."""
+def module_stage(parts, block, spade, final=None, name=None, out_key=None, up=None,
+                 down=None):
+    """One stage as the plain module composition (block, SPADE, final), its
+    seams materialized as training and f32 forwards take them."""
+    from ssunet_gan_tpu_torch.models import ssunet
+
+    if up or down:
+        parts = ssunet._seams(ssunet.as_parts(parts), up, down, False, False, None)[0]
     y = block(parts)
     y = spade(y, y)
     return y if final is None else final(y)
+
+
+# The seams each model's forward hands its kernel stages ({stage: kind}): a
+# pool seam reads the stage's one part pooled 2x2 on load, an up seam its
+# second part interpolated along H on load (csrc/eval_conv.cuh read modes 2
+# and 1). UNet_R_SS reads those of conv1_0, conv2_0, conv2_2, conv1_3 and
+# conv0_4 (RSS_SEAMS_PER: up, pool per forward).
+FLAGSHIP_SEAMS = {"conv1_0": "pool", "conv2_0": "pool", "conv1_1": "up", "conv0_1": "up"}
+SSUNET_SEAMS = {"conv1_0": "pool", "conv2_0": "pool", "conv3_0": "pool", "conv3_1": "up",
+                "conv2_2": "up", "conv1_3": "up", "conv0_4": "up"}
+BNECK_SEAMS = {"conv2_2": "up", "conv1_3": "up", "conv0_4": "up"}
+RSS_SEAMS_PER = (3, 2)
+
+
+def seams_per(seams) -> tuple:
+    """(up, pool) seams a forward reads in its kernel stages."""
+    kinds = list(seams.values())
+    return kinds.count("up"), kinds.count("pool")
+
+
+def seam_flags(kind):
+    """The stage keywords (up, down) of a seam kind (None: no seam)."""
+    return ((False, True), None) if kind == "up" else (None, (True,)) if kind == "pool" \
+        else (None, None)
+
+
+def seam_kind(up, down):
+    return "up" if any(up or ()) else "pool" if any(down or ()) else None
+
+
+def seam_reads():
+    """The seam counts of the eval conv core's stage wrappers (up, pool)."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel
+
+    return stage_kernel.up_reads, stage_kernel.pool_reads
+
+
+@contextlib.contextmanager
+def no_seam_reads(what, check):
+    """The int8 and train paths take no seam: the counts do not move while
+    active."""
+    before = seam_reads()
+    yield
+    moved = [a - b for a, b in zip(seam_reads(), before)]
+    check(moved == [0, 0], f"{what}: read {moved[0]} up and {moved[1]} pool seams in a kernel, "
+          f"expected none")
 
 
 @contextlib.contextmanager
@@ -581,38 +634,58 @@ def conv_launch_lines(path, launches, check):
     """Each conv launch of a path's stages alone on its own inputs: the eval
     conv core (``ops/stage_kernel.py`` ``eval_conv``) against its per-launch
     plain version to phase 1's bar, timed beside its bound (multiply-adds at
-    the bf16 peak, or each input and the weight read and the output written
-    once over HBM bandwidth) and the library call. ``launches``: (stage,
-    launch, sources, packed conv). Prints a ``conv:`` line each and their
-    sum (per forward); returns the largest max abs error."""
+    the bf16 peak, or each input as the launch reads it and the weight read
+    and the output written once over HBM bandwidth) and the library call.
+    ``launches``: (stage, launch, sources, packed conv, read modes or
+    None). A launch that reads a seam is also held bit for bit against the
+    same launch on its materialized sources and timed beside it and beside
+    the plain seam (``materialize_seams``). Prints a ``conv:`` line each and
+    their sum (per forward; the seam launches' own sums beside it); returns
+    the largest max abs error."""
     from ssunet_gan_tpu_torch.ops import stage_kernel
 
     total = dict(ms=0.0, bound_ms=0.0, library_ms=0.0, launches=0)
+    seam_total = dict(ms=0.0, bound_ms=0.0, materialized_ms=0.0, seam_plain_ms=0.0, launches=0)
     kinds, worst = set(), 0.0
-    for stage, name, sources, conv in launches:
-        got = stage_kernel.eval_conv(sources, conv)
-        want = stage_kernel.eval_conv_reference(sources, conv["oihw"], conv["bias"], conv["main"])
+    for stage, name, sources, conv, modes in launches:
+        modes = tuple(modes or (0,) * len(sources))
+        flags = (tuple(m == 1 for m in modes), tuple(m == 2 for m in modes))
+        mat = stage_kernel.materialize_seams(sources, *flags)
+        got = stage_kernel.eval_conv(sources, conv, modes)
+        want = stage_kernel.eval_conv_reference(mat, conv["oihw"], conv["bias"], conv["main"])
         err, scale, l2, ok = close(got, want)
         check(ok, f"{path}: {stage} {name}: the conv core disagrees with its plain version "
               f"(err {err}, max {scale}, l2 {l2})")
         worst = max(worst, err)
-        n, h, w = sources[0].shape[:3]
+        n, h, w = mat[0].shape[:3]
         kk = sum(c * k * k for c, k in conv["segs"])
         flops = 2.0 * n * h * w * conv["cout"] * kk
         nbytes = sum(s.numel() * 2 for s in sources) + 2 * conv["cout"] * (kk + n * h * w)
         bound, kind = bound_of(flops, nbytes)
         kinds.add(kind)
-        ms = cuda_ms(lambda: stage_kernel.eval_conv(sources, conv), 20)
-        lib_ms = cuda_ms(library_conv(sources, conv), 20)
+        ms = cuda_ms(lambda: stage_kernel.eval_conv(sources, conv, modes), 20)
+        lib_ms = cuda_ms(library_conv(mat, conv), 20)
         for k, v in (("ms", ms), ("bound_ms", bound), ("library_ms", lib_ms), ("launches", 1)):
             total[k] += v
-        print("conv:", json.dumps(dict(
-            path=path, stage=stage, launch=name, shape=[n, h, w],
-            segments=[list(s) for s in conv["segs"]], cout=conv["cout"], nt=conv["nt"],
-            max_abs_err=err, rel_l2=l2, ms=ms, bound_ms=bound, bound_by=kind,
-            library_ms=lib_ms)))
+        line = dict(path=path, stage=stage, launch=name, shape=[n, h, w],
+                    segments=[list(s) for s in conv["segs"]], cout=conv["cout"], nt=conv["nt"],
+                    max_abs_err=err, rel_l2=l2, ms=ms, bound_ms=bound, bound_by=kind,
+                    library_ms=lib_ms)
+        if any(modes):
+            same = torch.equal(got, stage_kernel.eval_conv(mat, conv))
+            check(same, f"{path}: {stage} {name}: the launch reading its seam (modes {modes}) "
+                  f"differs from the same launch on the materialized sources")
+            mat_ms = cuda_ms(lambda: stage_kernel.eval_conv(mat, conv), 20)
+            seam_ms = cuda_ms(lambda: stage_kernel.materialize_seams(sources, *flags), 10)
+            line.update(modes=list(modes), source_shapes=[list(s.shape) for s in sources],
+                        bit_equal_materialized=same, materialized_ms=mat_ms, seam_plain_ms=seam_ms)
+            for k, v in (("ms", ms), ("bound_ms", bound), ("materialized_ms", mat_ms),
+                         ("seam_plain_ms", seam_ms), ("launches", 1)):
+                seam_total[k] += v
+        print("conv:", json.dumps(line))
     print("conv:", json.dumps(dict(path=path, per="forward", **total,
-                                   bound_by="operations" if "operations" in kinds else "bytes")))
+                                   bound_by="operations" if "operations" in kinds else "bytes",
+                                   seam_launches=seam_total)))
     return worst
 
 
@@ -621,20 +694,45 @@ def conv_launch_lines(path, launches, check):
 # ---------------------------------------------------------------------------
 
 
-def plain_stage(parts, bp, sp, head=None, packed=None):
+def plain_stage(parts, bp, sp, head=None, packed=None, up=None, down=None):
     """The fused eval stage's plain version, with its wrapper's signature."""
     from ssunet_gan_tpu_torch.ops import stage_kernel
 
-    return stage_kernel.fused_stage_reference(parts, bp, sp, head)
+    return stage_kernel.fused_stage_reference(stage_kernel.materialize_seams(parts, up, down),
+                                              bp, sp, head)
 
 
-def seeded_stage_phase(dev, sigs, block_cls, gen, phase, check, int8=False):
+def materialized_stage(parts, bp, sp, head=None, packed=None, up=None, down=None):
+    """Kernel 1 on the stage's seams materialized (W then H, and the pool)
+    in plain PyTorch: what the stage computes when it does not read them."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel
+
+    return stage_kernel.fused_eval_stage(stage_kernel.materialize_seams(parts, up, down), bp, sp,
+                                         head, packed)
+
+
+def seam_parts(parts, kind, gen, dev):
+    """A seeded stage's parts with its seam's source in place of the part
+    it stands for: a pool seam's full-resolution source, an up seam's
+    half-height tensor."""
+    if kind is None:
+        return parts
+    i = 0 if kind == "pool" else 1
+    n, h, w, c = parts[i].shape
+    shape = (n, 2 * h, 2 * w, c) if kind == "pool" else (n, h // 2, w, c)
+    src = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+    return parts[:i] + (src,) + parts[i + 1:]
+
+
+def seeded_stage_phase(dev, sigs, block_cls, gen, phase, check, int8=False, seams=None):
     """Each fused stage signature at 512², batch 2, seeded weights (a
     ``block_cls`` conv block with random BN statistics, the signature's
     SPADE, the head where it has one) and inputs: kernel 1 against its
-    plain version to the stage bar; with ``int8`` also kernel 7 (dynamic
-    scales: h1 and y bit for bit). Returns the largest max abs errors
-    (kernel 1, kernel 7)."""
+    plain version to the stage bar; a stage of ``seams`` ({stage: kind})
+    reads its seam from a seeded source and is also held bit for bit
+    against kernel 1 on the materialized seam; with ``int8`` also kernel 7
+    (dynamic scales, on the materialized parts: h1 and y bit for bit).
+    Returns the largest max abs errors (kernel 1, kernel 7)."""
     from ssunet_gan_tpu_torch.ops import stage_kernel
     from ssunet_gan_tpu_torch.ops.conv import Conv2d
     from ssunet_gan_tpu_torch.ops.spade import SPADE
@@ -654,11 +752,21 @@ def seeded_stage_phase(dev, sigs, block_cls, gen, phase, check, int8=False):
         parts = tuple(torch.randn((2, side, side, c), generator=gen).to(dev, torch.bfloat16)
                       for c in chans)
         bp, sp = block.stage_params(), spade.stage_params()
-        got = stage_kernel.fused_eval_stage(parts, bp, sp, head)
+        kind = (seams or {}).get(name)
+        up, down = seam_flags(kind)
+        src = seam_parts(parts, kind, gen, dev)
+        parts = stage_kernel.materialize_seams(src, up, down)
+        got = stage_kernel.fused_eval_stage(src, bp, sp, head, up=up, down=down)
         torch.cuda.synchronize()
         want = plain_stage(parts, bp, sp, head)
         err, scale, l2, ok = close(got, want)
         what = f"{phase}: {name} parts={chans} planes={planes} hidden={nh} {side}x{side}"
+        if kind is not None:
+            same = torch.equal(got, stage_kernel.fused_eval_stage(parts, bp, sp, head))
+            print(f"{what} batch 2: {kind} seam read in the kernel, bit-equal to the "
+                  f"materialized seam: {same}")
+            check(same, f"{what}: kernel 1 reading its {kind} seam differs from kernel 1 on "
+                  f"the materialized seam")
         print(f"{what} batch 2 max_abs_err={err:.4g} max_rel_err={err / max(scale, 1e-30):.4g} "
               f"rel_l2={l2:.3g} (max|plain|={scale:.4g})")
         check(ok and got.shape == want.shape,
@@ -667,41 +775,53 @@ def seeded_stage_phase(dev, sigs, block_cls, gen, phase, check, int8=False):
         if int8:
             worst[1] = max(worst[1], int8_stage_agrees(f"{what} batch 2 int8 dynamic", parts, bp,
                                                        sp, head, check))
-        del parts, got, want, block, spade
+        del parts, src, got, want, block, spade
     torch.cuda.empty_cache()
     return tuple(worst)
 
 
-def model_stage_phase(dev, model, sigs, scene_tiles, phase, name, check) -> dict:
+def model_stage_phase(dev, model, sigs, scene_tiles, phase, name, check, seams) -> dict:
     """Each fused stage of ``model`` with the model's weights on its own
     inputs, captured from an all-plain forward over the scene request's
-    first chunk: checked at that batch (INFER_BATCH) against the plain
-    version, timed at the tile forward's (BATCH) beside the plain version
-    and the bound (``stage:`` lines and their sum per forward), then each
-    of its conv launches alone at BATCH (``conv:`` lines). Returns kernel
-    1's numbers for the ``kernels`` line (without its launches)."""
+    first chunk, its seams (``seams``: {stage: kind}, which the forward
+    must hand exactly these stages) as the kernel reads them: checked at
+    that batch (INFER_BATCH) against the plain version, a seam stage also
+    bit for bit against kernel 1 on the materialized seam, timed at the
+    tile forward's (BATCH) beside the plain version and the bound
+    (``stage:`` lines and their sum per forward; a ``seam:`` line per seam
+    stage: the stage on the materialized seam, the plain seam and, for an
+    up seam, its W-interpolation ``upsample_w``), then each of its conv
+    launches alone at BATCH (``conv:`` lines). Returns kernel 1's numbers
+    for the ``kernels`` line (without its launches)."""
     from ssunet_gan_tpu_torch.infer.api import INFER_BATCH, _norm_consts
     from ssunet_gan_tpu_torch.models import ssunet
     from ssunet_gan_tpu_torch.ops import stage_kernel
+    from ssunet_gan_tpu_torch.ops.resize import upsample_w
 
     a, b = _norm_consts()
     chunk = torch.from_numpy(scene_tiles[:INFER_BATCH]).to(dev).float() * a.to(dev) + b.to(dev)
     captured = []
 
-    def capture(parts, bp, sp, head=None, packed=None):
-        captured.append(tuple(p.clone() for p in parts))
-        return plain_stage(parts, bp, sp, head)
+    def capture(parts, bp, sp, head=None, packed=None, up=None, down=None):
+        captured.append((tuple(p.clone() for p in parts), up, down))
+        return plain_stage(parts, bp, sp, head, up=up, down=down)
 
     with patched(ssunet, "fused_eval_stage", capture), torch.no_grad():
         model(chunk.to(torch.bfloat16))
     del chunk
-    if [tuple(p.shape[-1] for p in c) for c in captured] != [s[1] for s in sigs]:
-        fail(f"{phase}: {name}'s fused stages are not the expected {len(sigs)}: "
-             f"{[[tuple(p.shape) for p in c] for c in captured]}")
+    got_seams = {s[0]: seam_kind(u, d) for s, (_, u, d) in zip(sigs, captured)
+                 if seam_kind(u, d) is not None}
+    if ([tuple(p.shape[-1] for p in c) for c, _, _ in captured] != [s[1] for s in sigs]
+            or got_seams != seams):
+        fail(f"{phase}: {name}'s fused stages are not the expected {len(sigs)} with the seams "
+             f"{seams}: {[[tuple(p.shape) for p in c] for c, _, _ in captured]}, seams "
+             f"{got_seams}")
     ms_sum = plain_sum = bound_sum = worst = 0.0
     kinds, conv_launches = set(), []  # each stage's conv launches at BATCH (conv: lines)
-    for (stage, chans, planes, lab, nh, head_cls, level), full in zip(sigs, captured):
+    for (stage, chans, planes, lab, nh, head_cls, level), (full, up, down) in zip(sigs, captured):
         side = HW >> level
+        kind = seam_kind(up, down)
+        modes = stage_kernel.seam_modes(len(full), up, down)
         block, spade = getattr(model, stage), getattr(model, "SPADE" + stage[4:])
         head = (model.final.weight, model.final.bias) if head_cls else None
         bp, sp = block.stage_params(), spade.stage_params()
@@ -709,29 +829,50 @@ def model_stage_phase(dev, model, sigs, scene_tiles, phase, name, check) -> dict
         check(pk["shortcut"] == (bp[4] is not None),
               f"{phase}: {stage} packed shortcut {pk['shortcut']}, the block has "
               f"{'one' if bp[4] is not None else 'none'}")
-        err, scale, l2, ok = close(stage_kernel.fused_eval_stage(full, bp, sp, head, pk),
-                                   plain_stage(full, bp, sp, head))
+        got = stage_kernel.fused_eval_stage(full, bp, sp, head, pk, up=up, down=down)
+        err, scale, l2, ok = close(got, plain_stage(full, bp, sp, head, up=up, down=down))
         print(f"{phase}: {stage} batch {full[0].shape[0]} model weights max_abs_err={err:.4g} "
-              f"rel_l2={l2:.3g} (max|plain|={scale:.4g})")
+              f"rel_l2={l2:.3g} (max|plain|={scale:.4g})"
+              + (f", {kind} seam read in the kernel" if kind else ""))
         check(ok, f"{phase}: {stage} at batch {full[0].shape[0]}: kernel 1 disagrees with plain "
               f"(err {err}, max {scale}, l2 {l2})")
+        if kind is not None:
+            check(torch.equal(got, materialized_stage(full, bp, sp, head, pk, up, down)),
+                  f"{phase}: {stage} at batch {full[0].shape[0]}: kernel 1 reading its {kind} "
+                  f"seam differs from kernel 1 on the materialized seam")
+        del got
         worst = max(worst, err)
         parts = tuple(p[:BATCH] for p in full)
-        ms = cuda_ms(lambda: stage_kernel.fused_eval_stage(parts, bp, sp, head, pk), 10)
-        plain_ms = cuda_ms(lambda: plain_stage(parts, bp, sp, head), 3, warmup=1)
+        ms = cuda_ms(lambda: stage_kernel.fused_eval_stage(parts, bp, sp, head, pk, up=up,
+                                                           down=down), 10)
+        plain_ms = cuda_ms(lambda: plain_stage(parts, bp, sp, head, up=up, down=down), 3, warmup=1)
         wbytes = sum(t.numel() * 2 for t in (bp[0], bp[2], bp[4]) if t is not None)
         wbytes += sum(t.numel() * 4 for t in sp)
-        bound, kind = stage_bound_ms(parts, planes, lab, nh, head_cls, wbytes,
-                                     shortcut=bp[4] is not None)
-        kinds.add(kind)
+        bound, bound_kind = stage_bound_ms(parts, planes, lab, nh, head_cls, wbytes,
+                                           shortcut=bp[4] is not None,
+                                           shape=(BATCH, side, side))
+        kinds.add(bound_kind)
         ms_sum, plain_sum, bound_sum = ms_sum + ms, plain_sum + plain_ms, bound_sum + bound
         print("stage:", json.dumps(dict(model=name, stage=stage,
                                         shape=[BATCH, side, side, sum(chans)], planes=planes,
-                                        hidden=nh, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                        bound_by=kind)))
-        h1 = stage_kernel.eval_conv(parts, pk["conv1"])
-        conv_launches += [(stage, "conv1", parts, pk["conv1"]),
-                          (stage, "conv2", (h1,) + (parts if pk["shortcut"] else ()), pk["conv2"])]
+                                        hidden=nh, seam=kind, ms=ms, plain_ms=plain_ms,
+                                        bound_ms=bound, bound_by=bound_kind)))
+        if kind is not None:
+            line = dict(model=name, stage=stage, kind=kind,
+                        source=list(parts[modes.index(1 if kind == "up" else 2)].shape),
+                        stage_ms=ms,
+                        stage_ms_materialized=cuda_ms(
+                            lambda: materialized_stage(parts, bp, sp, head, pk, up, down), 10),
+                        seam_plain_ms=cuda_ms(
+                            lambda: stage_kernel.materialize_seams(parts, up, down), 10))
+            if kind == "up":  # the W-interpolation before it, on a raw source of its shape
+                raw = parts[1][:, :, ::2].contiguous()
+                line["upsample_w_ms"] = cuda_ms(lambda: upsample_w(raw), 10)
+            print("seam:", json.dumps(line))
+        h1 = stage_kernel.eval_conv(parts, pk["conv1"], modes)
+        conv_launches += [(stage, "conv1", parts, pk["conv1"], modes),
+                          (stage, "conv2", (h1,) + (parts if pk["shortcut"] else ()), pk["conv2"],
+                           ((0,) + modes) if pk["shortcut"] else None)]
     bound_by = "operations" if "operations" in kinds else "bytes"
     print("stage:", json.dumps(dict(model=name, per="forward", ms=ms_sum, plain_ms=plain_sum,
                                     bound_ms=bound_sum, bound_by=bound_by)))
@@ -743,16 +884,18 @@ def model_stage_phase(dev, model, sigs, scene_tiles, phase, name, check) -> dict
 
 
 def bf16_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, check, name,
-                       phases) -> dict:
-    """A model's bf16 main path: kernel-1 counts to 0, the tile forward at
-    batch 8 (``len(sigs)`` kernel-1 stages per forward) and the 2048² scene
-    request (two chunks), through the entry points; after the counts were
-    read, the kernel path and the all-plain path (bf16) against the f32
-    all-plain forward by the forward and mask bars, and a profile of the
+                       phases, seams) -> dict:
+    """A model's bf16 main path: kernel-1 and seam counts to 0, the tile
+    forward at batch 8 (``len(sigs)`` kernel-1 stages per forward, reading
+    the up and pool seams of ``seams``) and the 2048² scene request (two
+    chunks), through the entry points; after the counts were read, the
+    kernel path and the all-plain path (bf16) against the f32 all-plain
+    forward by the forward and mask bars, the kernel path bit for bit
+    against the same kernels on materialized seams, and a profile of the
     tile forward. ``phases``: the labels of the tile forward and the scene
-    request. Returns the main path's launches, tiles/s, scene seconds and
-    distances from f32, and the f32 forwards (logits, tile probabilities,
-    masks) for the int8 path."""
+    request. Returns the main path's launches and seam reads, tiles/s,
+    scene seconds and distances from f32, and the f32 forwards (logits,
+    tile probabilities, masks) for the int8 path."""
     from ssunet_gan_tpu_torch.infer.api import (
         _chunked_forward,
         _norm_consts,
@@ -764,9 +907,10 @@ def bf16_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, ch
 
     tile_p, scene_p = phases
     per = len(sigs)
+    up_per, pool_per = seams_per(seams)
     ncls = model.num_classes
     t_phase = time.perf_counter()
-    stage_kernel.launches = 0
+    stage_kernel.launches = stage_kernel.up_reads = stage_kernel.pool_reads = 0
     warm, iters = 2, 5
     for _ in range(warm):  # the entry point's defaults: bf16 on the card
         probs = tile_forward(model, x)
@@ -780,6 +924,9 @@ def bf16_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, ch
     check(tile_launches == per * (warm + iters),
           f"{tile_p}: {tile_launches} kernel-1 stages in {warm + iters} {name} tile forwards, "
           f"expected {per} each")
+    check(seam_reads() == (up_per * (warm + iters), pool_per * (warm + iters)),
+          f"{tile_p}: {seam_reads()} up and pool seams read in {warm + iters} {name} tile "
+          f"forwards, expected {(up_per, pool_per)} each")
     check(bool(torch.isfinite(probs.float()).all()) and probs.shape == (BATCH, HW, HW, ncls),
           f"{tile_p}: {name} tile forward output is not finite or has the wrong shape")
     tiles_per_s = BATCH * iters / dt
@@ -792,9 +939,16 @@ def bf16_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, ch
     masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False)
     scene_s = time.perf_counter() - t0
     launches = stage_kernel.launches
+    reads = seam_reads()
     check(launches - tile_launches == 2 * per,
           f"{scene_p}: the {name} scene request ran {launches - tile_launches} kernel-1 stages, "
           f"expected {2 * per}")
+    forwards = warm + iters + 2
+    check(reads == (up_per * forwards, pool_per * forwards),
+          f"{scene_p}: {reads} up and pool seams read by the {name} main path, expected "
+          f"{(up_per, pool_per)} per forward")
+    print(f"{scene_p}: {name} main path read {reads[0]} up and {reads[1]} pool seams in its "
+          f"kernel stages ({up_per} and {pool_per} per forward)")
     check_masks(masks, scene_p)
     print(f"{scene_p}: {name} scene 2048x2048 -> {len(masks)} masks in {scene_s:.3f} s (36 tiles, "
           f"bf16) on {card}; positive share {[round(float((m > 0).mean()), 4) for m in masks]}")
@@ -826,6 +980,8 @@ def bf16_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, ch
     e_probs = forward_bar(f"{scene_p}: {name} scene tile probabilities", probs_k, probs_p,
                           probs_f, check)[0]
     agree_kf = mask_bars(f"{scene_p}: {name}", masks, plain_masks, f32_masks, check)[1]
+    seams_materialized(f"{tile_p}: {name}", model, xn, scene_tiles, logits_k, probs_k,
+                       ssunet, "fused_eval_stage", materialized_stage, check)
     del logits_k, logits_p, probs_k, probs_p, xn
     # where one tile forward's device time goes (torch.profiler, by kernel)
     tile_forward(model, x)  # the f32 comparisons left f32 operands kept; repack once
@@ -842,8 +998,29 @@ def bf16_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, ch
     conv_profile_line(f"kernel 1: {name} bf16 forward", "forward", rows)
     torch.cuda.empty_cache()
     phase_done(f"{tile_p} {name} bf16 comparisons and profile", t_phase)
-    return dict(launches=launches, tiles_per_s=tiles_per_s, scene_s=scene_s, logits=e_logits,
-                probs=e_probs, masks=agree_kf, f32=(logits_f, probs_f, f32_masks))
+    return dict(launches=launches, seam_reads=reads, tiles_per_s=tiles_per_s, scene_s=scene_s,
+                logits=e_logits, probs=e_probs, masks=agree_kf,
+                f32=(logits_f, probs_f, f32_masks))
+
+
+def seams_materialized(what, model, xn, scene_tiles, logits_k, probs_k, module, stage_name,
+                       materialized, check, probs=True):
+    """The bf16 forward's logits (and scene tile probabilities) with the
+    seams read in the kernel stages against the same forward whose kernel
+    stages (``module.stage_name``) take their seams materialized in plain
+    PyTorch (``materialized``: W then H, and the pool): equal bit for
+    bit."""
+    from ssunet_gan_tpu_torch.infer.api import _chunked_forward
+
+    with patched(module, stage_name, materialized), torch.no_grad():
+        same = torch.equal(logits_k, model(xn.to(torch.bfloat16)))
+        if probs:
+            same_p = torch.equal(probs_k, _chunked_forward(model, scene_tiles))
+    print(f"{what}: seams read in the kernels, bit-equal to materialized seams: logits {same}"
+          + (f", scene tile probabilities {same_p}" if probs else ""))
+    check(same and (same_p if probs else True),
+          f"{what}: the forward reading its seams in the kernels differs from the forward on "
+          f"materialized seams")
 
 
 # ---------------------------------------------------------------------------
@@ -1423,9 +1600,13 @@ def train_phases(dev, cfg, card, sigs, check):
     fused_ids = {id(getattr(tmodel, s[0])): s[0] for s in sigs}
     seen = {}
 
-    def capturing_stage(parts, block, spade, final=None, name=None, out_key=None):
-        """The model's stage, recording each fused stage's inputs and the
-        cotangent its output receives."""
+    def capturing_stage(parts, block, spade, final=None, name=None, out_key=None, up=None,
+                        down=None):
+        """The model's stage, recording each fused stage's inputs (its seams
+        materialized as a train forward takes them) and the cotangent its
+        output receives."""
+        if up or down:
+            parts = ssunet._seams(ssunet.as_parts(parts), up, down, False, False, None)[0]
         out = fused_stage(parts, block, spade, final)
         if id(block) in fused_ids:
             rec = seen[fused_ids[id(block)]] = {
@@ -2163,11 +2344,12 @@ def spade_macs(planes, labels, hidden):
     return 9 * planes * labels + 9 * labels * hidden + 9 * hidden * 2 * planes
 
 
-def bneck_bound_ms(parts, planes, labels, hidden, ncls, weight_bytes, identity):
+def bneck_bound_ms(parts, planes, labels, hidden, ncls, weight_bytes, identity, shape=None):
     """Least time for one bottleneck stage call: its multiply-adds at the
     bf16 tensor-core peak, or its bytes (inputs and weights read once, the
-    output written once) over HBM bandwidth."""
-    n, h, w = parts[0].shape[:3]
+    output written once) over HBM bandwidth. ``shape``: the output's N×H×W
+    where the parts hold a seam (default the first part's)."""
+    n, h, w = shape or parts[0].shape[:3]
     cin = sum(p.shape[-1] for p in parts)
     macs = (cin * planes + 9 * planes * planes + planes * planes
             + (0 if identity else cin * planes) + spade_macs(planes, labels, hidden)
@@ -2177,9 +2359,27 @@ def bneck_bound_ms(parts, planes, labels, hidden, ncls, weight_bytes, identity):
     return bound_of(2.0 * macs * n * h * w, nbytes)
 
 
+def plain_bneck(parts, bp, sp, head=None, packed=None, up=None):
+    """Kernel 8's plain version, with its wrapper's signature."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel, stage_kernel_bneck as kb
+
+    return kb.fused_bneck_reference(stage_kernel.materialize_seams(parts, up), bp, sp, head)
+
+
+def materialized_bneck(parts, bp, sp, head=None, packed=None, up=None):
+    """Kernel 8 on the stage's up seams materialized in plain PyTorch."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel, stage_kernel_bneck as kb
+
+    return kb.fused_eval_stage_bneck(stage_kernel.materialize_seams(parts, up), bp, sp, head,
+                                     packed)
+
+
 def bneck_stage_phase(dev, model, sigs, scene_tiles, check):
     """Phase 9; returns kernel 8's row of the ``kernels`` line without its
-    launches."""
+    launches. The up seams of ``BNECK_SEAMS`` are read in the kernel (from
+    a seeded half-height source, then the forward's own) and held bit for
+    bit against kernel 8 on the materialized seam besides the plain
+    version's bar."""
     from ssunet_gan_tpu_torch.infer.api import INFER_BATCH, _norm_consts
     from ssunet_gan_tpu_torch.models import ssunet
     from ssunet_gan_tpu_torch.ops import stage_kernel, stage_kernel_bneck as kb
@@ -2206,7 +2406,11 @@ def bneck_stage_phase(dev, model, sigs, scene_tiles, check):
         parts = tuple(torch.randn((2, side, side, c), generator=gen).to(dev, torch.bfloat16)
                       for c in chans)
         bp, sp = block.stage_params(), spade.stage_params()
-        got = kb.fused_eval_stage_bneck(parts, bp, sp, head)
+        kind = BNECK_SEAMS.get(name)
+        up = seam_flags(kind)[0]
+        src = seam_parts(parts, kind, gen, dev)
+        parts = stage_kernel.materialize_seams(src, up)
+        got = kb.fused_eval_stage_bneck(src, bp, sp, head, up=up)
         torch.cuda.synchronize()
         want = kb.fused_bneck_reference(parts, bp, sp, head)
         err, scale, l2, ok = close(got, want)
@@ -2215,57 +2419,82 @@ def bneck_stage_phase(dev, model, sigs, scene_tiles, check):
               f"rel_l2={l2:.3g} (max|plain|={scale:.4g})")
         check(ok and got.shape == want.shape,
               f"phase 9: {name}: kernel disagrees with plain (err {err}, max {scale}, l2 {l2})")
+        if kind is not None:
+            same = torch.equal(got, kb.fused_eval_stage_bneck(parts, bp, sp, head))
+            print(f"phase 9: {name} batch 2: up seam read in the kernel, bit-equal to the "
+                  f"materialized seam: {same}")
+            check(same, f"phase 9: {name}: kernel 8 reading its up seam differs from kernel 8 "
+                  f"on the materialized seam")
         worst = max(worst, err)
-        del parts, got, want, block, spade
+        del parts, src, got, want, block, spade
 
     # the model's weights and each stage's own inputs, from an all-plain
     # forward over the scene's first chunk: checked at the scene request's
     # batch (INFER_BATCH), timed at the tile forward's (BATCH)
     captured = []
 
-    def capture(parts, bp, sp, head=None, packed=None):
-        captured.append(tuple(p.clone() for p in parts))
-        return kb.fused_bneck_reference(parts, bp, sp, head)
+    def capture(parts, bp, sp, head=None, packed=None, up=None):
+        captured.append((tuple(p.clone() for p in parts), up))
+        return plain_bneck(parts, bp, sp, head, up=up)
 
     a, b = _norm_consts()
     chunk = torch.from_numpy(scene_tiles[:INFER_BATCH]).to(dev).float() * a.to(dev) + b.to(dev)
     with patched(ssunet, "fused_eval_stage_bneck", capture), torch.no_grad():
         model(chunk.to(torch.bfloat16))
     del chunk
-    if [tuple(p.shape[-1] for p in c) for c in captured] != [s[1] for s in sigs]:
-        fail(f"phase 9: the forward's bottleneck stages are not the expected six: "
-             f"{[[tuple(p.shape) for p in c] for c in captured]}")
+    got_seams = {s[0]: "up" for s, (_, u) in zip(sigs, captured) if any(u or ())}
+    if ([tuple(p.shape[-1] for p in c) for c, _ in captured] != [s[1] for s in sigs]
+            or got_seams != BNECK_SEAMS):
+        fail(f"phase 9: the forward's bottleneck stages are not the expected six with the "
+             f"seams {BNECK_SEAMS}: {[[tuple(p.shape) for p in c] for c, _ in captured]}, "
+             f"seams {got_seams}")
     ms_sum = plain_sum = bound_sum = 0.0
     kinds = set()
     conv_launches = []  # each stage's conv launches at batch 8 (conv: lines)
-    for (name, chans, planes, lab, nh, head_cls, level), full in zip(sigs, captured):
+    for (name, chans, planes, lab, nh, head_cls, level), (full, up) in zip(sigs, captured):
         side = HW >> level
+        modes = stage_kernel.seam_modes(len(full), up)
         block, spade = getattr(model, name), getattr(model, "SPADE" + name[4:])
         head = (model.final.weight, model.final.bias) if head_cls else None
         bp, sp = block.stage_params(), spade.stage_params()
         pk = kb.pack_stage_bneck(chans, bp, sp, head, torch.bfloat16)
-        err, scale, l2, ok = close(kb.fused_eval_stage_bneck(full, bp, sp, head, pk),
-                                   kb.fused_bneck_reference(full, bp, sp, head))
+        got = kb.fused_eval_stage_bneck(full, bp, sp, head, pk, up=up)
+        err, scale, l2, ok = close(got, plain_bneck(full, bp, sp, head, up=up))
         print(f"phase 9: {name} batch {INFER_BATCH} model weights max_abs_err={err:.4g} "
-              f"rel_l2={l2:.3g} (max|plain|={scale:.4g})")
+              f"rel_l2={l2:.3g} (max|plain|={scale:.4g})"
+              + (", up seam read in the kernel" if any(modes) else ""))
         check(ok, f"phase 9: {name} at batch {INFER_BATCH}: kernel disagrees with plain "
               f"(err {err}, max {scale}, l2 {l2})")
+        if any(modes):
+            check(torch.equal(got, materialized_bneck(full, bp, sp, head, pk, up)),
+                  f"phase 9: {name} at batch {INFER_BATCH}: kernel 8 reading its up seam "
+                  f"differs from kernel 8 on the materialized seam")
+        del got
         worst = max(worst, err)
         parts = tuple(p[:BATCH] for p in full)
-        ms = cuda_ms(lambda: kb.fused_eval_stage_bneck(parts, bp, sp, head, pk), 10)
-        plain_ms = cuda_ms(lambda: kb.fused_bneck_reference(parts, bp, sp, head), 3, warmup=1)
+        ms = cuda_ms(lambda: kb.fused_eval_stage_bneck(parts, bp, sp, head, pk, up=up), 10)
+        plain_ms = cuda_ms(lambda: plain_bneck(parts, bp, sp, head, up=up), 3, warmup=1)
         wbytes = sum(t.numel() * 2 for t in (bp[0], bp[2], bp[4], bp[6]) if t is not None)
         wbytes += sum(t.numel() * 4 for t in sp)
-        bound, kind = bneck_bound_ms(parts, planes, lab, nh, head_cls, wbytes, bp[6] is None)
+        bound, kind = bneck_bound_ms(parts, planes, lab, nh, head_cls, wbytes, bp[6] is None,
+                                     shape=(BATCH, side, side))
         kinds.add(kind)
         ms_sum, plain_sum, bound_sum = ms_sum + ms, plain_sum + plain_ms, bound_sum + bound
         row = dict(stage=name, shape=[BATCH, side, side, sum(chans)], planes=planes,
-                   ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=kind)
+                   seam="up" if any(modes) else None, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                   bound_by=kind)
         print("bneck stage:", json.dumps(row))
-        h1 = stage_kernel.eval_conv(parts, pk["conv1"])
+        if any(modes):
+            print("seam:", json.dumps(dict(
+                model="UNet_B_SS", stage=name, kind="up", source=list(parts[1].shape),
+                stage_ms=ms, stage_ms_materialized=cuda_ms(
+                    lambda: materialized_bneck(parts, bp, sp, head, pk, up), 10),
+                seam_plain_ms=cuda_ms(lambda: stage_kernel.materialize_seams(parts, up), 10))))
+        h1 = stage_kernel.eval_conv(parts, pk["conv1"], modes)
         h2 = stage_kernel.eval_conv((h1,), pk["conv2"])
-        conv_launches += [(name, "conv1", parts, pk["conv1"]), (name, "conv2", (h1,), pk["conv2"]),
-                          (name, "conv3", (h2,) + parts, pk["conv3"])]
+        conv_launches += [(name, "conv1", parts, pk["conv1"], modes),
+                          (name, "conv2", (h1,), pk["conv2"], None),
+                          (name, "conv3", (h2,) + parts, pk["conv3"], (0,) + modes)]
     worst = max(worst, conv_launch_lines("kernel 8", conv_launches, check))
     del captured, full, parts, pk, h1, h2, conv_launches
     torch.cuda.empty_cache()
@@ -2290,8 +2519,9 @@ def bneck_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, c
 
     t_phase = time.perf_counter()
     ncls = model.num_classes
+    up_per = seams_per(BNECK_SEAMS)[0]
     # the main path: counts to 0, the tile forward, the scene request
-    kb.launches = 0
+    kb.launches = stage_kernel.up_reads = stage_kernel.pool_reads = 0
     other_before = stage_kernel.launches
     warm, iters = 2, 5
     for _ in range(warm):
@@ -2322,6 +2552,12 @@ def bneck_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, c
     if launches != 6 * forwards + 12:
         fail(f"phase 10: the scene request ran {launches - 6 * forwards} bottleneck "
              f"kernel stages, expected 12")
+    reads = seam_reads()
+    check(reads == (up_per * (forwards + 2), 0),
+          f"phase 10: {reads} up and pool seams read by the UNet_B_SS main path, expected "
+          f"{(up_per, 0)} per forward")
+    print(f"phase 10: UNet_B_SS main path read {reads[0]} up seams in kernel 8 ({up_per} per "
+          f"forward) and {reads[1]} pool seams")
     check_masks(masks, "phase 10")
     print(f"phase 10: UNet_B_SS scene 2048x2048 -> {len(masks)} masks in {scene_s:.3f} s "
           f"(36 tiles, bf16) on {card}; positive share "
@@ -2331,9 +2567,6 @@ def bneck_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, c
     # comparisons, after the counts were read: every bottleneck stage on its
     # plain version (bf16), and the f32 forward, which the gate sends to the
     # module composition
-    def plain_bneck(parts, bp, sp, head=None, packed=None):
-        return kb.fused_bneck_reference(parts, bp, sp, head)
-
     a, b = _norm_consts()
     xn = x.float() * a.to(dev) + b.to(dev)
     with torch.no_grad():
@@ -2353,6 +2586,8 @@ def bneck_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, c
     forward_bar("phase 10: UNet_B_SS logits", logits_k, logits_p, logits_f, check)
     forward_bar("phase 10: UNet_B_SS scene tile probabilities", probs_k, probs_p, probs_f, check)
     mask_bars("phase 10: UNet_B_SS", masks, plain_masks, f32_masks, check)
+    seams_materialized("phase 10: UNet_B_SS", model, xn, scene_tiles, logits_k, probs_k,
+                       ssunet, "fused_eval_stage_bneck", materialized_bneck, check)
     del logits_k, logits_p, logits_f, probs_k, probs_p, probs_f, xn
     torch.cuda.empty_cache()
     t_phase = phase_done("phase 10 comparisons", t_phase)
@@ -2370,7 +2605,7 @@ def bneck_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, c
     tail_line("kernel 8: UNet_B_SS bf16 forward", "forward", rows, tail_calls(sigs, BATCH))
     conv_profile_line("kernel 8: UNet_B_SS bf16 forward", "forward", rows)
     phase_done("phase 10 profile", t_phase)
-    return launches
+    return launches, reads
 
 
 def rss_forward_phase(dev, card, cfg, x, calib, check) -> None:
@@ -2385,7 +2620,7 @@ def rss_forward_phase(dev, card, cfg, x, calib, check) -> None:
     model = build_model("UNet_R_SS", cfg["num_classes"], cfg["input_channels"], seed=SEED,
                         device=dev)
     calibrate_batchnorm(model, calib)
-    before, bneck_before = stage_kernel.launches, kb.launches
+    before, bneck_before, reads_before = stage_kernel.launches, kb.launches, seam_reads()
     warm, iters = 1, 3
     for _ in range(warm):
         probs = tile_forward(model, x)
@@ -2401,6 +2636,12 @@ def rss_forward_phase(dev, card, cfg, x, calib, check) -> None:
              f"expected 6 each (and {kb.launches - bneck_before} bottleneck ones, expected 0)")
     if not torch.isfinite(probs.float()).all() or probs.shape != (BATCH, HW, HW, model.num_classes):
         fail("phase 10: UNet_R_SS tile forward output is not finite or has the wrong shape")
+    reads = [a - b for a, b in zip(seam_reads(), reads_before)]
+    check(reads == [v * (warm + iters) for v in RSS_SEAMS_PER],
+          f"phase 10: UNet_R_SS read {reads} up and pool seams in {warm + iters} forwards, "
+          f"expected {RSS_SEAMS_PER} each")
+    print(f"phase 10: UNet_R_SS read {reads[0]} up and {reads[1]} pool seams in kernel 1 "
+          f"({RSS_SEAMS_PER} per forward)")
     print(f"phase 10: UNet_R_SS tile forward {BATCH * iters / dt:.2f} tiles/s (512x512 bf16, "
           f"batch {BATCH}, {dt / iters * 1e3:.2f} ms/forward, six kernel stages each) on {card}")
     a, b = _norm_consts()
@@ -2411,6 +2652,8 @@ def rss_forward_phase(dev, card, cfg, x, calib, check) -> None:
             logits_p = model(xn.to(torch.bfloat16))
             logits_f = model(xn)
     forward_bar("phase 10: UNet_R_SS logits", logits_k, logits_p, logits_f, check)
+    seams_materialized("phase 10: UNet_R_SS", model, xn, None, logits_k, None, ssunet,
+                       "fused_eval_stage", materialized_stage, check, probs=False)
     del model, logits_k, logits_p, logits_f
     torch.cuda.empty_cache()
     phase_done("phase 10 UNet_R_SS", t_phase)
@@ -2680,27 +2923,32 @@ def ssunet_phase(dev, card, cfg, calib, x, scene, scene_tiles, config, check):
     check(model.conv4_0.planes > stage_kernel.MAX_PLANES,
           "phase 12: conv4_0 was expected past the fused stage's planes")
     gen = torch.Generator().manual_seed(SEED + 50)
-    seeded = seeded_stage_phase(dev, sigs, VGGBlock, gen, "phase 12", check, int8=True)
+    seeded = seeded_stage_phase(dev, sigs, VGGBlock, gen, "phase 12", check, int8=True,
+                                seams=SSUNET_SEAMS)
     t_phase = phase_done("phase 12 VGG stages, seeded", t_phase)
-    stages = model_stage_phase(dev, model, sigs, scene_tiles, "phase 12", "SSUNet", check)
+    stages = model_stage_phase(dev, model, sigs, scene_tiles, "phase 12", "SSUNet", check,
+                               SSUNET_SEAMS)
     phase_done("phase 12 VGG stages, model weights", t_phase)
 
     serve = bf16_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, check,
-                               "SSUNet", ("phase 12", "phase 12"))
-    int8_row = int8_serving_phase(
-        dev, card, model, sigs, check, x, scene, scene_tiles, config, serve.pop("f32"), serve,
-        "phase 12", "SSUNet", [s[0] for s in sigs if len(s[1]) == 2], SSUNET_DEEP)
+                               "SSUNet", ("phase 12", "phase 12"), SSUNET_SEAMS)
+    with no_seam_reads("phase 12: SSUNet int8", check):
+        int8_row = int8_serving_phase(
+            dev, card, model, sigs, check, x, scene, scene_tiles, config, serve.pop("f32"),
+            serve, "phase 12", "SSUNet", [s[0] for s in sigs if len(s[1]) == 2], SSUNET_DEEP)
     torch.cuda.empty_cache()
 
     # training: kernel 9 on every SPADE the gate takes (the eight of 32-256
     # planes; conv4_0's hidden 128 is past the tail's limit), the VGG blocks
     # through plain autograd
-    spade_row = pallas_trainer_phase(dev, card, cfg, model, "SSUNet", "phase 12", check)
+    with no_seam_reads("phase 12: SSUNet training", check):
+        spade_row = pallas_trainer_phase(dev, card, cfg, model, "SSUNet", "phase 12", check)
     check(spade_row["per_step"] == len(sigs),
           f"phase 12: the SPADE gate takes {spade_row['per_step']} of SSUNet's nine")
     del model
     torch.cuda.empty_cache()
     return {
+        "seam_reads": serve["seam_reads"],
         "fused_eval_stage": (serve["launches"], max(seeded[0], stages["max_abs_err"])),
         "fused_eval_stage_int8": (int8_row["launches"], max(seeded[1], int8_row["max_abs_err"])),
         "fused_spade_stage": (spade_row["launches"], spade_row["max_abs_err"]),
@@ -3042,15 +3290,17 @@ def main() -> int:
     calib = torch.from_numpy(calib).to(dev).float() * a.to(dev) + b.to(dev)
     calibrate_batchnorm(model, calib)
     sigs = stage_signatures(model.filters, ncls, in_ch)
-    seeded_err = seeded_stage_phase(dev, sigs, BasicBlock, gen, "phase 1", check)[0]
-    stages = model_stage_phase(dev, model, sigs, scene_tiles, "phase 1", "flagship", check)
+    seeded_err = seeded_stage_phase(dev, sigs, BasicBlock, gen, "phase 1", check,
+                                    seams=FLAGSHIP_SEAMS)[0]
+    stages = model_stage_phase(dev, model, sigs, scene_tiles, "phase 1", "flagship", check,
+                               FLAGSHIP_SEAMS)
     t_phase = phase_done("phase 1", t_phase)
 
     # ---- phases 2-3: the flagship tile forward and scene request (main path)
     tiles = np.random.default_rng(SEED).integers(0, 256, (BATCH, HW, HW, in_ch), dtype=np.uint8)
     x = torch.from_numpy(tiles).to(dev)
     serve = bf16_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, check,
-                               "flagship", ("phase 2", "phase 3"))
+                               "flagship", ("phase 2", "phase 3"), FLAGSHIP_SEAMS)
     t_phase = time.perf_counter()
 
     # fault 3.1: an f32 forward on the card runs every stage through the
@@ -3082,15 +3332,17 @@ def main() -> int:
         "source": f"ssunet_gan_tpu_torch/csrc/{stage_kernel.SOURCE}",
         "replaces": stage_kernel.REPLACES, "launches": serve["launches"], **stages,
         "max_abs_err": max(stages["max_abs_err"], seeded_err), "library_ms": None,
+        "seam_reads": serve["seam_reads"],
     }
     t_phase = phase_done("phase 2 f32 card forward", t_phase)
 
     # ---- phases 7-8: the int8 stages, then int8 serving (the second main path)
     int8_err = int8_stage_phase(dev, sigs, check)
     phase_done("phase 7", t_phase)
-    int8_row = int8_serving_phase(
-        dev, card, model, sigs, check, x, scene, scene_tiles, config, serve.pop("f32"), serve,
-        "phase 8", "flagship", FLAGSHIP_BILINEAR, FLAGSHIP_DEEP)
+    with no_seam_reads("phase 8: flagship int8", check):
+        int8_row = int8_serving_phase(
+            dev, card, model, sigs, check, x, scene, scene_tiles, config, serve.pop("f32"),
+            serve, "phase 8", "flagship", FLAGSHIP_BILINEAR, FLAGSHIP_DEEP)
     int8_row["max_abs_err"] = max(int8_row["max_abs_err"], int8_err)
     del model, serve
     torch.cuda.empty_cache()
@@ -3103,8 +3355,8 @@ def main() -> int:
     bsigs = bneck_signatures(model_b.filters, ncls, in_ch)
     bneck_row = bneck_stage_phase(dev, model_b, bsigs, scene_tiles, check)
     phase_done("phase 9", t_phase)
-    bneck_row["launches"] = bneck_serving_phase(dev, card, model_b, bsigs, x, scene,
-                                                scene_tiles, config, check)
+    bneck_row["launches"], bneck_row["seam_reads"] = bneck_serving_phase(
+        dev, card, model_b, bsigs, x, scene, scene_tiles, config, check)
     del model_b
     torch.cuda.empty_cache()
     rss_forward_phase(dev, card, cfg, x, calib, check)
@@ -3114,10 +3366,12 @@ def main() -> int:
     del x, calib
     torch.cuda.empty_cache()
 
-    counts, train_err, totals = train_phases(dev, cfg, card, sigs, check)
+    with no_seam_reads("phases 4-6: flagship training", check):
+        counts, train_err, totals = train_phases(dev, cfg, card, sigs, check)
 
     # ---- phase 11: the standalone self-SPADE and UNet_B_SS's trainer
-    spade_row = spade_phase(dev, card, cfg, bsigs, check)
+    with no_seam_reads("phase 11: UNet_B_SS training", check):
+        spade_row = spade_phase(dev, card, cfg, bsigs, check)
 
     # ---- phase 13: the training entry point (kernels 2, 3, 5 and 6)
     entry_counts = entry_point_phase(dev, card, here, check)
@@ -3137,10 +3391,11 @@ def main() -> int:
     } for kname, t in totals.items()] + [bneck_row, spade_row]
     # each row's launches on every main path that runs it: the flagship's
     # (phases 2-3, 6, 8, 10-11) and SSUNet's (phase 12), the entry point's
-    # (phase 13)
+    # (phase 13); rows 1 and 8 also the seams their kernels read there
     for row in kernels:
-        paths = {"flagship" if row["name"] not in ("fused_eval_stage_bneck", "fused_spade_stage")
-                 else "UNet_B_SS": row["launches"]}
+        path = ("flagship" if row["name"] not in ("fused_eval_stage_bneck", "fused_spade_stage")
+                else "UNet_B_SS")
+        paths = {path: row["launches"]}
         if row["name"] in ssunet_runs:
             n, err = ssunet_runs[row["name"]]
             paths["SSUNet"] = n
@@ -3149,6 +3404,13 @@ def main() -> int:
             paths["run_experiment"] = entry_counts[row["name"]]
         row["launches"] = sum(paths.values())
         row["launches_by_path"] = paths
+        if "seam_reads" in row:
+            by_path = {path: row.pop("seam_reads")}
+            if row["name"] == "fused_eval_stage":
+                by_path["SSUNet"] = ssunet_runs["seam_reads"]
+            row["up_reads"] = sum(r[0] for r in by_path.values())
+            row["pool_reads"] = sum(r[1] for r in by_path.values())
+            row["seam_reads_by_path"] = {k: {"up": u, "pool": p} for k, (u, p) in by_path.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,21 @@
 // then
 //   bias + ReLU -> bf16                      (kernels 1 and 8), or
 //   relu(res*a + b + acc) -> bf16            (kernel 3's residual).
+// A segment's source is read in one of three modes, the TPU kernels'
+// on-read seams (ssunet_gan_tpu/ops/stage_kernel.py _upsample_on_read :744,
+// _pool_on_read :789):
+//   0  plain: the H x W image itself;
+//   1  up: an (H/2) x W source, the decoder's bilinear x2 seam after its
+//      W-interpolation; each window row p is the lerp of source rows
+//      j0 = floor((p-1)/2) and j0+1 (zero outside the source) with the
+//      weights w1 = f32(p(hh-1) - j0(2hh-1)) / f32(2hh-1) and
+//      w0 = f32((j0+1)(2hh-1) - p(hh-1)) / f32(2hh-1), each rounded to
+//      bf16, summed in f32 and rounded once (IEEE division: no fast math);
+//   2  pool: a 2H x 2W source, the encoder's 2x2 max-pool seam;
+//      max(max(TL, TR), max(BL, BR)), a NaN winning as in torch.maximum.
+// The full-resolution up tensor and the pooled tensor are never written.
+// The conv's zero padding applies at the H x W (logical) border in every
+// mode.
 //
 // What bounds it on the H100: a 3x3 conv at 64-256 channels does 9*C
 // multiply-adds per input value read, far above the bf16 ridge point
@@ -52,7 +67,11 @@
 //     pixel's channels as 16-byte pieces.
 // A from registers (ldmatrix of the shifted window) measured slower on the
 // H100: every k16 step then waits for an ldmatrix and for the wgmma two
-// steps back before it can issue.
+// steps back before it can issue. A seam segment (modes 1 and 2) loads its
+// window pieces into registers (two or four 16-byte loads), computes them
+// and stores them into the same 8-channel planes with ordinary stores; the
+// fence to the async proxy before each stage's barrier covers them as it
+// covers the cp.async copies, and the MMA side does not change.
 //
 // Numerics, as the TPU kernels and the plain versions (ops/stage_kernel.py
 // eval_conv_reference): each conv zero-pads its own input at the image
@@ -106,8 +125,9 @@ __host__ __device__ inline int ec_chunk_stages(int cc, int ksize, int nt) {
 __host__ __device__ inline int ec_plane_bytes(int wpix) { return (wpix * 16 + 127) / 128 * 128 + 16; }
 
 struct EcSeg {
-  const bf16* ptr;  // [m][c]
+  const bf16* ptr;  // [m][c] of the source's own H x W (mode 1: H/2 x W; 2: 2H x 2W)
   int c, ksize;
+  int mode;         // 0 plain, 1 up (H-interpolation on read), 2 pool (2x2 max on read)
   int cc, lg;       // channels per chunk, log2 of its 8-channel groups
   int vec;          // 16-byte async copies allowed
   int nchunk, spc, sps;  // chunks, stages per chunk, k16 steps per stage
@@ -129,6 +149,72 @@ struct EcArgs {
 
 __device__ __forceinline__ EcSeg ec_seg(const EcArgs& a, int i) {
   return i == 0 ? a.seg[0] : i == 1 ? a.seg[1] : a.seg[2];
+}
+
+// ---------------------------------------------------------------------------
+// The seam reads (modes 1 and 2): one window piece, 8 channels of one pixel
+// ---------------------------------------------------------------------------
+
+// Channels c0..c0+7 of pixel pix of a [pix][c] source as one 16-byte piece:
+// one 16-byte load when its rows are 16-byte pieces (vec), else element by
+// element; zeros past c.
+__device__ __forceinline__ uint4 ld_piece(const bf16* base, int c, long long pix, int c0,
+                                          bool vec) {
+  if (vec)
+    return c0 < c ? *reinterpret_cast<const uint4*>(base + pix * c + c0) : make_uint4(0, 0, 0, 0);
+  const unsigned short* ps = reinterpret_cast<const unsigned short*>(base) + pix * c + c0;
+  unsigned short e[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) e[j] = c0 + j < c ? ps[j] : 0;
+  return make_uint4(e[0] | ((uint32_t)e[1] << 16), e[2] | ((uint32_t)e[3] << 16),
+                    e[4] | ((uint32_t)e[5] << 16), e[6] | ((uint32_t)e[7] << 16));
+}
+
+// two packed bf16 values: a*w0 + b*w1 per value (the products exact in f32,
+// one rounding of the sum, then one to bf16)
+__device__ __forceinline__ uint32_t lerp2(uint32_t a, uint32_t b, float w0, float w1) {
+  const float lo = __fadd_rn(__fmul_rn(__uint_as_float(a << 16), w0),
+                             __fmul_rn(__uint_as_float(b << 16), w1));
+  const float hi = __fadd_rn(__fmul_rn(__uint_as_float(a & 0xffff0000u), w0),
+                             __fmul_rn(__uint_as_float(b & 0xffff0000u), w1));
+  return pack2(lo, hi);
+}
+
+// torch.maximum of two floats: a NaN on either side wins
+__device__ __forceinline__ float nan_max(float a, float b) { return (a != a || a > b) ? a : b; }
+
+// two packed bf16 values: max(max(a, b), max(c, d)) per value (exact)
+__device__ __forceinline__ uint32_t max4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  auto lo = [](uint32_t u) { return __uint_as_float(u << 16); };
+  auto hi = [](uint32_t u) { return __uint_as_float(u & 0xffff0000u); };
+  return pack2(nan_max(nan_max(lo(a), lo(b)), nan_max(lo(c), lo(d))),
+               nan_max(nan_max(hi(a), hi(b)), nan_max(hi(c), hi(d))));
+}
+
+// Channels c0..c0+7 of the seam segment S at pixel (ih, iw), inside the
+// H x W image img: mode 1 interpolates rows j0 and j0+1 of its (H/2) x W
+// source, mode 2 takes the 2x2 max of its 2H x 2W source.
+__device__ __forceinline__ uint4 seam_piece(const EcSeg& S, int img, int ih, int iw, int c0,
+                                            int H, int W) {
+  if (S.mode == 1) {
+    const int hh = H >> 1, den = 2 * hh - 1;
+    const int j0 = (ih + 1) / 2 - 1, j1 = j0 + 1;  // floor((ih - 1) / 2) for ih >= 0
+    const float w1 = bf16r(__fdiv_rn((float)(ih * (hh - 1) - j0 * den), (float)den));
+    const float w0 = bf16r(__fdiv_rn((float)(j1 * den - ih * (hh - 1)), (float)den));
+    const long long row = (long long)img * hh * W + iw;
+    const uint4 z = make_uint4(0, 0, 0, 0);
+    const uint4 a = j0 >= 0 ? ld_piece(S.ptr, S.c, row + (long long)j0 * W, c0, S.vec) : z;
+    const uint4 b = j1 < hh ? ld_piece(S.ptr, S.c, row + (long long)j1 * W, c0, S.vec) : z;
+    return make_uint4(lerp2(a.x, b.x, w0, w1), lerp2(a.y, b.y, w0, w1),
+                      lerp2(a.z, b.z, w0, w1), lerp2(a.w, b.w, w0, w1));
+  }
+  const long long tl = ((long long)img * 2 * H + 2 * ih) * (2 * W) + 2 * iw;
+  const uint4 a = ld_piece(S.ptr, S.c, tl, c0, S.vec);
+  const uint4 b = ld_piece(S.ptr, S.c, tl + 1, c0, S.vec);
+  const uint4 c = ld_piece(S.ptr, S.c, tl + 2 * W, c0, S.vec);
+  const uint4 d = ld_piece(S.ptr, S.c, tl + 2 * W + 1, c0, S.vec);
+  return make_uint4(max4(a.x, b.x, c.x, d.x), max4(a.y, b.y, c.y, d.y),
+                    max4(a.z, b.z, c.z, d.z), max4(a.w, b.w, c.w, d.w));
 }
 
 // ---------------------------------------------------------------------------
@@ -248,7 +334,8 @@ eval_conv_core(const EcArgs a) {
   const int tw_i = blockIdx.x % a.tiles_w;
   const int rest = blockIdx.x / a.tiles_w;
   const int th_i = rest % a.tiles_h;
-  const long long img_base = (long long)(rest / a.tiles_h) * H * W;
+  const int img = rest / a.tiles_h;
+  const long long img_base = (long long)img * H * W;
   const int oh0 = th_i * THc, ow0 = tw_i * EC_TW;
 
   // a walk over the stages: segment, chunk, stage of the chunk, the chunk's
@@ -275,7 +362,8 @@ eval_conv_core(const EcArgs a) {
   };
   // loads of stage u: its weight slice (one bulk copy); at a chunk's first
   // stage, the chunk's window as 8-channel planes of [pixel][8] (zeros
-  // outside the image and past the source's channels)
+  // outside the image and past the source's channels), a seam segment's
+  // pieces computed on the way
   auto issue = [&](const Cursor& u) {
     if (u.s < nstage) {
       const EcSeg S = ec_seg(a, u.sg);
@@ -294,8 +382,13 @@ eval_conv_core(const EcArgs a) {
           const int wr = px / ww, wc = px - wr * ww;
           const int ih = oh0 - hl + wr, iw = ow0 - hl + wc;
           const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
-          copy_piece(reinterpret_cast<bf16*>(wb) + grp * plane + px * 8, S.ptr, S.c,
-                     img_base + (long long)ih * W + iw, cb + grp * 8, in, S.vec);
+          bf16* dst = reinterpret_cast<bf16*>(wb) + grp * plane + px * 8;
+          if (S.mode == 0)
+            copy_piece(dst, S.ptr, S.c, img_base + (long long)ih * W + iw, cb + grp * 8, in,
+                       S.vec);
+          else
+            *reinterpret_cast<uint4*>(dst) =
+                in ? seam_piece(S, img, ih, iw, cb + grp * 8, H, W) : make_uint4(0, 0, 0, 0);
         }
       }
     }
@@ -442,15 +535,18 @@ cudaError_t ec_launch(const EcArgs& a, unsigned blocks, int smem, cudaStream_t s
   return cudaGetLastError();
 }
 
-// One conv launch of the core. nseg K-segments: ptrs[i] [m][chans[i]] bf16
-// with kernel size ks[i] (3 or 1); w: the packed weight of nsteps k16 steps
-// for an N of nt (64, 128, 192 or 256; >= cout, cout a multiple of 8);
-// bias f32 [cout] or null; res (with res_a, res_b) selects the residual
-// epilogue. Returns the launch's cudaError_t.
-int launch_eval_conv(int nseg, const void* const* ptrs, const int* chans, const int* ks, int nt,
-                     const void* w, int nsteps, const void* bias, const void* res,
-                     const void* res_a, const void* res_b, void* out, int n, int h, int wd,
-                     int cout, cudaStream_t stream) {
+// One conv launch of the core over n images of h x wd (the output's, and
+// the convs' zero-padding border). nseg K-segments: ptrs[i] [pixels][chans[i]]
+// bf16 with kernel size ks[i] (3 or 1) and read mode modes[i] (null: all
+// 0; 1: the source is (h/2) x wd, h even and >= 4; 2: it is 2h x 2wd); w:
+// the packed weight of nsteps k16 steps for an N of nt (64, 128, 192 or
+// 256; >= cout, cout a multiple of 8); bias f32 [cout] or null; res (with
+// res_a, res_b) selects the residual epilogue. Returns the launch's
+// cudaError_t.
+int launch_eval_conv(int nseg, const void* const* ptrs, const int* chans, const int* ks,
+                     const int* modes, int nt, const void* w, int nsteps, const void* bias,
+                     const void* res, const void* res_a, const void* res_b, void* out, int n,
+                     int h, int wd, int cout, cudaStream_t stream) {
   const bool residual = res != nullptr;
   if (nseg < 1 || nseg > EC_MAX_SEG || n <= 0 || h <= 0 || wd <= 0 || cout <= 0 ||
       cout % 8 != 0 || cout > nt || w == nullptr || (uintptr_t)w % 16 != 0 || out == nullptr ||
@@ -462,12 +558,15 @@ int launch_eval_conv(int nseg, const void* const* ptrs, const int* chans, const 
   const int th = ec_th(nt);
   int steps = 0, max_sps = 1, winslot = 0;
   for (int i = 0; i < nseg; ++i) {
-    if (ptrs[i] == nullptr || chans[i] <= 0 || (ks[i] != 1 && ks[i] != 3))
+    const int mode = modes == nullptr ? 0 : modes[i];
+    if (ptrs[i] == nullptr || chans[i] <= 0 || (ks[i] != 1 && ks[i] != 3) || mode < 0 ||
+        mode > 2 || (mode == 1 && (h % 2 != 0 || h < 4)))
       return (int)cudaErrorInvalidValue;
     EcSeg& s = a.seg[i];
     s.ptr = static_cast<const bf16*>(ptrs[i]);
     s.c = chans[i];
     s.ksize = ks[i];
+    s.mode = mode;
     s.cc = chunk_channels(s.c);
     s.lg = s.cc == 8 ? 0 : s.cc == 16 ? 1 : 2;
     s.vec = s.c % 8 == 0 && (uintptr_t)ptrs[i] % 16 == 0;

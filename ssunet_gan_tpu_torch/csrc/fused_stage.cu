@@ -16,12 +16,22 @@
 // multiply-adds and sit far above the bf16 ridge point (~295 FLOP/byte), so
 // launches 1 and 2 are bound by tensor-core operations. They run on the
 // eval conv core (eval_conv.cuh): a block owns a spatial tile and all
-// output channels, each chunk's halo window arrives once through cp.async,
-// the nine taps are shifted ldmatrix views of it feeding wgmma m64nNk16
-// with A from registers and the weights, packed once per model in the
-// descriptor's order, from shared memory. The split-concat parts (of
-// unequal widths) and the 1x1 shortcut are K-segments of the same sum, each
-// read through its own pointer, so no concatenated tensor is ever built.
+// output channels, each chunk's halo window arrives once in shared memory
+// as 8-channel planes, and wgmma m64nNk16 reads both operands from there:
+// A, the pixels, through one matrix descriptor per (tap, channel group)
+// pair straight into the window (each tap a shifted view, no copy), B, the
+// weights, packed once per model in the descriptor's order and brought by
+// one bulk copy per stage. The split-concat parts (of unequal widths) and
+// the 1x1 shortcut are K-segments of the same sum, each read through its
+// own pointer, so no concatenated tensor is ever built. A part that is a
+// seam is read through it (eval_conv.cuh read modes, the TPU kernel's
+// _upsample_on_read and _pool_on_read): the decoder's up part arrives as
+// the half-height tensor after its W-interpolation and is interpolated
+// along H while the window loads (mode 1), an encoder stage's single part
+// arrives as its producer's full-resolution output and is max-pooled 2x2
+// while the window loads (mode 2); launch 1's segments and launch 2's
+// shortcut segments both read it so, and neither the full-resolution up
+// tensor nor the pooled tensor is written.
 // The tail (stage_common.cuh) is bound by its bytes: seg and g|b on
 // mma.sync tensor cores over a 16 x 16 tile, act as f32 FMAs.
 //
@@ -39,12 +49,13 @@
 extern "C" {
 
 // One conv launch of the eval conv core (eval_conv.cuh launch_eval_conv):
-// conv1 over the parts, conv2 over h1 and the shortcut's parts.
-int ssu_eval_conv(int nseg, const void* const* ptrs, const int* chans, const int* ks, int nt,
-                  const void* w, int nsteps, const void* bias, void* out, int n, int h, int wd,
-                  int cout, void* stream) {
-  return launch_eval_conv(nseg, ptrs, chans, ks, nt, w, nsteps, bias, nullptr, nullptr, nullptr,
-                          out, n, h, wd, cout, (cudaStream_t)stream);
+// conv1 over the parts, conv2 over h1 and the shortcut's parts; modes: each
+// segment's read mode (0 plain, 1 up, 2 pool), h and wd the output's.
+int ssu_eval_conv(int nseg, const void* const* ptrs, const int* chans, const int* ks,
+                  const int* modes, int nt, const void* w, int nsteps, const void* bias, void* out,
+                  int n, int h, int wd, int cout, void* stream) {
+  return launch_eval_conv(nseg, ptrs, chans, ks, modes, nt, w, nsteps, bias, nullptr, nullptr,
+                          nullptr, out, n, h, wd, cout, (cudaStream_t)stream);
 }
 
 // Self-SPADE tail (+ folded head when kft != null) of one stage; the

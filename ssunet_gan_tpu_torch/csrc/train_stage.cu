@@ -38,8 +38,8 @@ int ssu_conv_res(int nseg, const void* const* ptrs, const int* chans, int nt, co
                  int n, int h, int wd, int cout, void* stream) {
   if (nseg < 1 || nseg > 2 || res == nullptr) return (int)cudaErrorInvalidValue;
   const int ks[2] = {1, 1};
-  return launch_eval_conv(nseg, ptrs, chans, ks, nt, w, nsteps, nullptr, res, res_a, res_b, out,
-                          n, h, wd, cout, (cudaStream_t)stream);
+  return launch_eval_conv(nseg, ptrs, chans, ks, nullptr, nt, w, nsteps, nullptr, res, res_a,
+                          res_b, out, n, h, wd, cout, (cudaStream_t)stream);
 }
 
 // The train tail's SPADE half (+ folded head when kft != null) on y; saves

@@ -35,8 +35,23 @@ Bottleneck stages that
 in ``UNet_B_SS``); in training, and in the int8 mode, they are the module
 composition (JAX models/ssunet.py:246-260, 323-329). The composition's
 SPADE follows :func:`ops.spade_kernel.set_fused_spade`. The deep stages,
-channel heads, pools and unpools stay plain PyTorch (autograd in
-training).
+channel heads, unpools and the seams no kernel stage reads stay plain
+PyTorch (autograd in training).
+
+The bilinear decoder seams and the encoder max-pool seams are handed to
+the consuming stage as keywords (``up`` / ``down``, a bool per part: the
+part as it stands before its ×2 upsample or its 2×2 pool), and the stage
+takes them as the JAX package's lazy forms are taken
+(ssunet_gan_tpu/models/ssunet.py:174-211): in a bf16 eval forward, with
+:func:`ops.resize.set_lazy_upsample` / :func:`ops.pool.set_lazy_pool` on
+(the default), an up part is interpolated along W at half height
+(:func:`ops.resize.upsample_w`) and a pool part is left as it is; where
+the one gate admits the stage with its seams, the kernel reads them
+(kernels 1 and 8; Bottleneck stages read up seams only); elsewhere they
+are materialized (:func:`ops.stage_kernel.materialize_seams`: W then H,
+and the pool). Training, f32, the int8 mode and record mode materialize
+every seam as before (:func:`ops.resize.upsample_bilinear`, H then W, and
+:func:`ops.pool.max_pool_2x2`).
 
 With the int8 mode on (:func:`ops.stage_kernel_int8.set_int8_stage`) the
 eval forward dispatches as the JAX package's does (models/ssunet.py:214-322):
@@ -66,16 +81,19 @@ from ssunet_gan_tpu_torch.ops.blocks import (
 )
 from ssunet_gan_tpu_torch.ops.conv import Conv2d, as_parts
 from ssunet_gan_tpu_torch.ops.pool import (
+    lazy_pool_ok,
     max_pool_2x2,
     max_pool_2x2_with_indices,
     max_unpool_2x2,
 )
-from ssunet_gan_tpu_torch.ops.resize import _lerp, upsample_bilinear
+from ssunet_gan_tpu_torch.ops.resize import _lerp, lazy_up_ok, upsample_bilinear, upsample_w
 from ssunet_gan_tpu_torch.ops.spade import SPADE
 from ssunet_gan_tpu_torch.ops.stage_kernel import (
     fused_eval_stage,
     fused_stage_enabled,
+    materialize_seams,
     pack_stage,
+    seam_modes,
     stage_supported,
 )
 from ssunet_gan_tpu_torch.ops.stage_kernel_bneck import (
@@ -99,6 +117,9 @@ from ssunet_gan_tpu_torch.ops.stage_kernel_train import fused_train_enabled, fus
 
 SPADE_CONTEXT = "spadebatch3x3"  # archs.py:483 (its param-free norm is bypassed)
 FUSED_MAX_PLANES = 256  # the JAX gate's _PACK_MAX_PLANES
+# the seam keywords of the forwards: an encoder stage's one part before its
+# pool, a decoder stage's second part before its upsample
+POOL, UP = (True,), (False, True)
 
 
 def _stage_operands(parts, block, spade: SPADE, final: Optional[Conv2d],
@@ -150,34 +171,89 @@ def _composition(parts, block, spade: SPADE, final: Optional[Conv2d]):
     return y if final is None else final(y)
 
 
+def _seams(parts, up, down, read_up: bool, read_pool: bool, half_key: Optional[str]):
+    """The stage's parts with its seams (``up`` / ``down``: a bool per part
+    given before its ×2 upsample or its 2×2 pool) in the form the stage
+    takes them. Where ``read_up`` / ``read_pool`` and the seam's own terms
+    hold (:func:`ops.resize.lazy_up_ok`, :func:`ops.pool.lazy_pool_ok`),
+    an up part becomes the half-height tensor after its W-interpolation
+    and a pool part stays as it is, for the stage to read; every other
+    seam is materialized as before (``upsample_bilinear``: H, then W;
+    ``max_pool_2x2``). Returns (parts, up, down) with the flags of the
+    seams left to read (None where none is). ``half_key`` (record mode):
+    the abs-max of each up part's f32 W-interpolation goes under
+    ``"<half_key>:<part>:half"``, the range of the half-height tensor that
+    the JAX package's int8 on-read upsample quantizes, so a scales file
+    holds the same keys whichever package wrote it."""
+    out, ups, downs = [], [], []
+    for i, (p, m) in enumerate(zip(parts, seam_modes(len(parts), up, down))):
+        if m == 1 and half_key is not None:
+            record_range(f"{half_key}:{i}:half", _lerp(p.float(), 2, torch.float32).abs().max())
+        read = (m == 1 and read_up and lazy_up_ok(p)) or (m == 2 and read_pool and lazy_pool_ok(p))
+        if m == 1:
+            p = upsample_w(p) if read else upsample_bilinear(p)
+        elif m == 2 and not read:
+            p = max_pool_2x2(p)
+        out.append(p)
+        ups.append(read and m == 1)
+        downs.append(read and m == 2)
+    return tuple(out), tuple(ups) if any(ups) else None, tuple(downs) if any(downs) else None
+
+
+def _admit(gate, parts, up, down):
+    """The stage's gate, asked with the seams left to read; where it
+    refuses them, the seams are materialized (JAX ``_spade_stage``'s
+    ``materialize_up`` / ``materialize_down``) and the gate is asked again.
+    Returns (fused, parts, up, down)."""
+    if gate(parts, up, down):
+        return True, parts, up, down
+    if up or down:
+        parts = materialize_seams(parts, up, down)
+        return gate(parts, None, None), parts, None, None
+    return False, parts, up, down
+
+
 def spade_stage(parts, block, spade: SPADE,
                 final: Optional[Conv2d] = None, name: Optional[str] = None,
-                out_key: Optional[str] = None):
+                out_key: Optional[str] = None, up=None, down=None):
     """One stage: conv block (BasicBlock, VGGBlock or Bottleneck, told by
     the block's class) + self-SPADE [+ the final 1×1 conv].
 
     ``name`` is the stage's calibration key (its block's module name) and
     ``out_key`` the calibration key of its output's consumer; both matter
-    only to the int8 mode. Returns the stage output (a QTensor where the
-    int8 mode emits s8), or the logits when ``final`` is given."""
+    only to the int8 mode. ``up`` / ``down`` (a bool per part) mark the
+    parts given before their bilinear ×2 upsample or their 2×2 max-pool:
+    a bf16 eval stage that the gate admits with them reads them in its
+    kernel, every other stage takes them materialized (:func:`_seams`,
+    :func:`_admit`). Returns the stage output (a QTensor where the int8
+    mode emits s8), or the logits when ``final`` is given."""
     parts = as_parts(parts)
-    if not block.training and record_sink() is not None:
+    record = not block.training and record_sink() is not None
+    int8 = not block.training and int8_stage_enabled()
+    bneck = isinstance(block, Bottleneck)
+    if up or down:
+        # the Bottleneck kernel reads up seams only (JAX materializes its pools)
+        lazy = not (block.training or record or int8)
+        parts, up, down = _seams(parts, up, down, lazy, lazy and not bneck,
+                                 name if record and not bneck else None)
+    if record:
         # calibration pass: the plain composition, recording input ranges
         parts = _dequantized(parts)
         record_stage_inputs(name, parts)
         return _composition(parts, block, spade, final)
-    if isinstance(block, Bottleneck):
+    widths = (block.planes, spade.label_nc, spade.nhidden,
+              0 if final is None else final.weight.shape[0])
+    if bneck:
         # the int8 mode covers the BasicBlock stages only; training is the
         # composition, whose SPADE follows the fused-SPADE mode
         parts = _dequantized(parts)
-        if (not block.training and not int8_stage_enabled()
-                and block.planes <= FUSED_MAX_PLANES
-                and bneck_supported(parts, block.planes, spade.label_nc, spade.nhidden,
-                                    0 if final is None else final.weight.shape[0])):
+        ok = not block.training and not int8 and block.planes <= FUSED_MAX_PLANES
+        fused, parts, up, _ = _admit(
+            lambda p, u, d: ok and bneck_supported(p, *widths, up=u), parts, up, down)
+        if fused:
             bp, sp, head, packed = _stage_operands(parts, block, spade, final)
-            return fused_eval_stage_bneck(parts, bp, sp, head, packed)
+            return fused_eval_stage_bneck(parts, bp, sp, head, packed, up=up)
         return _composition(parts, block, spade, final)
-    int8 = not block.training and int8_stage_enabled()
     vgg = isinstance(block, VGGBlock)
     # a BasicBlock's fused packing needs its shortcut conv; a VGG block has
     # none (zero shortcut columns); training fuses BasicBlock stages only,
@@ -186,11 +262,10 @@ def spade_stage(parts, block, spade: SPADE,
         mode = not vgg and fused_train_enabled() and not remat_enabled()
     else:
         mode = fused_stage_enabled()
-    fused = ((vgg or block.shortcut is not None) and block.planes <= FUSED_MAX_PLANES
-             and mode
-             and stage_supported(parts, block.planes, spade.label_nc, spade.nhidden,
-                                 0 if final is None else final.weight.shape[0],
-                                 train=block.training, int8=int8))
+    ok = (vgg or block.shortcut is not None) and block.planes <= FUSED_MAX_PLANES and mode
+    fused, parts, up, down = _admit(
+        lambda p, u, d: ok and stage_supported(p, *widths, train=block.training, int8=int8,
+                                               up=u, down=d), parts, up, down)
     if int8:
         am = None if final is not None else _out_amax(out_key)
         if fused:
@@ -215,18 +290,8 @@ def spade_stage(parts, block, spade: SPADE,
             block.bn2.update_running(*st2)
             return out
         bp, sp, head, packed = _stage_operands(parts, block, spade, final)
-        return fused_eval_stage(parts, bp, sp, head, packed)
+        return fused_eval_stage(parts, bp, sp, head, packed, up=up, down=down)
     return _composition(parts, block, spade, final)
-
-
-def _up(x: torch.Tensor, calib_key: Optional[str] = None) -> torch.Tensor:
-    """Bilinear ×2. In record mode the abs-max of the W-interpolated
-    half-height tensor goes under ``"<calib_key>:half"``: the JAX
-    package's on-read upsample quantizes that tensor, and a scales file
-    holds the same keys whichever package wrote it."""
-    if calib_key is not None and record_sink() is not None:
-        record_range(f"{calib_key}:half", _lerp(x.float(), 2, torch.float32).abs().max())
-    return upsample_bilinear(x)
 
 
 class _SelfSpadeUNet(nn.Module):
@@ -243,10 +308,10 @@ class _SelfSpadeUNet(nn.Module):
                 SPADE(SPADE_CONTEXT, planes, self.num_classes, planes / self.SS,
                       generator=generator))
 
-    def _stage(self, name, x, final=None, out_key=None):
+    def _stage(self, name, x, final=None, out_key=None, up=None, down=None):
         return spade_stage(x, getattr(self, "conv" + name),
                            getattr(self, "SPADE" + name), final,
-                           name="conv" + name, out_key=out_key)
+                           name="conv" + name, out_key=out_key, up=up, down=down)
 
 
 class UNetRSSv2(_SelfSpadeUNet):
@@ -289,8 +354,8 @@ class UNetRSSv2(_SelfSpadeUNet):
         # the encoder stages name their skip consumer's input: under int8
         # with static calibration they emit s8 at that scale
         enc_0 = self._stage("0_0", x, out_key="conv0_1:0")
-        enc_1 = self._stage("1_0", max_pool_2x2(enc_0), out_key="conv1_1:0")
-        enc_2 = self._stage("2_0", max_pool_2x2(enc_1), out_key="conv2_1:0")
+        enc_1 = self._stage("1_0", enc_0, out_key="conv1_1:0", down=POOL)
+        enc_2 = self._stage("2_0", enc_1, out_key="conv2_1:0", down=POOL)
         p2, idx2 = max_pool_2x2_with_indices(enc_2)
         enc_3 = self._stage("3_0", p2, out_key="conv3_1:0")
         p3, idx3 = max_pool_2x2_with_indices(enc_3)
@@ -304,8 +369,8 @@ class UNetRSSv2(_SelfSpadeUNet):
         dec_3 = self._stage("3_1", (enc_3, up))
         up = max_unpool_2x2(self.conv_head3_1(dec_3), idx2)
         dec_2 = self._stage("2_1", (enc_2, up))
-        dec_1 = self._stage("1_1", (enc_1, _up(dec_2, "conv1_1:1")))
-        return self._stage("0_1", (enc_0, _up(dec_1, "conv0_1:1")), self.final)
+        dec_1 = self._stage("1_1", (enc_1, dec_2), up=UP)
+        return self._stage("0_1", (enc_0, dec_1), self.final, up=UP)
 
 
 class UNetRSS(_SelfSpadeUNet):
@@ -336,16 +401,16 @@ class UNetRSS(_SelfSpadeUNet):
         # the encoder stages name their skip consumer's input (int8 mode);
         # x5_0 feeds only the bilinear upsample and stays in the float dtype
         x0_0 = self._stage("0_0", x, out_key="conv0_4:0")
-        x1_0 = self._stage("1_0", max_pool_2x2(x0_0), out_key="conv1_3:0")
-        x2_0 = self._stage("2_0", max_pool_2x2(x1_0), out_key="conv2_2:0")
-        x3_0 = self._stage("3_0", max_pool_2x2(x2_0), out_key="conv3_1:0")
-        x4_0 = self._stage("4_0", max_pool_2x2(x3_0), out_key="conv4_1:0")
-        x5_0 = self._stage("5_0", max_pool_2x2(x4_0))
-        x4_1 = self._stage("4_1", (x4_0, _up(x5_0, "conv4_1:1")))
-        x3_1 = self._stage("3_1", (x3_0, _up(x4_1, "conv3_1:1")))
-        x2_2 = self._stage("2_2", (x2_0, _up(x3_1, "conv2_2:1")))
-        x1_3 = self._stage("1_3", (x1_0, _up(x2_2, "conv1_3:1")))
-        return self._stage("0_4", (x0_0, _up(x1_3, "conv0_4:1")), self.final)
+        x1_0 = self._stage("1_0", x0_0, out_key="conv1_3:0", down=POOL)
+        x2_0 = self._stage("2_0", x1_0, out_key="conv2_2:0", down=POOL)
+        x3_0 = self._stage("3_0", x2_0, out_key="conv3_1:0", down=POOL)
+        x4_0 = self._stage("4_0", x3_0, out_key="conv4_1:0", down=POOL)
+        x5_0 = self._stage("5_0", x4_0, down=POOL)
+        x4_1 = self._stage("4_1", (x4_0, x5_0), up=UP)
+        x3_1 = self._stage("3_1", (x3_0, x4_1), up=UP)
+        x2_2 = self._stage("2_2", (x2_0, x3_1), up=UP)
+        x1_3 = self._stage("1_3", (x1_0, x2_2), up=UP)
+        return self._stage("0_4", (x0_0, x1_3), self.final, up=UP)
 
 
 class UNetBSS(_SelfSpadeUNet):
@@ -379,10 +444,13 @@ class UNetBSS(_SelfSpadeUNet):
         x2_0 = self._stage("2_0", max_pool_2x2(x1_0))
         x3_0 = self._stage("3_0", max_pool_2x2(x2_0))
         x4_0 = self._stage("4_0", max_pool_2x2(x3_0))
-        x3_1 = self._stage("3_1", (x3_0, _up(x4_0)))
-        x2_2 = self._stage("2_2", (x2_0, _up(x3_1)))
-        x1_3 = self._stage("1_3", (x1_0, _up(x2_2)))
-        return self._stage("0_4", (x0_0, _up(x1_3)), self.final)
+        # conv3_1 (512 planes) never fuses: its seam is materialized H then
+        # W, as the JAX package forces there (models/ssunet.py:411-415); the
+        # Bottleneck stages' pools are materialized as in JAX
+        x3_1 = self._stage("3_1", (x3_0, upsample_bilinear(x4_0)))
+        x2_2 = self._stage("2_2", (x2_0, x3_1), up=UP)
+        x1_3 = self._stage("1_3", (x1_0, x2_2), up=UP)
+        return self._stage("0_4", (x0_0, x1_3), self.final, up=UP)
 
 
 class SSUNet(_SelfSpadeUNet):
@@ -416,11 +484,11 @@ class SSUNet(_SelfSpadeUNet):
         # the encoder stages name their skip consumer's input (int8 mode);
         # x4_0 feeds only the bilinear upsample and stays in the float dtype
         x0_0 = self._stage("0_0", x, out_key="conv0_4:0")
-        x1_0 = self._stage("1_0", max_pool_2x2(x0_0), out_key="conv1_3:0")
-        x2_0 = self._stage("2_0", max_pool_2x2(x1_0), out_key="conv2_2:0")
-        x3_0 = self._stage("3_0", max_pool_2x2(x2_0), out_key="conv3_1:0")
-        x4_0 = self._stage("4_0", max_pool_2x2(x3_0))
-        x3_1 = self._stage("3_1", (x3_0, _up(x4_0, "conv3_1:1")))
-        x2_2 = self._stage("2_2", (x2_0, _up(x3_1, "conv2_2:1")))
-        x1_3 = self._stage("1_3", (x1_0, _up(x2_2, "conv1_3:1")))
-        return self._stage("0_4", (x0_0, _up(x1_3, "conv0_4:1")), self.final)
+        x1_0 = self._stage("1_0", x0_0, out_key="conv1_3:0", down=POOL)
+        x2_0 = self._stage("2_0", x1_0, out_key="conv2_2:0", down=POOL)
+        x3_0 = self._stage("3_0", x2_0, out_key="conv3_1:0", down=POOL)
+        x4_0 = self._stage("4_0", x3_0, down=POOL)
+        x3_1 = self._stage("3_1", (x3_0, x4_0), up=UP)
+        x2_2 = self._stage("2_2", (x2_0, x3_1), up=UP)
+        x1_3 = self._stage("1_3", (x1_0, x2_2), up=UP)
+        return self._stage("0_4", (x0_0, x1_3), self.final, up=UP)

@@ -16,16 +16,47 @@ pools on its s8 payload and keeps its scale: max-pooling commutes with
 symmetric quantization (the JAX package's ``ops/wminor.py`` ``pool2x2``).
 Its codes are those of the s8 values, where ties are common and go to the
 first maximum as everywhere. The unpool takes plain tensors.
+
+The encoder seams of a bf16 eval forward are pooled by the consuming eval
+stage kernel while it loads its window (``csrc/eval_conv.cuh`` read mode
+2; the JAX package's lazy ``DownTensor``, ``ops/acts.py:68``), so the
+pooled tensor is never written; :func:`max_pool_2x2` is the same maximum
+for every consumer that does not read the seam. :func:`set_lazy_pool` is
+the JAX toggle.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ssunet_gan_tpu_torch.ops.stage_kernel_int8 import QTensor
+
+# Encoder seams read in the eval stage kernels: on unless set to False (JAX
+# ``set_lazy_pool``, ssunet_gan_tpu/ops/wminor.py:309, default on).
+_LAZY_POOL: Optional[bool] = None
+
+
+def set_lazy_pool(enabled: Optional[bool]) -> None:
+    """The bf16 eval forwards' encoder pool seams: read by the consuming
+    fused stage (True, or None: the default) or materialized by
+    :func:`max_pool_2x2` (False)."""
+    global _LAZY_POOL
+    _LAZY_POOL = enabled
+
+
+def lazy_pool_enabled() -> bool:
+    return _LAZY_POOL is None or bool(_LAZY_POOL)
+
+
+def lazy_pool_ok(x) -> bool:
+    """Whether the pool seam of ``x`` (NHWC, before the pool) may be read
+    by its consumer: the mode on, a bf16 tensor with even H and W (JAX
+    ``ops/wminor.py:322`` ``_lazy_poolable``)."""
+    return (lazy_pool_enabled() and isinstance(x, torch.Tensor)
+            and x.dtype == torch.bfloat16 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0)
 
 
 def _quads(x: torch.Tensor):

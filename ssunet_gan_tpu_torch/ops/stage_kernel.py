@@ -23,7 +23,14 @@ matrix descriptors into it (m64nNk16, f32 sums), and the weights come
 packed once per model (:func:`pack_eval_conv`) in the order their
 descriptor reads them. The split-concat parts and the shortcut are
 K-segments read through their own pointers (no ``torch.cat``);
-:func:`eval_conv_reference` is one launch in plain PyTorch. The SPADE tail
+:func:`eval_conv_reference` is one launch in plain PyTorch. A part may be
+a seam, read through it while the windows load (the TPU kernel's
+``_upsample_on_read`` :744 and ``_pool_on_read`` :789): with ``up`` the
+decoder's half-height tensor after its W-interpolation
+(``ops/resize.py`` ``upsample_w``), interpolated along H; with ``down`` an
+encoder stage's full-resolution input, max-pooled 2×2; conv1's segments
+and conv2's shortcut segments both read it so
+(:func:`materialize_seams` is the plain version of the read). The SPADE tail
 keeps seg, act and γ|β in shared memory and registers. Three launches per
 stage (``csrc/fused_stage.cu``); h1 and y go through device memory. The
 TPU devices (W-minor layout, lane packing, bias tiles, band probing)
@@ -56,12 +63,18 @@ import torch.nn.functional as F
 
 from ssunet_gan_tpu_torch import _build
 from ssunet_gan_tpu_torch.ops.conv import as_parts, conv2d_nhwc
+from ssunet_gan_tpu_torch.ops.resize import materialize_up, up_weights_exact
 
 SOURCE = "fused_stage.cu"
 REPLACES = "ssunet_gan_tpu/ops/stage_kernel.py:1182"  # fused_eval_stage
 
 # Fused stages run on the card, one per stage (three CUDA launches each).
 launches = 0
+# Seam parts the eval conv core read on the card, one per stage call and
+# part (kernel 1 here, kernel 8 in ops/stage_kernel_bneck.py): decoder
+# upsample seams (read mode 1) and encoder pool seams (read mode 2).
+up_reads = 0
+pool_reads = 0
 
 # csrc/stage_common.cuh TAIL_MAX_LAB, TAIL_MAX_NH, TAIL_MAX_CLS: the SPADE
 # tail kernel's limits (seg's and the head's N is one 8-wide MMA tile; act
@@ -94,15 +107,51 @@ def _pack_factor(n: int, w: int) -> int:
     return 128 // w if w < 128 and 128 % w == 0 and n % (128 // w) == 0 else 1
 
 
+def seam_modes(n: int, up=None, down=None) -> Tuple[int, ...]:
+    """The eval conv core's read mode of each of ``n`` parts: 1 where
+    ``up`` (a bool per part, or None) marks a decoder upsample seam, 2
+    where ``down`` marks an encoder pool seam, else 0."""
+    up = tuple(up) if up else (False,) * n
+    down = tuple(down) if down else (False,) * n
+    if len(up) != n or len(down) != n or any(u and d for u, d in zip(up, down)):
+        raise ValueError(f"up={up} and down={down} must mark at most one seam per part "
+                         f"of {n} parts")
+    return tuple(1 if u else 2 if d else 0 for u, d in zip(up, down))
+
+
+def seam_shape(p, mode: int) -> Tuple[int, ...]:
+    """The logical N×H×W of a part read in ``mode``: mode 1 takes the
+    half-height tensor to twice its height, mode 2 the full-resolution one
+    to half its height and width."""
+    n, h, w = p.shape[:3]
+    return (n, 2 * h, w) if mode == 1 else (n, h // 2, w // 2) if mode == 2 else (n, h, w)
+
+
+def materialize_seams(parts, up=None, down=None):
+    """The parts as the stage reads them: each up seam through
+    ``ops/resize.py`` ``materialize_up``, each pool seam through
+    ``ops/pool.py`` ``max_pool_2x2`` — the plain version of the kernel's
+    read modes, and what a consumer that does not read the seam takes."""
+    from ssunet_gan_tpu_torch.ops.pool import max_pool_2x2
+
+    parts = as_parts(parts)
+    return tuple(materialize_up(p) if m == 1 else max_pool_2x2(p) if m == 2 else p
+                 for p, m in zip(parts, seam_modes(len(parts), up, down)))
+
+
 def stage_supported(parts, planes: int, labels: int, hidden: int, classes: int = 0, *,
-                    train: bool = False, int8: bool = False) -> bool:
+                    train: bool = False, int8: bool = False, up=None, down=None) -> bool:
     """Whether the BasicBlock stage kernel that would run for these parts
     (eval, ``train`` or ``int8``) takes the stage. Always: one or two NHWC
-    parts (tensors or QTensors) of one N×H×W, device and dtype, and planes
-    ≤ ``MAX_PLANES``. On a CUDA device, the kernels' own limits: bfloat16,
-    contiguous parts, planes a multiple of 32, labels, hidden and classes
-    within the tail's ``TAIL_MAX_*``, and for training what the v3 backward takes
-    (``ops/train_bwd.py`` ``bwd_v3_supported``). On the CPU, what the JAX
+    parts (tensors or QTensors) of one logical N×H×W, device and dtype, and
+    planes ≤ ``MAX_PLANES``. Seams (``up``/``down``, a bool per part, as
+    :func:`fused_eval_stage` takes them): the bf16 eval stage only, an up
+    part of an exact half height (``ops/resize.py`` ``up_weights_exact``),
+    a pool part of even height and width; the logical shape is the one the
+    seam reads (:func:`seam_shape`). On a CUDA device, the kernels' own
+    limits: bfloat16, contiguous parts, planes a multiple of 32, labels,
+    hidden and classes within the tail's ``TAIL_MAX_*``, and for training
+    what the v3 backward takes (``ops/train_bwd.py`` ``bwd_v3_supported``). On the CPU, what the JAX
     gate takes there (``fused_stage_supported`` with its interpret-mode
     terms, ssunet_gan_tpu/ops/stage_kernel.py:438; its probe passes in
     interpret mode): H a multiple of 8, and W ≥ 8 after the eval path's
@@ -110,13 +159,19 @@ def stage_supported(parts, planes: int, labels: int, hidden: int, classes: int =
     is not ported. What it refuses runs the module composition."""
     parts = as_parts(parts)
     x0 = parts[0]
-    if not 1 <= len(parts) <= 2 or any(
-            len(p.shape) != 4 or tuple(p.shape[:3]) != tuple(x0.shape[:3])
-            or p.device != x0.device or p.dtype != x0.dtype for p in parts):
+    if not 1 <= len(parts) <= 2 or any(len(p.shape) != 4 for p in parts):
+        return False
+    modes = seam_modes(len(parts), up, down)
+    if any(modes) and (train or int8 or x0.dtype != torch.bfloat16 or any(
+            (m == 1 and not up_weights_exact(p.shape[1]))
+            or (m == 2 and (p.shape[1] % 2 or p.shape[2] % 2)) for p, m in zip(parts, modes))):
+        return False
+    n, h, w = seam_shape(x0, modes[0])
+    if any(seam_shape(p, m) != (n, h, w) or p.device != x0.device or p.dtype != x0.dtype
+           for p, m in zip(parts, modes)):
         return False
     if planes > MAX_PLANES:
         return False
-    n, h, w = x0.shape[:3]
     if x0.device.type == "cuda":
         if (x0.dtype != torch.bfloat16 or planes % PLANES_MULTIPLE or labels > TAIL_MAX_LAB
                 or hidden > TAIL_MAX_HIDDEN or classes > TAIL_MAX_CLS
@@ -315,34 +370,41 @@ def eval_conv_reference(sources, weights, bias=None, main: Optional[int] = None,
     return torch.relu(r.float() * a.float() + b.float() + acc).to(dtype)
 
 
-def conv_args(sources, conv: dict) -> tuple:
+def conv_args(sources, conv: dict, modes=None) -> tuple:
     """The K-segment arguments of the eval conv core's C entry points:
-    (count, pointers, channels, kernel sizes), after checking the sources
-    against the packed operands."""
+    (count, pointers, channels, kernel sizes, read modes), after checking
+    the sources against the packed operands."""
     segs = tuple((s.shape[-1], k) for s, (_, k) in zip(sources, conv["segs"]))
     if len(sources) != len(conv["segs"]) or segs != conv["segs"]:
         raise ValueError(f"the conv's weights are packed for {conv['segs']}, got sources of "
                          f"{[tuple(s.shape) for s in sources]}")
     n = len(sources)
+    modes = tuple(modes) if modes else (0,) * n
     return (n, (ctypes.c_void_p * n)(*(s.data_ptr() for s in sources)),
-            (ctypes.c_int * n)(*(c for c, _ in segs)), (ctypes.c_int * n)(*(k for _, k in segs)))
+            (ctypes.c_int * n)(*(c for c, _ in segs)), (ctypes.c_int * n)(*(k for _, k in segs)),
+            (ctypes.c_int * n)(*modes))
 
 
-def eval_conv(sources, conv: dict) -> torch.Tensor:
+def eval_conv(sources, conv: dict, modes=None) -> torch.Tensor:
     """One launch of the eval conv core (bias + ReLU epilogue) on CUDA
-    tensors: ``sources`` NHWC bf16 of one N×H×W, ``conv`` from
+    tensors: ``sources`` NHWC bf16 of one logical N×H×W, each read in its
+    mode of ``modes`` (:func:`seam_modes`; None: all plain; mode 1 needs
+    an even output height of at least 4), ``conv`` from
     :func:`pack_eval_conv` on their device. Returns the NHWC bf16 output;
     counts the launch in ``conv_launches``."""
     global conv_launches
     x0 = sources[0]
-    n, h, w = x0.shape[:3]
-    if x0.device.type != "cuda" or any(
-            s.dtype != torch.bfloat16 or s.device != x0.device or tuple(s.shape[:3]) != (n, h, w)
-            or not s.is_contiguous() for s in sources):
-        raise ValueError("eval_conv takes contiguous bf16 NHWC CUDA tensors of one N×H×W")
+    modes = tuple(modes) if modes else (0,) * len(sources)
+    n, h, w = seam_shape(x0, modes[0])
+    if x0.device.type != "cuda" or len(modes) != len(sources) or any(
+            s.dtype != torch.bfloat16 or s.device != x0.device or seam_shape(s, m) != (n, h, w)
+            or not s.is_contiguous() or (m == 2 and (s.shape[1] % 2 or s.shape[2] % 2))
+            for s, m in zip(sources, modes)):
+        raise ValueError("eval_conv takes contiguous bf16 NHWC CUDA tensors of one logical "
+                         "N×H×W (a pool seam of even height and width)")
     out = torch.empty((n, h, w, conv["cout"]), dtype=x0.dtype, device=x0.device)
     with torch.cuda.device(x0.device):
-        _check(_lib().ssu_eval_conv(*conv_args(sources, conv), conv["nt"], _ptr(conv["w"]),
+        _check(_lib().ssu_eval_conv(*conv_args(sources, conv, modes), conv["nt"], _ptr(conv["w"]),
                                     conv["steps"], _ptr(conv["bias"]), _ptr(out), n, h, w,
                                     conv["cout"], torch.cuda.current_stream(x0.device).cuda_stream),
                "conv")
@@ -449,7 +511,7 @@ def pack_stage(part_channels, block_params, spade_params, head, dtype) -> dict:
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssu_eval_conv.argtypes = [i, p, p, p, i, p, i, p, p, i, i, i, i, p]
+    lib.ssu_eval_conv.argtypes = [i, p, p, p, p, i, p, i, p, p, i, i, i, i, p]
     lib.ssu_eval_conv.restype = i
     lib.ssu_spade_tail.argtypes = [p, i, i, i, i, p, p, i, p, p, i, p, p,
                                    p, p, i, p, p]
@@ -475,48 +537,58 @@ def packed_tensors(pk: dict):
             yield v
 
 
-def _run_cuda(parts: Tuple[torch.Tensor, ...], pk: dict) -> torch.Tensor:
-    global launches
+def _run_cuda(parts: Tuple[torch.Tensor, ...], pk: dict, up=None, down=None) -> torch.Tensor:
+    global launches, up_reads, pool_reads
     x0 = parts[0]
     dev, dtype = x0.device, x0.dtype
-    n, h, w = x0.shape[:3]
+    modes = seam_modes(len(parts), up, down)
+    n, h, w = seam_shape(x0, modes[0])
     c = pk["conv2"]["cout"]
     lab, nh, ncls = tail_widths(pk)
     if dtype != torch.bfloat16:
         raise TypeError(f"the CUDA fused stage takes bfloat16 tensors, got {dtype}")
-    if not stage_supported(parts, c, lab, nh, ncls):
-        raise _refused(parts, c, lab, nh, ncls)
+    if not stage_supported(parts, c, lab, nh, ncls, up=up, down=down):
+        raise _refused(parts, c, lab, nh, ncls, up=up, down=down)
     if pk["channels"] != tuple(p.shape[-1] for p in parts) or pk["dtype"] != dtype:
         raise ValueError(f"packed operands are for parts of {pk['channels']} channels "
                          f"in {pk['dtype']}, got {[tuple(p.shape) for p in parts]} {dtype}")
     if any(t.device != dev for t in packed_tensors(pk)):
         raise ValueError("stage weights must lie on the parts' device")
     with torch.cuda.device(dev):
-        h1 = eval_conv(parts, pk["conv1"])
-        y = eval_conv((h1,) + (parts if pk["shortcut"] else ()), pk["conv2"])
+        h1 = eval_conv(parts, pk["conv1"], modes)
+        if pk["shortcut"]:
+            y = eval_conv((h1,) + parts, pk["conv2"], (0,) + modes)
+        else:
+            y = eval_conv((h1,), pk["conv2"])
         out = torch.empty((n, h, w, ncls or c), dtype=dtype, device=dev)
         _check(_lib().ssu_spade_tail(_ptr(y), n, h, w, c, *tail_args(pk), _ptr(out),
                                      torch.cuda.current_stream(dev).cuda_stream), "SPADE tail")
     launches += 1
+    up_reads += modes.count(1)
+    pool_reads += modes.count(2)
     return out
 
 
 def fused_eval_stage(parts, block_params, spade_params, head=None,
-                     packed: Optional[dict] = None) -> torch.Tensor:
+                     packed: Optional[dict] = None, up=None, down=None) -> torch.Tensor:
     """Eval [BasicBlock + self-SPADE] stage (+ folded head), NHWC in/out.
 
     Arguments as in :func:`fused_stage_reference`; ``packed``, if given, is
     :func:`pack_stage` of the same weights, which spares the CUDA path its
-    packing. CPU tensors run the plain version; CUDA tensors run the
-    hand-written kernel, or raise for what :func:`stage_supported`
-    refuses."""
+    packing. ``up`` / ``down`` (a bool per part) mark seams that the stage
+    reads (:func:`seam_modes`): an up part is the half-height tensor after
+    its W-interpolation, a pool part its producer's full-resolution output.
+    CPU tensors run the plain version on :func:`materialize_seams`' parts;
+    CUDA tensors run the hand-written kernel, which reads the seams, or
+    raise for what :func:`stage_supported` refuses."""
     parts = as_parts(parts)
     dev = parts[0].device
     if dev.type == "cpu":
-        return fused_stage_reference(parts, block_params, spade_params, head)
+        return fused_stage_reference(materialize_seams(parts, up, down), block_params,
+                                     spade_params, head)
     if dev.type == "cuda":
         if packed is None:
             packed = pack_stage(tuple(p.shape[-1] for p in parts), block_params,
                                 spade_params, head, parts[0].dtype)
-        return _run_cuda(parts, packed)
+        return _run_cuda(parts, packed, up, down)
     raise ValueError(f"fused stage has no path for device {dev}")

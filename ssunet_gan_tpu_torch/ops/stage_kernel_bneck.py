@@ -26,9 +26,14 @@ and each output written once), a 1×1 conv being a K-segment of one tap;
 conv3 and the shortcut are K-segments of one sum, so they share one
 accumulator and one rounding. Four launches from one host call; h1, h2
 and y go through device memory, the tail's seg, act and γ|β stay on chip.
-The TPU devices (W-minor layout, lane packing, band heights and their probe
-cache, halo carry, stacked seg dots, lookahead grids, upsample-on-read)
-answer the TPU's constraints and are not ported.
+A decoder part marked ``up`` is the half-height tensor after its
+W-interpolation (``ops/resize.py`` ``upsample_w``), interpolated along H
+while conv1's and the shortcut's windows load (the TPU kernel's
+``_upsample_on_read`` at its 4-row halo, :1368; ``csrc/eval_conv.cuh``
+read mode 1), so the full-resolution up tensor is never written. The TPU
+devices (W-minor layout, lane packing, band heights and their probe cache,
+halo carry, stacked seg dots, lookahead grids) answer the TPU's constraints
+and are not ported.
 
 Numerics match the TPU kernel: the BN scales are folded into the weights
 in f32, then weights and biases are rounded to the activation dtype;
@@ -52,16 +57,21 @@ from typing import Optional, Tuple
 import torch
 
 from ssunet_gan_tpu_torch import _build
+from ssunet_gan_tpu_torch.ops import stage_kernel
 from ssunet_gan_tpu_torch.ops.conv import as_parts, conv2d_nhwc
+from ssunet_gan_tpu_torch.ops.resize import up_weights_exact
 from ssunet_gan_tpu_torch.ops.stage_kernel import (
     TAIL_MAX_CLS,
     TAIL_MAX_HIDDEN,
     TAIL_MAX_LAB,
     _ptr,
     _q,
+    materialize_seams,
     pack_eval_conv,
     pack_spade,
     packed_tensors,
+    seam_modes,
+    seam_shape,
     spade_tail_reference,
     split_in,
     tail_args,
@@ -71,7 +81,8 @@ from ssunet_gan_tpu_torch.ops.stage_kernel import (
 SOURCE = "bneck_stage.cu"
 REPLACES = "ssunet_gan_tpu/ops/stage_kernel.py:1603"  # fused_eval_stage_bneck
 
-# Fused bottleneck stages run on the card, one per stage (four CUDA launches each).
+# Fused bottleneck stages run on the card, one per stage (four CUDA launches
+# each); the up seams they read count in ``stage_kernel.up_reads``.
 launches = 0
 
 # the kernel's limits (csrc/stage_common.cuh: the tail's channel chunk; the
@@ -80,18 +91,27 @@ launches = 0
 MAX_PLANES, PLANES_MULTIPLE = 256, 32
 
 
-def bneck_supported(parts, planes: int, labels: int, hidden: int, classes: int = 0) -> bool:
+def bneck_supported(parts, planes: int, labels: int, hidden: int, classes: int = 0, *,
+                    up=None) -> bool:
     """Whether the fused bottleneck stage takes this stage: at most two NHWC
-    parts of one N×H×W, device and dtype, planes ≤ 256, labels ≤ 8, head
-    classes ≤ 8; on a CUDA device also planes a multiple of 32, hidden
-    within the tail's ``TAIL_MAX_HIDDEN`` and bfloat16 (the kernel's terms;
-    the plain version on the CPU has none of them, and like the JAX gate
-    no hidden term). What it refuses runs the module composition."""
+    parts of one logical N×H×W, device and dtype, planes ≤ 256, labels ≤ 8,
+    head classes ≤ 8; an ``up`` part (a bool per part) bf16 with an exact
+    half height (``ops/resize.py`` ``up_weights_exact``), its logical
+    height twice its own; on a CUDA device also planes a multiple of 32,
+    hidden within the tail's ``TAIL_MAX_HIDDEN`` and bfloat16 (the kernel's
+    terms; the plain version on the CPU has none of them, and like the JAX
+    gate no hidden term). What it refuses runs the module composition."""
     parts = as_parts(parts)
     x0 = parts[0]
-    if not 1 <= len(parts) <= 2 or any(
-            p.dim() != 4 or p.shape[:3] != x0.shape[:3] or p.device != x0.device
-            or p.dtype != x0.dtype for p in parts):
+    if not 1 <= len(parts) <= 2 or any(p.dim() != 4 for p in parts):
+        return False
+    modes = seam_modes(len(parts), up)
+    if any(m and (p.dtype != torch.bfloat16 or not up_weights_exact(p.shape[1]))
+           for p, m in zip(parts, modes)):
+        return False
+    shape = seam_shape(x0, modes[0])
+    if any(seam_shape(p, m) != shape or p.device != x0.device or p.dtype != x0.dtype
+           for p, m in zip(parts, modes)):
         return False
     if planes > MAX_PLANES or labels > TAIL_MAX_LAB or classes > TAIL_MAX_CLS:
         return False
@@ -180,26 +200,27 @@ def pack_stage_bneck(part_channels, block_params, spade_params, head, dtype) -> 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssu_bneck_stage.argtypes = [p, i, p, i, i, i, i, i, i, p, i, p, p, i, p, p, i, p,
-                                    p, p, p, p, p, i, p, p, i, p, p, p, p, i, p, p]
+    lib.ssu_bneck_stage.argtypes = [p, i, i, p, i, i, i, i, i, i, i, p, i, p, p, i, p, p, i,
+                                    p, p, p, p, p, p, i, p, p, i, p, p, p, p, i, p, p]
     lib.ssu_bneck_stage.restype = i
     return lib
 
 
-def _run_cuda(parts: Tuple[torch.Tensor, ...], pk: dict) -> torch.Tensor:
+def _run_cuda(parts: Tuple[torch.Tensor, ...], pk: dict, up=None) -> torch.Tensor:
     global launches
     x0 = parts[0]
     dev, dtype = x0.device, x0.dtype
-    n, h, w = x0.shape[:3]
+    modes = seam_modes(len(parts), up) + (0,)
+    n, h, w = seam_shape(x0, modes[0])
     c = pk["conv2"]["cout"]
     lab, nh, ncls = tail_widths(pk)
-    if not bneck_supported(parts, c, lab, nh, ncls):
+    if not bneck_supported(parts, c, lab, nh, ncls, up=up):
         raise ValueError(
             f"the CUDA bottleneck stage does not take this stage: parts "
             f"{[(tuple(p.shape), p.dtype) for p in parts]}, planes={c} (a multiple of "
             f"{PLANES_MULTIPLE}, <= {MAX_PLANES}), labels={lab} (<= {TAIL_MAX_LAB}), "
             f"hidden={nh} (<= {TAIL_MAX_HIDDEN}), classes={ncls} (<= {TAIL_MAX_CLS}); "
-            f"bfloat16 only")
+            f"bfloat16 only; up={up} (an exact half height)")
     if any(not p.is_contiguous() for p in parts):
         raise ValueError("stage parts must be contiguous NHWC tensors")
     if pk["channels"] != tuple(p.shape[-1] for p in parts) or pk["dtype"] != dtype:
@@ -212,8 +233,8 @@ def _run_cuda(parts: Tuple[torch.Tensor, ...], pk: dict) -> torch.Tensor:
         h1, h2, y = (torch.empty((n, h, w, c), dtype=dtype, device=dev) for _ in range(3))
         out = torch.empty((n, h, w, ncls or c), dtype=dtype, device=dev)
         err = _lib().ssu_bneck_stage(
-            x0.data_ptr(), x0.shape[-1], _ptr(x1), 0 if x1 is None else x1.shape[-1],
-            n, h, w, c, pk["conv2"]["nt"], _ptr(pk["conv1"]["w"]), pk["conv1"]["steps"],
+            x0.data_ptr(), x0.shape[-1], modes[0], _ptr(x1), 0 if x1 is None else x1.shape[-1],
+            modes[1], n, h, w, c, pk["conv2"]["nt"], _ptr(pk["conv1"]["w"]), pk["conv1"]["steps"],
             _ptr(pk["conv1"]["bias"]), _ptr(pk["conv2"]["w"]), pk["conv2"]["steps"],
             _ptr(pk["conv2"]["bias"]), _ptr(pk["conv3"]["w"]), pk["conv3"]["steps"],
             _ptr(pk["conv3"]["bias"]),
@@ -222,25 +243,29 @@ def _run_cuda(parts: Tuple[torch.Tensor, ...], pk: dict) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"fused bottleneck stage launch failed: cudaError {err}")
     launches += 1
+    stage_kernel.up_reads += modes.count(1)
     return out
 
 
 def fused_eval_stage_bneck(parts, block_params, spade_params, head=None,
-                           packed: Optional[dict] = None) -> torch.Tensor:
+                           packed: Optional[dict] = None, up=None) -> torch.Tensor:
     """Eval [Bottleneck + self-SPADE] stage (+ folded head), NHWC in/out.
 
     Arguments as in :func:`fused_bneck_reference`; ``packed``, if given, is
     :func:`pack_stage_bneck` of the same weights, which spares the CUDA path
-    its packing. CPU tensors run the plain version; CUDA tensors run the
-    hand-written kernel, or raise for what :func:`bneck_supported`
-    refuses."""
+    its packing; ``up`` (a bool per part) marks decoder seams, each the
+    half-height tensor after its W-interpolation. CPU tensors run the plain
+    version on ``stage_kernel.materialize_seams``' parts; CUDA tensors run
+    the hand-written kernel, which reads the seams, or raise for what
+    :func:`bneck_supported` refuses."""
     parts = as_parts(parts)
     dev = parts[0].device
     if dev.type == "cpu":
-        return fused_bneck_reference(parts, block_params, spade_params, head)
+        return fused_bneck_reference(materialize_seams(parts, up), block_params, spade_params,
+                                     head)
     if dev.type == "cuda":
         if packed is None:
             packed = pack_stage_bneck(tuple(p.shape[-1] for p in parts), block_params,
                                       spade_params, head, parts[0].dtype)
-        return _run_cuda(parts, packed)
+        return _run_cuda(parts, packed, up)
     raise ValueError(f"fused bottleneck stage has no path for device {dev}")

@@ -40,8 +40,10 @@ Numerics choices of the port (where the TPU kernel left room):
 - Integer sums are exact everywhere (f64 convs in the plain version, s32 on
   the card), so launches A and B agree with the plain version bit for bit;
   so do the quantized inputs (an IEEE division, round half to even).
-- The on-read pool and upsample seams, lane packing, pair dots and halo
-  carry are TPU scheduling devices and are not ported.
+- The TPU kernel's s8 on-read seams (``_upsample_on_read_s8`` :330,
+  ``_pool_on_read_s8`` :360) are still to port: the int8 mode takes its
+  seams materialized. Lane packing, pair dots and halo carry are TPU
+  scheduling devices and are not ported.
 
 :func:`fused_eval_stage_int8` decides by the tensors' device: CPU tensors
 take :func:`int8_stage_reference`; CUDA tensors launch the kernel (bf16

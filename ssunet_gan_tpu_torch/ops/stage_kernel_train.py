@@ -258,7 +258,7 @@ def _tail_cuda(f2, parts, a2, b2, ws, spade_params, head):
         conv = pack_eval_conv(split_in(ws.float(), channels), None, dtype)
         a2f, b2f = _vec(a2), _vec(b2)
         y = torch.empty_like(f2)
-        nseg, ptrs, chans, _ = conv_args(parts, conv)  # all 1x1
+        nseg, ptrs, chans = conv_args(parts, conv)[:3]  # all 1x1, plain
         _check(lib.ssu_conv_res(nseg, ptrs, chans, conv["nt"], _ptr(conv["w"]),
                                 conv["steps"], _ptr(f2), _ptr(a2f), _ptr(b2f), _ptr(y), n, h, w,
                                 c, stream), "train tail y")

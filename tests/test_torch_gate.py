@@ -23,7 +23,14 @@ from ssunet_gan_tpu.train.supervised import evaluate as jax_evaluate
 from ssunet_gan_tpu.utils import jit_init
 from ssunet_gan_tpu_torch.compat import from_jax_variables
 from ssunet_gan_tpu_torch.models import build_model, ssunet
-from ssunet_gan_tpu_torch.ops import losses, spade_kernel, stage_kernel, stage_kernel_bneck
+from ssunet_gan_tpu_torch.ops import (
+    losses,
+    pool,
+    resize,
+    spade_kernel,
+    stage_kernel,
+    stage_kernel_bneck,
+)
 from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
 from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
 from ssunet_gan_tpu_torch.ops.blocks import BasicBlock
@@ -44,6 +51,8 @@ def port_modes():
     q8.set_int8_calibration(None)
     q8.set_record_sink(None)
     spade_kernel.set_fused_spade(None)
+    resize.set_lazy_upsample(None)
+    pool.set_lazy_pool(None)
 
 
 class OnCard:
@@ -203,6 +212,9 @@ def test_port_modes_start_at_their_defaults():
     assert stage_kernel.fused_stage_enabled() and tst.fused_train_enabled()
     assert tst._TRAIN_BWD_V3 and not q8.int8_stage_enabled()
     assert q8.int8_calibration() is None and q8.record_sink() is None
+    # the seams read in the stage kernels: on by default, as in JAX
+    assert resize._LAZY_UPSAMPLE is None and resize.lazy_upsample_enabled()
+    assert pool._LAZY_POOL is None and pool.lazy_pool_enabled()
 
 
 FILTERS = (8, 16, 32, 48, 64, 64)

@@ -35,6 +35,13 @@ def _randomize_bn(module, gen):
             m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=gen) * 0.3)
 
 
+def _plain_eval_stage(parts, bp, sp, head=None, packed=None, up=None, down=None):
+    """Kernel 1's plain version with its wrapper's signature (seams
+    materialized)."""
+    return stage_kernel.fused_stage_reference(stage_kernel.materialize_seams(parts, up, down),
+                                              bp, sp, head)
+
+
 def _close(got, want):
     diff = got.float() - want.float()
     err, scale = diff.abs().max().item(), want.float().abs().max().item()
@@ -214,8 +221,7 @@ def test_flagship_forward_kernel_matches_plain(monkeypatch):
     from ssunet_gan_tpu_torch.models import ssunet
 
     monkeypatch.setattr(ssunet, "fused_eval_stage",
-                        lambda parts, bp, sp, head=None, packed=None:
-                        stage_kernel.fused_stage_reference(parts, bp, sp, head))
+                        _plain_eval_stage)
     with torch.no_grad():
         plain = model(x)
         f32 = model(x.float())
@@ -809,8 +815,7 @@ def test_int8_flagship_forward_kernel_matches_plain(monkeypatch):
     model = build_model("UNet_R_SS_v2", 3, 3, seed=0, device=dev)
     x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(1)).to(dev)
     monkeypatch.setattr(ssunet, "fused_eval_stage",
-                        lambda parts, bp, sp, head=None, packed=None:
-                        stage_kernel.fused_stage_reference(parts, bp, sp, head))
+                        _plain_eval_stage)
     try:
         with torch.no_grad():
             f32 = model(x)  # the all-plain f32 forward
@@ -1047,4 +1052,125 @@ def test_spade_module_pallas_mode_launches_only_for_self_spade():
         finally:
             spade_kernel.set_fused_spade(None)
     errs, ok = _close(got, off)
+    assert ok, errs
+
+
+# ---- the seams read in the eval conv core (csrc/eval_conv.cuh read modes:
+# 1 the decoder's bilinear x2 seam from its half-height, W-interpolated
+# tensor; 2 the encoder's 2x2 max-pool seam from its full-resolution one),
+# at every N instantiation: a launch reading the seam equals the same
+# launch on the materialized source bit for bit (the H-interpolation's
+# weights and single rounding, and the maximum, are exact on both sides).
+# (kind, source channels, kernel sizes, cout, logical n h w, seam segment)
+SEAM_CASES = {
+    "up-n64-swap": ("up", (32, 48), (3, 3), 32, (2, 20, 24), 1),
+    "up-n128": ("up", (64, 128), (3, 3), 128, (1, 16, 16), 1),
+    "up-n192-hh-odd": ("up", (16, 64), (3, 3), 192, (1, 22, 12), 1),
+    "up-n256": ("up", (256, 128), (3, 3), 256, (2, 8, 40), 1),
+    "up-1x1-shortcut": ("up", (64, 32, 48), (3, 1, 1), 64, (2, 12, 20), 2),
+    "up-chunk-tail": ("up", (8, 40), (3, 3), 96, (1, 10, 9), 1),
+    "up-unaligned-channels": ("up", (16, 12), (3, 3), 64, (1, 8, 16), 1),
+    "pool-n64-swap": ("pool", (32,), (3,), 64, (2, 9, 13), 0),
+    "pool-n128": ("pool", (64,), (3,), 128, (1, 16, 16), 0),
+    "pool-n192": ("pool", (40,), (3,), 192, (2, 12, 20), 0),
+    "pool-n256": ("pool", (128,), (3,), 256, (1, 32, 8), 0),
+    "pool-1x1-shortcut": ("pool", (64, 32), (3, 1), 64, (2, 16, 12), 1),
+    "pool-unaligned-channels": ("pool", (12,), (3,), 32, (1, 8, 8), 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(SEAM_CASES))
+def test_eval_conv_seam_read_equals_materialized(name):
+    dev = _card()
+    kind, chans, ks, cout, (n, h, w), i = SEAM_CASES[name]
+    gen = torch.Generator().manual_seed(7)
+    shapes = [(n, h, w, c) for c in chans]
+    shapes[i] = (n, h // 2, w, chans[i]) if kind == "up" else (n, 2 * h, 2 * w, chans[i])
+    sources = tuple(_bf16(gen, s, dev) for s in shapes)
+    modes = tuple((1 if kind == "up" else 2) if j == i else 0 for j in range(len(chans)))
+    weights = [(torch.randn((cout, c, k, k), generator=gen) / (c * k * k) ** 0.5).bfloat16()
+               .float().to(dev) for c, k in zip(chans, ks)]
+    main = 1 if len(set(ks)) > 1 else None  # the 1x1 segments after the 3x3 one
+    conv = stage_kernel.pack_eval_conv(weights, torch.zeros(cout, device=dev), torch.bfloat16,
+                                       main)
+    flags = (tuple(m == 1 for m in modes), tuple(m == 2 for m in modes))
+    mat = stage_kernel.materialize_seams(sources, *flags)
+    got = stage_kernel.eval_conv(sources, conv, modes)
+    want = stage_kernel.eval_conv(mat, conv)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n, h, w, cout)
+    assert torch.equal(got, want)
+    errs, ok = _close(got, stage_kernel.eval_conv_reference(mat, conv["oihw"], conv["bias"],
+                                                            main))
+    assert ok, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,chans,planes,nhw,ncls", [
+    ("up", (64, 128), 64, (2, 32, 24), 3),     # conv0_1-like, folded head
+    ("up", (128, 256), 128, (1, 16, 16), 0),
+    ("pool", (64,), 128, (2, 16, 24), 0),      # conv1_0-like
+    ("pool", (128,), 256, (1, 8, 16), 0),
+])
+def test_fused_stage_reads_its_seam_as_the_materialized_stage(kind, chans, planes, nhw, ncls):
+    """Kernel 1 reading a seam (conv1's segment and conv2's shortcut
+    segment) against kernel 1 on the materialized seam, bit for bit; the
+    seam counts one read per stage call."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(8)
+    block = BasicBlock(sum(chans), planes, generator=gen)
+    _randomize_bn(block, gen)
+    spade = SPADE("spadebatch3x3", planes, 3, planes / 16, generator=gen)
+    head = None
+    if ncls:
+        final = Conv2d(planes, ncls, 1, generator=gen)
+        head = (final.weight.to(dev), final.bias.to(dev))
+    block.to(dev).eval()
+    spade.to(dev)
+    n, h, w = nhw
+    if kind == "up":
+        parts = (_bf16(gen, (n, h, w, chans[0]), dev), _bf16(gen, (n, h // 2, w, chans[1]), dev))
+        up, down = (False, True), None
+    else:
+        parts = (_bf16(gen, (n, 2 * h, 2 * w, chans[0]), dev),)
+        up, down = None, (True,)
+    bp, sp = block.stage_params(), spade.stage_params()
+    reads = (stage_kernel.up_reads, stage_kernel.pool_reads)
+    got = stage_kernel.fused_eval_stage(parts, bp, sp, head, up=up, down=down)
+    torch.cuda.synchronize()
+    assert (stage_kernel.up_reads - reads[0], stage_kernel.pool_reads - reads[1]) == (
+        (1, 0) if kind == "up" else (0, 1))
+    mat = stage_kernel.materialize_seams(parts, up, down)
+    assert torch.equal(got, stage_kernel.fused_eval_stage(mat, bp, sp, head))
+    errs, ok = _close(got, stage_kernel.fused_stage_reference(mat, bp, sp, head))
+    assert ok, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chans,planes,nhw", [((64, 128), 64, (2, 32, 24)),
+                                              ((256, 256), 256, (1, 8, 16))])
+def test_bneck_stage_reads_its_up_seam_as_the_materialized_stage(chans, planes, nhw):
+    """Kernel 8 reading an up seam (launches A and C) against kernel 8 on
+    the materialized seam, bit for bit."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_bneck as kb
+    from ssunet_gan_tpu_torch.ops.blocks import Bottleneck
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(9)
+    block = Bottleneck(sum(chans), planes, generator=gen)
+    _randomize_bn(block, gen)
+    spade = SPADE("spadebatch3x3", planes, 3, planes / 16, generator=gen)
+    block.to(dev).eval()
+    spade.to(dev)
+    n, h, w = nhw
+    parts = (_bf16(gen, (n, h, w, chans[0]), dev), _bf16(gen, (n, h // 2, w, chans[1]), dev))
+    bp, sp = block.stage_params(), spade.stage_params()
+    reads = stage_kernel.up_reads
+    got = kb.fused_eval_stage_bneck(parts, bp, sp, up=(False, True))
+    torch.cuda.synchronize()
+    assert stage_kernel.up_reads == reads + 1
+    mat = stage_kernel.materialize_seams(parts, (False, True))
+    assert torch.equal(got, kb.fused_eval_stage_bneck(mat, bp, sp))
+    errs, ok = _close(got, kb.fused_bneck_reference(mat, bp, sp))
     assert ok, errs

@@ -18,15 +18,22 @@ from ssunet_gan_tpu.ops import stage_kernel_int8 as jax_stage_kernel_int8
 from ssunet_gan_tpu.ops import stage_kernel_train as jax_stage_kernel_train
 from ssunet_gan_tpu.ops import wminor as jax_wminor
 from ssunet_gan_tpu.ops.conv import Conv2d as JConv2d
+from ssunet_gan_tpu_torch.ops import pool as port_pool
+from ssunet_gan_tpu_torch.ops import resize as port_resize
 from ssunet_gan_tpu_torch.ops import stage_kernel_train as port_stage_kernel_train
 
 
 @contextlib.contextmanager
 def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool = False,
-                int8_stage: bool = False, fused_spade=None, remat: bool = False):
+                int8_stage: bool = False, fused_spade=None, remat: bool = False,
+                lazy_upsample: bool = False, lazy_pool: bool = False):
     """Set every global mode of the JAX package that the port's tests
     reach, and restore the previous values after (another test in the same
     worker may leave, e.g., the upsample-backward decomposition on). The
+    lazy seams (``lazy_upsample``, ``lazy_pool``: the decoder's bilinear
+    and the encoder's pool seams read in the stage kernels) are set to the
+    same values in the JAX package and in the port, and both are restored
+    after, so a comparison takes its seams the same way on both sides. The
     train stage's backward is v2 unless ``train_bwd_v3``; a test holds the
     port's backward of the same version against it. ``int8_stage`` turns the
     JAX package's int8 eval mode on; its calibration scales, record sink and
@@ -48,10 +55,14 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
         jax_stage_kernel._BAND_ROWS,
         jax_spade_kernel._FUSED,
         jax_blocks._REMAT,
+        port_resize._LAZY_UPSAMPLE,
+        port_pool._LAZY_POOL,
     )
     jax_stage_kernel.set_fused_stage(fused_stage)
-    jax_wminor.set_lazy_upsample(False)
-    jax_wminor.set_lazy_pool(False)
+    jax_wminor.set_lazy_upsample(lazy_upsample)
+    jax_wminor.set_lazy_pool(lazy_pool)
+    port_resize.set_lazy_upsample(lazy_upsample)
+    port_pool.set_lazy_pool(lazy_pool)
     jax_wminor.set_up_bwd_decomp(False)
     jax_stage_kernel_int8.set_int8_stage(int8_stage)
     jax_stage_kernel_train.set_fused_train(fused_train)
@@ -76,6 +87,8 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
         jax_stage_kernel.set_band_rows(saved[9])
         jax_spade_kernel.set_fused_spade(saved[10])
         jax_blocks.set_remat(saved[11])
+        port_resize.set_lazy_upsample(saved[12])
+        port_pool.set_lazy_pool(saved[13])
 
 
 def oihw(kernel_hwio) -> torch.Tensor:
