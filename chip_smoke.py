@@ -150,6 +150,28 @@ Phases, each of which exits non-zero on failure:
    split into loader wait and steps; then ``python -m
    ssunet_gan_tpu_torch.cli.train`` in a process of its own for one epoch
    on the Sub tree.
+14. Whole-scene inference through its entry point (after phase 13): the
+   flagship of config_v1.json (full width, BN statistics calibrated, head
+   centred) saved by the port as a flat card and ``model.pth``, and again
+   as a card with ``"int8": true`` and the ``int8_scales.json`` of
+   ``calibrate_int8``; a seeded 5000² PNG scene (an Inria scene's size:
+   256 tiles of 512² at patch 1024, overlap 0.5, 8 chunks of 32) with its
+   labels in the three label colours, and a 2048² scene. The loaded model
+   equals the saved one bit for bit; the tile server's first chunk equals
+   ``resize_linear`` of ``extract_patches`` bit for bit; the masks of
+   ``segmentation_inference`` (ground truth on) and of
+   ``pipelined_scene_forward`` + ``merge_patches_device`` are equal bit
+   for bit, each route launching exactly 48 kernel-1 stages and reading 16
+   up and 16 pool seams; the ground-truth masks equal the same branch on
+   the CPU; the int8 card runs the 2048² scene with exactly 12 kernel-7
+   stages and phase 8's quantizations per forward, its masks equal to the
+   int8 mode set in process; ``python -m
+   ssunet_gan_tpu_torch.cli.val_patch`` in a process of its own writes the
+   six overlay JPEGs, one byte-identical to ``save_masking_RE`` in
+   process. A ``scene:`` line gives the scene's seconds: PNG read, tile
+   preparation, H2D / forward / merge (CUDA events), D2H, the ground
+   truth, the overlays' blend and JPEG encoding, the unpipelined and
+   pipelined totals, tiles/s and the CLI's wall time.
 
 Each path's profile also gives a ``tail:`` line: the shared SPADE tail
 kernel's time and launches per forward or step beside its bound; the
@@ -161,8 +183,9 @@ Each phase prints its wall time. Prints a ``kernels`` JSON line
 (launches on the main paths — phases 2 and 3 for the eval kernel, phase 8
 for the int8 eval kernel, phase 6 for the train kernels, where wgrad, v2's
 alone, has none, phase 10 for the bottleneck kernel, phase 11's trainer
-for the self-SPADE kernel; with SSUNet's (phase 12: kernels 1, 7 and 9)
-and the entry point's (phase 13: kernels 2, 3, 5 and 6) added, and each
+for the self-SPADE kernel; with SSUNet's (phase 12: kernels 1, 7 and 9),
+the entry point's (phase 13: kernels 2, 3, 5 and 6) and the scene entry
+point's (phase 14: kernels 1 and 7) added, and each
 row's ``launches_by_path`` — error, time, plain time, bound, library
 time), and ends with ``{"ok": true, "device": {...}}``. Every check that
 fails is printed and the run exits non-zero
@@ -2317,7 +2340,7 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
         "source": f"ssunet_gan_tpu_torch/csrc/{q8.SOURCE}", "replaces": q8.REPLACES,
         "launches": launches, "max_abs_err": worst, "ms": ms_sum, "plain_ms": plain_sum,
         "bound_ms": bound_sum, "bound_by": "operations" if "operations" in kinds else "bytes",
-        "library_ms": None,
+        "library_ms": None, "quant_per_forward": need,
     }
 
 # ---------------------------------------------------------------------------
@@ -3200,6 +3223,356 @@ def entry_point_phase(dev, card, here, check, overrides=None):
     return launches
 
 
+SCENE_HW = 5000  # an Inria "chicago" scene, the size config_v1.json was trained on
+SCENE_INT8_HW = 2048  # 36 tiles, two chunks, the last padded
+LABEL_BLOCK = 64  # the labels' colour blocks, in pixels
+SCENE_NAME = "chicago1"
+
+
+def smooth_scene(hw, seed, dev):
+    """A seeded HWC uint8 BGR scene: a smooth field (a coarse random grid
+    upsampled bilinearly, on ``dev``) plus noise in [-12, 12]."""
+    g = torch.Generator().manual_seed(seed)
+    coarse = torch.rand((1, 3, hw // 64 + 2, hw // 64 + 2), generator=g).to(dev) * 255
+    field = torch.nn.functional.interpolate(coarse, size=(hw, hw), mode="bilinear",
+                                            align_corners=False)[0].permute(1, 2, 0)
+    noise = torch.randint(-12, 13, (hw, hw, 3), generator=g).to(dev)
+    return (field + noise).round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def scene_labels(hw, seed):
+    """Labels in the three label colours of ``mask_convert`` (BGR), in
+    LABEL_BLOCK-pixel blocks, each class present."""
+    from ssunet_gan_tpu_torch.data.tiling import LABEL_COLOURS
+
+    n = hw // LABEL_BLOCK + 1
+    cls = np.random.default_rng(seed).integers(0, 3, (n, n))
+    cls[0, :3] = [0, 1, 2]
+    colours = np.array([LABEL_COLOURS[c] for c in range(3)], np.uint8)
+    lab = colours[cls].repeat(LABEL_BLOCK, 0).repeat(LABEL_BLOCK, 1)
+    return np.ascontiguousarray(lab[:hw, :hw])
+
+
+def scene_phase(dev, card, here, check, quant_per_forward, scene_hw=SCENE_HW,
+                int8_hw=SCENE_INT8_HW, tile_hw=HW):
+    """Phase 14: whole-scene inference through its entry points on the
+    flagship of config_v1.json (full width, BN statistics calibrated, head
+    centred), from a model directory written by the port (flat card,
+    ``model.pth``; a second card with ``"int8": true`` and
+    ``int8_scales.json``) over PNG scenes: ``load_segmentation_models``,
+    the tile server, ``segmentation_inference`` with ground truth beside
+    ``pipelined_scene_forward``, the ground-truth branch on the CPU, the
+    int8 card, and ``python -m ssunet_gan_tpu_torch.cli.val_patch``. Prints
+    the ``scene:`` breakdown. ``quant_per_forward``: the one-pass
+    quantizations of one int8 forward (phase 8). The sizes shrink for a
+    rehearsal on the CPU. Returns {kernel: launches} and the kernel-1 seam
+    reads of this path."""
+    import tempfile
+
+    from ssunet_gan_tpu_torch import native
+    from ssunet_gan_tpu_torch.config import dump_model_card, load_experiment_config
+    from ssunet_gan_tpu_torch.data import png
+    from ssunet_gan_tpu_torch.data.jpeg import encode_jpeg
+    from ssunet_gan_tpu_torch.data.tiling import extract_patches, grid_coords, merge_patches_device
+    from ssunet_gan_tpu_torch.data.transforms import resize_linear
+    from ssunet_gan_tpu_torch.infer import api
+    from ssunet_gan_tpu_torch.infer.calibrate import calibrate_int8
+    from ssunet_gan_tpu_torch.infer.overlays import PINK, YELLOW, _blend, save_masking_RE
+    from ssunet_gan_tpu_torch.models import build_model
+    from ssunet_gan_tpu_torch.ops import spade_kernel, stage_kernel, stage_kernel_int8 as q8
+    from ssunet_gan_tpu_torch.train.checkpoint import save_model
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        """(result, device ms by CUDA events, or host ms on the CPU)."""
+        sync()
+        if not cuda:
+            t0 = time.perf_counter()
+            out = fn()
+            return out, (time.perf_counter() - t0) * 1e3
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    config_path = os.path.join(here, "configs", "config_v1.json")
+    exp = load_experiment_config(config_path)
+    opt = dict(exp.opt_config, input_h=tile_hw, input_w=tile_hw)
+    name, ncls = opt["name"], opt["num_classes"]
+    model = build_model(opt["arch"], ncls, opt["input_channels"], opt["deep_supervision"],
+                        seed=SEED, device=dev)
+    a, b = api._norm_consts()
+    calib = np.random.default_rng(SEED + 2).integers(0, 256, (2, tile_hw, tile_hw, 3), np.uint8)
+    calib = torch.from_numpy(calib).to(dev).float() * a.to(dev) + b.to(dev)
+    calibrate_batchnorm(model, calib)
+    center_head(model, calib)
+    launches, seams = {}, [0, 0]
+    yaml_before = sys.modules.get("yaml", None)
+    sys.modules["yaml"] = None  # the card machine has no PyYAML: the flat card
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            # (a) the model directories: bf16 card, int8 card with its scales
+            models = os.path.join(tmp, "models")
+            mdir = os.path.join(models, name)
+            dump_model_card(opt, mdir)
+            save_model(mdir, model)
+            idir = os.path.join(models, name + "_int8")
+            dump_model_card(dict(opt, int8=True), idir)
+            save_model(idir, model)
+            scales = calibrate_int8(model, calib.cpu().numpy(), idir, batch_size=2, device=dev)
+            q8.set_int8_calibration(None)
+
+            # (b) the scenes, PNG with Sub rows (cv2.imwrite's default)
+            scenes, int8_scenes = os.path.join(tmp, "scenes"), os.path.join(tmp, "scenes_int8")
+            os.makedirs(scenes)
+            os.makedirs(int8_scenes)
+            scene_path = os.path.join(scenes, f"{SCENE_NAME}_image.png")
+            png.write_image(scene_path, smooth_scene(scene_hw, SEED + 70, dev))
+            png.write_image(os.path.join(scenes, f"{SCENE_NAME}_labels.png"),
+                            scene_labels(scene_hw, SEED + 71))
+            int8_path = os.path.join(int8_scenes, "int8_image.png")
+            png.write_image(int8_path, smooth_scene(int8_hw, SEED + 72, dev))
+            with open(config_path) as f:
+                raw = json.load(f)
+            raw["file_path"] = {"input_path": tmp, "model_path": models,
+                                "output_path": os.path.join(tmp, "outputs"),
+                                "checkpoint_path": os.path.join(tmp, "checkpoint")}
+            raw["opt_config"].update(input_h=tile_hw, input_w=tile_hw)
+            raw["val_config"].update(name=name, full_image_path=scenes, gt_mask_flag="True",
+                                     patch_overlap=0.5)
+            exp_path = os.path.join(tmp, "val_patch.json")
+            with open(exp_path, "w") as f:
+                json.dump(raw, f)
+            raw["val_config"].update(name=name + "_int8", full_image_path=int8_scenes,
+                                     gt_mask_flag="False")
+            int8_exp = os.path.join(tmp, "val_patch_int8.json")
+            with open(int8_exp, "w") as f:
+                json.dump(raw, f)
+            t_phase = phase_done("phase 14 model directories and scenes", t_phase)
+
+            # (c) loading
+            loaded, config = api.load_segmentation_models(exp_path, device=dev)
+            want = model.state_dict()
+            same = all(torch.equal(v, want[k]) for k, v in loaded.state_dict().items()) \
+                and loaded.state_dict().keys() == want.keys()
+            print(f"phase 14: load_segmentation_models: {type(loaded).__name__}, state bit-equal "
+                  f"to the saved model: {same}, patch {config['patch_size']}, overlap "
+                  f"{config['patch_overlap']}")
+            check(same and config["patch_size"] == 1024 and config["patch_overlap"] == 0.5
+                  and not loaded.training, "phase 14: the loaded model or config differs")
+            del model
+
+            # (d) the scene read, then the tile server against resize_linear
+            t0 = time.perf_counter()
+            scene = png.read_image(scene_path)
+            labels = png.read_image(scene_path.replace("image", "labels"))
+            read_s = time.perf_counter() - t0
+            h, w = scene.shape[:2]
+            p = api.effective_patch_size(h, w, config["patch_size"])
+            coords = grid_coords(h, w, p, 0.5)
+            n = len(coords)
+            first = coords[:api.INFER_BATCH]
+            tiles0 = native.extract_resize_u8(scene, first, p, tile_hw, tile_hw)
+            plain0 = np.stack([resize_linear(t, tile_hw, tile_hw)
+                               for t in extract_patches(scene, first, p)])
+            crop_same = np.array_equal(native.extract_u8(labels, first, p),
+                                       extract_patches(labels, first, p))
+            print(f"phase 14: scene {h}x{w}, patch {p}: {n} tiles in {-(-n // api.INFER_BATCH)} "
+                  f"chunks; the tile server's first chunk equals resize_linear(extract_patches) "
+                  f"bit for bit: {np.array_equal(tiles0, plain0)}; its label crops equal "
+                  f"extract_patches: {crop_same}")
+            check(np.array_equal(tiles0, plain0) and crop_same,
+                  "phase 14: the tile server's tiles or crops differ from the plain version")
+            del tiles0, plain0
+
+            # (e) the two routes, counts set to 0 just before each and read
+            # just after: the tile server + segmentation_inference with
+            # ground truth, then the pipelined forward + merge
+            sync()
+            t0 = time.perf_counter()
+            tiles, masks = api.patch_and_preprocess(scene, labels, config, raw_uint8=True)
+            prep_s = time.perf_counter() - t0
+            stage_kernel.launches = stage_kernel.up_reads = stage_kernel.pool_reads = 0
+            t0 = time.perf_counter()
+            pred, gt = api.segmentation_inference(loaded, scene, tiles, masks, config, True,
+                                                  device=dev)
+            gt_route_s = time.perf_counter() - t0
+            route_a = (stage_kernel.launches, stage_kernel.up_reads, stage_kernel.pool_reads)
+
+            stage_kernel.launches = stage_kernel.up_reads = stage_kernel.pool_reads = 0
+            gc.collect()
+            sync()
+            t0 = time.perf_counter()
+            probs, pcoords, pp = api.pipelined_scene_forward(loaded, scene, config,
+                                                             quantize_probs=True, device=dev)
+            merged = merge_patches_device(probs, pcoords, h, w, pp, ncls, overlap=0.5).cpu().numpy()
+            piped_s = time.perf_counter() - t0
+            route_b = (stage_kernel.launches, stage_kernel.up_reads, stage_kernel.pool_reads)
+            chunks = -(-n // api.INFER_BATCH)
+            per = (6 * chunks, 2 * chunks, 2 * chunks)
+            equal = all(np.array_equal(merged[..., c], pred[c]) for c in range(ncls))
+            print(f"phase 14: segmentation_inference (ground truth on) launches {route_a[0]} "
+                  f"kernel-1 stages, {route_a[1]} up / {route_a[2]} pool seams; "
+                  f"pipelined_scene_forward {route_b[0]}, {route_b[1]} / {route_b[2]}; expected "
+                  f"{per} each; masks bit-equal: {equal}; positive share "
+                  f"{[round(float((m > 0).mean()), 4) for m in pred]}; ground truth "
+                  f"{[round(float((m > 0).mean()), 4) for m in gt]}")
+            check(route_a == per and route_b == per,
+                  f"phase 14: launches and seams {route_a} / {route_b}, expected {per} per route")
+            check(equal, "phase 14: the pipelined route's masks differ from segmentation_inference's")
+            check(all(m.shape == (h, w) and set(np.unique(m)) <= {0, 255} for m in pred + gt),
+                  "phase 14: a mask of the wrong shape or values")
+            check(all(0 < m.mean() < 255 for m in gt), "phase 14: a ground-truth mask is constant")
+            launches["fused_eval_stage"] = route_a[0] + route_b[0]
+            seams = [route_a[1] + route_b[1], route_a[2] + route_b[2]]
+            del probs, merged
+            t_phase = phase_done("phase 14 two routes", t_phase)
+
+            # (f) the ground-truth branch on the CPU, the same functions
+            t0 = time.perf_counter()
+            gt_cpu = merge_patches_device(api.gt_probs(masks, ncls, tile_hw, "cpu"), coords, h, w,
+                                          p, ncls, overlap=0.5).numpy()
+            cpu_s = time.perf_counter() - t0
+            gt_equal = all(np.array_equal(gt_cpu[..., c], gt[c]) for c in range(ncls))
+            print(f"phase 14: ground-truth masks on the card equal the CPU's bit for bit: "
+                  f"{gt_equal} (CPU branch {cpu_s:.2f} s)")
+            check(gt_equal, "phase 14: the ground-truth masks differ between card and CPU")
+            del gt_cpu
+
+            # (i) the breakdown of one unpipelined scene: H2D, forward, merge
+            # (device time), D2H; the ground-truth branch; the overlays
+            x_dev, h2d_ms = timed(lambda: torch.from_numpy(tiles).to(dev))
+
+            def forwards():
+                return torch.cat([api.tile_forward(loaded, x_dev[i:i + api.INFER_BATCH],
+                                                   device=dev)
+                                  for i in range(0, n, api.INFER_BATCH)])
+
+            probs, fwd_ms = timed(forwards)
+            merged_dev, merge_ms = timed(
+                lambda: merge_patches_device(probs, coords, h, w, p, ncls, overlap=0.5))
+            merged, d2h_ms = timed(lambda: merged_dev.cpu().numpy())
+            del x_dev, probs, merged_dev
+            sync()
+            t0 = time.perf_counter()
+            gt_dev = merge_patches_device(api.gt_probs(masks, ncls, tile_hw, dev), coords, h, w,
+                                          p, ncls, overlap=0.5).cpu()
+            gt_s = time.perf_counter() - t0
+            del gt_dev
+            sync()
+            t0 = time.perf_counter()
+            api.segmentation_inference(loaded, scene, tiles, masks, config, False, device=dev)
+            unpiped_s = prep_s + time.perf_counter() - t0
+            blend_s = jpeg_s = 0.0
+            re1 = None
+            for c in range(1, ncls):
+                for mask, colour, second in ((gt[c], YELLOW, None), (pred[c], PINK, None),
+                                             (gt[c], YELLOW, pred[c])):
+                    t0 = time.perf_counter()
+                    img = _blend(scene.copy(), mask, colour)
+                    if second is not None:
+                        img = _blend(img, second, PINK)
+                    t1 = time.perf_counter()
+                    data = encode_jpeg(img)
+                    blend_s, jpeg_s = blend_s + t1 - t0, jpeg_s + time.perf_counter() - t1
+                    if c == 1 and colour is PINK:
+                        re1 = data
+            t_phase = phase_done("phase 14 breakdown", t_phase)
+
+            # (g) the int8 card on the 2048² scene, then in process
+            q8.launches = q8.conv_launches = q8.quant_launches = 0
+            stage_kernel.launches = 0
+            model8, config8 = api.load_segmentation_models(int8_exp, device=dev)
+            t0 = time.perf_counter()
+            s8, tiles8, m8 = api.get_patched_input(int8_path, config8, False, raw_uint8=True)
+            masks8, _ = api.segmentation_inference(model8, s8, tiles8, m8, config8, False,
+                                                   device=dev)
+            int8_s = time.perf_counter() - t0
+            n8 = -(-len(tiles8) // api.INFER_BATCH)
+            got8 = (q8.launches, q8.quant_launches, stage_kernel.launches)
+            installed = q8.int8_calibration() == scales and q8.int8_stage_enabled()
+            q8.set_int8_stage(False)
+            q8.set_int8_calibration(None)
+            api.configure_int8({"int8": True}, idir)
+            again, _ = api.segmentation_inference(loaded, s8, tiles8, m8, config, False,
+                                                  device=dev)
+            q8.set_int8_stage(False)
+            q8.set_int8_calibration(None)
+            same8 = all(np.array_equal(x_, y_) for x_, y_ in zip(masks8, again))
+            want8 = (6 * n8, quant_per_forward * n8, 0)
+            print(f"phase 14: int8 card on a {int8_hw}x{int8_hw} scene ({len(tiles8)} tiles, "
+                  f"{n8} chunks): kernel-7 stages, quantizations, kernel-1 stages {got8}, "
+                  f"expected {want8}; scales installed from int8_scales.json: {installed}; masks "
+                  f"bit-equal to configure_int8 + segmentation_inference in process: {same8}; "
+                  f"{int8_s:.3f} s on {card}")
+            check(got8 == want8 and installed and same8,
+                  f"phase 14: the int8 card ran {got8} (expected {want8}), scales installed "
+                  f"{installed}, masks equal {same8}")
+            check(not q8.int8_stage_enabled() and q8.int8_calibration() is None,
+                  "phase 14: the int8 mode was not cleared")
+            check(all(m.shape == s8.shape[:2] and set(np.unique(m)) <= {0, 255}
+                      for m in masks8), "phase 14: an int8 mask of the wrong shape or values")
+            launches["fused_eval_stage_int8"] = got8[0]
+            del model8, tiles8, m8, again
+            t_phase = phase_done("phase 14 int8 card", t_phase)
+        finally:
+            q8.set_int8_stage(False)
+            q8.set_int8_calibration(None)
+            q8.set_band_rows(None)
+            spade_kernel.set_fused_spade(None)
+            if yaml_before is None:
+                sys.modules.pop("yaml", None)
+            else:
+                sys.modules["yaml"] = yaml_before
+
+        # (h) the CLI in a process of its own, on the same scene
+        env = dict(os.environ, PYTHONPATH=here)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ssunet_gan_tpu_torch.cli.val_patch",
+                               "--config", exp_path, "--device", dev.type], cwd=here, env=env,
+                              capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        out_dir = os.path.join(tmp, "outputs", name)
+        files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+        stem = f"{SCENE_NAME}_image"
+        expected = sorted(f"{stem}_{c}_{k}_masking.jpg" for c in range(1, ncls)
+                          for k in ("GT", "RE", "GT_RE"))
+        blobs = {f: open(os.path.join(out_dir, f), "rb").read() for f in files}
+        framed = all(v.startswith(b"\xff\xd8") and v.endswith(b"\xff\xd9") for v in blobs.values())
+        ours = os.path.join(tmp, "re1.jpg")
+        save_masking_RE(scene.copy(), pred[1], pred[1], ours)
+        with open(ours, "rb") as f:
+            re_file = f.read()
+        re_same = blobs.get(f"{stem}_1_RE_masking.jpg") == re_file == re1
+        print(f"phase 14: python -m ssunet_gan_tpu_torch.cli.val_patch on the {h}x{w} scene: exit "
+              f"{proc.returncode} in {cli_s:.1f} s on {card}; files {files} "
+              f"({sum(len(v) for v in blobs.values())} bytes), JPEG-framed: {framed}; "
+              f"{stem}_1_RE_masking.jpg byte-identical to save_masking_RE in process: {re_same}")
+        check(proc.returncode == 0, f"phase 14: the CLI exited {proc.returncode}: "
+              f"{proc.stdout[-1500:]} {proc.stderr[-3000:]}")
+        check(files == expected and framed and re_same,
+              f"phase 14: the CLI wrote {files} (framed {framed}, RE equal {re_same}), expected "
+              f"{expected}")
+    print("scene:", json.dumps(dict(
+        scene=f"{h}x{w}", tiles=n, chunks=chunks, png_read_s=read_s, tile_prep_s=prep_s,
+        h2d_ms=h2d_ms, forward_ms=fwd_ms, merge_ms=merge_ms, d2h_ms=d2h_ms,
+        ground_truth_s=gt_s, overlays_blend_s=blend_s, overlays_jpeg_s=jpeg_s,
+        overlay_files=2 * (ncls - 1) + (ncls - 1), unpipelined_s=unpiped_s,
+        pipelined_s=piped_s, pipelined_tiles_per_s=n / piped_s,
+        segmentation_inference_with_gt_s=gt_route_s, int8_scene_s=int8_s, cli_s=cli_s,
+        card=card)))
+    phase_done("phase 14 CLI", t_phase)
+    return launches, tuple(seams)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
@@ -3376,6 +3749,10 @@ def main() -> int:
     # ---- phase 13: the training entry point (kernels 2, 3, 5 and 6)
     entry_counts = entry_point_phase(dev, card, here, check)
 
+    # ---- phase 14: whole-scene inference through its entry point (kernels 1 and 7)
+    scene_counts, scene_seams = scene_phase(dev, card, here, check,
+                                            int8_row.pop("quant_per_forward"))
+
     if failures:
         fail(f"{len(failures)} checks failed: " + "; ".join(failures[:20]))
 
@@ -3402,12 +3779,15 @@ def main() -> int:
             row["max_abs_err"] = max(row["max_abs_err"], err)
         if row["name"] in entry_counts:
             paths["run_experiment"] = entry_counts[row["name"]]
+        if row["name"] in scene_counts:
+            paths["val_patch"] = scene_counts[row["name"]]
         row["launches"] = sum(paths.values())
         row["launches_by_path"] = paths
         if "seam_reads" in row:
             by_path = {path: row.pop("seam_reads")}
             if row["name"] == "fused_eval_stage":
                 by_path["SSUNet"] = ssunet_runs["seam_reads"]
+                by_path["val_patch"] = scene_seams
             row["up_reads"] = sum(r[0] for r in by_path.values())
             row["pool_reads"] = sum(r[1] for r in by_path.values())
             row["seam_reads_by_path"] = {k: {"up": u, "pool": p} for k, (u, p) in by_path.items()}

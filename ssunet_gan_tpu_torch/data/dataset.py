@@ -11,8 +11,9 @@ what ``cv2.imread`` does:
 
 3-channel images are read BGR, others as one gray plane; per-class masks
 are binarized by ``/255`` then a uint8 cast (255 → 1, anything else → 0);
-a one-class mask is read as is. :class:`SyntheticDataset` makes scenes
-without files.
+a one-class mask is read as is. :class:`ScenePatchDataset` reads whole
+scenes for sliding-window evaluation; :class:`SyntheticDataset` makes
+scenes without files.
 """
 
 from __future__ import annotations
@@ -91,6 +92,53 @@ def image_to_afile(img_dir: str, mask_dir: str, base_name, img_ids: Sequence[str
     reference's unused arguments."""
     return {str(i): {"img": read_image(os.path.join(img_dir, i + config["img_ext"]))}
             for i in img_ids}
+
+
+class ScenePatchDataset:
+    """Whole scenes, each item one scene expanded into its 4-pass patch grid
+    (the reference's ``DatasetPatch``, dataset.py:236-320; the JAX
+    package's :126-177): ``(img_input, mask_input, img_patch_set,
+    mask_patch_set, meta)``, the patches resized to ``image_w``²
+    (:func:`data.transforms.resize_linear`), through ``transform`` if
+    given, HWC float32. The labels are read from the sibling path with
+    ``image`` → ``labels``, the scene itself where there is none."""
+
+    def __init__(self, scene_glob: str, img_ext: str, mask_ext: str,
+                 num_classes: int, input_channels: int, image_w: int,
+                 psize: int, patch_overlap: float, transform=None):
+        self.img_paths = sorted(glob(scene_glob))
+        self.img_ext = img_ext
+        self.mask_ext = mask_ext
+        self.num_classes = num_classes
+        self.transform = transform
+        self.infer_size = image_w
+        self.psize = psize
+        self.patch_overlap = patch_overlap
+
+    def __len__(self) -> int:
+        return len(self.img_paths)
+
+    def __getitem__(self, idx: int):
+        from ssunet_gan_tpu_torch.data.tiling import extract_patches, grid_coords
+        from ssunet_gan_tpu_torch.data.transforms import resize_linear
+
+        img_path = self.img_paths[idx]
+        img_input = read_image(img_path)
+        label_path = img_path.replace("image", "labels")
+        mask_input = read_image(label_path) if os.path.isfile(label_path) else img_input
+        coords = grid_coords(img_input.shape[0], img_input.shape[1], self.psize,
+                             self.patch_overlap)
+        image_patch = extract_patches(img_input, coords, self.psize)
+        mask_patch = extract_patches(mask_input, coords, self.psize)
+        s = self.infer_size
+        img_set = np.empty((len(coords), s, s, img_input.shape[2]), np.float32)
+        for k in range(len(coords)):
+            img = resize_linear(image_patch[k], s, s)
+            if self.transform is not None:
+                img = self.transform(image=img)["image"]
+            img_set[k] = img.astype(np.float32)
+        meta = {"img_id": os.path.splitext(os.path.basename(img_path))[0], "coords": coords}
+        return img_input, mask_input, img_set, mask_patch, meta
 
 
 class SyntheticDataset:

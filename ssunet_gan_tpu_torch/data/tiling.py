@@ -1,6 +1,8 @@
 """Sliding-window tiling: the reference's 4-pass patch grid and the
 coverage-averaged merge (patch_gen, dataset.py:147-220; patch_merge,
-api:119-217), with the merge on the device.
+api:119-217), with the merge on the device, and the ground-truth labels'
+per-class masks (mask_convert, api:220-236; its resize is
+:func:`data.transforms.resize_linear`, ``cv2.resize``'s fixed point).
 
 Merge semantics (the JAX package's ``merge_patches_device``): per-patch
 probabilities are floor-quantized to uint8 (the reference's truncating
@@ -19,7 +21,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ssunet_gan_tpu_torch.data.transforms import _linear_taps, resize_linear
 from ssunet_gan_tpu_torch.ops.resize import _linear_matrix
+
+# label colour (BGR) of each class in the reference's scene labels
+LABEL_COLOURS = {0: (255, 255, 255), 1: (255, 0, 0), 2: (0, 0, 255)}
 
 
 def grid_coords(img_h: int, img_w: int, p_size: int, overlap: float = 0.5) -> np.ndarray:
@@ -64,6 +70,55 @@ def extract_patches(img: np.ndarray, coords: np.ndarray, p_size: int) -> np.ndar
     for k, (y, x) in enumerate(coords):
         out[k] = img[y:y + p_size, x:x + p_size]
     return out
+
+
+def patch_gen(img: np.ndarray, mask: np.ndarray, p_size: int, overlap: float = 0.5):
+    """The reference's API: (image patches, mask patches) as lists, in
+    :func:`grid_coords` order (patch_gen, dataset.py:147-220)."""
+    coords = grid_coords(img.shape[0], img.shape[1], p_size, overlap)
+    return (list(extract_patches(img, coords, p_size)),
+            list(extract_patches(mask, coords, p_size)))
+
+
+def post_process_resized_mask(resized_mask: np.ndarray) -> np.ndarray:
+    """uint8 {0..255} → {0, 255} at threshold 127 (api:33-42)."""
+    out = resized_mask.copy()
+    out[(out > 127) & (out < 255)] = 255
+    out[(out > 0) & (out <= 127)] = 0
+    return out
+
+
+def mask_convert(p_mask: np.ndarray, idx: int, p_size: int) -> np.ndarray:
+    """A BGR label patch → class ``idx``'s binary mask resized to
+    ``p_size``² (api:220-236): (255,255,255) class 0, (255,0,0) class 1,
+    (0,0,255) class 2; other classes take class 0's colour."""
+    b, g, r = LABEL_COLOURS.get(idx, LABEL_COLOURS[0])
+    hit = (p_mask[:, :, 0] == b) & (p_mask[:, :, 1] == g) & (p_mask[:, :, 2] == r)
+    mask = np.where(hit, 255, 0).astype(np.uint8)
+    return post_process_resized_mask(resize_linear(mask, p_size, p_size))
+
+
+def resize_linear_tensor(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """:func:`data.transforms.resize_linear` of (N, H, W) uint8 images on
+    their device: the same integer steps in int32, so the result is the
+    same bit for bit on every device."""
+    y0, y1, b0, b1 = (torch.as_tensor(t, device=x.device) for t in _linear_taps(height, x.shape[1]))
+    x0, x1, a0, a1 = (torch.as_tensor(t, device=x.device) for t in _linear_taps(width, x.shape[2]))
+    b0, b1, a0, a1 = (t.to(torch.int32) for t in (b0, b1, a0, a1))
+    v = x.to(torch.int32)
+    rows = (v[:, :, x0] * a0 + v[:, :, x1] * a1) >> 4
+    out = (((rows[:, y0] * b0[:, None]) >> 16) + ((rows[:, y1] * b1[:, None]) >> 16) + 2) >> 2
+    return out.clamp(0, 255).to(torch.uint8)
+
+
+def mask_convert_tensor(p_masks: torch.Tensor, idx: int, p_size: int) -> torch.Tensor:
+    """:func:`mask_convert` of (N, p, p, 3) BGR label patches at once, on
+    their device: (N, p_size, p_size) uint8, equal to the per-patch
+    function bit for bit."""
+    b, g, r = LABEL_COLOURS.get(idx, LABEL_COLOURS[0])
+    hit = (p_masks[..., 0] == b) & (p_masks[..., 1] == g) & (p_masks[..., 2] == r)
+    resized = resize_linear_tensor(hit.to(torch.uint8) * 255, p_size, p_size)
+    return torch.where(resized > 127, 255, 0).to(torch.uint8)
 
 
 def _binarize(probs: torch.Tensor, p_size: int) -> torch.Tensor:
@@ -148,3 +203,16 @@ def merge_patches_device(probs: torch.Tensor, coords: np.ndarray, scene_h: int,
         if p_size % step == 0 and len(probs) == 4 * i_w * i_h:
             return _merge_grid(binary, scene_h, scene_w, step, i_w, i_h)
     return _merge_general(binary, coords, scene_h, scene_w)
+
+
+def patch_merge(img: np.ndarray, masks, p_size: int, config: dict,
+                p_overlap: float) -> List[np.ndarray]:
+    """The reference's API (api:119-217): ``masks`` a list of (C, h, w)
+    probability arrays in :func:`grid_coords` order; returns C (H, W) uint8
+    masks, merged on the CPU."""
+    coords = grid_coords(img.shape[0], img.shape[1], p_size, p_overlap)
+    probs = np.stack([np.transpose(np.asarray(m), (1, 2, 0)) for m in masks])
+    merged = merge_patches_device(torch.from_numpy(np.ascontiguousarray(probs)), coords,
+                                  img.shape[0], img.shape[1], p_size, config["num_classes"],
+                                  overlap=p_overlap).numpy()
+    return [merged[..., c] for c in range(config["num_classes"])]

@@ -99,6 +99,7 @@ TH_CANDIDATES = (64, 32, 16, 8)
 _INT8_STAGE = False
 _CALIB_SCALES: Optional[Dict[str, float]] = None
 _RECORD_SINK: Optional[dict] = None
+_BAND_ROWS: Optional[int] = None
 
 
 def set_int8_stage(enabled: bool) -> None:
@@ -258,9 +259,21 @@ def quant_oihw(w: torch.Tensor):
     return _round_clip(w / s[:, None, None, None]), s
 
 
+def set_band_rows(th: Optional[int]) -> None:
+    """Force the band height of h1's requantization (a model card's
+    ``band_rows`` key; the JAX package's ``ops/stage_kernel.py``
+    ``set_band_rows``), or None for :func:`band_rows`' own choice. Only
+    kernel 7 has bands; the bf16 stages ignore it."""
+    global _BAND_ROWS
+    _BAND_ROWS = int(th) if th else None
+
+
 def band_rows(h: int) -> int:
-    """Rows per band of h1's requantization: the largest of 64, 32, 16, 8
-    that divides ``h``, else ``h`` (one band)."""
+    """Rows per band of h1's requantization: the forced height
+    (:func:`set_band_rows`) where it divides ``h``, else the largest of 64,
+    32, 16, 8 that does, else ``h`` (one band)."""
+    if _BAND_ROWS and h % _BAND_ROWS == 0:
+        return _BAND_ROWS
     for th in TH_CANDIDATES:
         if h % th == 0:
             return th

@@ -1174,3 +1174,66 @@ def test_bneck_stage_reads_its_up_seam_as_the_materialized_stage(chans, planes, 
     assert torch.equal(got, kb.fused_eval_stage_bneck(mat, bp, sp))
     errs, ok = _close(got, kb.fused_bneck_reference(mat, bp, sp))
     assert ok, errs
+
+
+def _scene_2048(seed=0):
+    """A 2048² smooth field plus noise: 36 tiles of 512² at patch 1024."""
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:2048, :2048]
+    img = np.stack([(xx // 3 + yy // 5), (xx * yy) // 4096, 255 - yy // 8], -1) % 256
+    return np.clip(img + g.integers(-20, 21, img.shape), 0, 255).astype(np.uint8)
+
+
+@pytest.mark.gpu
+def test_pipelined_scene_forward_equals_segmentation_inference():
+    """The pipelined forward (tile server chunks in pinned buffers, copies on
+    a side stream, quantized probabilities) and segmentation_inference on
+    the tile server's tiles give the same masks bit for bit on a 2048²
+    scene (the same kernels at the same batch, the same floor)."""
+    import numpy as np
+
+    from ssunet_gan_tpu_torch.data.tiling import merge_patches_device
+    from ssunet_gan_tpu_torch.infer import api
+
+    dev = _card()
+    model = build_model("UNet_R_SS_v2", 3, seed=0, device=dev)
+    _randomize_bn(model, torch.Generator().manual_seed(1))
+    scene = _scene_2048()
+    config = {"patch_size": 1024, "patch_overlap": 0.5, "num_classes": 3, "input_h": 512,
+              "input_w": 512, "deep_supervision": False}
+    tiles, masks = api.patch_and_preprocess(scene, scene, config, raw_uint8=True)
+    want, _ = api.segmentation_inference(model, scene, tiles, masks, config, False)
+    before = stage_kernel.launches
+    probs, coords, p = api.pipelined_scene_forward(model, scene, config, quantize_probs=True)
+    assert stage_kernel.launches - before == 12  # 6 stages per forward, 2 chunks
+    assert probs.dtype == torch.uint8 and probs.device.type == "cuda" and len(probs) == 36
+    merged = merge_patches_device(probs, coords, 2048, 2048, p, 3, overlap=0.5).cpu().numpy()
+    for c in range(3):
+        np.testing.assert_array_equal(merged[..., c], want[c])
+    assert any(0 < m.mean() < 255 for m in want)
+
+
+@pytest.mark.gpu
+def test_load_segmentation_models_puts_the_model_on_the_card(tmp_path):
+    import json
+
+    from ssunet_gan_tpu_torch.config import dump_model_card
+    from ssunet_gan_tpu_torch.infer import api
+    from ssunet_gan_tpu_torch.train.checkpoint import save_model
+
+    _card()
+    model = build_model("UNet_R_SS_v2", 3, seed=2, device="cpu")
+    model_dir = tmp_path / "models" / "m"
+    dump_model_card({"arch": "UNet_R_SS_v2", "num_classes": 3, "input_channels": 3,
+                     "deep_supervision": False, "input_h": 512, "input_w": 512}, str(model_dir))
+    save_model(str(model_dir), model)
+    path = tmp_path / "experiment.json"
+    path.write_text(json.dumps({"file_path": {"model_path": str(tmp_path / "models")},
+                                "val_config": {"name": "m", "patch_overlap": 0.5}}))
+    loaded, config = api.load_segmentation_models(str(path))
+    assert config["patch_size"] == 1024 and not loaded.training
+    assert all(t.device.type == "cuda" for t in loaded.state_dict().values())
+    for k, v in model.state_dict().items():
+        assert torch.equal(loaded.state_dict()[k].cpu(), v), k

@@ -26,7 +26,9 @@ MODULES = (
     "ssunet_gan_tpu_torch.ops.spade", "ssunet_gan_tpu_torch.ops.blocks",
     "ssunet_gan_tpu_torch.models.ssunet", "ssunet_gan_tpu_torch.data.png",
     "ssunet_gan_tpu_torch.utils", "ssunet_gan_tpu_torch.train.checkpoint",
-    "ssunet_gan_tpu_torch.cli.train",
+    "ssunet_gan_tpu_torch.cli.train", "ssunet_gan_tpu_torch.native",
+    "ssunet_gan_tpu_torch.data.jpeg", "ssunet_gan_tpu_torch.infer.overlays",
+    "ssunet_gan_tpu_torch.models.gan", "ssunet_gan_tpu_torch.cli.val_patch",
 )
 
 

@@ -4,7 +4,9 @@ package's, on the CPU.
 ``grid_coords`` and both merge paths must be bit-equal (every merge value
 is an exact small integer or multiple of 1/16 in f32). The inference
 comparison runs a narrow ``filters=`` flagship in f32 on both sides; its
-tile probabilities agree within 1e-5 and the merged masks must be equal.
+tile probabilities agree within 1e-5 and the merged masks must be equal,
+the ground-truth masks of the labels too (cv2.resize in the JAX package,
+its fixed point in integers in the port).
 """
 
 import jax
@@ -116,9 +118,35 @@ def test_segmentation_inference_matches_jax():
 
 
 def test_gt_mask_branch_names_the_roadmap():
+    """The ground-truth branch, which raised NotImplementedError naming
+    ROADMAP.md until the labels' masks were ported, against the JAX
+    package's: both mask lists bit for bit, each class present."""
+    jmodel = JUNetRSSv2(num_classes=3, filters=NARROW)
+    variables = randomize_batch_stats(jax.device_get(
+        jit_init(jmodel, jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), train=False)))
     port = build_model("UNet_R_SS_v2", 3, filters=NARROW, device="cpu")
-    scene = np.zeros((32, 32, 3), np.uint8)
-    config = {"patch_size": 32, "patch_overlap": 0.5, "num_classes": 3}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        segmentation_inference(port, scene, scene[None], scene[None], config, True,
-                               device="cpu")
+    port.load_state_dict(from_jax_variables(variables))
+
+    g = np.random.default_rng(3)
+    scene = g.integers(0, 256, (128, 128, 3)).astype(np.uint8)
+    colours = np.array([(255, 255, 255), (255, 0, 0), (0, 0, 255), (40, 90, 10)], np.uint8)
+    labels = np.ascontiguousarray(colours[g.integers(0, 4, (16, 16))].repeat(8, 0).repeat(8, 1))
+    config = {"patch_size": 64, "input_w": 32, "input_h": 32, "patch_overlap": 0.5,
+              "num_classes": 3, "deep_supervision": False}
+    coords = grid_coords(128, 128, 64, 0.5)
+    tiles = extract_patches(scene, coords, 64)[:, ::2, ::2]
+    masks = extract_patches(labels, coords, 64)
+
+    want = jax_segmentation_inference(jmodel, variables, scene, tiles, masks, config, True)
+    got = segmentation_inference(port, scene, tiles, masks, config, True, device="cpu")
+    for g_list, w_list in zip(got, want):
+        assert len(g_list) == 3
+        for g_, w_ in zip(g_list, w_list):
+            assert g_.shape == (128, 128) and g_.dtype == np.uint8
+            np.testing.assert_array_equal(g_, w_)
+    for m in got[1]:  # each class in the ground truth, and not everywhere
+        assert 0 < m.mean() < 255
+    # the mask patches as a list (patch_gen's form) give the same masks
+    again = segmentation_inference(port, scene, tiles, list(masks), config, True, device="cpu")
+    for g_, w_ in zip(again[1], got[1]):
+        np.testing.assert_array_equal(g_, w_)

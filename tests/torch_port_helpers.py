@@ -41,7 +41,10 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
     test installed. ``fused_spade`` is the JAX package's SPADE mode (None or
     False: the composition, True: "fast", or "pallas"). ``remat`` is the
     JAX package's per-block rematerialization (``ops/blocks.py``
-    ``set_remat``)."""
+    ``set_remat``). The stacked seg dots (``set_seg_stack``, which the JAX
+    package's ``load_segmentation_models`` sets from a model card) start at
+    their default and are restored after, as are the SPADE, int8 and band
+    modes that it sets."""
     saved = (
         jax_stage_kernel._FUSED_STAGE,
         jax_wminor._LAZY_UPSAMPLE,
@@ -57,6 +60,7 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
         jax_blocks._REMAT,
         port_resize._LAZY_UPSAMPLE,
         port_pool._LAZY_POOL,
+        jax_stage_kernel._SEG_STACK,
     )
     jax_stage_kernel.set_fused_stage(fused_stage)
     jax_wminor.set_lazy_upsample(lazy_upsample)
@@ -72,6 +76,7 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
     jax_stage_kernel.set_band_rows(None)
     jax_spade_kernel.set_fused_spade(fused_spade)
     jax_blocks.set_remat(remat)
+    jax_stage_kernel.set_seg_stack(None)
     try:
         yield
     finally:
@@ -89,6 +94,7 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
         jax_blocks.set_remat(saved[11])
         port_resize.set_lazy_upsample(saved[12])
         port_pool.set_lazy_pool(saved[13])
+        jax_stage_kernel.set_seg_stack(saved[14])
 
 
 def oihw(kernel_hwio) -> torch.Tensor:
