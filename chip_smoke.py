@@ -75,7 +75,10 @@ Phases, each of which exits non-zero on failure:
    version with bf16 inputs (dynamic and static scales), with QTensor
    inputs, with s8 emission, and conv0_1 with the folded head: h1 and y bit
    for bit, outputs to phase 1's bar, emitted s8 equal on at least 99.9% of
-   the elements and never more than one step apart; the deep stages' s8
+   the elements and never more than one step apart; the stages that read a
+   seam (conv1_0 and conv2_0 pool, conv1_1 and conv0_1 up) again on a seeded
+   seam source read in s8 (dynamic and static scales, a pool seam also as a
+   QTensor with s8 out), each read counted; the deep stages' s8
    block through ``torch._int_mm`` against its f64 convs, sum for sum.
 8. int8 serving (the second serving path): the BN-calibrated model of phase
    2 calibrated on the 8 seeded tiles, the scales installed, the int8 mode
@@ -91,8 +94,13 @@ Phases, each of which exits non-zero on failure:
    of the s8 conv core) alone on the stage's own inputs against its
    per-launch plain version by ``torch.equal``, timed beside its bound and
    ``torch._int_mm`` over the materialized tap operand (``quant:`` and
-   ``s8 conv:`` lines, and their sums per forward). The main path counts
-   its s8 conv core launches (two per stage) and quantization passes.
+   ``s8 conv:`` lines, and their sums per forward); a launch that reads a
+   seam in s8 also bit for bit against the same launch on the materialized
+   s8 seam, timed beside it, the plain seam read and its bound (an ``s8
+   seam:`` line each). The main path counts its s8 conv core launches (two
+   per stage), quantization passes and the s8 seams it reads (2 up and 2
+   pool per forward, where the JAX package's int8 forward reads them); the
+   int8 tiles/s and busy ms print beside bf16's of the same run.
 
 9. Bottleneck stages (phases 9 and 10 run after phase 8): the fused
    bottleneck stage on the card against its plain version for UNet_B_SS's
@@ -134,8 +142,9 @@ Phases, each of which exits non-zero on failure:
    kernel-1 stages per forward) and comparisons, phase 8's int8 serving
    (the model's own 17 ranges; 8 kernel-7 stages and conv4_0's deep s8
    block, without its residual, per forward; every quantization counted
-   and checked) and phase 11's trainer with ``set_fused_spade("pallas")``
-   (8 kernel-9 launches per step).
+   and checked; 3 up and 3 pool s8 seams per forward, conv3_1's up seam
+   materialized as its producer conv4_0 is deep) and phase 11's trainer
+   with ``set_fused_spade("pallas")`` (8 kernel-9 launches per step).
 13. The training entry point (last): ``run_experiment`` on
    configs/config_v1.json's opt_config with its paths in a temporary
    directory (the flagship at 512², batch 8, Adam, bf16) over 16 synthetic
@@ -164,7 +173,8 @@ Phases, each of which exits non-zero on failure:
    for bit, each route launching exactly 48 kernel-1 stages and reading 16
    up and 16 pool seams; the ground-truth masks equal the same branch on
    the CPU; the int8 card runs the 2048² scene with exactly 12 kernel-7
-   stages and phase 8's quantizations per forward, its masks equal to the
+   stages, phase 8's quantizations and 4 up and 4 pool s8 seams (2 and 2
+   per forward), its masks equal to the
    int8 mode set in process; ``python -m
    ssunet_gan_tpu_torch.cli.val_patch`` in a process of its own writes the
    six overlay JPEGs, one byte-identical to ``save_masking_RE`` in
@@ -437,6 +447,12 @@ SSUNET_SEAMS = {"conv1_0": "pool", "conv2_0": "pool", "conv3_0": "pool", "conv3_
                 "conv2_2": "up", "conv1_3": "up", "conv0_4": "up"}
 BNECK_SEAMS = {"conv2_2": "up", "conv1_3": "up", "conv0_4": "up"}
 RSS_SEAMS_PER = (3, 2)
+# The seams the int8 forwards read in kernel 7, in s8 (csrc/int8_conv.cuh read
+# modes 1 and 2): where the JAX package's int8 forward reads them, from a
+# fused stage's output only, so SSUNet's conv3_1 (its producer conv4_0 is
+# deep) takes its up seam materialized.
+FLAGSHIP_INT8_SEAMS = FLAGSHIP_SEAMS
+SSUNET_INT8_SEAMS = {k: v for k, v in SSUNET_SEAMS.items() if k != "conv3_1"}
 
 
 def seams_per(seams) -> tuple:
@@ -462,10 +478,17 @@ def seam_reads():
     return stage_kernel.up_reads, stage_kernel.pool_reads
 
 
+def s8_seam_reads():
+    """The s8 seam counts of kernel 7's stage wrapper (up, pool)."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
+
+    return q8.up_reads, q8.pool_reads
+
+
 @contextlib.contextmanager
 def no_seam_reads(what, check):
-    """The int8 and train paths take no seam: the counts do not move while
-    active."""
+    """The int8 and train paths read no bf16 seam (kernels 1 and 8): their
+    counts do not move while active."""
     before = seam_reads()
     yield
     moved = [a - b for a, b in zip(seam_reads(), before)]
@@ -798,6 +821,10 @@ def seeded_stage_phase(dev, sigs, block_cls, gen, phase, check, int8=False, seam
         if int8:
             worst[1] = max(worst[1], int8_stage_agrees(f"{what} batch 2 int8 dynamic", parts, bp,
                                                        sp, head, check))
+            if kind is not None:
+                worst[1] = max(worst[1], int8_stage_agrees(
+                    f"{what} batch 2 int8 dynamic, {kind} seam read in s8", src, bp, sp, head,
+                    check, up=up, down=down))
         del parts, src, got, want, block, spade
     torch.cuda.empty_cache()
     return tuple(worst)
@@ -1022,7 +1049,7 @@ def bf16_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, ch
     torch.cuda.empty_cache()
     phase_done(f"{tile_p} {name} bf16 comparisons and profile", t_phase)
     return dict(launches=launches, seam_reads=reads, tiles_per_s=tiles_per_s, scene_s=scene_s,
-                logits=e_logits, probs=e_probs, masks=agree_kf,
+                logits=e_logits, probs=e_probs, masks=agree_kf, busy_ms=busy,
                 f32=(logits_f, probs_f, f32_masks))
 
 
@@ -1872,8 +1899,13 @@ def int8_stage_agrees(what, parts, bp, sp, head, check, **kw) -> float:
     return err
 
 
-def int8_stage_phase(dev, sigs, check) -> float:
-    """Phase 7; returns the largest output error of the int8 stage calls."""
+def int8_stage_phase(dev, sigs, check, seams) -> float:
+    """Phase 7; returns the largest output error of the int8 stage calls.
+    A stage of ``seams`` ({stage: kind}) also reads its seam in s8 from a
+    seeded source (an up seam's half-height tensor, a pool seam's
+    full-resolution one) with dynamic and static scales (the up part at its
+    ``":half"`` range), a pool seam also as a QTensor with s8 out; each
+    seam read counted once."""
     from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
     from ssunet_gan_tpu_torch.ops.blocks import BasicBlock
     from ssunet_gan_tpu_torch.ops.conv import Conv2d
@@ -1915,6 +1947,36 @@ def int8_stage_phase(dev, sigs, check) -> float:
                     calib_key=name, out_abs_max=0.95 * amax))
         finally:
             q8.set_int8_calibration(None)
+        kind = seams.get(name)
+        if kind is not None:
+            up, down = seam_flags(kind)
+            src = seam_parts(parts, kind, gen, dev)
+            before = s8_seam_reads()
+            worst = max(worst, int8_stage_agrees(f"{what} {kind} seam, dynamic", src, bp, sp,
+                                                 head, check, up=up, down=down))
+            cal = {f"{name}:{i}": 0.9 * p.float().abs().max().item() for i, p in enumerate(src)}
+            cal[f"{name}:1:half"] = cal.get(f"{name}:1", 0.0) * 0.95
+            q8.set_int8_calibration(cal)
+            try:
+                worst = max(worst, int8_stage_agrees(f"{what} {kind} seam, static", src, bp, sp,
+                                                     head, check, calib_key=name, up=up,
+                                                     down=down))
+                calls = 2
+                if kind == "pool":
+                    s0 = cal[f"{name}:0"]
+                    qsrc = (q8.QTensor(q8.quantize_tensor(src[0], s0)[0], s0 / 127.0,
+                                       torch.bfloat16),)
+                    amax = q8.int8_stage_reference(qsrc, bp, sp, down=down).float().abs().max()
+                    worst = max(worst, int8_stage_agrees(
+                        f"{what} QTensor pool seam, s8 out", qsrc, bp, sp, head, check,
+                        calib_key=name, out_abs_max=0.95 * amax.item(), down=down))
+                    calls = 3
+            finally:
+                q8.set_int8_calibration(None)
+            moved = tuple(a - b for a, b in zip(s8_seam_reads(), before))
+            want = (calls, 0) if kind == "up" else (0, calls)
+            check(moved == want, f"{what}: {moved} s8 up / pool seams read, expected {want}")
+            del src
         del parts, qparts, block, spade
     # the deep stages' s8 block: its integer convs through the library call
     # against the f64 convs, at the widths of conv3_1 (level 3, batch 8)
@@ -1930,13 +1992,14 @@ def int8_stage_phase(dev, sigs, check) -> float:
 
 
 def int8_stage_bound_ms(parts, planes, labels, hidden, ncls, out_bytes, weight_bytes,
-                        shortcut=True):
+                        shortcut=True, shape=None):
     """Least time for one int8 stage call: its s8 multiply-adds (conv1,
     conv2, and the shortcut where the block has one) at the s8 tensor-core
     peak plus the tail's at the bf16 peak, or its bytes (each part as it
-    arrives, s8 or bf16, and the weights read once, the output written
-    once) over HBM bandwidth."""
-    n, h, w = parts[0].shape[:3]
+    arrives, s8 or bf16, a seam's source at its own size, and the weights
+    read once, the output written once) over HBM bandwidth. ``shape``: the
+    output's N×H×W where the parts hold a seam (default the first part's)."""
+    n, h, w = shape or parts[0].shape[:3]
     cin = sum(p.shape[-1] for p in parts)
     s8_macs = 9 * cin * planes + 9 * planes * planes + (cin * planes if shortcut else 0)
     tail_macs = 9 * planes * labels + 9 * labels * hidden + 9 * hidden * 2 * planes + planes * ncls
@@ -2041,60 +2104,92 @@ def int8_conv_launch_lines(stages, check, phase):
     the materialized tap operand: launch B's 3×3 over q(h1) and shortcut as
     two GEMMs). Prints ``s8 conv:`` lines and their sum per forward. A
     stage without a shortcut (VGG) runs launch B with zero shortcut
-    columns; its bound and library call count the 3×3 alone."""
+    columns; its bound and library call count the 3×3 alone. A launch that
+    reads a seam in s8 is also held bit for bit against the same launch on
+    the materialized s8 seam (``read_seams_s8``), and an ``s8 seam:`` line
+    gives its time beside that launch's, the plain seam read's and its
+    bound (its operations, or the bytes it reads: the seam's source at its
+    own size)."""
     from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
 
     total = dict(ms=0.0, bound_ms=0.0, library_ms=0.0, launches=0)
+    seam_total = dict(ms=0.0, bound_ms=0.0, materialized_ms=0.0, seam_plain_ms=0.0, launches=0)
     kinds = set()
-    for name, parts, pk, calib_key, shortcut in stages:
-        qparts, scales, _ = q8._quantize_parts(parts, calib_key)
+    for name, parts, pk, calib_key, shortcut, (up, down) in stages:
+        qparts, scales, _ = q8._quantize_parts(parts, calib_key, up=up)
+        seam = dict(up=up, down=down)
+        mat = q8.read_seams_s8(qparts, **seam)  # the s8 parts as the launches read them
         chans = tuple(q.shape[-1] for q in qparts)
         ops = q8._scaled_operands(pk, chans, scales, qparts[0].device)
-        n, h, w = qparts[0].shape[:3]
+        n, h, w = mat[0].shape[:3]
         m = n * h * w
         th = q8.band_rows(h)
         conv1, conv2 = ops["conv1"], ops["conv2"]
         cout = conv1["cout"]
-        h1, rowmax = q8.s8_conv1(qparts, conv1, ops["d1"], pk["t1"])
+        h1, rowmax = q8.s8_conv1(qparts, conv1, ops["d1"], pk["t1"], **seam)
         qh1, bandscale = q8.band_quant(h1, rowmax, th)
-        y = q8.s8_conv2(qh1, bandscale, qparts, conv2, pk["d2"], ops["ds"], pk["t2"])
+        y = q8.s8_conv2(qh1, bandscale, qparts, conv2, pk["d2"], ops["ds"], pk["t2"], **seam)
         torch.cuda.synchronize()
-        w_h1, w_rowmax = q8.s8_conv1_reference(qparts, conv1, ops["d1"], pk["t1"])
-        w_y = q8.s8_conv2_reference(qh1, bandscale, qparts, conv2, pk["d2"], ops["ds"], pk["t2"])
+        w_h1, w_rowmax = q8.s8_conv1_reference(qparts, conv1, ops["d1"], pk["t1"], **seam)
+        w_y = q8.s8_conv2_reference(qh1, bandscale, qparts, conv2, pk["d2"], ops["ds"], pk["t2"],
+                                    **seam)
         qimg = qh1[:, :, 1:th + 1].reshape(n, h, w, cout)
         qbytes = sum(q.numel() for q in qparts)
         launches = [
             ("A", torch.equal(h1, w_h1) and torch.equal(rowmax, w_rowmax), conv1,
-             lambda: q8.s8_conv1(qparts, conv1, ops["d1"], pk["t1"]),
-             [library_int_mm(qparts, conv1["oihw"])],
+             lambda: q8.s8_conv1(qparts, conv1, ops["d1"], pk["t1"], **seam),
+             lambda: q8.s8_conv1(mat, conv1, ops["d1"], pk["t1"]),
+             lambda: torch.equal(h1, q8.s8_conv1(mat, conv1, ops["d1"], pk["t1"])[0]),
+             [library_int_mm(mat, conv1["oihw"])],
              2.0 * m * cout * 9 * sum(chans),
              qbytes + conv1["w"].numel() + 2 * m * cout + 4 * n * h),
             ("B", torch.equal(y, w_y), conv2,
-             lambda: q8.s8_conv2(qh1, bandscale, qparts, conv2, pk["d2"], ops["ds"], pk["t2"]),
-             ([library_int_mm(qparts, conv2["oihw"][:-1])] if shortcut else [])
+             lambda: q8.s8_conv2(qh1, bandscale, qparts, conv2, pk["d2"], ops["ds"], pk["t2"],
+                                 **seam),
+             lambda: q8.s8_conv2(qh1, bandscale, mat, conv2, pk["d2"], ops["ds"], pk["t2"]),
+             lambda: torch.equal(y, q8.s8_conv2(qh1, bandscale, mat, conv2, pk["d2"], ops["ds"],
+                                                pk["t2"])),
+             ([library_int_mm(mat, conv2["oihw"][:-1])] if shortcut else [])
              + [library_int_mm((qimg,), conv2["oihw"][-1:])],
              2.0 * m * cout * (9 * cout + (sum(chans) if shortcut else 0)),
              qh1.numel() + (qbytes if shortcut else 0) + conv2["w"].numel() + 2 * m * cout),
         ]
         del w_h1, w_rowmax, w_y
-        for launch, exact, conv, run, libs, flops, nbytes in launches:
+        modes = q8.seam_modes(len(qparts), up, down)
+        kind = seam_kind(up, down)
+        for launch, exact, conv, run, run_mat, same_mat, libs, flops, nbytes in launches:
             check(exact, f"{phase}: {name} launch {launch}: the s8 conv core differs from its "
                   f"plain version")
             ms = cuda_ms(run, 20)
             lib_ms = sum(cuda_ms(f, 20) for f in libs)
             del libs
-            bound, kind = bound_of(flops, nbytes, PEAK_S8_OPS)
-            kinds.add(kind)
+            bound, bkind = bound_of(flops, nbytes, PEAK_S8_OPS)
+            kinds.add(bkind)
             for k, v in (("ms", ms), ("bound_ms", bound), ("library_ms", lib_ms), ("launches", 1)):
                 total[k] += v
             print("s8 conv:", json.dumps(dict(
                 path=phase, stage=name, launch=launch, shape=[n, h, w], parts=list(chans), cout=cout,
                 nt=conv["nt"], nblk=conv["nblk"], exact=exact, ms=ms, bound_ms=bound,
-                bound_by=kind, library_ms=lib_ms)))
-        del launches, h1, rowmax, qh1, bandscale, y, qimg, ops
+                bound_by=bkind, library_ms=lib_ms, seam=kind)))
+            if kind is not None:
+                same = same_mat()
+                check(same, f"{phase}: {name} launch {launch}: reading its {kind} seam in s8 "
+                      f"differs from the same launch on the materialized s8 seam")
+                mat_ms = cuda_ms(run_mat, 20)
+                plain_ms = cuda_ms(lambda: q8.read_seams_s8(qparts, **seam), 10)
+                for k, v in (("ms", ms), ("bound_ms", bound), ("materialized_ms", mat_ms),
+                             ("seam_plain_ms", plain_ms), ("launches", 1)):
+                    seam_total[k] += v
+                print("s8 seam:", json.dumps(dict(
+                    path=phase, stage=name, launch=launch, kind=kind, modes=list(modes),
+                    source_shapes=[list(q.shape) for q in qparts], shape=[n, h, w],
+                    bit_equal_materialized=same, ms=ms, materialized_ms=mat_ms,
+                    seam_plain_ms=plain_ms, bound_ms=bound, bound_by=bkind)))
+        del launches, h1, rowmax, qh1, bandscale, y, qimg, ops, mat
         torch.cuda.empty_cache()
     print("s8 conv:", json.dumps(dict(path=phase, per="forward", **total,
-                                      bound_by="operations" if "operations" in kinds else "bytes")))
+                                      bound_by="operations" if "operations" in kinds else "bytes",
+                                      seam_launches=seam_total)))
 
 
 # the decoder stages whose up part is a bilinear upsample, which records the
@@ -2123,17 +2218,20 @@ def expected_ranges(model, bilinear) -> set:
 
 
 def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, config,
-                       f32, bf16, phase, name, bilinear, deep):
+                       f32, bf16, phase, name, bilinear, deep, seams):
     """A model's int8 serving path (phase 8 for the flagship, phase 12 for
-    SSUNet): calibrate, then the main path (``len(sigs)`` kernel-7 stages
-    and the ``deep`` s8 blocks per forward), every quantization, the
-    forwards against plain and f32, each stage and s8 conv launch on its
-    own inputs, a profile. ``f32``: the f32 all-plain (logits, tile
+    SSUNet): calibrate, then the main path (``len(sigs)`` kernel-7 stages,
+    reading the s8 up and pool seams of ``seams`` ({stage: kind}), and the
+    ``deep`` s8 blocks per forward), every quantization, the forwards
+    against plain and f32, each stage and s8 conv launch on its own inputs
+    (a seam launch also against the same launch on the materialized s8
+    seam), a profile. ``f32``: the f32 all-plain (logits, tile
     probabilities, masks); ``bf16``: the bf16 kernel path's numbers for the
     side-by-side lines; ``bilinear``: the decoders whose up part records a
     ``":half"`` range; ``deep``: {stage: residual} of the stages the s8
     block takes. Returns kernel 7's row of the ``kernels`` line, its
-    max_abs_err over this phase's stage checks."""
+    max_abs_err over this phase's stage checks, and the seams its main path
+    read."""
     from ssunet_gan_tpu_torch.infer.api import (
         _chunked_forward,
         _norm_consts,
@@ -2155,6 +2253,7 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
           f"{phase}: expected the {len(want)} ranges {sorted(want)} finite and positive, got "
           f"{scales}")
     per = len(sigs)
+    up_per, pool_per = seams_per(seams)
     worst = 0.0
     deep_runs = []  # (stage, residual) of each deep s8 block the main path ran
     int8_block = ssunet.int8_block
@@ -2167,7 +2266,7 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
     try:
         # the main path: counts to 0, the tile forward, the scene request
         with patched(ssunet, "int8_block", counted_block):
-            q8.launches = q8.conv_launches = q8.quant_launches = 0
+            q8.launches = q8.conv_launches = q8.quant_launches = q8.up_reads = q8.pool_reads = 0
             bf16_before = stage_kernel.launches
             warm, iters = 2, 5
             for _ in range(warm):
@@ -2185,7 +2284,11 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
             scene_s = time.perf_counter() - t0
             launches, conv_launches, quant_launches = (q8.launches, q8.conv_launches,
                                                        q8.quant_launches)
+            reads = s8_seam_reads()
         forwards = warm + iters + 2
+        check(reads == (up_per * forwards, pool_per * forwards),
+              f"{phase}: {reads} s8 up and pool seams read by the {name} int8 main path, "
+              f"expected {(up_per, pool_per)} per forward ({forwards} forwards)")
         check(tile_launches == per * (warm + iters) and stage_kernel.launches == bf16_before,
               f"{phase}: {tile_launches} int8 kernel stages and "
               f"{stage_kernel.launches - bf16_before} bf16 ones in {warm + iters} {name} tile "
@@ -2207,7 +2310,8 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
         print(f"{phase}: {name} main path launches: {launches} int8 stages, {conv_launches} s8 "
               f"conv core launches, {quant_launches} one-pass quantizations "
               f"({quant_launches / forwards:g} per forward of a batch), deep s8 blocks "
-              f"{dict(Counter(deep_runs))}")
+              f"{dict(Counter(deep_runs))}; s8 seams read {reads[0]} up and {reads[1]} pool "
+              f"({up_per} and {pool_per} per forward)")
         check(conv_launches == 2 * launches,
               f"{phase}: the s8 conv core ran {conv_launches} times for {launches} stages "
               f"(expected two each)")
@@ -2229,10 +2333,12 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
         # every int8 stage on its plain version, and each stage's inputs kept
         sink = None  # the list that keeps each stage call of one plain forward, or None
 
-        def plain_int8(parts, bp, sp, head=None, calib_key=None, out_abs_max=None, packed=None):
+        def plain_int8(parts, bp, sp, head=None, calib_key=None, out_abs_max=None, packed=None,
+                       up=None, down=None):
             if sink is not None and len(sink) < len(sigs):
-                sink.append((parts, bp, sp, head, calib_key, out_abs_max))
-            return q8.int8_stage_reference(parts, bp, sp, head, calib_key, out_abs_max)
+                sink.append((parts, bp, sp, head, calib_key, out_abs_max, up, down))
+            return q8.int8_stage_reference(parts, bp, sp, head, calib_key, out_abs_max,
+                                           up=up, down=down)
 
         with torch.no_grad():
             logits_k = model(xn.to(torch.bfloat16))
@@ -2268,27 +2374,33 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
         # each int8 stage on the inputs the forward gave it (model weights,
         # batch 8): against plain, and timed against plain and its bound
         for calls in (captured, captured_scene):
-            if [s[0] for s in sigs] != [c[4] for c in calls]:
+            got_seams = {c[4]: seam_kind(c[6], c[7]) for c in calls
+                         if seam_kind(c[6], c[7]) is not None}
+            if [s[0] for s in sigs] != [c[4] for c in calls] or got_seams != seams:
                 fail(f"{phase}: the {name} int8 forward's fused stages are "
-                     f"{[c[4] for c in calls]}")
-        for parts, bp, sp, head, calib_key, out_amax in captured_scene:
+                     f"{[c[4] for c in calls]} with the s8 seams {got_seams}, expected "
+                     f"{[s[0] for s in sigs]} with {seams}")
+        for parts, bp, sp, head, calib_key, out_amax, up, down in captured_scene:
             what = (f"{phase}: {calib_key} batch {parts[0].shape[0]} (scene chunk) model "
-                    f"weights, {'s8' if out_amax is not None else 'bf16'} out")
+                    f"weights, {'s8' if out_amax is not None else 'bf16'} out"
+                    + (f", {seam_kind(up, down)} seam read in s8" if up or down else ""))
             worst = max(worst, int8_stage_agrees(what, parts, bp, sp, head, check,
-                                                 calib_key=calib_key, out_abs_max=out_amax))
+                                                 calib_key=calib_key, out_abs_max=out_amax,
+                                                 up=up, down=down))
         del captured_scene
         ms_sum = plain_sum = bound_sum = 0.0
         kinds = set()
         tails = []
         launch_stages = []  # each stage's inputs and packed operands, for the s8 conv: lines
         for (stage, chans, planes, lab, nh, head_cls, level), call in zip(sigs, captured):
-            parts, bp, sp, head, calib_key, out_amax = call
+            parts, bp, sp, head, calib_key, out_amax, up, down = call
             tails += tail_calls([(stage, chans, planes, lab, nh, head_cls, level)], BATCH,
                                 1 if out_amax is not None else 2)
-            kw = dict(calib_key=calib_key, out_abs_max=out_amax)
+            kw = dict(calib_key=calib_key, out_abs_max=out_amax, up=up, down=down)
             forms = ["s8" if isinstance(p, q8.QTensor) else "bf16" for p in parts]
             what = (f"{phase}: {stage} batch {BATCH} model weights, parts {forms}, "
-                    f"{'s8' if out_amax is not None else 'bf16'} out")
+                    f"{'s8' if out_amax is not None else 'bf16'} out"
+                    + (f", {seam_kind(up, down)} seam read in s8" if up or down else ""))
             worst = max(worst, int8_stage_agrees(what, parts, bp, sp, head, check, **kw))
             block, spade = getattr(model, stage), getattr(model, "SPADE" + stage[4:])
             final = model.final if head_cls else None
@@ -2303,13 +2415,14 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
             wbytes += sum(t.numel() * 4 for t in sp)
             out_bytes = BATCH * side * side * ((head_cls or planes) * (1 if out_amax else 2))
             bound, kind = int8_stage_bound_ms(parts, planes, lab, nh, head_cls, out_bytes, wbytes,
-                                              shortcut)
+                                              shortcut, (BATCH, side, side))
             kinds.add(kind)
             ms_sum, plain_sum, bound_sum = ms_sum + ms, plain_sum + plain_ms, bound_sum + bound
             row = dict(model=name, stage=stage, shape=[BATCH, side, side, sum(chans)], planes=planes,
-                       parts=forms, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=kind)
+                       parts=forms, seam=seam_kind(up, down), ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=kind)
             print("int8 stage:", json.dumps(row))
-            launch_stages.append((stage, parts, packed, calib_key, shortcut))
+            launch_stages.append((stage, parts, packed, calib_key, shortcut, (up, down)))
         del captured
         int8_conv_launch_lines(launch_stages, check, phase)
         del launch_stages
@@ -2323,7 +2436,9 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
               f"{busy:.3f} ms, {sum(r[1] for r in rows)} kernels; {wall_ms:.3f} ms wall under "
               f"the profiler (idle share {max(0.0, 1 - busy / wall_ms):.3f}), "
               f"{untraced_ms:.3f} ms untraced (idle share "
-              f"{max(0.0, 1 - busy / untraced_ms):.3f})")
+              f"{max(0.0, 1 - busy / untraced_ms):.3f}); bf16 in this run: busy "
+              f"{bf16['busy_ms']:.3f} ms, {bf16['tiles_per_s']:.2f} tiles/s against int8's "
+              f"{tiles_per_s:.2f}")
         for ms, count, key in rows[:14]:
             print(f"profile: {name} int8 {ms:9.3f} ms {count:4d}x {key[:90]}")
         tail_line(f"kernel 7: {name} int8 forward", "forward", rows, tails)
@@ -2340,7 +2455,7 @@ def int8_serving_phase(dev, card, model, sigs, check, x, scene, scene_tiles, con
         "source": f"ssunet_gan_tpu_torch/csrc/{q8.SOURCE}", "replaces": q8.REPLACES,
         "launches": launches, "max_abs_err": worst, "ms": ms_sum, "plain_ms": plain_sum,
         "bound_ms": bound_sum, "bound_by": "operations" if "operations" in kinds else "bytes",
-        "library_ms": None, "quant_per_forward": need,
+        "library_ms": None, "quant_per_forward": need, "seam_reads": reads,
     }
 
 # ---------------------------------------------------------------------------
@@ -2958,7 +3073,8 @@ def ssunet_phase(dev, card, cfg, calib, x, scene, scene_tiles, config, check):
     with no_seam_reads("phase 12: SSUNet int8", check):
         int8_row = int8_serving_phase(
             dev, card, model, sigs, check, x, scene, scene_tiles, config, serve.pop("f32"),
-            serve, "phase 12", "SSUNet", [s[0] for s in sigs if len(s[1]) == 2], SSUNET_DEEP)
+            serve, "phase 12", "SSUNet", [s[0] for s in sigs if len(s[1]) == 2], SSUNET_DEEP,
+            SSUNET_INT8_SEAMS)
     torch.cuda.empty_cache()
 
     # training: kernel 9 on every SPADE the gate takes (the eight of 32-256
@@ -2971,7 +3087,7 @@ def ssunet_phase(dev, card, cfg, calib, x, scene, scene_tiles, config, check):
     del model
     torch.cuda.empty_cache()
     return {
-        "seam_reads": serve["seam_reads"],
+        "seam_reads": serve["seam_reads"], "s8_seam_reads": int8_row["seam_reads"],
         "fused_eval_stage": (serve["launches"], max(seeded[0], stages["max_abs_err"])),
         "fused_eval_stage_int8": (int8_row["launches"], max(seeded[1], int8_row["max_abs_err"])),
         "fused_spade_stage": (spade_row["launches"], spade_row["max_abs_err"]),
@@ -3314,7 +3430,7 @@ def scene_phase(dev, card, here, check, quant_per_forward, scene_hw=SCENE_HW,
     calib = torch.from_numpy(calib).to(dev).float() * a.to(dev) + b.to(dev)
     calibrate_batchnorm(model, calib)
     center_head(model, calib)
-    launches, seams = {}, [0, 0]
+    launches, seams, seams8 = {}, [0, 0], [0, 0]
     yaml_before = sys.modules.get("yaml", None)
     sys.modules["yaml"] = None  # the card machine has no PyYAML: the flat card
     with tempfile.TemporaryDirectory() as tmp:
@@ -3488,7 +3604,7 @@ def scene_phase(dev, card, here, check, quant_per_forward, scene_hw=SCENE_HW,
             t_phase = phase_done("phase 14 breakdown", t_phase)
 
             # (g) the int8 card on the 2048² scene, then in process
-            q8.launches = q8.conv_launches = q8.quant_launches = 0
+            q8.launches = q8.conv_launches = q8.quant_launches = q8.up_reads = q8.pool_reads = 0
             stage_kernel.launches = 0
             model8, config8 = api.load_segmentation_models(int8_exp, device=dev)
             t0 = time.perf_counter()
@@ -3497,7 +3613,9 @@ def scene_phase(dev, card, here, check, quant_per_forward, scene_hw=SCENE_HW,
                                                    device=dev)
             int8_s = time.perf_counter() - t0
             n8 = -(-len(tiles8) // api.INFER_BATCH)
-            got8 = (q8.launches, q8.quant_launches, stage_kernel.launches)
+            got8 = (q8.launches, q8.quant_launches, stage_kernel.launches, q8.up_reads,
+                    q8.pool_reads)
+            seams8 = list(got8[3:])
             installed = q8.int8_calibration() == scales and q8.int8_stage_enabled()
             q8.set_int8_stage(False)
             q8.set_int8_calibration(None)
@@ -3507,9 +3625,11 @@ def scene_phase(dev, card, here, check, quant_per_forward, scene_hw=SCENE_HW,
             q8.set_int8_stage(False)
             q8.set_int8_calibration(None)
             same8 = all(np.array_equal(x_, y_) for x_, y_ in zip(masks8, again))
-            want8 = (6 * n8, quant_per_forward * n8, 0)
+            up8, pool8 = seams_per(FLAGSHIP_INT8_SEAMS)
+            want8 = (6 * n8, quant_per_forward * n8, 0, up8 * n8, pool8 * n8)
             print(f"phase 14: int8 card on a {int8_hw}x{int8_hw} scene ({len(tiles8)} tiles, "
-                  f"{n8} chunks): kernel-7 stages, quantizations, kernel-1 stages {got8}, "
+                  f"{n8} chunks): kernel-7 stages, quantizations, kernel-1 stages, s8 up and "
+                  f"pool seams {got8}, "
                   f"expected {want8}; scales installed from int8_scales.json: {installed}; masks "
                   f"bit-equal to configure_int8 + segmentation_inference in process: {same8}; "
                   f"{int8_s:.3f} s on {card}")
@@ -3570,7 +3690,7 @@ def scene_phase(dev, card, here, check, quant_per_forward, scene_hw=SCENE_HW,
         segmentation_inference_with_gt_s=gt_route_s, int8_scene_s=int8_s, cli_s=cli_s,
         card=card)))
     phase_done("phase 14 CLI", t_phase)
-    return launches, tuple(seams)
+    return launches, tuple(seams), tuple(seams8)
 
 
 def main() -> int:
@@ -3710,12 +3830,12 @@ def main() -> int:
     t_phase = phase_done("phase 2 f32 card forward", t_phase)
 
     # ---- phases 7-8: the int8 stages, then int8 serving (the second main path)
-    int8_err = int8_stage_phase(dev, sigs, check)
+    int8_err = int8_stage_phase(dev, sigs, check, FLAGSHIP_INT8_SEAMS)
     phase_done("phase 7", t_phase)
     with no_seam_reads("phase 8: flagship int8", check):
         int8_row = int8_serving_phase(
             dev, card, model, sigs, check, x, scene, scene_tiles, config, serve.pop("f32"),
-            serve, "phase 8", "flagship", FLAGSHIP_BILINEAR, FLAGSHIP_DEEP)
+            serve, "phase 8", "flagship", FLAGSHIP_BILINEAR, FLAGSHIP_DEEP, FLAGSHIP_INT8_SEAMS)
     int8_row["max_abs_err"] = max(int8_row["max_abs_err"], int8_err)
     del model, serve
     torch.cuda.empty_cache()
@@ -3750,8 +3870,8 @@ def main() -> int:
     entry_counts = entry_point_phase(dev, card, here, check)
 
     # ---- phase 14: whole-scene inference through its entry point (kernels 1 and 7)
-    scene_counts, scene_seams = scene_phase(dev, card, here, check,
-                                            int8_row.pop("quant_per_forward"))
+    scene_counts, scene_seams, scene_s8_seams = scene_phase(dev, card, here, check,
+                                                            int8_row.pop("quant_per_forward"))
 
     if failures:
         fail(f"{len(failures)} checks failed: " + "; ".join(failures[:20]))
@@ -3768,7 +3888,7 @@ def main() -> int:
     } for kname, t in totals.items()] + [bneck_row, spade_row]
     # each row's launches on every main path that runs it: the flagship's
     # (phases 2-3, 6, 8, 10-11) and SSUNet's (phase 12), the entry point's
-    # (phase 13); rows 1 and 8 also the seams their kernels read there
+    # (phase 13); rows 1, 7 and 8 also the seams their kernels read there
     for row in kernels:
         path = ("flagship" if row["name"] not in ("fused_eval_stage_bneck", "fused_spade_stage")
                 else "UNet_B_SS")
@@ -3788,6 +3908,9 @@ def main() -> int:
             if row["name"] == "fused_eval_stage":
                 by_path["SSUNet"] = ssunet_runs["seam_reads"]
                 by_path["val_patch"] = scene_seams
+            elif row["name"] == "fused_eval_stage_int8":
+                by_path["SSUNet"] = ssunet_runs["s8_seam_reads"]
+                by_path["val_patch"] = scene_s8_seams
             row["up_reads"] = sum(r[0] for r in by_path.values())
             row["pool_reads"] = sum(r[1] for r in by_path.values())
             row["seam_reads_by_path"] = {k: {"up": u, "pool": p} for k, (u, p) in by_path.items()}

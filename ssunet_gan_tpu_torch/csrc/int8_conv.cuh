@@ -24,6 +24,17 @@
 //     source, else 64) as the tile's window in shared memory through
 //     cp.async: (TH+2) x 10 pixels for a 3x3 source, TH x 8 for a 1x1 one,
 //     stored as 16-channel planes of [pixel][16 bytes];
+//   - a part may be a seam, read in its mode (QcSeg.mode, the TPU kernel's
+//     _upsample_on_read_s8 and _pool_on_read_s8): mode 1 takes the decoder's
+//     s8 half-height tensor, each window row the lerp of half rows
+//     floor((p-1)/2) and the next with f32 weights (integer numerators over
+//     one IEEE division), the two products and their sum rounded apart (no
+//     FMA), rounded half to even and clipped to +-127; mode 2 an encoder's
+//     full-resolution s8 input, each window pixel the byte-wise maximum of
+//     its 2x2 window (exact). Both launches read them so: launch A's 3x3
+//     windows with their halo, launch B's 1x1 shortcut windows. A seam piece
+//     is plain loads that the thread waits on, then one 16-byte store into
+//     the plane, before the stage's barrier;
 //   - K runs over (tap, 16-channel group) pairs of a chunk, two per k32 step
 //     of wgmma.mma_async m64nNk32.s32.s8.s8 (N 64, 128, 192 or 256), both
 //     operands in shared memory and K-major, as 8-bit wgmma requires: A, the
@@ -100,8 +111,10 @@ __host__ __device__ inline int qc_chunk_stages(int cc, int ksize, int nt) {
 __host__ __device__ inline int qc_plane_bytes(int wpix) { return (wpix * 16 + 127) / 128 * 128 + 16; }
 
 struct QcSeg {
-  const signed char* ptr;  // [m][c], or launch B's band-local q(h1) [n][nb][th + 2][w][c]
+  const signed char* ptr;  // [m][c] of the source's own H x W (mode 1: H/2 x W; 2: 2H x 2W),
+                           // or launch B's band-local q(h1) [n][nb][th + 2][w][c]
   int c, ksize;
+  int mode;                // 0 plain, 1 up (s8 H-interpolation on read), 2 pool (s8 2x2 max)
   int cc, lg;              // channels per chunk, log2 of its 16-channel groups
   int vec;                 // 16-byte async copies allowed
   int band;                // ptr is the band-local buffer
@@ -130,6 +143,21 @@ __device__ __forceinline__ QcSeg qc_seg(const QcArgs& a, int i) {
   return i == 0 ? a.seg[0] : i == 1 ? a.seg[1] : a.seg[2];
 }
 
+// Channels c0..c0+15 of pixel pix of a [pix][c] s8 tensor as one 16-byte
+// piece: one 16-byte load when its rows are 16-byte pieces (vec), else byte
+// by byte; zeros past c.
+__device__ __forceinline__ uint4 qc_load(const signed char* base, int c, long long pix, int c0,
+                                         bool vec) {
+  if (vec)
+    return c0 < c ? *reinterpret_cast<const uint4*>(base + pix * c + c0) : make_uint4(0, 0, 0, 0);
+  uint32_t u[4] = {0u, 0u, 0u, 0u};
+  const signed char* p = base + pix * c + c0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    if (c0 + j < c) u[j >> 2] |= (uint32_t)(uint8_t)p[j] << (8 * (j & 3));
+  return make_uint4(u[0], u[1], u[2], u[3]);
+}
+
 // One window piece: channels c0..c0+15 of pixel pix of a [pix][c] s8 tensor
 // into shared memory, through cp.async when the rows are 16-byte pieces
 // (vec), else byte by byte; zeros past c and when !in.
@@ -140,14 +168,49 @@ __device__ __forceinline__ void qc_piece(signed char* dst, const signed char* ba
     cp16(dst, ok ? base + pix * c + c0 : base, ok);
     return;
   }
-  uint32_t u[4] = {0u, 0u, 0u, 0u};
-  if (in) {
-    const signed char* p = base + pix * c + c0;
+  *reinterpret_cast<uint4*>(dst) = in ? qc_load(base, c, pix, c0, false) : make_uint4(0, 0, 0, 0);
+}
+
+// four packed s8 values: clip(rint(a * w0 + b * w1), +-127) per byte, the
+// products and the sum each rounded in f32
+__device__ __forceinline__ uint32_t qc_lerp4(uint32_t a, uint32_t b, float w0, float w1) {
+  uint32_t r = 0u;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
-      if (c0 + j < c) u[j >> 2] |= (uint32_t)(uint8_t)p[j] << (8 * (j & 3));
+  for (int j = 0; j < 4; ++j) {
+    const float x = (float)(signed char)(uint8_t)(a >> (8 * j));
+    const float y = (float)(signed char)(uint8_t)(b >> (8 * j));
+    const float v = fminf(fmaxf(rintf(__fadd_rn(__fmul_rn(x, w0), __fmul_rn(y, w1))), -127.f), 127.f);
+    r |= (uint32_t)(uint8_t)(signed char)(int)v << (8 * j);
   }
-  *reinterpret_cast<uint4*>(dst) = make_uint4(u[0], u[1], u[2], u[3]);
+  return r;
+}
+
+// Channels c0..c0+15 of the seam segment S at pixel (ih, iw), inside the
+// H x W image img: mode 1 interpolates rows j0 and j0 + 1 of its (H/2) x W
+// source, mode 2 takes the 2x2 maximum of its 2H x 2W source.
+__device__ __forceinline__ uint4 qc_seam_piece(const QcSeg& S, int img, int ih, int iw, int c0,
+                                               int H, int W) {
+  if (S.mode == 1) {
+    const int hh = H >> 1, den = 2 * hh - 1;
+    const int j0 = (ih + 1) / 2 - 1, j1 = j0 + 1;  // floor((ih - 1) / 2) for ih >= 0
+    const float w1 = __fdiv_rn((float)(ih * (hh - 1) - j0 * den), (float)den);
+    const float w0 = __fdiv_rn((float)(j1 * den - ih * (hh - 1)), (float)den);
+    const long long row = (long long)img * hh * W + iw;
+    const uint4 z = make_uint4(0, 0, 0, 0);
+    const uint4 a = j0 >= 0 ? qc_load(S.ptr, S.c, row + (long long)j0 * W, c0, S.vec) : z;
+    const uint4 b = j1 < hh ? qc_load(S.ptr, S.c, row + (long long)j1 * W, c0, S.vec) : z;
+    return make_uint4(qc_lerp4(a.x, b.x, w0, w1), qc_lerp4(a.y, b.y, w0, w1),
+                      qc_lerp4(a.z, b.z, w0, w1), qc_lerp4(a.w, b.w, w0, w1));
+  }
+  const long long tl = ((long long)img * 2 * H + 2 * ih) * (2 * W) + 2 * iw;
+  const uint4 a = qc_load(S.ptr, S.c, tl, c0, S.vec);
+  const uint4 b = qc_load(S.ptr, S.c, tl + 1, c0, S.vec);
+  const uint4 c = qc_load(S.ptr, S.c, tl + 2 * W, c0, S.vec);
+  const uint4 d = qc_load(S.ptr, S.c, tl + 2 * W + 1, c0, S.vec);
+  return make_uint4(__vmaxs4(__vmaxs4(a.x, b.x), __vmaxs4(c.x, d.x)),
+                    __vmaxs4(__vmaxs4(a.y, b.y), __vmaxs4(c.y, d.y)),
+                    __vmaxs4(__vmaxs4(a.z, b.z), __vmaxs4(c.z, d.z)),
+                    __vmaxs4(__vmaxs4(a.w, b.w), __vmaxs4(c.w, d.w)));
 }
 
 // Eight f32 values at p (16-byte aligned) as two 16-byte loads.
@@ -346,6 +409,12 @@ s8_conv_core(const QcArgs a) {
           const int wr = px / ww, wc = px - wr * ww;
           const int ih = oh0 - hl + wr, iw = ow0 - hl + wc;
           bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
+          signed char* dst = wb + grp * plane + px * 16;
+          if (S.mode != 0) {
+            *reinterpret_cast<uint4*>(dst) =
+                in ? qc_seam_piece(S, img, ih, iw, cb + grp * 16, H, W) : make_uint4(0, 0, 0, 0);
+            continue;
+          }
           long long pix;
           if (S.band) {  // band row ih - band * th + 1 of [th + 2]
             const int r = ih - band * a.th + 1;
@@ -354,7 +423,7 @@ s8_conv_core(const QcArgs a) {
           } else {
             pix = img_base + (long long)ih * W + iw;
           }
-          qc_piece(wb + grp * plane + px * 16, S.ptr, S.c, pix, cb + grp * 16, in, S.vec);
+          qc_piece(dst, S.ptr, S.c, pix, cb + grp * 16, in, S.vec);
         }
       }
     }
@@ -551,14 +620,16 @@ cudaError_t qc_launch(const QcArgs& a, dim3 grid, int smem, cudaStream_t stream)
   return cudaGetLastError();
 }
 
-// One launch of the core. nseg K-segments: ptrs[i] s8 [m][chans[i]] (or,
-// with band[i], the band-local buffer [n][nb][th + 2][w][chans[i]]) with
-// kernel size ks[i]; in launch B the segments before nsplit (the shortcut's)
-// are summed apart from the rest (the 3x3's). w: the packed weight, nblk N
-// blocks of nsteps k32 steps for an N of nt; v0..v2, bandscale, rowmax, out
-// as in QcArgs. Returns the launch's cudaError_t.
+// One launch of the core over n images of h x wd (the output's). nseg
+// K-segments: ptrs[i] s8 [m][chans[i]] (or, with band[i], the band-local
+// buffer [n][nb][th + 2][w][chans[i]]) with kernel size ks[i] and read mode
+// modes[i] (0; 1: the source is (h/2) x wd, h even and >= 4; 2: it is 2h x
+// 2wd; a band segment reads in mode 0); in launch B the segments before
+// nsplit (the shortcut's) are summed apart from the rest (the 3x3's). w: the
+// packed weight, nblk N blocks of nsteps k32 steps for an N of nt; v0..v2,
+// bandscale, rowmax, out as in QcArgs. Returns the launch's cudaError_t.
 int launch_s8_conv(int mode, int nseg, const void* const* ptrs, const int* chans, const int* ks,
-                   const int* band, int nsplit, int nt, const void* w, int nsteps,
+                   const int* modes, const int* band, int nsplit, int nt, const void* w, int nsteps,
                    int nblk, const void* v0, const void* v1, const void* v2,
                    const void* bandscale, void* rowmax, void* out, int n, int h, int wd,
                    int cout, int th, cudaStream_t stream) {
@@ -580,12 +651,15 @@ int launch_s8_conv(int mode, int nseg, const void* const* ptrs, const int* chans
   int steps = 0, max_sps = 1, winslot = 0;
   for (int i = 0; i < nseg; ++i) {
     if (ptrs[i] == nullptr || chans[i] <= 0 || (ks[i] != 1 && ks[i] != 3) ||
-        (band[i] != (y && i == nsplit)) || (y && (i < nsplit) != (ks[i] == 1)))
+        (band[i] != (y && i == nsplit)) || (y && (i < nsplit) != (ks[i] == 1)) ||
+        modes[i] < 0 || modes[i] > 2 || (band[i] && modes[i] != 0) ||
+        (modes[i] == 1 && (h % 2 != 0 || h < 4)))
       return (int)cudaErrorInvalidValue;
     QcSeg& s = a.seg[i];
     s.ptr = static_cast<const signed char*>(ptrs[i]);
     s.c = chans[i];
     s.ksize = ks[i];
+    s.mode = modes[i];
     s.band = band[i];
     s.cc = qc_chunk_channels(s.c);
     s.lg = s.cc == 16 ? 0 : s.cc == 32 ? 1 : 2;

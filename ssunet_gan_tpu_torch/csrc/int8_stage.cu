@@ -30,9 +30,13 @@
 // conv core of int8_conv.cuh (wgmma m64nNk32 with both operands in shared
 // memory, exact s32 sums; the split-concat parts and the shortcut are
 // K-segments read through their own pointers). Launch P and Q are bound by
-// their bytes: one read of the input and one write of s8. Quantizing the
-// inputs inside launch A's loader (the windows arrive by cp.async, which
-// cannot convert) and the on-read seams are later work (see ROADMAP.md).
+// their bytes: one read of the input and one write of s8. The decoder's
+// upsample seams and the encoder's pool seams are read in s8 by launches A
+// and B (int8_conv.cuh read modes 1 and 2): a stage quantizes the half-height
+// tensor, or the full-resolution one, and the full-resolution up tensor and
+// the pooled tensor are never written. Quantizing the inputs inside launch
+// A's loader (the windows arrive by cp.async, which cannot convert) is later
+// work (see ROADMAP.md).
 //
 // Numerics: s32 sums are exact; every f32 dequantization step is a separate
 // rounding (no fused multiply-add), in the TPU kernel's order; h1 and y are
@@ -229,18 +233,20 @@ int ssu_q_quant(const void* x, long long n, int f32, const void* scale_ptr, floa
   return (int)cudaGetLastError();
 }
 
-// Launch A: conv3x3 over up to two s8 parts -> h1 (bf16) and rowmax, on the
-// s8 conv core (N = nt). A part with c == 0 is absent. w: nsteps k32 steps
-// packed in the descriptor's order. rowmax ([n][h] f32) must be zero on
-// entry.
-int ssu_s8_conv1(const void* s0, int c0, const void* s1, int c1, int nt, const void* w,
-                 int nsteps, const void* d1, const void* t1, void* h1, void* rowmax, int n, int h,
-                 int wd, int cout, void* stream) {
+// Launch A: conv3x3 over up to two s8 parts, each read in its mode (m0, m1:
+// 0 plain, 1 up, 2 pool; int8_conv.cuh) -> h1 (bf16, n x h x wd) and rowmax,
+// on the s8 conv core (N = nt). A part with c == 0 is absent. w: nsteps k32
+// steps packed in the descriptor's order. rowmax ([n][h] f32) must be zero
+// on entry.
+int ssu_s8_conv1(const void* s0, int c0, int m0, const void* s1, int c1, int m1, int nt,
+                 const void* w, int nsteps, const void* d1, const void* t1, void* h1,
+                 void* rowmax, int n, int h, int wd, int cout, void* stream) {
   const void* ptrs[2] = {s0, s1};
-  const int chans[2] = {c0, c1}, ks[2] = {3, 3}, band[2] = {0, 0};
+  const int chans[2] = {c0, c1}, ks[2] = {3, 3}, modes[2] = {m0, m1}, band[2] = {0, 0};
   const int nseg = c1 > 0 ? 2 : 1;
-  return launch_s8_conv(QC_H1, nseg, ptrs, chans, ks, band, nseg, nt, w, nsteps, 1, d1, t1,
-                        nullptr, nullptr, rowmax, h1, n, h, wd, cout, h, (cudaStream_t)stream);
+  return launch_s8_conv(QC_H1, nseg, ptrs, chans, ks, modes, band, nseg, nt, w, nsteps, 1, d1,
+                        t1, nullptr, nullptr, rowmax, h1, n, h, wd, cout, h,
+                        (cudaStream_t)stream);
 }
 
 // Launch Q: band scales ([n][nb] f32) and the band-local q(h1)
@@ -262,20 +268,21 @@ int ssu_q_band(const void* h1, const void* rowmax, void* qh1, void* bandscale, i
   return (int)cudaGetLastError();
 }
 
-// Launch B: the 1x1 shortcut over up to two s8 parts and conv3x3 over the
-// band-local q(h1) (c channels, bands of th rows), two s32 sums -> y (bf16),
-// on the s8 conv core: nblk N blocks of nt channels, w packed per block
-// (the shortcut's k32 steps first).
-int ssu_s8_conv2(const void* s0, int c0, const void* s1, int c1, const void* qh1, int c, int th,
-                 int nt, const void* w, int nsteps, int nblk, const void* d2, const void* ds,
-                 const void* t2, const void* bandscale, void* y, int n, int h, int wd, int cout,
-                 void* stream) {
+// Launch B: the 1x1 shortcut over up to two s8 parts, each read in its mode
+// (m0, m1 as in launch A), and conv3x3 over the band-local q(h1) (c
+// channels, bands of th rows, read plain), two s32 sums -> y (bf16), on the
+// s8 conv core: nblk N blocks of nt channels, w packed per block (the
+// shortcut's k32 steps first).
+int ssu_s8_conv2(const void* s0, int c0, int m0, const void* s1, int c1, int m1,
+                 const void* qh1, int c, int th, int nt, const void* w, int nsteps, int nblk,
+                 const void* d2, const void* ds, const void* t2, const void* bandscale, void* y,
+                 int n, int h, int wd, int cout, void* stream) {
   const int np = c1 > 0 ? 2 : 1;
   const void* ptrs[3] = {s0, np == 2 ? s1 : qh1, qh1};
   const int chans[3] = {c0, np == 2 ? c1 : c, c}, ks[3] = {1, np == 2 ? 1 : 3, 3};
-  const int band[3] = {0, np == 2 ? 0 : 1, 1};
-  return launch_s8_conv(QC_Y, np + 1, ptrs, chans, ks, band, np, nt, w, nsteps, nblk, d2, ds,
-                        t2, bandscale, nullptr, y, n, h, wd, cout, th, (cudaStream_t)stream);
+  const int modes[3] = {m0, np == 2 ? m1 : 0, 0}, band[3] = {0, np == 2 ? 0 : 1, 1};
+  return launch_s8_conv(QC_Y, np + 1, ptrs, chans, ks, modes, band, np, nt, w, nsteps, nblk, d2,
+                        ds, t2, bandscale, nullptr, y, n, h, wd, cout, th, (cudaStream_t)stream);
 }
 
 // Launch C: the self-SPADE tail on y: the stage output in bf16 (out), the

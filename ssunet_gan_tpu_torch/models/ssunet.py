@@ -42,16 +42,25 @@ The bilinear decoder seams and the encoder max-pool seams are handed to
 the consuming stage as keywords (``up`` / ``down``, a bool per part: the
 part as it stands before its ×2 upsample or its 2×2 pool), and the stage
 takes them as the JAX package's lazy forms are taken
-(ssunet_gan_tpu/models/ssunet.py:174-211): in a bf16 eval forward, with
+(ssunet_gan_tpu/models/ssunet.py:174-211): in an eval forward, with
 :func:`ops.resize.set_lazy_upsample` / :func:`ops.pool.set_lazy_pool` on
-(the default), an up part is interpolated along W at half height
-(:func:`ops.resize.upsample_w`) and a pool part is left as it is; where
-the one gate admits the stage with its seams, the kernel reads them
-(kernels 1 and 8; Bottleneck stages read up seams only); elsewhere they
-are materialized (:func:`ops.stage_kernel.materialize_seams`: W then H,
-and the pool). Training, f32, the int8 mode and record mode materialize
-every seam as before (:func:`ops.resize.upsample_bilinear`, H then W, and
-:func:`ops.pool.max_pool_2x2`).
+(the default), an up part (bf16) is interpolated along W at half height
+(:func:`ops.resize.upsample_w`) and a pool part (bf16, or an s8 QTensor)
+is left as it is; where the one gate admits the stage with its seams, the
+kernel reads them (kernels 1 and 8 in bf16, Bottleneck stages up seams
+only; kernel 7 in the int8 mode, in s8); elsewhere they are materialized
+(:func:`ops.stage_kernel.materialize_seams`: W then H, and the pool).
+The int8 mode makes the lazy form only from a fused stage's own output,
+as the JAX package makes it only from a fused producer's W-minor output
+(ops/wminor.py:322-334, :599-621): a deep stage's seam is materialized
+even where its consumer is fused (the bf16 forward decides by the
+consumer alone, which agrees with JAX up to rounding ties, but in int8 the
+form picks the quantization scale), and an int8 stage that the gate
+refuses with an up seam runs the deep s8 block, as JAX's band resolution
+refuses it. Training, f32 and record mode materialize every seam as
+before (:func:`ops.resize.upsample_bilinear`, H then W, and
+:func:`ops.pool.max_pool_2x2`), and so does the int8 mode for Bottleneck
+stages, which it does not cover.
 
 With the int8 mode on (:func:`ops.stage_kernel_int8.set_int8_stage`) the
 eval forward dispatches as the JAX package's does (models/ssunet.py:214-322):
@@ -66,6 +75,7 @@ records its inputs' ranges (:mod:`infer.calibrate`).
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import Optional, Sequence
 
@@ -171,25 +181,38 @@ def _composition(parts, block, spade: SPADE, final: Optional[Conv2d]):
     return y if final is None else final(y)
 
 
-def _seams(parts, up, down, read_up: bool, read_pool: bool, half_key: Optional[str]):
+def _fused_output(out):
+    """``out``, a fused int8 stage's output, marked as one (``fused``, a
+    QTensor field or a tensor attribute): the int8 mode reads a seam only
+    from such a part (:func:`_seams`)."""
+    if isinstance(out, QTensor):
+        return dataclasses.replace(out, fused=True)
+    out.fused = True
+    return out
+
+
+def _seams(parts, up, down, read_up: bool, read_pool: bool, half_key: Optional[str],
+           int8: bool = False):
     """The stage's parts with its seams (``up`` / ``down``: a bool per part
     given before its ×2 upsample or its 2×2 pool) in the form the stage
     takes them. Where ``read_up`` / ``read_pool`` and the seam's own terms
-    hold (:func:`ops.resize.lazy_up_ok`, :func:`ops.pool.lazy_pool_ok`),
-    an up part becomes the half-height tensor after its W-interpolation
-    and a pool part stays as it is, for the stage to read; every other
-    seam is materialized as before (``upsample_bilinear``: H, then W;
-    ``max_pool_2x2``). Returns (parts, up, down) with the flags of the
-    seams left to read (None where none is). ``half_key`` (record mode):
-    the abs-max of each up part's f32 W-interpolation goes under
-    ``"<half_key>:<part>:half"``, the range of the half-height tensor that
-    the JAX package's int8 on-read upsample quantizes, so a scales file
-    holds the same keys whichever package wrote it."""
+    hold (:func:`ops.resize.lazy_up_ok`, :func:`ops.pool.lazy_pool_ok`;
+    with ``int8`` also a part that a fused stage emitted,
+    :func:`_fused_output`), an up part becomes the half-height tensor after
+    its W-interpolation and a pool part stays as it is, for the stage to
+    read; every other seam is materialized as before
+    (``upsample_bilinear``: H, then W; ``max_pool_2x2``). Returns (parts,
+    up, down) with the flags of the seams left to read (None where none
+    is). ``half_key`` (record mode): the abs-max of each up part's f32
+    W-interpolation goes under ``"<half_key>:<part>:half"``, the range of
+    the half-height tensor that the int8 on-read upsample quantizes, so a
+    scales file holds the same keys whichever package wrote it."""
     out, ups, downs = [], [], []
     for i, (p, m) in enumerate(zip(parts, seam_modes(len(parts), up, down))):
         if m == 1 and half_key is not None:
             record_range(f"{half_key}:{i}:half", _lerp(p.float(), 2, torch.float32).abs().max())
-        read = (m == 1 and read_up and lazy_up_ok(p)) or (m == 2 and read_pool and lazy_pool_ok(p))
+        read = ((m == 1 and read_up and lazy_up_ok(p)) or (m == 2 and read_pool and lazy_pool_ok(p))
+                ) and (not int8 or getattr(p, "fused", False))
         if m == 1:
             p = upsample_w(p) if read else upsample_bilinear(p)
         elif m == 2 and not read:
@@ -200,16 +223,16 @@ def _seams(parts, up, down, read_up: bool, read_pool: bool, half_key: Optional[s
     return tuple(out), tuple(ups) if any(ups) else None, tuple(downs) if any(downs) else None
 
 
-def _admit(gate, parts, up, down):
+def _admit(gate, parts, up, down, retry: bool = True):
     """The stage's gate, asked with the seams left to read; where it
     refuses them, the seams are materialized (JAX ``_spade_stage``'s
-    ``materialize_up`` / ``materialize_down``) and the gate is asked again.
-    Returns (fused, parts, up, down)."""
+    ``materialize_up`` / ``materialize_down``) and, with ``retry``, the
+    gate is asked again. Returns (fused, parts, up, down)."""
     if gate(parts, up, down):
         return True, parts, up, down
     if up or down:
         parts = materialize_seams(parts, up, down)
-        return gate(parts, None, None), parts, None, None
+        return retry and gate(parts, None, None), parts, None, None
     return False, parts, up, down
 
 
@@ -223,19 +246,21 @@ def spade_stage(parts, block, spade: SPADE,
     ``out_key`` the calibration key of its output's consumer; both matter
     only to the int8 mode. ``up`` / ``down`` (a bool per part) mark the
     parts given before their bilinear ×2 upsample or their 2×2 max-pool:
-    a bf16 eval stage that the gate admits with them reads them in its
-    kernel, every other stage takes them materialized (:func:`_seams`,
+    an eval stage that the gate admits with them reads them in its kernel,
+    every other stage takes them materialized (:func:`_seams`,
     :func:`_admit`). Returns the stage output (a QTensor where the int8
-    mode emits s8), or the logits when ``final`` is given."""
+    mode emits s8; a fused int8 stage's marked by :func:`_fused_output`),
+    or the logits when ``final`` is given."""
     parts = as_parts(parts)
     record = not block.training and record_sink() is not None
     int8 = not block.training and int8_stage_enabled()
     bneck = isinstance(block, Bottleneck)
     if up or down:
-        # the Bottleneck kernel reads up seams only (JAX materializes its pools)
-        lazy = not (block.training or record or int8)
+        # the Bottleneck kernel reads up seams only (JAX materializes its
+        # pools), and none in the int8 mode, which does not cover it
+        lazy = not (block.training or record or (int8 and bneck))
         parts, up, down = _seams(parts, up, down, lazy, lazy and not bneck,
-                                 name if record and not bneck else None)
+                                 name if record and not bneck else None, int8)
     if record:
         # calibration pass: the plain composition, recording input ranges
         parts = _dequantized(parts)
@@ -263,15 +288,19 @@ def spade_stage(parts, block, spade: SPADE,
     else:
         mode = fused_stage_enabled()
     ok = (vgg or block.shortcut is not None) and block.planes <= FUSED_MAX_PLANES and mode
+    # an int8 stage refused with its up seam runs the deep s8 block, as the
+    # JAX package's int8 dispatch does (no band height: the XLA block)
     fused, parts, up, down = _admit(
         lambda p, u, d: ok and stage_supported(p, *widths, train=block.training, int8=int8,
-                                               up=u, down=d), parts, up, down)
+                                               up=u, down=d), parts, up, down,
+        retry=not (int8 and up))
     if int8:
         am = None if final is not None else _out_amax(out_key)
         if fused:
             bp, sp, head, packed = _stage_operands(parts, block, spade, final, int8=True)
-            return fused_eval_stage_int8(parts, bp, sp, head, calib_key=name,
-                                         out_abs_max=am, packed=packed)
+            out = fused_eval_stage_int8(parts, bp, sp, head, calib_key=name, out_abs_max=am,
+                                        packed=packed, up=up, down=down)
+            return out if final is not None else _fused_output(out)
         # a deep stage: s8 convs, the SPADE composition after them, and
         # producer-side s8 emission where the output's range is calibrated
         with torch.no_grad():

@@ -17,9 +17,10 @@ symmetric quantization (the JAX package's ``ops/wminor.py`` ``pool2x2``).
 Its codes are those of the s8 values, where ties are common and go to the
 first maximum as everywhere. The unpool takes plain tensors.
 
-The encoder seams of a bf16 eval forward are pooled by the consuming eval
-stage kernel while it loads its window (``csrc/eval_conv.cuh`` read mode
-2; the JAX package's lazy ``DownTensor``, ``ops/acts.py:68``), so the
+The encoder seams of an eval forward are pooled by the consuming stage
+kernel while it loads its window (bf16: ``csrc/eval_conv.cuh`` read mode
+2; int8: ``csrc/int8_conv.cuh`` read mode 2, on s8; the JAX package's lazy
+``DownTensor`` and ``DownQTensor``, ``ops/acts.py:68``, :99), so the
 pooled tensor is never written; :func:`max_pool_2x2` is the same maximum
 for every consumer that does not read the seam. :func:`set_lazy_pool` is
 the JAX toggle.
@@ -53,10 +54,11 @@ def lazy_pool_enabled() -> bool:
 
 def lazy_pool_ok(x) -> bool:
     """Whether the pool seam of ``x`` (NHWC, before the pool) may be read
-    by its consumer: the mode on, a bf16 tensor with even H and W (JAX
-    ``ops/wminor.py:322`` ``_lazy_poolable``)."""
-    return (lazy_pool_enabled() and isinstance(x, torch.Tensor)
-            and x.dtype == torch.bfloat16 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0)
+    by its consumer: the mode on, even H and W, and a bf16 tensor or a
+    QTensor (a calibrated producer's s8 output, whose pool the int8 stage
+    takes in s8; JAX ``ops/wminor.py:322`` ``_lazy_poolable``)."""
+    return (lazy_pool_enabled() and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0
+            and (isinstance(x, QTensor) or x.dtype == torch.bfloat16))
 
 
 def _quads(x: torch.Tensor):

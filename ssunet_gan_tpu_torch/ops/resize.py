@@ -11,11 +11,12 @@ the JAX package's matmul form (ops/resize.py:63-90).
 The decoder seams of a bf16 eval forward split the upsample as the JAX
 package's lazy form does (``ops/wminor.py:608-621``, ``ops/acts.py``
 ``UpTensor``): :func:`upsample_w` interpolates the half-height tensor
-along W, and the consuming eval stage kernel interpolates along H while it
-loads its window (``csrc/eval_conv.cuh`` read mode 1), so the
-full-resolution tensor is never written; :func:`materialize_up` is that
-H-interpolation in plain PyTorch, for every consumer that does not read
-the seam. :func:`set_lazy_upsample` is the JAX toggle.
+along W, and the consuming stage kernel interpolates along H while it
+loads its window (``csrc/eval_conv.cuh`` read mode 1; in the int8 mode
+kernel 7 on the half tensor quantized, ``csrc/int8_conv.cuh`` read mode
+1), so the full-resolution tensor is never written; :func:`materialize_up`
+is that H-interpolation in plain PyTorch, for every consumer that does not
+read the seam. :func:`set_lazy_upsample` is the JAX toggle.
 """
 
 from __future__ import annotations

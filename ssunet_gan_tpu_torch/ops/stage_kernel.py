@@ -139,16 +139,34 @@ def materialize_seams(parts, up=None, down=None):
                  for p, m in zip(parts, seam_modes(len(parts), up, down)))
 
 
+def _seam_readable(p, mode: int, int8: bool) -> bool:
+    """Whether an eval stage may read part ``p`` as a seam of ``mode``: an up
+    part (1) a bf16 tensor of an exact half height (``ops/resize.py``
+    ``up_weights_exact``), and for the int8 stage in bands of a multiple of
+    16 rows (``stage_kernel_int8.band_rows`` of its full height: the JAX
+    package's int8 kernel reads half bands of whole 8-row tiles and
+    resolves no band height to a stage that has none, ``resolve_band_th``);
+    a pool part (2) of even height and width, bf16, or for the int8 stage a
+    QTensor (any activation dtype: its pool is exact in s8)."""
+    if mode == 1:
+        from ssunet_gan_tpu_torch.ops.stage_kernel_int8 import band_rows
+
+        return (isinstance(p, torch.Tensor) and p.dtype == torch.bfloat16
+                and up_weights_exact(p.shape[1])
+                and (not int8 or band_rows(2 * p.shape[1]) % 16 == 0))
+    return (p.shape[1] % 2 == 0 and p.shape[2] % 2 == 0
+            and (p.dtype == torch.bfloat16 or (int8 and not isinstance(p, torch.Tensor))))
+
+
 def stage_supported(parts, planes: int, labels: int, hidden: int, classes: int = 0, *,
                     train: bool = False, int8: bool = False, up=None, down=None) -> bool:
     """Whether the BasicBlock stage kernel that would run for these parts
     (eval, ``train`` or ``int8``) takes the stage. Always: one or two NHWC
     parts (tensors or QTensors) of one logical N×H×W, device and dtype, and
     planes ≤ ``MAX_PLANES``. Seams (``up``/``down``, a bool per part, as
-    :func:`fused_eval_stage` takes them): the bf16 eval stage only, an up
-    part of an exact half height (``ops/resize.py`` ``up_weights_exact``),
-    a pool part of even height and width; the logical shape is the one the
-    seam reads (:func:`seam_shape`). On a CUDA device, the kernels' own
+    :func:`fused_eval_stage` and the int8 stage take them): eval stages
+    only, each part as :func:`_seam_readable` takes it; the logical shape
+    is the one the seam reads (:func:`seam_shape`). On a CUDA device, the kernels' own
     limits: bfloat16, contiguous parts, planes a multiple of 32, labels,
     hidden and classes within the tail's ``TAIL_MAX_*``, and for training
     what the v3 backward takes (``ops/train_bwd.py`` ``bwd_v3_supported``). On the CPU, what the JAX
@@ -162,9 +180,8 @@ def stage_supported(parts, planes: int, labels: int, hidden: int, classes: int =
     if not 1 <= len(parts) <= 2 or any(len(p.shape) != 4 for p in parts):
         return False
     modes = seam_modes(len(parts), up, down)
-    if any(modes) and (train or int8 or x0.dtype != torch.bfloat16 or any(
-            (m == 1 and not up_weights_exact(p.shape[1]))
-            or (m == 2 and (p.shape[1] % 2 or p.shape[2] % 2)) for p, m in zip(parts, modes))):
+    if any(modes) and (train or not all(_seam_readable(p, m, int8)
+                                        for p, m in zip(parts, modes) if m)):
         return False
     n, h, w = seam_shape(x0, modes[0])
     if any(seam_shape(p, m) != (n, h, w) or p.device != x0.device or p.dtype != x0.dtype

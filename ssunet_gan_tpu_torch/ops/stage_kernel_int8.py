@@ -40,10 +40,20 @@ Numerics choices of the port (where the TPU kernel left room):
 - Integer sums are exact everywhere (f64 convs in the plain version, s32 on
   the card), so launches A and B agree with the plain version bit for bit;
   so do the quantized inputs (an IEEE division, round half to even).
-- The TPU kernel's s8 on-read seams (``_upsample_on_read_s8`` :330,
-  ``_pool_on_read_s8`` :360) are still to port: the int8 mode takes its
-  seams materialized. Lane packing, pair dots and halo carry are TPU
-  scheduling devices and are not ported.
+- **Seams read in s8** (the TPU kernel's ``_upsample_on_read_s8`` :330 and
+  ``_pool_on_read_s8`` :360). A part marked ``up`` is the decoder's
+  half-height tensor after its W-interpolation (``ops/resize.py``
+  ``upsample_w``), quantized at its own range (``"<key>:<i>:half"``, else
+  ``"<key>:<i>"``, else dynamically over the half tensor); launches A and B
+  interpolate it along H in s8 while they load their windows
+  (:func:`upsample_on_read_s8_reference`: f32 weights, two products and
+  one sum rounded apart, round half to even, clip). A part marked ``down``
+  is an encoder stage's full-resolution input, quantized as it is (or a
+  QTensor at its producer's scale); the launches take its 2×2 s8 maximum
+  (:func:`pool_on_read_s8_reference`, exact). Lane packing, pair dots and
+  halo carry are TPU scheduling devices and are not ported; so where the
+  JAX package's lane packing materializes a pool seam (a batch that is a
+  multiple of 128 / W), the port still reads it.
 
 :func:`fused_eval_stage_int8` decides by the tensors' device: CPU tensors
 take :func:`int8_stage_reference`; CUDA tensors launch the kernel (bf16
@@ -63,11 +73,14 @@ import torch.nn.functional as F
 
 from ssunet_gan_tpu_torch import _build
 from ssunet_gan_tpu_torch.ops.conv import as_parts
+from ssunet_gan_tpu_torch.ops.resize import _up_rows
 from ssunet_gan_tpu_torch.ops.stage_kernel import (
     _ptr,
     _refused,
     eval_conv_weight,
     pack_spade,
+    seam_modes,
+    seam_shape,
     spade_tail_reference,
     split_in,
     stage_supported,
@@ -85,6 +98,10 @@ launches = 0
 conv_launches = 0
 # one-pass quantizations of a CUDA tensor (launch P, csrc/int8_stage.cu)
 quant_launches = 0
+# seam parts the s8 conv core read on the card, one per stage call and part:
+# decoder upsample seams (read mode 1) and encoder pool seams (read mode 2)
+up_reads = 0
+pool_reads = 0
 
 TH_CANDIDATES = (64, 32, 16, 8)
 
@@ -148,10 +165,10 @@ def record_stage_inputs(key: str, parts) -> None:
         record_range(f"{key}:{i}", p.float().abs().max())
 
 
-def _calibrated(calib_key: Optional[str], i: int) -> Optional[float]:
+def _calibrated(calib_key: Optional[str], i, default: Optional[float] = None):
     if _CALIB_SCALES is None or calib_key is None:
-        return None
-    return _CALIB_SCALES.get(f"{calib_key}:{i}")
+        return default
+    return _CALIB_SCALES.get(f"{calib_key}:{i}", default)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,11 +177,14 @@ class QTensor:
     tensor, ``scale`` its dequantization scale (``x ≈ q·scale``, a Python
     float: it exists only under static calibration), ``dtype`` the
     activation dtype it stands in for. Max-pooling commutes with symmetric
-    quantization, so a pooled QTensor keeps its producer's scale."""
+    quantization, so a pooled QTensor keeps its producer's scale. ``fused``
+    marks a fused stage's own output (the model's dispatch sets it), whose
+    pool seam a consumer may read: the JAX package's W-minor QTensor."""
 
     q: torch.Tensor
     scale: float
     dtype: torch.dtype
+    fused: bool = False
 
     @property
     def shape(self):
@@ -280,12 +300,17 @@ def band_rows(h: int) -> int:
     return h
 
 
-def _quantize_parts(parts: Sequence[Part], calib_key: Optional[str], quantize=None):
+def _quantize_parts(parts: Sequence[Part], calib_key: Optional[str], quantize=None, up=None):
     """(s8 parts, scales, activation dtype). A QTensor part brings its
     producer's scale (the stage's own calibrated key is ignored for it); a
     tensor part is quantized by ``quantize`` (:func:`quantize_tensor` when
     None, looked up at call time) with the calibrated range under
-    ``"<calib_key>:<i>"`` if installed, else dynamically."""
+    ``"<calib_key>:<i>"`` if installed, else dynamically. A part that
+    ``up`` (a bool per part, or None) marks is a decoder seam's half-height
+    tensor: its range is ``"<calib_key>:<i>:half"``, the half tensor's own
+    record, falling back to ``"<calib_key>:<i>"`` (the JAX package's
+    ``_amax_half``); a pool seam's full-resolution part takes the stage's
+    key as it is."""
     if quantize is None:
         quantize = quantize_tensor
     qs, scales = [], []
@@ -294,7 +319,10 @@ def _quantize_parts(parts: Sequence[Part], calib_key: Optional[str], quantize=No
             qs.append(p.q)
             scales.append(float(np.float32(p.scale)))  # the f32 value consumers fold in
         else:
-            q, s = quantize(p, _calibrated(calib_key, i))
+            amax = _calibrated(calib_key, i)
+            if up and up[i]:
+                amax = _calibrated(calib_key, f"{i}:half", amax)
+            q, s = quantize(p, amax)
             qs.append(q)
             scales.append(s)
     return tuple(qs), tuple(scales), parts[0].dtype
@@ -452,6 +480,46 @@ def emit_s8(y: torch.Tensor, abs_max: float) -> QTensor:
 # ---------------------------------------------------------------------------
 
 
+def upsample_on_read_s8_reference(q: torch.Tensor) -> torch.Tensor:
+    """The s8 upsample seam read (the TPU kernel's ``_upsample_on_read_s8``)
+    in plain PyTorch: (N, H/2, W, C) s8 in, (N, H, W, C) s8 out. Row p of
+    H is interpolated from half rows j0 = ⌊(p−1)/2⌋ and j0 + 1 (zero
+    outside the image) with the f32 weights of ``ops/resize.py``
+    ``_up_rows`` (integer numerators over one IEEE division; not rounded to
+    bf16, as the bf16 read mode rounds them), the two products and their
+    sum each rounded in f32, then rounded half to even and clipped to ±127:
+    the half tensor's scale is the part's, so the lerp requantizes with a
+    plain round."""
+    hh = q.shape[1]
+    j0, w0, w1 = _up_rows(hh)
+    dev = q.device
+    x = F.pad(q.float(), (0, 0, 0, 0, 1, 1))  # rows -1 and hh are zero
+    shape = (1, 2 * hh, 1, 1)
+    ia = torch.from_numpy(j0 + 1).to(dev)
+    a = x.index_select(1, ia) * torch.from_numpy(w0).to(dev).reshape(shape)
+    b = x.index_select(1, ia + 1) * torch.from_numpy(w1).to(dev).reshape(shape)
+    return _round_clip(a + b)
+
+
+def pool_on_read_s8_reference(q: torch.Tensor) -> torch.Tensor:
+    """The s8 pool seam read (the TPU kernel's ``_pool_on_read_s8``) in
+    plain PyTorch: the 2×2 maximum of (N, 2H, 2W, C) s8, exact (max
+    commutes with symmetric quantization)."""
+    from ssunet_gan_tpu_torch.ops.pool import max_pool_2x2
+
+    return max_pool_2x2(q)
+
+
+def read_seams_s8(qparts, up=None, down=None):
+    """The s8 parts as launches A and B read them: each up part through
+    :func:`upsample_on_read_s8_reference`, each pool part through
+    :func:`pool_on_read_s8_reference` (``up`` / ``down``: a bool per part,
+    or None)."""
+    return tuple(upsample_on_read_s8_reference(q) if m == 1
+                 else pool_on_read_s8_reference(q) if m == 2 else q
+                 for q, m in zip(qparts, seam_modes(len(qparts), up, down)))
+
+
 def _band_scale(h1: torch.Tensor, i: int, th: int) -> torch.Tensor:
     """(N,) scale of band ``i``: the abs-max of h1 over the band's rows and
     four halo rows each side (those inside the image) over 127."""
@@ -469,20 +537,25 @@ def _out_scale(out_abs_max: float) -> Tuple[float, float]:
 def int8_stage_reference(parts, block_params, spade_params, head=None,
                          calib_key: Optional[str] = None,
                          out_abs_max: Optional[float] = None,
-                         th: Optional[int] = None, intermediates: bool = False):
+                         th: Optional[int] = None, intermediates: bool = False,
+                         up=None, down=None):
     """The int8 stage in plain PyTorch, step by step as the kernel computes
     it. ``parts``: NHWC tensors or :class:`QTensor`\\ s; the parameter
     bundles as in :func:`ops.stage_kernel.fused_stage_reference`.
     ``calib_key`` names the stage's calibrated input ranges; with
     ``out_abs_max`` the output leaves as a :class:`QTensor` at that range
     (no folded head then); ``th`` is the band height (:func:`band_rows` by
-    default). With ``intermediates`` returns ``(out, h1, y)``."""
+    default). ``up`` / ``down`` (a bool per part) mark seams: an up part
+    is the half-height tensor after its W-interpolation, a pool part the
+    full-resolution one (:func:`_quantize_parts`, :func:`read_seams_s8`).
+    With ``intermediates`` returns ``(out, h1, y)``."""
     parts = as_parts(parts)
     if out_abs_max is not None and head is not None:
         raise ValueError("a stage with the folded head emits logits, not s8")
     dev = parts[0].device
     chans = tuple(p.shape[-1] for p in parts)
-    qparts, scales, dtype = _quantize_parts(parts, calib_key, quantize_reference)
+    qparts, scales, dtype = _quantize_parts(parts, calib_key, quantize_reference, up)
+    qparts = read_seams_s8(qparts, up, down)
     folded = fold_block(block_params)
     wq1, d1, wqs, ds = fold_input_scales(folded, chans, scales, dev)
     n, h, w = qparts[0].shape[:3]
@@ -563,12 +636,12 @@ def pack_s8_conv(segments, launch: str) -> dict:
             "segs": tuple((s.shape[1], s.shape[2]) for s in segments), "oihw": tuple(segments)}
 
 
-def s8_conv1_reference(qparts, conv: dict, d1, t1, dtype=torch.bfloat16):
+def s8_conv1_reference(qparts, conv: dict, d1, t1, dtype=torch.bfloat16, up=None, down=None):
     """Launch A in plain PyTorch: ``(h1, rowmax)``, h1 =
     relu(f32(conv3x3_s8(qx))·d1 + t1) in ``dtype`` (exact integer sums,
     :func:`int_conv`), rowmax (N, H) f32 the maximum of each image row of
-    h1."""
-    acc = int_conv(qparts, conv["oihw"], 1).float()
+    h1; the parts marked ``up`` / ``down`` read as :func:`read_seams_s8`."""
+    acc = int_conv(read_seams_s8(qparts, up, down), conv["oihw"], 1).float()
     h1 = torch.relu(acc * d1 + t1).to(dtype)
     return h1, h1.float().amax((2, 3))
 
@@ -591,14 +664,16 @@ def band_quant_reference(h1, rowmax, th: int):
     return qh1, torch.stack(scales, 1)
 
 
-def s8_conv2_reference(qh1, bandscale, qparts, conv: dict, d2, ds, t2, dtype=torch.bfloat16):
+def s8_conv2_reference(qh1, bandscale, qparts, conv: dict, d2, ds, t2, dtype=torch.bfloat16,
+                       up=None, down=None):
     """Launch B in plain PyTorch: y = relu(f32(conv3x3_s8(q_b(h1)))·(d2·s_b)
     + f32(conv1x1_s8(qx))·ds + t2) in ``dtype``, band by band of the
     band-local buffer ``qh1`` (:func:`band_quant_reference`), each f32 step
-    rounded in the kernel's order."""
+    rounded in the kernel's order; the parts marked ``up`` / ``down`` read
+    as :func:`read_seams_s8`."""
     nb, th = qh1.shape[1], qh1.shape[2] - 2
     wsc, w2 = conv["oihw"][:-1], conv["oihw"][-1]
-    accs = int_conv(qparts, wsc, 0).float() * ds
+    accs = int_conv(read_seams_s8(qparts, up, down), wsc, 0).float() * ds
     bands = []
     for i in range(nb):
         acc2 = int_conv((qh1[:, i],), (w2,), 1)[:, 1:th + 1].float()
@@ -607,31 +682,45 @@ def s8_conv2_reference(qh1, bandscale, qparts, conv: dict, d2, ds, t2, dtype=tor
     return torch.relu(torch.cat(bands, 1)).to(dtype)
 
 
-def _s8_sources(sources, conv: dict):
-    """The parts' (pointer, channels) pairs after checking them against the
-    packed operands (``conv["segs"]``: the parts' widths, then launch B's
-    3×3 segment)."""
+def _s8_sources(sources, conv: dict, modes, shape):
+    """The parts' (pointer, channels, read mode) triples after checking
+    them against the packed operands (``conv["segs"]``: the parts' widths,
+    then launch B's 3×3 segment) and, read in their modes
+    (:func:`ops.stage_kernel.seam_shape`), against the launch's N×H×W
+    ``shape``: an up part (mode 1) of H/2 rows (H even, at least 4), a
+    pool part (mode 2) of exactly 2H × 2W."""
     segs = conv["segs"][:len(sources)]
     if tuple(s.shape[-1] for s in sources) != tuple(c for c, _ in segs):
         raise ValueError(f"the conv's weights are packed for {conv['segs']}, got parts of "
                          f"{[tuple(s.shape) for s in sources]}")
     if len(sources) > 2:
         raise ValueError(f"the s8 conv core takes at most 2 parts, got {len(sources)}")
-    src = [(s.data_ptr(), s.shape[-1]) for s in sources] + [(None, 0)] * (2 - len(sources))
+    n, h, w = shape
+    for s, m in zip(sources, modes):
+        if (s.dim() != 4 or s.dtype != torch.int8 or not s.is_contiguous()
+                or seam_shape(s, m) != (n, h, w) or (m == 1 and (h % 2 or h < 4))
+                or (m == 2 and tuple(s.shape[1:3]) != (2 * h, 2 * w))):
+            raise ValueError(f"the s8 conv core takes contiguous s8 NHWC parts of one logical "
+                             f"{n}x{h}x{w} (an up part of H/2 rows, H even and >= 4; a pool "
+                             f"part of 2H x 2W), got {tuple(s.shape)} {s.dtype} in mode {m}")
+    src = ([(s.data_ptr(), s.shape[-1], m) for s, m in zip(sources, modes)]
+           + [(None, 0, 0)] * (2 - len(sources)))
     return [v for p in src for v in p]
 
 
-def s8_conv1(qparts, conv: dict, d1, t1):
+def s8_conv1(qparts, conv: dict, d1, t1, up=None, down=None):
     """Launch A on the card: ``(h1, rowmax)`` as :func:`s8_conv1_reference`
-    (bf16 h1), from contiguous s8 NHWC CUDA parts and :func:`pack_s8_conv`'s
-    ``"h1"`` operand. Counts ``conv_launches``."""
+    (bf16 h1), from contiguous s8 NHWC CUDA parts, each read in its mode
+    (``up`` / ``down``: a bool per part; :func:`_s8_sources`), and
+    :func:`pack_s8_conv`'s ``"h1"`` operand. Counts ``conv_launches``."""
     global conv_launches
-    n, h, w = qparts[0].shape[:3]
+    modes = seam_modes(len(qparts), up, down)
+    n, h, w = seam_shape(qparts[0], modes[0])
     dev = qparts[0].device
     h1 = torch.empty((n, h, w, conv["cout"]), dtype=torch.bfloat16, device=dev)
     rowmax = torch.zeros((n, h), dtype=torch.float32, device=dev)
-    _check(_lib().ssu_s8_conv1(*_s8_sources(qparts, conv), conv["nt"], _ptr(conv["w"]),
-                               conv["steps"], _ptr(d1), _ptr(t1), _ptr(h1),
+    _check(_lib().ssu_s8_conv1(*_s8_sources(qparts, conv, modes, (n, h, w)), conv["nt"],
+                               _ptr(conv["w"]), conv["steps"], _ptr(d1), _ptr(t1), _ptr(h1),
                                _ptr(rowmax), n, h, w, conv["cout"],
                                torch.cuda.current_stream(dev).cuda_stream), "conv1")
     conv_launches += 1
@@ -650,17 +739,20 @@ def band_quant(h1, rowmax, th: int):
     return qh1, bandscale
 
 
-def s8_conv2(qh1, bandscale, qparts, conv: dict, d2, ds, t2):
+def s8_conv2(qh1, bandscale, qparts, conv: dict, d2, ds, t2, up=None, down=None):
     """Launch B on the card: y as :func:`s8_conv2_reference` (bf16), from
-    :func:`band_quant`'s buffer and scales, the s8 parts and
-    :func:`pack_s8_conv`'s ``"y"`` operand. Counts ``conv_launches``."""
+    :func:`band_quant`'s buffer and scales, the s8 parts, each read in its
+    mode as in :func:`s8_conv1`, and :func:`pack_s8_conv`'s ``"y"``
+    operand. Counts ``conv_launches``."""
     global conv_launches
     n, nb, th, w, c = qh1.shape
     th -= 2
     y = torch.empty((n, nb * th, w, conv["cout"]), dtype=torch.bfloat16, device=qh1.device)
     if conv["segs"][-1] != (c, 3) or len(conv["segs"]) != len(qparts) + 1:
         raise ValueError(f"the conv's weights are packed for {conv['segs']}, got q(h1) of {c}")
-    _check(_lib().ssu_s8_conv2(*_s8_sources(qparts, conv), _ptr(qh1), c, th, conv["nt"],
+    modes = seam_modes(len(qparts), up, down)
+    _check(_lib().ssu_s8_conv2(*_s8_sources(qparts, conv, modes, (n, nb * th, w)), _ptr(qh1), c,
+                               th, conv["nt"],
                                _ptr(conv["w"]), conv["steps"], conv["nblk"], _ptr(d2), _ptr(ds),
                                _ptr(t2), _ptr(bandscale), _ptr(y), n, nb * th, w, conv["cout"],
                                torch.cuda.current_stream(qh1.device).cuda_stream), "conv2")
@@ -706,9 +798,10 @@ def _lib() -> ctypes.CDLL:
     ll = ctypes.c_longlong
     lib.ssu_q_absmax.argtypes = [p, ll, i, p, p, p]
     lib.ssu_q_quant.argtypes = [p, ll, i, p, f, p, p]
-    lib.ssu_s8_conv1.argtypes = [p, i, p, i, i, p, i, p, p, p, p, i, i, i, i, p]
+    lib.ssu_s8_conv1.argtypes = [p, i, i, p, i, i, i, p, i, p, p, p, p, i, i, i, i, p]
     lib.ssu_q_band.argtypes = [p, p, p, p, i, i, i, i, i, p]
-    lib.ssu_s8_conv2.argtypes = [p, i, p, i, p, i, i, i, p, i, i, p, p, p, p, p, i, i, i, i, p]
+    lib.ssu_s8_conv2.argtypes = [p, i, i, p, i, i, p, i, i, i, p, i, i, p, p, p, p, p, i, i, i,
+                                 i, p]
     lib.ssu_q_spade_tail.argtypes = [p, i, i, i, i, p, p, i, p, p, i, p, p, p, p, i, p, p, f, p]
     for fn in (lib.ssu_q_absmax, lib.ssu_q_quant, lib.ssu_s8_conv1, lib.ssu_q_band,
                lib.ssu_s8_conv2, lib.ssu_q_spade_tail):
@@ -721,18 +814,21 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"int8 fused stage {what} launch failed: cudaError {err}")
 
 
-def _run_cuda(qparts, scales, dtype, pk: dict, th: int, out_abs_max, intermediates: bool):
-    global launches
+def _run_cuda(qparts, scales, dtype, pk: dict, th: int, out_abs_max, intermediates: bool,
+              up=None, down=None):
+    global launches, up_reads, pool_reads
     q0 = qparts[0]
     dev = q0.device
     if len(qparts) > 2:
         raise ValueError(f"the fused stage takes at most 2 parts, got {len(qparts)}")
-    n, h, w = q0.shape[:3]
-    for q in qparts:
+    modes = seam_modes(len(qparts), up, down)
+    n, h, w = seam_shape(q0, modes[0])
+    for q, m in zip(qparts, modes):
         if q.device != dev or q.dtype != torch.int8 or q.dim() != 4:
             raise ValueError("quantized stage parts must be 4-D NHWC int8 tensors of one device")
-        if tuple(q.shape[:3]) != (n, h, w):
-            raise ValueError(f"stage parts differ in N, H or W: {[tuple(t.shape) for t in qparts]}")
+        if seam_shape(q, m) != (n, h, w):
+            raise ValueError(f"stage parts differ in N, H or W as read in modes {modes}: "
+                             f"{[tuple(t.shape) for t in qparts]}")
         if not q.is_contiguous():
             raise ValueError("stage parts must be contiguous NHWC tensors")
     if pk["dtype"] != dtype:
@@ -753,9 +849,10 @@ def _run_cuda(qparts, scales, dtype, pk: dict, th: int, out_abs_max, intermediat
     ops = _scaled_operands(pk, chans, scales, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        h1, rowmax = s8_conv1(qparts, ops["conv1"], ops["d1"], pk["t1"])
+        h1, rowmax = s8_conv1(qparts, ops["conv1"], ops["d1"], pk["t1"], up, down)
         qh1, bandscale = band_quant(h1, rowmax, th)
-        y = s8_conv2(qh1, bandscale, qparts, ops["conv2"], pk["d2"], ops["ds"], pk["t2"])
+        y = s8_conv2(qh1, bandscale, qparts, ops["conv2"], pk["d2"], ops["ds"], pk["t2"], up,
+                     down)
         out = out_q = None
         inv = 0.0
         if out_abs_max is None:
@@ -766,6 +863,8 @@ def _run_cuda(qparts, scales, dtype, pk: dict, th: int, out_abs_max, intermediat
         _check(_lib().ssu_q_spade_tail(_ptr(y), n, h, w, c, *tail_args(pk), _ptr(out),
                                        _ptr(out_q), inv, stream), "SPADE tail")
     launches += 1
+    up_reads += modes.count(1)
+    pool_reads += modes.count(2)
     if out_q is not None:
         out = QTensor(out_q, s_out, dtype)
     return (out, h1, y) if intermediates else out
@@ -775,33 +874,35 @@ def fused_eval_stage_int8(parts, block_params, spade_params, head=None,
                           calib_key: Optional[str] = None,
                           out_abs_max: Optional[float] = None,
                           th: Optional[int] = None, packed: Optional[dict] = None,
-                          intermediates: bool = False):
+                          intermediates: bool = False, up=None, down=None):
     """int8 eval [BasicBlock + self-SPADE] stage (+ folded head), NHWC.
 
     Arguments as in :func:`int8_stage_reference`; ``packed``, if given, is
     :func:`pack_stage_int8` of the same weights, which spares the CUDA path
     its packing. The stage inputs are quantized here by
     :func:`quantize_tensor` (static calibrated scales, else dynamic
-    per-tensor ones; a :class:`QTensor` arrives quantized). CPU tensors run
-    the plain version;
-    CUDA tensors run the hand-written kernel, or raise for what
-    :func:`ops.stage_kernel.stage_supported` refuses."""
+    per-tensor ones; a :class:`QTensor` arrives quantized; an up part at
+    its half tensor's range). CPU tensors run the plain version; CUDA
+    tensors run the hand-written kernel, whose launches A and B read the
+    seams, or raise for what :func:`ops.stage_kernel.stage_supported`
+    refuses."""
     parts = as_parts(parts)
     dev = parts[0].device
     if dev.type == "cpu":
         return int8_stage_reference(parts, block_params, spade_params, head, calib_key,
-                                    out_abs_max, th, intermediates)
+                                    out_abs_max, th, intermediates, up, down)
     if dev.type == "cuda":
         dtype = parts[0].dtype
         if dtype != torch.bfloat16:
             raise TypeError(f"the CUDA int8 stage takes bfloat16 activations, got {dtype}")
         widths = (block_params[2].shape[0], spade_params[0].shape[0],
                   spade_params[2].shape[0], 0 if head is None else head[0].shape[0])
-        if not stage_supported(parts, *widths, int8=True):
-            raise _refused(parts, *widths, int8=True)
-        qparts, scales, _ = _quantize_parts(parts, calib_key)
+        if not stage_supported(parts, *widths, int8=True, up=up, down=down):
+            raise _refused(parts, *widths, int8=True, up=up, down=down)
+        qparts, scales, _ = _quantize_parts(parts, calib_key, up=up)
         if packed is None:
             packed = pack_stage_int8(block_params, spade_params, head, dtype)
-        th = band_rows(parts[0].shape[1]) if th is None else th
-        return _run_cuda(qparts, scales, dtype, packed, th, out_abs_max, intermediates)
+        h = seam_shape(parts[0], seam_modes(len(parts), up, down)[0])[1]
+        th = band_rows(h) if th is None else th
+        return _run_cuda(qparts, scales, dtype, packed, th, out_abs_max, intermediates, up, down)
     raise ValueError(f"int8 fused stage has no path for device {dev}")

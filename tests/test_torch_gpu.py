@@ -737,6 +737,100 @@ def test_s8_conv_core_matches_plain(name):
     assert y.shape == (n, h, w, cout) and torch.equal(y, want_y)
 
 
+# The s8 conv core reading a seam (csrc/int8_conv.cuh read modes: 1 the
+# decoder's upsample seam from its s8 half-height tensor, 2 the encoder's
+# pool seam from its full-resolution s8 tensor) in launch A and in launch
+# B's shortcut, at every N instantiation, against the per-launch plain
+# versions with the same flags (``read_seams_s8``) and the same launch on
+# the materialized s8 seam, bit for bit. (kind, parts' widths, output
+# channels, logical N x H x W, band rows, the seam part)
+S8_SEAM_CASES = {
+    "up-n64": ("up", (64, 128), 64, (2, 32, 24), 16, 1),
+    "up-n128-hh-odd": ("up", (128, 256), 128, (1, 22, 16), 22, 1),
+    "up-n192": ("up", (16, 20), 192, (1, 16, 24), 16, 1),
+    "up-n256-unaligned": ("up", (24, 40), 256, (2, 8, 20), 8, 1),
+    "pool-n64-rgb": ("pool", (3,), 64, (2, 20, 18), 20, 0),
+    "pool-n128": ("pool", (64,), 128, (1, 32, 32), 16, 0),
+    "pool-n192-narrow": ("pool", (20,), 192, (1, 16, 24), 16, 0),
+    "pool-n256": ("pool", (128,), 256, (2, 16, 16), 16, 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(S8_SEAM_CASES))
+def test_s8_conv_core_reads_its_seams_as_plain(name):
+    from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
+
+    dev = _card()
+    kind, chans, cout, (n, h, w), th, i = S8_SEAM_CASES[name]
+    gen = torch.Generator().manual_seed(11)
+    s8 = lambda *shape: torch.randint(-127, 128, shape, generator=gen).to(torch.int8).to(dev)
+    shapes = [(n, h, w, c) for c in chans]
+    shapes[i] = (n, h // 2, w, chans[i]) if kind == "up" else (n, 2 * h, 2 * w, chans[i])
+    qparts = tuple(s8(*sh) for sh in shapes)
+    flags = tuple(j == i for j in range(len(chans)))
+    kw = dict(up=flags) if kind == "up" else dict(down=flags)
+    conv1 = q8.pack_s8_conv([s8(cout, c, 3, 3) for c in chans], "h1")
+    conv2 = q8.pack_s8_conv([s8(cout, c, 1, 1) for c in chans] + [s8(cout, cout, 3, 3)], "y")
+    vec = lambda scale: (torch.rand(cout, generator=gen) * scale).to(dev)
+    d1, t1, d2, ds, t2 = vec(1e-5), vec(0.5) - 0.2, vec(1e-2), vec(1e-5), vec(0.5) - 0.2
+    before = q8.conv_launches
+    h1, rowmax = q8.s8_conv1(qparts, conv1, d1, t1, **kw)
+    qh1, bandscale = q8.band_quant(h1, rowmax, th)
+    y = q8.s8_conv2(qh1, bandscale, qparts, conv2, d2, ds, t2, **kw)
+    torch.cuda.synchronize()
+    assert q8.conv_launches == before + 2
+    want_h1, want_rowmax = q8.s8_conv1_reference(qparts, conv1, d1, t1, **kw)
+    assert h1.shape == (n, h, w, cout) and torch.equal(h1, want_h1)
+    assert torch.equal(rowmax, want_rowmax) and h1.max() > 0
+    assert torch.equal(y, q8.s8_conv2_reference(qh1, bandscale, qparts, conv2, d2, ds, t2, **kw))
+    mat = q8.read_seams_s8(qparts, **kw)
+    assert torch.equal(h1, q8.s8_conv1(mat, conv1, d1, t1)[0])
+    assert torch.equal(y, q8.s8_conv2(qh1, bandscale, mat, conv2, d2, ds, t2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,chans,planes,nhw,ncls,th,mode", [
+    ("up", (64, 128), 64, (2, 32, 24), 3, None, "dynamic"),   # conv0_1-like, folded head
+    ("up", (128, 256), 128, (1, 64, 16), 0, 32, "static"),    # conv1_1-like, ":half" range
+    ("pool", (64,), 128, (2, 16, 24), 0, None, "qtensor"),    # conv1_0-like, s8 producer
+    ("pool", (128,), 256, (1, 32, 16), 0, 16, "dynamic"),     # conv2_0-like, two bands
+])
+def test_int8_stage_reads_its_seam_as_plain(kind, chans, planes, nhw, ncls, th, mode):
+    """Kernel 7 reading a seam (launch A's windows and launch B's shortcut)
+    against its plain version: h1 and y bit for bit; the seam counts one
+    read per stage call."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
+
+    dev = _card()
+    n, h, w = nhw
+    _, bp, sp, head = _int8_stage(dev, chans, planes, 3, nhw, ncls, seed=12)
+    gen = torch.Generator().manual_seed(13)
+    if kind == "up":
+        parts = (_bf16(gen, (n, h, w, chans[0]), dev), _bf16(gen, (n, h // 2, w, chans[1]), dev))
+        seams = dict(up=(False, True))
+    else:
+        parts = (_bf16(gen, (n, 2 * h, 2 * w, chans[0]), dev),)
+        seams = dict(down=(True,))
+    kw = dict(seams, th=th)
+    try:
+        if mode == "static":
+            q8.set_int8_calibration({"s:0": 2.5, "s:1": 2.0, "s:1:half": 2.2})
+            kw["calib_key"] = "s"
+        if mode == "qtensor":
+            parts = (q8.QTensor(q8.quantize_tensor(parts[0], 3.0)[0], 3.0 / 127.0,
+                                torch.bfloat16),)
+        reads = (q8.up_reads, q8.pool_reads)
+        got, want = _int8_both(parts, bp, sp, head, **kw)
+        assert (q8.up_reads - reads[0], q8.pool_reads - reads[1]) == (
+            (1, 0) if kind == "up" else (0, 1))
+    finally:
+        q8.set_int8_calibration(None)
+    assert got.shape == want.shape == (n, h, w, ncls or planes)
+    errs, ok = _close(got, want)
+    assert ok, errs
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("abs_max", [None, 63.5, 3.0], ids=["dynamic", "static", "saturating"])
@@ -803,10 +897,11 @@ def test_int8_block_library_route_is_exact():
 @pytest.mark.gpu
 def test_int8_flagship_forward_kernel_matches_plain(monkeypatch):
     """Full-width flagship at 64x64, calibrated int8: six int8 kernel stages
-    per forward and s8 between the encoder stages; the logits against the
-    same forward with every stage on the plain version and against f32, by
-    the bf16 forward's bar (the kernel no further from f32 than 1.25 times
-    the plain int8 forward, kernel and plain closer than plain and f32)."""
+    per forward, reading 2 up and 2 pool seams in s8, and s8 between the
+    encoder stages; the logits against the same forward with every stage on
+    the plain version and against f32, by the bf16 forward's bar (the
+    kernel no further from f32 than 1.25 times the plain int8 forward,
+    kernel and plain closer than plain and f32)."""
     from ssunet_gan_tpu_torch.infer.calibrate import calibrate_int8
     from ssunet_gan_tpu_torch.models import ssunet
     from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
@@ -821,15 +916,18 @@ def test_int8_flagship_forward_kernel_matches_plain(monkeypatch):
             f32 = model(x)  # the all-plain f32 forward
         calibrate_int8(model, x.cpu().numpy(), batch_size=2)
         q8.set_int8_stage(True)
-        before = q8.launches
+        before = q8.launches, q8.up_reads, q8.pool_reads
         with torch.no_grad():
             got = model(x.to(torch.bfloat16))
         torch.cuda.synchronize()
-        assert q8.launches == before + 6
+        assert (q8.launches, q8.up_reads, q8.pool_reads) == (before[0] + 6, before[1] + 2,
+                                                             before[2] + 2)
         monkeypatch.setattr(
             ssunet, "fused_eval_stage_int8",
-            lambda parts, bp, sp, head=None, calib_key=None, out_abs_max=None, packed=None:
-            q8.int8_stage_reference(parts, bp, sp, head, calib_key, out_abs_max))
+            lambda parts, bp, sp, head=None, calib_key=None, out_abs_max=None, packed=None,
+            up=None, down=None:
+            q8.int8_stage_reference(parts, bp, sp, head, calib_key, out_abs_max, up=up,
+                                    down=down))
         with torch.no_grad():
             plain = model(x.to(torch.bfloat16))
     finally:

@@ -215,9 +215,10 @@ def test_bneck_stage_reads_its_up_seam_as_jax(rng, dtype):
 
 def test_gate_takes_the_seams_it_can_read(monkeypatch):
     """``stage_supported`` / ``bneck_supported`` with seams judge the
-    logical shape, take bf16 eval stages only, and refuse a pool seam of
-    odd height or width and an up seam whose half height has no exact
-    weights (1, or one the guard rejects)."""
+    logical shape, take eval stages only (bf16; the int8 stage's own terms:
+    tests/test_torch_int8_seams.py), and refuse a pool seam of odd height
+    or width and an up seam whose half height has no exact weights (1, or
+    one the guard rejects)."""
     bf = torch.bfloat16
     skip, half = torch.zeros((1, 16, 8, 8), dtype=bf), torch.zeros((1, 8, 8, 16), dtype=bf)
     up, pooled = (False, True), (True,)
@@ -227,7 +228,7 @@ def test_gate_takes_the_seams_it_can_read(monkeypatch):
     assert not ok((skip, half.float()), 16, 3, 4, up=up)          # f32 takes no seam
     assert not ok((skip.float(), half.float()), 16, 3, 4, up=up)
     assert not ok((skip, half), 16, 3, 4, up=up, train=True)      # training materializes
-    assert not ok((skip, half), 16, 3, 4, up=up, int8=True)       # so does the int8 mode
+    assert ok((skip, half), 16, 3, 4, up=up, int8=True)           # the int8 stage, in s8
     assert ok((torch.zeros((1, 32, 16, 8), dtype=bf),), 16, 3, 4, down=pooled)
     assert not ok((torch.zeros((1, 32, 17, 8), dtype=bf),), 16, 3, 4, down=pooled)
     assert not ok((torch.zeros((1, 33, 16, 8), dtype=bf),), 16, 3, 4, down=pooled)
