@@ -27,9 +27,11 @@ Phases, each of which exits non-zero on failure:
    logits are O(1), as in a trained model, instead of shrinking stage by
    stage), 512² bf16 tiles, batch 8; tiles/s, six kernel runs per
    forward, logits against the all-plain forward on the card in bf16 and
-   in f32 (an f32 forward on the card runs every stage through the module
-   composition, which the stage gate sends f32 to); and that f32 forward
-   at batch 1 against the CPU's, with no kernel stage launched.
+   in f32 (the fused stages off: every stage the module composition); the
+   f32 route of kernel 1 (``csrc/fused_stage_f32.cu``) per stage signature
+   against its plain version in f32 and timed (``f32 stage:`` lines); and
+   an f32 forward at batch 1, its six fused stages on the f32 route,
+   against the CPU's.
 3. Scene request: segmentation_inference on a seeded 2048² uint8 scene
    (patch 1024, overlap 0.5: 36 tiles, two chunks of 32, the last padded);
    the chunked forward's tile probabilities and the masks against the
@@ -145,7 +147,7 @@ Phases, each of which exits non-zero on failure:
    and checked; 3 up and 3 pool s8 seams per forward, conv3_1's up seam
    materialized as its producer conv4_0 is deep) and phase 11's trainer
    with ``set_fused_spade("pallas")`` (8 kernel-9 launches per step).
-13. The training entry point (last): ``run_experiment`` on
+13. The training entry point (after phase 11): ``run_experiment`` on
    configs/config_v1.json's opt_config with its paths in a temporary
    directory (the flagship at 512², batch 8, Adam, bf16) over 16 synthetic
    scenes for 2 epochs, train kernel launches per step against PER_STEP,
@@ -182,6 +184,33 @@ Phases, each of which exits non-zero on failure:
    preparation, H2D / forward / merge (CUDA events), D2H, the ground
    truth, the overlays' blend and JPEG encoding, the unpipelined and
    pipelined totals, tiles/s and the CLI's wall time.
+15. The adversarial fine-tune through its entry points (last): the
+   flagship of config_v1.json at full width (BN statistics calibrated as in
+   phase 2) saved by the port as the supervised ``generator_name`` (flat
+   card and ``model.pth``), a ``Generator`` warm-started from it (every
+   tensor equal) and the SRGAN discriminator at the trainer's width (64
+   channels, 8 blocks, fc 1024); step 1 on STEP1_BATCHES seeded batches
+   against the same GAN step on the plain versions (bf16) and on the module
+   composition (f32) by phase 6's pooled bars: the perceptual and D losses,
+   every G and D gradient after the ±0.8 clip, D's running statistics after
+   their three updates, G's after its train forward; G's validation loss
+   before and after two train forwards through the kernels and through the
+   f32 composition (printed); the joint formulation against the alternating
+   one from the same weights (updates and both networks' running
+   statistics within the plain-bf16 distance); GAN_WARM + GAN_STEPS steps of each at 512², batch
+   8, bf16, Adam 2e-5 (``gan step:`` lines beside phase 6's ms/step;
+   PER_STEP's v3 launches per step; finite metrics; D's statistics moved);
+   a profile of one joint step split into G's train kernels, D's part (the
+   step less the same step with a one-layer D) and the rest (``gan
+   profile:``); ``run_gan_experiment`` for 2
+   epochs of 16 synthetic scenes with launches per step, ``log.csv``, both
+   state directories, a resume for a third epoch, the best ``model.pth``
+   into a fresh ``Generator`` with a bit-equal tile forward, its f32
+   evaluations on the f32 route of kernel 1 (launches counted); then
+   ``python -m
+   ssunet_gan_tpu_torch.cli.train_seg_gan`` in a process of its own for one
+   epoch on a 16 / 4 / 4 Sub-row PNG tree, warm-started from its own
+   supervised directory.
 
 Each path's profile also gives a ``tail:`` line: the shared SPADE tail
 kernel's time and launches per forward or step beside its bound; the
@@ -194,8 +223,9 @@ Each phase prints its wall time. Prints a ``kernels`` JSON line
 for the int8 eval kernel, phase 6 for the train kernels, where wgrad, v2's
 alone, has none, phase 10 for the bottleneck kernel, phase 11's trainer
 for the self-SPADE kernel; with SSUNet's (phase 12: kernels 1, 7 and 9),
-the entry point's (phase 13: kernels 2, 3, 5 and 6) and the scene entry
-point's (phase 14: kernels 1 and 7) added, and each
+the entry point's (phase 13: kernels 2, 3, 5 and 6), the scene entry
+point's (phase 14: kernels 1 and 7) and the GAN's (phase 15: kernels 2,
+3, 5 and 6, and kernel 1's stages in its evaluations, none) added, and each
 row's ``launches_by_path`` — error, time, plain time, bound, library
 time), and ends with ``{"ok": true, "device": {...}}``. Every check that
 fails is printed and the run exits non-zero
@@ -237,13 +267,17 @@ REL_TOL, ABS_TOL, L2_TOL = 2e-2, 1e-3, 1e-2
 # MASK_AGREEMENT of the pixels (a kernel that keeps only the logits' sign
 # agrees on about half).
 NOISE_RATIO = 1.1
-# An f32 forward on the card (the stage gate refuses f32: the module
-# composition, TF32 off) against the same forward on the CPU: the same f32
-# arithmetic in another summation order, relative L2 of the logits. A last-
-# bit difference can move a max-pool's winner, which the unpool carries
-# to another pixel (measured on the H100 at 512²: 1.47e-3); bf16 forwards
-# are ~0.1 apart.
+# An f32 forward on the card (its fused stages on the f32 route of kernel
+# 1, the rest the module composition, TF32 off) against the same forward
+# on the CPU: the same f32 arithmetic in another summation order, relative
+# L2 of the logits. A last-bit difference can move a max-pool's winner,
+# which the unpool carries to another pixel (measured on the H100 at 512²,
+# all composition: 1.47e-3); bf16 forwards are ~0.1 apart.
 F32_CARD_TOL = 1e-2
+# The f32 route of kernel 1 per stage against its plain version (f32, TF32
+# off): the same f32 products summed in another order; max abs error over
+# max |plain| and relative L2.
+F32_STAGE_TOL = 1e-4
 MASK_SLACK = 0.002
 MASK_AGREEMENT = 0.95
 # a mask check has power only where the masks are not near-constant
@@ -251,6 +285,7 @@ MASK_SHARE = (0.01, 0.99)
 # H100 SXM peaks (NVIDIA data sheet): bf16 dense tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_S8_OPS = 1979e12
+PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 PEAK_BYTES = 3.35e12
 # An emitted s8 stage output against the plain version's: equal on at least
 # S8_EQUAL of the elements, never more than one step apart (a 1-ulp flip of
@@ -505,6 +540,20 @@ def patched(module, name, fn):
         yield orig
     finally:
         setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def fused_stages_off():
+    """The model's BasicBlock and VGG stages as the module composition while
+    active (``set_fused_stage(False)``): the f32 all-plain forwards, which
+    would otherwise take the f32 route of kernel 1."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel
+
+    stage_kernel.set_fused_stage(False)
+    try:
+        yield
+    finally:
+        stage_kernel.set_fused_stage(None)
 
 
 def random_bn_stats(module, gen) -> None:
@@ -830,6 +879,72 @@ def seeded_stage_phase(dev, sigs, block_cls, gen, phase, check, int8=False, seam
     return tuple(worst)
 
 
+def f32_stage_phase(dev, sigs, block_cls, gen, check) -> dict:
+    """The f32 route of kernel 1 (``csrc/fused_stage_f32.cu``): each fused
+    stage signature at 512² with seeded weights (as
+    :func:`seeded_stage_phase`) and f32 inputs, at batch 2 against the
+    stage's plain version in f32 (TF32 off) to F32_STAGE_TOL, then timed at
+    BATCH beside the plain version and its bound (f32 operations on the
+    CUDA cores, or the f32 bytes; ``f32 stage:`` lines and their sum per
+    forward). Returns the ``kernels`` row's numbers."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel
+    from ssunet_gan_tpu_torch.ops.conv import Conv2d
+    from ssunet_gan_tpu_torch.ops.spade import SPADE
+
+    worst, tot = 0.0, {"ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    for name, chans, planes, lab, nh, head_cls, level in sigs:
+        block = block_cls(sum(chans), planes, generator=gen)
+        random_bn_stats(block, gen)
+        spade = SPADE("spadebatch3x3", planes, lab, float(nh), generator=gen)
+        head = None
+        if head_cls:
+            final = Conv2d(planes, head_cls, 1, generator=gen).to(dev)
+            head = (final.weight, final.bias)
+        block.to(dev).eval()
+        spade.to(dev)
+        bp, sp = block.stage_params(), spade.stage_params()
+        pk = stage_kernel.pack_stage_f32(chans, bp, sp, head)
+        side = HW >> level
+        what = f"phase 2: f32 stage {name} parts={chans} planes={planes} hidden={nh}"
+        parts = tuple(torch.randn((2, side, side, c), generator=gen).to(dev) for c in chans)
+        got = stage_kernel.fused_eval_stage(parts, bp, sp, head, pk)
+        want = stage_kernel.fused_stage_reference(parts, bp, sp, head)
+        diff = got - want
+        err, scale = diff.abs().max().item(), want.abs().max().item()
+        l2 = (diff.norm() / want.norm().clamp_min(1e-30)).item()
+        print(f"{what} {side}x{side} batch 2 max_abs_err={err:.4g} max_rel_err="
+              f"{err / max(scale, 1e-30):.4g} rel_l2={l2:.3g} (max|plain|={scale:.4g})")
+        check(bool(torch.isfinite(got).all()) and got.shape == want.shape
+              and err <= F32_STAGE_TOL * scale and l2 <= F32_STAGE_TOL,
+              f"{what}: the f32 route disagrees with plain (err {err}, max {scale}, l2 {l2})")
+        worst = max(worst, err)
+        del parts, got, want, diff
+        parts = tuple(torch.randn((BATCH, side, side, c), generator=gen).to(dev) for c in chans)
+        settle()
+        ms = cuda_ms(lambda: stage_kernel.fused_eval_stage(parts, bp, sp, head, pk), 3)
+        plain_ms = cuda_ms(lambda: stage_kernel.fused_stage_reference(parts, bp, sp, head), 3)
+        cin = sum(chans)
+        macs = (9 * cin * planes + 9 * planes * planes + (cin * planes if bp[4] is not None else 0)
+                + 9 * planes * lab + 9 * lab * nh + 9 * nh * 2 * planes + planes * head_cls)
+        flops = 2.0 * macs * BATCH * side * side
+        nbytes = (sum(p.numel() for p in parts) + sum(t.numel() for t in
+                  stage_kernel.packed_tensors(pk)) + BATCH * side * side * (head_cls or planes)) * 4
+        bound, kind = bound_of(flops, nbytes, PEAK_F32_FLOPS)
+        print(f"f32 stage: {name} {side}x{side} batch {BATCH}: {ms:.3f} ms, plain {plain_ms:.3f} "
+              f"ms, bound {bound:.3f} ms ({kind}; {flops / ms / 1e9:.1f} TFLOP/s)")
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["flops"] += flops
+        tot["bytes"] += nbytes
+        del parts, block, spade, pk
+    torch.cuda.empty_cache()
+    bound, kind = bound_of(tot["flops"], tot["bytes"], PEAK_F32_FLOPS)
+    print(f"f32 stage: per flagship forward (batch {BATCH}, {len(sigs)} stages): "
+          f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound {bound:.3f} ms ({kind})")
+    return {"max_abs_err": worst, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": bound, "bound_by": kind}
+
+
 def model_stage_phase(dev, model, sigs, scene_tiles, phase, name, check, seams) -> dict:
     """Each fused stage of ``model`` with the model's weights on its own
     inputs, captured from an all-plain forward over the scene request's
@@ -1019,13 +1134,14 @@ def bf16_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, ch
         logits_p = model(xn.to(torch.bfloat16))
         probs_p = _chunked_forward(model, scene_tiles)
         plain_masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False)
-    before = stage_kernel.launches
-    with torch.no_grad():
+    before = stage_kernel.launches, stage_kernel.f32_launches
+    with fused_stages_off(), torch.no_grad():
         logits_f = model(xn)
-    probs_f = _chunked_forward(model, scene_tiles, torch.float32)
-    f32_masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False,
-                                          dtype=torch.float32)
-    check(stage_kernel.launches == before, f"{tile_p}: an f32 {name} forward launched kernel 1")
+        probs_f = _chunked_forward(model, scene_tiles, torch.float32)
+        f32_masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False,
+                                              dtype=torch.float32)
+    check((stage_kernel.launches, stage_kernel.f32_launches) == before,
+          f"{tile_p}: the f32 all-plain {name} forward launched kernel 1")
     e_logits = forward_bar(f"{tile_p}: {name} logits", logits_k, logits_p, logits_f, check)[0]
     e_probs = forward_bar(f"{scene_p}: {name} scene tile probabilities", probs_k, probs_p,
                           probs_f, check)[0]
@@ -1600,7 +1716,7 @@ def print_profile(what, step_fn, ms_step):
 
 def train_phases(dev, cfg, card, sigs, check):
     """Phases 4-6; returns (launch counts of the main path, max abs error
-    per kernel, per-step time totals per kernel)."""
+    per kernel, per-step time totals per kernel, the v3 step's ms)."""
     from ssunet_gan_tpu_torch.models import build_model, ssunet
 
     ncls, in_ch = cfg["num_classes"], cfg["input_channels"]
@@ -1812,7 +1928,7 @@ def train_phases(dev, cfg, card, sigs, check):
     with train_backward("v2"):
         print_profile("v2", lambda: step(xb, yb, lr), ms_step_v2)
     phase_done("phase 6 profiles", t0)
-    return counts, train_err, totals
+    return counts, train_err, totals, ms_step
 
 
 # ---------------------------------------------------------------------------
@@ -2715,11 +2831,11 @@ def bneck_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, c
         probs_p = _chunked_forward(model, scene_tiles)
         plain_masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False)
     before = kb.launches
-    with torch.no_grad():
+    with fused_stages_off(), torch.no_grad():
         logits_f = model(xn)
-    probs_f = _chunked_forward(model, scene_tiles, torch.float32)
-    f32_masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False,
-                                          dtype=torch.float32)
+        probs_f = _chunked_forward(model, scene_tiles, torch.float32)
+        f32_masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False,
+                                              dtype=torch.float32)
     check(kb.launches == before, "phase 10: an f32 forward launched the bf16 kernel")
     forward_bar("phase 10: UNet_B_SS logits", logits_k, logits_p, logits_f, check)
     forward_bar("phase 10: UNet_B_SS scene tile probabilities", probs_k, probs_p, probs_f, check)
@@ -3150,6 +3266,28 @@ def png_decode_line(root, name, split, card) -> None:
         inflate_ms_per_item=inflate_s / n * 1e3, card=card)))
 
 
+def run_cli(module, here, tmp, dev, overrides):
+    """``python -m <module> --config <file> --device <dev>`` in a process of
+    its own, the file config_v1.json with ``overrides`` for one epoch on the
+    PNG tree ``<tmp>/inputs/pngs``, its models in ``<tmp>/cli_models``.
+    Returns (the finished process, its seconds, the opt_config it ran)."""
+    with open(os.path.join(here, "configs", "config_v1.json")) as f:
+        raw = json.load(f)
+    raw["file_path"] = {"input_path": os.path.join(tmp, "inputs"),
+                        "model_path": os.path.join(tmp, "cli_models"),
+                        "output_path": os.path.join(tmp, "outputs"),
+                        "checkpoint_path": os.path.join(tmp, "cli_checkpoint")}
+    raw["opt_config"].update(overrides, epochs=1, dataset="pngs", val_dataset="pngs")
+    cli_config = os.path.join(tmp, module.rsplit(".", 1)[-1] + ".json")
+    with open(cli_config, "w") as f:
+        json.dump(raw, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, "--config", cli_config,
+                           "--device", dev.type], cwd=here, env=dict(os.environ, PYTHONPATH=here),
+                          capture_output=True, text=True, timeout=600)
+    return proc, time.perf_counter() - t0, raw["opt_config"]
+
+
 def entry_point_phase(dev, card, here, check, overrides=None):
     """Phase 13: ``run_experiment`` on config_v1.json's opt_config (the
     flagship at 512², batch 8, Adam, bf16) with its paths in a temporary
@@ -3312,22 +3450,7 @@ def entry_point_phase(dev, card, here, check, overrides=None):
                 sys.modules["yaml"] = yaml_before
 
         # the CLI on PNG files, in a process of its own
-        with open(config_path) as f:
-            raw = json.load(f)
-        raw["file_path"] = {"input_path": os.path.join(tmp, "inputs"),
-                            "model_path": os.path.join(tmp, "cli_models"),
-                            "output_path": os.path.join(tmp, "outputs"),
-                            "checkpoint_path": os.path.join(tmp, "cli_checkpoint")}
-        raw["opt_config"].update(overrides, epochs=1, dataset="pngs", val_dataset="pngs")
-        cli_config = os.path.join(tmp, "cli.json")
-        with open(cli_config, "w") as f:
-            json.dump(raw, f)
-        env = dict(os.environ, PYTHONPATH=here)
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "ssunet_gan_tpu_torch.cli.train",
-                               "--config", cli_config, "--device", dev.type], cwd=here, env=env, capture_output=True,
-                              text=True, timeout=600)
-        cli_s = time.perf_counter() - t0
+        proc, cli_s, _ = run_cli("ssunet_gan_tpu_torch.cli.train", here, tmp, dev, overrides)
         tail = [ln for ln in proc.stdout.splitlines() if " - iou " in ln or "saved" in ln]
         print(f"phase 13: python -m ssunet_gan_tpu_torch.cli.train on {sum(n for _, n in CLI_SPLITS)}"
               f" PNGs at {size}x{size} (train_transform on): exit {proc.returncode} in {cli_s:.1f} s "
@@ -3693,6 +3816,422 @@ def scene_phase(dev, card, here, check, quant_per_forward, scene_hw=SCENE_HW,
     return launches, tuple(seams), tuple(seams8)
 
 
+# phase 15: the GAN step's warm-up and timed steps per formulation; the
+# kernels of the generator's fused train stages by their profiler names
+GAN_WARM, GAN_STEPS = 2, 5
+G_KERNELS = ("fused_conv3_kernel", "fused_wgrad_kernel", "stats_reduce_kernel", "eval_conv_core",
+             "spade_tail_kernel")
+CONV_NAMES = ("conv", "xmma", "gemm", "sm90", "cutlass", "implicit", "dgrad", "wgrad", "fprop")
+
+
+class GlobalMean(torch.nn.Module):
+    """NHWC maps to their per-channel means in f32: the body of the one-layer
+    discriminator that the GAN profile subtracts."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.float().mean((1, 2))
+
+
+def gan_phase(dev, card, here, check, sup_ms_step, overrides=None):
+    """Phase 15: the adversarial fine-tune (``train/gan.py``) with the
+    flagship of config_v1.json at full width as G (BN statistics calibrated
+    as in phase 2, saved as the supervised ``generator_name`` and warm-started
+    from it) and the SRGAN discriminator at the trainer's width: step 1 on
+    STEP1_BATCHES seeded batches against the plain versions (bf16) and the
+    module composition (f32) by phase 6's pooled bars; the joint formulation
+    against the alternating one; GAN_WARM + GAN_STEPS timed steps of each
+    (launches per step = PER_STEP["v3"]); a profile of one joint step; then
+    ``run_gan_experiment`` (2 epochs of 16 synthetic scenes, a resume for a
+    third, ``model.pth`` reloaded) and ``python -m
+    ssunet_gan_tpu_torch.cli.train_seg_gan`` for one epoch on a 16 / 4 / 4
+    Sub-row PNG tree. ``overrides`` replace opt_config keys (a rehearsal on
+    the CPU makes the tiles small; it skips the timing and the profile).
+    Returns the kernel launches on this path (the train kernels', and the
+    f32 stages of its evaluations under ``fused_eval_stage_f32``)."""
+    import tempfile
+
+    from ssunet_gan_tpu_torch.config import dump_model_card, load_experiment_config, load_model_card
+    from ssunet_gan_tpu_torch.data import png
+    from ssunet_gan_tpu_torch.data.dataset import SyntheticDataset
+    from ssunet_gan_tpu_torch.data.loader import BatchLoader
+    from ssunet_gan_tpu_torch.data.transforms import val_transform
+    from ssunet_gan_tpu_torch.infer.api import _norm_consts, tile_forward
+    from ssunet_gan_tpu_torch.models import build_model, ssunet
+    from ssunet_gan_tpu_torch.models.gan import Discriminator, Generator
+    from ssunet_gan_tpu_torch.ops import stage_kernel
+    from ssunet_gan_tpu_torch.ops.conv import Dense
+    from ssunet_gan_tpu_torch.ops.losses import get_loss
+    from ssunet_gan_tpu_torch.ops.norm import BatchNorm
+    from ssunet_gan_tpu_torch.train import checkpoint as ckpt
+    from ssunet_gan_tpu_torch.train import gan as gan_train
+    from ssunet_gan_tpu_torch.train import gan_step
+    from ssunet_gan_tpu_torch.train.optim import adam
+    from ssunet_gan_tpu_torch.train.step import make_eval_step
+    from ssunet_gan_tpu_torch.train.supervised import train_one_epoch
+    from ssunet_gan_tpu_torch.utils import count_params
+
+    t_start = t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    cfg = load_experiment_config(os.path.join(here, "configs", "config_v1.json"))
+    cfg.opt_config.update(overrides or {})
+    opt = cfg.opt_config
+    size, ncls, in_ch = int(opt["input_h"]), opt["num_classes"], opt["input_channels"]
+    lr, gname = float(opt["gan_lr"]), opt["generator_name"]
+    per_step = PER_STEP["v3"]
+    loss_fn = get_loss(opt["loss"])
+    fused_stage = ssunet.spade_stage
+    launches = {k: 0 for k in TRAIN_KERNELS}
+    bf16 = torch.bfloat16
+
+    def count_launches(what, n_steps):
+        got = read_launches()
+        print(f"phase 15: {what}: train kernel launches {got} in {n_steps} steps")
+        check(got == {k: n_steps * v for k, v in per_step.items()},
+              f"phase 15: {what}: launches {got} != {n_steps} x {per_step}")
+        for k in got:
+            launches[k] += got[k]
+        reset_launches()
+
+    def loader(n_steps, seed):
+        ds = SyntheticDataset(n_steps * TRAIN_BATCH, size, size, ncls, in_ch,
+                              transform=val_transform(opt), seed=seed)
+        return BatchLoader(ds, TRAIN_BATCH, shuffle=False, drop_last=True,
+                           num_workers=int(opt["num_workers"]))
+
+    def batch(seed):
+        it = iter(loader(1, seed))
+        _, img, mask, _ = next(it)
+        it.close()
+        return torch.from_numpy(img).to(dev), torch.from_numpy(mask).to(dev)
+
+    yaml_before = sys.modules.get("yaml", None)
+    sys.modules["yaml"] = None  # the card machine has no PyYAML: the flat card
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg.file_path.model_path = os.path.join(tmp, "models")
+            cfg.file_path.checkpoint_path = os.path.join(tmp, "checkpoint")
+            # the supervised generator, as the port's trainer saves it (also
+            # for the CLI's own model directory)
+            sup = build_model(opt["arch"], ncls, in_ch, opt["deep_supervision"], seed=SEED,
+                              device=dev)
+            a, b = _norm_consts()
+            calib = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+                0, 256, (2, size, size, in_ch), dtype=np.uint8)).to(dev)
+            calibrate_batchnorm(sup, calib.float() * a.to(dev) + b.to(dev))
+            for root in ("models", "cli_models"):
+                sup_dir = os.path.join(tmp, root, gname)
+                dump_model_card(dict(opt, name=gname), sup_dir)
+                ckpt.save_model(sup_dir, sup)
+            g_config = dict(load_model_card(cfg.model_dir(gname)), name=gname)
+            generator = Generator.from_config(g_config, device=dev, seed=SEED + 70)
+            report = gan_train.warm_start(cfg, g_config, generator)
+            g_sd = generator.state_dict()
+            equal = all(torch.equal(g_sd["net." + k], v) for k, v in sup.state_dict().items())
+            print(f"phase 15: warm start from the supervised model.pth: {len(report['loaded'])} "
+                  f"tensors loaded, missing {report['missing']}, unmatched "
+                  f"{report['unmatched']}; every net. tensor equal to the saved one: {equal}")
+            check(equal and not report["missing"] and not report["unmatched"],
+                  "phase 15: the warm-started generator differs from the saved model")
+            del sup, calib, g_sd
+            disc = Discriminator(ncls, gan_train.D_KERNEL, gan_train.D_CHANNELS,
+                                 gan_train.D_BLOCKS, gan_train.D_FC,
+                                 generator=torch.Generator().manual_seed(SEED + 71)).to(dev)
+            print(f"phase 15: G {g_config['arch']} ({count_params(generator)} parameters), D "
+                  f"{gan_train.D_CHANNELS} channels x {gan_train.D_BLOCKS} blocks, fc "
+                  f"{gan_train.D_FC} ({count_params(disc)} parameters)")
+            d_bns = [(n, m) for n, m in disc.named_modules() if isinstance(m, BatchNorm)]
+            g_bns = [(n, m) for n, m in generator.named_modules() if isinstance(m, BatchNorm)]
+            snapshot = (copy.deepcopy(generator.state_dict()), copy.deepcopy(disc.state_dict()))
+
+            def restore():
+                generator.load_state_dict(snapshot[0])
+                disc.load_state_dict(snapshot[1])
+
+            def running(bns=d_bns):
+                return [t.detach().clone() for _, m in bns
+                        for t in (m.running_mean, m.running_var)]
+
+            # step 1 on seeded batches: the kernels, the plain versions (bf16)
+            # and the module composition (f32), from the same weights; G's
+            # running statistics are those its train forward left (the fused
+            # stages' Σ/Σx² on the kernel run)
+            def step1(x, y, dtype, stage):
+                restore()
+                with spade_stages_as(stage):
+                    m = gan_step.gan_gradients(generator, disc, loss_fn, x.to(dtype), y, ncls)
+                grads = lambda mod: [p.grad.detach().clone() for p in mod.parameters()]
+                return ([m["perceptual_loss"]] + grads(generator),
+                        [m["d_loss"]] + grads(disc), [m["d_loss"]] + running(),
+                        [m["perceptual_loss"]] + running(g_bns))
+
+            stat_names = lambda bns: [f"{n}.{k}" for n, _ in bns
+                                      for k in ("running_mean", "running_var")]
+            names = ([n for n, _ in generator.named_parameters()],
+                     [n for n, _ in disc.named_parameters()], stat_names(d_bns),
+                     stat_names(g_bns))
+            sums = ([], [], [], [])
+            for seed in range(1, STEP1_BATCHES + 1):
+                x, y = batch(seed)
+                kern = step1(x, y, bf16, fused_stage)
+                with plain_train_kernels():
+                    plain = step1(x, y, bf16, fused_stage)
+                f32 = step1(x, y, torch.float32, module_stage)
+                for i in range(4):
+                    sums[i].append(step1_sums(kern[i], plain[i], f32[i]))
+                print(f"phase 15: step 1 batch {seed} perceptual loss kernel "
+                      f"{kern[0][0].item():.6f} plain {plain[0][0].item():.6f} f32 "
+                      f"{f32[0][0].item():.6f}; D loss kernel {kern[1][0].item():.6f} plain "
+                      f"{plain[1][0].item():.6f} f32 {f32[1][0].item():.6f}")
+                del kern, plain, f32
+            for what, ss, nn_ in zip(("G (perceptual loss, gradients)", "D (loss, gradients)",
+                                      "D (loss, running statistics after 3 updates)",
+                                      "G (perceptual loss, running statistics after its "
+                                      "train forward)"),
+                                     sums, names):
+                ok, rows, bad = step1_bars(ss, nn_)
+                label = f"phase 15: step 1 {what} over batches 1-{STEP1_BATCHES} (pooled)"
+                for name, e_k, e_p, e_kp, held in rows:
+                    print(f"{label} {name}: rel_l2 kernel-f32 {e_k:.4g} plain-f32 {e_p:.4g} "
+                          f"kernel-plain {e_kp:.4g}{'' if held else '  <-- FAILED'}")
+                print(f"{label}: single tensors failing: {', '.join(bad) or 'none'}")
+                check(ok, f"{label}: bars {[r[0] for r in rows if not r[4]]}, tensors {bad}")
+
+            # G's validation forward (eval mode) before and after two train
+            # forwards without an update, through the kernels (bf16) and
+            # through the module composition (f32): the eval step's loss
+            # (NaN logits scrubbed to 0), the share of logits that are not
+            # finite and the largest finite one. Where the synthetic run's
+            # validation loss jumps, this shows which route does it.
+            eval_step = make_eval_step(generator, loss_fn, ncls)
+
+            def eval_probe(dtype, stage, forwards):
+                restore()
+                with torch.no_grad(), spade_stages_as(stage):
+                    generator.train()
+                    for seed in range(1, forwards + 1):
+                        generator(batch(seed)[0].to(dtype))
+                    xv, yv = batch(STEP1_BATCHES + 1)
+                    loss = eval_step(xv.to(dtype), yv)["loss"].item()
+                    out = generator(xv.to(dtype)).float()
+                fin = torch.isfinite(out)
+                top = out[fin].abs().max().item() if bool(fin.any()) else float("nan")
+                return f"loss {loss:.6g}, not finite {1 - fin.float().mean().item():.4f}, " \
+                       f"max |finite| {top:.4g}"
+
+            for n in (0, 2):
+                for what, dt, st in (("kernels", bf16, fused_stage),
+                                     ("f32 composition", torch.float32, module_stage)):
+                    print(f"phase 15: G's validation forward after {n} train forwards without "
+                          f"an update, {what}: {eval_probe(dt, st, n)}")
+            t_phase = phase_done("phase 15 step 1", t_phase)
+
+            # the joint formulation against the alternating one: one Adam step
+            # from the same weights on batch 1, within the plain-bf16 distance
+            x, y = batch(1)
+
+            def one_step(joint, dtype, stage):
+                restore()
+                gan_step.set_joint_gan(joint)
+                try:
+                    step = gan_step.make_gan_train_step(
+                        generator, disc, loss_fn, adam(generator.parameters()),
+                        adam(disc.parameters()), ncls)
+                    with spade_stages_as(stage):
+                        step(x.to(dtype), y, lr)
+                finally:
+                    gan_step.set_joint_gan(True)
+                delta = lambda mod, sd: torch.cat([(p.detach().float() - sd[n].float()).reshape(-1)
+                                                   for n, p in mod.named_parameters()])
+                flat = lambda ts: torch.cat([t.float().reshape(-1) for t in ts])
+                return (delta(generator, snapshot[0]), delta(disc, snapshot[1]), flat(running()),
+                        flat(running(g_bns)))
+
+            runs = {"joint": one_step(True, bf16, fused_stage),
+                    "alternating": one_step(False, bf16, fused_stage)}
+            with plain_train_kernels():
+                runs["plain"] = one_step(True, bf16, fused_stage)
+            runs["f32"] = one_step(True, torch.float32, module_stage)
+            for i, what in enumerate(("G update", "D update", "D running statistics",
+                                      "G running statistics")):
+                j, alt, p, f = (runs[k][i] for k in ("joint", "alternating", "plain", "f32"))
+                e_ja, e_pf = rel_l2(j, alt), rel_l2(p, f)
+                print(f"phase 15: joint against alternating, {what}: rel_l2 {e_ja:.4g} (bar: "
+                      f"plain-f32 {e_pf:.4g}); max abs {(j - alt).abs().max().item():.4g}")
+                check(bool(torch.isfinite(j).all()) and e_ja <= e_pf,
+                      f"phase 15: joint against alternating, {what}: {e_ja} > {e_pf}")
+            del runs
+            t_phase = phase_done("phase 15 joint against alternating", t_phase)
+
+            # the timed steps, each formulation from the same weights
+            ms_step = {}
+            for joint, what in ((True, "joint"), (False, "alternating")):
+                restore()
+                gan_step.set_joint_gan(joint)
+                try:
+                    step = gan_step.make_gan_train_step(
+                        generator, disc, loss_fn, adam(generator.parameters()),
+                        adam(disc.parameters()), ncls)
+                    before = running()
+                    reset_launches()
+                    warm = train_one_epoch(0, opt, loader(GAN_WARM, seed=1), step, lr, device=dev)
+                    count_launches(f"{what} warm-up", GAN_WARM)
+                    if cuda:
+                        settle()
+                    t1 = time.perf_counter()
+                    log = train_one_epoch(1, opt, loader(GAN_STEPS, seed=2), step, lr, device=dev)
+                    if cuda:
+                        torch.cuda.synchronize()
+                    dt = time.perf_counter() - t1
+                    count_launches(f"{what} timed", GAN_STEPS)
+                finally:
+                    gan_step.set_joint_gan(True)
+                ms_step[what] = dt / GAN_STEPS * 1e3
+                print(f"gan step: {what} {ms_step[what]:.2f} ms/step, "
+                      f"{TRAIN_BATCH * GAN_STEPS / dt:.2f} images/s ({size}x{size} bf16, batch "
+                      f"{TRAIN_BATCH}, Adam {lr:g} on G and D, {GAN_STEPS} steps after "
+                      f"{GAN_WARM} warm-up); the supervised step (phase 6) "
+                      f"{sup_ms_step:.2f} ms/step; on {card}")
+                print(f"phase 15: {what} epochs: warm-up {warm}; timed {log}")
+                check(all(np.isfinite(v) for lg in (warm, log) for v in lg.values()),
+                      f"phase 15: {what} metrics not finite: {warm} {log}")
+                moved = sum(bool((a != b).any()) for a, b in zip(running(), before))
+                print(f"phase 15: {what}: D's running statistics moved in {moved} of "
+                      f"{len(before)} buffers")
+                check(moved == len(before), f"phase 15: {what}: D's statistics moved in {moved}")
+            t_phase = phase_done("phase 15 timed steps", t_phase)
+
+            if cuda:  # where one joint step's device time goes: G's kernels, D's part, idle
+                def profiled_step(d):
+                    """One joint step's profile with discriminator ``d``."""
+                    step = gan_step.make_gan_train_step(generator, d, loss_fn,
+                                                        adam(generator.parameters()),
+                                                        adam(d.parameters()), ncls)
+                    restore()
+                    return profile_kernels(lambda: step(xb, y, lr), 1)
+
+                xb = x.to(bf16)
+                busy, wall_ms, rows = profiled_step(disc)
+                # D's part: the same step less the step with a one-layer D (a
+                # Dense over the fake's channel means)
+                null_d = torch.nn.Sequential(GlobalMean(), Dense(ncls, 1)).to(dev)
+                n_busy, _, n_rows = profiled_step(null_d)
+                g_ms = sum(r[0] for r in rows if any(k in r[2] for k in G_KERNELS))
+                conv_ms = lambda rs: sum(r[0] for r in rs
+                                         if any(k in r[2].lower() for k in CONV_NAMES))
+                d_busy, d_conv = busy - n_busy, conv_ms(rows) - conv_ms(n_rows)
+                by_key = {}
+                for sign, rs in ((1, rows), (-1, n_rows)):
+                    for ms, n, key in rs:
+                        t = by_key.setdefault(key, [0.0, 0])
+                        t[0] += sign * ms
+                        t[1] += sign * n
+                print(f"gan profile: one joint step (batch {TRAIN_BATCH}): device busy {busy:.3f} "
+                      f"ms over {sum(r[1] for r in rows)} kernels, {wall_ms:.3f} ms wall under "
+                      f"the profiler (idle share {max(0.0, 1 - busy / wall_ms):.3f}), "
+                      f"{ms_step['joint']:.3f} ms untraced (idle share "
+                      f"{max(0.0, 1 - busy / ms_step['joint']):.3f}); G's train kernels "
+                      f"{g_ms:.3f} ms; D's part {d_busy:.3f} ms (its convolution kernels "
+                      f"{d_conv:.3f}; the step with a one-layer D {n_busy:.3f}); the rest "
+                      f"{busy - g_ms - d_busy:.3f} ms; on {card}")
+                for ms, n, key in rows[:12]:
+                    print(f"gan profile: step {ms:9.3f} ms {n:4d}x {key[:90]}")
+                for key, (ms, n) in sorted(by_key.items(), key=lambda kv: -kv[1][0])[:6]:
+                    print(f"gan profile: D's part {ms:9.3f} ms {n:4d}x {key[:90]}")
+                del null_d
+                t_phase = phase_done("phase 15 profile", t_phase)
+            del generator, disc, snapshot
+            if cuda:
+                torch.cuda.empty_cache()
+
+            # the entry point in process: 2 epochs, a resume, model.pth reloaded
+            tiles = torch.from_numpy(np.random.default_rng(SEED + 73).integers(
+                0, 256, (BATCH, size, size, 3), dtype=np.uint8)).to(dev)
+            saved = {}
+            save_model = ckpt.save_model
+
+            def save_and_probe(model_dir, model):
+                """Save, then run the tile forward of the generator as saved."""
+                path = save_model(model_dir, model)
+                saved["probs"] = tile_forward(model, tiles, device=dev).clone()
+                return path
+
+            with patched(ckpt, "save_model", save_and_probe):
+                reset_launches()
+                stage_kernel.f32_launches = 0
+                _, _, best_iou, log = gan_train.run_gan_experiment(
+                    cfg, synthetic=ENTRY_SYNTHETIC, epochs_override=ENTRY_EPOCHS, device=dev)
+                steps = ENTRY_EPOCHS * (ENTRY_SYNTHETIC // opt["batch_size"])
+                count_launches("run_gan_experiment", steps)
+                mdir = cfg.model_dir()
+                with open(os.path.join(mdir, "log.csv")) as f:
+                    rows = f.read().splitlines()
+                print(f"phase 15: run_gan_experiment on config_v1.json, {ENTRY_EPOCHS} epochs of "
+                      f"{ENTRY_SYNTHETIC} synthetic scenes: best test IoU {best_iou:.4f}; log "
+                      f"{dict(log)}")
+                check(rows[0] == "epoch,lr,loss,iou,dice,val_loss,val_iou,val_dice"
+                      and len(rows) == 1 + ENTRY_EPOCHS and log["lr"] == [opt["lr"]] * ENTRY_EPOCHS,
+                      f"phase 15: log.csv {rows}")
+                check(os.path.isfile(os.path.join(mdir, "model.pth")) and "probs" in saved
+                      and all(ckpt.has_train_state(os.path.join(mdir, d))
+                              for d in ("generator_state", "discriminator_state")),
+                      "phase 15: model.pth or a state directory missing")
+                opt["resume"] = True
+                reset_launches()
+                _, _, _, log3 = gan_train.run_gan_experiment(
+                    cfg, synthetic=ENTRY_SYNTHETIC, epochs_override=ENTRY_EPOCHS + 1, device=dev)
+                opt["resume"] = False
+                print(f"phase 15: resumed from both state directories: epochs {log3['epoch']}")
+                check(log3["epoch"] == [ENTRY_EPOCHS],
+                      f"phase 15: the resume ran epochs {log3['epoch']}")
+                count_launches("the resumed epoch", steps // ENTRY_EPOCHS)
+                # evaluate feeds the loader's f32, as the JAX package does:
+                # G's fused stages take the f32 route of kernel 1
+                launches["fused_eval_stage_f32"] = stage_kernel.f32_launches
+            print(f"phase 15: f32 stages (kernel 1's f32 route) launched by the evaluations: "
+                  f"{launches['fused_eval_stage_f32']}")
+            check(launches["fused_eval_stage_f32"] > 0,
+                  "phase 15: the evaluations launched no f32 stage")
+            fresh = Generator.from_config(g_config, device=dev, seed=SEED + 72)
+            report = ckpt.load_model(mdir, fresh)
+            probs = tile_forward(fresh, tiles, device=dev)
+            same = torch.equal(probs, saved["probs"])
+            print(f"phase 15: the best model.pth into a fresh Generator: {len(report['loaded'])} "
+                  f"tensors, missing {report['missing']}, unmatched {report['unmatched']}; tile "
+                  f"forward equal to the saved generator's bit for bit: {same}")
+            check(same and not report["missing"] and not report["unmatched"],
+                  "phase 15: the generator reloaded from model.pth differs from the saved one")
+            del fresh, probs, saved, tiles
+            t_phase = phase_done("phase 15 run_gan_experiment, resume and reload", t_phase)
+
+            # the CLI in a process of its own, one epoch on a Sub-row PNG tree
+            write_png_tree(os.path.join(tmp, "inputs"), "pngs", CLI_SPLITS, size, ncls, in_ch,
+                           png.SUB)
+            proc, cli_s, cli_opt = run_cli("ssunet_gan_tpu_torch.cli.train_seg_gan", here, tmp,
+                                           dev, overrides or {})
+            cli_dir = os.path.join(tmp, "cli_models", cli_opt["name"])
+            lines = [ln for ln in proc.stdout.splitlines()
+                     if "warm start" in ln or " - iou " in ln or "saved" in ln]
+            print(f"phase 15: python -m ssunet_gan_tpu_torch.cli.train_seg_gan on "
+                  f"{sum(n for _, n in CLI_SPLITS)} PNGs at {size}x{size}: exit "
+                  f"{proc.returncode} in {cli_s:.1f} s on {card}; {lines}")
+            ok = proc.returncode == 0 and any("warm start" in ln for ln in lines)
+            if ok:
+                with open(os.path.join(cli_dir, "log.csv")) as f:
+                    ok = len(f.read().splitlines()) == 2 and os.path.isfile(
+                        os.path.join(cli_dir, "model.pth"))
+            check(ok, f"phase 15: the CLI exited {proc.returncode}: {proc.stdout[-1500:]} "
+                      f"{proc.stderr[-3000:]}")
+            phase_done("phase 15 CLI", t_phase)
+    finally:
+        gan_step.set_joint_gan(True)
+        if yaml_before is None:
+            sys.modules.pop("yaml", None)
+        else:
+            sys.modules["yaml"] = yaml_before
+    phase_done("phase 15", t_start)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
@@ -3731,7 +4270,8 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     sources = (stage_kernel.SOURCE, stage_kernel_train.SOURCE, train_bwd.SOURCE,
-               stage_kernel_int8.SOURCE, stage_kernel_bneck.SOURCE, spade_kernel.SOURCE)
+               stage_kernel_int8.SOURCE, stage_kernel_bneck.SOURCE, spade_kernel.SOURCE,
+               stage_kernel.SOURCE_F32)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         list(pool.map(_build.build, sources))
     print(f"phase 0: kernels built in {time.perf_counter() - t0:.2f} s")
@@ -3796,13 +4336,17 @@ def main() -> int:
                                "flagship", ("phase 2", "phase 3"), FLAGSHIP_SEAMS)
     t_phase = time.perf_counter()
 
-    # fault 3.1: an f32 forward on the card runs every stage through the
-    # module composition (the gate refuses f32, no kernel launches); the
-    # same forward on the CPU with the fused eval stages off is its yardstick
+    # the f32 route of kernel 1 per stage; then an f32 forward on the card,
+    # its fused stages on that route (the flagship's f32 path: the counts
+    # set to 0 just before it), the same forward on the CPU with the fused
+    # eval stages off its yardstick
+    f32_row = f32_stage_phase(dev, sigs, BasicBlock, gen, check)
     xn = x.float() * a.to(dev) + b.to(dev)
     before = stage_kernel.launches
+    stage_kernel.f32_launches = 0
     with torch.no_grad():
         f32_card = model(xn[:1]).cpu()
+    f32_row["launches"] = stage_kernel.f32_launches
     cpu_model = copy.deepcopy(model).cpu()
     stage_kernel.set_fused_stage(False)
     try:
@@ -3811,14 +4355,17 @@ def main() -> int:
     finally:
         stage_kernel.set_fused_stage(None)
     e_f32 = rel_l2(f32_card, f32_cpu)
-    print(f"phase 2: f32 flagship forward on the card through the composition ("
-          f"{stage_kernel.launches - before} kernel stages) against the CPU f32 forward: "
-          f"rel_l2 {e_f32:.4g} (bar {F32_CARD_TOL:g}), max|CPU| "
+    print(f"phase 2: f32 flagship forward on the card ({f32_row['launches']} stages on the "
+          f"f32 route, {stage_kernel.launches - before} bf16 ones) against the CPU f32 "
+          f"forward: rel_l2 {e_f32:.4g} (bar {F32_CARD_TOL:g}), max|CPU| "
           f"{f32_cpu.abs().max().item():.4g}")
-    check(stage_kernel.launches == before and bool(torch.isfinite(f32_card).all())
-          and e_f32 <= F32_CARD_TOL,
-          f"phase 2: f32 card forward: {stage_kernel.launches - before} kernel stages, "
-          f"rel_l2 {e_f32} from the CPU forward")
+    check(stage_kernel.launches == before and f32_row["launches"] == len(sigs)
+          and bool(torch.isfinite(f32_card).all()) and e_f32 <= F32_CARD_TOL,
+          f"phase 2: f32 card forward: {f32_row['launches']} f32 stages of {len(sigs)}, "
+          f"{stage_kernel.launches - before} bf16 ones, rel_l2 {e_f32} from the CPU forward")
+    f32_row = {"name": "fused_eval_stage_f32", "route": "cuda",
+               "source": f"ssunet_gan_tpu_torch/csrc/{stage_kernel.SOURCE_F32}",
+               "replaces": stage_kernel.REPLACES, "library_ms": None, **f32_row}
     del cpu_model, f32_card, f32_cpu, xn
     eval_row = {
         "name": "fused_eval_stage", "route": "cuda",
@@ -3860,23 +4407,31 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with no_seam_reads("phases 4-6: flagship training", check):
-        counts, train_err, totals = train_phases(dev, cfg, card, sigs, check)
+        counts, train_err, totals, sup_ms_step = train_phases(dev, cfg, card, sigs, check)
 
     # ---- phase 11: the standalone self-SPADE and UNet_B_SS's trainer
     with no_seam_reads("phase 11: UNet_B_SS training", check):
         spade_row = spade_phase(dev, card, cfg, bsigs, check)
 
     # ---- phase 13: the training entry point (kernels 2, 3, 5 and 6)
+    stage_kernel.f32_launches = 0
     entry_counts = entry_point_phase(dev, card, here, check)
+    entry_counts["fused_eval_stage_f32"] = stage_kernel.f32_launches
+    print(f"phase 13: f32 stages launched by run_experiment's evaluations: "
+          f"{stage_kernel.f32_launches}")
+    check(stage_kernel.f32_launches > 0, "phase 13: the evaluations launched no f32 stage")
 
     # ---- phase 14: whole-scene inference through its entry point (kernels 1 and 7)
     scene_counts, scene_seams, scene_s8_seams = scene_phase(dev, card, here, check,
                                                             int8_row.pop("quant_per_forward"))
 
+    # ---- phase 15: the adversarial fine-tune (kernels 2, 3, 5 and 6)
+    gan_counts = gan_phase(dev, card, here, check, sup_ms_step)
+
     if failures:
         fail(f"{len(failures)} checks failed: " + "; ".join(failures[:20]))
 
-    kernels = [eval_row, int8_row] + [{
+    kernels = [eval_row, f32_row, int8_row] + [{
         "name": kname, "route": "cuda",
         "source": "ssunet_gan_tpu_torch/csrc/" + getattr(
             kernel_module(kname), "KERNEL_SOURCE", {}).get(kname, kernel_module(kname).SOURCE),
@@ -3901,6 +4456,8 @@ def main() -> int:
             paths["run_experiment"] = entry_counts[row["name"]]
         if row["name"] in scene_counts:
             paths["val_patch"] = scene_counts[row["name"]]
+        if row["name"] in gan_counts:
+            paths["gan"] = gan_counts[row["name"]]
         row["launches"] = sum(paths.values())
         row["launches_by_path"] = paths
         if "seam_reads" in row:

@@ -4,7 +4,9 @@ It serves ``UNet_R_SS_v2`` (the flagship), ``UNet_R_SS`` and ``UNet_B_SS``:
 the eval tile forward and whole-scene sliding-window inference with merged
 masks, in bf16 or through calibrated int8 stages (``ops/stage_kernel_int8.py``,
 ``infer/calibrate.py``), and it trains the flagship and ``UNet_B_SS``
-(``ops/stage_kernel_train.py``, ``ops/train_bwd.py``, ``train/``). Each of the nine TPU kernels of the JAX
+(``ops/stage_kernel_train.py``, ``ops/train_bwd.py``, ``train/``) and
+fine-tunes a generator adversarially against the SRGAN discriminator
+(``train/gan.py``, ``train/gan_step.py``, ``models/gan.py``). Each of the nine TPU kernels of the JAX
 package has a hand-written CUDA counterpart under ``csrc/``: the fused
 [BasicBlock + self-SPADE] eval stage (``ops/stage_kernel.py``), the
 Bottleneck one (``ops/stage_kernel_bneck.py``), the int8 stage, the train

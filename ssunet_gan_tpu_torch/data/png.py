@@ -97,6 +97,15 @@ def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
     return xs[rr + ii + 1, rr + 1].astype(np.uint8)
 
 
+def png_size(path: str):
+    """(width, height) of a PNG file, read from its IHDR chunk alone."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if not head.startswith(_SIGNATURE) or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    return struct.unpack(">II", head[16:24])
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes -> HWC uint8 in the file's channel order (gray, gray +
     alpha, RGB or RGBA)."""

@@ -57,7 +57,6 @@ from ssunet_gan_tpu_torch.infer.overlays import save_masking, save_masking_GT, s
 
 INFER_BATCH = 32  # tiles per forward call
 PATCH_SIZE = 1024  # the reference's hardcoded scene patch (api:330)
-ORBAX_DIR = "model.orbax"  # the JAX package's checkpoint directory
 
 
 def configure_int8(config: Dict, model_dir: Optional[str] = None) -> bool:
@@ -104,7 +103,7 @@ def load_segmentation_models(config_file: str, device="cuda"):
     from ssunet_gan_tpu_torch.models.gan import Generator
     from ssunet_gan_tpu_torch.ops.spade_kernel import set_fused_spade
     from ssunet_gan_tpu_torch.ops.stage_kernel_int8 import set_band_rows
-    from ssunet_gan_tpu_torch.train.checkpoint import MODEL_FILE, load_model
+    from ssunet_gan_tpu_torch.train.checkpoint import MODEL_FILE, ORBAX_DIR, load_model
 
     dev = resolve_device(device)
     with open(config_file, "rt") as f:

@@ -103,6 +103,7 @@ from ssunet_gan_tpu_torch.ops.stage_kernel import (
     fused_stage_enabled,
     materialize_seams,
     pack_stage,
+    pack_stage_f32,
     seam_modes,
     stage_supported,
 )
@@ -155,6 +156,9 @@ def _stage_operands(parts, block, spade: SPADE, final: Optional[Conv2d],
             head = None if final is None else (final.weight, final.bias)
             if int8:
                 packed = pack_stage_int8(bp, sp, head, x0.dtype)
+            elif (x0.device.type == "cuda" and x0.dtype == torch.float32
+                  and not isinstance(block, Bottleneck)):
+                packed = pack_stage_f32(key[2], bp, sp, head)  # the f32 route
             else:
                 pack = pack_stage_bneck if isinstance(block, Bottleneck) else pack_stage
                 packed = pack(key[2], bp, sp, head, x0.dtype)

@@ -13,6 +13,12 @@ BasicBlock stage with a zero shortcut.
 (ops/blocks.py:45-54, the ``remat`` config key): in training the blocks of
 the module composition run under ``torch.utils.checkpoint``, so their
 activations are recomputed in the backward instead of kept.
+
+The SRGAN blocks (the JAX package's ops/blocks.py:281-330; reference
+models_seg_gan.py:13-97): :class:`SRConvBlock`, conv [+ BN] [+ PReLU,
+LeakyReLU(0.2) or tanh] as the reference's ``nn.Sequential``
+``conv_block.{0,1,2}``, and :class:`SubPixelConvBlock`, conv → pixel
+shuffle → PReLU.
 """
 
 from __future__ import annotations
@@ -23,8 +29,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ssunet_gan_tpu_torch.ops.conv import Conv2d, as_parts
+from ssunet_gan_tpu_torch.ops.conv import Conv2d, PReLU, as_parts
 from ssunet_gan_tpu_torch.ops.norm import BatchNorm, frozen_running
+from ssunet_gan_tpu_torch.ops.resize import pixel_shuffle
 
 _REMAT = False
 
@@ -174,3 +181,43 @@ class Bottleneck(nn.Module):
             ws, asb = self.shortcut[0].weight, self.shortcut[1].eval_affine()
         return (self.conv1.weight, self.bn1.eval_affine(), self.conv2.weight,
                 self.bn2.eval_affine(), self.conv3.weight, self.bn3.eval_affine(), ws, asb)
+
+
+class SRConvBlock(nn.Module):
+    """conv (padding k // 2) [+ BatchNorm] [+ activation]: ``activation``
+    None, "prelu", "leakyrelu" (slope 0.2) or "tanh", in any case."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, batch_norm: bool = False, activation: Optional[str] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        act = None if activation is None else activation.lower()
+        acts = {None: None, "prelu": PReLU, "leakyrelu": lambda: nn.LeakyReLU(0.2),
+                "tanh": nn.Tanh}
+        if act not in acts:
+            raise ValueError(f"unknown activation {activation!r}")
+        layers = [Conv2d(in_channels, out_channels, kernel_size, kernel_size // 2,
+                         generator=generator, stride=stride)]
+        if batch_norm:
+            layers.append(BatchNorm(out_channels))
+        if acts[act] is not None:
+            layers.append(acts[act]())
+        self.conv_block = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv_block(x)
+
+
+class SubPixelConvBlock(nn.Module):
+    """conv to n·r² channels → pixel shuffle ×r → PReLU."""
+
+    def __init__(self, kernel_size: int = 3, n_channels: int = 64, scaling_factor: int = 2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.scaling_factor = scaling_factor
+        self.conv = Conv2d(n_channels, n_channels * scaling_factor ** 2, kernel_size,
+                           kernel_size // 2, generator=generator)
+        self.prelu = PReLU()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.prelu(pixel_shuffle(self.conv(x), self.scaling_factor))

@@ -1,4 +1,5 @@
-"""torch-``nn.Conv2d``-shaped convolution over NHWC tensors.
+"""torch-``nn.Conv2d``-shaped convolution over NHWC tensors, and the
+``nn.Linear`` and ``nn.PReLU`` of the GAN's networks.
 
 Weights are OIHW (``weight``, ``bias``), as in the reference. The input may
 be a tuple of NHWC parts standing for their channel concatenation:
@@ -8,7 +9,9 @@ along its input-channel axis, so no concatenated tensor is built.
 Initialisation follows torch's defaults, drawn from an explicit
 :class:`torch.Generator`: U(−1/√fan_in, 1/√fan_in) for weight and bias,
 or ``kaiming_uniform_(mode='fan_in')`` with a zero bias for the SS-UNet
-final 1×1 convs (reference archs.py:522-524).
+final 1×1 convs (reference archs.py:522-524). :class:`Dense` and
+:class:`PReLU` are the JAX package's ops/conv.py:178-204 under torch's
+parameter names (``weight`` (out, in) and ``bias``; one slope ``weight``).
 """
 
 from __future__ import annotations
@@ -27,9 +30,9 @@ def as_parts(x):
 
 
 def conv2d_nhwc(x, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                padding: int = 0) -> torch.Tensor:
-    """Stride-1 conv of NHWC ``x`` (or split-concat parts) with an OIHW
-    weight, computed in the activation dtype; returns NHWC (contiguous)."""
+                padding: int = 0, stride: int = 1) -> torch.Tensor:
+    """Conv of NHWC ``x`` (or split-concat parts) with an OIHW weight,
+    computed in the activation dtype; returns NHWC (contiguous)."""
     parts = as_parts(x)
     dtype = parts[0].dtype
     w = weight.to(dtype)
@@ -37,7 +40,8 @@ def conv2d_nhwc(x, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
     off = 0
     for p in parts:
         c = p.shape[-1]
-        yp = F.conv2d(p.permute(0, 3, 1, 2), w[:, off:off + c], padding=padding)
+        yp = F.conv2d(p.permute(0, 3, 1, 2), w[:, off:off + c], padding=padding,
+                      stride=stride)
         y = yp if y is None else y + yp
         off += c
     if bias is not None:
@@ -46,13 +50,14 @@ def conv2d_nhwc(x, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
 
 
 class Conv2d(nn.Module):
-    """Stride-1 conv with symmetric integer padding on NHWC tensors."""
+    """Conv with symmetric integer padding on NHWC tensors."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  padding: int = 0, bias: bool = True, init: str = "torch",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, stride: int = 1):
         super().__init__()
         self.padding = padding
+        self.stride = stride
         fan_in = in_channels * kernel_size * kernel_size
         if init == "kaiming_fan_in":
             bound = math.sqrt(2.0) * math.sqrt(3.0 / fan_in)
@@ -74,4 +79,38 @@ class Conv2d(nn.Module):
             )
 
     def forward(self, x) -> torch.Tensor:
-        return conv2d_nhwc(x, self.weight, self.bias, self.padding)
+        return conv2d_nhwc(x, self.weight, self.bias, self.padding, self.stride)
+
+
+class Dense(nn.Module):
+    """torch ``nn.Linear``: ``weight`` (out, in) and ``bias`` drawn from
+    U(−1/√in, 1/√in). The products of the activation-dtype operands sum in
+    f32 and the bias is added in f32 before the result takes the
+    activation dtype, as the JAX package's ``Dense`` does."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(in_features)
+        self.weight = nn.Parameter(torch.empty(out_features, in_features)
+                                   .uniform_(-bound, bound, generator=generator))
+        self.bias = (nn.Parameter(torch.empty(out_features).uniform_(-bound, bound,
+                                                                     generator=generator))
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(x.dtype).float()
+        b = None if self.bias is None else self.bias.float()
+        return F.linear(x.float(), w, b).to(x.dtype)
+
+
+class PReLU(nn.Module):
+    """torch ``nn.PReLU()``: one slope ``weight`` of shape (1,), 0.25 at
+    init, applied in the activation dtype."""
+
+    def __init__(self, init: float = 0.25):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((1,), float(init)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)

@@ -17,6 +17,11 @@ kernel 7 on the half tensor quantized, ``csrc/int8_conv.cuh`` read mode
 1), so the full-resolution tensor is never written; :func:`materialize_up`
 is that H-interpolation in plain PyTorch, for every consumer that does not
 read the seam. :func:`set_lazy_upsample` is the JAX toggle.
+
+The SRGAN networks' resizes: :func:`adaptive_avg_pool`, torch's
+``nn.AdaptiveAvgPool2d`` as the JAX package's separable averaging
+matrices (ops/resize.py:119), and :func:`pixel_shuffle`, torch's
+``nn.PixelShuffle`` on NHWC (ops/resize.py:127).
 """
 
 from __future__ import annotations
@@ -174,3 +179,35 @@ def materialize_up(half: torch.Tensor) -> torch.Tensor:
     wb = _rounded(w1, half.dtype).to(dev).reshape(shape)
     ia = torch.from_numpy(j0 + 1).to(dev)
     return (x.index_select(1, ia) * wa + x.index_select(1, ia + 1) * wb).to(half.dtype).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _adaptive_avg_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out_size, in_size) averaging matrix of torch's AdaptiveAvgPool bins:
+    bin i covers [floor(i·in/out), ceil((i+1)·in/out))."""
+    m = np.zeros((out_size, in_size), dtype=np.float32)
+    for i in range(out_size):
+        start = (i * in_size) // out_size
+        end = -(-((i + 1) * in_size) // out_size)
+        m[i, start:end] = 1.0 / (end - start)
+    return m
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """``nn.AdaptiveAvgPool2d((out_h, out_w))`` on NHWC, down or up: the
+    averaging weights rounded to the activation dtype, both matrix products
+    summed in f32, one rounding at the end (the JAX package's numerics)."""
+    _, h, w, _ = x.shape
+    rm = _rounded(_adaptive_avg_matrix(h, out_h), x.dtype).to(x.device)
+    cm = _rounded(_adaptive_avg_matrix(w, out_w), x.dtype).to(x.device)
+    y = torch.einsum("ph,bhwc->bpwc", rm, x.float())
+    return torch.einsum("qw,bpwc->bpqc", cm, y).to(x.dtype)
+
+
+def pixel_shuffle(x: torch.Tensor, upscale: int = 2) -> torch.Tensor:
+    """``nn.PixelShuffle(upscale)`` on NHWC: the channels read as torch's
+    (C_out, r, r) blocks, each spread over an r×r patch."""
+    b, h, w, c = x.shape
+    r = upscale
+    x = x.reshape(b, h, w, c // (r * r), r, r).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(b, h * r, w * r, c // (r * r))

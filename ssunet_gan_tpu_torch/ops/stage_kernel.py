@@ -47,8 +47,9 @@ int8 stage of ``ops/stage_kernel_int8.py``): the model's dispatch and the
 three wrappers call it, and what it refuses runs the module composition.
 :func:`set_fused_stage` turns the fused eval stages off (the JAX toggle).
 :func:`fused_eval_stage` decides by the tensors' device: CPU tensors take
-:func:`fused_stage_reference`; CUDA tensors launch the kernel (bf16 only)
-or raise for what the gate refuses.
+:func:`fused_stage_reference`; CUDA tensors launch the kernel (bf16), its
+f32 route (``csrc/fused_stage_f32.cu``, f32 eval stages: the section at
+the end of this module), or raise for what the gate refuses.
 """
 
 from __future__ import annotations
@@ -67,9 +68,16 @@ from ssunet_gan_tpu_torch.ops.resize import materialize_up, up_weights_exact
 
 SOURCE = "fused_stage.cu"
 REPLACES = "ssunet_gan_tpu/ops/stage_kernel.py:1182"  # fused_eval_stage
+# the f32 route of the same TPU kernel (it takes the activation dtype)
+SOURCE_F32 = "fused_stage_f32.cu"
 
 # Fused stages run on the card, one per stage (three CUDA launches each).
 launches = 0
+# f32 stages run on the card (the f32 route), and their conv and modulate
+# launches (five or six convs and one modulate per stage)
+f32_launches = 0
+f32_conv_launches = 0
+f32_modulate_launches = 0
 # Seam parts the eval conv core read on the card, one per stage call and
 # part (kernel 1 here, kernel 8 in ops/stage_kernel_bneck.py): decoder
 # upsample seams (read mode 1) and encoder pool seams (read mode 2).
@@ -174,7 +182,10 @@ def stage_supported(parts, planes: int, labels: int, hidden: int, classes: int =
     terms, ssunet_gan_tpu/ops/stage_kernel.py:438; its probe passes in
     interpret mode): H a multiple of 8, and W ≥ 8 after the eval path's
     lane packing. The JAX gate's VMEM estimate answers the TPU's memory and
-    is not ported. What it refuses runs the module composition."""
+    is not ported. An f32 eval stage on the card takes the f32 route
+    (``csrc/fused_stage_f32.cu``, no width limits but MAX_PLANES) with
+    contiguous parts and its seams materialized; f32 training and int8
+    stages are refused. What it refuses runs the module composition."""
     parts = as_parts(parts)
     x0 = parts[0]
     if not 1 <= len(parts) <= 2 or any(len(p.shape) != 4 for p in parts):
@@ -190,6 +201,8 @@ def stage_supported(parts, planes: int, labels: int, hidden: int, classes: int =
     if planes > MAX_PLANES:
         return False
     if x0.device.type == "cuda":
+        if x0.dtype == torch.float32 and not train and not int8:
+            return not any(modes) and all(p.is_contiguous() for p in parts)
         if (x0.dtype != torch.bfloat16 or planes % PLANES_MULTIPLE or labels > TAIL_MAX_LAB
                 or hidden > TAIL_MAX_HIDDEN or classes > TAIL_MAX_CLS
                 or not all(getattr(p, "q", p).is_contiguous() for p in parts)):
@@ -596,16 +609,161 @@ def fused_eval_stage(parts, block_params, spade_params, head=None,
     reads (:func:`seam_modes`): an up part is the half-height tensor after
     its W-interpolation, a pool part its producer's full-resolution output.
     CPU tensors run the plain version on :func:`materialize_seams`' parts;
-    CUDA tensors run the hand-written kernel, which reads the seams, or
-    raise for what :func:`stage_supported` refuses."""
+    CUDA tensors run the hand-written kernel, which reads the seams (f32
+    ones its f32 route, which reads none), or raise for what
+    :func:`stage_supported` refuses."""
     parts = as_parts(parts)
     dev = parts[0].device
     if dev.type == "cpu":
         return fused_stage_reference(materialize_seams(parts, up, down), block_params,
                                      spade_params, head)
+    if dev.type == "cuda" and parts[0].dtype == torch.float32:
+        if packed is None or packed.get("route") != "f32":
+            packed = pack_stage_f32(tuple(p.shape[-1] for p in parts), block_params,
+                                    spade_params, head)
+        return _run_cuda_f32(parts, packed, up, down)
     if dev.type == "cuda":
         if packed is None:
             packed = pack_stage(tuple(p.shape[-1] for p in parts), block_params,
                                 spade_params, head, parts[0].dtype)
         return _run_cuda(parts, packed, up, down)
     raise ValueError(f"fused stage has no path for device {dev}")
+
+
+# ---- the f32 route (csrc/fused_stage_f32.cu) ----------------------------------
+
+
+def pack_f32_conv(segments, bias, relu: bool) -> dict:
+    """One conv of the f32 route: the OIHW weights of its segments packed as
+    the kernel reads them, [K][cout] with K over the segments in order and
+    (tap, channel) within each, f32; the bias in f32; ReLU or not."""
+    w = torch.cat([s.float().permute(2, 3, 1, 0).reshape(-1, s.shape[0]) for s in segments])
+    return {"w": w.contiguous(), "bias": None if bias is None else bias.float().contiguous(),
+            "chans": tuple(s.shape[1] for s in segments),
+            "ks": tuple(s.shape[-1] for s in segments), "cout": segments[0].shape[0],
+            "relu": relu}
+
+
+def pack_stage_f32(part_channels, block_params, spade_params, head) -> dict:
+    """The f32 route's operands of a stage (arguments as
+    :func:`fused_stage_reference`): BN folded into the convs in f32, conv2
+    with the shortcut's parts as K-segments, γ and β as one conv of 2C
+    outputs."""
+    w1, (s1, t1), w2, (s2, t2), ws = block_params
+    wx, bx, wm, bm, wg, bg, wb, bb = spade_params
+    w1f = w1.float() * s1.float()[:, None, None, None]
+    w2f = w2.float() * s2.float()[:, None, None, None]
+    short = [] if ws is None else split_in(ws.float(), part_channels)
+    return {
+        "route": "f32", "channels": tuple(part_channels), "dtype": torch.float32,
+        "shortcut": ws is not None,
+        "conv1": pack_f32_conv(split_in(w1f, part_channels), t1, True),
+        "conv2": pack_f32_conv([w2f] + short, t2, True),
+        "seg": pack_f32_conv([wx], bx, False),
+        "act": pack_f32_conv([wm], bm, True),
+        "gb": pack_f32_conv([torch.cat([wg, wb])], torch.cat([bg, bb]), False),
+        "head": None if head is None else pack_f32_conv([head[0]], head[1], False),
+    }
+
+
+def f32_conv_reference(sources, conv: dict) -> torch.Tensor:
+    """The plain version of one f32 conv launch, from its packed weight:
+    each segment's taps gathered in the packed K order (zero padding at the
+    image border), one product with the [K][cout] weight, the bias, ReLU."""
+    cols = []
+    for x, k in zip(sources, conv["ks"]):
+        x = x.float()
+        if k == 3:
+            h, w = x.shape[1:3]
+            xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+            cols += [xp[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)]
+        else:
+            cols.append(x)
+    out = torch.cat(cols, -1) @ conv["w"]
+    if conv["bias"] is not None:
+        out = out + conv["bias"]
+    return torch.relu(out) if conv["relu"] else out
+
+
+def f32_modulate_reference(y: torch.Tensor, gb: torch.Tensor) -> torch.Tensor:
+    """The plain version of the f32 modulate: y·(1 + γ) + β, γ|β the halves
+    of ``gb``'s channels."""
+    c = y.shape[-1]
+    return y * (1 + gb[..., :c]) + gb[..., c:]
+
+
+def f32_stage_launches(parts, pk: dict, conv=f32_conv_reference,
+                       modulate=f32_modulate_reference) -> torch.Tensor:
+    """A stage as the f32 route runs it, launch by launch (``conv`` and
+    ``modulate``: the CUDA launches, or by default their plain versions)."""
+    h1 = conv(parts, pk["conv1"])
+    y = conv((h1,) + tuple(parts) if pk["shortcut"] else (h1,), pk["conv2"])
+    gb = conv((conv((conv((y,), pk["seg"]),), pk["act"]),), pk["gb"])
+    out = modulate(y, gb)
+    return out if pk["head"] is None else conv((out,), pk["head"])
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_f32() -> ctypes.CDLL:
+    lib = _build.load(SOURCE_F32)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ssu_f32_conv.argtypes = [i, p, p, p, p, p, i, p, i, i, i, i, p]
+    lib.ssu_f32_conv.restype = i
+    lib.ssu_f32_modulate.argtypes = [p, p, p, ll, i, p]
+    lib.ssu_f32_modulate.restype = i
+    return lib
+
+
+def f32_conv(sources, conv: dict) -> torch.Tensor:
+    """One conv launch of the f32 route on the card (its plain version:
+    :func:`f32_conv_reference`)."""
+    global f32_conv_launches
+    x0 = sources[0]
+    n, h, w = x0.shape[:3]
+    nseg = len(sources)
+    if any(s.dtype != torch.float32 or not s.is_contiguous() or s.shape[:3] != (n, h, w)
+           for s in sources) or tuple(s.shape[-1] for s in sources) != conv["chans"]:
+        raise ValueError(f"f32 conv: sources {[(tuple(s.shape), s.dtype) for s in sources]} "
+                         f"for segments of {conv['chans']} channels, contiguous f32")
+    out = torch.empty((n, h, w, conv["cout"]), dtype=torch.float32, device=x0.device)
+    ptrs = (ctypes.c_void_p * nseg)(*[s.data_ptr() for s in sources])
+    chans = (ctypes.c_int * nseg)(*conv["chans"])
+    ks = (ctypes.c_int * nseg)(*conv["ks"])
+    _check(_lib_f32().ssu_f32_conv(nseg, ptrs, chans, ks, _ptr(conv["w"]), _ptr(conv["bias"]),
+                                   int(conv["relu"]), _ptr(out), n, h, w, conv["cout"],
+                                   torch.cuda.current_stream(x0.device).cuda_stream),
+           "f32 conv")
+    f32_conv_launches += 1
+    return out
+
+
+def f32_modulate(y: torch.Tensor, gb: torch.Tensor) -> torch.Tensor:
+    """The f32 route's modulate on the card (its plain version:
+    :func:`f32_modulate_reference`)."""
+    global f32_modulate_launches
+    c = y.shape[-1]
+    out = torch.empty_like(y)
+    _check(_lib_f32().ssu_f32_modulate(_ptr(y), _ptr(gb), _ptr(out), y.numel() // c, c,
+                                       torch.cuda.current_stream(y.device).cuda_stream),
+           "f32 modulate")
+    f32_modulate_launches += 1
+    return out
+
+
+def _run_cuda_f32(parts: Tuple[torch.Tensor, ...], pk: dict, up=None, down=None) -> torch.Tensor:
+    global f32_launches
+    c = pk["conv2"]["cout"]
+    if not stage_supported(parts, c, pk["seg"]["cout"], pk["act"]["cout"],
+                           0 if pk["head"] is None else pk["head"]["cout"], up=up, down=down):
+        raise ValueError(f"the f32 route does not take this stage (stage_supported): parts "
+                         f"{[(tuple(p.shape), p.dtype) for p in parts]}, planes={c}, seams "
+                         f"up={up} down={down}: f32, contiguous, seams materialized")
+    if pk["channels"] != tuple(p.shape[-1] for p in parts):
+        raise ValueError(f"packed operands are for parts of {pk['channels']} channels, got "
+                         f"{[tuple(p.shape) for p in parts]}")
+    if any(t.device != parts[0].device for t in packed_tensors(pk)):
+        raise ValueError("stage weights must lie on the parts' device")
+    with torch.cuda.device(parts[0].device):
+        out = f32_stage_launches(parts, pk, f32_conv, f32_modulate)
+    f32_launches += 1
+    return out

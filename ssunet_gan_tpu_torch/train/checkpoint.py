@@ -12,6 +12,10 @@ resume state (the JAX package's train/checkpoint.py, there on orbax).
   optimizer's state in ``train_state.pth``, the epoch and ``best_iou`` in
   the JAX package's ``train_meta.json`` sidecar.
 
+- :func:`warm_start_generator`: the GAN generator's ``net`` from a
+  supervised ``model.pth`` (the JAX package's train/checkpoint.py:115;
+  reference models_seg_gan.py:216-233), ``strict=False``.
+
 The JAX package's orbax directories are not read here (ROADMAP.md).
 """
 
@@ -24,6 +28,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 MODEL_FILE = "model.pth"
+ORBAX_DIR = "model.orbax"  # the JAX package's checkpoint directory
 STATE_FILE = "train_state.pth"
 META_FILE = "train_meta.json"
 
@@ -106,3 +111,22 @@ def restore_train_state(model_dir: str, model: torch.nn.Module,
 
 def has_train_state(model_dir: str) -> bool:
     return os.path.isfile(os.path.join(model_dir, STATE_FILE))
+
+
+def warm_start_generator(generator: torch.nn.Module, path: str) -> Dict[str, List[str]]:
+    """Load a supervised checkpoint into ``generator.net`` with
+    :func:`load_model`'s strict=False semantics: ``path`` is a ``model.pth``
+    (the port's or the reference's) or the model directory holding it.
+    Tensors whose name or shape differ are reported in the returned
+    ``{"loaded", "missing", "unmatched"}``, never fatal. A directory with
+    only the JAX package's ``model.orbax`` raises NotImplementedError, one
+    with neither FileNotFoundError."""
+    if os.path.isdir(path):
+        model_dir, path = path, os.path.join(path, MODEL_FILE)
+        if not os.path.isfile(path):
+            if os.path.isdir(os.path.join(model_dir, ORBAX_DIR)):
+                raise NotImplementedError(
+                    f"{model_dir} holds the JAX package's orbax checkpoint only; the port reads "
+                    f"{MODEL_FILE} (reading orbax directories is queued in ROADMAP.md)")
+            raise FileNotFoundError(f"no checkpoint in {model_dir}")
+    return load_model(path, generator.net)

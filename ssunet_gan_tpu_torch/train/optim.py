@@ -35,6 +35,13 @@ def build_optimizer(params: Iterable[torch.nn.Parameter],
     raise NotImplementedError(name)
 
 
+def adam(params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+    """The GAN trainer's bare Adam (train/optim.py:77; reference
+    train_seg_gan.py:452, 468): betas (0.9, 0.999), eps 1e-8, no weight
+    decay; the rate is the step's ``lr`` argument (:func:`set_lr`)."""
+    return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+
+
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
     for group in optimizer.param_groups:
         group["lr"] = float(lr)

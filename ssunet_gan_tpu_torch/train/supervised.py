@@ -87,8 +87,9 @@ def train_one_epoch(epoch: int, config: Dict, loader, train_step, lr: float,
 def evaluate(config: Dict, loader, eval_step, device="cuda") -> Dict[str, float]:
     """Mean metrics of ``eval_step`` over ``loader``, the images in the
     loader's dtype as the JAX package passes them (f32: on the card the
-    BasicBlock stages then run the module composition, as the stage gate
-    refuses f32). ``config`` is accepted for the JAX signature."""
+    fused stages then take kernel 1's f32 route, as the JAX package runs
+    its stage kernel in f32). ``config`` is accepted for the JAX
+    signature."""
     device = resolve_device(device)
     meters, events = [], []
     for _, img, mask, _ in loader:

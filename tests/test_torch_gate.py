@@ -73,7 +73,9 @@ class OnCard:
 CARD_CASES = [
     ([OnCard((2, 16, 16, 64))], 128, 3, 8, 0, (True, True, True)),
     ([OnCard((2, 16, 16, 64)), OnCard((2, 16, 16, 64))], 64, 3, 4, 3, (True, True, True)),
-    ([OnCard((2, 16, 16, 64), torch.float32)], 128, 3, 8, 0, (False,) * 3),   # f32
+    ([OnCard((2, 16, 16, 64), torch.float32)], 128, 3, 8, 0, (True, False, False)),  # f32 route
+    ([OnCard((2, 16, 16, 64), torch.float32)], 288, 3, 8, 0, (False,) * 3),   # f32, > 256
+    ([OnCard((2, 16, 16, 64), torch.float32, contiguous=False)], 128, 3, 8, 0, (False,) * 3),
     ([OnCard((2, 16, 16, 64))], 48, 3, 3, 0, (False,) * 3),                   # planes % 32
     ([OnCard((2, 16, 16, 64))], 288, 3, 16, 0, (False,) * 3),                 # planes > 256
     ([OnCard((2, 16, 16, 64))], 128, 9, 8, 0, (False,) * 3),                  # labels > 8
@@ -96,6 +98,18 @@ def test_gate_on_the_card_is_the_kernels_limits(parts, planes, lab, nh, ncls, wa
                                              int8=int8)
                 for train, int8 in ((False, False), (True, False), (False, True)))
     assert got == want
+
+
+def test_f32_route_on_the_card_takes_no_seam():
+    """An f32 eval stage on the card takes the f32 route of kernel 1 with
+    its parts as they are; a part given as a seam is refused, so the model
+    materializes it and asks again (``models/ssunet.py`` ``_admit``)."""
+    x = OnCard((2, 16, 16, 64), torch.float32)
+    assert stage_kernel.stage_supported([x], 128, 3, 8)
+    assert not stage_kernel.stage_supported([x], 128, 3, 8, down=(True,))
+    assert not stage_kernel.stage_supported([OnCard((2, 16, 16, 64), torch.float32),
+                                             OnCard((2, 8, 16, 64), torch.float32)], 128, 3, 8,
+                                            up=(False, True))
 
 
 class OnCard4D(OnCard):

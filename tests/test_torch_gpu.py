@@ -165,31 +165,120 @@ def test_eval_conv_residual_matches_plain(chans, planes):
 
 @pytest.mark.gpu
 def test_fused_stage_kernel_refuses_float32():
+    """The bf16 kernel's launcher raises for f32 parts; the wrapper sends
+    f32 stages to the f32 route (``test_f32_stage_route_matches_plain``)."""
     dev = _card()
     block = BasicBlock(64, 128).to(dev)
     spade = SPADE("spadebatch3x3", 128, 3, 8.0).to(dev)
     x = torch.zeros((1, 16, 16, 64), device=dev)
+    pk = stage_kernel.pack_stage((64,), block.stage_params(), spade.stage_params(), None,
+                                 torch.bfloat16)
     with pytest.raises(TypeError):
-        stage_kernel.fused_eval_stage((x,), block.stage_params(), spade.stage_params())
+        stage_kernel._run_cuda((x,), pk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "chans,planes,labels,nhw,ncls",
+    [
+        ((3,), 64, 3, (2, 40, 36), 0),          # 3-channel first block, ragged tiles
+        ((64,), 128, 3, (1, 32, 32), 0),        # encoder
+        ((128, 128), 128, 3, (1, 24, 20), 0),   # decoder, two parts
+        ((256, 256), 256, 3, (2, 16, 16), 0),   # widest fused stage
+        ((64, 128), 64, 3, (2, 48, 40), 3),     # folded final head
+    ],
+)
+def test_f32_stage_route_matches_plain(chans, planes, labels, nhw, ncls):
+    """The f32 route of kernel 1 (``csrc/fused_stage_f32.cu``) against the
+    stage's plain version in f32 (TF32 off): the same f32 products summed
+    in another order, so max error ≤ 1e-4 of max |plain| and relative L2 ≤
+    1e-4; one stage, five conv launches (six with the head) and one
+    modulate counted."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(5)
+    block = BasicBlock(sum(chans), planes, generator=gen)
+    _randomize_bn(block, gen)
+    block.to(dev).eval()
+    spade = SPADE("spadebatch3x3", planes, labels, max(planes / 16, 4), generator=gen).to(dev)
+    head = None
+    if ncls:
+        final = Conv2d(planes, ncls, 1, generator=gen).to(dev)
+        head = (final.weight, final.bias)
+    parts = tuple(torch.randn(nhw + (c,), generator=gen).to(dev) for c in chans)
+    bp, sp = block.stage_params(), spade.stage_params()
+    before = (stage_kernel.f32_launches, stage_kernel.f32_conv_launches,
+              stage_kernel.f32_modulate_launches, stage_kernel.launches)
+    got = stage_kernel.fused_eval_stage(parts, bp, sp, head)
+    torch.cuda.synchronize()
+    assert (stage_kernel.f32_launches, stage_kernel.f32_conv_launches,
+            stage_kernel.f32_modulate_launches, stage_kernel.launches) == (
+        before[0] + 1, before[1] + (6 if ncls else 5), before[2] + 1, before[3])
+    want = stage_kernel.fused_stage_reference(parts, bp, sp, head)
+    diff = got - want
+    err, scale = diff.abs().max().item(), want.abs().max().item()
+    l2 = (diff.norm() / want.norm()).item()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert err <= 1e-4 * scale and l2 <= 1e-4, (err, scale, l2)
+
+
+@pytest.mark.gpu
+def test_f32_conv_launch_matches_its_plain_version():
+    """One f32 conv launch over three K-segments (a 3×3 part, two 1×1
+    parts) on a ragged map against its plain version, which walks the same
+    packed weight: relative L2 ≤ 1e-5."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(6)
+    segs = ((40, 3), (24, 1), (8, 1))
+    xs = [torch.randn((2, 19, 13, c), generator=gen).to(dev) for c, _ in segs]
+    ws = [(torch.randn((70, c, k, k), generator=gen) * 0.1).to(dev) for c, k in segs]
+    conv = stage_kernel.pack_f32_conv(ws, torch.randn(70, generator=gen).to(dev), True)
+    got = stage_kernel.f32_conv(xs, conv)
+    want = stage_kernel.f32_conv_reference(xs, conv)
+    assert ((got - want).norm() / want.norm()).item() <= 1e-5
 
 
 @pytest.mark.gpu
 def test_flagship_f32_forward_runs_the_composition():
-    """The stage gate refuses f32 on the card, so an f32 forward runs every
-    stage through the module composition (no kernel stage) and agrees with
-    the CPU's f32 forward with the fused stages off: the same f32 modules
-    in another summation order (TF32 off), to chip_smoke.py's bar of 1e-2
-    relative L2 (a last-bit difference can move a max-pool's winner)."""
+    """With the fused stages off, an f32 forward on the card runs every
+    stage through the module composition (no kernel stage, no f32 stage)
+    and agrees with the CPU's f32 forward with the fused stages off: the
+    same f32 modules in another summation order (TF32 off), to
+    chip_smoke.py's bar of 1e-2 relative L2 (a last-bit difference can
+    move a max-pool's winner)."""
     import copy
 
     dev = _card()
     model = build_model("UNet_R_SS_v2", 3, 3, seed=0, device=dev).eval()
     cpu_model = copy.deepcopy(model).cpu()
     x = torch.randn((1, 64, 64, 3), generator=torch.Generator().manual_seed(2))
-    before = stage_kernel.launches
+    before = stage_kernel.launches, stage_kernel.f32_launches
+    stage_kernel.set_fused_stage(False)
+    try:
+        with torch.no_grad():
+            got = model(x.to(dev)).cpu()
+            want = cpu_model(x)
+    finally:
+        stage_kernel.set_fused_stage(None)
+    assert (stage_kernel.launches, stage_kernel.f32_launches) == before
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm()).item() <= 1e-2
+
+
+@pytest.mark.gpu
+def test_flagship_f32_forward_takes_the_f32_route():
+    """An f32 forward on the card runs its six fused stages on the f32
+    route of kernel 1 (no bf16 stage) and agrees with the CPU's f32 forward
+    with the fused stages off to the same bar of 1e-2 relative L2."""
+    import copy
+
+    dev = _card()
+    model = build_model("UNet_R_SS_v2", 3, 3, seed=0, device=dev).eval()
+    cpu_model = copy.deepcopy(model).cpu()
+    x = torch.randn((1, 64, 64, 3), generator=torch.Generator().manual_seed(2))
+    before = stage_kernel.launches, stage_kernel.f32_launches
     with torch.no_grad():
         got = model(x.to(dev)).cpu()
-    assert stage_kernel.launches == before
+    assert (stage_kernel.launches, stage_kernel.f32_launches) == (before[0], before[1] + 6)
     stage_kernel.set_fused_stage(False)
     try:
         with torch.no_grad():

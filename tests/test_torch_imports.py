@@ -29,6 +29,9 @@ MODULES = (
     "ssunet_gan_tpu_torch.cli.train", "ssunet_gan_tpu_torch.native",
     "ssunet_gan_tpu_torch.data.jpeg", "ssunet_gan_tpu_torch.infer.overlays",
     "ssunet_gan_tpu_torch.models.gan", "ssunet_gan_tpu_torch.cli.val_patch",
+    "ssunet_gan_tpu_torch.ops.spectral", "ssunet_gan_tpu_torch.models.vgg",
+    "ssunet_gan_tpu_torch.train.gan_step", "ssunet_gan_tpu_torch.train.gan",
+    "ssunet_gan_tpu_torch.cli.train_seg_gan", "ssunet_gan_tpu_torch.srgan_utils",
 )
 
 

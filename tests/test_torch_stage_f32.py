@@ -1,0 +1,99 @@
+"""The f32 route of kernel 1 (``csrc/fused_stage_f32.cu``) on the CPU: its
+conv launch's plain version, which walks the packed [K][cout] weight in the
+kernel's K order, against convolutions over the unpacked weights; the stage
+as the route runs it, launch by launch, against the stage's plain version;
+and against the JAX package's ``fused_eval_stage`` in f32 (Pallas interpret
+mode), which takes the activation dtype.
+
+f32 throughout. Between the port's functions (the same products summed in
+another order): relative L2 and max error over max |·| ≤ 1e-5. Against JAX:
+rtol = atol = 2e-4, tests/test_torch_stage.py's bar (both fold BN into the
+weights but sum in other orders).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ssunet_gan_tpu.ops.stage_kernel import fused_eval_stage as jax_fused_eval_stage
+from ssunet_gan_tpu_torch.ops import stage_kernel
+from ssunet_gan_tpu_torch.ops.conv import conv2d_nhwc
+from test_torch_stage import _stage
+from torch_port_helpers import jax_toggles
+
+
+@pytest.fixture(autouse=True)
+def _jax_modes():
+    with jax_toggles(fused_stage=True):
+        yield
+
+
+def _close(got, want, tol=1e-5):
+    diff = (got - want).double()
+    scale = want.double().abs().max().item()
+    l2 = (diff.norm() / want.double().norm()).item()
+    assert diff.abs().max().item() <= tol * scale and l2 <= tol, (diff.abs().max().item(),
+                                                                  scale, l2)
+
+
+@pytest.mark.parametrize("segs", [((5, 3),), ((8, 3), (16, 3)), ((16, 3), (8, 1), (24, 1))],
+                         ids=["one", "two_parts", "conv2_with_shortcut"])
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "linear"])
+def test_f32_conv_launch_walks_its_packed_weight(rng, segs, relu):
+    """One launch over up to three K-segments (3×3 parts, 1×1 shortcut
+    parts) on a ragged 9×7 map: the packed weight walked in the kernel's K
+    order (segment, tap, channel) equals the sum of the segments' convs,
+    the bias added, then ReLU."""
+    cout = 12
+    xs = [torch.from_numpy(rng.normal(size=(2, 9, 7, c)).astype(np.float32)) for c, _ in segs]
+    ws = [torch.from_numpy((rng.normal(size=(cout, c, k, k)) * 0.2).astype(np.float32))
+          for c, k in segs]
+    bias = torch.from_numpy(rng.normal(size=cout).astype(np.float32))
+    conv = stage_kernel.pack_f32_conv(ws, bias, relu)
+    assert conv["w"].shape == (sum(9 * c if k == 3 else c for c, k in segs), cout)
+    got = stage_kernel.f32_conv_reference(xs, conv)
+    want = sum(conv2d_nhwc(x, w, padding=w.shape[-1] // 2) for x, w in zip(xs, ws)) + bias
+    _close(got, torch.relu(want) if relu else want)
+
+
+@pytest.mark.parametrize(
+    "planes,label,shapes,nh,ncls",
+    [
+        (16, 3, [(2, 16, 8, 8)], 4.0, 0),                       # encoder, 1 part
+        (16, 3, [(1, 8, 16, 8), (1, 8, 16, 16)], 4.0, 0),       # decoder, 2 parts
+        (8, 2, [(2, 8, 8, 3)], 4.0, 0),                         # 3-ch first block
+        (16, 3, [(1, 8, 16, 8), (1, 8, 16, 16)], 4.0, 3),       # folded final head
+    ],
+    ids=["encoder", "decoder", "first", "head"],
+)
+def test_f32_route_matches_the_stage_and_jax(rng, planes, label, shapes, nh, ncls):
+    """The stage launch by launch as the f32 route runs it (the plain
+    versions of its conv and modulate launches, on ``pack_stage_f32``'s
+    operands) against the stage's plain version (``fused_stage_reference``
+    in f32, what the wrapper runs on the CPU) and against the JAX
+    package's ``fused_eval_stage`` on f32 parts in interpret mode."""
+    st = _stage(rng, planes, label, shapes, nh, ncls)
+    parts = tuple(torch.from_numpy(x) for x in st["xs"])
+    pk = stage_kernel.pack_stage_f32(tuple(p.shape[-1] for p in parts), st["tbp"], st["tsp"],
+                                     st["thead"])
+    got = stage_kernel.f32_stage_launches(parts, pk)
+    _close(got, stage_kernel.fused_stage_reference(parts, st["tbp"], st["tsp"], st["thead"]))
+    kernel = np.asarray(jax_fused_eval_stage(
+        st["jparts"], st["jbp"], st["jsp"],
+        final_head=None if st["head"] is None else tuple(map(jnp.asarray, st["head"]))))
+    assert kernel.dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), kernel, rtol=2e-4, atol=2e-4)
+
+
+def test_f32_route_without_a_shortcut(rng):
+    """A VGG stage (zero shortcut: no 1×1 segment in conv2) on the route's
+    launches against the stage's plain version."""
+    st = _stage(rng, 16, 3, [(2, 8, 8, 8)], 4.0, 0)
+    w1, s1, w2, s2, _ = st["tbp"]
+    bp = (w1, s1, w2, s2, None)
+    parts = (torch.from_numpy(st["xs"][0]),)
+    pk = stage_kernel.pack_stage_f32((8,), bp, st["tsp"], None)
+    assert not pk["shortcut"] and pk["conv2"]["chans"] == (16,)
+    _close(stage_kernel.f32_stage_launches(parts, pk),
+           stage_kernel.fused_stage_reference(parts, bp, st["tsp"]))

@@ -136,8 +136,11 @@ def test_losses_and_metrics_match_jax(rng, poison):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
     if poison == "inf":
         assert np.isfinite(losses.bce_dice_loss(tl, tt).item())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        losses.get_loss("LovaszHingeLoss")
+    # every name of the JAX registry (the Lovász hinge since the GAN slice);
+    # other names raise as in the JAX package
+    assert list(losses.LOSS_REGISTRY) == list(jlosses.LOSS_REGISTRY)
+    with pytest.raises(KeyError, match="NoSuchLoss"):
+        losses.get_loss("NoSuchLoss")
 
 
 @pytest.mark.parametrize(

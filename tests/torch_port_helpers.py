@@ -18,6 +18,7 @@ from ssunet_gan_tpu.ops import stage_kernel_int8 as jax_stage_kernel_int8
 from ssunet_gan_tpu.ops import stage_kernel_train as jax_stage_kernel_train
 from ssunet_gan_tpu.ops import wminor as jax_wminor
 from ssunet_gan_tpu.ops.conv import Conv2d as JConv2d
+from ssunet_gan_tpu.train import gan_step as jax_gan_step
 from ssunet_gan_tpu_torch.ops import pool as port_pool
 from ssunet_gan_tpu_torch.ops import resize as port_resize
 from ssunet_gan_tpu_torch.ops import stage_kernel_train as port_stage_kernel_train
@@ -26,7 +27,7 @@ from ssunet_gan_tpu_torch.ops import stage_kernel_train as port_stage_kernel_tra
 @contextlib.contextmanager
 def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool = False,
                 int8_stage: bool = False, fused_spade=None, remat: bool = False,
-                lazy_upsample: bool = False, lazy_pool: bool = False):
+                lazy_upsample: bool = False, lazy_pool: bool = False, joint_gan: bool = True):
     """Set every global mode of the JAX package that the port's tests
     reach, and restore the previous values after (another test in the same
     worker may leave, e.g., the upsample-backward decomposition on). The
@@ -44,7 +45,9 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
     ``set_remat``). The stacked seg dots (``set_seg_stack``, which the JAX
     package's ``load_segmentation_models`` sets from a model card) start at
     their default and are restored after, as are the SPADE, int8 and band
-    modes that it sets."""
+    modes that it sets. ``joint_gan`` is the JAX package's GAN step
+    formulation (``train/gan_step.py`` ``set_joint_gan``; True, its default:
+    the joint scalar, False: alternating)."""
     saved = (
         jax_stage_kernel._FUSED_STAGE,
         jax_wminor._LAZY_UPSAMPLE,
@@ -61,6 +64,7 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
         port_resize._LAZY_UPSAMPLE,
         port_pool._LAZY_POOL,
         jax_stage_kernel._SEG_STACK,
+        jax_gan_step._JOINT_GAN,
     )
     jax_stage_kernel.set_fused_stage(fused_stage)
     jax_wminor.set_lazy_upsample(lazy_upsample)
@@ -77,6 +81,7 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
     jax_spade_kernel.set_fused_spade(fused_spade)
     jax_blocks.set_remat(remat)
     jax_stage_kernel.set_seg_stack(None)
+    jax_gan_step.set_joint_gan(joint_gan)
     try:
         yield
     finally:
@@ -95,6 +100,7 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
         port_resize.set_lazy_upsample(saved[12])
         port_pool.set_lazy_pool(saved[13])
         jax_stage_kernel.set_seg_stack(saved[14])
+        jax_gan_step.set_joint_gan(saved[15])
 
 
 def oihw(kernel_hwio) -> torch.Tensor:
