@@ -28,10 +28,15 @@ Phases, each of which exits non-zero on failure:
    stage), 512² bf16 tiles, batch 8; tiles/s, six kernel runs per
    forward, logits against the all-plain forward on the card in bf16 and
    in f32 (the fused stages off: every stage the module composition); the
-   f32 route of kernel 1 (``csrc/fused_stage_f32.cu``) per stage signature
-   against its plain version in f32 and timed (``f32 stage:`` lines); and
-   an f32 forward at batch 1, its six fused stages on the f32 route,
-   against the CPU's.
+   f32 route of kernel 1 (``csrc/fused_stage_f32.cu``, 3xTF32 on the
+   tensor cores) per stage signature against its plain version in f32 and
+   timed (``f32 stage:`` lines), with inf / -inf / NaN planted (output
+   classes against the per-launch plain versions), and each of its
+   launches alone against its plain version, timed beside its f32 and
+   3xTF32 bounds and ``F.conv2d`` f32 (``f32 conv:`` lines); kernel 1 in
+   bf16 and f32 keeping a planted NaN on its receptive field; and an f32
+   forward at batch 1, its six fused stages on the f32 route, against the
+   CPU's.
 3. Scene request: segmentation_inference on a seeded 2048² uint8 scene
    (patch 1024, overlap 0.5: 36 tiles, two chunks of 32, the last padded);
    the chunked forward's tile probabilities and the masks against the
@@ -286,6 +291,7 @@ MASK_SHARE = (0.01, 0.99)
 PEAK_BF16_FLOPS = 989e12
 PEAK_S8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # tensor cores, TF32 dense
 PEAK_BYTES = 3.35e12
 # An emitted s8 stage output against the plain version's: equal on at least
 # S8_EQUAL of the elements, never more than one step apart (a 1-ulp flip of
@@ -879,19 +885,132 @@ def seeded_stage_phase(dev, sigs, block_cls, gen, phase, check, int8=False, seam
     return tuple(worst)
 
 
+def f32_oihw(conv):
+    """An f32 launch's segment weights as OIHW tensors (from its plain
+    version's ``[K][cout]`` weight)."""
+    out, r = [], 0
+    for c, k in zip(conv["chans"], conv["ks"]):
+        out.append(conv["w"][r:r + k * k * c].reshape(k, k, c, -1).permute(3, 2, 0, 1))
+        r += k * k * c
+    return out
+
+
+def library_conv_f32(sources, conv, y=None):
+    """An f32 launch as ``F.conv2d`` calls in f32 (TF32 off), channels-last:
+    one per kernel size over its segments' sources concatenated (outside
+    the timed region), the bias, then ReLU or, for the γ|β launch, the
+    modulate with ``y``. The library yardstick, timed only and never
+    called by the port."""
+    import torch.nn.functional as F
+
+    ws = f32_oihw(conv)
+    groups = []
+    for k in sorted(set(conv["ks"]), reverse=True):
+        sel = [i for i, kk in enumerate(conv["ks"]) if kk == k]
+        x = torch.cat([sources[i] for i in sel], -1).permute(0, 3, 1, 2)
+        w = torch.cat([ws[i] for i in sel], 1).contiguous(memory_format=torch.channels_last)
+        groups.append((x, w, k // 2))
+    bias = conv["bias"]
+    c = conv["cout"] // 2
+
+    def run():
+        out = None
+        for x, w, pad in groups:
+            t = F.conv2d(x, w, bias if out is None else None, padding=pad)
+            out = t if out is None else out.add_(t)
+        if conv["modulate"]:
+            out = out.permute(0, 2, 3, 1)
+            return y * (1 + out[..., :c]) + out[..., c:]
+        return torch.relu_(out) if conv["relu"] else out
+    return run
+
+
+def plant_non_finite(part, gen):
+    """``part`` with +inf, -inf and NaN planted at seeded positions (a few
+    of each, apart), for the output-class check."""
+    x = part.clone()
+    flat = x.view(-1)
+    pos = torch.randperm(flat.numel(), generator=gen)[:9].to(x.device)
+    vals = torch.tensor([float("inf"), float("-inf"), float("nan")] * 3, device=x.device)
+    flat[pos] = vals
+    return x
+
+
+def output_classes(t):
+    """Each element's class: 0 finite, 1 NaN, 2 +inf, 3 -inf."""
+    return (torch.isnan(t) * 1 + torch.isposinf(t) * 2 + torch.isneginf(t) * 3).to(torch.int8)
+
+
+def f32_launches_of(parts, pk, conv_fn):
+    """The f32 route's launches of a stage run through ``conv_fn`` (the
+    card's ``f32_conv``): (launch, sources, packed conv, y) and its output."""
+    launches = []
+
+    def traced(sources, conv, y=None):
+        name = next(k for k in ("conv1", "conv2", "seg", "act", "gb", "head") if pk[k] is conv)
+        launches.append((name, tuple(sources), conv, y))
+        return conv_fn(sources, conv, y)
+
+    from ssunet_gan_tpu_torch.ops import stage_kernel
+
+    out = stage_kernel.f32_stage_launches(parts, pk, traced)
+    return launches, out
+
+
+def nan_witness(dev, block_cls, gen, check) -> None:
+    """Kernel 1 in bf16 and its f32 route on a 32x32 map with one NaN in
+    one channel of one input pixel: NaN exactly where the stage's receptive
+    field reaches it (Chebyshev radius 5: conv1, conv2, seg, act and γ|β,
+    each 3x3, every weight nonzero), finite elsewhere, as the plain version
+    and the JAX package keep NaN through ReLU (``torch.relu``,
+    ``jnp.maximum``)."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel
+    from ssunet_gan_tpu_torch.ops.spade import SPADE
+
+    block = block_cls(64, 128, generator=gen)
+    random_bn_stats(block, gen)
+    block.to(dev).eval()
+    spade = SPADE("spadebatch3x3", 128, 3, 8.0, generator=gen).to(dev)
+    x = torch.randn((2, 32, 32, 64), generator=gen)
+    b, py, px = 1, 9, 20
+    x[b, py, px, 7] = float("nan")
+    yy, xx = torch.meshgrid(torch.arange(32), torch.arange(32), indexing="ij")
+    want = torch.zeros((2, 32, 32, 1), dtype=torch.bool)
+    want[b, ..., 0] = torch.maximum((yy - py).abs(), (xx - px).abs()) <= 5
+    for dtype in (torch.bfloat16, torch.float32):
+        out = stage_kernel.fused_eval_stage((x.to(dev, dtype),), block.stage_params(),
+                                            spade.stage_params()).float().cpu()
+        nan, fin = torch.isnan(out), torch.isfinite(out)
+        ok = torch.equal(nan, want.expand_as(nan)) and torch.equal(fin, ~nan)
+        print(f"phase 2: planted NaN, kernel 1 {dtype}: {int(nan.sum())} NaN outputs, "
+              f"{int(want.sum()) * out.shape[-1]} expected (radius 5), the rest finite: {ok}")
+        check(ok, f"phase 2: kernel 1 {dtype} does not keep a planted NaN as the plain version "
+                  f"does ({int(nan.sum())} NaN outputs)")
+
+
 def f32_stage_phase(dev, sigs, block_cls, gen, check) -> dict:
-    """The f32 route of kernel 1 (``csrc/fused_stage_f32.cu``): each fused
-    stage signature at 512² with seeded weights (as
-    :func:`seeded_stage_phase`) and f32 inputs, at batch 2 against the
-    stage's plain version in f32 (TF32 off) to F32_STAGE_TOL, then timed at
-    BATCH beside the plain version and its bound (f32 operations on the
-    CUDA cores, or the f32 bytes; ``f32 stage:`` lines and their sum per
-    forward). Returns the ``kernels`` row's numbers."""
+    """The f32 route of kernel 1 (``csrc/fused_stage_f32.cu``, 3xTF32 on
+    the tensor cores): each fused stage signature at 512² with seeded
+    weights (as :func:`seeded_stage_phase`) and f32 inputs, at batch 2
+    against the stage's plain version in f32 (TF32 off) to F32_STAGE_TOL;
+    on a 64² map with +inf, -inf and NaN planted in its first part, each
+    output's class (finite, NaN, +inf, -inf) against the per-launch plain
+    versions' (``f32_stage_launches``: exact f32 products, whose classes
+    do not depend on the summation order); then timed at BATCH beside the
+    plain version (``f32 stage:`` lines and their sum per forward), and
+    each of its launches alone at BATCH against its plain version
+    (``f32_conv_reference``) to F32_STAGE_TOL, timed beside its two
+    bounds (f32 operations on the CUDA cores; three TF32 products per f32
+    product on the tensor cores) and the ``F.conv2d`` f32 call of the same
+    convs (``f32 conv:`` lines and their sum per forward). Returns the
+    ``kernels`` row's numbers: bound_ms is the 3xTF32 bound."""
     from ssunet_gan_tpu_torch.ops import stage_kernel
     from ssunet_gan_tpu_torch.ops.conv import Conv2d
     from ssunet_gan_tpu_torch.ops.spade import SPADE
 
     worst, tot = 0.0, {"ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    ltot = {"ms": 0.0, "library_ms": 0.0, "bound_f32_ms": 0.0, "bound_tf32_ms": 0.0,
+            "launches": 0}
     for name, chans, planes, lab, nh, head_cls, level in sigs:
         block = block_cls(sum(chans), planes, generator=gen)
         random_bn_stats(block, gen)
@@ -919,6 +1038,19 @@ def f32_stage_phase(dev, sigs, block_cls, gen, check) -> dict:
               f"{what}: the f32 route disagrees with plain (err {err}, max {scale}, l2 {l2})")
         worst = max(worst, err)
         del parts, got, want, diff
+        # planted inf / -inf / NaN: each output's class as the plain version's
+        parts = tuple(torch.randn((2, 64, 64, c), generator=gen).to(dev) for c in chans)
+        parts = (plant_non_finite(parts[0], gen),) + parts[1:]
+        got = output_classes(stage_kernel.fused_eval_stage(parts, bp, sp, head, pk))
+        want = output_classes(stage_kernel.f32_stage_launches(parts, pk))
+        counts = [int((want == k).sum()) for k in range(4)]
+        same = bool(torch.equal(got, want))
+        print(f"{what} 64x64 batch 2, inf / -inf / NaN planted in part 0: output classes "
+              f"(finite, NaN, +inf, -inf) of plain {counts}, equal to the kernel's: {same}, "
+              f"{int((got != want).sum())} differ")
+        check(same and counts[1] > 0, f"{what}: planted non-finite inputs: the kernel's output "
+              f"classes differ from plain at {int((got != want).sum())} elements")
+        del parts, got, want
         parts = tuple(torch.randn((BATCH, side, side, c), generator=gen).to(dev) for c in chans)
         settle()
         ms = cuda_ms(lambda: stage_kernel.fused_eval_stage(parts, bp, sp, head, pk), 3)
@@ -930,19 +1062,58 @@ def f32_stage_phase(dev, sigs, block_cls, gen, check) -> dict:
         nbytes = (sum(p.numel() for p in parts) + sum(t.numel() for t in
                   stage_kernel.packed_tensors(pk)) + BATCH * side * side * (head_cls or planes)) * 4
         bound, kind = bound_of(flops, nbytes, PEAK_F32_FLOPS)
+        bound3 = bound_of(3 * flops, nbytes, PEAK_TF32_FLOPS)[0]
         print(f"f32 stage: {name} {side}x{side} batch {BATCH}: {ms:.3f} ms, plain {plain_ms:.3f} "
-              f"ms, bound {bound:.3f} ms ({kind}; {flops / ms / 1e9:.1f} TFLOP/s)")
+              f"ms, bound {bound:.3f} ms ({kind}, f32 on the CUDA cores), 3xTF32 bound "
+              f"{bound3:.3f} ms; {flops / ms / 1e9:.1f} TFLOP/s")
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
         tot["flops"] += flops
         tot["bytes"] += nbytes
-        del parts, block, spade, pk
+        # each launch alone at BATCH on the inputs the stage gave it
+        launches, _ = f32_launches_of(parts, pk, stage_kernel.f32_conv)
+        for lname, sources, conv, y in launches:
+            lgot = stage_kernel.f32_conv(sources, conv, y)
+            lwant = stage_kernel.f32_conv_reference(sources, conv, y)
+            lerr, lscale, ll2, _ = close(lgot, lwant)
+            ok = (bool(torch.isfinite(lgot).all()) and lerr <= F32_STAGE_TOL * lscale
+                  and ll2 <= F32_STAGE_TOL)
+            check(ok, f"phase 2: f32 conv {name} {lname}: the launch disagrees with its plain "
+                      f"version (err {lerr}, max {lscale}, l2 {ll2})")
+            worst = max(worst, lerr)
+            del lgot, lwant
+            kk = sum(c * k * k for c, k in zip(conv["chans"], conv["ks"]))
+            lflops = 2.0 * BATCH * side * side * conv["cout"] * kk
+            lbytes = 4 * (sum(s.numel() for s in sources) + conv["w"].numel()
+                          + BATCH * side * side * conv["cout"] // (2 if y is not None else 1)
+                          + (y.numel() if y is not None else 0))
+            b32, bkind = bound_of(lflops, lbytes, PEAK_F32_FLOPS)
+            b3 = bound_of(3 * lflops, lbytes, PEAK_TF32_FLOPS)[0]
+            lms = cuda_ms(lambda: stage_kernel.f32_conv(sources, conv, y), 10)
+            lib_ms = cuda_ms(library_conv_f32(sources, conv, y), 10)
+            for k, v in (("ms", lms), ("library_ms", lib_ms), ("bound_f32_ms", b32),
+                         ("bound_tf32_ms", b3), ("launches", 1)):
+                ltot[k] += v
+            print("f32 conv: " + json.dumps(dict(
+                stage=name, launch=lname, shape=[BATCH, side, side],
+                segments=[[c, k] for c, k in zip(conv["chans"], conv["ks"])],
+                cout=conv["cout"], bn=conv["bn"], modulate=conv["modulate"], max_abs_err=lerr,
+                rel_l2=ll2, ms=lms, bound_f32_ms=b32, bound_tf32_ms=b3, bound_by=bkind,
+                library_ms=lib_ms, tflops=lflops / lms / 1e9)))
+        del parts, block, spade, pk, launches
     torch.cuda.empty_cache()
     bound, kind = bound_of(tot["flops"], tot["bytes"], PEAK_F32_FLOPS)
+    bound3 = bound_of(3 * tot["flops"], tot["bytes"], PEAK_TF32_FLOPS)[0]
     print(f"f32 stage: per flagship forward (batch {BATCH}, {len(sigs)} stages): "
-          f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound {bound:.3f} ms ({kind})")
+          f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound {bound:.3f} ms ({kind}, "
+          f"f32 on the CUDA cores), 3xTF32 bound {bound3:.3f} ms; "
+          f"{tot['flops'] / tot['ms'] / 1e9:.1f} TFLOP/s")
+    print(f"f32 conv: per flagship forward ({ltot['launches']} launches): {ltot['ms']:.3f} ms, "
+          f"F.conv2d f32 {ltot['library_ms']:.3f} ms, bounds f32 {ltot['bound_f32_ms']:.3f} / "
+          f"3xTF32 {ltot['bound_tf32_ms']:.3f} ms")
     return {"max_abs_err": worst, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": bound, "bound_by": kind}
+            "bound_ms": bound3, "bound_by": "operations", "bound_f32_ms": bound,
+            "library_ms": ltot["library_ms"], "conv_ms": ltot["ms"]}
 
 
 def model_stage_phase(dev, model, sigs, scene_tiles, phase, name, check, seams) -> dict:
@@ -4341,6 +4512,7 @@ def main() -> int:
     # set to 0 just before it), the same forward on the CPU with the fused
     # eval stages off its yardstick
     f32_row = f32_stage_phase(dev, sigs, BasicBlock, gen, check)
+    nan_witness(dev, BasicBlock, torch.Generator().manual_seed(SEED + 9), check)
     xn = x.float() * a.to(dev) + b.to(dev)
     before = stage_kernel.launches
     stage_kernel.f32_launches = 0
@@ -4365,7 +4537,7 @@ def main() -> int:
           f"{stage_kernel.launches - before} bf16 ones, rel_l2 {e_f32} from the CPU forward")
     f32_row = {"name": "fused_eval_stage_f32", "route": "cuda",
                "source": f"ssunet_gan_tpu_torch/csrc/{stage_kernel.SOURCE_F32}",
-               "replaces": stage_kernel.REPLACES, "library_ms": None, **f32_row}
+               "replaces": stage_kernel.REPLACES, **f32_row}
     del cpu_model, f32_card, f32_cpu, xn
     eval_row = {
         "name": "fused_eval_stage", "route": "cuda",

@@ -478,10 +478,10 @@ __device__ __forceinline__ void conv3_body(const Conv3Args& a) {
             for (int h4 = 0; h4 < 8; h4 += 4) {
               const float4 pa = *reinterpret_cast<const float4*>(cs + c0 + h4);
               const float4 pb4 = *reinterpret_cast<const float4*>(cs + csn + c0 + h4);
-              o[h4] = fmaxf(__fadd_rn(__fmul_rn(g[h4], pa.x), pb4.x), 0.f);
-              o[h4 + 1] = fmaxf(__fadd_rn(__fmul_rn(g[h4 + 1], pa.y), pb4.y), 0.f);
-              o[h4 + 2] = fmaxf(__fadd_rn(__fmul_rn(g[h4 + 2], pa.z), pb4.z), 0.f);
-              o[h4 + 3] = fmaxf(__fadd_rn(__fmul_rn(g[h4 + 3], pa.w), pb4.w), 0.f);
+              o[h4] = relu(__fadd_rn(__fmul_rn(g[h4], pa.x), pb4.x));
+              o[h4 + 1] = relu(__fadd_rn(__fmul_rn(g[h4 + 1], pa.y), pb4.y));
+              o[h4 + 2] = relu(__fadd_rn(__fmul_rn(g[h4 + 2], pa.z), pb4.z));
+              o[h4 + 3] = relu(__fadd_rn(__fmul_rn(g[h4 + 3], pa.w), pb4.w));
             }
           } else if constexpr (MODE == CONV_MODGRAD) {
 #pragma unroll
@@ -920,7 +920,7 @@ __device__ __forceinline__ void wgrad3_body(const Wg3Args& a) {
 #pragma unroll
           for (int q = 0; q < 8; ++q) {
             const int c = c0 + q;
-            f[q] = c < xc ? fmaxf(__fadd_rn(__fmul_rn(f[q], pa[c]), pb[c]), 0.f) : 0.f;
+            f[q] = c < xc ? relu(__fadd_rn(__fmul_rn(f[q], pa[c]), pb[c])) : 0.f;
           }
           sstore8(wb + px * wst + piece * 8, f);
         }

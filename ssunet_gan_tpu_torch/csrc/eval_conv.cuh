@@ -510,12 +510,11 @@ eval_conv_core(const EcArgs a) {
       unpack8(*reinterpret_cast<const uint4*>(a.res + pix * a.cout + c0), r);
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        o[e] = fmaxf(__fadd_rn(__fadd_rn(__fmul_rn(r[e], a.res_a[c0 + e]), a.res_b[c0 + e]), v[e]),
-                     0.f);
+        o[e] = relu(__fadd_rn(__fadd_rn(__fmul_rn(r[e], a.res_a[c0 + e]), a.res_b[c0 + e]), v[e]));
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        o[e] = fmaxf(v[e] + (a.bias != nullptr ? a.bias[c0 + e] : 0.f), 0.f);
+        o[e] = relu(v[e] + (a.bias != nullptr ? a.bias[c0 + e] : 0.f));
     }
     *reinterpret_cast<uint4*>(a.out + pix * a.cout + c0) =
         make_uint4(pack2(o[0], o[1]), pack2(o[2], o[3]), pack2(o[4], o[5]), pack2(o[6], o[7]));

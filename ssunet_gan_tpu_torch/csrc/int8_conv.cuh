@@ -562,12 +562,12 @@ s8_conv_core(const QcArgs a) {
         for (int e = 0; e < 8; ++e) {
           const float a2 = __fmul_rn(__int2float_rn(v[e]), __fmul_rn(k0[e], sc));
           const float as = __fmul_rn(__int2float_rn(vs[e]), k1[e]);
-          o[e] = fmaxf(__fadd_rn(__fadd_rn(a2, as), k2[e]), 0.f);
+          o[e] = relu(__fadd_rn(__fadd_rn(a2, as), k2[e]));
         }
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          o[e] = fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(v[e]), k0[e]), k1[e]), 0.f);
+          o[e] = relu(__fadd_rn(__fmul_rn(__int2float_rn(v[e]), k0[e]), k1[e]));
       }
       const long long pix = img_base + (long long)oh * W + ow;
       const uint4 packed =

@@ -30,6 +30,9 @@ __device__ __forceinline__ void unpack8(const uint4 v, float* f) {
   }
 }
 
+// ReLU as torch.relu takes it: a NaN stays NaN (fmaxf(NaN, 0) would give 0)
+__device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
+
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -340,7 +343,7 @@ spade_tail_kernel(const TailArgs a) {
         const float* kr = a.k2s + tap * lab * nh + j;
         for (int l = 0; l < lab; ++l) s += sr[l] * __ldg(kr + l * nh);
       }
-      v = bf16r(fmaxf(s, 0.f));
+      v = bf16r(relu(s));
       if (a.act_out != nullptr && ar >= 1 && ar < TAIL_AW - 1 && ac >= 1 && ac < TAIL_AW - 1)
         a.act_out[(img + (long long)gh * W + gw) * nh + j] = __float2bfloat16_rn(v);
     }

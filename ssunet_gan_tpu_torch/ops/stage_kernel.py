@@ -73,8 +73,10 @@ SOURCE_F32 = "fused_stage_f32.cu"
 
 # Fused stages run on the card, one per stage (three CUDA launches each).
 launches = 0
-# f32 stages run on the card (the f32 route), and their conv and modulate
-# launches (five or six convs and one modulate per stage)
+# f32 stages run on the card (the f32 route), and their conv launches (five
+# per stage, six with the folded head); the modulate rides the γ|β conv's
+# epilogue, so no modulate launch is counted
+
 f32_launches = 0
 f32_conv_launches = 0
 f32_modulate_launches = 0
@@ -631,24 +633,115 @@ def fused_eval_stage(parts, block_params, spade_params, head=None,
 
 
 # ---- the f32 route (csrc/fused_stage_f32.cu) ----------------------------------
+#
+# Each launch is one conv of the stage on the tensor cores in 3xTF32: the
+# weights are split at pack time into big = tf32(w) and small = tf32(w -
+# big) (:func:`split_tf32`), the activations as their windows land in
+# shared memory, and each product is big·big + big·small + small·big in f32
+# sums. :func:`f32_conv_reference` is a launch's plain version (exact f32
+# products), :func:`f32_conv_emulated` the kernel's arithmetic in plain
+# PyTorch (for the CPU tests); the γ|β conv carries the modulate in its
+# epilogue. K is walked in chunks of 8 channels (4 for a source of ≤ 4),
+# each chunk as (tap, 4-channel quad) pairs, padded to an even count.
 
 
-def pack_f32_conv(segments, bias, relu: bool) -> dict:
-    """One conv of the f32 route: the OIHW weights of its segments packed as
-    the kernel reads them, [K][cout] with K over the segments in order and
-    (tap, channel) within each, f32; the bias in f32; ReLU or not."""
+def f32_bn(cout: int) -> int:
+    """The kernel's N tile for a conv of ``cout`` columns (as
+    ``csrc/fused_stage_f32.cu`` ``f32_bn``, which checks it): 8, 16, or 64
+    in N blocks."""
+    return 8 if cout <= 8 else 16 if cout <= 16 else 64
+
+
+def f32_chunks(c: int, k: int) -> Tuple[int, int, int]:
+    """(quads per chunk, chunks, pairs per chunk padded to even) of a
+    segment of ``c`` channels and kernel size ``k``."""
+    q = 1 if c <= 4 else 2
+    pairs = k * k * q
+    return q, -(-c // (4 * q)), pairs + (pairs & 1)
+
+
+def f32_k_index(chans, ks) -> torch.Tensor:
+    """For each K row of the kernel's packed weight (segment, chunk,
+    (tap, quad) pair, channel of the quad), its row in the natural weight
+    ``[sum k·k·c][cout]`` ((tap, channel) within each segment, segments in
+    order), or -1 where the row is zero (channels past a segment's width,
+    the padded pair)."""
+    rows, base = [], 0
+    for c, k in zip(chans, ks):
+        q, nchunk, pairs = f32_chunks(c, k)
+        for jc in range(nchunk):
+            for p in range(pairs):
+                for j in range(4):
+                    tap, qq = divmod(p, q)
+                    ch = jc * 4 * q + qq * 4 + j
+                    rows.append(base + tap * c + ch if p < k * k * q and ch < c else -1)
+        base += k * k * c
+    return torch.tensor(rows, dtype=torch.long)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) of f32 ``x`` as the kernel splits it: big = tf32(x)
+    rounded to nearest, ties away (toward zero where rounding up would
+    overflow), small = tf32(x - big); an inf or NaN splits as (x, 0)."""
+    x = x.float().contiguous()
+    u = x.view(torch.int32)
+    m = u & 0x7FFFFFFF
+    big = torch.where(m < 0x7F7FF000, (u + 0x1000) & -0x2000, u & -0x2000).view(torch.float32)
+    fin = m < 0x7F800000
+    small = (((x - big).view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(fin, big, x), torch.where(fin, small, torch.zeros_like(x))
+
+
+def pack_f32_conv(segments, bias, relu: bool, modulate: bool = False) -> dict:
+    """One conv of the f32 route: ``w``, the OIHW weights of its segments as
+    ``[K][cout]`` with K over the segments in order and (tap, channel)
+    within each (what the plain version reads), f32; ``wk``, the kernel's
+    operand: the same weight in its K order (:func:`f32_k_index`), split
+    into big and small parts (:func:`split_tf32`), ``[2][N blocks][K
+    quads][bn][4]``; the bias (``bk`` in the kernel's column order, padded
+    to the N blocks); ReLU or not. ``modulate``: the γ|β conv (2C columns,
+    γ then β), whose kernel columns interleave γ_c and β_c and whose
+    epilogue is the modulate."""
     w = torch.cat([s.float().permute(2, 3, 1, 0).reshape(-1, s.shape[0]) for s in segments])
+    chans = tuple(s.shape[1] for s in segments)
+    ks = tuple(s.shape[-1] for s in segments)
+    cout = segments[0].shape[0]
+    bn = f32_bn(cout)
+    nb = -(-cout // bn)
+    cols = torch.arange(cout, device=w.device)
+    if modulate:
+        cols = torch.stack([cols[:cout // 2], cols[cout // 2:]], 1).reshape(-1)
+    idx = f32_k_index(chans, ks).to(w.device)
+    wk = torch.zeros((idx.numel(), nb * bn), dtype=torch.float32, device=w.device)
+    wk[:, :cout] = torch.where((idx >= 0)[:, None], w[idx.clamp_min(0)][:, cols], 0.0)
+    wk = wk.reshape(-1, 4, nb, bn).permute(2, 0, 3, 1)
+    bk = None
+    if bias is not None:
+        bk = torch.zeros(nb * bn, dtype=torch.float32, device=w.device)
+        bk[:cout] = bias.float()[cols]
     return {"w": w.contiguous(), "bias": None if bias is None else bias.float().contiguous(),
-            "chans": tuple(s.shape[1] for s in segments),
-            "ks": tuple(s.shape[-1] for s in segments), "cout": segments[0].shape[0],
-            "relu": relu}
+            "wk": torch.stack(split_tf32(wk)).contiguous(), "bk": bk, "kq": idx.numel() // 4,
+            "bn": bn, "chans": chans, "ks": ks, "cout": cout, "relu": relu,
+            "modulate": modulate}
+
+
+def f32_weight_parts(conv: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The big and small parts of a packed conv's weight (``wk``), walked
+    back from the kernel's K and column order to ``w``'s ``[K][cout]``."""
+    cout = conv["cout"]
+    idx = f32_k_index(conv["chans"], conv["ks"]).to(conv["wk"].device)
+    flat = conv["wk"].permute(0, 2, 4, 1, 3).reshape(2, idx.numel(), -1)[:, idx >= 0, :cout]
+    flat = flat[:, torch.argsort(idx[idx >= 0])]
+    if conv["modulate"]:
+        flat = torch.cat([flat[..., 0::2], flat[..., 1::2]], -1)
+    return flat[0], flat[1]
 
 
 def pack_stage_f32(part_channels, block_params, spade_params, head) -> dict:
     """The f32 route's operands of a stage (arguments as
     :func:`fused_stage_reference`): BN folded into the convs in f32, conv2
     with the shortcut's parts as K-segments, γ and β as one conv of 2C
-    outputs."""
+    outputs with the modulate in its epilogue."""
     w1, (s1, t1), w2, (s2, t2), ws = block_params
     wx, bx, wm, bm, wg, bg, wb, bb = spade_params
     w1f = w1.float() * s1.float()[:, None, None, None]
@@ -661,17 +754,16 @@ def pack_stage_f32(part_channels, block_params, spade_params, head) -> dict:
         "conv2": pack_f32_conv([w2f] + short, t2, True),
         "seg": pack_f32_conv([wx], bx, False),
         "act": pack_f32_conv([wm], bm, True),
-        "gb": pack_f32_conv([torch.cat([wg, wb])], torch.cat([bg, bb]), False),
+        "gb": pack_f32_conv([torch.cat([wg, wb])], torch.cat([bg, bb]), False, modulate=True),
         "head": None if head is None else pack_f32_conv([head[0]], head[1], False),
     }
 
 
-def f32_conv_reference(sources, conv: dict) -> torch.Tensor:
-    """The plain version of one f32 conv launch, from its packed weight:
-    each segment's taps gathered in the packed K order (zero padding at the
-    image border), one product with the [K][cout] weight, the bias, ReLU."""
+def _f32_cols(sources, ks) -> torch.Tensor:
+    """The launch's A operand: each segment's taps (zero padding at the
+    image border) in ``w``'s K order, ``[n, h, w, K]``."""
     cols = []
-    for x, k in zip(sources, conv["ks"]):
+    for x, k in zip(sources, ks):
         x = x.float()
         if k == 3:
             h, w = x.shape[1:3]
@@ -679,44 +771,67 @@ def f32_conv_reference(sources, conv: dict) -> torch.Tensor:
             cols += [xp[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)]
         else:
             cols.append(x)
-    out = torch.cat(cols, -1) @ conv["w"]
+    return torch.cat(cols, -1)
+
+
+def _f32_epilogue(acc, conv: dict, y) -> torch.Tensor:
     if conv["bias"] is not None:
-        out = out + conv["bias"]
-    return torch.relu(out) if conv["relu"] else out
+        acc = acc + conv["bias"]
+    if conv["modulate"]:
+        return f32_modulate_reference(y, acc)
+    return torch.relu(acc) if conv["relu"] else acc
+
+
+def f32_conv_reference(sources, conv: dict, y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of one f32 conv launch: one product of the taps
+    with ``w`` in exact f32, the bias, then ReLU, or for the γ|β conv the
+    modulate with ``y``."""
+    return _f32_epilogue(_f32_cols(sources, conv["ks"]) @ conv["w"], conv, y)
+
+
+def f32_conv_emulated(sources, conv: dict, y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel's arithmetic for one launch in plain PyTorch: the taps
+    and the weight split (:func:`split_tf32`, the weight's parts read back
+    from ``wk``), small·big + big·small + big·big summed in f32 (products of
+    TF32 values are exact in f32), an inf or NaN tap contributing only its
+    big·big product; then the epilogue of :func:`f32_conv_reference`."""
+    a = _f32_cols(sources, conv["ks"])
+    wb, ws = f32_weight_parts(conv)
+    ab, asmall = split_tf32(a)
+    ab2 = torch.where(torch.isfinite(a), ab, torch.zeros_like(ab))
+    return _f32_epilogue(asmall @ wb + ab2 @ ws + ab @ wb, conv, y)
 
 
 def f32_modulate_reference(y: torch.Tensor, gb: torch.Tensor) -> torch.Tensor:
-    """The plain version of the f32 modulate: y·(1 + γ) + β, γ|β the halves
-    of ``gb``'s channels."""
+    """The modulate: y·(1 + γ) + β, γ|β the halves of ``gb``'s channels,
+    each operation rounded in f32."""
     c = y.shape[-1]
     return y * (1 + gb[..., :c]) + gb[..., c:]
 
 
-def f32_stage_launches(parts, pk: dict, conv=f32_conv_reference,
-                       modulate=f32_modulate_reference) -> torch.Tensor:
-    """A stage as the f32 route runs it, launch by launch (``conv`` and
-    ``modulate``: the CUDA launches, or by default their plain versions)."""
+def f32_stage_launches(parts, pk: dict, conv=f32_conv_reference) -> torch.Tensor:
+    """A stage as the f32 route runs it, launch by launch (``conv``: the
+    CUDA launch, or by default its plain version): conv1, conv2 with the
+    shortcut's segments, seg, act, γ|β with the modulate, [the head]."""
     h1 = conv(parts, pk["conv1"])
     y = conv((h1,) + tuple(parts) if pk["shortcut"] else (h1,), pk["conv2"])
-    gb = conv((conv((conv((y,), pk["seg"]),), pk["act"]),), pk["gb"])
-    out = modulate(y, gb)
+    act = conv((conv((y,), pk["seg"]),), pk["act"])
+    out = conv((act,), pk["gb"], y)
     return out if pk["head"] is None else conv((out,), pk["head"])
 
 
 @functools.lru_cache(maxsize=None)
 def _lib_f32() -> ctypes.CDLL:
     lib = _build.load(SOURCE_F32)
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssu_f32_conv.argtypes = [i, p, p, p, p, p, i, p, i, i, i, i, p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ssu_f32_conv.argtypes = [i, p, p, p, p, i, i, p, i, p, p, i, i, i, i, p]
     lib.ssu_f32_conv.restype = i
-    lib.ssu_f32_modulate.argtypes = [p, p, p, ll, i, p]
-    lib.ssu_f32_modulate.restype = i
     return lib
 
 
-def f32_conv(sources, conv: dict) -> torch.Tensor:
+def f32_conv(sources, conv: dict, y: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One conv launch of the f32 route on the card (its plain version:
-    :func:`f32_conv_reference`)."""
+    :func:`f32_conv_reference`); ``y`` for the γ|β conv's modulate."""
     global f32_conv_launches
     x0 = sources[0]
     n, h, w = x0.shape[:3]
@@ -725,28 +840,25 @@ def f32_conv(sources, conv: dict) -> torch.Tensor:
            for s in sources) or tuple(s.shape[-1] for s in sources) != conv["chans"]:
         raise ValueError(f"f32 conv: sources {[(tuple(s.shape), s.dtype) for s in sources]} "
                          f"for segments of {conv['chans']} channels, contiguous f32")
-    out = torch.empty((n, h, w, conv["cout"]), dtype=torch.float32, device=x0.device)
+    cout = conv["cout"]
+    if conv["modulate"] != (y is not None) or (y is not None and (
+            y.dtype != torch.float32 or not y.is_contiguous()
+            or tuple(y.shape) != (n, h, w, cout // 2))):
+        raise ValueError(f"f32 conv: the γ|β conv takes y [n, h, w, {cout // 2}] f32, the "
+                         f"others none (modulate={conv['modulate']}, y={y is not None})")
+    if any(t.device != x0.device for t in (conv["wk"], conv["bk"], y) if t is not None):
+        raise ValueError("f32 conv: operands must lie on the sources' device")
+    out = torch.empty((n, h, w, cout // 2 if y is not None else cout), dtype=torch.float32,
+                      device=x0.device)
     ptrs = (ctypes.c_void_p * nseg)(*[s.data_ptr() for s in sources])
     chans = (ctypes.c_int * nseg)(*conv["chans"])
     ks = (ctypes.c_int * nseg)(*conv["ks"])
-    _check(_lib_f32().ssu_f32_conv(nseg, ptrs, chans, ks, _ptr(conv["w"]), _ptr(conv["bias"]),
-                                   int(conv["relu"]), _ptr(out), n, h, w, conv["cout"],
+    _check(_lib_f32().ssu_f32_conv(nseg, ptrs, chans, ks, _ptr(conv["wk"]), conv["kq"],
+                                   conv["bn"], _ptr(conv["bk"]), int(conv["relu"]), _ptr(y),
+                                   _ptr(out), n, h, w, cout,
                                    torch.cuda.current_stream(x0.device).cuda_stream),
            "f32 conv")
     f32_conv_launches += 1
-    return out
-
-
-def f32_modulate(y: torch.Tensor, gb: torch.Tensor) -> torch.Tensor:
-    """The f32 route's modulate on the card (its plain version:
-    :func:`f32_modulate_reference`)."""
-    global f32_modulate_launches
-    c = y.shape[-1]
-    out = torch.empty_like(y)
-    _check(_lib_f32().ssu_f32_modulate(_ptr(y), _ptr(gb), _ptr(out), y.numel() // c, c,
-                                       torch.cuda.current_stream(y.device).cuda_stream),
-           "f32 modulate")
-    f32_modulate_launches += 1
     return out
 
 
@@ -764,6 +876,6 @@ def _run_cuda_f32(parts: Tuple[torch.Tensor, ...], pk: dict, up=None, down=None)
     if any(t.device != parts[0].device for t in packed_tensors(pk)):
         raise ValueError("stage weights must lie on the parts' device")
     with torch.cuda.device(parts[0].device):
-        out = f32_stage_launches(parts, pk, f32_conv, f32_modulate)
+        out = f32_stage_launches(parts, pk, f32_conv)
     f32_launches += 1
     return out

@@ -186,14 +186,15 @@ def test_fused_stage_kernel_refuses_float32():
         ((128, 128), 128, 3, (1, 24, 20), 0),   # decoder, two parts
         ((256, 256), 256, 3, (2, 16, 16), 0),   # widest fused stage
         ((64, 128), 64, 3, (2, 48, 40), 3),     # folded final head
+        ((6, 10), 24, 5, (1, 19, 13), 2),       # widths off the chunk grid, odd map
     ],
 )
 def test_f32_stage_route_matches_plain(chans, planes, labels, nhw, ncls):
-    """The f32 route of kernel 1 (``csrc/fused_stage_f32.cu``) against the
-    stage's plain version in f32 (TF32 off): the same f32 products summed
-    in another order, so max error ≤ 1e-4 of max |plain| and relative L2 ≤
-    1e-4; one stage, five conv launches (six with the head) and one
-    modulate counted."""
+    """The f32 route of kernel 1 (``csrc/fused_stage_f32.cu``, 3xTF32 on
+    the tensor cores) against the stage's plain version in f32 (TF32 off):
+    the same products to ~2^-22 summed in another order, so max error ≤
+    1e-4 of max |plain| and relative L2 ≤ 1e-4; one stage, five conv
+    launches (six with the head; the modulate rides the γ|β launch)."""
     dev = _card()
     gen = torch.Generator().manual_seed(5)
     block = BasicBlock(sum(chans), planes, generator=gen)
@@ -212,7 +213,7 @@ def test_f32_stage_route_matches_plain(chans, planes, labels, nhw, ncls):
     torch.cuda.synchronize()
     assert (stage_kernel.f32_launches, stage_kernel.f32_conv_launches,
             stage_kernel.f32_modulate_launches, stage_kernel.launches) == (
-        before[0] + 1, before[1] + (6 if ncls else 5), before[2] + 1, before[3])
+        before[0] + 1, before[1] + (6 if ncls else 5), before[2], before[3])
     want = stage_kernel.fused_stage_reference(parts, bp, sp, head)
     diff = got - want
     err, scale = diff.abs().max().item(), want.abs().max().item()
@@ -222,18 +223,89 @@ def test_f32_stage_route_matches_plain(chans, planes, labels, nhw, ncls):
 
 
 @pytest.mark.gpu
-def test_f32_conv_launch_matches_its_plain_version():
+@pytest.mark.parametrize("chans", [(3,), (64, 128)], ids=["first", "decoder"])
+def test_f32_stage_route_keeps_non_finite_classes(chans):
+    """+inf, -inf and NaN planted in a stage's first part: each output's
+    class (finite, NaN, +inf, -inf) equals the one the per-launch plain
+    versions give (exact f32 products, whose classes do not depend on the
+    summation order)."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(8)
+    planes = 64
+    block = BasicBlock(sum(chans), planes, generator=gen)
+    _randomize_bn(block, gen)
+    block.to(dev).eval()
+    spade = SPADE("spadebatch3x3", planes, 3, 4.0, generator=gen).to(dev)
+    parts = [torch.randn((2, 32, 24, c), generator=gen) for c in chans]
+    flat = parts[0].view(-1)
+    pos = torch.randperm(flat.numel(), generator=gen)[:9]
+    flat[pos] = torch.tensor([float("inf"), float("-inf"), float("nan")] * 3)
+    parts = tuple(p.to(dev) for p in parts)
+    pk = stage_kernel.pack_stage_f32(chans, block.stage_params(), spade.stage_params(), None)
+    got = stage_kernel.fused_eval_stage(parts, block.stage_params(), spade.stage_params(),
+                                        None, pk)
+    want = stage_kernel.f32_stage_launches(parts, pk)
+
+    def classes(t):
+        return torch.isnan(t) * 1 + torch.isposinf(t) * 2 + torch.isneginf(t) * 3
+
+    assert bool(torch.isnan(want).any())
+    assert torch.equal(classes(got), classes(want))
+    fin = torch.isfinite(want)
+    assert torch.allclose(got[fin], want[fin], rtol=1e-4,
+                          atol=1e-4 * want[fin].abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_stage_keeps_a_planted_nan(dtype):
+    """A NaN in one channel of one input pixel: kernel 1 (bf16, and its f32
+    route) gives NaN exactly where the stage's receptive field reaches it
+    (Chebyshev radius 5 around it: conv1, conv2, seg, act and γ|β, each
+    3×3, every weight nonzero) and finite values elsewhere, as the plain
+    version and the JAX package do (``torch.relu`` and ``jnp.maximum``
+    keep NaN). A ReLU written as ``fmaxf(v, 0)`` turns the NaN into 0 and
+    the whole output finite."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(9)
+    block = BasicBlock(64, 128, generator=gen)
+    _randomize_bn(block, gen)
+    block.to(dev).eval()
+    spade = SPADE("spadebatch3x3", 128, 3, 8.0, generator=gen).to(dev)
+    x = torch.randn((2, 32, 32, 64), generator=gen)
+    b, py, px = 1, 9, 20
+    x[b, py, px, 7] = float("nan")
+    before = stage_kernel.launches, stage_kernel.f32_launches
+    out = stage_kernel.fused_eval_stage((x.to(dev, dtype),), block.stage_params(),
+                                        spade.stage_params())
+    assert (stage_kernel.launches - before[0], stage_kernel.f32_launches - before[1]) == (
+        (1, 0) if dtype == torch.bfloat16 else (0, 1))
+    yy, xx = torch.meshgrid(torch.arange(32), torch.arange(32), indexing="ij")
+    want = torch.zeros((2, 32, 32), dtype=torch.bool)
+    want[b] = torch.maximum((yy - py).abs(), (xx - px).abs()) <= 5
+    nan = torch.isnan(out.float()).cpu()
+    assert torch.equal(nan, want[..., None].expand_as(nan))
+    assert bool(torch.isfinite(out.float()[~want.to(dev)]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("modulate", [False, True], ids=["conv", "gamma_beta_modulate"])
+def test_f32_conv_launch_matches_its_plain_version(modulate):
     """One f32 conv launch over three K-segments (a 3×3 part, two 1×1
-    parts) on a ragged map against its plain version, which walks the same
-    packed weight: relative L2 ≤ 1e-5."""
+    parts, widths off the chunk grid) on a ragged map against its plain
+    version; and the γ|β launch with the modulate in its epilogue:
+    relative L2 ≤ 1e-5."""
     dev = _card()
     gen = torch.Generator().manual_seed(6)
-    segs = ((40, 3), (24, 1), (8, 1))
+    segs = ((4, 3),) if modulate else ((40, 3), (24, 1), (6, 1))
+    cout = 140 if modulate else 70
     xs = [torch.randn((2, 19, 13, c), generator=gen).to(dev) for c, _ in segs]
-    ws = [(torch.randn((70, c, k, k), generator=gen) * 0.1).to(dev) for c, k in segs]
-    conv = stage_kernel.pack_f32_conv(ws, torch.randn(70, generator=gen).to(dev), True)
-    got = stage_kernel.f32_conv(xs, conv)
-    want = stage_kernel.f32_conv_reference(xs, conv)
+    ws = [(torch.randn((cout, c, k, k), generator=gen) * 0.1).to(dev) for c, k in segs]
+    conv = stage_kernel.pack_f32_conv(ws, torch.randn(cout, generator=gen).to(dev), True,
+                                      modulate=modulate)
+    y = torch.randn((2, 19, 13, cout // 2), generator=gen).to(dev) if modulate else None
+    got = stage_kernel.f32_conv(xs, conv, y)
+    want = stage_kernel.f32_conv_reference(xs, conv, y)
     assert ((got - want).norm() / want.norm()).item() <= 1e-5
 
 

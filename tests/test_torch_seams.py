@@ -216,9 +216,9 @@ def test_bneck_stage_reads_its_up_seam_as_jax(rng, dtype):
 def test_gate_takes_the_seams_it_can_read(monkeypatch):
     """``stage_supported`` / ``bneck_supported`` with seams judge the
     logical shape, take eval stages only (bf16; the int8 stage's own terms:
-    tests/test_torch_int8_seams.py), and refuse a pool seam of odd height
-    or width and an up seam whose half height has no exact weights (1, or
-    one the guard rejects)."""
+    tests/test_torch_int8_seams_stage.py), and refuse a pool seam of odd
+    height or width and an up seam whose half height has no exact weights
+    (1, or one the guard rejects)."""
     bf = torch.bfloat16
     skip, half = torch.zeros((1, 16, 8, 8), dtype=bf), torch.zeros((1, 8, 8, 16), dtype=bf)
     up, pooled = (False, True), (True,)

@@ -1,14 +1,20 @@
-"""The f32 route of kernel 1 (``csrc/fused_stage_f32.cu``) on the CPU: its
-conv launch's plain version, which walks the packed [K][cout] weight in the
-kernel's K order, against convolutions over the unpacked weights; the stage
-as the route runs it, launch by launch, against the stage's plain version;
-and against the JAX package's ``fused_eval_stage`` in f32 (Pallas interpret
-mode), which takes the activation dtype.
+"""The f32 route of kernel 1 (``csrc/fused_stage_f32.cu``, 3xTF32 on the
+tensor cores) on the CPU: its conv launch's plain version against
+convolutions over the unpacked weights; the kernel's weight operand (its K
+order, its split into TF32 big and small parts) walked back to the weight;
+the stage as the route runs it, launch by launch (the γ|β launch with the
+modulate in its epilogue), against the stage's plain version and against
+the JAX package's ``fused_eval_stage`` in f32 (Pallas interpret mode),
+which takes the activation dtype; the kernel's 3xTF32 arithmetic in plain
+PyTorch (``f32_conv_emulated``) at flagship-like widths against both, and
+with inf and NaN inputs; and the one gate's f32 decisions on the card.
 
 f32 throughout. Between the port's functions (the same products summed in
-another order): relative L2 and max error over max |·| ≤ 1e-5. Against JAX:
-rtol = atol = 2e-4, tests/test_torch_stage.py's bar (both fold BN into the
-weights but sum in other orders).
+another order; 3xTF32 products within ~2^-22): relative L2 and max error
+over max |·| ≤ 1e-5. Against JAX: rtol = atol = 2e-4,
+tests/test_torch_stage.py's bar (both fold BN into the weights but sum in
+other orders). The split's big + small is each weight to within 2^-21
+relative (rounding to nearest gives ~2^-22).
 """
 
 import jax.numpy as jnp
@@ -55,6 +61,35 @@ def test_f32_conv_launch_walks_its_packed_weight(rng, segs, relu):
     got = stage_kernel.f32_conv_reference(xs, conv)
     want = sum(conv2d_nhwc(x, w, padding=w.shape[-1] // 2) for x, w in zip(xs, ws)) + bias
     _close(got, torch.relu(want) if relu else want)
+    _close(stage_kernel.f32_conv_emulated(xs, conv), got)
+
+
+@pytest.mark.parametrize("segs,cout,modulate", [
+    (((3, 3),), 64, False),                 # conv0_0's conv1: one quad per chunk
+    (((64, 3), (3, 1)), 64, False),         # conv2 with a 3-channel shortcut
+    (((256, 3), (256, 3)), 256, False),     # conv2_1's conv1, four N blocks
+    (((16, 3), (24, 1), (6, 1)), 3, False), # widths off the chunk grid, N tile 8
+    (((4, 3),), 128, True),                 # the γ|β launch, interleaved columns
+], ids=["cin3", "shortcut3", "wide", "ragged", "gamma_beta"])
+def test_f32_split_rebuilds_each_packed_weight(rng, segs, cout, modulate):
+    """The kernel's weight operand ``wk``: its big and small parts are TF32
+    values (13 low bits zero), and walked back from the kernel's K and
+    column order (``f32_weight_parts``) big + small rebuilds every weight
+    of ``w`` to within 2^-21 of its magnitude; the rows the kernel pads
+    (channels past a segment's width, the odd pair) are zero."""
+    ws = [torch.from_numpy((rng.normal(size=(cout, c, k, k)) * 0.2).astype(np.float32))
+          for c, k in segs]
+    conv = stage_kernel.pack_f32_conv(ws, None, False, modulate=modulate)
+    wk = conv["wk"]
+    assert wk.shape == (2, -(-cout // conv["bn"]), conv["kq"], conv["bn"], 4)
+    assert not bool((wk.view(torch.int32) & 0x1FFF).any())
+    big, small = stage_kernel.f32_weight_parts(conv)
+    w = conv["w"]
+    assert bool(((big + small - w).abs() <= 2.0 ** -21 * w.abs()).all())
+    idx = stage_kernel.f32_k_index(conv["chans"], conv["ks"])
+    assert sorted(idx[idx >= 0].tolist()) == list(range(w.shape[0]))
+    padded = wk.permute(0, 2, 4, 1, 3).reshape(2, idx.numel(), -1)[:, idx < 0]
+    assert not bool(padded.any())
 
 
 @pytest.mark.parametrize(
@@ -97,3 +132,40 @@ def test_f32_route_without_a_shortcut(rng):
     assert not pk["shortcut"] and pk["conv2"]["chans"] == (16,)
     _close(stage_kernel.f32_stage_launches(parts, pk),
            stage_kernel.fused_stage_reference(parts, bp, st["tsp"]))
+
+
+class _Part:
+    """What the gate reads of a part on the card (shape, dtype, device,
+    contiguity), without a card."""
+
+    def __init__(self, shape, dtype=torch.float32, contiguous=True):
+        self.shape, self.dtype, self.device = tuple(shape), dtype, torch.device("cuda", 0)
+        self._contiguous = contiguous
+
+    def is_contiguous(self):
+        return self._contiguous
+
+
+@pytest.mark.parametrize("parts,planes,lab,nh,ncls,kw,takes", [
+    ([(8, 512, 512, 3)], 64, 3, 4, 0, {}, True),
+    ([(8, 128, 128, 256), (8, 128, 128, 256)], 256, 3, 16, 0, {}, True),
+    ([(2, 19, 13, 6), (2, 19, 13, 10)], 24, 5, 4, 2, {}, True),
+    ([(1, 8, 8, 64)], 96, 9, 80, 12, {}, True),       # past the bf16 tail's limits
+    ([(1, 8, 8, 64)], 288, 3, 18, 0, {}, False),      # past MAX_PLANES
+    ([(1, 8, 8, 64)], 64, 3, 4, 0, {"train": True}, False),
+    ([(1, 8, 8, 64)], 64, 3, 4, 0, {"int8": True}, False),
+    ([(1, 16, 16, 64)], 64, 3, 4, 0, {"down": (True,)}, False),
+    ([(1, 8, 8, 64), (1, 4, 8, 64)], 64, 3, 4, 0, {"up": (False, True)}, False),
+    ([(1, 8, 8, 64)] * 3, 64, 3, 4, 0, {}, False),
+], ids=["first", "widest", "ragged", "wide_tail", "too_wide", "train", "int8", "pool_seam",
+        "up_seam", "three_parts"])
+def test_gate_takes_the_f32_stages_it_took(parts, planes, lab, nh, ncls, kw, takes):
+    """The one gate's decision for f32 eval stages on the card, which the
+    redesigned route takes as the route before it did: any widths up to
+    MAX_PLANES (no tail limits), one or two contiguous parts, no seams; f32
+    training and int8 refused."""
+    ps = [_Part(s) for s in parts]
+    assert stage_kernel.stage_supported(ps, planes, lab, nh, ncls, **kw) is takes
+    if takes:
+        ps[0]._contiguous = False
+        assert not stage_kernel.stage_supported(ps, planes, lab, nh, ncls, **kw)
