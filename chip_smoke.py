@@ -216,6 +216,24 @@ Phases, each of which exits non-zero on failure:
    ssunet_gan_tpu_torch.cli.train_seg_gan`` in a process of its own for one
    epoch on a 16 / 4 / 4 Sub-row PNG tree, warm-started from its own
    supervised directory.
+16. The data-parallel paths (last): one process group of world size 1 over
+   NCCL from a ``file://`` store (the machine has one card), ``make_mesh()``;
+   ``make_train_step(mesh=)`` (the fused train stages, v3 backward) for
+   DP_STEPS steps on phase 6's weights and batches (512², batch 8, bf16),
+   one joint ``make_gan_train_step(mesh=)`` step on phase 15's G and D, and
+   ``segmentation_inference(mesh=)`` on phase 14's 5000² scene, each
+   against the same run without ``mesh=`` bit for bit (metrics, every
+   parameter, gradient and BatchNorm statistic; the tile probabilities and
+   masks), the library's deterministic algorithms on for both runs; the
+   train kernels' launches per step equal to PER_STEP (kernels 2, 3, 5 and
+   6 as on phase 6's path), 6 kernel-1 stages per scene chunk; then a
+   ``dp:`` line: ms/step with and without ``mesh=`` timed in turns from
+   ``settle()``, and the all-reduces and bytes of one step. The group is
+   destroyed after. Last, the multi-card entry path at one card:
+   ``torchrun --standalone --nproc-per-node 1 -m
+   ssunet_gan_tpu_torch.cli.train`` (``main`` starts its NCCL group through
+   ``parallel.initialize_multihost`` from ``torchrun``'s environment) for
+   one epoch on a 16 / 4 / 4 Sub-row PNG tree.
 
 Each path's profile also gives a ``tail:`` line: the shared SPADE tail
 kernel's time and launches per forward or step beside its bound; the
@@ -229,8 +247,9 @@ for the int8 eval kernel, phase 6 for the train kernels, where wgrad, v2's
 alone, has none, phase 10 for the bottleneck kernel, phase 11's trainer
 for the self-SPADE kernel; with SSUNet's (phase 12: kernels 1, 7 and 9),
 the entry point's (phase 13: kernels 2, 3, 5 and 6), the scene entry
-point's (phase 14: kernels 1 and 7) and the GAN's (phase 15: kernels 2,
-3, 5 and 6, and kernel 1's stages in its evaluations, none) added, and each
+point's (phase 14: kernels 1 and 7), the GAN's (phase 15: kernels 2,
+3, 5 and 6, and kernel 1's stages in its evaluations, none) and the
+data-parallel paths' (phase 16, ``dp``: kernels 1, 2, 3, 5 and 6) added, and each
 row's ``launches_by_path`` — error, time, plain time, bound, library
 time), and ends with ``{"ok": true, "device": {...}}``. Every check that
 fails is printed and the run exits non-zero
@@ -3437,11 +3456,12 @@ def png_decode_line(root, name, split, card) -> None:
         inflate_ms_per_item=inflate_s / n * 1e3, card=card)))
 
 
-def run_cli(module, here, tmp, dev, overrides):
-    """``python -m <module> --config <file> --device <dev>`` in a process of
-    its own, the file config_v1.json with ``overrides`` for one epoch on the
-    PNG tree ``<tmp>/inputs/pngs``, its models in ``<tmp>/cli_models``.
-    Returns (the finished process, its seconds, the opt_config it ran)."""
+def run_cli(module, here, tmp, dev, overrides, launcher=()):
+    """``python [launcher] -m <module> --config <file> --device <dev>`` in a
+    process of its own, the file config_v1.json with ``overrides`` for one
+    epoch on the PNG tree ``<tmp>/inputs/pngs``, its models in
+    ``<tmp>/cli_models``. Returns (the finished process, its seconds, the
+    opt_config it ran)."""
     with open(os.path.join(here, "configs", "config_v1.json")) as f:
         raw = json.load(f)
     raw["file_path"] = {"input_path": os.path.join(tmp, "inputs"),
@@ -3453,7 +3473,7 @@ def run_cli(module, here, tmp, dev, overrides):
     with open(cli_config, "w") as f:
         json.dump(raw, f)
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", module, "--config", cli_config,
+    proc = subprocess.run([sys.executable, *launcher, "-m", module, "--config", cli_config,
                            "--device", dev.type], cwd=here, env=dict(os.environ, PYTHONPATH=here),
                           capture_output=True, text=True, timeout=600)
     return proc, time.perf_counter() - t0, raw["opt_config"]
@@ -4403,6 +4423,314 @@ def gan_phase(dev, card, here, check, sup_ms_step, overrides=None):
     return launches
 
 
+# phase 16: data parallel at world size 1 (NCCL): the steps checked bit for
+# bit against the same steps without mesh=, then timed in turns
+DP_STEPS, DP_TIMED = 4, 3
+# torchrun over this machine's one card, its rendezvous on a free local port
+TORCHRUN_ONE = ("-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1")
+
+
+def _state_equal(a: dict, b: dict):
+    """The names of the tensors of two state_dicts that differ by a bit."""
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """The library's deterministic algorithms while active (cuDNN and the
+    index_add_ of the bilinear seams' backward pick an order of their own
+    otherwise), so that two runs of one step can be compared bit for bit."""
+    before = torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0])
+        torch.backends.cudnn.deterministic = before[1]
+
+
+def dp_phase(dev, card, here, check, hw=HW, batch=TRAIN_BATCH, scene_hw=SCENE_HW,
+             overrides=None):
+    """Phase 16: the data-parallel paths at world size 1, one process group
+    over NCCL (gloo on the CPU) from a ``file://`` store: the flagship's
+    supervised step (``make_train_step(mesh=)``, the fused train stages, v3
+    backward, phase 6's weights and batches at 512², batch 8, bf16) for
+    DP_STEPS steps, one joint GAN step (phase 15's G and D,
+    ``make_gan_train_step(mesh=)``) and the sharded scene
+    (``segmentation_inference(mesh=)`` on phase 14's 5000² scene), each
+    bit for bit against the same run without ``mesh=`` (metrics,
+    parameters, gradients, BatchNorm statistics; probabilities and masks).
+    Then DP_TIMED steps of each timed in turns from ``settle()`` (a ``dp:``
+    line with the collectives per step). The counts are set to 0 just
+    before each mesh run and read just after; returns {kernel: launches}
+    of the mesh runs. Then ``torchrun --standalone --nproc-per-node 1 -m
+    ssunet_gan_tpu_torch.cli.train`` for one epoch on a PNG tree: the
+    entry path over N cards, at one. The sizes shrink for a rehearsal on
+    the CPU."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ssunet_gan_tpu_torch import native
+    from ssunet_gan_tpu_torch.config import load_experiment_config
+    from ssunet_gan_tpu_torch.data import png
+    from ssunet_gan_tpu_torch.data.dataset import SyntheticDataset
+    from ssunet_gan_tpu_torch.data.loader import BatchLoader
+    from ssunet_gan_tpu_torch.data.tiling import grid_coords
+    from ssunet_gan_tpu_torch.data.transforms import val_transform
+    from ssunet_gan_tpu_torch.infer import api
+    from ssunet_gan_tpu_torch.models import build_model
+    from ssunet_gan_tpu_torch.models.gan import Discriminator, Generator
+    from ssunet_gan_tpu_torch.ops import collectives, stage_kernel
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+    from ssunet_gan_tpu_torch.ops.losses import get_loss
+    from ssunet_gan_tpu_torch.parallel import make_mesh
+    from ssunet_gan_tpu_torch.train import gan as gan_train
+    from ssunet_gan_tpu_torch.train import gan_step
+    from ssunet_gan_tpu_torch.train.optim import adam, build_optimizer, build_scheduler
+    from ssunet_gan_tpu_torch.train.step import make_train_step
+
+    t_start = t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    cfg = load_experiment_config(os.path.join(here, "configs", "config_v1.json"))
+    cfg.opt_config.update(overrides or {})
+    opt = cfg.opt_config
+    ncls, in_ch = opt["num_classes"], opt["input_channels"]
+    loss_fn = get_loss(opt["loss"])
+    check(tst._TRAIN_BWD_V3, "phase 16: the default train backward is not v3")
+    counts = {k: 0 for k in TRAIN_KERNELS}
+    counts["fused_eval_stage"] = 0
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def counted(fn):
+        """``fn()`` with the kernel counts set to 0 just before it, read just
+        after and added to this path's."""
+        sync()
+        reset_launches()
+        stage_kernel.launches = 0
+        out = fn()
+        sync()
+        for k, v in read_launches().items():
+            counts[k] += v
+        counts["fused_eval_stage"] += stage_kernel.launches
+        return out
+
+    store = tempfile.mkdtemp()
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        print(f"phase 16: process group {dist.get_backend()} of {mesh.size}, mesh "
+              f"{mesh.shape} on {mesh.device}")
+        check(mesh.size == 1 and mesh.group is not None,
+              f"phase 16: mesh {mesh.shape} group {mesh.group}")
+
+        # (a) the supervised step: phase 6's weights and batches
+        ds = SyntheticDataset(DP_STEPS * batch, hw, hw, ncls, in_ch,
+                              transform=val_transform(opt), seed=2)
+        batches = [(torch.from_numpy(img).to(dev).to(torch.bfloat16),
+                    torch.from_numpy(mask).to(dev))
+                   for _, img, mask, _ in BatchLoader(ds, batch, num_workers=2)]
+        lr = build_scheduler(opt).lr(0)
+        init = build_model(opt["arch"], ncls, in_ch, opt["deep_supervision"], seed=SEED,
+                           device=dev).state_dict()
+
+        def trainer(use_mesh):
+            model = build_model(opt["arch"], ncls, in_ch, opt["deep_supervision"],
+                                device=dev)
+            model.load_state_dict(init)
+            optimizer = build_optimizer(model.parameters(), opt)
+            step = make_train_step(model, loss_fn, optimizer, ncls, opt["deep_supervision"],
+                                   clip=float(opt["clip"]), mesh=mesh if use_mesh else None)
+            return model, step
+
+        def supervised(use_mesh):
+            model, step = trainer(use_mesh)
+            metrics = []
+            for x, y in batches:
+                m = step(x, y, lr)
+                metrics.append({k: v.clone() for k, v in m.items()})
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()
+                     if p.grad is not None}
+            return metrics, model.state_dict(), grads
+
+        with deterministic():
+            plain = supervised(False)
+            dp = counted(lambda: supervised(True))
+        per_step = PER_STEP["v3"]
+        got = {k: counts[k] for k in TRAIN_KERNELS}
+        print(f"phase 16: supervised step: train kernel launches with mesh= in {DP_STEPS} "
+              f"steps {got} (phase 6's per step: {per_step})")
+        check(got == {k: DP_STEPS * v for k, v in per_step.items()},
+              f"phase 16: supervised launches {got} != {DP_STEPS} x {per_step}")
+        diff_m = [(i, k) for i, (a, b) in enumerate(zip(plain[0], dp[0])) for k in a
+                  if not torch.equal(a[k], b[k])]
+        diff_s, diff_g = _state_equal(plain[1], dp[1]), _state_equal(plain[2], dp[2])
+        print(f"phase 16: supervised step with mesh= against without, {DP_STEPS} steps: "
+              f"metrics differing {diff_m or 'none'}; parameters and BN statistics differing "
+              f"{len(diff_s)} of {len(plain[1])}; gradients differing {len(diff_g)} of "
+              f"{len(plain[2])}; loss per step "
+              f"{[round(m['loss'].item(), 6) for m in dp[0]]}")
+        check(not diff_m and not diff_s and not diff_g and plain[1].keys() == dp[1].keys(),
+              f"phase 16: supervised step not bit-equal: metrics {diff_m}, state "
+              f"{diff_s[:5]}, grads {diff_g[:5]}")
+        check(all(bool(torch.isfinite(m["loss"])) for m in dp[0]),
+              "phase 16: supervised losses not finite")
+        del plain, dp
+        t_phase = phase_done("phase 16 supervised step", t_phase)
+
+        # (b) one joint GAN step: phase 15's G (the calibrated flagship) and D
+        a, b = api._norm_consts()
+        calib = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+            0, 256, (2, hw, hw, in_ch), dtype=np.uint8)).to(dev)
+        sup = build_model(opt["arch"], ncls, in_ch, opt["deep_supervision"], seed=SEED,
+                          device=dev)
+        calibrate_batchnorm(sup, calib.float() * a.to(dev) + b.to(dev))
+        g_init = sup.state_dict()
+        gx, gy = batches[0]
+
+        def gan(use_mesh):
+            generator = Generator.from_config(dict(opt, name=opt["generator_name"]),
+                                              device=dev, seed=SEED + 70)
+            generator.net.load_state_dict(g_init)
+            disc = Discriminator(ncls, gan_train.D_KERNEL, gan_train.D_CHANNELS,
+                                 gan_train.D_BLOCKS, gan_train.D_FC,
+                                 generator=torch.Generator().manual_seed(SEED + 71)).to(dev)
+            step = gan_step.make_gan_train_step(generator, disc, loss_fn,
+                                                adam(generator.parameters()),
+                                                adam(disc.parameters()), ncls,
+                                                mesh=mesh if use_mesh else None)
+            m = step(gx, gy, float(opt["gan_lr"]))
+            return ({k: v.clone() for k, v in m.items()},
+                    {f"G.{k}": v for k, v in generator.state_dict().items()}
+                    | {f"D.{k}": v for k, v in disc.state_dict().items()},
+                    {f"{w}.{n}": p.grad.clone() for w, mod in (("G", generator), ("D", disc))
+                     for n, p in mod.named_parameters() if p.grad is not None})
+
+        gan_step.set_joint_gan(True)
+        before = dict(counts)
+        with deterministic():
+            plain = gan(False)
+            dp = counted(lambda: gan(True))
+        gan_launches = {k: counts[k] - before[k] for k in TRAIN_KERNELS}
+        diff_m = [k for k in plain[0] if not torch.equal(plain[0][k], dp[0][k])]
+        diff_s, diff_g = _state_equal(plain[1], dp[1]), _state_equal(plain[2], dp[2])
+        print(f"phase 16: joint GAN step with mesh= against without: metrics differing "
+              f"{diff_m or 'none'}; G and D parameters and buffers differing {len(diff_s)} of "
+              f"{len(plain[1])}; clamped gradients differing {len(diff_g)} of "
+              f"{len(plain[2])}; train kernel launches {gan_launches}; metrics "
+              f"{ {k: round(v.item(), 6) for k, v in dp[0].items()} }")
+        check(not diff_m and not diff_s and not diff_g,
+              f"phase 16: GAN step not bit-equal: metrics {diff_m}, state {diff_s[:5]}, "
+              f"grads {diff_g[:5]}")
+        check(gan_launches == PER_STEP["v3"],
+              f"phase 16: GAN step launches {gan_launches} != {PER_STEP['v3']}")
+        del plain, dp, sup, calib
+        t_phase = phase_done("phase 16 GAN step", t_phase)
+
+        # (c) the sharded scene: phase 14's scene and model (calibrated, head
+        # centred), the tile server's tiles
+        scene = smooth_scene(scene_hw, SEED + 70, dev)
+        smodel = build_model(opt["arch"], ncls, in_ch, opt["deep_supervision"], seed=SEED,
+                             device=dev)
+        calib = np.random.default_rng(SEED + 2).integers(0, 256, (2, hw, hw, 3), np.uint8)
+        calib = torch.from_numpy(calib).to(dev).float() * a.to(dev) + b.to(dev)
+        calibrate_batchnorm(smodel, calib)
+        center_head(smodel, calib)
+        smodel.eval()
+        sconfig = dict(opt, patch_size=1024, patch_overlap=0.5, input_h=hw, input_w=hw)
+        p_size = api.effective_patch_size(scene_hw, scene_hw, 1024)
+        coords = grid_coords(scene_hw, scene_hw, p_size, 0.5)
+        tiles = native.extract_resize_u8(np.ascontiguousarray(scene), coords, p_size, hw, hw)
+
+        def sharded(use_mesh):
+            m = mesh if use_mesh else None
+            probs = api._chunked_forward(smodel, tiles, device=dev, mesh=m)
+            masks = api.segmentation_inference(smodel, scene, tiles, None, sconfig, False,
+                                               device=dev, mesh=m)[0]
+            return probs, np.stack(masks)
+
+        before = counts["fused_eval_stage"]
+        plain = sharded(False)
+        dp = counted(lambda: sharded(True))
+        scene_stages = counts["fused_eval_stage"] - before
+        n_chunks = -(-len(coords) // api.INFER_BATCH)
+        share = [float((m > 0).mean()) for m in dp[1]]
+        print(f"phase 16: sharded scene {scene_hw}² ({len(coords)} tiles, {n_chunks} chunks) "
+              f"with mesh= against without: probabilities bit-equal "
+              f"{torch.equal(plain[0], dp[0])}, masks bit-equal "
+              f"{np.array_equal(plain[1], dp[1])}; kernel-1 stages {scene_stages}; mask "
+              f"shares {[round(v, 4) for v in share]}")
+        check(torch.equal(plain[0], dp[0]) and np.array_equal(plain[1], dp[1]),
+              "phase 16: the sharded scene differs from the unsharded one")
+        if cuda:
+            check(scene_stages == 2 * 6 * n_chunks,
+                  f"phase 16: {scene_stages} kernel-1 stages in the two scene passes, "
+                  f"expected {2 * 6 * n_chunks}")
+        del plain, dp, tiles, scene, smodel
+        t_phase = phase_done("phase 16 sharded scene", t_phase)
+
+        # (d) ms/step with and without mesh=, in turns (plain, mesh, mesh,
+        # plain) from settle(), and the collectives of one step
+        if cuda:
+            times = {False: [], True: []}
+            for use_mesh in (False, True, True, False):
+                model, step = trainer(use_mesh)
+                step(*batches[0], lr)  # warm-up
+                settle()
+                t0 = time.perf_counter()
+                for x, y in batches[1:DP_TIMED + 1]:
+                    step(x, y, lr)
+                torch.cuda.synchronize()
+                times[use_mesh].append((time.perf_counter() - t0) / DP_TIMED * 1e3)
+                if use_mesh:
+                    c0 = dict(collectives.calls)
+                    step(*batches[0], lr)
+                    torch.cuda.synchronize()
+                    per = {k: collectives.calls[k] - c0[k] for k in c0}
+                del model, step
+            print(f"dp: flagship supervised step at world size {mesh.size} ({dist.get_backend()}"
+                  f"), 512² bf16 batch {batch}, v3: without mesh= "
+                  f"{', '.join(f'{t:.2f}' for t in times[False])} ms/step, with mesh= "
+                  f"{', '.join(f'{t:.2f}' for t in times[True])} ms/step ({DP_TIMED} steps "
+                  f"each, turns plain / mesh / mesh / plain); collectives per step: "
+                  f"{per['all_reduce']} all-reduces, {per['bytes']} bytes; on {card}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+    # (e) the multi-card entry path at one card: torchrun starts the CLI,
+    # whose main takes its NCCL group from torchrun's environment
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    try:
+        write_png_tree(os.path.join(tmp, "inputs"), "pngs", CLI_SPLITS, hw, ncls, in_ch,
+                       png.SUB)
+        proc, cli_s, _ = run_cli("ssunet_gan_tpu_torch.cli.train", here, tmp, dev,
+                                 overrides or {}, launcher=TORCHRUN_ONE)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    backend = "nccl" if cuda else "gloo"
+    mesh_line = f"=> data mesh: {backend} group of 1 ranks, rank 0 on {dev.type}" + (
+        ":0" if cuda else "")
+    lines = proc.stdout.splitlines()
+    tail = [ln for ln in lines if " - iou " in ln]
+    print(f"phase 16: torchrun --nproc-per-node 1 -m ssunet_gan_tpu_torch.cli.train on "
+          f"{sum(n for _, n in CLI_SPLITS)} PNGs at {hw}x{hw}: exit {proc.returncode} in "
+          f"{cli_s:.1f} s on {card}; mesh line {mesh_line in lines}; {tail}")
+    check(proc.returncode == 0 and mesh_line in lines and len(tail) == 1,
+          f"phase 16: torchrun's CLI exited {proc.returncode}, mesh line {mesh_line in lines}, "
+          f"{len(tail)} epoch lines: {proc.stdout[-1500:]} {proc.stderr[-3000:]}")
+    phase_done("phase 16 torchrun CLI", t_phase)
+    phase_done("phase 16", t_start)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
@@ -4600,6 +4928,14 @@ def main() -> int:
     # ---- phase 15: the adversarial fine-tune (kernels 2, 3, 5 and 6)
     gan_counts = gan_phase(dev, card, here, check, sup_ms_step)
 
+    # ---- phase 16: the data-parallel paths at world size 1 (kernels 1, 2, 3, 5, 6)
+    dp_counts = dp_phase(dev, card, here, check)
+    dp_train = {k: dp_counts[k] for k in ("conv_stats", "train_tail", "fused_conv3",
+                                          "fused_wgrad")}
+    print(f"phase 16: launches on the dp path {dp_counts}")
+    check(all(dp_train.values()), f"phase 16: a train kernel never launched on the dp path: "
+                                  f"{dp_train}")
+
     if failures:
         fail(f"{len(failures)} checks failed: " + "; ".join(failures[:20]))
 
@@ -4630,6 +4966,8 @@ def main() -> int:
             paths["val_patch"] = scene_counts[row["name"]]
         if row["name"] in gan_counts:
             paths["gan"] = gan_counts[row["name"]]
+        if dp_counts.get(row["name"]):
+            paths["dp"] = dp_counts[row["name"]]
         row["launches"] = sum(paths.values())
         row["launches_by_path"] = paths
         if "seam_reads" in row:

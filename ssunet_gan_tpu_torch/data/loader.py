@@ -1,6 +1,10 @@
 """Prefetching batch loader (the JAX package's data/loader.py): items from a
 thread pool, batches assembled one step ahead of the consumer, per-epoch
-shuffle, ``drop_last`` for the train split (train.py:387-404)."""
+shuffle, ``drop_last`` for the train split (train.py:387-404). With
+``shard=(rank, ranks)`` a rank of a data-parallel run loads only its
+contiguous slice of each batch, from the one shuffled order that every rank
+draws alike: the ranks' slices of step t make up the one-process batch of
+step t."""
 
 from __future__ import annotations
 
@@ -31,9 +35,13 @@ class BatchLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 3, seed: int = 101,
-                 prefetch: int = 2):
+                 prefetch: int = 2, shard: Tuple[int, int] = (0, 1)):
         self.dataset = dataset
         self.batch_size = int(batch_size)
+        self.rank, self.ranks = shard
+        if self.batch_size % self.ranks or (self.ranks > 1 and not drop_last):
+            raise ValueError(f"a batch of {self.batch_size} over {self.ranks} ranks: the "
+                             "batch must divide over them and drop_last be set")
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = max(int(num_workers), 1)
@@ -55,7 +63,8 @@ class BatchLoader:
             chunk = idx[start:start + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:
                 break
-            batches.append(chunk)
+            per = len(chunk) // self.ranks
+            batches.append(chunk[self.rank * per:(self.rank + 1) * per])
         return batches
 
     def __iter__(self) -> Iterator[Batch]:

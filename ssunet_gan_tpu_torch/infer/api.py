@@ -22,6 +22,12 @@ With the int8 mode on (:func:`configure_int8`, or
 :func:`ops.stage_kernel_int8.set_int8_stage`) the same entry points serve
 through the int8 stages, unchanged.
 
+With ``mesh`` (a ``parallel.Mesh``; the JAX package's :313-346, 380-397)
+each chunk of tiles, rounded to a multiple of the ranks, splits over them:
+each rank forwards its contiguous slice (no collective in the eval
+forward), and the probabilities are gathered back in tile order before
+the merge, which every rank then runs.
+
 Not read here: the JAX package's orbax checkpoint directories, and scenes
 other than PNG where PIL does not import (ROADMAP.md).
 """
@@ -54,6 +60,7 @@ from ssunet_gan_tpu_torch.data.transforms import (
     resize_linear,
 )
 from ssunet_gan_tpu_torch.infer.overlays import save_masking, save_masking_GT, save_masking_RE
+from ssunet_gan_tpu_torch.ops.collectives import all_gather
 
 INFER_BATCH = 32  # tiles per forward call
 PATCH_SIZE = 1024  # the reference's hardcoded scene patch (api:330)
@@ -246,24 +253,47 @@ def tile_forward(model, x, dtype: Optional[torch.dtype] = None,
     return p
 
 
+def _chunking(mesh):
+    """(tiles per chunk, this rank's tiles in each, its first): INFER_BATCH
+    on one process; under a mesh rounded to a multiple of its ranks
+    (api:384), each rank taking a contiguous slice."""
+    if mesh is None:
+        return INFER_BATCH, INFER_BATCH, 0
+    chunk = max(INFER_BATCH // mesh.size * mesh.size, mesh.size)
+    per = chunk // mesh.size
+    return chunk, per, mesh.rank * per
+
+
+def _gathered(mesh, local: torch.Tensor, per: int, n: int) -> torch.Tensor:
+    """The ranks' slices of every chunk (this rank's ``local``: chunks ×
+    ``per`` tiles) back in tile order, the first ``n`` tiles."""
+    if mesh is None or mesh.group is None:
+        return local[:n]
+    every = all_gather(local, mesh.group)  # (ranks, chunks·per, ...)
+    every = every.view(mesh.size, -1, per, *local.shape[1:]).transpose(0, 1)
+    return every.reshape(-1, *local.shape[1:])[:n]
+
+
 def _chunked_forward(model, patches: np.ndarray, dtype=None, device="cuda",
-                     quantize_probs: bool = False) -> torch.Tensor:
-    """All tiles through :func:`tile_forward` in chunks of INFER_BATCH; the
-    last chunk is zero-padded so every call has one shape."""
-    dev = resolve_device(device)
+                     quantize_probs: bool = False, mesh=None) -> torch.Tensor:
+    """All tiles through :func:`tile_forward` in chunks of INFER_BATCH (under
+    ``mesh`` this rank's slice of each); the last chunk is zero-padded so
+    every call has one shape."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    chunk, per, first = _chunking(mesh)
     n = len(patches)
-    pad = (-n) % INFER_BATCH
+    pad = (-n) % chunk
     if pad:
-        patches = np.concatenate([patches, np.zeros_like(patches[:pad])])
+        patches = np.concatenate([patches, np.zeros((pad, *patches.shape[1:]), patches.dtype)])
     outs = []
-    for i in range(0, len(patches), INFER_BATCH):
-        x = torch.from_numpy(np.ascontiguousarray(patches[i:i + INFER_BATCH]))
+    for i in range(first, len(patches), chunk):
+        x = torch.from_numpy(np.ascontiguousarray(patches[i:i + per]))
         outs.append(tile_forward(model, x, dtype, quantize_probs, device=dev))
-    return torch.cat(outs)[:n]
+    return _gathered(mesh, torch.cat(outs), per, n)
 
 
 def pipelined_scene_forward(model, scene: np.ndarray, config: Dict, dtype=None,
-                            quantize_probs: bool = False, device="cuda"):
+                            quantize_probs: bool = False, device="cuda", mesh=None):
     """Whole-scene tile forward with tile preparation, host-to-device copy
     and forward overlapped (the JAX package's :401-457).
 
@@ -271,22 +301,25 @@ def pipelined_scene_forward(model, scene: np.ndarray, config: Dict, dtype=None,
     worker threads, into pinned host buffers on a CUDA device; each chunk
     is copied on a side stream, and the forward (Normalize and /255 on the
     device, then :func:`tile_forward`) waits on the copy's event. On the
-    CPU the same steps run without streams or pinning. Returns (probs,
-    coords, p_size) for :func:`data.tiling.merge_patches_device`."""
-    dev = resolve_device(device)
+    CPU the same steps run without streams or pinning. Under ``mesh`` each
+    rank cuts and forwards its slice of every chunk, and the probabilities
+    are gathered. Returns (probs, coords, p_size) for
+    :func:`data.tiling.merge_patches_device`."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     model.to(dev)
     p_size = effective_patch_size(scene.shape[0], scene.shape[1], config["patch_size"])
     coords = grid_coords(scene.shape[0], scene.shape[1], p_size, config["patch_overlap"])
     in_h, in_w = config["input_h"], config["input_w"]
     n = len(coords)
-    n_pad = max(-(-n // INFER_BATCH), 1) * INFER_BATCH
+    chunk, per, first = _chunking(mesh)
+    n_pad = max(-(-n // chunk), 1) * chunk
     cuda = dev.type == "cuda"
     scene_c = np.ascontiguousarray(scene)
 
     def prep(i0: int) -> torch.Tensor:
-        buf = torch.empty((INFER_BATCH, in_h, in_w, scene.shape[2]), dtype=torch.uint8,
+        buf = torch.empty((per, in_h, in_w, scene.shape[2]), dtype=torch.uint8,
                           pin_memory=cuda)
-        m = max(min(INFER_BATCH, n - i0), 0)
+        m = max(min(per, n - i0), 0)
         native.extract_resize_u8(scene_c, coords[i0:i0 + m], p_size, in_h, in_w,
                                  out=buf.numpy()[:m])
         buf[m:] = 0
@@ -295,7 +328,7 @@ def pipelined_scene_forward(model, scene: np.ndarray, config: Dict, dtype=None,
     copies = torch.cuda.Stream(dev) if cuda else None
     outs = []
     with ThreadPoolExecutor(max_workers=2) as pool:
-        for fut in [pool.submit(prep, i0) for i0 in range(0, n_pad, INFER_BATCH)]:
+        for fut in [pool.submit(prep, i0) for i0 in range(first, n_pad, chunk)]:
             x = fut.result()
             if cuda:
                 with torch.cuda.stream(copies):
@@ -306,14 +339,14 @@ def pipelined_scene_forward(model, scene: np.ndarray, config: Dict, dtype=None,
                 # the forward's stream uses a block the copy stream allocated
                 x.record_stream(torch.cuda.current_stream(dev))
             outs.append(tile_forward(model, x, dtype, quantize_probs, device=dev))
-    return torch.cat(outs)[:n], coords, p_size
+    return _gathered(mesh, torch.cat(outs), per, n), coords, p_size
 
 
 def segmentation_inference(model, img_input: np.ndarray,
                            img_patch_set: np.ndarray, mask_patch_set,
                            config: Dict, gt_mask_flag: bool,
                            dtype: Optional[torch.dtype] = None,
-                           device="cuda"):
+                           device="cuda", mesh=None):
     """Batched tile inference + device merge (api:376-411).
 
     ``img_patch_set`` holds the prepared tiles in :func:`grid_coords` order
@@ -324,14 +357,15 @@ def segmentation_inference(model, img_input: np.ndarray,
     (:func:`data.tiling.mask_convert_tensor`, on ``device``), /255, merged
     as the predictions are. Returns (all_class_mask, gt_class_mask): lists
     of C (H, W) uint8 masks, on the host; without ground truth both are
-    the predictions."""
-    dev = resolve_device(device)
+    the predictions. ``mesh`` shards the tiles over its ranks (on the
+    mesh's device), and every rank returns the masks."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     model.to(dev)
     num_classes = config["num_classes"]
     h, w = img_input.shape[0], img_input.shape[1]
     patch_size = effective_patch_size(h, w, config["patch_size"])
     coords = grid_coords(h, w, patch_size, config["patch_overlap"])
-    probs = _chunked_forward(model, img_patch_set, dtype, dev)
+    probs = _chunked_forward(model, img_patch_set, dtype, dev, mesh=mesh)
     merged = merge_patches_device(probs, coords, h, w, patch_size, num_classes,
                                   overlap=config["patch_overlap"]).cpu().numpy()
     masks = [merged[..., c] for c in range(num_classes)]

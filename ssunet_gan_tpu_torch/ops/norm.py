@@ -9,7 +9,10 @@ activation dtype, as the JAX package does (ops/norm.py:85-105).
 
 Train (the JAX package's ops/norm.py:108-130) normalizes with the batch
 statistics, two-pass in f32 (the biased variance), returns the activation
-dtype, and moves the running statistics with the unbiased variance.
+dtype, and moves the running statistics with the unbiased variance. Under
+a data-parallel step (``ops/collectives.py`` ``train_axis``) both means
+cross the ranks, so equal slices give the global batch's statistics
+(SyncBN).
 :meth:`BatchNorm.update_running` is that update alone, for the fused train
 stage, which computes the batch statistics itself (ops/norm.py:65-73).
 :func:`frozen_running` holds the running statistics still while a block's
@@ -23,6 +26,8 @@ from typing import Tuple
 
 import torch
 from torch import nn
+
+from ssunet_gan_tpu_torch.ops.collectives import axis_size, pmean_if
 
 MOMENTUM = 0.1  # torch's running-average rate
 
@@ -74,9 +79,11 @@ class BatchNorm(nn.Module):
             k, b = self.eval_affine()
             return x * k.to(x.dtype) + b.to(x.dtype)
         xf = x.float()
-        mean = xf.mean((0, 1, 2))
-        var = (xf - mean).square().mean((0, 1, 2))
-        count = x.numel() // x.shape[-1]
+        # under a mesh's train axis the batch is this rank's slice: the
+        # statistics are the means over the ranks, two-pass as in JAX
+        mean = pmean_if(xf.mean((0, 1, 2)))
+        var = pmean_if((xf - mean).square().mean((0, 1, 2)))
+        count = x.numel() // x.shape[-1] * axis_size()
         self.update_running(mean.detach(), var.detach() * (count / max(count - 1, 1)))
         y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y.to(x.dtype)

@@ -56,6 +56,7 @@ from typing import Optional, Tuple
 import torch
 
 from ssunet_gan_tpu_torch import _build
+from ssunet_gan_tpu_torch.ops import collectives
 from ssunet_gan_tpu_torch.ops.conv import as_parts, conv2d_nhwc
 from ssunet_gan_tpu_torch.ops.stage_kernel import (
     TAIL_MAX_CLS,
@@ -95,7 +96,10 @@ def set_train_bwd_v3(enabled: bool) -> None:
 
 # The fused train stage: on unless set to False (JAX ``set_fused_train``,
 # ssunet_gan_tpu/ops/stage_kernel_train.py:100, whose default is on for one
-# TPU; the card's default is on).
+# TPU; the card's default is on, under a data-parallel step too, whose
+# ``train_axis`` carries the stage's sums across the ranks: the JAX package
+# takes its composition there unless ``fused_train_dp`` builds a
+# ``shard_map`` step, because GSPMD cannot split a Pallas call).
 _FUSED_TRAIN: Optional[bool] = None
 
 
@@ -346,11 +350,13 @@ def _affine(scale, bias, mean, var):
 def _train_fwd(parts, bp, sp, head):
     w1, (g1, be1), w2, (g2, be2), ws = bp
     n, h, w = parts[0].shape[:3]
-    count = n * h * w
+    # under a data-parallel step the kernels see this rank's slice: the sums
+    # cross the ranks between the kernels and count all their pixels (SyncBN)
+    count = n * h * w * collectives.axis_size()
     f1, sums1 = conv_stats(parts, w1)
-    mean1, var1, uvar1 = _stats_from_sums(sums1, count)
+    mean1, var1, uvar1 = _stats_from_sums(collectives.psum_if(sums1), count)
     f2, sums2 = conv_stats((f1,), w2, prologue=_affine(g1, be1, mean1, var1))
-    mean2, var2, uvar2 = _stats_from_sums(sums2, count)
+    mean2, var2, uvar2 = _stats_from_sums(collectives.psum_if(sums2), count)
     a2, b2 = _affine(g2, be2, mean2, var2)
     out, y, seg, act = train_tail(f2, parts, a2, b2, ws, sp, head)
     saved = (f1, f2, y, seg, act, mean1, var1, mean2, var2)
@@ -367,7 +373,7 @@ def _train_bwd(parts, bp, sp, head, saved, g_out, want_parts: bool):
     dtype = f1.dtype
     c = w2.shape[0]
     n, h, w = f1.shape[:3]
-    count = n * h * w
+    count = n * h * w * collectives.axis_size()  # global under a data-parallel step
     csum = sum(p.shape[-1] for p in parts)
     px = (0, 1, 2)
 
@@ -424,7 +430,11 @@ def _train_bwd(parts, bp, sp, head, saved, g_out, want_parts: bool):
     r2 = torch.rsqrt(var2 + BN_EPS)
     xhat2 = (f2.float() - mean2) * r2
     s_g2, s_gx2 = g_pre.sum(px), (g_pre * xhat2).sum(px)
-    g_f2 = ((g2 * r2) * (g_pre - s_g2 / count - xhat2 * (s_gx2 / count))).to(dtype)
+    # the parameter gradients stay this rank's partial sums (the step
+    # averages them); the input gradient's batch-stat terms take the global
+    # sums, the transpose of the forward's
+    t_g2, t_gx2 = collectives.psum_if(torch.stack([s_g2, s_gx2]))
+    g_f2 = ((g2 * r2) * (g_pre - t_g2 / count - xhat2 * (t_gx2 / count))).to(dtype)
 
     # conv2: backward-data, and the weight gradient on h1r recomputed from f1
     a1, b1 = _affine(g1, be1, mean1, var1)
@@ -436,7 +446,8 @@ def _train_bwd(parts, bp, sp, head, saved, g_out, want_parts: bool):
     xhat1 = (f1.float() - mean1) * r1
     g_n1 = torch.where(xhat1 * g1 + be1 > 0, g_h1r.float(), 0.0)
     s_g1, s_gx1 = g_n1.sum(px), (g_n1 * xhat1).sum(px)
-    g_f1 = ((g1 * r1) * (g_n1 - s_g1 / count - xhat1 * (s_gx1 / count))).to(dtype)
+    t_g1, t_gx1 = collectives.psum_if(torch.stack([s_g1, s_gx1]))
+    g_f1 = ((g1 * r1) * (g_n1 - t_g1 / count - xhat1 * (t_gx1 / count))).to(dtype)
 
     # conv1
     g_w1 = wgrad(parts, g_f1)

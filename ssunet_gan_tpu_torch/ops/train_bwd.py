@@ -62,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from ssunet_gan_tpu_torch import _build
+from ssunet_gan_tpu_torch.ops import collectives
 from ssunet_gan_tpu_torch.ops.conv import as_parts, conv2d_nhwc
 from ssunet_gan_tpu_torch.ops.stage_kernel import _q, eval_chunk, split_in
 from ssunet_gan_tpu_torch.ops.stage_kernel_train import (
@@ -434,15 +435,18 @@ def _convT(w: torch.Tensor) -> torch.Tensor:
 
 def train_bwd_v3(parts, bp, sp, head, saved, g_out, want_parts: bool):
     """``train_bwd_v3`` (ssunet_gan_tpu/ops/train_bwd.py:486-777) over NHWC
-    tensors, on one card (``count = N·H·W``). Returns (part grads or None,
-    block grads, SPADE grads, head grads or None), as the v2 body."""
+    tensors (``count = N·H·W`` times the data-parallel axis's ranks: under a
+    mesh the κ5 / κ6 sums that feed the input gradient's BN terms cross the
+    ranks, and the parameter gradients stay this rank's). Returns (part
+    grads or None, block grads, SPADE grads, head grads or None), as the v2
+    body."""
     f1, f2, y, seg, act, mean1, var1, mean2, var2 = saved
     w1, (g1, be1), w2, (g2, be2), ws = bp
     wx, bx, wm, bm, wg, bg, wb, bb = sp
     dtype = f1.dtype
     c = w2.shape[0]
     n, h, w = f1.shape[:3]
-    count = n * h * w
+    count = n * h * w * collectives.axis_size()
 
     # κ1: γ recompute (γ|β when the head needs out0)
     if head is not None:
@@ -477,7 +481,8 @@ def train_bwd_v3(parts, bp, sp, head, saved, g_out, want_parts: bool):
     r2 = torch.rsqrt(var2 + BN_EPS)
     g_pre, st5 = fused_conv3("pre", (g_seg,), _convT(wx), side=(g_out0, gamma, y, f2),
                              consts=(r2, mean2 * r2))
-    s_g2, s_gx2 = st5[0], st5[1]
+    s_g2, s_gx2 = st5[0], st5[1]  # the parameter gradients: this rank's sums
+    t_g2, t_gx2 = collectives.psum_if(st5[:2])  # the BN2 backward's: global
     g_wx = fused_wgrad("x2map", (y,), (g_seg,))
 
     # 1×1 shortcut weight gradient, per part (plain products)
@@ -488,15 +493,16 @@ def train_bwd_v3(parts, bp, sp, head, saved, g_out, want_parts: bool):
     # κ6: g_n1 = pre₁-mask(convT(bn2-backward(g_pre, f2), k2)); Σgn, Σgn·x̂₁
     r1 = torch.rsqrt(var1 + BN_EPS)
     a1 = g1 * r1
-    bn2 = (g2 * r2, s_g2 / count, r2 * s_gx2 / count, mean2 * r2 * s_gx2 / count)
+    bn2 = (g2 * r2, t_g2 / count, r2 * t_gx2 / count, mean2 * r2 * t_gx2 / count)
     g_n1, st6 = fused_conv3("bn2", (g_pre, f2), _convT(w2), side=(f1,),
                             consts=bn2 + (a1, be1 - mean1 * a1, r1, mean1 * r1))
     s_g1, s_gx1 = st6[0], st6[1]
+    t_g1, t_gx1 = collectives.psum_if(st6[:2])
     g_w2 = fused_wgrad("conv2", (f1,), (g_pre, f2), consts=bn2,
                        prologue=(a1, be1 - mean1 * a1))
 
     # κ7: g_x = convT(bn1-backward(g_n1, f1), k1) + ksᵀ·g_pre, per part
-    bn1 = (a1, s_g1 / count, r1 * s_gx1 / count, mean1 * r1 * s_gx1 / count)
+    bn1 = (a1, t_g1 / count, r1 * t_gx1 / count, mean1 * r1 * t_gx1 / count)
     g_parts = None
     if want_parts:
         g_parts, _ = fused_conv3("bn1", (g_n1, f1), _convT(w1), side=(g_pre,), consts=bn1,

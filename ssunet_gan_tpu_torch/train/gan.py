@@ -17,6 +17,15 @@ kept quirk), keeps the best generator by **test** IoU in ``model.pth``
 ``generator_state/`` and ``discriminator_state/``. ``resume`` restarts
 after the saved epoch from both; early stopping and TensorBoard (where
 ``tensorboardX`` imports) as in the supervised trainer.
+
+With ``mesh`` (train/gan.py:121-202) the loop is data-parallel as the
+supervised trainer's: the batch size rounded to a multiple of the ranks,
+each rank loading its slice of every global batch, both networks starting
+from rank 0's weights, the step's gradients averaged before the clamp
+(``train/gan_step.py``; G's fused train stages run under the mesh, and the
+card key ``fused_train_dp`` is accepted and changes nothing), every rank
+evaluating the whole splits and taking rank 0's readings, and only rank 0
+writing files.
 """
 
 from __future__ import annotations
@@ -39,10 +48,12 @@ from ssunet_gan_tpu_torch.data.loader import BatchLoader
 from ssunet_gan_tpu_torch.train import checkpoint as ckpt
 from ssunet_gan_tpu_torch.train.supervised import (
     LOG_COLUMNS,
+    _quiet,
     _tensorboard_writer,
     _write_log,
     build_datasets,
     evaluate,
+    launched_mesh,
     save_tensorboard,
     train_one_epoch,
 )
@@ -72,30 +83,31 @@ def warm_start(cfg: ExperimentConfig, g_config, generator) -> Optional[dict]:
 def run_gan_experiment(cfg: ExperimentConfig, synthetic: Optional[int] = None,
                        epochs_override: Optional[int] = None, mesh=None,
                        use_tensorboard: bool = True, device="cuda"):
-    """The GAN experiment loop on ``device``; returns ``(generator,
-    discriminator, best_iou, log)`` with ``log`` the columns of
-    ``log.csv``. ``mesh`` (data-parallel training) is not ported yet."""
+    """The GAN experiment loop on ``device`` (under ``mesh``, the mesh's);
+    returns ``(generator, discriminator, best_iou, log)`` with ``log`` the
+    columns of ``log.csv``."""
     from ssunet_gan_tpu_torch.models.gan import Discriminator, Generator
     from ssunet_gan_tpu_torch.ops.losses import get_loss
     from ssunet_gan_tpu_torch.ops.spade_kernel import set_fused_spade
     from ssunet_gan_tpu_torch.train.gan_step import make_gan_train_step
     from ssunet_gan_tpu_torch.train.optim import adam
     from ssunet_gan_tpu_torch.train.step import make_eval_step
+    from ssunet_gan_tpu_torch.parallel import replicate
     from ssunet_gan_tpu_torch.utils import count_params, seed_everything
 
     config = cfg.opt_config
-    if mesh is not None or config.get("fused_train_dp"):
-        raise NotImplementedError(
-            "the data-parallel GAN trainer (mesh=, fused_train_dp) is not ported yet; "
-            "see ROADMAP.md")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    lead = mesh is None or mesh.rank == 0  # the rank that writes files and prints
+    echo = print if lead else _quiet
     checkpoint_folder = cfg.file_path.checkpoint_path
     model_dir = cfg.model_dir()
-    os.makedirs(model_dir, exist_ok=True)
-    os.makedirs(checkpoint_folder, exist_ok=True)
-    dump_model_card(config, model_dir)
-    writer = (_tensorboard_writer(os.path.join(checkpoint_folder, config["name"]))
-              if use_tensorboard else None)
+    writer = None
+    if lead:
+        os.makedirs(model_dir, exist_ok=True)
+        os.makedirs(checkpoint_folder, exist_ok=True)
+        dump_model_card(config, model_dir)
+        if use_tensorboard:
+            writer = _tensorboard_writer(os.path.join(checkpoint_folder, config["name"]))
     if "fused_spade" in config:
         set_fused_spade(bool(config["fused_spade"]))
 
@@ -111,20 +123,26 @@ def run_gan_experiment(cfg: ExperimentConfig, synthetic: Optional[int] = None,
     warm_start(cfg, g_config, generator)
     discriminator = Discriminator(config["num_classes"], D_KERNEL, D_CHANNELS, D_BLOCKS, D_FC,
                                   generator=torch.Generator().manual_seed(seed + 1)).to(dev)
+    if mesh is not None:
+        replicate(mesh, generator)
+        replicate(mesh, discriminator)
     gan_lr = float(config["gan_lr"])
     opt_g, opt_d = adam(generator.parameters()), adam(discriminator.parameters())
-    print("=> GAN: generator %s (%d params), discriminator (%d params)"
+    echo("=> GAN: generator %s (%d params), discriminator (%d params)"
           % (g_config["arch"], count_params(generator), count_params(discriminator)))
 
     seg_loss_fn = get_loss(config["loss"])
     gan_step = make_gan_train_step(generator, discriminator, seg_loss_fn, opt_g, opt_d,
-                                   config["num_classes"])
+                                   config["num_classes"], mesh=mesh)
     eval_step = make_eval_step(generator, seg_loss_fn, config["num_classes"])
 
     train_ds, val_ds, test_ds = build_datasets(cfg, synthetic)
     num_workers = int(config.get("num_workers", 3))
-    train_loader = BatchLoader(train_ds, config["batch_size"], shuffle=True, drop_last=True,
-                               num_workers=num_workers)
+    n_data = 1 if mesh is None else mesh.size
+    batch_size = max(config["batch_size"] // n_data * n_data, n_data)
+    train_loader = BatchLoader(train_ds, batch_size, shuffle=True, drop_last=True,
+                               num_workers=num_workers,
+                               shard=(0, 1) if mesh is None else (mesh.rank, mesh.size))
     val_loader = BatchLoader(val_ds, 1, num_workers=num_workers)
     test_loader = BatchLoader(test_ds, 1, num_workers=num_workers)
 
@@ -143,44 +161,47 @@ def run_gan_experiment(cfg: ExperimentConfig, synthetic: Optional[int] = None,
         ckpt.restore_train_state(d_state_dir, discriminator, opt_d)
         start_epoch = int(meta.get("epoch", -1)) + 1
         best_iou = float(meta.get("best_iou", 0.0))
-        print(f"=> resumed GAN from epoch {start_epoch} (best_iou {best_iou:.4f})")
+        echo(f"=> resumed GAN from epoch {start_epoch} (best_iou {best_iou:.4f})")
 
     for epoch in range(start_epoch, epochs):
-        print("Epoch [%d/%d]" % (epoch, epochs))
-        print("generator learning rate {:d}: {:f}".format(epoch, gan_lr))
-        train_log = train_one_epoch(epoch, config, train_loader, gan_step, gan_lr, dev)
-        val_log = evaluate(config, val_loader, eval_step, dev)
-        test_log = evaluate(config, test_loader, eval_step, dev)
+        echo("Epoch [%d/%d]" % (epoch, epochs))
+        echo("generator learning rate {:d}: {:f}".format(epoch, gan_lr))
+        train_log = train_one_epoch(epoch, config, train_loader, gan_step, gan_lr, dev, mesh)
+        val_log = evaluate(config, val_loader, eval_step, dev, mesh)
+        test_log = evaluate(config, test_loader, eval_step, dev, mesh)
 
         if best_dice < test_log["dice"]:
             best_dice, iou_at_best_dice = test_log["dice"], test_log["iou"]
-        print("loss %.4f - iou %.4f - dice %.4f - val_loss %.4f - val_iou %.4f - "
-              "val_dice %.4f - test_iou %.4f - test_dice %.4f - Best_dice %.4f - "
-              "iou_AtBestDice %.4f (%.1f img/s; d_loss %.4f, adv %.4f)"
-              % (train_log["loss"], train_log["iou"], train_log["dice"], val_log["loss"],
-                 val_log["iou"], val_log["dice"], test_log["iou"], test_log["dice"],
-                 best_dice, iou_at_best_dice, train_log["images_per_sec"],
-                 train_log["d_loss"], train_log["adv_loss"]))
+        echo("loss %.4f - iou %.4f - dice %.4f - val_loss %.4f - val_iou %.4f - "
+             "val_dice %.4f - test_iou %.4f - test_dice %.4f - Best_dice %.4f - "
+             "iou_AtBestDice %.4f (%.1f img/s; d_loss %.4f, adv %.4f)"
+             % (train_log["loss"], train_log["iou"], train_log["dice"], val_log["loss"],
+                val_log["iou"], val_log["dice"], test_log["iou"], test_log["dice"],
+                best_dice, iou_at_best_dice, train_log["images_per_sec"],
+                train_log["d_loss"], train_log["adv_loss"]))
         save_tensorboard(writer, train_log, val_log, test_log, epoch)
 
         for k, v in zip(LOG_COLUMNS, (epoch, config["lr"], train_log["loss"], train_log["iou"],
                                       train_log["dice"], val_log["loss"], val_log["iou"],
                                       val_log["dice"])):
             log[k].append(v)
-        _write_log(os.path.join(model_dir, "log.csv"), log)
+        if lead:
+            _write_log(os.path.join(model_dir, "log.csv"), log)
         trigger += 1
 
         # the best generator by test IoU (train_seg_gan.py:528-530)
         if test_log["iou"] > best_iou:
-            ckpt.save_model(model_dir, generator)
+            if lead:
+                ckpt.save_model(model_dir, generator)
             best_iou = test_log["iou"]
-            print("=> saved best model")
+            echo("=> saved best model")
             trigger = 0
-        ckpt.save_train_state(g_state_dir, generator, opt_g, epoch, {"best_iou": best_iou})
-        ckpt.save_train_state(d_state_dir, discriminator, opt_d, epoch)
+        if lead:
+            ckpt.save_train_state(g_state_dir, generator, opt_g, epoch, {"best_iou": best_iou})
+            ckpt.save_train_state(d_state_dir, discriminator, opt_d, epoch)
 
         if config.get("early_stopping", -1) >= 0 and trigger >= config["early_stopping"]:
-            print("=> early stopping")
+            echo("=> early stopping")
             break
 
     if writer is not None:
@@ -198,4 +219,9 @@ def parse_args(argv=None):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    run_gan_experiment(load_experiment_config(args.config), device=args.device)
+    mesh = launched_mesh(args.device)
+    try:
+        run_gan_experiment(load_experiment_config(args.config), device=args.device, mesh=mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()

@@ -33,6 +33,14 @@ iterate u and v three times as the reference does (:190).
 
 The metrics (seg loss, foreground IoU and Dice, perceptual, adversarial
 and D loss) stay on the device.
+
+With ``mesh`` (train/gan_step.py:271-299) both gradient phases run on this
+rank's slice of the batch inside the mesh's train axis (D's BatchNorms and
+G's fused train stages reduce over the ranks; the joint step's rebuilt
+update works on those global statistics, so it is the same on every
+rank); then G's and D's gradients and the metrics are averaged over the
+ranks, and only then clamped, as the JAX package clips after its
+``shard_map``.
 """
 
 from __future__ import annotations
@@ -45,6 +53,12 @@ from ssunet_gan_tpu_torch.ops import norm
 from ssunet_gan_tpu_torch.ops.losses import bce_with_logits_loss
 from ssunet_gan_tpu_torch.ops.metrics import dice_coef, foreground_slice, iou_score
 from ssunet_gan_tpu_torch.ops.spectral import SNConv2d
+from ssunet_gan_tpu_torch.parallel import (
+    average_gradients,
+    check_mesh,
+    pmean_metrics,
+    sharded_step,
+)
 from ssunet_gan_tpu_torch.train.optim import set_lr
 
 ALPHA = 1e-4  # content (MSE) weight, train_seg_gan.py:172
@@ -84,19 +98,10 @@ def _third_update(bns, r0: List[torch.Tensor], u1: List[torch.Tensor]) -> None:
         t.mul_(keep).add_(b - keep * a)
 
 
-def gan_gradients(generator: torch.nn.Module, discriminator: torch.nn.Module,
-                  seg_loss_fn: Callable, image: torch.Tensor, target: torch.Tensor,
-                  num_classes: int, alpha: float = ALPHA, beta: float = BETA,
-                  grad_clip: float = GRAD_CLIP) -> Dict[str, torch.Tensor]:
-    """Both networks' gradients of one step, clamped to ±``grad_clip``, in
-    their parameters' ``.grad``; D's running statistics moved three times.
-    Both networks are left in training mode. Returns the metrics (device
-    tensors)."""
-    generator.train()
-    discriminator.train()
-    g_params, d_params = _params(generator), _params(discriminator)
-    for p in g_params + d_params:
-        p.grad = None
+def _shard_gradients(generator, discriminator, seg_loss_fn, image, target, num_classes,
+                     alpha, beta, g_params, d_params) -> Dict[str, torch.Tensor]:
+    """Both networks' gradients on ``image`` / ``target`` into ``.grad``,
+    unclamped; D's running statistics moved three times. The metrics."""
     g_out = generator(image)
     g_out = torch.where(torch.isnan(g_out), torch.zeros_like(g_out), g_out)
     seg_loss = seg_loss_fn(g_out, target)
@@ -123,15 +128,39 @@ def gan_gradients(generator: torch.nn.Module, discriminator: torch.nn.Module,
         d_loss = (bce_with_logits_loss(d_fake, torch.zeros_like(d_fake))
                   + bce_with_logits_loss(d_real, torch.ones_like(d_real)))
         d_loss.backward(inputs=d_params)
-    grads = [p.grad for p in g_params + d_params if p.grad is not None]
-    torch._foreach_clamp_min_(grads, -grad_clip)
-    torch._foreach_clamp_max_(grads, grad_clip)
     with torch.no_grad():
         out_m = foreground_slice(g_out, num_classes)
         tar_m = foreground_slice(target, num_classes)
         return {"loss": seg_loss.detach(), "iou": iou_score(out_m, tar_m),
                 "dice": dice_coef(out_m, tar_m), "perceptual_loss": perceptual.detach(),
                 "adv_loss": adv.detach(), "d_loss": d_loss.detach()}
+
+
+def gan_gradients(generator: torch.nn.Module, discriminator: torch.nn.Module,
+                  seg_loss_fn: Callable, image: torch.Tensor, target: torch.Tensor,
+                  num_classes: int, alpha: float = ALPHA, beta: float = BETA,
+                  grad_clip: float = GRAD_CLIP, mesh=None) -> Dict[str, torch.Tensor]:
+    """Both networks' gradients of one step, clamped to ±``grad_clip``, in
+    their parameters' ``.grad``; D's running statistics moved three times.
+    Both networks are left in training mode. Returns the metrics (device
+    tensors). Under ``mesh`` (``image`` and ``target`` this rank's slice)
+    the gradients and metrics are the ranks' means, clamped after the
+    average."""
+    generator.train()
+    discriminator.train()
+    g_params, d_params = _params(generator), _params(discriminator)
+    for p in g_params + d_params:
+        p.grad = None
+    with sharded_step(mesh):
+        metrics = _shard_gradients(generator, discriminator, seg_loss_fn, image, target,
+                                   num_classes, alpha, beta, g_params, d_params)
+    if mesh is not None:
+        average_gradients(mesh, g_params + d_params)
+        metrics = pmean_metrics(mesh, metrics)
+    grads = [p.grad for p in g_params + d_params if p.grad is not None]
+    torch._foreach_clamp_min_(grads, -grad_clip)
+    torch._foreach_clamp_max_(grads, grad_clip)
+    return metrics
 
 
 def make_gan_train_step(generator: torch.nn.Module, discriminator: torch.nn.Module,
@@ -141,15 +170,14 @@ def make_gan_train_step(generator: torch.nn.Module, discriminator: torch.nn.Modu
                         grad_clip: float = GRAD_CLIP, mesh=None
                         ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``step(image, target, lr) -> metrics`` over NHWC batches on the
-    networks' device: :func:`gan_gradients`, then both optimizers step at
-    ``lr``. ``mesh`` (the data-parallel step) is not ported yet."""
+    networks' device: :func:`gan_gradients` (with ``mesh``), then both
+    optimizers step at ``lr``. A mesh with a model axis raises."""
     if mesh is not None:
-        raise NotImplementedError(
-            "the data-parallel GAN step (mesh=) is not ported yet; see ROADMAP.md")
+        check_mesh(mesh)
 
     def step(image: torch.Tensor, target: torch.Tensor, lr: float):
         metrics = gan_gradients(generator, discriminator, seg_loss_fn, image, target,
-                                num_classes, alpha, beta, grad_clip)
+                                num_classes, alpha, beta, grad_clip, mesh)
         for opt in (opt_g, opt_d):
             set_lr(opt, lr)
             opt.step()

@@ -16,6 +16,18 @@ and backward in training mode, so the BatchNorms' running statistics move
 once per microbatch; the gradients are averaged, then come one clamp and
 one optimizer step, and the metrics are the microbatches' means.
 
+With ``mesh`` (the JAX package's ``_make_train_step_shard_map``,
+train/step.py:204-280) the step is data-parallel: each rank runs forward
+and backward on its slice of the global batch (``parallel.shard_batch``)
+inside the mesh's train axis, where the BatchNorm statistics, the fused
+train stage's sums and the metrics cross the ranks; then one all-reduce
+averages the gradients, the metrics are averaged, and the clamp and the
+optimizer step run alike on every rank. The fused train stages run there
+as in one process, in every microbatch: the ranks' strided microbatches
+``image[j::k]`` of their contiguous slices make up the global batch's
+microbatch ``j``. Equal slices give the numbers one process gives on the
+global batch.
+
 The metrics stay on the device: the step never waits for the card.
 """
 
@@ -26,6 +38,12 @@ from typing import Callable, Dict
 import torch
 
 from ssunet_gan_tpu_torch.ops.metrics import dice_coef, foreground_slice, iou_score
+from ssunet_gan_tpu_torch.parallel import (
+    average_gradients,
+    check_mesh,
+    pmean_metrics,
+    sharded_step,
+)
 from ssunet_gan_tpu_torch.train.optim import set_lr
 
 
@@ -58,33 +76,42 @@ def make_train_step(model, loss_fn: Callable, optimizer: torch.optim.Optimizer,
     model's device: forward in training mode (BatchNorm running statistics
     move), loss, backward, clamp, optimizer step; in ``accum_steps``
     microbatches, each with its own forward and backward, before the one
-    update. ``metrics`` holds device tensors (loss, iou, dice)."""
+    update. ``metrics`` holds device tensors (loss, iou, dice). Under
+    ``mesh`` (a ``parallel.Mesh``) ``image`` and ``target`` are this rank's
+    slice of the global batch, whose per-rank size divides by
+    ``accum_steps``; a mesh with a model axis raises."""
     k = int(accum_steps)
     if k < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if mesh is not None:
-        raise NotImplementedError(
-            "the data-parallel step (mesh=) is not ported yet; see ROADMAP.md")
+        check_mesh(mesh)
     params = [p for p in model.parameters() if p.requires_grad]
+
+    def grads(image, target):
+        if k == 1:
+            loss, metrics = _forward_loss(model, loss_fn, num_classes, deep_supervision,
+                                          image, target)
+            loss.backward()
+            return metrics
+        if image.shape[0] % k:
+            raise ValueError(f"batch {image.shape[0]} not divisible by accum_steps={k}")
+        micro = []
+        for j in range(k):
+            loss, m = _forward_loss(model, loss_fn, num_classes, deep_supervision,
+                                    image[j::k], target[j::k])
+            (loss / k).backward()  # the sum of the k gradients / k: their mean
+            micro.append(m)
+        return {key: torch.stack([m[key] for m in micro]).mean() for key in micro[0]}
 
     def step(image: torch.Tensor, target: torch.Tensor, lr: float):
         model.train()
         set_lr(optimizer, lr)
         optimizer.zero_grad(set_to_none=True)
-        if k == 1:
-            loss, metrics = _forward_loss(model, loss_fn, num_classes, deep_supervision,
-                                          image, target)
-            loss.backward()
-        else:
-            if image.shape[0] % k:
-                raise ValueError(f"batch {image.shape[0]} not divisible by accum_steps={k}")
-            micro = []
-            for j in range(k):
-                loss, m = _forward_loss(model, loss_fn, num_classes, deep_supervision,
-                                        image[j::k], target[j::k])
-                (loss / k).backward()  # the sum of the k gradients / k: their mean
-                micro.append(m)
-            metrics = {key: torch.stack([m[key] for m in micro]).mean() for key in micro[0]}
+        with sharded_step(mesh):
+            metrics = grads(image, target)
+        if mesh is not None:
+            average_gradients(mesh, params)
+            metrics = pmean_metrics(mesh, metrics)
         if clip and clip > 0:
             with torch.no_grad():
                 for p in params:

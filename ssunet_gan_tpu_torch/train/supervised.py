@@ -17,6 +17,24 @@ epoch with ``torch.profiler`` into ``<checkpoint_path>/<name>/profile``.
 
 The host keeps at most two steps in flight before it waits for the card
 (supervised.py:135-136), and reads the metrics once per epoch.
+
+With ``mesh`` (``parallel.make_mesh``; supervised.py:115-150, 197-250) the
+loop is data-parallel: the batch size is rounded to a multiple of the
+ranks × ``accum_steps``, each rank loads only its slice of every global
+batch from the one shuffled order, the model starts from rank 0's weights,
+and the step averages the gradients (``train/step.py``; the fused train
+stages run under the mesh as in one process, so the card key
+``fused_train_dp``, which picks the JAX package's ``shard_map`` step, is
+accepted and changes nothing). Every rank evaluates the whole val and test
+splits, as the JAX package's replicated evaluation, and takes rank 0's
+readings, so the plateau schedule, the best model and early stopping
+decide alike on every rank; only rank 0 writes the card, ``log.csv``,
+checkpoints and TensorBoard. Over several cards:
+
+    torchrun --nproc-per-node N -m ssunet_gan_tpu_torch.cli.train --config <file>
+
+(``main`` starts the process group through ``parallel.initialize_multihost``
+when ``torchrun`` has set ``WORLD_SIZE``.)
 """
 
 from __future__ import annotations
@@ -63,11 +81,11 @@ def _mark_step(events: List, device: torch.device) -> None:
 
 
 def train_one_epoch(epoch: int, config: Dict, loader, train_step, lr: float,
-                    device="cuda"):
+                    device="cuda", mesh=None):
     """One pass over ``loader`` (batches of ``(ori, img, mask, meta)``,
-    numpy NHWC) through ``train_step``; images in bf16 when
-    ``config["mixed_precision"]``. Returns the epoch's mean metrics and
-    ``images_per_sec``."""
+    numpy NHWC; under ``mesh`` this rank's slices) through ``train_step``;
+    images in bf16 when ``config["mixed_precision"]``. Returns the epoch's
+    mean metrics and ``images_per_sec`` (of the global batches)."""
     device = resolve_device(device)
     meters, events = [], []
     n_images = 0
@@ -77,26 +95,33 @@ def train_one_epoch(epoch: int, config: Dict, loader, train_step, lr: float,
         x = torch.from_numpy(img).to(device).to(img_dtype)
         y = torch.from_numpy(mask).to(device)
         meters.append(train_step(x, y, lr))
-        n_images += img.shape[0]
+        n_images += img.shape[0] * (1 if mesh is None else mesh.size)
         _mark_step(events, device)
     log = _epoch_mean(meters)
     log["images_per_sec"] = n_images / max(time.time() - t0, 1e-9)
     return log
 
 
-def evaluate(config: Dict, loader, eval_step, device="cuda") -> Dict[str, float]:
+def evaluate(config: Dict, loader, eval_step, device="cuda", mesh=None) -> Dict[str, float]:
     """Mean metrics of ``eval_step`` over ``loader``, the images in the
     loader's dtype as the JAX package passes them (f32: on the card the
     fused stages then take kernel 1's f32 route, as the JAX package runs
     its stage kernel in f32). ``config`` is accepted for the JAX
-    signature."""
+    signature. Under ``mesh`` every rank returns rank 0's reading (one
+    broadcast), so that the decisions taken on it agree."""
     device = resolve_device(device)
     meters, events = [], []
     for _, img, mask, _ in loader:
         x = torch.from_numpy(img).to(device)
         meters.append(eval_step(x, torch.from_numpy(mask).to(device)))
         _mark_step(events, device)
-    return _epoch_mean(meters)
+    log = _epoch_mean(meters)
+    if mesh is not None:
+        from ssunet_gan_tpu_torch.parallel import replicate
+
+        values = torch.tensor(list(log.values()), dtype=torch.float64, device=mesh.device)
+        log = dict(zip(log, replicate(mesh, [values])[0].tolist()))
+    return log
 
 
 LOG_COLUMNS = ("epoch", "lr", "loss", "iou", "dice", "val_loss", "val_iou", "val_dice")
@@ -143,6 +168,10 @@ def build_datasets(cfg: ExperimentConfig, synthetic: Optional[int] = None):
     return tuple(sets)
 
 
+def _quiet(*args, **kwargs) -> None:
+    """``print`` on the ranks after the first."""
+
+
 def _tensorboard_writer(logdir: str):
     try:
         from tensorboardX import SummaryWriter
@@ -161,34 +190,36 @@ def _write_log(path: str, log: Dict[str, list]) -> None:
 def run_experiment(cfg: ExperimentConfig, synthetic: Optional[int] = None,
                    epochs_override: Optional[int] = None, mesh=None,
                    use_tensorboard: bool = True, device="cuda"):
-    """The full experiment loop on ``device``; returns ``(model, best_iou,
-    log)`` with ``log`` the columns of ``log.csv``. ``mesh`` (data-parallel
-    training) is not ported yet (ROADMAP.md)."""
+    """The full experiment loop on ``device`` (under ``mesh``, the mesh's);
+    returns ``(model, best_iou, log)`` with ``log`` the columns of
+    ``log.csv``."""
     from ssunet_gan_tpu_torch.models import build_model
     from ssunet_gan_tpu_torch.ops.blocks import set_remat
     from ssunet_gan_tpu_torch.ops.losses import get_loss
     from ssunet_gan_tpu_torch.ops.spade_kernel import set_fused_spade
     from ssunet_gan_tpu_torch.train.optim import build_optimizer, build_scheduler
     from ssunet_gan_tpu_torch.train.step import make_eval_step, make_train_step
+    from ssunet_gan_tpu_torch.parallel import replicate
     from ssunet_gan_tpu_torch.utils import count_params, seed_everything
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "the data-parallel trainer (mesh=) is not ported yet; see ROADMAP.md")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    lead = mesh is None or mesh.rank == 0  # the rank that writes files and prints
+    echo = print if lead else _quiet
     config = cfg.opt_config
     checkpoint_folder = cfg.file_path.checkpoint_path
     model_dir = cfg.model_dir()
-    os.makedirs(model_dir, exist_ok=True)
-    os.makedirs(checkpoint_folder, exist_ok=True)
-    writer = (_tensorboard_writer(os.path.join(checkpoint_folder, config["name"]))
-              if use_tensorboard else None)
+    writer = None
+    if lead:
+        os.makedirs(model_dir, exist_ok=True)
+        os.makedirs(checkpoint_folder, exist_ok=True)
+        if use_tensorboard:
+            writer = _tensorboard_writer(os.path.join(checkpoint_folder, config["name"]))
+        dump_model_card(config, model_dir)
 
-    print("-" * 20)
+    echo("-" * 20)
     for key in config:
-        print("%s: %s" % (key, config[key]))
-    print("-" * 20)
-    dump_model_card(config, model_dir)
+        echo("%s: %s" % (key, config[key]))
+    echo("-" * 20)
 
     loss_fn = get_loss(config["loss"])
     if config.get("remat"):
@@ -197,22 +228,28 @@ def run_experiment(cfg: ExperimentConfig, synthetic: Optional[int] = None,
         set_fused_spade(bool(config["fused_spade"]))  # True: "fast", as in JAX
     model = build_model(config["arch"], config["num_classes"], config["input_channels"],
                         config["deep_supervision"], seed=seed_everything(), device=dev)
+    if mesh is not None:
+        replicate(mesh, model)
     optimizer = build_optimizer(model.parameters(), config)
-    print("=> creating model %s (%d params)" % (config["arch"], count_params(model)))
+    echo("=> creating model %s (%d params)" % (config["arch"], count_params(model)))
     scheduler = build_scheduler(config)
     accum_steps = int(config.get("accum_steps", 1) or 1)
     train_step = make_train_step(model, loss_fn, optimizer, config["num_classes"],
                                  config["deep_supervision"],
                                  clip=float(config.get("clip", 0.0) or 0.0),
-                                 accum_steps=accum_steps)
+                                 accum_steps=accum_steps, mesh=mesh)
     eval_step = make_eval_step(model, loss_fn, config["num_classes"],
                                config["deep_supervision"])
 
     train_ds, val_ds, test_ds = build_datasets(cfg, synthetic)
-    batch_size = max(config["batch_size"] // accum_steps * accum_steps, accum_steps)
+    # each microbatch must itself divide over the ranks
+    n_data = 1 if mesh is None else mesh.size
+    quantum = n_data * accum_steps
+    batch_size = max(config["batch_size"] // quantum * quantum, quantum)
     num_workers = int(config.get("num_workers", 3))
     train_loader = BatchLoader(train_ds, batch_size, shuffle=True, drop_last=True,
-                               num_workers=num_workers)
+                               num_workers=num_workers,
+                               shard=(0, 1) if mesh is None else (mesh.rank, mesh.size))
     val_loader = BatchLoader(val_ds, 1, num_workers=num_workers)
     test_loader = BatchLoader(test_ds, 1, num_workers=num_workers)
 
@@ -221,7 +258,7 @@ def run_experiment(cfg: ExperimentConfig, synthetic: Optional[int] = None,
         meta = ckpt.restore_train_state(model_dir, model, optimizer)
         start_epoch = int(meta.get("epoch", -1)) + 1
         best_iou = float(meta.get("best_iou", 0.0))
-        print(f"=> resumed from epoch {start_epoch} (best_iou {best_iou:.4f})")
+        echo(f"=> resumed from epoch {start_epoch} (best_iou {best_iou:.4f})")
 
     log = OrderedDict((k, []) for k in LOG_COLUMNS)
     trigger = 0
@@ -230,49 +267,53 @@ def run_experiment(cfg: ExperimentConfig, synthetic: Optional[int] = None,
     profile_epoch = config.get("profile_epoch", -1)
 
     for epoch in range(start_epoch, epochs):
-        print("{:s} Epoch [{:d}/{:d}]".format(config["arch"], epoch, epochs))
+        echo("{:s} Epoch [{:d}/{:d}]".format(config["arch"], epoch, epochs))
         lr = scheduler.lr(epoch)
-        print("learning rate {:d}: {:f}".format(epoch, lr))
-        if epoch == profile_epoch:
+        echo("learning rate {:d}: {:f}".format(epoch, lr))
+        if epoch == profile_epoch and lead:
             from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
             acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda"
                                              else [])
             trace_dir = os.path.join(checkpoint_folder, config["name"], "profile")
             with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(trace_dir)):
-                train_log = train_one_epoch(epoch, config, train_loader, train_step, lr, dev)
+                train_log = train_one_epoch(epoch, config, train_loader, train_step, lr, dev,
+                                            mesh)
         else:
-            train_log = train_one_epoch(epoch, config, train_loader, train_step, lr, dev)
-        val_log = evaluate(config, val_loader, eval_step, dev)
+            train_log = train_one_epoch(epoch, config, train_loader, train_step, lr, dev, mesh)
+        val_log = evaluate(config, val_loader, eval_step, dev, mesh)
         scheduler.step_plateau(val_log["loss"])
-        test_log = evaluate(config, test_loader, eval_step, dev)
+        test_log = evaluate(config, test_loader, eval_step, dev, mesh)
 
         if best_dice < test_log["dice"]:
             best_dice, iou_at_best_dice = test_log["dice"], test_log["iou"]
-        print("loss %.4f - iou %.4f - dice %.4f - val_loss %.4f - val_iou %.4f - "
-              "val_dice %.4f - test_iou %.4f - test_dice %.4f - Best_dice %.4f - "
-              "iou_AtBestDice %.4f (%.1f img/s)"
-              % (train_log["loss"], train_log["iou"], train_log["dice"], val_log["loss"],
-                 val_log["iou"], val_log["dice"], test_log["iou"], test_log["dice"],
-                 best_dice, iou_at_best_dice, train_log["images_per_sec"]))
+        echo("loss %.4f - iou %.4f - dice %.4f - val_loss %.4f - val_iou %.4f - "
+             "val_dice %.4f - test_iou %.4f - test_dice %.4f - Best_dice %.4f - "
+             "iou_AtBestDice %.4f (%.1f img/s)"
+             % (train_log["loss"], train_log["iou"], train_log["dice"], val_log["loss"],
+                val_log["iou"], val_log["dice"], test_log["iou"], test_log["dice"],
+                best_dice, iou_at_best_dice, train_log["images_per_sec"]))
         save_tensorboard(writer, train_log, val_log, test_log, epoch)
 
         for k, v in zip(LOG_COLUMNS, (epoch, lr, train_log["loss"], train_log["iou"],
                                       train_log["dice"], val_log["loss"], val_log["iou"],
                                       val_log["dice"])):
             log[k].append(v)
-        _write_log(os.path.join(model_dir, "log.csv"), log)
+        if lead:
+            _write_log(os.path.join(model_dir, "log.csv"), log)
 
         trigger += 1
         if val_log["iou"] > best_iou:
-            ckpt.save_model(model_dir, model)
+            if lead:
+                ckpt.save_model(model_dir, model)
             best_iou = val_log["iou"]
-            print("=> saved best model")
+            echo("=> saved best model")
             trigger = 0
-        ckpt.save_train_state(model_dir, model, optimizer, epoch, {"best_iou": best_iou})
+        if lead:
+            ckpt.save_train_state(model_dir, model, optimizer, epoch, {"best_iou": best_iou})
 
         if config.get("early_stopping", -1) >= 0 and trigger >= config["early_stopping"]:
-            print("=> early stopping")
+            echo("=> early stopping")
             break
 
     if writer is not None:
@@ -288,6 +329,25 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def launched_mesh(device):
+    """The data mesh of a ``torchrun`` launch (``WORLD_SIZE`` set):
+    ``parallel.initialize_multihost`` on ``device``; None otherwise."""
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    from ssunet_gan_tpu_torch.parallel import initialize_multihost
+
+    mesh = initialize_multihost(device=device)
+    if mesh.rank == 0:
+        print(f"=> data mesh: {torch.distributed.get_backend(mesh.group)} group of "
+              f"{mesh.size} ranks, rank 0 on {mesh.device}")
+    return mesh
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
-    run_experiment(load_experiment_config(args.config), device=args.device)
+    mesh = launched_mesh(args.device)
+    try:
+        run_experiment(load_experiment_config(args.config), device=args.device, mesh=mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()

@@ -22,6 +22,7 @@ import functools
 import json
 import os
 import types
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -50,7 +51,7 @@ from ssunet_gan_tpu_torch.models import build_model
 from ssunet_gan_tpu_torch.models import gan as tgan
 from ssunet_gan_tpu_torch.models import ssunet as tssunet
 from ssunet_gan_tpu_torch.models import vgg as tvgg
-from ssunet_gan_tpu_torch.ops import losses, norm
+from ssunet_gan_tpu_torch.ops import collectives, losses, norm
 from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
 from ssunet_gan_tpu_torch.ops.resize import adaptive_avg_pool, pixel_shuffle
 from ssunet_gan_tpu_torch.ops.spectral import SNConv2d
@@ -58,6 +59,7 @@ from ssunet_gan_tpu_torch.train import checkpoint as ckpt
 from ssunet_gan_tpu_torch.train import gan as tgan_train
 from ssunet_gan_tpu_torch.train import gan_step
 from ssunet_gan_tpu_torch.train.optim import ConstantLR, adam
+from torch_dp_helpers import model_axis_mesh
 from torch_port_helpers import S_FILTERS, NarrowSSUNet, jax_toggles
 
 
@@ -627,10 +629,18 @@ def test_spectral_discriminator_takes_the_alternating_path(rng):
 
 
 def test_gan_step_refuses_a_mesh():
+    """The data-parallel GAN step is ported (tests/test_torch_parallel_train.py);
+    a mesh with a model axis is what it still refuses (ROADMAP.md), and a
+    CUDA tensor reduced under a group that is not NCCL raises (a stand-in:
+    this CPU build makes no CUDA tensor)."""
     gen, disc = _narrow_flagship_gan()
+    mesh = model_axis_mesh()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         gan_step.make_gan_train_step(gen, disc, losses.bce_dice_loss, adam(gen.parameters()),
-                                     adam(disc.parameters()), 2, mesh=object())
+                                     adam(disc.parameters()), 2, mesh=mesh)
+    with mock.patch.object(collectives.dist, "get_backend", lambda group=None: "gloo"):
+        with pytest.raises(ValueError, match="NCCL"):
+            collectives.check_device(types.SimpleNamespace(is_cuda=True), object())
 
 
 # ---- warm start, trainer, CLI ----------------------------------------------------

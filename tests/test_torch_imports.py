@@ -32,6 +32,7 @@ MODULES = (
     "ssunet_gan_tpu_torch.ops.spectral", "ssunet_gan_tpu_torch.models.vgg",
     "ssunet_gan_tpu_torch.train.gan_step", "ssunet_gan_tpu_torch.train.gan",
     "ssunet_gan_tpu_torch.cli.train_seg_gan", "ssunet_gan_tpu_torch.srgan_utils",
+    "ssunet_gan_tpu_torch.parallel", "ssunet_gan_tpu_torch.ops.collectives",
 )
 
 

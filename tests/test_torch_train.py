@@ -9,6 +9,9 @@ of two weights each); losses and metrics 1e-6 (f32 reductions in other
 orders); the train steps as stated at their test.
 """
 
+import types
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +38,7 @@ from ssunet_gan_tpu_torch.data.dataset import SyntheticDataset
 from ssunet_gan_tpu_torch.data.loader import BatchLoader
 from ssunet_gan_tpu_torch.data.transforms import train_transform, val_transform
 from ssunet_gan_tpu_torch.models import build_model
-from ssunet_gan_tpu_torch.ops import losses, metrics
+from ssunet_gan_tpu_torch.ops import collectives, losses, metrics
 from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
 from ssunet_gan_tpu_torch.ops.pool import (
     max_pool_2x2,
@@ -43,9 +46,11 @@ from ssunet_gan_tpu_torch.ops.pool import (
     max_unpool_2x2,
 )
 from ssunet_gan_tpu_torch.ops.resize import upsample_bilinear
+from ssunet_gan_tpu_torch.parallel import Mesh
 from ssunet_gan_tpu_torch.train import optim
 from ssunet_gan_tpu_torch.train.step import make_eval_step, make_train_step
 from ssunet_gan_tpu_torch.train.supervised import evaluate, train_one_epoch
+from torch_dp_helpers import model_axis_mesh
 from torch_port_helpers import jax_toggles
 
 
@@ -280,10 +285,21 @@ def test_train_steps_match_jax(train_pair, config):
 
 
 def test_train_step_refuses_what_is_not_ported():
+    """The data-parallel step is ported (tests/test_torch_parallel_train.py);
+    what it still refuses: a mesh with a model axis (channels split over
+    devices) names ROADMAP.md, in the step and in ``Mesh`` itself, and a
+    CUDA tensor reduced under a group whose backend is not NCCL raises
+    (shown with a stand-in: this CPU build makes no CUDA tensor)."""
     port = build_model("UNet_R_SS_v2", 3, filters=(8, 8, 8, 8, 8, 8), device="cpu")
     opt = optim.build_optimizer(port.parameters(), {"optimizer": "Adam", "lr": 1e-3})
+    mesh = model_axis_mesh()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_step(port, losses.bce_dice_loss, opt, 3, mesh=object())
+        make_train_step(port, losses.bce_dice_loss, opt, 3, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        Mesh(None, {"data": 1, "model": 2})
+    with mock.patch.object(collectives.dist, "get_backend", lambda group=None: "gloo"):
+        with pytest.raises(ValueError, match="NCCL"):
+            collectives.all_reduce_sum(types.SimpleNamespace(is_cuda=True), object())
 
 
 def test_eval_step_matches_jax(train_pair):
