@@ -216,7 +216,7 @@ Phases, each of which exits non-zero on failure:
    ssunet_gan_tpu_torch.cli.train_seg_gan`` in a process of its own for one
    epoch on a 16 / 4 / 4 Sub-row PNG tree, warm-started from its own
    supervised directory.
-16. The data-parallel paths (last): one process group of world size 1 over
+16. The data-parallel paths: one process group of world size 1 over
    NCCL from a ``file://`` store (the machine has one card), ``make_mesh()``;
    ``make_train_step(mesh=)`` (the fused train stages, v3 backward) for
    DP_STEPS steps on phase 6's weights and batches (512², batch 8, bf16),
@@ -234,6 +234,20 @@ Phases, each of which exits non-zero on failure:
    ssunet_gan_tpu_torch.cli.train`` (``main`` starts its NCCL group through
    ``parallel.initialize_multihost`` from ``torchrun``'s environment) for
    one epoch on a 16 / 4 / 4 Sub-row PNG tree.
+17. The remaining entry points and tools (last; ``tools_phase``): a seeded
+   raw tree (two 1024² colour-label scenes, two SpaceNet-7-style RGBA
+   scenes with per-class grayscale labels) through ``cli.preprocess_satellite``
+   and ``cli.preprocess_SN7`` (the trees, list files and patch counts
+   against ``preprocess_grid_coords``; a ``preprocess:`` line); a
+   full-width flagship ``Generator`` (BN calibrated and head centred on the
+   training patches, f32 logits required finite) saved as a GAN
+   generator's ``model.pth``; ``cli.val`` on the chicago test split at 512²,
+   batch 1, f32 (kernel 1's f32 route, 6 stages per image) held against the
+   same CLI with ``--device cpu`` (each row's IoU and Dice within
+   VAL_SCORE_TOL, each overlay's mask equal on VAL_MASK_AGREEMENT of its
+   pixels; a ``val:`` line); ``cli.smoke_test`` on a 2048² scene (kernel 1
+   in bf16, 6 stages and 2 up / 2 pool seams per chunk), its masks equal to
+   ``segmentation_inference``'s bit for bit (a ``smoke:`` line).
 
 Each path's profile also gives a ``tail:`` line: the shared SPADE tail
 kernel's time and launches per forward or step beside its bound; the
@@ -248,8 +262,9 @@ alone, has none, phase 10 for the bottleneck kernel, phase 11's trainer
 for the self-SPADE kernel; with SSUNet's (phase 12: kernels 1, 7 and 9),
 the entry point's (phase 13: kernels 2, 3, 5 and 6), the scene entry
 point's (phase 14: kernels 1 and 7), the GAN's (phase 15: kernels 2,
-3, 5 and 6, and kernel 1's stages in its evaluations, none) and the
-data-parallel paths' (phase 16, ``dp``: kernels 1, 2, 3, 5 and 6) added, and each
+3, 5 and 6, and kernel 1's stages in its evaluations, none), the
+data-parallel paths' (phase 16, ``dp``: kernels 1, 2, 3, 5 and 6) and the
+tools' (phase 17: ``val`` kernel 1 in f32, ``smoke_test`` in bf16) added, and each
 row's ``launches_by_path`` — error, time, plain time, bound, library
 time), and ends with ``{"ok": true, "device": {...}}``. Every check that
 fails is printed and the run exits non-zero
@@ -747,6 +762,48 @@ def library_conv(sources, conv):
         if short is not None:
             y += F.conv2d(short[0], short[1], padding=short[2])
         return torch.relu_(y)
+    return run
+
+
+def library_tail(x, spade_params, parts=None, ws=None, head=None):
+    """A SPADE tail's convs as ``F.conv2d`` calls in bf16, channels-last, on
+    ``x`` (NHWC; the tail's input, or one of its shape): seg (x → labels),
+    act (labels → hidden, ReLU), γ and β as one conv over act (their
+    weights concatenated outside the timed region), the head's 1×1 where
+    there is one (over ``x``, of the stage output's shape); with ``parts``
+    and ``ws`` first the residual's 1×1 over the
+    concatenated parts (kernel 3's ``ssu_conv_res``). The library
+    yardstick of kernels 3 and 9, timed only and never called by the port."""
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+
+    def weight(w):
+        return w.to(bf16).contiguous(memory_format=torch.channels_last)
+
+    def bias(b):
+        return None if b is None else b.to(bf16)
+
+    wx, bx, wm, bm, wg, bg, wb, bb = spade_params
+    convs = [(weight(wx), bias(bx)), (weight(wm), bias(bm)),
+             (weight(torch.cat([wg, wb])), bias(torch.cat([bg, bb])))]
+    xc = x.to(bf16).permute(0, 3, 1, 2)
+    res = None
+    if ws is not None:
+        res = (torch.cat([p.to(bf16) for p in _parts(parts)], -1).permute(0, 3, 1, 2),
+               weight(ws))
+    hd = None if head is None else (weight(head[0]), bias(head[1]))
+
+    def run():
+        if res is not None:
+            F.conv2d(res[0], res[1], padding=res[1].shape[-1] // 2)
+        seg = F.conv2d(xc, convs[0][0], convs[0][1], padding=convs[0][0].shape[-1] // 2)
+        act = torch.relu_(F.conv2d(seg, convs[1][0], convs[1][1],
+                                   padding=convs[1][0].shape[-1] // 2))
+        y = F.conv2d(act, convs[2][0], convs[2][1], padding=convs[2][0].shape[-1] // 2)
+        if hd is not None:
+            y = F.conv2d(xc, hd[0], hd[1])
+        return y
     return run
 
 
@@ -1552,12 +1609,14 @@ def library_call(name, args, kwargs):
     the convolution for conv_stats (without the sums) and for fused_conv3
     (its 3×3 conv on the raw sources, without the chains), the weight
     gradient on the materialized input and cotangent for wgrad and
-    fused_wgrad; None for train_tail."""
+    fused_wgrad; for train_tail its residual and tail convs
+    (:func:`library_tail` on ``f2``, the tail input's shape)."""
     import torch.nn.functional as F
     from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
 
     if name == "train_tail":
-        return None
+        f2, parts, _, _, ws, sp = args[:6]
+        return library_tail(f2, sp, parts, ws, _arg(args, kwargs, 6, "head"))
     if name == "fused_conv3":
         mode, src, weight, _, _, bias, _ = conv3_call(args, kwargs)
         src = _parts(src)
@@ -3294,7 +3353,7 @@ def pallas_trainer_phase(dev, card, cfg, model, name, phase, check, off_steps=0)
     if len(calls) != per_step or any(x.shape[0] != TRAIN_BATCH for x, _ in calls):
         fail(f"{phase}: the step's self-SPADE calls are {[tuple(c[0].shape) for c in calls]}, "
              f"expected {per_step} at batch {TRAIN_BATCH}")
-    ms_sum = plain_sum = bound_sum = worst = 0.0
+    ms_sum = plain_sum = bound_sum = lib_sum = worst = 0.0
     kinds = set()
     for x, params in calls:
         planes, lab, nh = x.shape[-1], params[0].shape[0], params[2].shape[0]
@@ -3304,12 +3363,14 @@ def pallas_trainer_phase(dev, card, cfg, model, name, phase, check, off_steps=0)
             worst = max(worst, spade_call_agrees(what, x, params, check))
             ms = cuda_ms(lambda: sk.fused_spade_stage(x, *params), 10)
             plain_ms = cuda_ms(lambda: sk.self_spade_reference(x, params), 3, warmup=1)
+            lib_ms = cuda_ms(library_tail(x, params), 10)
         nbytes = 2 * x.numel() * 2 + sum(p.numel() * 4 for p in params)
         bound, kind = bound_of(2.0 * spade_macs(planes, lab, nh) * x.numel() / planes, nbytes)
         kinds.add(kind)
         ms_sum, plain_sum, bound_sum = ms_sum + ms, plain_sum + plain_ms, bound_sum + bound
+        lib_sum += lib_ms
         row = dict(model=name, stage=f"SPADE {planes} channels", shape=list(x.shape), hidden=nh,
-                   ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=kind)
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=kind, library_ms=lib_ms)
         print("spade stage:", json.dumps(row))
     del calls, step, xb, yb
     torch.cuda.empty_cache()
@@ -3319,7 +3380,7 @@ def pallas_trainer_phase(dev, card, cfg, model, name, phase, check, off_steps=0)
         "source": f"ssunet_gan_tpu_torch/csrc/{sk.SOURCE}", "replaces": sk.REPLACES,
         "launches": launches, "max_abs_err": worst, "ms": ms_sum, "plain_ms": plain_sum,
         "bound_ms": bound_sum, "bound_by": "operations" if "operations" in kinds else "bytes",
-        "library_ms": None, "per_step": per_step,
+        "library_ms": lib_sum, "per_step": per_step,
     }
 
 
@@ -4731,6 +4792,297 @@ def dp_phase(dev, card, here, check, hw=HW, batch=TRAIN_BATCH, scene_hw=SCENE_HW
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the remaining entry points and tools on the card machine (no
+# cv2, sklearn, PIL or pandas there): both preprocess CLIs on a seeded raw
+# tree, ``cli.val`` on the test split it writes (f32: kernel 1's f32 route)
+# against the same CLI on the CPU, ``cli.smoke_test`` on a 2048² scene
+# (bf16: kernel 1)
+# ---------------------------------------------------------------------------
+
+TOOLS_RAW_HW = 1024  # the raw scenes' side: SpaceNet-7's, and 4 chicago patches
+TOOLS_SMOKE_HW = 2048  # the smoke test's scene: 36 tiles, two chunks of 32
+VAL_SCORE_TOL = 1e-3  # |ΔIoU| and |ΔDice| per image, card against CPU
+VAL_MASK_AGREEMENT = 0.999  # each overlay's mask, card against CPU
+
+
+def raw_tree(root, hw, dev):
+    """Seeded raw scenes as users hand them to the preprocess CLIs: two
+    colour-label scenes (``<root>/chicago/chicagoN_image.png`` + labels in
+    the three label colours) and two SpaceNet-7-style RGBA scenes
+    (``<root>/SN7/image/*_img_*.png``, alpha in blocks of 0 and 255) with a
+    grayscale 0/255 label per class under ``SN7/label/<c>/``."""
+    from ssunet_gan_tpu_torch.data.png import write_image
+
+    os.makedirs(os.path.join(root, "chicago"))
+    for i in range(2):
+        write_image(os.path.join(root, "chicago", f"chicago{i + 1}_image.png"),
+                    smooth_scene(hw, SEED + 90 + i, dev))
+        write_image(os.path.join(root, "chicago", f"chicago{i + 1}_labels.png"),
+                    scene_labels(hw, SEED + 92 + i))
+    for c in range(2):
+        os.makedirs(os.path.join(root, "SN7", "label", str(c)))
+    os.makedirs(os.path.join(root, "SN7", "image"))
+    g = np.random.default_rng(SEED + 94)
+    n = hw // LABEL_BLOCK + 1
+    for i in range(2):
+        alpha = np.where(g.random((n, n)) < 0.1, 0, 255).astype(np.uint8)
+        alpha = alpha.repeat(LABEL_BLOCK, 0).repeat(LABEL_BLOCK, 1)[:hw, :hw]
+        write_image(os.path.join(root, "SN7", "image", f"mosaic_img_{i:03d}.png"),
+                    np.dstack([smooth_scene(hw, SEED + 95 + i, dev), alpha]))
+        build = (g.random((n, n)) < 0.3).repeat(LABEL_BLOCK, 0).repeat(LABEL_BLOCK, 1)[:hw, :hw]
+        for c, m in enumerate((~build, build)):
+            write_image(os.path.join(root, "SN7", "label", str(c), f"mosaic_label_{i:03d}.png"),
+                        np.where(m, 255, 0).astype(np.uint8))
+
+
+def check_tree(out_base, scenes, hw, size, stride_frac, num_class, check, what):
+    """The written tree against :func:`data.preprocess.split_scenes` and
+    ``preprocess_grid_coords``: per split the patch count, per-class and
+    combined masks beside each image, the list file; one patch decoded."""
+    from ssunet_gan_tpu_torch.data import preprocess as pre
+    from ssunet_gan_tpu_torch.data.png import read_image
+
+    per_scene = len(pre.preprocess_grid_coords(hw, hw, size, stride_frac))
+    counts = {}
+    for split, paths in zip(pre.SPLITS, pre.split_scenes(scenes)):
+        want = per_scene * len(paths)
+        imgs = sorted(os.listdir(os.path.join(out_base, "images", split)))
+        ann = os.path.join(out_base, "annotations", split)
+        with open(os.path.join(out_base, "list", f"{split}.txt")) as f:
+            listed = f.read().splitlines()
+        ok = (len(imgs) == want and listed == [f"images/{split}/{i} annotations/{split}/{i}"
+                                               for i in imgs]
+              and all(sorted(os.listdir(os.path.join(ann, str(c)))) == imgs
+                      for c in range(num_class))
+              and sorted(f for f in os.listdir(ann) if f.endswith(".png")) == imgs)
+        check(ok, f"phase 17: {what} {split}: {len(imgs)} patches (expected {want}), list "
+                  f"{len(listed)} lines, masks per class beside each")
+        counts[split] = len(imgs)
+        if imgs:
+            img = read_image(os.path.join(out_base, "images", split, imgs[0]))
+            mask = read_image(os.path.join(ann, "1", imgs[0]), gray=True)
+            index = read_image(os.path.join(ann, imgs[0]), gray=True)
+            check(img.shape == (size, size, 3) and set(np.unique(mask)) <= {0, 255}
+                  and int(index.max()) < num_class,
+                  f"phase 17: {what} {split}: a patch of shape {img.shape}, mask values "
+                  f"{np.unique(mask)[:5]}, class index up to {index.max()}")
+    return counts
+
+
+def tools_phase(dev, card, here, check, raw_hw=TOOLS_RAW_HW, smoke_hw=TOOLS_SMOKE_HW,
+                tile_hw=HW):
+    """Phase 17: the preprocess CLIs (``cli.preprocess_satellite`` on two
+    colour-label scenes, ``cli.preprocess_SN7`` on two RGBA scenes with
+    grayscale labels; trees checked against ``preprocess_grid_coords``);
+    a full-width flagship ``Generator`` (config_v1.json, BatchNorm
+    statistics calibrated and head centred on the training patches the
+    preprocess wrote, logits required finite) saved as a GAN generator's
+    ``model.pth``; ``cli.val`` on the chicago test split (batch 1, f32:
+    kernel 1's f32 route, 6 stages per image) held row by row against the
+    same CLI with ``--device cpu``; ``cli.smoke_test`` on a ``smoke_hw``²
+    scene (bf16: kernel 1, 6 stages per chunk) against
+    ``segmentation_inference`` bit for bit. The sizes shrink for a rehearsal
+    on the CPU. Returns {kernel: launches} and the smoke test's kernel-1
+    seam reads."""
+    import csv
+    import tempfile
+    from glob import glob
+
+    from ssunet_gan_tpu_torch.cli import preprocess_SN7, preprocess_satellite
+    from ssunet_gan_tpu_torch.cli import smoke_test as smoke_cli
+    from ssunet_gan_tpu_torch.cli import val as val_cli
+    from ssunet_gan_tpu_torch.config import dump_model_card, load_experiment_config
+    from ssunet_gan_tpu_torch.data.dataset import SegmentationDataset, list_split_ids
+    from ssunet_gan_tpu_torch.data.png import write_image
+    from ssunet_gan_tpu_torch.data.transforms import val_transform
+    from ssunet_gan_tpu_torch.infer import api
+    from ssunet_gan_tpu_torch.models.gan import Generator
+    from ssunet_gan_tpu_torch.ops import stage_kernel
+    from ssunet_gan_tpu_torch.train.checkpoint import save_model
+    from ssunet_gan_tpu_torch.train.step import make_predict_fn
+
+    t_start = t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    device = "cuda" if cuda else "cpu"
+    config_path = os.path.join(here, "configs", "config_v1.json")
+    opt = dict(load_experiment_config(config_path).opt_config, input_h=tile_hw,
+               input_w=tile_hw)
+    name, ncls = opt["generator_name"], opt["num_classes"]
+    dataset = f"chicago_{tile_hw}"
+    opt.update(name=name, dataset=dataset, val_dataset=dataset)
+    out = {}
+    yaml_before = sys.modules.get("yaml", None)
+    sys.modules["yaml"] = None  # the card machine has no PyYAML: the flat card
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            inputs = os.path.join(tmp, "inputs")
+            raw_tree(inputs, raw_hw, dev)
+            t_phase = phase_done("phase 17 raw scenes", t_phase)
+
+            # (a) the two preprocess CLIs
+            size = ["--img-size", str(tile_hw), "--patch-size", str(tile_hw)]
+            t0 = time.perf_counter()
+            sat = preprocess_satellite.main(["--input-root", inputs, *size])
+            sat_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sn7 = preprocess_SN7.main(["--input-root", inputs, *size])
+            sn7_s = time.perf_counter() - t0
+            chicago = sorted(glob(os.path.join(inputs, "chicago", "*_image.*")))
+            sat_counts = check_tree(sat, chicago, raw_hw, tile_hw, 1.0, 3, check,
+                                    "preprocess_satellite")
+            sn7_scenes = sorted(glob(os.path.join(inputs, "SN7", "image", "*.png")))
+            sn7_counts = check_tree(sn7, sn7_scenes, raw_hw, tile_hw, 0.5, 2, check,
+                                    "preprocess_SN7")
+            print(f"preprocess: satellite {sat_s:.3f} s ({sum(sat_counts.values())} patches "
+                  f"{sat_counts} from 2 {raw_hw}x{raw_hw} scenes), SN7 {sn7_s:.3f} s "
+                  f"({sum(sn7_counts.values())} patches {sn7_counts} from 2 RGBA scenes), "
+                  f"{tile_hw}x{tile_hw} PNGs, on {card}")
+            t_phase = phase_done("phase 17 preprocess", t_phase)
+
+            # (b) the model: a full-width flagship generator, BatchNorm
+            # calibrated and head centred on the training patches (f32)
+            ids = list_split_ids(inputs, dataset, "training", ".png")
+            train = SegmentationDataset(
+                ids, os.path.join(inputs, dataset, "images", "training"),
+                os.path.join(inputs, dataset, "annotations", "training"), ".png", ".png", ncls,
+                transform=val_transform(opt))
+            x = torch.from_numpy(np.stack([train[i][1] for i in range(len(ids))])).to(dev)
+            generator = Generator.from_config(opt, device=dev, seed=SEED + 96)
+            calibrate_batchnorm(generator.net, x)
+            center_head(generator.net, x)
+            models = os.path.join(tmp, "models")
+            dump_model_card(opt, os.path.join(models, name))
+            save_model(os.path.join(models, name), generator)
+            test_ids = list_split_ids(inputs, dataset, "test", ".png")
+            test = SegmentationDataset(
+                test_ids, os.path.join(inputs, dataset, "images", "test"),
+                os.path.join(inputs, dataset, "annotations", "test"), ".png", ".png", ncls,
+                transform=val_transform(opt))
+            predict = make_predict_fn(generator)
+            finite = all(bool(torch.isfinite(predict(test[i][1][None])).all())
+                         for i in range(len(test_ids)))
+            print(f"phase 17: flagship generator ({opt['arch']}) calibrated on "
+                  f"{len(ids)} training patches; f32 logits of the {len(test_ids)} test "
+                  f"patches finite: {finite}")
+            if not finite:
+                fail("phase 17: the generator's f32 logits are not finite")
+            del generator, predict, x
+            exps = {}
+            for key, scene_dir in (("card", None), ("cpu", None),
+                                   ("smoke", os.path.join(tmp, "smoke"))):
+                exps[key] = os.path.join(tmp, f"{key}.json")
+                with open(exps[key], "w") as f:
+                    json.dump({"file_path": {"input_path": inputs, "model_path": models,
+                                             "output_path": os.path.join(tmp, f"out_{key}")},
+                               "opt_config": opt,
+                               "val_config": {"name": name, "full_image_path": scene_dir or "",
+                                              "gt_mask_flag": "False", "patch_overlap": 0.5}},
+                              f)
+            t_phase = phase_done("phase 17 model", t_phase)
+
+            # (c) cli.val on the card, the counts set to 0 just before it,
+            # then on the CPU: the CSV's rows and each overlay's mask
+            runs = {}
+            for key, where in (("card", device), ("cpu", "cpu")):
+                masks = {}
+
+                def capture(output_folder, config, meta, idx_c, i, ori_img, mask, mask_output,
+                            masks=masks, orig=val_cli.save_gt_re_mask):
+                    masks[(meta["img_id"][i], idx_c)] = mask_output.copy()
+                    return orig(output_folder, config, meta, idx_c, i, ori_img, mask,
+                                mask_output)
+
+                stage_kernel.f32_launches = stage_kernel.launches = 0
+                with patched(val_cli, "save_gt_re_mask", capture):
+                    t0 = time.perf_counter()
+                    val_cli.main(["--config", exps[key], "--device", where])
+                    if cuda:
+                        torch.cuda.synchronize()
+                    val_s = time.perf_counter() - t0
+                with open(os.path.join(tmp, f"out_{key}", f"{name}_result.csv")) as f:
+                    rows = list(csv.reader(f))
+                runs[key] = (rows, masks, val_s, stage_kernel.f32_launches,
+                             stage_kernel.launches)
+            rows, masks, val_s, f32_k, bf16_k = runs["card"]
+            cpu_rows, cpu_masks, cpu_s = runs["cpu"][:3]
+            scores = np.array([[float(v) for v in r[1:]] for r in rows[1:]])
+            cpu_scores = np.array([[float(v) for v in r[1:]] for r in cpu_rows[1:]])
+            n = len(test_ids)
+            print(f"val: {n} images, {val_s:.3f} s, mean IoU {scores[:, 0].mean():.4f}, dice "
+                  f"{scores[:, 1].mean():.4f}, f32 stages {f32_k} (the CPU: {cpu_s:.3f} s, "
+                  f"mean IoU {cpu_scores[:, 0].mean():.4f}, dice {cpu_scores[:, 1].mean():.4f}) "
+                  f"on {card}")
+            check(rows[0] == ["filename", "iou", "dice"] and len(rows) == n + 1
+                  and [r[0] for r in rows] == [r[0] for r in cpu_rows],
+                  f"phase 17: the CSVs' rows {rows} / {cpu_rows}")
+            worst = float(np.abs(scores - cpu_scores).max())
+            agree = {k: float((m == cpu_masks[k]).mean()) for k, m in masks.items()}
+            print(f"phase 17: cli.val card against CPU: max |ΔIoU|, |ΔDice| {worst:.3g} (bar "
+                  f"{VAL_SCORE_TOL:g}); overlay masks equal on {min(agree.values()):.6f} of "
+                  f"pixels at worst (bar {VAL_MASK_AGREEMENT}), positive share "
+                  f"{[round(float((m > 0).mean()), 4) for m in masks.values()]}")
+            check(worst <= VAL_SCORE_TOL, f"phase 17: cli.val scores card vs CPU differ by {worst}")
+            check(masks.keys() == cpu_masks.keys() and len(masks) == n * (ncls - 1)
+                  and min(agree.values()) >= VAL_MASK_AGREEMENT,
+                  f"phase 17: cli.val overlay masks card vs CPU: {agree}")
+            check(f32_k == 6 * n and bf16_k == 0,
+                  f"phase 17: cli.val launched {f32_k} f32 stages (expected {6 * n}) and "
+                  f"{bf16_k} bf16 ones")
+            out["fused_eval_stage_f32"] = f32_k
+            t_phase = phase_done("phase 17 cli.val", t_phase)
+
+            # (d) cli.smoke_test on one scene, the counts set to 0 just
+            # before it, against segmentation_inference on the same scene
+            os.makedirs(os.path.join(tmp, "smoke"))
+            scene_path = os.path.join(tmp, "smoke", "chicago9_image.png")
+            write_image(scene_path, smooth_scene(smoke_hw, SEED + 98, dev))
+            got = {}
+
+            def keep(output_path, image_name, img_input, all_class_mask, *rest,
+                     orig=smoke_cli.save_image_color_masking):
+                got["masks"] = [m.copy() for m in all_class_mask]
+                return orig(output_path, image_name, img_input, all_class_mask, *rest)
+
+            stage_kernel.launches = stage_kernel.up_reads = stage_kernel.pool_reads = 0
+            with patched(smoke_cli, "save_image_color_masking", keep):
+                t0 = time.perf_counter()
+                smoke_cli.main(["--config", exps["smoke"], "--device", device])
+                smoke_s = time.perf_counter() - t0
+            route = (stage_kernel.launches, stage_kernel.up_reads, stage_kernel.pool_reads)
+            loaded, config = api.load_segmentation_models(exps["smoke"], device=dev)
+            scene, tiles, patches = api.get_patched_input(scene_path, config, False,
+                                                          raw_uint8=True)
+            pred, _ = api.segmentation_inference(loaded, scene, tiles, patches, config, False,
+                                                 device=dev)
+            chunks = -(-len(tiles) // api.INFER_BATCH)
+            per = (6 * chunks, 2 * chunks, 2 * chunks)
+            equal = len(got["masks"]) == len(pred) and all(
+                np.array_equal(a, b) for a, b in zip(got["masks"], pred))
+            files = sorted(os.listdir(os.path.join(tmp, "out_smoke", name)))
+            print(f"smoke: {smoke_hw}x{smoke_hw} scene, {len(tiles)} tiles in {chunks} chunks, "
+                  f"{smoke_s:.3f} s, kernel-1 stages {route[0]} ({route[1]} up / {route[2]} "
+                  f"pool seams; expected {per}), masks equal to segmentation_inference's: "
+                  f"{equal}, positive share {[round(float((m > 0).mean()), 4) for m in pred]}, "
+                  f"files {files} on {card}")
+            check(route == per, f"phase 17: cli.smoke_test launches and seams {route}, "
+                                f"expected {per}")
+            check(equal, "phase 17: cli.smoke_test's masks differ from segmentation_inference's")
+            check(files == sorted(f"chicago9_image_{c}_RE_masking.jpg" for c in range(1, ncls)),
+                  f"phase 17: cli.smoke_test wrote {files}")
+            out["fused_eval_stage"] = route[0]
+            del loaded, scene, tiles, patches, pred, got
+            phase_done("phase 17 cli.smoke_test", t_phase)
+    finally:
+        if yaml_before is None:
+            sys.modules.pop("yaml", None)
+        else:
+            sys.modules["yaml"] = yaml_before
+    phase_done("phase 17", t_start)
+    return out, route[1:]
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
@@ -4936,6 +5288,11 @@ def main() -> int:
     check(all(dp_train.values()), f"phase 16: a train kernel never launched on the dp path: "
                                   f"{dp_train}")
 
+    # ---- phase 17: the remaining entry points and tools (kernel 1 in f32
+    # on cli.val's path, in bf16 on cli.smoke_test's)
+    tools_counts, smoke_seams = tools_phase(dev, card, here, check)
+    print(f"phase 17: launches on the cli.val and cli.smoke_test paths {tools_counts}")
+
     if failures:
         fail(f"{len(failures)} checks failed: " + "; ".join(failures[:20]))
 
@@ -4947,7 +5304,7 @@ def main() -> int:
         "launches": counts[kname], "max_abs_err": train_err[kname],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "operations" if "operations" in t["kinds"] else "bytes",
-        "library_ms": None if kname == "train_tail" else t["library_ms"],
+        "library_ms": t["library_ms"],
     } for kname, t in totals.items()] + [bneck_row, spade_row]
     # each row's launches on every main path that runs it: the flagship's
     # (phases 2-3, 6, 8, 10-11) and SSUNet's (phase 12), the entry point's
@@ -4968,6 +5325,10 @@ def main() -> int:
             paths["gan"] = gan_counts[row["name"]]
         if dp_counts.get(row["name"]):
             paths["dp"] = dp_counts[row["name"]]
+        if row["name"] == "fused_eval_stage_f32":
+            paths["val"] = tools_counts["fused_eval_stage_f32"]
+        if row["name"] == "fused_eval_stage":
+            paths["smoke_test"] = tools_counts["fused_eval_stage"]
         row["launches"] = sum(paths.values())
         row["launches_by_path"] = paths
         if "seam_reads" in row:
@@ -4975,6 +5336,7 @@ def main() -> int:
             if row["name"] == "fused_eval_stage":
                 by_path["SSUNet"] = ssunet_runs["seam_reads"]
                 by_path["val_patch"] = scene_seams
+                by_path["smoke_test"] = smoke_seams
             elif row["name"] == "fused_eval_stage_int8":
                 by_path["SSUNet"] = ssunet_runs["s8_seam_reads"]
                 by_path["val_patch"] = scene_s8_seams

@@ -1,0 +1,40 @@
+"""Tile SpaceNet-7 scenes (per-class grayscale labels) into training
+patches (the JAX package's cli/preprocess_SN7.py; reference
+preprocess_SN7.py):
+
+    python -m ssunet_gan_tpu_torch.cli.preprocess_SN7 --input-root ../inputs
+
+0.5-overlap 512 patches, 2 classes, the 80/10/10 scene split of seed 41
+(:mod:`data.preprocess`); runs on the host, without cv2 or sklearn.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from ssunet_gan_tpu_torch.data.preprocess import preprocess_grayscale_label_scenes
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="tile SpaceNet-7 scenes into patches")
+    p.add_argument("--input-root", default="../inputs")
+    p.add_argument("--image-name", default="SN7")
+    p.add_argument("--img-size", type=int, default=512)
+    p.add_argument("--patch-size", type=int, default=512)
+    p.add_argument("--num-class", type=int, default=2)
+    p.add_argument("--stride-frac", type=float, default=0.5)
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> str:
+    args = parse_args(argv)
+    out = preprocess_grayscale_label_scenes(
+        args.input_root, args.image_name, args.img_size, args.patch_size,
+        args.num_class, args.stride_frac,
+    )
+    print("wrote", out)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -8,7 +8,8 @@ OpenCV 5's arithmetic: :func:`warp_affine` (``cv2.warpAffine``, for
 :class:`Rotate`), :func:`rgb_to_hsv` / :func:`hsv_to_rgb` (``cvtColor``,
 for :class:`HueSaturationValue`), :func:`resize_linear` /
 :func:`resize_nearest` (``cv2.resize``, for :class:`Resize`); ``cv2.flip``
-is an index flip. Each draws from the rng as the JAX class does, so
+is an index flip. :func:`resize_bicubic_pil` is PIL's bicubic resize, for
+``srgan_utils.ImageTransforms``. Each draws from the rng as the JAX class does, so
 :func:`train_transform` and :func:`val_transform` with one seed take the
 branches and parameters of the JAX pipelines.
 
@@ -319,6 +320,65 @@ def resize_nearest(img: np.ndarray, height: int, width: int) -> np.ndarray:
     ys = np.minimum(np.floor(np.arange(height) * (h / height)).astype(np.int64), h - 1)
     xs = np.minimum(np.floor(np.arange(width) * (w / width)).astype(np.int64), w - 1)
     return img[ys][:, xs]
+
+
+# PIL's 8-bit resampling: coefficients in fixed point with 22 fraction bits
+_PIL_PRECISION = 22
+
+
+def _pil_bicubic(x: np.ndarray) -> np.ndarray:
+    """PIL's bicubic filter, a = −0.5, support 2."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _pil_taps(src: int, dst: int):
+    """PIL's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the
+    bicubic filter: per destination index the source indices and their
+    fixed-point weights (the support widened by the scale when
+    downsampling; weights normalized in f64, rounded half away from 0)."""
+    scale = src / dst
+    fscale = max(scale, 1.0)
+    support = 2.0 * fscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(dst) + 0.5) * scale
+    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)  # C's (int): toward 0
+    count = np.minimum((center + support + 0.5).astype(np.int64), src) - xmin
+    k = np.arange(ksize)
+    w = _pil_bicubic((k[None] + xmin[:, None] - center[:, None] + 0.5) * (1.0 / fscale))
+    w = np.where(k[None] < count[:, None], w, 0.0)
+    total = np.zeros(dst)
+    for t in range(ksize):  # PIL's summation order
+        total = total + w[:, t]
+    w = np.where(total[:, None] != 0.0, w / np.where(total == 0.0, 1.0, total)[:, None], w)
+    s = w * (1 << _PIL_PRECISION)
+    fixed = np.where(w < 0, np.trunc(s - 0.5), np.trunc(s + 0.5)).astype(np.int64)
+    return np.minimum(xmin[:, None] + k[None], src - 1), fixed
+
+
+def _pil_pass(img: np.ndarray, axis: int, size: int) -> np.ndarray:
+    idx, fixed = _pil_taps(img.shape[axis], size)
+    x = np.moveaxis(img.astype(np.int64), axis, 0)
+    acc = np.full((size,) + x.shape[1:], 1 << (_PIL_PRECISION - 1), np.int64)
+    shape = (-1,) + (1,) * (x.ndim - 1)
+    for t in range(fixed.shape[1]):
+        acc += x[idx[:, t]] * fixed[:, t].reshape(shape)
+    return np.moveaxis(np.clip(acc >> _PIL_PRECISION, 0, 255).astype(np.uint8), 0, axis)
+
+
+def resize_bicubic_pil(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """``Image.resize((width, height), Image.BICUBIC)`` of a uint8 HW or HWC
+    image, as Pillow's 8-bit convolution resample computes it: the
+    horizontal pass, rounded to uint8, then the vertical one; an axis whose
+    size does not change is not resampled. Bit-exact to Pillow 12."""
+    out = img
+    if width != img.shape[1]:
+        out = _pil_pass(out, 1, width)
+    if height != img.shape[0]:
+        out = _pil_pass(out, 0, height)
+    return out if out is not img else img.copy()
 
 
 class Resize(Transform):

@@ -90,29 +90,59 @@ def configure_int8(config: Dict, model_dir: Optional[str] = None) -> bool:
     return int8_stage_enabled()
 
 
+def load_model_dir(model_dir: str, config: Dict, device="cuda", generator=None):
+    """The model of a card (``config``) with the weights of
+    ``<model_dir>/model.pth`` (:func:`train.checkpoint.load_model`:
+    ``strict=False``), in eval mode on ``device``. ``generator``: True
+    builds :class:`models.gan.Generator` (the GAN generator's checkpoint,
+    keys under ``net.``), False the bare arch (``build_model``), None the
+    bare arch, retried as ``Generator`` when the file lacks its tensors. A
+    directory holding only the JAX package's orbax checkpoint raises
+    NotImplementedError, one with no checkpoint FileNotFoundError."""
+    from ssunet_gan_tpu_torch.models import build_model
+    from ssunet_gan_tpu_torch.models.gan import Generator
+    from ssunet_gan_tpu_torch.train.checkpoint import load_model, model_file
+
+    dev = resolve_device(device)
+    path = model_file(model_dir)
+    print("=> creating model %s" % config["arch"])
+    if generator:
+        model = Generator.from_config(config, device=dev)
+    else:
+        model = build_model(config["arch"], config["num_classes"], config["input_channels"],
+                            bool(config["deep_supervision"]), device=dev)
+    missing = load_model(path, model)["missing"]
+    if missing and generator is None:
+        # a GAN generator's checkpoint wraps the arch in ``net``
+        model = Generator.from_config(config, device=dev)
+        missing = load_model(path, model)["missing"]
+        if missing:
+            raise ValueError(f"{path} lacks {len(missing)} tensors of {config['arch']} "
+                             f"(first: {missing[:3]})")
+        print("=> loaded as GAN generator checkpoint")
+    elif missing:
+        print(f"=> {path} lacks {len(missing)} of the model's tensors (first: {missing[:3]}); "
+              "they keep their initial values")
+    return model.eval()
+
+
 def load_segmentation_models(config_file: str, device="cuda"):
     """The ``val_config.name`` model of an experiment file, from its card
     and ``model.pth`` in ``file_path.model_path`` (api:302-332; the JAX
     package's :54-142). Returns ``(model, config)``: the model in eval mode
-    on ``device``, the card with ``name``, ``patch_size`` 1024 and
-    ``val_config``'s ``patch_overlap``.
+    on ``device`` (:func:`load_model_dir`, the bare arch or a GAN
+    generator's ``net.`` checkpoint), the card with ``name``,
+    ``patch_size`` 1024 and ``val_config``'s ``patch_overlap``.
 
     The card's mode keys are applied as global modes: ``fused_spade``
     (:func:`ops.spade_kernel.set_fused_spade`), ``int8`` with the static
     scales of ``int8_scales.json`` beside it (:func:`configure_int8`) and
     ``band_rows`` (:func:`ops.stage_kernel_int8.set_band_rows`);
-    ``seg_stack`` (a TPU layout of the JAX package) is read and ignored.
-    A ``model.pth`` whose keys the bare arch lacks (a GAN generator's,
-    prefixed ``net.``) loads into :class:`models.gan.Generator`. A model
-    directory holding only the JAX package's orbax checkpoint raises
-    NotImplementedError, one with no checkpoint FileNotFoundError."""
-    from ssunet_gan_tpu_torch.models import build_model
-    from ssunet_gan_tpu_torch.models.gan import Generator
+    ``seg_stack`` (a TPU layout of the JAX package) is read and ignored."""
     from ssunet_gan_tpu_torch.ops.spade_kernel import set_fused_spade
     from ssunet_gan_tpu_torch.ops.stage_kernel_int8 import set_band_rows
-    from ssunet_gan_tpu_torch.train.checkpoint import MODEL_FILE, ORBAX_DIR, load_model
 
-    dev = resolve_device(device)
+    resolve_device(device)
     with open(config_file, "rt") as f:
         config_dict = json.loads(f.read())
     val_config = config_dict["val_config"]
@@ -134,28 +164,10 @@ def load_segmentation_models(config_file: str, device="cuda"):
     if "band_rows" in config:
         set_band_rows(int(config["band_rows"]) if config["band_rows"] else None)
 
-    path = os.path.join(model_dir, MODEL_FILE)
-    if not os.path.isfile(path):
-        if os.path.isdir(os.path.join(model_dir, ORBAX_DIR)):
-            raise NotImplementedError(
-                f"{model_dir} holds the JAX package's orbax checkpoint only; the port reads "
-                f"{MODEL_FILE} (reading orbax directories is queued in ROADMAP.md)")
-        raise FileNotFoundError(f"no checkpoint in {model_dir}")
-    print("=> creating model %s" % config["arch"])
-    model = build_model(config["arch"], config["num_classes"], config["input_channels"],
-                        bool(config["deep_supervision"]), device=dev)
-    if load_model(path, model)["missing"]:
-        # a GAN generator's checkpoint wraps the arch in ``net``
-        model = Generator.from_config(config, device=dev)
-        missing = load_model(path, model)["missing"]
-        if missing:
-            raise ValueError(f"{path} lacks {len(missing)} tensors of {config['arch']} "
-                             f"(first: {missing[:3]})")
-        print("=> loaded as GAN generator checkpoint")
-
+    model = load_model_dir(model_dir, config, device)
     config["patch_size"] = PATCH_SIZE
     config["patch_overlap"] = val_config["patch_overlap"]
-    return model.eval(), config
+    return model, config
 
 
 def effective_patch_size(h: int, w: int, p_size: int) -> int:

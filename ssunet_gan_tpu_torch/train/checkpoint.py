@@ -1,9 +1,10 @@
 """Checkpoints on ``torch.save``: the reference's ``model.pth`` and a
 resume state (the JAX package's train/checkpoint.py, there on orbax).
 
-- :func:`save_model` / :func:`load_model`: the best model as the reference
-  keeps it (train.py:458-459), a bare ``state_dict`` under the reference's
-  module names in ``<model_dir>/model.pth``. Loading strips ``module.``
+- :func:`save_model` / :func:`load_model` / :func:`model_file`: the best
+  model as the reference keeps it (train.py:458-459), a bare
+  ``state_dict`` under the reference's module names in
+  ``<model_dir>/model.pth``. Loading strips ``module.``
   prefixes (a ``DataParallel`` checkpoint), takes every tensor whose name
   and shape match and reports the rest, as ``load_state_dict(strict=False)``
   and the JAX package's ``_merge_strict_false`` do;
@@ -49,6 +50,20 @@ def save_model(model_dir: str, model: torch.nn.Module) -> str:
     os.makedirs(model_dir, exist_ok=True)
     path = os.path.join(model_dir, MODEL_FILE)
     _save(_cpu_state(model), path)
+    return path
+
+
+def model_file(model_dir: str) -> str:
+    """``<model_dir>/model.pth``; raises NotImplementedError where the
+    directory holds only the JAX package's orbax checkpoint, and
+    FileNotFoundError where it holds neither."""
+    path = os.path.join(model_dir, MODEL_FILE)
+    if not os.path.isfile(path):
+        if os.path.isdir(os.path.join(model_dir, ORBAX_DIR)):
+            raise NotImplementedError(
+                f"{model_dir} holds the JAX package's orbax checkpoint only; the port reads "
+                f"{MODEL_FILE} (reading orbax directories is queued in ROADMAP.md)")
+        raise FileNotFoundError(f"no checkpoint in {model_dir}")
     return path
 
 
@@ -122,11 +137,5 @@ def warm_start_generator(generator: torch.nn.Module, path: str) -> Dict[str, Lis
     only the JAX package's ``model.orbax`` raises NotImplementedError, one
     with neither FileNotFoundError."""
     if os.path.isdir(path):
-        model_dir, path = path, os.path.join(path, MODEL_FILE)
-        if not os.path.isfile(path):
-            if os.path.isdir(os.path.join(model_dir, ORBAX_DIR)):
-                raise NotImplementedError(
-                    f"{model_dir} holds the JAX package's orbax checkpoint only; the port reads "
-                    f"{MODEL_FILE} (reading orbax directories is queued in ROADMAP.md)")
-            raise FileNotFoundError(f"no checkpoint in {model_dir}")
+        path = model_file(path)
     return load_model(path, generator.net)

@@ -1,5 +1,6 @@
-"""The supervised train and eval steps (the JAX package's train/step.py
-:36-201 and :288; reference train.py:79-120, 141-190).
+"""The supervised train and eval steps and the predict function (the JAX
+package's train/step.py :36-201, :288 and :313; reference train.py:79-120,
+141-190).
 
 Reference quirks kept as behaviour:
 
@@ -135,3 +136,18 @@ def make_eval_step(model, loss_fn: Callable, num_classes: int,
                                  image, target)[1]
 
     return step
+
+
+def make_predict_fn(model) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``predict(image) -> logits``: the model in eval mode under
+    ``torch.no_grad()``, ``image`` (NHWC, a tensor or numpy array) moved to
+    the model's device first (the JAX package's ``make_predict_fn``, :313;
+    there the variables are an argument, here the model holds them)."""
+    device = next(model.parameters()).device
+
+    def predict(image) -> torch.Tensor:
+        model.eval()
+        with torch.no_grad():
+            return model(torch.as_tensor(image).to(device))
+
+    return predict

@@ -768,8 +768,9 @@ def test_convert_image_matches_jax(rng, source):
             np.testing.assert_allclose(srgan_utils.convert_image(x, source, target),
                                        jsrgan.convert_image(x, source, target), rtol=1e-6,
                                        atol=1e-6, err_msg=target)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        srgan_utils.convert_image(img, source, "pil")
+    # "pil" is the array of the JAX package's PIL image, uint8 HWC RGB
+    np.testing.assert_array_equal(srgan_utils.convert_image(img[0], source, "pil"),
+                                  np.asarray(jsrgan.convert_image(img[0], source, "pil")))
     with pytest.raises(ValueError, match="target format"):
         srgan_utils.convert_image(img, source, "hsv")
 

@@ -1,6 +1,10 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the
 JAX package, and no source of the port (chip_smoke.py included) imports
-them."""
+them. Nor does it need what the card machine lacks: cv2, sklearn, PIL and
+pandas are imported nowhere at module level, PIL only inside a function
+that asks for it in a ``try`` and raises its own error without it (a
+format the port does not decode itself), and the entry points and tools
+that replace the JAX package's uses of them import none of the four."""
 
 import ast
 import os
@@ -33,7 +37,15 @@ MODULES = (
     "ssunet_gan_tpu_torch.train.gan_step", "ssunet_gan_tpu_torch.train.gan",
     "ssunet_gan_tpu_torch.cli.train_seg_gan", "ssunet_gan_tpu_torch.srgan_utils",
     "ssunet_gan_tpu_torch.parallel", "ssunet_gan_tpu_torch.ops.collectives",
+    "ssunet_gan_tpu_torch.cli.val", "ssunet_gan_tpu_torch.cli.smoke_test",
+    "ssunet_gan_tpu_torch.cli.preprocess_satellite", "ssunet_gan_tpu_torch.cli.preprocess_SN7",
+    "ssunet_gan_tpu_torch.data.preprocess", "ssunet_gan_tpu_torch.profiling",
 )
+# libraries the card machine lacks; the JAX package's tools use them
+HOST_LIBRARIES = ("cv2", "sklearn", "PIL", "pandas")
+# modules that replace the JAX package's use of them: none of the four at all
+NO_HOST_LIBRARIES = ("cli/val.py", "cli/smoke_test.py", "cli/preprocess_satellite.py",
+                     "cli/preprocess_SN7.py", "data/preprocess.py", "profiling.py", "utils.py")
 
 
 def test_import_loads_neither_jax_nor_the_jax_package():
@@ -74,3 +86,39 @@ def test_source_imports_neither(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "ssunet_gan_tpu"), (
                 f"{os.path.relpath(path, REPO)}:{node.lineno} imports {name}")
+
+
+def _imports(tree):
+    """(node, top-level name, inside a function, inside a try that catches
+    ImportError) of each import of ``tree``."""
+    found = []
+
+    def walk(node, in_fn, in_try):
+        for child in ast.iter_child_nodes(node):
+            fn = in_fn or isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef))
+            guarded = in_try
+            if isinstance(child, ast.Try):
+                guarded = in_try or any(
+                    isinstance(h.type, ast.Name) and h.type.id == "ImportError"
+                    for h in child.handlers)
+            if isinstance(child, ast.Import):
+                found.extend((child, a.name.split(".")[0], in_fn, in_try) for a in child.names)
+            elif isinstance(child, ast.ImportFrom):
+                found.append((child, (child.module or "").split(".")[0], in_fn, in_try))
+            walk(child, fn, guarded)
+
+    walk(tree, False, False)
+    return found
+
+
+@pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_no_host_library(path):
+    rel = os.path.relpath(path, PORT)
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node, top, in_fn, in_try in _imports(tree):
+        if top not in HOST_LIBRARIES:
+            continue
+        where = f"{os.path.relpath(path, REPO)}:{node.lineno} imports {top}"
+        assert rel not in NO_HOST_LIBRARIES, where
+        assert top == "PIL" and in_fn and in_try, where
