@@ -248,6 +248,17 @@ Phases, each of which exits non-zero on failure:
    pixels; a ``val:`` line); ``cli.smoke_test`` on a 2048² scene (kernel 1
    in bf16, 6 stages and 2 up / 2 pool seams per chunk), its masks equal to
    ``segmentation_inference``'s bit for bit (a ``smoke:`` line).
+18. The other model families (last; ``families_phase``): UNet, UNet_ori,
+   AttUNet, NestedUNet, ProgUNet and effnet_unet at full width on the
+   library's convolutions (no TPU kernel lies on their paths in the JAX
+   package): each forward at batch 4, 256² in f32 (TF32 off) against the
+   CPU's f32 forward of the same weights, and in bf16 against f32; three
+   mixed-precision steps at batch 2, 128² with step 1's loss against the
+   CPU's f32 step 1 (effnet_unet's encoder frozen in epoch 1 and moving in
+   epoch 2); NestedUNet with deep supervision through one
+   ``run_experiment`` epoch, ``load_model_dir`` and a 2048² scene; no
+   hand-written kernel launched; a ``families:`` line (ms per forward and
+   per step, peak memory).
 
 Each path's profile also gives a ``tail:`` line: the shared SPADE tail
 kernel's time and launches per forward or step beside its bound; the
@@ -5083,6 +5094,307 @@ def tools_phase(dev, card, here, check, raw_hw=TOOLS_RAW_HW, smoke_hw=TOOLS_SMOK
 
 
 
+# Phase 18: the other model families at full width (the JAX package's
+# models/unet.py and models/effnet_unet.py), on the library's convolutions
+# alone: no hand-written kernel lies on their paths, in either package.
+FAMILIES = ("UNet", "UNet_ori", "AttUNet", "NestedUNet", "ProgUNet", "effnet_unet")
+FAMILY_HW, FAMILY_BATCH = 256, 4  # the forwards
+FAMILY_TRAIN_HW, FAMILY_TRAIN_BATCH = 128, 2  # the steps (and the CPU's f32 step 1)
+FAMILY_SCENE_HW = 2048  # NestedUNet's model directory served: 36 tiles, two chunks
+# An f32 forward on the card (TF32 off) against the CPU's: the same f32
+# arithmetic in another order, and no unpool to move a winner (CPU tests
+# measure ~1e-6 between two orders); relative L2 of all heads' logits.
+FAMILY_F32_TOL = 1e-4
+# The bf16 forward's distance from f32 (relative L2, BatchNorm statistics
+# calibrated, unit-scale inputs): printed, and bounded above bf16 rounding
+# carried through the deepest family (the CPU rehearsal at 64²: UNet 0.14,
+# effnet_unet 0.44 after EfficientNet-b2's 23 MBConv blocks; the
+# flagship's bf16 forward sits ~0.10 from f32) and below a forward
+# unrelated to f32 (~1.4).
+FAMILY_BF16_TOL = 0.6
+# Step 1's BCE-Dice loss in mixed precision against the CPU's f32 step 1
+# on the same weights and batch: a mean over many pixels, so bf16's
+# per-logit noise largely cancels; relative difference.
+FAMILY_LOSS_TOL = 5e-2
+
+
+def all_launches() -> dict:
+    """Every hand-written kernel's launch counter."""
+    from ssunet_gan_tpu_torch.ops import (spade_kernel, stage_kernel, stage_kernel_bneck,
+                                          stage_kernel_int8)
+
+    return {"fused_eval_stage": stage_kernel.launches,
+            "fused_eval_stage_f32": stage_kernel.f32_launches,
+            "eval_conv": stage_kernel.conv_launches,
+            "fused_eval_stage_bneck": stage_kernel_bneck.launches,
+            "fused_eval_stage_int8": stage_kernel_int8.launches,
+            "s8_conv": stage_kernel_int8.conv_launches,
+            "quantize": stage_kernel_int8.quant_launches,
+            "fused_spade_stage": spade_kernel.launches, **read_launches()}
+
+
+def zero_all_launches() -> None:
+    from ssunet_gan_tpu_torch.ops import (spade_kernel, stage_kernel, stage_kernel_bneck,
+                                          stage_kernel_int8)
+
+    stage_kernel.launches = stage_kernel.f32_launches = stage_kernel.conv_launches = 0
+    stage_kernel_bneck.launches = spade_kernel.launches = 0
+    stage_kernel_int8.launches = stage_kernel_int8.conv_launches = 0
+    stage_kernel_int8.quant_launches = 0
+    reset_launches()
+
+
+def _heads(out) -> torch.Tensor:
+    """All heads' logits as one flat f32 vector on the host."""
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    return torch.cat([o.float().reshape(-1).cpu() for o in outs])
+
+
+def _wall_ms(fn, iters: int) -> float:
+    """Host clock per call, the device drained before and after."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    fn()
+    sync()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def _peak_mib(dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 20 if dev.type == "cuda" else 0.0
+
+
+def families_phase(dev, card, here, check, hw=FAMILY_HW, batch=FAMILY_BATCH,
+                   train_hw=FAMILY_TRAIN_HW, scene_hw=FAMILY_SCENE_HW):
+    """Phase 18: for each of FAMILIES at full width (BatchNorm statistics
+    calibrated on the batch; seeded N(0, 1) images, the trainer's scale),
+    the forward at ``batch`` × ``hw``² in f32
+    (TF32 off) against the CPU's f32 forward of the same weights, and in
+    bf16 (its distance from f32 printed and bounded); one warm-up and two
+    timed ``make_train_step`` steps in mixed precision through
+    ``train_one_epoch`` at FAMILY_TRAIN_BATCH × ``train_hw``², finite
+    losses, step 1's loss against the CPU's f32 step 1 (effnet_unet: its
+    two optimizers, epoch 1 leaving ``encoder.eff_conv`` bit-unchanged and
+    epoch 2 moving it; ProgUNet, whose four heads at four sizes neither
+    package's ``make_train_step`` can score, through a step of its own with
+    the loss averaged over its heads, each against the target max-pooled to
+    its size); then one ``run_experiment`` epoch of
+    NestedUNet with deep supervision on synthetic data, its model directory
+    through ``load_model_dir`` (weights equal bit for bit) and a
+    ``scene_hw``² scene through ``segmentation_inference`` (masks equal to
+    the trained model's). No hand-written kernel may launch on these
+    paths. Prints a ``families:`` line. The sizes shrink for a rehearsal on
+    the CPU."""
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from ssunet_gan_tpu_torch.config import load_experiment_config, load_model_card
+    from ssunet_gan_tpu_torch.infer import api
+    from ssunet_gan_tpu_torch.models import build_model
+    from ssunet_gan_tpu_torch.ops.losses import get_loss
+    from ssunet_gan_tpu_torch.train import supervised
+    from ssunet_gan_tpu_torch.train.optim import (
+        build_cnn_optimizer,
+        build_optimizer,
+        split_encoder_params,
+    )
+    from ssunet_gan_tpu_torch.train.step import make_train_step
+
+    t_start = t_phase = time.perf_counter()
+    cfg = load_experiment_config(os.path.join(here, "configs", "config_v1.json")).opt_config
+    ncls = cfg["num_classes"]
+    named_loss = get_loss(cfg["loss"])
+    # images at the trainer's scale (Normalize: unit variance); the scene
+    # path's extra /255 (api:362-367) leaves convs with biases adding
+    # O(1e-2) signals to O(0.1) biases, where bf16 keeps little of them
+    g = np.random.default_rng(SEED + 180)
+    x = torch.from_numpy(g.normal(size=(batch, hw, hw, 3)).astype(np.float32))
+    batches = [(None, g.normal(size=(FAMILY_TRAIN_BATCH, train_hw, train_hw, 3))
+                .astype(np.float32),
+                (g.random((FAMILY_TRAIN_BATCH, train_hw, train_hw, ncls)) > 0.5)
+                .astype(np.float32), None) for _ in range(3)]
+    clip = float(cfg["clip"])
+    mixed = {**cfg, "mixed_precision": True}
+
+    def head_loss(o, target):
+        """The BCE-Dice loss at a head's size: the target max-pooled to it."""
+        k = target.shape[1] // o.shape[1]
+        if k > 1:
+            target = F.max_pool2d(target.permute(0, 3, 1, 2), k).permute(0, 2, 3, 1)
+        return named_loss(o, target)
+
+    def trainer(model, arch):
+        """``make_train_step`` on the config's optimizer, loss and clip
+        (effnet_unet: its encoder's Adam beside); ProgUNet's own step (see
+        head_loss: make_train_step scores the last head against the target
+        and cannot take its ⅛-size head, nor can the JAX package's)."""
+        if arch == "ProgUNet":
+            opt = build_optimizer(model.parameters(), cfg)
+
+            def step(image, target, lr):
+                model.train()
+                opt.zero_grad(set_to_none=True)
+                outs = model(image)
+                loss = sum(head_loss(o, target) for o in outs) / len(outs)
+                loss.backward()
+                opt.step()
+                return {"loss": loss.detach()}
+            return step
+        if arch == "effnet_unet":
+            main, cnn = split_encoder_params(model)
+            return make_train_step(model, named_loss, build_optimizer(main, cfg), ncls,
+                                   clip=clip, cnn_optimizer=build_cnn_optimizer(cnn, cfg))
+        return make_train_step(model, named_loss, build_optimizer(model.parameters(), cfg),
+                               ncls, clip=clip)
+
+    rows = {}
+    zero_all_launches()
+    for arch in FAMILIES:
+        gc.collect()
+        if dev.type == "cuda":
+            settle()
+            torch.cuda.reset_peak_memory_stats(dev)
+        model = build_model(arch, ncls, 3, seed=SEED, device=dev)
+        calibrate_batchnorm(model, x[:2].to(dev))
+        cpu = copy.deepcopy(model).cpu()
+        xd = x.to(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        with torch.no_grad():
+            f32 = _heads(model(xd))
+            f32_peak = _peak_mib(dev)
+            ref = _heads(cpu(x))
+            bf = _heads(model(xd.to(torch.bfloat16)))
+        e_f32, e_bf = rel_l2(f32, ref), rel_l2(bf, ref)
+        check(bool(torch.isfinite(f32).all() and torch.isfinite(bf).all())
+              and e_f32 <= FAMILY_F32_TOL and e_bf <= FAMILY_BF16_TOL,
+              f"phase 18: {arch} forward: f32 {e_f32:.3g} from the CPU (bar "
+              f"{FAMILY_F32_TOL:g}), bf16 {e_bf:.3g} from f32 (bar {FAMILY_BF16_TOL:g})")
+        xb = xd.to(torch.bfloat16)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        with torch.no_grad():
+            fwd_ms = _wall_ms(lambda: model(xb), 3)
+        fwd_peak = _peak_mib(dev)
+        del f32, bf, xd, xb
+
+        # the steps (ProgUNet's heads sit at four sizes: see trainer)
+        eff = arch == "effnet_unet"
+        cpu_log = supervised.train_one_epoch(1, {**cfg, "mixed_precision": False},
+                                             batches[:1], trainer(cpu, arch), cfg["lr"], "cpu",
+                                             eff_flag=eff)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        step = trainer(model, arch)
+        frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+                  if ".eff_conv." in n}
+        head0 = model.final.weight.detach().clone() if eff else None
+        log1 = supervised.train_one_epoch(1, mixed, batches[:1], step, cfg["lr"], dev,
+                                          eff_flag=eff)
+        if eff:  # lr_cnn 0: the encoder's values are its clamped start (±clip on all)
+            kept = all(torch.equal(p.detach(), frozen[n].clamp(-clip, clip))
+                       for n, p in model.named_parameters() if n in frozen)
+            check(kept and not torch.equal(model.final.weight.detach(), head0),
+                  f"phase 18: effnet_unet epoch 1: encoder.eff_conv unchanged {kept}, the "
+                  f"head moved {not torch.equal(model.final.weight.detach(), head0)}")
+        t = time.perf_counter()
+        log2 = supervised.train_one_epoch(2, mixed, batches[1:], step, cfg["lr"], dev,
+                                          eff_flag=eff)
+        step_ms = (time.perf_counter() - t) * 1e3 / 2
+        step_peak = _peak_mib(dev)
+        if eff:
+            moved = sum(not torch.equal(p.detach(), frozen[n].clamp(-clip, clip))
+                        for n, p in model.named_parameters() if n in frozen)
+            print(f"phase 18: effnet_unet: epoch 1 kept encoder.eff_conv's {len(frozen)} "
+                  f"tensors, epoch 2 moved {moved} of them")
+            check(moved > 0, "phase 18: effnet_unet epoch 2 left encoder.eff_conv unchanged")
+        d_loss = abs(log1["loss"] - cpu_log["loss"]) / max(abs(cpu_log["loss"]), 1e-12)
+        check(np.isfinite(log1["loss"]) and np.isfinite(log2["loss"])
+              and d_loss <= FAMILY_LOSS_TOL,
+              f"phase 18: {arch} step 1 loss {log1['loss']} (CPU f32 {cpu_log['loss']}, "
+              f"relative {d_loss:.3g}, bar {FAMILY_LOSS_TOL:g}); steps 2-3 {log2['loss']}")
+        rows[arch] = {"fwd_ms": round(fwd_ms, 3), "step_ms": round(step_ms, 3),
+                      "fwd_peak_mib": round(fwd_peak, 1), "step_peak_mib": round(step_peak, 1),
+                      "f32_fwd_peak_mib": round(f32_peak, 1),
+                      "f32_vs_cpu": e_f32, "bf16_vs_f32": e_bf, "step1_loss": log1["loss"],
+                      "step1_loss_cpu_f32": cpu_log["loss"], "params": sum(
+                          p.numel() for p in model.parameters())}
+        print(f"phase 18: {arch}: {rows[arch]}")
+        del model, cpu, step
+        t_phase = phase_done(f"phase 18 {arch}", t_phase)
+
+    # NestedUNet with deep supervision through the entry point and back
+    yaml_before = sys.modules.get("yaml", None)
+    sys.modules["yaml"] = None  # the card machine has no PyYAML: the flat card
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            exp = load_experiment_config(os.path.join(here, "configs", "config_v1.json"))
+            exp.opt_config.update(arch="NestedUNet", deep_supervision=True, input_h=train_hw,
+                                  input_w=train_hw, batch_size=FAMILY_TRAIN_BATCH,
+                                  name="nested_ds", num_workers=2)
+            exp.file_path.model_path = os.path.join(tmp, "models")
+            exp.file_path.checkpoint_path = os.path.join(tmp, "checkpoint")
+            t = time.perf_counter()
+            trained, best_iou, log = supervised.run_experiment(
+                exp, synthetic=4 * FAMILY_TRAIN_BATCH, epochs_override=1,
+                use_tensorboard=False, device=dev)
+            entry_s = time.perf_counter() - t
+            mdir = exp.model_dir()
+            card_cfg = load_model_card(mdir)
+            loaded = api.load_model_dir(mdir, card_cfg, device=dev)
+            differ = _state_equal(loaded.state_dict(), trained.state_dict())
+            config = {**card_cfg, "patch_size": 1024, "patch_overlap": 0.5}
+            scene = smooth_scene(scene_hw, SEED + 181, dev)
+            tiles, patches = api.patch_and_preprocess(scene, scene, config, raw_uint8=True)
+            with deterministic():
+                t = time.perf_counter()
+                masks, _ = api.segmentation_inference(loaded, scene, tiles, patches, config,
+                                                      False, device=dev)
+                scene_s = time.perf_counter() - t
+                again, _ = api.segmentation_inference(trained, scene, tiles, patches, config,
+                                                      False, device=dev)
+                # the masks of a one-epoch model may be near-constant: the
+                # first chunk's probabilities too
+                chunk = tiles[:api.INFER_BATCH]
+                probs = api.tile_forward(loaded, chunk, device=dev)
+                same_probs = torch.equal(probs, api.tile_forward(trained, chunk, device=dev))
+            same = same_probs and all(np.array_equal(m, n) for m, n in zip(masks, again))
+            print(f"phase 18: run_experiment NestedUNet deep supervision ({train_hw}x"
+                  f"{train_hw}, batch {FAMILY_TRAIN_BATCH}, 1 epoch): {entry_s:.2f} s, log "
+                  f"{dict(log)}; load_model_dir: {len(differ)} tensors differ; scene "
+                  f"{scene_hw}x{scene_hw} ({len(tiles)} tiles): {scene_s:.3f} s, masks "
+                  f"{[m.shape for m in masks]}, masks and the first chunk's probabilities equal "
+                  f"to the trained model's: {same}, positive share "
+                  f"{[round(float((m > 127).mean()), 4) for m in masks]}, probabilities "
+                  f"{float(probs.float().min()):.4g}..{float(probs.float().max()):.4g}")
+            check(log["epoch"] == [0] and all(np.isfinite(v) for k, vs in log.items()
+                                              if k != "epoch" for v in vs),
+                  f"phase 18: run_experiment log {dict(log)}")
+            check(not differ, f"phase 18: load_model_dir differs in {differ[:5]}")
+            check(len(masks) == ncls and all(m.shape == scene.shape[:2] for m in masks)
+                  and same, "phase 18: the NestedUNet scene's masks")
+            card_ds = card_cfg.get("deep_supervision")
+            check(card_ds in (True, "True"), f"phase 18: the card's deep_supervision {card_ds}")
+            del trained, loaded, scene, tiles, patches, masks, again, probs
+    finally:
+        if yaml_before is None:
+            sys.modules.pop("yaml", None)
+        else:
+            sys.modules["yaml"] = yaml_before
+    launched = {k: v for k, v in all_launches().items() if v}
+    print(f"phase 18: hand-written kernel launches on the families' paths: {launched or 0}")
+    check(not launched, f"phase 18: kernels launched on the families' paths: {launched}")
+    print("families: " + json.dumps({"card": card, "forward": f"batch {batch}, {hw}x{hw}",
+                                     "step": f"batch {FAMILY_TRAIN_BATCH}, {train_hw}x"
+                                             f"{train_hw}, bf16 activations", **rows}))
+    phase_done("phase 18", t_start)
+    return rows
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
@@ -5292,6 +5604,9 @@ def main() -> int:
     # on cli.val's path, in bf16 on cli.smoke_test's)
     tools_counts, smoke_seams = tools_phase(dev, card, here, check)
     print(f"phase 17: launches on the cli.val and cli.smoke_test paths {tools_counts}")
+
+    # ---- phase 18: the other model families (library convolutions only)
+    families_phase(dev, card, here, check)
 
     if failures:
         fail(f"{len(failures)} checks failed: " + "; ".join(failures[:20]))

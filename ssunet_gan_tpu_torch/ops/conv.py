@@ -4,7 +4,11 @@
 Weights are OIHW (``weight``, ``bias``), as in the reference. The input may
 be a tuple of NHWC parts standing for their channel concatenation:
 ``conv(cat(a, b)) == conv_a(a) + conv_b(b)`` with the one weight sliced
-along its input-channel axis, so no concatenated tensor is built.
+along its input-channel axis, so no concatenated tensor is built. A conv
+takes ``groups`` (the depthwise convs of EfficientNet's MBConv and the
+Modulecell; parts only with ``groups == 1``, as in the JAX package) and
+an asymmetric padding ``((top, bottom), (left, right))`` (TF "same"
+padding, ``models/efficientnet.py`` ``SamePadConv``).
 
 Initialisation follows torch's defaults, drawn from an explicit
 :class:`torch.Generator`: U(−1/√fan_in, 1/√fan_in) for weight and bias,
@@ -17,11 +21,14 @@ parameter names (``weight`` (out, in) and ``bias``; one slope ``weight``).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+Padding = Union[int, Tuple[Tuple[int, int], Tuple[int, int]]]
 
 
 def as_parts(x):
@@ -30,18 +37,32 @@ def as_parts(x):
 
 
 def conv2d_nhwc(x, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                padding: int = 0, stride: int = 1) -> torch.Tensor:
+                padding: Padding = 0, stride: int = 1, groups: int = 1) -> torch.Tensor:
     """Conv of NHWC ``x`` (or split-concat parts) with an OIHW weight,
-    computed in the activation dtype; returns NHWC (contiguous)."""
+    computed in the activation dtype; returns NHWC (contiguous).
+    ``padding`` is an int (every side) or ``((top, bottom), (left,
+    right))``."""
     parts = as_parts(x)
+    if len(parts) > 1 and groups != 1:
+        raise ValueError("split-concat parts need groups=1")
     dtype = parts[0].dtype
     w = weight.to(dtype)
+    pre = None  # an asymmetric pad, applied before the conv
+    if not isinstance(padding, int):
+        (top, bottom), (left, right) = padding
+        if top == bottom and left == right:
+            padding = (top, left)
+        else:
+            pre, padding = (left, right, top, bottom), 0
     y = None
     off = 0
     for p in parts:
         c = p.shape[-1]
-        yp = F.conv2d(p.permute(0, 3, 1, 2), w[:, off:off + c], padding=padding,
-                      stride=stride)
+        xp = p.permute(0, 3, 1, 2)
+        if pre is not None:
+            xp = F.pad(xp, pre)
+        wp = w[:, off:off + c] if groups == 1 else w
+        yp = F.conv2d(xp, wp, padding=padding, stride=stride, groups=groups)
         y = yp if y is None else y + yp
         off += c
     if bias is not None:
@@ -50,15 +71,21 @@ def conv2d_nhwc(x, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
 
 
 class Conv2d(nn.Module):
-    """Conv with symmetric integer padding on NHWC tensors."""
+    """Conv on NHWC tensors, padded by ``padding`` (see :func:`conv2d_nhwc`);
+    ``groups`` splits the channels as torch's (the weight is (out,
+    in / groups, k, k))."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 padding: int = 0, bias: bool = True, init: str = "torch",
-                 generator: Optional[torch.Generator] = None, stride: int = 1):
+                 padding: Padding = 0, bias: bool = True, init: str = "torch",
+                 generator: Optional[torch.Generator] = None, stride: int = 1,
+                 groups: int = 1):
         super().__init__()
+        if in_channels % groups or out_channels % groups:
+            raise ValueError(f"{in_channels} -> {out_channels} channels in {groups} groups")
         self.padding = padding
         self.stride = stride
-        fan_in = in_channels * kernel_size * kernel_size
+        self.groups = groups
+        fan_in = in_channels // groups * kernel_size * kernel_size
         if init == "kaiming_fan_in":
             bound = math.sqrt(2.0) * math.sqrt(3.0 / fan_in)
         elif init == "torch":
@@ -66,7 +93,7 @@ class Conv2d(nn.Module):
         else:
             raise ValueError(f"unknown init {init!r}")
         self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels, kernel_size, kernel_size)
+            torch.empty(out_channels, in_channels // groups, kernel_size, kernel_size)
             .uniform_(-bound, bound, generator=generator)
         )
         if not bias:
@@ -79,7 +106,7 @@ class Conv2d(nn.Module):
             )
 
     def forward(self, x) -> torch.Tensor:
-        return conv2d_nhwc(x, self.weight, self.bias, self.padding, self.stride)
+        return conv2d_nhwc(x, self.weight, self.bias, self.padding, self.stride, self.groups)
 
 
 class Dense(nn.Module):

@@ -1,7 +1,8 @@
 """BatchNorm with torch's semantics over NHWC tensors.
 
 Parameters and buffers carry ``nn.BatchNorm2d``'s names (``weight``,
-``bias``, ``running_mean``, ``running_var``); eps 1e-5, momentum 0.1.
+``bias``, ``running_mean``, ``running_var``); eps 1e-5 and momentum 0.1
+unless a module is built with its own (EfficientNet's: 1e-3 and 0.01).
 
 Eval folds the running statistics into one per-channel affine ``y = x·k +
 b`` (:meth:`BatchNorm.eval_affine`), computed in f32 and applied in the
@@ -22,7 +23,7 @@ forward is recomputed for its backward (``ops/blocks.py`` ``maybe_remat``).
 from __future__ import annotations
 
 import contextlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -50,9 +51,11 @@ def frozen_running(module: nn.Module):
 class BatchNorm(nn.Module):
     frozen = False  # see frozen_running
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: Optional[float] = None):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum  # None: the module constant MOMENTUM
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -67,10 +70,11 @@ class BatchNorm(nn.Module):
 
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, unbiased_var: torch.Tensor) -> None:
-        """running = (1 − MOMENTUM)·running + MOMENTUM·batch (torch)."""
+        """running = (1 − m)·running + m·batch (torch), m the module's
+        momentum or MOMENTUM."""
         if self.frozen:
             return
-        m = MOMENTUM
+        m = MOMENTUM if self.momentum is None else self.momentum
         self.running_mean.copy_((1 - m) * self.running_mean + m * mean.float())
         self.running_var.copy_((1 - m) * self.running_var + m * unbiased_var.float())
 

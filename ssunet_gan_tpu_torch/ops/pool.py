@@ -24,6 +24,11 @@ kernel while it loads its window (bf16: ``csrc/eval_conv.cuh`` read mode
 pooled tensor is never written; :func:`max_pool_2x2` is the same maximum
 for every consumer that does not read the seam. :func:`set_lazy_pool` is
 the JAX toggle.
+
+The other families' pools: :func:`global_avg_pool` (``SELayer``; the JAX
+package's ops/pool.py:76) and :func:`max_pool_3x3_s2` (the ResNet-101
+trunk's ``nn.MaxPool2d(3, 2, 1)``: windows padded with −inf, as
+``nn.max_pool`` in ``models/resnet.py:69``).
 """
 
 from __future__ import annotations
@@ -154,3 +159,15 @@ def max_unpool_2x2(values: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
     """``nn.MaxUnpool2d(2, stride=2)`` from :func:`max_pool_2x2_with_indices`
     codes: zeros except at each window's argmax."""
     return _MaxUnpool.apply(values, code) if _needs_grad(values) else _unpool(values, code)
+
+
+def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
+    """``nn.AdaptiveAvgPool2d(1)`` on NHWC: the mean over H and W."""
+    return x.mean((1, 2), keepdim=keepdims)
+
+
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """``nn.MaxPool2d(3, stride=2, padding=1)`` on NHWC (−inf padding; the
+    gradient goes to each window's first maximum, as torch's)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1)
+    return y.permute(0, 2, 3, 1).contiguous()

@@ -18,6 +18,13 @@ kernel 7 on the half tensor quantized, ``csrc/int8_conv.cuh`` read mode
 is that H-interpolation in plain PyTorch, for every consumer that does not
 read the seam. :func:`set_lazy_upsample` is the JAX toggle.
 
+The other families' resizes (the JAX package's ops/resize.py:93-117):
+:func:`upsample_bilinear` at any integer scale and either corner mode
+(``EffNetUNet``'s decoder: ×2, ``align_corners=False``),
+:func:`resize_bilinear`, torch's ``F.interpolate(..., mode='bilinear')``
+to any size (AttentiveCNN's input, EffNetUNet's output), both as the same
+two-tap lerps, and :func:`upsample_nearest` (``UpConv``).
+
 The SRGAN networks' resizes: :func:`adaptive_avg_pool`, torch's
 ``nn.AdaptiveAvgPool2d`` as the JAX package's separable averaging
 matrices (ops/resize.py:119), and :func:`pixel_shuffle`, torch's
@@ -83,10 +90,12 @@ def _two_taps(in_size: int, out_size: int, align_corners: bool):
     return lo, hi, w_lo, w_hi
 
 
-def _lerp(x: torch.Tensor, axis: int, wdtype: torch.dtype) -> torch.Tensor:
-    """×2 along ``axis`` with align_corners=True weights."""
-    out_size = 2 * x.shape[axis]
-    lo, hi, w_lo, w_hi = _two_taps(x.shape[axis], out_size, True)
+def _lerp(x: torch.Tensor, axis: int, wdtype: torch.dtype, out_size: Optional[int] = None,
+          align_corners: bool = True) -> torch.Tensor:
+    """Linear resize along ``axis`` to ``out_size`` (default ×2) with the
+    weights of :func:`_linear_matrix` rounded to ``wdtype``."""
+    out_size = 2 * x.shape[axis] if out_size is None else out_size
+    lo, hi, w_lo, w_hi = _two_taps(x.shape[axis], out_size, align_corners)
     shape = [1] * x.ndim
     shape[axis] = out_size
 
@@ -99,12 +108,33 @@ def _lerp(x: torch.Tensor, axis: int, wdtype: torch.dtype) -> torch.Tensor:
             + x.index_select(axis, ihi) * weights(w_hi))
 
 
-def upsample_bilinear(x: torch.Tensor) -> torch.Tensor:
-    """``nn.Upsample(scale_factor=2, mode='bilinear', align_corners=True)``
-    on NHWC."""
+def upsample_bilinear(x: torch.Tensor, scale: int = 2,
+                      align_corners: bool = True) -> torch.Tensor:
+    """``nn.Upsample(scale_factor=scale, mode='bilinear', align_corners=...)``
+    on NHWC (default: the decoders' ×2 with ``align_corners=True``)."""
+    if scale != 2 or not align_corners:
+        return resize_bilinear(x, scale * x.shape[1], scale * x.shape[2], align_corners)
     dtype = x.dtype
     y = _lerp(_lerp(x.float(), 1, dtype), 2, dtype)
     return y.to(dtype).contiguous()
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
+                    align_corners: bool = False) -> torch.Tensor:
+    """``F.interpolate(x, (out_h, out_w), mode='bilinear',
+    align_corners=...)`` on NHWC: H, then W, each output mixing two input
+    rows (columns) with the interpolation weights rounded to the activation
+    dtype, summed in f32 and rounded once (the JAX package's two matrix
+    products, ops/resize.py:60-90)."""
+    dtype = x.dtype
+    y = _lerp(x.float(), 1, dtype, out_h, align_corners)
+    y = _lerp(y, 2, dtype, out_w, align_corners)
+    return y.to(dtype).contiguous()
+
+
+def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """``nn.Upsample(scale_factor=scale)`` (nearest) on NHWC."""
+    return x.repeat_interleave(scale, 1).repeat_interleave(scale, 2)
 
 
 @functools.lru_cache(maxsize=None)

@@ -54,17 +54,22 @@ def parse_spade_config(config_text: str):
 
 
 class SPADE(nn.Module):
-    """SPADE(config_text, norm_nc, label_nc, nhidden) over NHWC tensors."""
+    """SPADE(config_text, norm_nc, label_nc, nhidden) over NHWC tensors;
+    ``seg_nc`` is the segmap's channels (default ``norm_nc``)."""
 
     def __init__(self, config_text: str, norm_nc: int, label_nc: int,
                  nhidden: float = 64,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 seg_nc: Optional[int] = None):
         super().__init__()
         _, ks = parse_spade_config(config_text)
         nh = int(max(nhidden, 4))
         pw = ks // 2
         self.ks, self.label_nc, self.nhidden = ks, label_nc, nh
-        self.x2map = Conv2d(norm_nc, label_nc, ks, pw, generator=generator)
+        # the segmap's channels: norm_nc for a self-SPADE (the JAX package
+        # takes them from the segmap, ops/spade.py:99)
+        seg_nc = norm_nc if seg_nc is None else seg_nc
+        self.x2map = Conv2d(seg_nc, label_nc, ks, pw, generator=generator)
         self.mlp_shared = nn.Sequential(
             Conv2d(label_nc, nh, ks, pw, generator=generator), nn.ReLU()
         )

@@ -10,8 +10,9 @@ resume state (the JAX package's train/checkpoint.py, there on orbax).
   and the JAX package's ``_merge_strict_false`` do;
 - :func:`save_train_state` / :func:`restore_train_state` /
   :func:`has_train_state`: the model with its BatchNorm buffers and the
-  optimizer's state in ``train_state.pth``, the epoch and ``best_iou`` in
-  the JAX package's ``train_meta.json`` sidecar.
+  optimizer's state (and the encoder optimizer's of an ``effnet`` arch) in
+  ``train_state.pth``, the epoch and ``best_iou`` in the JAX package's
+  ``train_meta.json`` sidecar.
 
 - :func:`warm_start_generator`: the GAN generator's ``net`` from a
   supervised ``model.pth`` (the JAX package's train/checkpoint.py:115;
@@ -96,26 +97,36 @@ def load_model(path: str, model: torch.nn.Module) -> Dict[str, List[str]]:
 
 def save_train_state(model_dir: str, model: torch.nn.Module,
                      optimizer: torch.optim.Optimizer, epoch: int,
-                     meta: Optional[Dict[str, Any]] = None) -> str:
+                     meta: Optional[Dict[str, Any]] = None,
+                     cnn_optimizer: Optional[torch.optim.Optimizer] = None) -> str:
     """The full resume state: parameters, BatchNorm buffers and the
-    optimizer's state, with ``{"epoch": epoch, **meta}`` in
-    ``train_meta.json``."""
+    optimizer's state (and ``cnn_optimizer``'s, where given), with
+    ``{"epoch": epoch, **meta}`` in ``train_meta.json``."""
     os.makedirs(model_dir, exist_ok=True)
     path = os.path.join(model_dir, STATE_FILE)
-    _save({"model": _cpu_state(model), "optimizer": optimizer.state_dict()}, path)
+    state = {"model": _cpu_state(model), "optimizer": optimizer.state_dict()}
+    if cnn_optimizer is not None:
+        state["cnn_optimizer"] = cnn_optimizer.state_dict()
+    _save(state, path)
     with open(os.path.join(model_dir, META_FILE), "w") as f:
         json.dump({"epoch": int(epoch), **(meta or {})}, f)
     return path
 
 
 def restore_train_state(model_dir: str, model: torch.nn.Module,
-                        optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
-    """Restore what :func:`save_train_state` wrote into ``model`` and
-    ``optimizer`` (onto the model's device); returns the meta dict."""
+                        optimizer: torch.optim.Optimizer,
+                        cnn_optimizer: Optional[torch.optim.Optimizer] = None
+                        ) -> Dict[str, Any]:
+    """Restore what :func:`save_train_state` wrote into ``model``,
+    ``optimizer`` and ``cnn_optimizer`` (onto the model's device; a state
+    saved without the encoder optimizer raises KeyError for it); returns
+    the meta dict."""
     state = torch.load(os.path.join(model_dir, STATE_FILE), map_location="cpu",
                        weights_only=True)
     model.load_state_dict(state["model"])
     optimizer.load_state_dict(state["optimizer"])  # moves its tensors to the params' device
+    if cnn_optimizer is not None:
+        cnn_optimizer.load_state_dict(state["cnn_optimizer"])
     meta: Dict[str, Any] = {}
     meta_path = os.path.join(model_dir, META_FILE)
     if os.path.exists(meta_path):

@@ -6,6 +6,13 @@ updates), which the JAX package's optax chain reproduces; Adam runs with
 betas (0.9, 0.999) and eps 1e-8; SGD momentum is torch's ``buf = μ·buf +
 grad`` with optional Nesterov. The train step sets the learning rate per
 step (:func:`set_lr`), so a scheduler's move changes nothing else.
+
+A model whose arch names ``effnet`` trains its encoder's EfficientNet on a
+second Adam (train/optim.py:50-74; reference train.py:274-301):
+:func:`encoder_param_labels` splits the parameters into "cnn"
+(``encoder.eff_conv``) and "main" (everything else, ``encoder.conv_a``
+included), :func:`build_cnn_optimizer` is that Adam with the experiment's
+weight decay, and the step sets its rate to ``lr_cnn``.
 """
 
 from __future__ import annotations
@@ -33,6 +40,30 @@ def build_optimizer(params: Iterable[torch.nn.Parameter],
         return torch.optim.SGD(params, lr=lr, momentum=mom, nesterov=nesterov,
                                weight_decay=wd)
     raise NotImplementedError(name)
+
+
+def build_cnn_optimizer(params: Iterable[torch.nn.Parameter],
+                        config: Dict[str, Any]) -> torch.optim.Optimizer:
+    """The encoder's Adam: betas (0.9, 0.999), eps 1e-8, the experiment's
+    weight decay as torch's L2 term (optax ``add_decayed_weights`` →
+    ``scale_by_adam``); the rate is the step's ``lr_cnn``."""
+    wd = float(config.get("weight_decay", 0.0) or 0.0)
+    return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)
+
+
+def encoder_param_labels(model: torch.nn.Module) -> Dict[str, str]:
+    """{parameter name: "cnn" or "main"}: "cnn" for the parameters under a
+    module named ``eff_conv``, "main" for the rest."""
+    return {name: "cnn" if "eff_conv" in name.split(".")[:-1] else "main"
+            for name, _ in model.named_parameters()}
+
+
+def split_encoder_params(model: torch.nn.Module):
+    """(main parameters, cnn parameters) by :func:`encoder_param_labels`."""
+    labels = encoder_param_labels(model)
+    params = dict(model.named_parameters())
+    return ([p for n, p in params.items() if labels[n] == "main"],
+            [p for n, p in params.items() if labels[n] == "cnn"])
 
 
 def adam(params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:

@@ -29,12 +29,19 @@ as in one process, in every microbatch: the ranks' strided microbatches
 microbatch ``j``. Equal slices give the numbers one process gives on the
 global batch.
 
+With ``cnn_optimizer`` (the ``effnet`` archs' encoder Adam,
+``train/optim.py`` ``build_cnn_optimizer`` over the "cnn" parameters) the
+step takes ``lr_cnn`` beside ``lr`` (train/step.py:124, 183-189): both
+optimizers step after the one clamp, the encoder's at ``lr_cnn``. At
+``lr_cnn = 0`` its Adam moments and step count still advance, as optax's
+do, and its parameters keep their values.
+
 The metrics stay on the device: the step never waits for the card.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -71,16 +78,19 @@ def _forward_loss(model, loss_fn, num_classes, deep_supervision, image, target):
 
 def make_train_step(model, loss_fn: Callable, optimizer: torch.optim.Optimizer,
                     num_classes: int, deep_supervision: bool = False,
-                    clip: float = 0.0, accum_steps: int = 1, mesh=None
+                    clip: float = 0.0, accum_steps: int = 1, mesh=None,
+                    cnn_optimizer: Optional[torch.optim.Optimizer] = None
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
-    """``step(image, target, lr) -> metrics`` over NHWC batches on the
-    model's device: forward in training mode (BatchNorm running statistics
+    """``step(image, target, lr, lr_cnn=0.0) -> metrics`` over NHWC batches
+    on the model's device: forward in training mode (BatchNorm running statistics
     move), loss, backward, clamp, optimizer step; in ``accum_steps``
     microbatches, each with its own forward and backward, before the one
     update. ``metrics`` holds device tensors (loss, iou, dice). Under
     ``mesh`` (a ``parallel.Mesh``) ``image`` and ``target`` are this rank's
     slice of the global batch, whose per-rank size divides by
-    ``accum_steps``; a mesh with a model axis raises."""
+    ``accum_steps``; a mesh with a model axis raises. ``cnn_optimizer``
+    steps at ``lr_cnn`` after ``optimizer``; the two hold disjoint
+    parameters."""
     k = int(accum_steps)
     if k < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -104,10 +114,15 @@ def make_train_step(model, loss_fn: Callable, optimizer: torch.optim.Optimizer,
             micro.append(m)
         return {key: torch.stack([m[key] for m in micro]).mean() for key in micro[0]}
 
-    def step(image: torch.Tensor, target: torch.Tensor, lr: float):
+    optimizers = [optimizer] + ([] if cnn_optimizer is None else [cnn_optimizer])
+
+    def step(image: torch.Tensor, target: torch.Tensor, lr: float, lr_cnn: float = 0.0):
         model.train()
         set_lr(optimizer, lr)
-        optimizer.zero_grad(set_to_none=True)
+        if cnn_optimizer is not None:
+            set_lr(cnn_optimizer, lr_cnn)
+        for opt in optimizers:
+            opt.zero_grad(set_to_none=True)
         with sharded_step(mesh):
             metrics = grads(image, target)
         if mesh is not None:
@@ -117,7 +132,8 @@ def make_train_step(model, loss_fn: Callable, optimizer: torch.optim.Optimizer,
             with torch.no_grad():
                 for p in params:
                     p.clamp_(-clip, clip)
-        optimizer.step()
+        for opt in optimizers:
+            opt.step()
         return metrics
 
     return step

@@ -18,6 +18,12 @@ epoch with ``torch.profiler`` into ``<checkpoint_path>/<name>/profile``.
 The host keeps at most two steps in flight before it waits for the card
 (supervised.py:135-136), and reads the metrics once per epoch.
 
+An arch whose name holds ``effnet`` (supervised.py:121, 203-213) trains
+``encoder.eff_conv`` on a second Adam (``train/optim.py``
+``build_cnn_optimizer``) at ``lr_cnn``: 0 in epochs 0 and 1, 1e-3 from
+epoch 2 on (the JAX package's epoch numbering, which the loop keeps);
+the resume state carries both optimizers.
+
 With ``mesh`` (``parallel.make_mesh``; supervised.py:115-150, 197-250) the
 loop is data-parallel: the batch size is rounded to a multiple of the
 ranks × ``accum_steps``, each rank loads only its slice of every global
@@ -81,12 +87,15 @@ def _mark_step(events: List, device: torch.device) -> None:
 
 
 def train_one_epoch(epoch: int, config: Dict, loader, train_step, lr: float,
-                    device="cuda", mesh=None):
+                    device="cuda", mesh=None, eff_flag: bool = False):
     """One pass over ``loader`` (batches of ``(ori, img, mask, meta)``,
     numpy NHWC; under ``mesh`` this rank's slices) through ``train_step``;
-    images in bf16 when ``config["mixed_precision"]``. Returns the epoch's
-    mean metrics and ``images_per_sec`` (of the global batches)."""
+    images in bf16 when ``config["mixed_precision"]``. With ``eff_flag``
+    the step also takes ``lr_cnn``: 1e-3 after epoch 1, else 0
+    (supervised.py:121). Returns the epoch's mean metrics and
+    ``images_per_sec`` (of the global batches)."""
     device = resolve_device(device)
+    rates = (lr, 1e-3 if epoch > 1 else 0.0) if eff_flag else (lr,)
     meters, events = [], []
     n_images = 0
     img_dtype = torch.bfloat16 if config.get("mixed_precision") else torch.float32
@@ -94,7 +103,7 @@ def train_one_epoch(epoch: int, config: Dict, loader, train_step, lr: float,
     for _, img, mask, _ in loader:
         x = torch.from_numpy(img).to(device).to(img_dtype)
         y = torch.from_numpy(mask).to(device)
-        meters.append(train_step(x, y, lr))
+        meters.append(train_step(x, y, *rates))
         n_images += img.shape[0] * (1 if mesh is None else mesh.size)
         _mark_step(events, device)
     log = _epoch_mean(meters)
@@ -197,7 +206,12 @@ def run_experiment(cfg: ExperimentConfig, synthetic: Optional[int] = None,
     from ssunet_gan_tpu_torch.ops.blocks import set_remat
     from ssunet_gan_tpu_torch.ops.losses import get_loss
     from ssunet_gan_tpu_torch.ops.spade_kernel import set_fused_spade
-    from ssunet_gan_tpu_torch.train.optim import build_optimizer, build_scheduler
+    from ssunet_gan_tpu_torch.train.optim import (
+        build_cnn_optimizer,
+        build_optimizer,
+        build_scheduler,
+        split_encoder_params,
+    )
     from ssunet_gan_tpu_torch.train.step import make_eval_step, make_train_step
     from ssunet_gan_tpu_torch.parallel import replicate
     from ssunet_gan_tpu_torch.utils import count_params, seed_everything
@@ -230,14 +244,23 @@ def run_experiment(cfg: ExperimentConfig, synthetic: Optional[int] = None,
                         config["deep_supervision"], seed=seed_everything(), device=dev)
     if mesh is not None:
         replicate(mesh, model)
-    optimizer = build_optimizer(model.parameters(), config)
+    eff_flag = "effnet" in config["arch"]  # the encoder's own Adam (train.py:273-278)
+    cnn_optimizer, cnn_state = None, {}
+    if eff_flag:
+        main_params, cnn_params = split_encoder_params(model)
+        optimizer = build_optimizer(main_params, config)
+        cnn_optimizer = build_cnn_optimizer(cnn_params, config)
+        cnn_state = {"cnn_optimizer": cnn_optimizer}  # the resume state carries it
+    else:
+        optimizer = build_optimizer(model.parameters(), config)
     echo("=> creating model %s (%d params)" % (config["arch"], count_params(model)))
     scheduler = build_scheduler(config)
     accum_steps = int(config.get("accum_steps", 1) or 1)
     train_step = make_train_step(model, loss_fn, optimizer, config["num_classes"],
                                  config["deep_supervision"],
                                  clip=float(config.get("clip", 0.0) or 0.0),
-                                 accum_steps=accum_steps, mesh=mesh)
+                                 accum_steps=accum_steps, mesh=mesh,
+                                 cnn_optimizer=cnn_optimizer)
     eval_step = make_eval_step(model, loss_fn, config["num_classes"],
                                config["deep_supervision"])
 
@@ -255,7 +278,7 @@ def run_experiment(cfg: ExperimentConfig, synthetic: Optional[int] = None,
 
     start_epoch, best_iou = 0, 0.0
     if config.get("resume") and ckpt.has_train_state(model_dir):
-        meta = ckpt.restore_train_state(model_dir, model, optimizer)
+        meta = ckpt.restore_train_state(model_dir, model, optimizer, **cnn_state)
         start_epoch = int(meta.get("epoch", -1)) + 1
         best_iou = float(meta.get("best_iou", 0.0))
         echo(f"=> resumed from epoch {start_epoch} (best_iou {best_iou:.4f})")
@@ -278,9 +301,10 @@ def run_experiment(cfg: ExperimentConfig, synthetic: Optional[int] = None,
             trace_dir = os.path.join(checkpoint_folder, config["name"], "profile")
             with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(trace_dir)):
                 train_log = train_one_epoch(epoch, config, train_loader, train_step, lr, dev,
-                                            mesh)
+                                            mesh, eff_flag)
         else:
-            train_log = train_one_epoch(epoch, config, train_loader, train_step, lr, dev, mesh)
+            train_log = train_one_epoch(epoch, config, train_loader, train_step, lr, dev, mesh,
+                                        eff_flag)
         val_log = evaluate(config, val_loader, eval_step, dev, mesh)
         scheduler.step_plateau(val_log["loss"])
         test_log = evaluate(config, test_loader, eval_step, dev, mesh)
@@ -310,7 +334,8 @@ def run_experiment(cfg: ExperimentConfig, synthetic: Optional[int] = None,
             echo("=> saved best model")
             trigger = 0
         if lead:
-            ckpt.save_train_state(model_dir, model, optimizer, epoch, {"best_iou": best_iou})
+            ckpt.save_train_state(model_dir, model, optimizer, epoch, {"best_iou": best_iou},
+                                  **cnn_state)
 
         if config.get("early_stopping", -1) >= 0 and trigger >= config["early_stopping"]:
             echo("=> early stopping")

@@ -40,6 +40,8 @@ MODULES = (
     "ssunet_gan_tpu_torch.cli.val", "ssunet_gan_tpu_torch.cli.smoke_test",
     "ssunet_gan_tpu_torch.cli.preprocess_satellite", "ssunet_gan_tpu_torch.cli.preprocess_SN7",
     "ssunet_gan_tpu_torch.data.preprocess", "ssunet_gan_tpu_torch.profiling",
+    "ssunet_gan_tpu_torch.models.unet", "ssunet_gan_tpu_torch.models.efficientnet",
+    "ssunet_gan_tpu_torch.models.resnet", "ssunet_gan_tpu_torch.models.effnet_unet",
 )
 # libraries the card machine lacks; the JAX package's tools use them
 HOST_LIBRARIES = ("cv2", "sklearn", "PIL", "pandas")

@@ -92,9 +92,16 @@ def test_build_model_from_config():
 
 
 def test_unported_arch_names_the_roadmap():
-    with pytest.raises(KeyError, match="not ported yet.*'UNet'.*ROADMAP.md"):
-        build_model("UNet", 3, device="cpu")
-    with pytest.raises(KeyError, match="unknown.*ROADMAP.md"):
+    """Every registry name of the JAX package builds (none is left to
+    port); an unknown name raises KeyError listing the available ones."""
+    from ssunet_gan_tpu.models import ARCH_NAMES as JAX_ARCH_NAMES
+    from ssunet_gan_tpu.models import ARCH_REGISTRY as JAX_REGISTRY
+
+    from ssunet_gan_tpu_torch.models import ARCH_NAMES, ARCH_REGISTRY
+
+    assert list(ARCH_REGISTRY) == list(JAX_REGISTRY) and ARCH_NAMES == JAX_ARCH_NAMES
+    assert isinstance(build_model("UNet", 3, device="cpu"), torch.nn.Module)
+    with pytest.raises(KeyError, match="unknown arch 'UNet_X'.*'effnet_unet'"):
         build_model("UNet_X", 3, device="cpu")
 
 

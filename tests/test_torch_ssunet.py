@@ -40,7 +40,7 @@ from ssunet_gan_tpu.train.step import make_train_step as jax_make_train_step
 from ssunet_gan_tpu.utils import jit_init
 from ssunet_gan_tpu_torch.compat import from_jax_variables
 from ssunet_gan_tpu_torch.infer import calibrate as port_calibrate
-from ssunet_gan_tpu_torch.models import NOT_PORTED, build_model, ssunet
+from ssunet_gan_tpu_torch.models import ARCH_REGISTRY, build_model, ssunet
 from ssunet_gan_tpu_torch.ops import losses, stage_kernel
 from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
 from ssunet_gan_tpu_torch.ops.blocks import VGGBlock
@@ -428,7 +428,7 @@ def test_registry_gives_the_jax_models_names_and_shapes(arch):
     variables (shapes only, ``jax.eval_shape``), by name through the JAX
     package's torch converter: every leaf matched, none left over."""
     port = build_model(arch, 3, device="cpu")
-    assert not port.training and arch not in NOT_PORTED
+    assert not port.training and arch in ARCH_REGISTRY
     model = jax_build_model(arch, num_classes=3, input_channels=3)
     with jax_toggles(fused_stage=False):
         shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0),
