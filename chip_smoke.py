@@ -259,6 +259,27 @@ Phases, each of which exits non-zero on failure:
    ``run_experiment`` epoch, ``load_model_dir`` and a 2048² scene; no
    hand-written kernel launched; a ``families:`` line (ms per forward and
    per step, peak memory).
+19. The deep-stage opt-in (last; ``deep_phase``): ``set_pack_max_planes(768)``
+   (``ops/stage_kernel.py``; every earlier phase runs at the default 256,
+   and the limit is back at 256 after). The flagship's five deep stage
+   signatures (conv3_0, conv4_0, conv5_0, conv4_1, conv3_1: 384-768 planes
+   at 64²-16², their convs in N blocks of at most 256) against their plain
+   versions as phase 1 checks the shallow ones (batch 2 seeded, in bf16
+   and int8 with h1 and y bit for bit; batch 32 with the model's weights on
+   their own inputs, timed at batch 8; each conv launch alone, ``conv:``
+   lines) and as phase 2 checks the f32 route (``f32 stage:`` / ``f32
+   conv:`` lines); the flagship's bf16 main path (11 kernel-1 stages per
+   forward, phases 2-3's bars and seam counts, a profile), its f32 forward
+   (11 f32 stages, against the CPU's), its int8 main path (11 kernel-7
+   stages, no deep s8 block, phase 8's bars and checks); bf16 and int8
+   tiles/s at the limits 256 / 384 / 512 / 768 in turns from ``settle()``
+   (``deep speed:`` lines) and, at 256 and 768, a profile of one forward
+   and of the five deep stages alone, by kernel (``deep profile:``); at
+   512, UNet_B_SS's conv3_0 and conv3_1 on kernel 8 as phase 9 checks its
+   stages and its main path with 8 kernel-8 stages per forward by phase
+   10's bars; at 768, UNet_R_SS's forward with 11 kernel-1 stages reading 5
+   up and 5 pool seams, and SSUNet still 8 kernel-1 stages per forward
+   (conv4_0's 128 hidden channels are past the SPADE tail's 64).
 
 Each path's profile also gives a ``tail:`` line: the shared SPADE tail
 kernel's time and launches per forward or step beside its bound; the
@@ -274,8 +295,10 @@ for the self-SPADE kernel; with SSUNet's (phase 12: kernels 1, 7 and 9),
 the entry point's (phase 13: kernels 2, 3, 5 and 6), the scene entry
 point's (phase 14: kernels 1 and 7), the GAN's (phase 15: kernels 2,
 3, 5 and 6, and kernel 1's stages in its evaluations, none), the
-data-parallel paths' (phase 16, ``dp``: kernels 1, 2, 3, 5 and 6) and the
-tools' (phase 17: ``val`` kernel 1 in f32, ``smoke_test`` in bf16) added, and each
+data-parallel paths' (phase 16, ``dp``: kernels 1, 2, 3, 5 and 6), the
+tools' (phase 17: ``val`` kernel 1 in f32, ``smoke_test`` in bf16) and the
+deep-stage opt-in's (phase 19, ``deep``: kernels 1, its f32 route, 7 and 8,
+with each row's ``deep`` per-stage numbers) added, and each
 row's ``launches_by_path`` — error, time, plain time, bound, library
 time), and ends with ``{"ok": true, "device": {...}}``. Every check that
 fails is printed and the run exits non-zero
@@ -1075,7 +1098,7 @@ def nan_witness(dev, block_cls, gen, check) -> None:
                   f"does ({int(nan.sum())} NaN outputs)")
 
 
-def f32_stage_phase(dev, sigs, block_cls, gen, check) -> dict:
+def f32_stage_phase(dev, sigs, block_cls, gen, check, phase="phase 2") -> dict:
     """The f32 route of kernel 1 (``csrc/fused_stage_f32.cu``, 3xTF32 on
     the tensor cores): each fused stage signature at 512² with seeded
     weights (as :func:`seeded_stage_phase`) and f32 inputs, at batch 2
@@ -1111,7 +1134,7 @@ def f32_stage_phase(dev, sigs, block_cls, gen, check) -> dict:
         bp, sp = block.stage_params(), spade.stage_params()
         pk = stage_kernel.pack_stage_f32(chans, bp, sp, head)
         side = HW >> level
-        what = f"phase 2: f32 stage {name} parts={chans} planes={planes} hidden={nh}"
+        what = f"{phase}: f32 stage {name} parts={chans} planes={planes} hidden={nh}"
         parts = tuple(torch.randn((2, side, side, c), generator=gen).to(dev) for c in chans)
         got = stage_kernel.fused_eval_stage(parts, bp, sp, head, pk)
         want = stage_kernel.fused_stage_reference(parts, bp, sp, head)
@@ -1165,7 +1188,7 @@ def f32_stage_phase(dev, sigs, block_cls, gen, check) -> dict:
             lerr, lscale, ll2, _ = close(lgot, lwant)
             ok = (bool(torch.isfinite(lgot).all()) and lerr <= F32_STAGE_TOL * lscale
                   and ll2 <= F32_STAGE_TOL)
-            check(ok, f"phase 2: f32 conv {name} {lname}: the launch disagrees with its plain "
+            check(ok, f"{phase}: f32 conv {name} {lname}: the launch disagrees with its plain "
                       f"version (err {lerr}, max {lscale}, l2 {ll2})")
             worst = max(worst, lerr)
             del lgot, lwant
@@ -1203,7 +1226,8 @@ def f32_stage_phase(dev, sigs, block_cls, gen, check) -> dict:
             "library_ms": ltot["library_ms"], "conv_ms": ltot["ms"]}
 
 
-def model_stage_phase(dev, model, sigs, scene_tiles, phase, name, check, seams) -> dict:
+def model_stage_phase(dev, model, sigs, scene_tiles, phase, name, check, seams,
+                      only=None) -> dict:
     """Each fused stage of ``model`` with the model's weights on its own
     inputs, captured from an all-plain forward over the scene request's
     first chunk, its seams (``seams``: {stage: kind}, which the forward
@@ -1214,7 +1238,8 @@ def model_stage_phase(dev, model, sigs, scene_tiles, phase, name, check, seams) 
     (``stage:`` lines and their sum per forward; a ``seam:`` line per seam
     stage: the stage on the materialized seam, the plain seam and, for an
     up seam, its W-interpolation ``upsample_w``), then each of its conv
-    launches alone at BATCH (``conv:`` lines). Returns kernel 1's numbers
+    launches alone at BATCH (``conv:`` lines); with ``only`` (stage names)
+    those stages alone are checked and timed. Returns kernel 1's numbers
     for the ``kernels`` line (without its launches)."""
     from ssunet_gan_tpu_torch.infer.api import INFER_BATCH, _norm_consts
     from ssunet_gan_tpu_torch.models import ssunet
@@ -1242,6 +1267,8 @@ def model_stage_phase(dev, model, sigs, scene_tiles, phase, name, check, seams) 
     ms_sum = plain_sum = bound_sum = worst = 0.0
     kinds, conv_launches = set(), []  # each stage's conv launches at BATCH (conv: lines)
     for (stage, chans, planes, lab, nh, head_cls, level), (full, up, down) in zip(sigs, captured):
+        if only is not None and stage not in only:
+            continue
         side = HW >> level
         kind = seam_kind(up, down)
         modes = stage_kernel.seam_modes(len(full), up, down)
@@ -2888,12 +2915,13 @@ def materialized_bneck(parts, bp, sp, head=None, packed=None, up=None):
                                      packed)
 
 
-def bneck_stage_phase(dev, model, sigs, scene_tiles, check):
+def bneck_stage_phase(dev, model, sigs, scene_tiles, check, phase="phase 9", only=None):
     """Phase 9; returns kernel 8's row of the ``kernels`` line without its
     launches. The up seams of ``BNECK_SEAMS`` are read in the kernel (from
     a seeded half-height source, then the forward's own) and held bit for
     bit against kernel 8 on the materialized seam besides the plain
-    version's bar."""
+    version's bar. With ``only`` (stage names) those stages alone are
+    checked and timed, and no identity-shortcut stage."""
     from ssunet_gan_tpu_torch.infer.api import INFER_BATCH, _norm_consts
     from ssunet_gan_tpu_torch.models import ssunet
     from ssunet_gan_tpu_torch.ops import stage_kernel, stage_kernel_bneck as kb
@@ -2904,10 +2932,11 @@ def bneck_stage_phase(dev, model, sigs, scene_tiles, check):
     gen = torch.Generator().manual_seed(SEED + 30)
     worst = 0.0
     identity = ("identity", (sigs[1][2],), sigs[1][2], sigs[1][3], sigs[1][4], 0, 1)
-    for name, chans, planes, lab, nh, head_cls, level in sigs + [identity]:
+    seeded = [s for s in sigs if s[0] in only] if only is not None else sigs + [identity]
+    for name, chans, planes, lab, nh, head_cls, level in seeded:
         block = Bottleneck(sum(chans), planes, generator=gen)
         check((block.shortcut is None) == (name == "identity"),
-              f"phase 9: {name}: unexpected shortcut kind")
+              f"{phase}: {name}: unexpected shortcut kind")
         random_bn_stats(block, gen)
         spade = SPADE("spadebatch3x3", planes, lab, planes / 16, generator=gen)
         head = None
@@ -2928,16 +2957,16 @@ def bneck_stage_phase(dev, model, sigs, scene_tiles, check):
         torch.cuda.synchronize()
         want = kb.fused_bneck_reference(parts, bp, sp, head)
         err, scale, l2, ok = close(got, want)
-        print(f"phase 9: {name} parts={chans} planes={planes} {side}x{side} "
+        print(f"{phase}: {name} parts={chans} planes={planes} {side}x{side} "
               f"max_abs_err={err:.4g} max_rel_err={err / max(scale, 1e-30):.4g} "
               f"rel_l2={l2:.3g} (max|plain|={scale:.4g})")
         check(ok and got.shape == want.shape,
-              f"phase 9: {name}: kernel disagrees with plain (err {err}, max {scale}, l2 {l2})")
+              f"{phase}: {name}: kernel disagrees with plain (err {err}, max {scale}, l2 {l2})")
         if kind is not None:
             same = torch.equal(got, kb.fused_eval_stage_bneck(parts, bp, sp, head))
-            print(f"phase 9: {name} batch 2: up seam read in the kernel, bit-equal to the "
+            print(f"{phase}: {name} batch 2: up seam read in the kernel, bit-equal to the "
                   f"materialized seam: {same}")
-            check(same, f"phase 9: {name}: kernel 8 reading its up seam differs from kernel 8 "
+            check(same, f"{phase}: {name}: kernel 8 reading its up seam differs from kernel 8 "
                   f"on the materialized seam")
         worst = max(worst, err)
         del parts, src, got, want, block, spade
@@ -2959,13 +2988,15 @@ def bneck_stage_phase(dev, model, sigs, scene_tiles, check):
     got_seams = {s[0]: "up" for s, (_, u) in zip(sigs, captured) if any(u or ())}
     if ([tuple(p.shape[-1] for p in c) for c, _ in captured] != [s[1] for s in sigs]
             or got_seams != BNECK_SEAMS):
-        fail(f"phase 9: the forward's bottleneck stages are not the expected six with the "
-             f"seams {BNECK_SEAMS}: {[[tuple(p.shape) for p in c] for c, _ in captured]}, "
+        fail(f"{phase}: the forward's bottleneck stages are not the expected {len(sigs)} with "
+             f"the seams {BNECK_SEAMS}: {[[tuple(p.shape) for p in c] for c, _ in captured]}, "
              f"seams {got_seams}")
     ms_sum = plain_sum = bound_sum = 0.0
     kinds = set()
     conv_launches = []  # each stage's conv launches at batch 8 (conv: lines)
     for (name, chans, planes, lab, nh, head_cls, level), (full, up) in zip(sigs, captured):
+        if only is not None and name not in only:
+            continue
         side = HW >> level
         modes = stage_kernel.seam_modes(len(full), up)
         block, spade = getattr(model, name), getattr(model, "SPADE" + name[4:])
@@ -2974,14 +3005,14 @@ def bneck_stage_phase(dev, model, sigs, scene_tiles, check):
         pk = kb.pack_stage_bneck(chans, bp, sp, head, torch.bfloat16)
         got = kb.fused_eval_stage_bneck(full, bp, sp, head, pk, up=up)
         err, scale, l2, ok = close(got, plain_bneck(full, bp, sp, head, up=up))
-        print(f"phase 9: {name} batch {INFER_BATCH} model weights max_abs_err={err:.4g} "
+        print(f"{phase}: {name} batch {INFER_BATCH} model weights max_abs_err={err:.4g} "
               f"rel_l2={l2:.3g} (max|plain|={scale:.4g})"
               + (", up seam read in the kernel" if any(modes) else ""))
-        check(ok, f"phase 9: {name} at batch {INFER_BATCH}: kernel disagrees with plain "
+        check(ok, f"{phase}: {name} at batch {INFER_BATCH}: kernel disagrees with plain "
               f"(err {err}, max {scale}, l2 {l2})")
         if any(modes):
             check(torch.equal(got, materialized_bneck(full, bp, sp, head, pk, up)),
-                  f"phase 9: {name} at batch {INFER_BATCH}: kernel 8 reading its up seam "
+                  f"{phase}: {name} at batch {INFER_BATCH}: kernel 8 reading its up seam "
                   f"differs from kernel 8 on the materialized seam")
         del got
         worst = max(worst, err)
@@ -3020,8 +3051,10 @@ def bneck_stage_phase(dev, model, sigs, scene_tiles, check):
     }
 
 
-def bneck_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, check) -> int:
-    """Phase 10 for UNet_B_SS; returns kernel 8's launches on this main path."""
+def bneck_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, check,
+                        phase="phase 10") -> int:
+    """Phase 10 for UNet_B_SS (``len(sigs)`` kernel-8 stages per forward);
+    returns kernel 8's launches and seam reads on this main path."""
     from ssunet_gan_tpu_torch.infer.api import (
         _chunked_forward,
         _norm_consts,
@@ -3049,34 +3082,36 @@ def bneck_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, c
         enqueue.append((time.perf_counter() - t1) * 1e3)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    if kb.launches != 6 * (warm + iters) or stage_kernel.launches != other_before:
-        fail(f"phase 10: expected {6 * (warm + iters)} bottleneck kernel stages and no "
+    per = len(sigs)
+    if kb.launches != per * (warm + iters) or stage_kernel.launches != other_before:
+        fail(f"{phase}: expected {per * (warm + iters)} bottleneck kernel stages and no "
              f"BasicBlock one, counted {kb.launches} and {stage_kernel.launches - other_before}")
     if not torch.isfinite(probs.float()).all() or probs.shape != (BATCH, HW, HW, ncls):
-        fail("phase 10: UNet_B_SS tile forward output is not finite or has the wrong shape")
-    print(f"phase 10: UNet_B_SS tile forward {BATCH * iters / dt:.2f} tiles/s (512x512 bf16, "
-          f"batch {BATCH}, {dt / iters * 1e3:.2f} ms/forward) on {card}")
-    print(f"phase 10: host ms to enqueue each timed forward {[round(v, 2) for v in enqueue]}")
+        fail(f"{phase}: UNet_B_SS tile forward output is not finite or has the wrong shape")
+    print(f"{phase}: UNet_B_SS tile forward {BATCH * iters / dt:.2f} tiles/s (512x512 bf16, "
+          f"batch {BATCH}, {dt / iters * 1e3:.2f} ms/forward, {per} kernel-8 stages each) on "
+          f"{card}")
+    print(f"{phase}: host ms to enqueue each timed forward {[round(v, 2) for v in enqueue]}")
     forwards = warm + iters
     settle()
     t0 = time.perf_counter()
     masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False)
     scene_s = time.perf_counter() - t0
     launches = kb.launches
-    if launches != 6 * forwards + 12:
-        fail(f"phase 10: the scene request ran {launches - 6 * forwards} bottleneck "
-             f"kernel stages, expected 12")
+    if launches != per * (forwards + 2):
+        fail(f"{phase}: the scene request ran {launches - per * forwards} bottleneck "
+             f"kernel stages, expected {2 * per}")
     reads = seam_reads()
     check(reads == (up_per * (forwards + 2), 0),
-          f"phase 10: {reads} up and pool seams read by the UNet_B_SS main path, expected "
+          f"{phase}: {reads} up and pool seams read by the UNet_B_SS main path, expected "
           f"{(up_per, 0)} per forward")
-    print(f"phase 10: UNet_B_SS main path read {reads[0]} up seams in kernel 8 ({up_per} per "
+    print(f"{phase}: UNet_B_SS main path read {reads[0]} up seams in kernel 8 ({up_per} per "
           f"forward) and {reads[1]} pool seams")
-    check_masks(masks, "phase 10")
-    print(f"phase 10: UNet_B_SS scene 2048x2048 -> {len(masks)} masks in {scene_s:.3f} s "
+    check_masks(masks, phase)
+    print(f"{phase}: UNet_B_SS scene 2048x2048 -> {len(masks)} masks in {scene_s:.3f} s "
           f"(36 tiles, bf16) on {card}; positive share "
           f"{[round(float((m > 0).mean()), 4) for m in masks]}")
-    t_phase = phase_done("phase 10 main path", t_phase)
+    t_phase = phase_done(f"{phase} main path", t_phase)
 
     # comparisons, after the counts were read: every bottleneck stage on its
     # plain version (bf16), and the f32 forward, which the gate sends to the
@@ -3096,15 +3131,15 @@ def bneck_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, c
         probs_f = _chunked_forward(model, scene_tiles, torch.float32)
         f32_masks, _ = segmentation_inference(model, scene, scene_tiles, None, config, False,
                                               dtype=torch.float32)
-    check(kb.launches == before, "phase 10: an f32 forward launched the bf16 kernel")
-    forward_bar("phase 10: UNet_B_SS logits", logits_k, logits_p, logits_f, check)
-    forward_bar("phase 10: UNet_B_SS scene tile probabilities", probs_k, probs_p, probs_f, check)
-    mask_bars("phase 10: UNet_B_SS", masks, plain_masks, f32_masks, check)
-    seams_materialized("phase 10: UNet_B_SS", model, xn, scene_tiles, logits_k, probs_k,
+    check(kb.launches == before, f"{phase}: an f32 forward launched the bf16 kernel")
+    forward_bar(f"{phase}: UNet_B_SS logits", logits_k, logits_p, logits_f, check)
+    forward_bar(f"{phase}: UNet_B_SS scene tile probabilities", probs_k, probs_p, probs_f, check)
+    mask_bars(f"{phase}: UNet_B_SS", masks, plain_masks, f32_masks, check)
+    seams_materialized(f"{phase}: UNet_B_SS", model, xn, scene_tiles, logits_k, probs_k,
                        ssunet, "fused_eval_stage_bneck", materialized_bneck, check)
     del logits_k, logits_p, logits_f, probs_k, probs_p, probs_f, xn
     torch.cuda.empty_cache()
-    t_phase = phase_done("phase 10 comparisons", t_phase)
+    t_phase = phase_done(f"{phase} comparisons", t_phase)
 
     n_prof = 3
     busy, wall_ms, rows = profile_kernels(lambda: tile_forward(model, x), n_prof)
@@ -3118,13 +3153,15 @@ def bneck_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, c
         print(f"profile: UNet_B_SS {ms:9.3f} ms {count:4d}x {key[:90]}")
     tail_line("kernel 8: UNet_B_SS bf16 forward", "forward", rows, tail_calls(sigs, BATCH))
     conv_profile_line("kernel 8: UNet_B_SS bf16 forward", "forward", rows)
-    phase_done("phase 10 profile", t_phase)
+    phase_done(f"{phase} profile", t_phase)
     return launches, reads
 
 
-def rss_forward_phase(dev, card, cfg, x, calib, check) -> None:
+def rss_forward_phase(dev, card, cfg, x, calib, check, phase="phase 10", per=6,
+                      seams=RSS_SEAMS_PER) -> None:
     """Phase 10's second model: UNet_R_SS at full width through the tile
-    forward, six stages of the BasicBlock eval kernel per forward, logits
+    forward, ``per`` stages of the BasicBlock eval kernel per forward (six
+    at the default limit) reading ``seams`` (up, pool) per forward, logits
     against the all-plain forwards in bf16 and f32."""
     from ssunet_gan_tpu_torch.infer.api import _norm_consts, tile_forward
     from ssunet_gan_tpu_torch.models import build_model, ssunet
@@ -3145,19 +3182,20 @@ def rss_forward_phase(dev, card, cfg, x, calib, check) -> None:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     ran = stage_kernel.launches - before
-    if ran != 6 * (warm + iters) or kb.launches != bneck_before:
-        fail(f"phase 10: UNet_R_SS ran {ran} kernel stages in {warm + iters} forwards, "
-             f"expected 6 each (and {kb.launches - bneck_before} bottleneck ones, expected 0)")
+    if ran != per * (warm + iters) or kb.launches != bneck_before:
+        fail(f"{phase}: UNet_R_SS ran {ran} kernel stages in {warm + iters} forwards, "
+             f"expected {per} each (and {kb.launches - bneck_before} bottleneck ones, "
+             f"expected 0)")
     if not torch.isfinite(probs.float()).all() or probs.shape != (BATCH, HW, HW, model.num_classes):
-        fail("phase 10: UNet_R_SS tile forward output is not finite or has the wrong shape")
+        fail(f"{phase}: UNet_R_SS tile forward output is not finite or has the wrong shape")
     reads = [a - b for a, b in zip(seam_reads(), reads_before)]
-    check(reads == [v * (warm + iters) for v in RSS_SEAMS_PER],
-          f"phase 10: UNet_R_SS read {reads} up and pool seams in {warm + iters} forwards, "
-          f"expected {RSS_SEAMS_PER} each")
-    print(f"phase 10: UNet_R_SS read {reads[0]} up and {reads[1]} pool seams in kernel 1 "
-          f"({RSS_SEAMS_PER} per forward)")
-    print(f"phase 10: UNet_R_SS tile forward {BATCH * iters / dt:.2f} tiles/s (512x512 bf16, "
-          f"batch {BATCH}, {dt / iters * 1e3:.2f} ms/forward, six kernel stages each) on {card}")
+    check(reads == [v * (warm + iters) for v in seams],
+          f"{phase}: UNet_R_SS read {reads} up and pool seams in {warm + iters} forwards, "
+          f"expected {seams} each")
+    print(f"{phase}: UNet_R_SS read {reads[0]} up and {reads[1]} pool seams in kernel 1 "
+          f"({seams} per forward)")
+    print(f"{phase}: UNet_R_SS tile forward {BATCH * iters / dt:.2f} tiles/s (512x512 bf16, "
+          f"batch {BATCH}, {dt / iters * 1e3:.2f} ms/forward, {per} kernel stages each) on {card}")
     a, b = _norm_consts()
     xn = x.float() * a.to(dev) + b.to(dev)
     with torch.no_grad():
@@ -3165,12 +3203,12 @@ def rss_forward_phase(dev, card, cfg, x, calib, check) -> None:
         with patched(ssunet, "fused_eval_stage", plain_stage):
             logits_p = model(xn.to(torch.bfloat16))
             logits_f = model(xn)
-    forward_bar("phase 10: UNet_R_SS logits", logits_k, logits_p, logits_f, check)
-    seams_materialized("phase 10: UNet_R_SS", model, xn, None, logits_k, None, ssunet,
+    forward_bar(f"{phase}: UNet_R_SS logits", logits_k, logits_p, logits_f, check)
+    seams_materialized(f"{phase}: UNet_R_SS", model, xn, None, logits_k, None, ssunet,
                        "fused_eval_stage", materialized_stage, check, probs=False)
     del model, logits_k, logits_p, logits_f
     torch.cuda.empty_cache()
-    phase_done("phase 10 UNet_R_SS", t_phase)
+    phase_done(f"{phase} UNet_R_SS", t_phase)
 
 
 # ---------------------------------------------------------------------------
@@ -3436,7 +3474,7 @@ def ssunet_phase(dev, card, cfg, calib, x, scene, scene_tiles, config, check):
     calibrate_batchnorm(model, calib)
     center_head(model, calib)
     sigs = ssunet_signatures(model.filters, ncls, in_ch)
-    check(model.conv4_0.planes > stage_kernel.MAX_PLANES,
+    check(model.conv4_0.planes > stage_kernel.max_planes(),
           "phase 12: conv4_0 was expected past the fused stage's planes")
     gen = torch.Generator().manual_seed(SEED + 50)
     seeded = seeded_stage_phase(dev, sigs, VGGBlock, gen, "phase 12", check, int8=True,
@@ -5395,6 +5433,294 @@ def families_phase(dev, card, here, check, hw=FAMILY_HW, batch=FAMILY_BATCH,
 
 
 
+# ---------------------------------------------------------------------------
+# The deep-stage opt-in (phase 19)
+# ---------------------------------------------------------------------------
+
+# the eval limits of ``ops/stage_kernel.py`` ``set_pack_max_planes`` timed
+# side by side: the default, then the flagship's deep widths
+DEEP_LIMITS = (256, 384, 512, 768)
+
+
+def deep_signatures(f, num_classes):
+    """(name, part channels, planes, labels, hidden, head classes, level) of
+    the flagship's five deep stages (levels 3-5), in the forward's order."""
+    nh = lambda c: int(max(c / 16, 4))
+    return [
+        ("conv3_0", (f[2],), f[3], num_classes, nh(f[3]), 0, 3),
+        ("conv4_0", (f[3],), f[4], num_classes, nh(f[4]), 0, 4),
+        ("conv5_0", (f[4],), f[5], num_classes, nh(f[5]), 0, 5),
+        ("conv4_1", (f[4], f[4]), f[4], num_classes, nh(f[4]), 0, 4),
+        ("conv3_1", (f[3], f[3]), f[3], num_classes, nh(f[3]), 0, 3),
+    ]
+
+
+def deep_stage_calls(model, x, names):
+    """The calls ``models/ssunet.py`` ``spade_stage`` gets for the stages
+    ``names`` in one tile forward of ``x`` (their inputs as the forward gave
+    them), for re-running those stages alone."""
+    from ssunet_gan_tpu_torch.infer.api import tile_forward
+    from ssunet_gan_tpu_torch.models import ssunet
+
+    calls, orig = [], ssunet.spade_stage
+
+    def capture(parts, block, spade, final=None, name=None, out_key=None, up=None, down=None):
+        if name in names:
+            calls.append((parts, block, spade, final, dict(name=name, out_key=out_key, up=up,
+                                                           down=down)))
+        return orig(parts, block, spade, final, name=name, out_key=out_key, up=up, down=down)
+
+    with spade_stages_as(capture):
+        tile_forward(model, x)
+    return calls
+
+
+def deep_speed(dev, card, model, x, deep, check) -> dict:
+    """The flagship's bf16 and int8 tiles/s at each limit of DEEP_LIMITS,
+    in turns (the limits up, then down, twice; at each limit bf16 then
+    int8), each run timed from ``settle()``; kernel-1 and kernel-7 stages
+    and deep s8 blocks per forward counted (6 shallow stages, plus each deep
+    stage the limit admits). Then at 256 and 768, in each mode, a profile
+    of one batch-8 forward and of the five deep stages alone on the inputs
+    the forward gave them, their device time split by kernel, beside the
+    deep stages' time by CUDA events (``deep profile:``; the profiler has
+    dropped kernel events on this card). Returns {(mode, limit): [tiles/s,
+    ...]}."""
+    from ssunet_gan_tpu_torch.infer.api import _norm_consts, tile_forward
+    from ssunet_gan_tpu_torch.infer.calibrate import calibrate_int8
+    from ssunet_gan_tpu_torch.models import ssunet
+    from ssunet_gan_tpu_torch.ops import stage_kernel, stage_kernel_int8 as q8
+
+    a, b = _norm_consts()
+    xn = x.float() * a.to(dev) + b.to(dev)
+    scales = calibrate_int8(model, xn.cpu().numpy(), batch_size=BATCH, device=dev)
+    del xn
+    names = [d[0] for d in deep]
+    want = {lim: 6 + sum(planes <= lim for _, _, planes, *_ in deep) for lim in DEEP_LIMITS}
+    runs = {(mode, lim): [] for mode in ("bf16", "int8") for lim in DEEP_LIMITS}
+    blocks, int8_block = [0], ssunet.int8_block
+
+    def counted_block(*args, **kw):
+        blocks[0] += 1
+        return int8_block(*args, **kw)
+
+    warm, iters = 2, 5
+    q8.set_int8_calibration(scales)
+    try:
+        with patched(ssunet, "int8_block", counted_block):
+            for order in (DEEP_LIMITS, DEEP_LIMITS[::-1]) * 2:
+                for lim in order:
+                    for mode in ("bf16", "int8"):
+                        stage_kernel.set_pack_max_planes(lim)
+                        q8.set_int8_stage(mode == "int8")
+                        for _ in range(warm):
+                            tile_forward(model, x)
+                        settle()
+                        k1, k7, blocks[0] = stage_kernel.launches, q8.launches, 0
+                        t0 = time.perf_counter()
+                        for _ in range(iters):
+                            probs = tile_forward(model, x)
+                        torch.cuda.synchronize()
+                        dt = time.perf_counter() - t0
+                        got = ((stage_kernel.launches - k1) / iters, (q8.launches - k7) / iters,
+                               blocks[0] / iters)
+                        exp = ((want[lim], 0, 0) if mode == "bf16"
+                               else (0, want[lim], len(deep) + 6 - want[lim]))
+                        check(got == exp and bool(torch.isfinite(probs.float()).all()),
+                              f"phase 19: {mode} at limit {lim}: (kernel-1 stages, kernel-7 "
+                              f"stages, deep s8 blocks) per forward {got}, expected {exp}")
+                        runs[(mode, lim)].append(BATCH * iters / dt)
+        for lim in DEEP_LIMITS:
+            print("deep speed:", json.dumps(dict(
+                limit=lim, bf16_tiles_per_s=runs[("bf16", lim)],
+                int8_tiles_per_s=runs[("int8", lim)], fused_stages=want[lim],
+                int8_blocks=len(deep) + 6 - want[lim], card=card)))
+        # where the time goes at 256 and at 768: the whole forward, and the
+        # deep stages alone (the composition or the s8 block at 256, the
+        # hand-written stages at 768)
+        for mode in ("bf16", "int8"):
+            q8.set_int8_stage(mode == "int8")
+            for lim in (256, 768):
+                stage_kernel.set_pack_max_planes(lim)
+                calls = deep_stage_calls(model, x, names)
+                settle()
+                busy, wall_ms, rows = profile_kernels(lambda: tile_forward(model, x), 3)
+
+                def deep_only():
+                    with torch.no_grad():
+                        for parts, block, spade, final, kw in calls:
+                            ssunet.spade_stage(parts, block, spade, final, **kw)
+                settle()
+                dbusy, dwall, drows = profile_kernels(deep_only, 3)
+                deep_ms = cuda_ms(deep_only, 5)
+                groups = Counter()
+                for ms, _, key in drows:
+                    group = next((g for g in ("eval_conv_core", "s8_conv_core", "spade_tail",
+                                              "q_band", "q_quant", "q_absmax") if g in key),
+                                 "library" if any(k in key.lower() for k in
+                                                  ("gemm", "conv", "cutlass", "sm90", "xmma",
+                                                   "cudnn", "implicit")) else "other")
+                    groups[group] += ms
+                print("deep profile:", json.dumps(dict(
+                    mode=mode, limit=lim, forward_busy_ms=busy, forward_wall_ms=wall_ms,
+                    forward_kernels=sum(r[1] for r in rows), deep_ms=deep_ms,
+                    deep_busy_ms=dbusy, deep_wall_ms=dwall,
+                    deep_kernels=sum(r[1] for r in drows),
+                    deep_by_group={k: round(v, 4) for k, v in groups.items()},
+                    deep_top=[[round(ms, 4), n, key[:70]] for ms, n, key in drows[:10]],
+                    card=card)))
+                del calls
+    finally:
+        q8.set_int8_stage(False)
+        q8.set_int8_calibration(None)
+        stage_kernel.set_pack_max_planes(768)
+    return runs
+
+
+def deep_phase(dev, card, cfg, scene, scene_tiles, config, check) -> dict:
+    """Phase 19: the deep-stage opt-in (``set_pack_max_planes``), after the
+    phases at the default limit. At 768: the flagship's five deep stage
+    signatures (384-768 planes, levels 3-5) each against its plain version
+    in bf16 and int8 (batch 2, seeded; phase 1's bar, h1 and y bit for
+    bit), on the f32 route (phase 2's f32 bars, ``f32 stage:`` and ``f32
+    conv:`` lines), and with the model's weights on their own inputs (batch
+    32 checked, batch 8 timed; ``conv:`` lines); the flagship's bf16 main
+    path (11 kernel-1 stages per forward, phases 2-3's bars, profile), its
+    f32 forward (11 f32 stages, against the CPU's), its int8 main path (11
+    kernel-7 stages, no deep s8 block, phase 8's bars); tiles/s at each of
+    DEEP_LIMITS and the deep stages' profile (:func:`deep_speed`). At 512:
+    UNet_B_SS's two 512-plane Bottleneck stages per stage (phase 9) and its
+    main path (8 kernel-8 stages per forward, phase 10's bars). At 768:
+    UNet_R_SS's forward with 11 kernel-1 stages reading 5 up and 5 pool
+    seams (phase 10's bars), SSUNet's still 8 kernel-1 stages (conv4_0's
+    128 hidden channels are past the tail). The limit is back at 256 after,
+    whatever failed. Returns the deep paths' launches and seam reads per
+    kernel."""
+    from ssunet_gan_tpu_torch.infer.api import _norm_consts, tile_forward
+    from ssunet_gan_tpu_torch.models import build_model
+    from ssunet_gan_tpu_torch.ops import stage_kernel
+    from ssunet_gan_tpu_torch.ops.blocks import BasicBlock
+
+    t_start = t_phase = time.perf_counter()
+    ncls, in_ch = cfg["num_classes"], cfg["input_channels"]
+    a, b = _norm_consts()
+    calib = np.random.default_rng(SEED + 2).integers(0, 256, (2, HW, HW, in_ch), dtype=np.uint8)
+    calib = torch.from_numpy(calib).to(dev).float() * a.to(dev) + b.to(dev)
+    tiles = np.random.default_rng(SEED).integers(0, 256, (BATCH, HW, HW, in_ch), dtype=np.uint8)
+    x = torch.from_numpy(tiles).to(dev)
+    out = {}
+    stage_kernel.set_pack_max_planes(768)
+    try:
+        model = build_model(cfg["arch"], ncls, in_ch, cfg["deep_supervision"], seed=SEED,
+                            device=dev)
+        calibrate_batchnorm(model, calib)
+        shallow = stage_signatures(model.filters, ncls, in_ch)
+        deep = deep_signatures(model.filters, ncls)
+        names = {d[0] for d in deep}
+        sigs = shallow[:3] + deep + shallow[3:]  # the forward's order
+        gen = torch.Generator().manual_seed(SEED + 70)
+        seeded = seeded_stage_phase(dev, deep, BasicBlock, gen, "phase 19", check, int8=True)
+        f32_row = f32_stage_phase(dev, deep, BasicBlock, gen, check, "phase 19")
+        t_phase = phase_done("phase 19 deep stages, seeded (bf16, int8, f32)", t_phase)
+        stages = model_stage_phase(dev, model, sigs, scene_tiles, "phase 19", "flagship deep",
+                                   check, FLAGSHIP_SEAMS, only=names)
+        t_phase = phase_done("phase 19 deep stages, model weights", t_phase)
+
+        # the bf16 main path at 768 (the counts set to 0 inside), its f32
+        # forward, its int8 main path
+        serve = bf16_serving_phase(dev, card, model, sigs, x, scene, scene_tiles, config, check,
+                                   "flagship deep", ("phase 19", "phase 19"), FLAGSHIP_SEAMS)
+        t_phase = time.perf_counter()
+        xn = x.float() * a.to(dev) + b.to(dev)
+        before = stage_kernel.launches
+        stage_kernel.f32_launches = 0
+        with torch.no_grad():
+            f32_card = model(xn[:1]).cpu()
+        f32_launches = stage_kernel.f32_launches
+        cpu_model = copy.deepcopy(model).cpu()
+        with fused_stages_off(), torch.no_grad():
+            f32_cpu = cpu_model(xn[:1].cpu())
+        e_f32 = rel_l2(f32_card, f32_cpu)
+        print(f"phase 19: f32 flagship forward at limit 768 ({f32_launches} stages on the f32 "
+              f"route, {stage_kernel.launches - before} bf16 ones) against the CPU f32 forward: "
+              f"rel_l2 {e_f32:.4g} (bar {F32_CARD_TOL:g})")
+        check(stage_kernel.launches == before and f32_launches == len(sigs)
+              and bool(torch.isfinite(f32_card).all()) and e_f32 <= F32_CARD_TOL,
+              f"phase 19: f32 card forward: {f32_launches} f32 stages of {len(sigs)}, "
+              f"{stage_kernel.launches - before} bf16 ones, rel_l2 {e_f32} from the CPU forward")
+        del cpu_model, f32_card, f32_cpu, xn
+        t_phase = phase_done("phase 19 f32 forward", t_phase)
+        with no_seam_reads("phase 19: flagship deep int8", check):
+            int8_row = int8_serving_phase(
+                dev, card, model, sigs, check, x, scene, scene_tiles, config, serve.pop("f32"),
+                serve, "phase 19", "flagship deep", FLAGSHIP_BILINEAR, {}, FLAGSHIP_INT8_SEAMS)
+        t_phase = time.perf_counter()
+        runs = deep_speed(dev, card, model, x, deep, check)
+        t_phase = phase_done("phase 19 tiles/s and profiles", t_phase)
+        del model
+        torch.cuda.empty_cache()
+        out["fused_eval_stage"] = dict(
+            launches=serve["launches"], seam_reads=serve["seam_reads"],
+            max_abs_err=max(seeded[0], stages["max_abs_err"]), ms=stages["ms"],
+            plain_ms=stages["plain_ms"], bound_ms=stages["bound_ms"],
+            tiles_per_s={lim: runs[("bf16", lim)] for lim in DEEP_LIMITS})
+        out["fused_eval_stage_f32"] = dict(
+            launches=f32_launches, max_abs_err=f32_row["max_abs_err"], ms=f32_row["ms"],
+            plain_ms=f32_row["plain_ms"], bound_ms=f32_row["bound_ms"],
+            library_ms=f32_row["library_ms"])
+        out["fused_eval_stage_int8"] = dict(
+            launches=int8_row["launches"], seam_reads=int8_row["seam_reads"],
+            max_abs_err=max(seeded[1], int8_row["max_abs_err"]), ms=int8_row["ms"],
+            plain_ms=int8_row["plain_ms"], bound_ms=int8_row["bound_ms"],
+            tiles_per_s={lim: runs[("int8", lim)] for lim in DEEP_LIMITS})
+
+        # UNet_B_SS at 512: conv3_0 and conv3_1 join its six Bottleneck stages
+        stage_kernel.set_pack_max_planes(512)
+        model_b = build_model("UNet_B_SS", ncls, in_ch, seed=SEED, device=dev)
+        calibrate_batchnorm(model_b, calib)
+        f = model_b.filters
+        nh = int(max(f[3] / 16, 4))
+        bsigs = bneck_signatures(f, ncls, in_ch)
+        bsigs = bsigs[:3] + [("conv3_0", (f[2],), f[3], ncls, nh, 0, 3),
+                             ("conv3_1", (f[3], f[4]), f[3], ncls, nh, 0, 3)] + bsigs[3:]
+        brow = bneck_stage_phase(dev, model_b, bsigs, scene_tiles, check, "phase 19",
+                                 only={"conv3_0", "conv3_1"})
+        t_phase = phase_done("phase 19 UNet_B_SS deep stages", t_phase)
+        launches, reads = bneck_serving_phase(dev, card, model_b, bsigs, x, scene, scene_tiles,
+                                              config, check, "phase 19")
+        out["fused_eval_stage_bneck"] = dict(launches=launches, seam_reads=reads,
+                                             max_abs_err=brow["max_abs_err"], ms=brow["ms"],
+                                             plain_ms=brow["plain_ms"], bound_ms=brow["bound_ms"])
+        del model_b
+        torch.cuda.empty_cache()
+
+        # UNet_R_SS at 768: its five deep stages fused too, each reading its
+        # seam (the pools of conv3_0-conv5_0, the ups of conv4_1 and conv3_1)
+        stage_kernel.set_pack_max_planes(768)
+        rss_forward_phase(dev, card, cfg, x, calib, check, "phase 19", 11, (5, 5))
+
+        # SSUNet at 768: conv4_0 (512 planes, 128 hidden channels) stays on
+        # the composition, past the SPADE tail's hidden limit
+        t_phase = time.perf_counter()
+        model_s = build_model("SSUNet", ncls, in_ch, seed=SEED, device=dev)
+        calibrate_batchnorm(model_s, calib)
+        before = stage_kernel.launches
+        probs = tile_forward(model_s, x)
+        torch.cuda.synchronize()
+        n_s = stage_kernel.launches - before
+        print(f"phase 19: SSUNet at limit 768: {n_s} kernel-1 stages per forward (conv4_0's "
+              f"hidden {model_s.SPADE4_0.nhidden} past the tail's {stage_kernel.TAIL_MAX_HIDDEN})")
+        check(n_s == 8 and bool(torch.isfinite(probs.float()).all()),
+              f"phase 19: SSUNet at limit 768 ran {n_s} kernel-1 stages per forward, expected 8")
+        del model_s, probs
+        torch.cuda.empty_cache()
+        phase_done("phase 19 SSUNet", t_phase)
+    finally:
+        stage_kernel.set_pack_max_planes(256)
+    phase_done("phase 19", t_start)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
@@ -5608,6 +5934,10 @@ def main() -> int:
     # ---- phase 18: the other model families (library convolutions only)
     families_phase(dev, card, here, check)
 
+    # ---- phase 19: the deep-stage opt-in (kernels 1, its f32 route, 7 and 8
+    # at 384-768 planes); the limit is back at its default after
+    deep_counts = deep_phase(dev, card, cfg, scene, scene_tiles, config, check)
+
     if failures:
         fail(f"{len(failures)} checks failed: " + "; ".join(failures[:20]))
 
@@ -5644,6 +5974,11 @@ def main() -> int:
             paths["val"] = tools_counts["fused_eval_stage_f32"]
         if row["name"] == "fused_eval_stage":
             paths["smoke_test"] = tools_counts["fused_eval_stage"]
+        deep_row = deep_counts.get(row["name"])
+        if deep_row is not None:  # phase 19's deep paths and their per-stage numbers
+            paths["deep"] = deep_row.pop("launches")
+            row["deep"] = {k: v for k, v in deep_row.items() if k != "seam_reads"}
+            row["max_abs_err"] = max(row["max_abs_err"], deep_row["max_abs_err"])
         row["launches"] = sum(paths.values())
         row["launches_by_path"] = paths
         if "seam_reads" in row:
@@ -5655,6 +5990,8 @@ def main() -> int:
             elif row["name"] == "fused_eval_stage_int8":
                 by_path["SSUNet"] = ssunet_runs["s8_seam_reads"]
                 by_path["val_patch"] = scene_s8_seams
+            if deep_row is not None:
+                by_path["deep"] = deep_row["seam_reads"]
             row["up_reads"] = sum(r[0] for r in by_path.values())
             row["pool_reads"] = sum(r[1] for r in by_path.values())
             row["seam_reads_by_path"] = {k: {"up": u, "pool": p} for k, (u, p) in by_path.items()}

@@ -17,7 +17,8 @@
 // above the bf16 ridge point and is bound by tensor-core operations; A and
 // C carry C*C and Cin*C and are bound by the bytes of their inputs and
 // outputs. All three run on the eval conv core (eval_conv.cuh: a block owns
-// a spatial tile and all output channels, wgmma m64nNk16 with both operands
+// a spatial tile and all output channels of its N block, the 512-plane
+// stages in two N blocks of 256, wgmma m64nNk16 with both operands
 // in shared memory, A a matrix descriptor per (tap, channel group) pair
 // straight into the tile's window, B the packed weights by bulk copy): B
 // reads each h1 value once per block and chunk; A and C load no halo, so
@@ -51,9 +52,10 @@ extern "C" {
 // part), read in modes m0/m1 (0 plain, 1 up: an (h/2) x wd source). k1,
 // k2, k3: the packed weights of the three convs for an N of nt
 // (ops/stage_kernel.py eval_conv_weight: conv1 over the parts, conv2 over
-// h1, conv3 over h2 then the shortcut's or the identity's parts), of s1,
-// s2, s3 k16 steps; b1, b2, b3: f32 [c]. h1, h2, y: scratch [n, h, w, c]
-// bf16. The tail's operands as in fused_stage.cu.
+// h1, conv3 over h2 then the shortcut's or the identity's parts), each
+// ceil(c / nt) N blocks of s1, s2, s3 k16 steps; b1, b2, b3: f32 [c].
+// h1, h2, y: scratch [n, h, w, c] bf16. The tail's operands as in
+// fused_stage.cu.
 int ssu_bneck_stage(const void* x0, int c0, int m0, const void* x1, int c1, int m1, int n,
                     int h, int wd, int c, int nt, const void* k1, int s1, const void* b1,
                     const void* k2, int s2, const void* b2, const void* k3, int s3, const void* b3, void* h1, void* h2,

@@ -35,9 +35,15 @@
 //
 // The design, per block of two warpgroups (256 threads):
 //   - the block owns a TH x 8 output tile of one image (TH = 32 for N <= 128,
-//     16 for wider N: 128 f32 sums per thread at most) and ALL output
-//     channels, so each input value comes from device memory once per block
-//     and chunk, not once per tap and N block;
+//     16 for wider N: 128 f32 sums per thread at most) and every output
+//     channel of its N block, so each input value comes from device memory
+//     once per block and chunk, not once per tap. Up to 256 output channels
+//     are one N block; wider convs (the deep stages, 384-768 channels: the
+//     TPU kernel's lane-packed deep levels) run in N blocks of <= 256
+//     channels (blockIdx.y; 384 as 2 x 192, 512 as 2 x 256, 768 as 3 x 256),
+//     each block re-reading its tile's windows, since 768 sums a pixel would
+//     not fit the registers. The deep levels are small (<= 64 x 64), so the
+//     extra window reads cost little beside the MMAs;
 //   - a source arrives in chunks of cc channels (8 or 16 whole for a narrow
 //     source, else 32) as the tile's window in shared memory through
 //     cp.async: (TH+2) x 10 pixels for a 3x3 source, TH x 8 (no halo) for a
@@ -52,7 +58,7 @@
 //     descriptor's 8-row stride), the pair's second k8 group its "leading"
 //     offset: each tap's shifted view is one descriptor, no copy; B, the
 //     weights, packed once per model in exactly the order its descriptor
-//     reads ([k16 step][N/8][k half][8 channels][8 K values]), so a stage's
+//     reads ([N block][k16 step][N/8][k half][8 channels][8 K values]), so a stage's
 //     slice lands in place with one bulk copy (the TMA engine; one thread
 //     issues it, an mbarrier per slot reports it). At 64 output channels
 //     (fewer are padded to 64) the roles swap, m64n128k16 with the weights
@@ -136,7 +142,8 @@ struct EcSeg {
 struct EcArgs {
   EcSeg seg[EC_MAX_SEG];
   int nseg;
-  const bf16* wt;      // [steps][NT/8][2][8][8]: per k16 step, K-major core matrices
+  const bf16* wt;      // [N blocks][steps][NT/8][2][8][8]: per k16 step, K-major core matrices
+  long long wblock;    // elements of one N block's weight (steps x NT x 16)
   const float* bias;   // [cout] or null
   const bf16* res;     // [m][cout]: out = relu(res*res_a + res_b + acc), or null
   const float* res_a;
@@ -337,6 +344,8 @@ eval_conv_core(const EcArgs a) {
   const int img = rest / a.tiles_h;
   const long long img_base = (long long)img * H * W;
   const int oh0 = th_i * THc, ow0 = tw_i * EC_TW;
+  const int n0 = blockIdx.y * NT;  // the N block's first output channel
+  const bf16* wt = a.wt + blockIdx.y * a.wblock;
 
   // a walk over the stages: segment, chunk, stage of the chunk, the chunk's
   // running index (its window slot) and the stage's first k16 step
@@ -368,7 +377,7 @@ eval_conv_core(const EcArgs a) {
     if (u.s < nstage) {
       const EcSeg S = ec_seg(a, u.sg);
       if (tid == 0)
-        bulk_load(wts + (u.s % EC_RING) * a.wslot, a.wt + (long long)u.k * (NT * 16),
+        bulk_load(wts + (u.s % EC_RING) * a.wslot, wt + (long long)u.k * (NT * 16),
                   S.sps * NT * 32, &wbar[u.s % EC_RING]);
       if (u.j == 0) {
         const int hl = S.ksize == 3 ? 1 : 0;
@@ -495,9 +504,9 @@ eval_conv_core(const EcArgs a) {
     }
   }
   __syncthreads();
-  const int npc = a.cout / 8;
+  const int npc = min(NT, a.cout - n0) / 8;  // this N block's 8-channel pieces
   for (int i = tid; i < TPIXc * npc; i += EC_THREADS) {
-    const int px = i / npc, c0 = (i - px * npc) * 8;
+    const int px = i / npc, c0 = (i - px * npc) * 8, ch = n0 + c0;
     const int oh = oh0 + px / EC_TW, ow = ow0 + px % EC_TW;
     if (oh >= H || ow >= W) continue;
     const long long pix = img_base + (long long)oh * W + ow;
@@ -507,22 +516,22 @@ eval_conv_core(const EcArgs a) {
     float o[8];
     if (a.res != nullptr) {
       float r[8];
-      unpack8(*reinterpret_cast<const uint4*>(a.res + pix * a.cout + c0), r);
+      unpack8(*reinterpret_cast<const uint4*>(a.res + pix * a.cout + ch), r);
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        o[e] = relu(__fadd_rn(__fadd_rn(__fmul_rn(r[e], a.res_a[c0 + e]), a.res_b[c0 + e]), v[e]));
+        o[e] = relu(__fadd_rn(__fadd_rn(__fmul_rn(r[e], a.res_a[ch + e]), a.res_b[ch + e]), v[e]));
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        o[e] = relu(v[e] + (a.bias != nullptr ? a.bias[c0 + e] : 0.f));
+        o[e] = relu(v[e] + (a.bias != nullptr ? a.bias[ch + e] : 0.f));
     }
-    *reinterpret_cast<uint4*>(a.out + pix * a.cout + c0) =
+    *reinterpret_cast<uint4*>(a.out + pix * a.cout + ch) =
         make_uint4(pack2(o[0], o[1]), pack2(o[2], o[3]), pack2(o[4], o[5]), pack2(o[6], o[7]));
   }
 }
 
 template <int NT>
-cudaError_t ec_launch(const EcArgs& a, unsigned blocks, int smem, cudaStream_t stream) {
+cudaError_t ec_launch(const EcArgs& a, dim3 blocks, int smem, cudaStream_t stream) {
   static bool attr = false;  // the shared-memory limit is set once per instantiation
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -538,17 +547,18 @@ cudaError_t ec_launch(const EcArgs& a, unsigned blocks, int smem, cudaStream_t s
 // the convs' zero-padding border). nseg K-segments: ptrs[i] [pixels][chans[i]]
 // bf16 with kernel size ks[i] (3 or 1) and read mode modes[i] (null: all
 // 0; 1: the source is (h/2) x wd, h even and >= 4; 2: it is 2h x 2wd); w:
-// the packed weight of nsteps k16 steps for an N of nt (64, 128, 192 or
-// 256; >= cout, cout a multiple of 8); bias f32 [cout] or null; res (with
-// res_a, res_b) selects the residual epilogue. Returns the launch's
-// cudaError_t.
+// the packed weight for an N of nt (64, 128, 192 or 256; cout a multiple
+// of 8): ceil(cout / nt) N blocks of nsteps k16 steps each, the last block
+// holding what is left of cout (ops/stage_kernel.py eval_nt picks nt);
+// bias f32 [cout] or null; res (with res_a, res_b, both [cout]) selects the
+// residual epilogue. Returns the launch's cudaError_t.
 int launch_eval_conv(int nseg, const void* const* ptrs, const int* chans, const int* ks,
                      const int* modes, int nt, const void* w, int nsteps, const void* bias,
                      const void* res, const void* res_a, const void* res_b, void* out, int n,
                      int h, int wd, int cout, cudaStream_t stream) {
   const bool residual = res != nullptr;
   if (nseg < 1 || nseg > EC_MAX_SEG || n <= 0 || h <= 0 || wd <= 0 || cout <= 0 ||
-      cout % 8 != 0 || cout > nt || w == nullptr || (uintptr_t)w % 16 != 0 || out == nullptr ||
+      cout % 8 != 0 || w == nullptr || (uintptr_t)w % 16 != 0 || out == nullptr ||
       (uintptr_t)out % 16 != 0 ||
       (residual && ((uintptr_t)res % 16 != 0 || res_a == nullptr || res_b == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -581,6 +591,7 @@ int launch_eval_conv(int nseg, const void* const* ptrs, const int* chans, const 
   if (steps != nsteps) return (int)cudaErrorInvalidValue;
   a.nseg = nseg;
   a.wt = static_cast<const bf16*>(w);
+  a.wblock = (long long)nsteps * nt * 16;
   a.bias = static_cast<const float*>(bias);
   a.res = static_cast<const bf16*>(res);
   a.res_a = static_cast<const float*>(res_a);
@@ -594,16 +605,18 @@ int launch_eval_conv(int nseg, const void* const* ptrs, const int* chans, const 
   a.wslot = max_sps * nt * 32;
   a.winslot = (winslot + 127) / 128 * 128;
   const long long blocks = (long long)n * a.tiles_h * a.tiles_w;
+  const int nblk = (cout + nt - 1) / nt;  // N blocks
   const int main_bytes = EC_RING * (a.wslot + a.winslot);
   const int stage_bytes = th * EC_TW * (nt + 8) * 4;
   const int smem = main_bytes > stage_bytes ? main_bytes : stage_bytes;
-  if (blocks > 0x7fffffffLL || smem > EC_SMEM) return (int)cudaErrorInvalidValue;
+  if (blocks > 0x7fffffffLL || nblk > 65535 || smem > EC_SMEM) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, (unsigned)nblk);
   cudaError_t e;
   switch (nt) {
-    case 64: e = ec_launch<64>(a, (unsigned)blocks, smem, stream); break;
-    case 128: e = ec_launch<128>(a, (unsigned)blocks, smem, stream); break;
-    case 192: e = ec_launch<192>(a, (unsigned)blocks, smem, stream); break;
-    default: e = ec_launch<256>(a, (unsigned)blocks, smem, stream); break;
+    case 64: e = ec_launch<64>(a, grid, smem, stream); break;
+    case 128: e = ec_launch<128>(a, grid, smem, stream); break;
+    case 192: e = ec_launch<192>(a, grid, smem, stream); break;
+    default: e = ec_launch<256>(a, grid, smem, stream); break;
   }
   return (int)e;
 }

@@ -16,7 +16,9 @@
 // multiply-adds and sit far above the bf16 ridge point (~295 FLOP/byte), so
 // launches 1 and 2 are bound by tensor-core operations. They run on the
 // eval conv core (eval_conv.cuh): a block owns a spatial tile and all
-// output channels, each chunk's halo window arrives once in shared memory
+// output channels of its N block (one block up to 256 channels; the deep
+// stages' 384-768 run in blocks of <= 256, the TPU kernel's lane-packed
+// deep levels), each chunk's halo window arrives once in shared memory
 // as 8-channel planes, and wgmma m64nNk16 reads both operands from there:
 // A, the pixels, through one matrix descriptor per (tap, channel group)
 // pair straight into the window (each tap a shifted view, no copy), B, the
@@ -50,7 +52,8 @@ extern "C" {
 
 // One conv launch of the eval conv core (eval_conv.cuh launch_eval_conv):
 // conv1 over the parts, conv2 over h1 and the shortcut's parts; modes: each
-// segment's read mode (0 plain, 1 up, 2 pool), h and wd the output's.
+// segment's read mode (0 plain, 1 up, 2 pool), h and wd the output's; w
+// holds ceil(cout / nt) N blocks of nsteps k16 steps each.
 int ssu_eval_conv(int nseg, const void* const* ptrs, const int* chans, const int* ks,
                   const int* modes, int nt, const void* w, int nsteps, const void* bias, void* out,
                   int n, int h, int wd, int cout, void* stream) {

@@ -16,7 +16,9 @@
 //
 // The design is eval_conv.cuh's (the bf16 core) with bytes for elements:
 //   - a block of two warpgroups (256 threads) owns a TH x 8 output tile of
-//     one image and all output channels of its N block. In launch B the tile
+//     one image and all output channels of its N block (launch A: one block
+//     of up to 256 channels, the deep stages' 384-768 in blocks of <= 256,
+//     as the bf16 core; launch B: blocks of <= 128). In launch B the tile
 //     lies inside one band of h1's requantization (tiles are laid out band
 //     by band), so a band shorter than TH (8 rows, or one band of H < TH
 //     rows) leaves the tile's last rows idle;
@@ -60,7 +62,9 @@
 //     kernel's order (no FMA contraction), rounds to bf16 and stores 16
 //     bytes. Launch A reduces each tile row's h1 (>= 0, so its float bits
 //     order as ints) in shared memory and issues one atomicMax per tile row
-//     and block into rowmax (zero on entry).
+//     and block into rowmax (zero on entry): the N blocks of one tile add
+//     their channels to the same row maxima, so launch Q reads each row's
+//     maximum over every channel.
 // Everything is in an anonymous namespace.
 
 #pragma once
@@ -643,7 +647,7 @@ int launch_s8_conv(int mode, int nseg, const void* const* ptrs, const int* chans
   if (mode != QC_H1 && mode != QC_Y) return (int)cudaErrorInvalidValue;
   if (y ? (v2 == nullptr || bandscale == nullptr || nsplit < 1 || nsplit != nseg - 1 ||
            (nt != 64 && nt != 128))
-        : (rowmax == nullptr || nblk != 1 || th != h ||
+        : (rowmax == nullptr || th != h ||
            (nt != 64 && nt != 128 && nt != 192 && nt != 256)))
     return (int)cudaErrorInvalidValue;
   QcArgs a = {};

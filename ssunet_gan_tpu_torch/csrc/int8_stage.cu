@@ -235,16 +235,18 @@ int ssu_q_quant(const void* x, long long n, int f32, const void* scale_ptr, floa
 
 // Launch A: conv3x3 over up to two s8 parts, each read in its mode (m0, m1:
 // 0 plain, 1 up, 2 pool; int8_conv.cuh) -> h1 (bf16, n x h x wd) and rowmax,
-// on the s8 conv core (N = nt). A part with c == 0 is absent. w: nsteps k32
-// steps packed in the descriptor's order. rowmax ([n][h] f32) must be zero
-// on entry.
+// on the s8 conv core: nblk N blocks of nt channels (one block up to 256
+// channels, the deep stages' 384-768 in blocks of <= 256). A part with c ==
+// 0 is absent. w: nsteps k32 steps per N block packed in the descriptor's
+// order. rowmax ([n][h] f32) must be zero on entry; every N block adds its
+// channels' row maxima to it.
 int ssu_s8_conv1(const void* s0, int c0, int m0, const void* s1, int c1, int m1, int nt,
-                 const void* w, int nsteps, const void* d1, const void* t1, void* h1,
+                 const void* w, int nsteps, int nblk, const void* d1, const void* t1, void* h1,
                  void* rowmax, int n, int h, int wd, int cout, void* stream) {
   const void* ptrs[2] = {s0, s1};
   const int chans[2] = {c0, c1}, ks[2] = {3, 3}, modes[2] = {m0, m1}, band[2] = {0, 0};
   const int nseg = c1 > 0 ? 2 : 1;
-  return launch_s8_conv(QC_H1, nseg, ptrs, chans, ks, modes, band, nseg, nt, w, nsteps, 1, d1,
+  return launch_s8_conv(QC_H1, nseg, ptrs, chans, ks, modes, band, nseg, nt, w, nsteps, nblk, d1,
                         t1, nullptr, nullptr, rowmax, h1, n, h, wd, cout, h,
                         (cudaStream_t)stream);
 }

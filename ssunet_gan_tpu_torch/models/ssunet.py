@@ -29,10 +29,16 @@ composition, as in JAX (:316-330). In the flagship these are
 conv0_0, conv1_0, conv2_0, conv2_1, conv1_1 and conv0_1, the last with
 ``final`` folded in; in ``UNet_R_SS`` conv0_0, conv1_0, conv2_0, conv2_2,
 conv1_3 and conv0_4; in ``SSUNet`` every stage but conv4_0 (512 planes).
-Bottleneck stages that
+:func:`ops.stage_kernel.set_pack_max_planes` (JAX's deep-stage opt-in,
+default 256) raises the gates' eval limit (:func:`ops.stage_kernel.max_planes`):
+at 768 the flagship's five deep stages (384-768 planes) run fused too, in
+bf16, f32 and int8, and so do UNet_R_SS's; SSUNet's conv4_0 only on the
+CPU, since its 128 hidden channels are past the card's tail. Bottleneck
+stages that
 :func:`ops.stage_kernel_bneck.bneck_supported` admits run in eval through
 :func:`ops.stage_kernel_bneck.fused_eval_stage_bneck` (the same six names
-in ``UNet_B_SS``); in training, and in the int8 mode, they are the module
+in ``UNet_B_SS``, and conv3_0 and conv3_1 with the limit at 512 or more);
+in training, and in the int8 mode, they are the module
 composition (JAX models/ssunet.py:246-260, 323-329). The composition's
 SPADE follows :func:`ops.spade_kernel.set_fused_spade`. The deep stages,
 channel heads, unpools and the seams no kernel stage reads stay plain
@@ -127,7 +133,6 @@ from ssunet_gan_tpu_torch.ops.stage_kernel_int8 import (
 from ssunet_gan_tpu_torch.ops.stage_kernel_train import fused_train_enabled, fused_train_stage
 
 SPADE_CONTEXT = "spadebatch3x3"  # archs.py:483 (its param-free norm is bypassed)
-FUSED_MAX_PLANES = 256  # the JAX gate's _PACK_MAX_PLANES
 # the seam keywords of the forwards: an encoder stage's one part before its
 # pool, a decoder stage's second part before its upsample
 POOL, UP = (True,), (False, True)
@@ -274,9 +279,10 @@ def spade_stage(parts, block, spade: SPADE,
               0 if final is None else final.weight.shape[0])
     if bneck:
         # the int8 mode covers the BasicBlock stages only; training is the
-        # composition, whose SPADE follows the fused-SPADE mode
+        # composition, whose SPADE follows the fused-SPADE mode; the gate
+        # holds the planes limit (set_pack_max_planes)
         parts = _dequantized(parts)
-        ok = not block.training and not int8 and block.planes <= FUSED_MAX_PLANES
+        ok = not block.training and not int8
         fused, parts, up, _ = _admit(
             lambda p, u, d: ok and bneck_supported(p, *widths, up=u), parts, up, down)
         if fused:
@@ -286,12 +292,14 @@ def spade_stage(parts, block, spade: SPADE,
     vgg = isinstance(block, VGGBlock)
     # a BasicBlock's fused packing needs its shortcut conv; a VGG block has
     # none (zero shortcut columns); training fuses BasicBlock stages only,
-    # and not under remat, whose composition bounds the memory (JAX :227-293)
+    # and not under remat, whose composition bounds the memory (JAX :227-293);
+    # the gate holds the planes limit (256 in training, set_pack_max_planes
+    # in eval)
     if block.training:
         mode = not vgg and fused_train_enabled() and not remat_enabled()
     else:
         mode = fused_stage_enabled()
-    ok = (vgg or block.shortcut is not None) and block.planes <= FUSED_MAX_PLANES and mode
+    ok = (vgg or block.shortcut is not None) and mode
     # an int8 stage refused with its up seam runs the deep s8 block, as the
     # JAX package's int8 dispatch does (no band height: the XLA block)
     fused, parts, up, down = _admit(
@@ -477,9 +485,10 @@ class UNetBSS(_SelfSpadeUNet):
         x2_0 = self._stage("2_0", max_pool_2x2(x1_0))
         x3_0 = self._stage("3_0", max_pool_2x2(x2_0))
         x4_0 = self._stage("4_0", max_pool_2x2(x3_0))
-        # conv3_1 (512 planes) never fuses: its seam is materialized H then
-        # W, as the JAX package forces there (models/ssunet.py:411-415); the
-        # Bottleneck stages' pools are materialized as in JAX
+        # conv3_1 (512 planes) fuses only under set_pack_max_planes(>= 512),
+        # and its seam is materialized H then W either way, as the JAX
+        # package forces there (models/ssunet.py:411-415); the Bottleneck
+        # stages' pools are materialized as in JAX
         x3_1 = self._stage("3_1", (x3_0, upsample_bilinear(x4_0)))
         x2_2 = self._stage("2_2", (x2_0, x3_1), up=UP)
         x1_3 = self._stage("1_3", (x1_0, x2_2), up=UP)

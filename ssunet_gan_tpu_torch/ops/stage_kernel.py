@@ -17,7 +17,9 @@ What bounds it on the H100: the two big convs carry ~95% of the
 multiply-adds at an arithmetic intensity far above the bf16 ridge point, so
 the stage is bound by tensor-core operations, not bytes. Both convs run on
 the eval conv core (``csrc/eval_conv.cuh``, shared with kernels 8 and 3):
-a block owns a spatial tile and every output channel, a chunk's halo window
+a block owns a spatial tile and every output channel of its N block (all
+of them up to 256; the deep stages' 384-768 in N blocks of at most 256,
+:func:`eval_nt`), a chunk's halo window
 arrives once through ``cp.async``, the nine taps are shifted ``wgmma``
 matrix descriptors into it (m64nNk16, f32 sums), and the weights come
 packed once per model (:func:`pack_eval_conv`) in the order their
@@ -45,7 +47,9 @@ modulate runs in the activation dtype.
 (this eval stage, the train stage of ``ops/stage_kernel_train.py`` and the
 int8 stage of ``ops/stage_kernel_int8.py``): the model's dispatch and the
 three wrappers call it, and what it refuses runs the module composition.
-:func:`set_fused_stage` turns the fused eval stages off (the JAX toggle).
+:func:`set_fused_stage` turns the fused eval stages off (the JAX toggle);
+:func:`set_pack_max_planes` admits the deep eval stages, up to 768 planes
+(the JAX opt-in; :func:`max_planes` is the limit that both gates read).
 :func:`fused_eval_stage` decides by the tensors' device: CPU tensors take
 :func:`fused_stage_reference`; CUDA tensors launch the kernel (bf16), its
 f32 route (``csrc/fused_stage_f32.cu``, f32 eval stages: the section at
@@ -91,8 +95,16 @@ pool_reads = 0
 # and the streamed γ|β weights fill shared memory at 64 hidden channels).
 # Every gate of a kernel that ends in the tail reads them here.
 TAIL_MAX_LAB, TAIL_MAX_HIDDEN, TAIL_MAX_CLS = 8, 64, 8
-MAX_PLANES = 256  # the JAX gate's widest fused stage
 PLANES_MULTIPLE = 32  # csrc/stage_common.cuh: the tail's channel chunk
+
+# The widest eval stage the fused kernels take (JAX ``_PACK_MAX_PLANES``,
+# ssunet_gan_tpu/ops/stage_kernel.py:128, and ``set_pack_max_planes`` :152):
+# 256 by default, the six shallow stages of the flagship; raised, the deep
+# BasicBlock / VGG stages (kernels 1, its f32 route, and 7) and Bottleneck
+# stages (kernel 8) of up to that many planes run fused in eval. Training
+# stays at 256, as in JAX (its train gate has no ``pack``).
+TRAIN_MAX_PLANES = 256
+_PACK_MAX_PLANES = 256
 
 # The fused eval stages (this one and the int8 one): on unless set to False
 # (JAX ``set_fused_stage``, ssunet_gan_tpu/ops/stage_kernel.py:84, whose
@@ -110,6 +122,22 @@ def set_fused_stage(enabled: Optional[bool]) -> None:
 
 def fused_stage_enabled() -> bool:
     return _FUSED_STAGE is None or bool(_FUSED_STAGE)
+
+
+def set_pack_max_planes(planes: int) -> None:
+    """The widest eval stage the fused kernels take, at least 256 (JAX
+    ``set_pack_max_planes``; 768 admits every deep stage of the flagship)."""
+    global _PACK_MAX_PLANES
+    _PACK_MAX_PLANES = int(planes)
+
+
+def max_planes(train: bool = False) -> int:
+    """The planes limit of the one decision (:func:`stage_supported` and
+    ``ops/stage_kernel_bneck.py`` ``bneck_supported``; the model's dispatch
+    asks those): in eval the larger of :func:`set_pack_max_planes`' value
+    and 256 (JAX ``fused_stage_supported(pack=True)``, :459), in training
+    256."""
+    return TRAIN_MAX_PLANES if train else max(_PACK_MAX_PLANES, TRAIN_MAX_PLANES)
 
 
 def _pack_factor(n: int, w: int) -> int:
@@ -173,7 +201,8 @@ def stage_supported(parts, planes: int, labels: int, hidden: int, classes: int =
     """Whether the BasicBlock stage kernel that would run for these parts
     (eval, ``train`` or ``int8``) takes the stage. Always: one or two NHWC
     parts (tensors or QTensors) of one logical N×H×W, device and dtype, and
-    planes ≤ ``MAX_PLANES``. Seams (``up``/``down``, a bool per part, as
+    planes ≤ :func:`max_planes` (256, or in eval up to
+    :func:`set_pack_max_planes`' 768). Seams (``up``/``down``, a bool per part, as
     :func:`fused_eval_stage` and the int8 stage take them): eval stages
     only, each part as :func:`_seam_readable` takes it; the logical shape
     is the one the seam reads (:func:`seam_shape`). On a CUDA device, the kernels' own
@@ -185,7 +214,7 @@ def stage_supported(parts, planes: int, labels: int, hidden: int, classes: int =
     interpret mode): H a multiple of 8, and W ≥ 8 after the eval path's
     lane packing. The JAX gate's VMEM estimate answers the TPU's memory and
     is not ported. An f32 eval stage on the card takes the f32 route
-    (``csrc/fused_stage_f32.cu``, no width limits but MAX_PLANES) with
+    (``csrc/fused_stage_f32.cu``, no width limits but :func:`max_planes`) with
     contiguous parts and its seams materialized; f32 training and int8
     stages are refused. What it refuses runs the module composition."""
     parts = as_parts(parts)
@@ -200,7 +229,7 @@ def stage_supported(parts, planes: int, labels: int, hidden: int, classes: int =
     if any(seam_shape(p, m) != (n, h, w) or p.device != x0.device or p.dtype != x0.dtype
            for p, m in zip(parts, modes)):
         return False
-    if planes > MAX_PLANES:
+    if planes > max_planes(train):
         return False
     if x0.device.type == "cuda":
         if x0.dtype == torch.float32 and not train and not int8:
@@ -224,7 +253,8 @@ def _refused(parts, c, lab, nh, ncls, **kw) -> ValueError:
     return ValueError(
         f"the CUDA stage kernel does not take this stage (stage_supported): parts "
         f"{[(tuple(p.shape), p.dtype) for p in parts]}, planes={c} (a multiple of "
-        f"{PLANES_MULTIPLE}, <= {MAX_PLANES}), labels={lab} (<= {TAIL_MAX_LAB}), hidden={nh} "
+        f"{PLANES_MULTIPLE}, <= {max_planes(kw.get('train', False))}: set_pack_max_planes), "
+        f"labels={lab} (<= {TAIL_MAX_LAB}), hidden={nh} "
         f"(<= {TAIL_MAX_HIDDEN}), classes={ncls} (<= {TAIL_MAX_CLS}), bfloat16, contiguous"
         + (f", {kw}" if kw else ""))
 
@@ -281,7 +311,8 @@ def fused_stage_reference(parts, block_params, spade_params, head=None):
 
 
 # The eval conv core (csrc/eval_conv.cuh): the N of its instantiations, the
-# output channels padded up to one (at 64 the weights are wgmma's A, 64 rows)
+# output channels of an N block padded up to one (at 64 the weights are
+# wgmma's A, 64 rows)
 EVAL_NT = (64, 128, 192, 256)
 
 # Eval conv launches on the card (kernel 1's two per stage and the
@@ -291,11 +322,19 @@ conv_launches = 0
 
 
 def eval_nt(cout: int) -> int:
-    """The N instantiation of the eval conv core for ``cout`` channels."""
-    for nt in EVAL_NT:
-        if cout <= nt:
-            return nt
-    raise ValueError(f"the eval conv core takes at most {EVAL_NT[-1]} output channels, got {cout}")
+    """The N instantiation of the eval conv core for ``cout`` channels:
+    the smallest that holds them, or past 256 (the deep stages) the smallest
+    that holds an even share of them over ⌈cout / 256⌉ N blocks (384 → 192,
+    512 and 768 → 256). The conv runs in ⌈cout / N⌉ N blocks
+    (:func:`eval_blocks`)."""
+    share = -(-cout // -(-cout // EVAL_NT[-1]))
+    return next(nt for nt in EVAL_NT if share <= nt)
+
+
+def eval_blocks(cout: int, nt: int) -> int:
+    """N blocks of a conv of ``cout`` channels at N = ``nt`` (as
+    ``csrc/eval_conv.cuh`` ``launch_eval_conv`` counts them)."""
+    return -(-cout // nt)
 
 
 def eval_chunk(c: int, group: int = 8) -> int:
@@ -337,9 +376,10 @@ def _layout_index(shapes, nt: int, device, group: int = 8) -> torch.Tensor:
     return _descriptor_order(ids, nt, group).long().to(device)
 
 
-def eval_conv_weight(segments, nt: int, dtype, group: int = 8) -> torch.Tensor:
-    """The eval conv core's weight operand [steps][nt/8][2][8][8] in the
-    order its wgmma descriptor reads it: per K-segment (an OIHW weight, 3×3
+def eval_conv_weight(segments, nt: int, dtype, group: int = 8, nblk: int = 1) -> torch.Tensor:
+    """The eval conv core's weight operand [nblk·steps][nt/8][2][8][8] in
+    the order its wgmma descriptor reads it: N block by N block (output
+    channels b·nt .. b·nt + nt − 1), per K-segment (an OIHW weight, 3×3
     or 1×1), per chunk of :func:`eval_chunk` input channels, per k16 step of
     two (tap, 8-channel group) pairs — tap-major, the chunk's channel groups
     within a tap, a last odd pair padded with zeros — the step's K-major
@@ -349,9 +389,13 @@ def eval_conv_weight(segments, nt: int, dtype, group: int = 8) -> torch.Tensor:
     order for the s8 core's k32 steps of (tap, 16-channel group) pairs:
     [steps][nt/8][2][8][16]."""
     w0 = segments[0]
-    idx = _layout_index(tuple(tuple(w.shape) for w in segments), nt, w0.device, group)
-    flat = torch.cat([_zero(w0.device, w0.dtype)] + [w.reshape(-1) for w in segments])
-    return flat[idx].to(dtype)
+    blocks = []
+    for b in range(nblk):
+        ws = [w[b * nt:(b + 1) * nt] for w in segments]
+        idx = _layout_index(tuple(tuple(w.shape) for w in ws), nt, w0.device, group)
+        flat = torch.cat([_zero(w0.device, w0.dtype)] + [w.reshape(-1) for w in ws])
+        blocks.append(flat[idx].to(dtype))
+    return torch.cat(blocks)
 
 
 @functools.lru_cache(maxsize=None)
@@ -365,11 +409,13 @@ def pack_eval_conv(segments, bias, dtype, main: Optional[int] = None) -> dict:
     ``bias`` the f32 bias or None, ``main`` the leading segments that the
     plain version sums as one conv before the bias (default all; the rest,
     a shortcut, is added after); the weights are kept for the plain
-    version."""
+    version. ``steps`` counts one N block's k16 steps (``nblk`` blocks of
+    ``nt`` channels, :func:`eval_nt`)."""
     cout = segments[0].shape[0]
     nt = eval_nt(cout)
-    w = eval_conv_weight(segments, nt, dtype)
-    return {"w": w, "nt": nt, "steps": w.shape[0], "cout": cout,
+    nblk = eval_blocks(cout, nt)
+    w = eval_conv_weight(segments, nt, dtype, nblk=nblk)
+    return {"w": w, "nt": nt, "nblk": nblk, "steps": w.shape[0] // nblk, "cout": cout,
             "segs": tuple((s.shape[1], s.shape[2]) for s in segments),
             "bias": None if bias is None else bias.float().contiguous(),
             "main": len(segments) if main is None else main, "oihw": tuple(segments)}

@@ -21,8 +21,10 @@ the 1×1 convs are bound by the bytes of their inputs and outputs, so at
 64-256 planes the stage is bound by the activations it moves. The kernel
 (``csrc/bneck_stage.cu``) runs the three convs on the eval conv core of
 ``csrc/eval_conv.cuh`` (``wgmma`` over a spatial tile with every output
-channel; the 1×1 launches load no halo, so each input pixel is read once
-and each output written once), a 1×1 conv being a K-segment of one tap;
+channel of its N block, the 512-plane stages that ``set_pack_max_planes``
+admits in two blocks of 256; the 1×1 launches load no halo, so each input
+pixel is read once per N block and each output written once), a 1×1 conv
+being a K-segment of one tap;
 conv3 and the shortcut are K-segments of one sum, so they share one
 accumulator and one rounding. Four launches from one host call; h1, h2
 and y go through device memory, the tail's seg, act and γ|β stay on chip.
@@ -85,18 +87,20 @@ REPLACES = "ssunet_gan_tpu/ops/stage_kernel.py:1603"  # fused_eval_stage_bneck
 # each); the up seams they read count in ``stage_kernel.up_reads``.
 launches = 0
 
-# the kernel's limits (csrc/stage_common.cuh: the tail's channel chunk; the
-# JAX gate's widest fused stage); label, hidden and class bounds are the
-# tail's (stage_kernel.TAIL_MAX_*)
-MAX_PLANES, PLANES_MULTIPLE = 256, 32
+# the kernel's planes multiple (csrc/stage_common.cuh: the tail's channel
+# chunk); the planes limit is the one gate's (``stage_kernel.max_planes``),
+# label, hidden and class bounds are the tail's (stage_kernel.TAIL_MAX_*)
+PLANES_MULTIPLE = 32
 
 
 def bneck_supported(parts, planes: int, labels: int, hidden: int, classes: int = 0, *,
                     up=None) -> bool:
     """Whether the fused bottleneck stage takes this stage: at most two NHWC
-    parts of one logical N×H×W, device and dtype, planes ≤ 256, labels ≤ 8,
-    head classes ≤ 8; an ``up`` part (a bool per part) bf16 with an exact
-    half height (``ops/resize.py`` ``up_weights_exact``), its logical
+    parts of one logical N×H×W, device and dtype, planes ≤
+    ``stage_kernel.max_planes()`` (256, or up to ``set_pack_max_planes``'
+    value: JAX ``fused_bneck_supported`` asks ``fused_stage_supported`` with
+    ``pack=True``, :1593), labels ≤ 8, head classes ≤ 8; an ``up`` part (a
+    bool per part) bf16 with an exact half height (``ops/resize.py`` ``up_weights_exact``), its logical
     height twice its own; on a CUDA device also planes a multiple of 32,
     hidden within the tail's ``TAIL_MAX_HIDDEN`` and bfloat16 (the kernel's
     terms; the plain version on the CPU has none of them, and like the JAX
@@ -113,7 +117,7 @@ def bneck_supported(parts, planes: int, labels: int, hidden: int, classes: int =
     if any(seam_shape(p, m) != shape or p.device != x0.device or p.dtype != x0.dtype
            for p, m in zip(parts, modes)):
         return False
-    if planes > MAX_PLANES or labels > TAIL_MAX_LAB or classes > TAIL_MAX_CLS:
+    if planes > stage_kernel.max_planes() or labels > TAIL_MAX_LAB or classes > TAIL_MAX_CLS:
         return False
     if x0.device.type == "cuda":
         return (planes % PLANES_MULTIPLE == 0 and hidden <= TAIL_MAX_HIDDEN
@@ -218,7 +222,8 @@ def _run_cuda(parts: Tuple[torch.Tensor, ...], pk: dict, up=None) -> torch.Tenso
         raise ValueError(
             f"the CUDA bottleneck stage does not take this stage: parts "
             f"{[(tuple(p.shape), p.dtype) for p in parts]}, planes={c} (a multiple of "
-            f"{PLANES_MULTIPLE}, <= {MAX_PLANES}), labels={lab} (<= {TAIL_MAX_LAB}), "
+            f"{PLANES_MULTIPLE}, <= {stage_kernel.max_planes()}: set_pack_max_planes), "
+            f"labels={lab} (<= {TAIL_MAX_LAB}), "
             f"hidden={nh} (<= {TAIL_MAX_HIDDEN}), classes={ncls} (<= {TAIL_MAX_CLS}); "
             f"bfloat16 only; up={up} (an exact half height)")
     if any(not p.is_contiguous() for p in parts):

@@ -77,7 +77,9 @@ from ssunet_gan_tpu_torch.ops.resize import _up_rows
 from ssunet_gan_tpu_torch.ops.stage_kernel import (
     _ptr,
     _refused,
+    eval_blocks,
     eval_conv_weight,
+    eval_nt,
     pack_spade,
     seam_modes,
     seam_shape,
@@ -589,24 +591,24 @@ def int8_stage_reference(parts, block_params, spade_params, head=None,
 # and the wrappers, then the whole stage.
 # ---------------------------------------------------------------------------
 
-# The N of launch A's instantiations (the output channels padded up to one)
-# and of launch B's N blocks: B keeps two s32 sums (the 3×3's and the
-# shortcut's), so its blocks are at most 128 channels wide (256 run as two).
-S8_NT_H1 = (64, 128, 192, 256)
+# The N of launch B's N blocks (launch A's are the bf16 core's,
+# ``ops/stage_kernel.py`` ``EVAL_NT``): B keeps two s32 sums (the 3×3's and
+# the shortcut's), so its blocks are at most 128 channels wide (256 run as
+# two).
 S8_NT_Y = (64, 128)
 S8_GROUP = 16  # s8 channels of one K core matrix (16 bytes)
 
 
 def s8_nt(cout: int, launch: str) -> Tuple[int, int]:
     """(N, N blocks) of the s8 conv core for ``cout`` output channels:
-    launch ``"h1"`` (A) one block of the smallest N in ``S8_NT_H1`` that
-    holds them, launch ``"y"`` (B) blocks of 64 or 128."""
+    launch ``"h1"`` (A) one block of the smallest N of the bf16 core's
+    (64, 128, 192, 256) that holds them, or past 256 (the deep stages, up to
+    ``ops/stage_kernel.py`` ``set_pack_max_planes``' 768) the bf16 core's
+    N blocks (``eval_nt``: 384 as 2 × 192, 512 as 2 × 256, 768 as 3 × 256);
+    launch ``"y"`` (B) blocks of 64 or 128."""
     if launch == "h1":
-        for nt in S8_NT_H1:
-            if cout <= nt:
-                return nt, 1
-        raise ValueError(f"the s8 conv core takes at most {S8_NT_H1[-1]} output channels, "
-                         f"got {cout}")
+        nt = eval_nt(cout)
+        return nt, eval_blocks(cout, nt)
     nt = S8_NT_Y[0] if cout <= S8_NT_Y[0] else S8_NT_Y[1]
     return nt, -(-cout // nt)
 
@@ -620,8 +622,7 @@ def s8_conv_weight(segments, nt: int, nblk: int = 1) -> torch.Tensor:
     core matrices (8 output channels × 16 K values, the two K halves side
     by side); zeros past each segment's channels, the block's channels and
     the chunk's last pair."""
-    return torch.cat([eval_conv_weight([w[b * nt:(b + 1) * nt] for w in segments], nt,
-                                       torch.int8, S8_GROUP) for b in range(nblk)])
+    return eval_conv_weight(segments, nt, torch.int8, S8_GROUP, nblk)
 
 
 def pack_s8_conv(segments, launch: str) -> dict:
@@ -712,7 +713,8 @@ def s8_conv1(qparts, conv: dict, d1, t1, up=None, down=None):
     """Launch A on the card: ``(h1, rowmax)`` as :func:`s8_conv1_reference`
     (bf16 h1), from contiguous s8 NHWC CUDA parts, each read in its mode
     (``up`` / ``down``: a bool per part; :func:`_s8_sources`), and
-    :func:`pack_s8_conv`'s ``"h1"`` operand. Counts ``conv_launches``."""
+    :func:`pack_s8_conv`'s ``"h1"`` operand (its N blocks each add their
+    channels' row maxima to ``rowmax``). Counts ``conv_launches``."""
     global conv_launches
     modes = seam_modes(len(qparts), up, down)
     n, h, w = seam_shape(qparts[0], modes[0])
@@ -720,7 +722,8 @@ def s8_conv1(qparts, conv: dict, d1, t1, up=None, down=None):
     h1 = torch.empty((n, h, w, conv["cout"]), dtype=torch.bfloat16, device=dev)
     rowmax = torch.zeros((n, h), dtype=torch.float32, device=dev)
     _check(_lib().ssu_s8_conv1(*_s8_sources(qparts, conv, modes, (n, h, w)), conv["nt"],
-                               _ptr(conv["w"]), conv["steps"], _ptr(d1), _ptr(t1), _ptr(h1),
+                               _ptr(conv["w"]), conv["steps"], conv["nblk"], _ptr(d1),
+                               _ptr(t1), _ptr(h1),
                                _ptr(rowmax), n, h, w, conv["cout"],
                                torch.cuda.current_stream(dev).cuda_stream), "conv1")
     conv_launches += 1
@@ -798,7 +801,7 @@ def _lib() -> ctypes.CDLL:
     ll = ctypes.c_longlong
     lib.ssu_q_absmax.argtypes = [p, ll, i, p, p, p]
     lib.ssu_q_quant.argtypes = [p, ll, i, p, f, p, p]
-    lib.ssu_s8_conv1.argtypes = [p, i, i, p, i, i, i, p, i, p, p, p, p, i, i, i, i, p]
+    lib.ssu_s8_conv1.argtypes = [p, i, i, p, i, i, i, p, i, i, p, p, p, p, i, i, i, i, p]
     lib.ssu_q_band.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.ssu_s8_conv2.argtypes = [p, i, i, p, i, i, p, i, i, i, p, i, i, p, p, p, p, p, i, i, i,
                                  i, p]

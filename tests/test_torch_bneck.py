@@ -32,7 +32,7 @@ from ssunet_gan_tpu.ops.stage_kernel import fused_eval_stage_bneck as jax_fused_
 from ssunet_gan_tpu.utils import jit_init
 from ssunet_gan_tpu_torch.compat import from_jax_variables
 from ssunet_gan_tpu_torch.models import build_model, ssunet
-from ssunet_gan_tpu_torch.ops import stage_kernel_bneck
+from ssunet_gan_tpu_torch.ops import stage_kernel, stage_kernel_bneck
 from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
 from ssunet_gan_tpu_torch.ops.blocks import Bottleneck
 from ssunet_gan_tpu_torch.ops.spade import SPADE
@@ -289,7 +289,7 @@ def test_narrow_model_matches_jax(narrow, monkeypatch, rng, fused):
     through the bottleneck or the BasicBlock kernel on either side) and off
     (none)."""
     arch, model, variables, port = narrow
-    monkeypatch.setattr(ssunet, "FUSED_MAX_PLANES", 32 if fused else 0)
+    monkeypatch.setattr(stage_kernel, "max_planes", lambda train=False: 32 if fused else 0)
     x = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
     jcounts, counts = {}, {}
     for name in ("fused_eval_stage", "fused_eval_stage_bneck"):
@@ -327,7 +327,7 @@ def test_int8_mode_leaves_the_bottleneck_model_on_its_composition(narrow, monkey
     runs every stage as the composition, bit for bit its unfused forward,
     in f32 and in bf16; ``UNet_R_SS`` takes the int8 stages."""
     arch, _, _, port = narrow
-    monkeypatch.setattr(ssunet, "FUSED_MAX_PLANES", 32)
+    monkeypatch.setattr(stage_kernel, "max_planes", lambda train=False: 32)
     x = torch.from_numpy(rng.normal(size=(1, 32, 32, 3)).astype(np.float32))
     counts = {}
     for name in ("fused_eval_stage_int8", "int8_block", "fused_eval_stage_bneck"):
@@ -342,7 +342,7 @@ def test_int8_mode_leaves_the_bottleneck_model_on_its_composition(narrow, monkey
         assert counts == {"fused_eval_stage_int8": 12, "int8_block": 10}
         return
     assert counts == {}
-    monkeypatch.setattr(ssunet, "FUSED_MAX_PLANES", 0)
+    monkeypatch.setattr(stage_kernel, "max_planes", lambda train=False: 0)
     with torch.no_grad():
         for got, dt in zip(on, (torch.float32, torch.bfloat16)):
             assert got.dtype == dt and torch.equal(got, port(x.to(dt)))

@@ -106,6 +106,13 @@ EVAL_CONV_CASES = {
     # be a NaN)
     "3x3-rgb-many-tiles": ((3,), (3,), 64, None, False, (2, 128, 96)),
     "1x1-rgb-many-tiles": ((3, 8), (1, 1), 256, None, False, (2, 64, 96)),
+    # the deep stages' N blocks (set_pack_max_planes): 384 as 2 x 192, 512
+    # and 768 as 2 and 3 x 256, 320 with a partial last block
+    "n384-blocks": ((256,), (3,), 384, None, False, (2, 16, 16)),
+    "n512-3x3-and-1x1-shortcut": ((512, 512, 512), (3, 1, 1), 512, 1, False, (1, 16, 24)),
+    "n768-blocks": ((512,), (3,), 768, None, False, (2, 16, 16)),
+    "n320-partial-block": ((40, 24), (3, 3), 320, None, False),
+    "n512-1x1-and-identity": ((512, 256, 256), (1, 1, 1), 512, 1, True, (1, 16, 16)),
 }
 
 
@@ -866,6 +873,11 @@ S8_CONV_CASES = {
     "48-n128-th=H=36": ((48,), 128, (1, 36, 8), 36),  # one band of 36: 3 tiles down
     "96-n96-many-tiles": ((96,), 96, (3, 64, 72), 64),
     "256-n256-many-tiles": ((256,), 256, (3, 64, 48), 32),
+    # launch A in N blocks (the deep stages): every block adds its channels
+    # to the same row maxima
+    "256-n384-blocks": ((256,), 384, (2, 16, 16), 16),
+    "512+512-n512-blocks": ((512, 512), 512, (1, 32, 32), 32),
+    "512-n768-blocks": ((512,), 768, (2, 16, 16), 16),
 }
 
 
@@ -914,6 +926,8 @@ S8_SEAM_CASES = {
     "pool-n128": ("pool", (64,), 128, (1, 32, 32), 16, 0),
     "pool-n192-narrow": ("pool", (20,), 192, (1, 16, 24), 16, 0),
     "pool-n256": ("pool", (128,), 256, (2, 16, 16), 16, 0),
+    "up-n384-blocks": ("up", (384, 384), 384, (1, 16, 16), 16, 1),
+    "pool-n512-blocks": ("pool", (256,), 512, (2, 8, 8), 8, 0),
 }
 
 
@@ -1335,6 +1349,9 @@ SEAM_CASES = {
     "pool-n256": ("pool", (128,), (3,), 256, (1, 32, 8), 0),
     "pool-1x1-shortcut": ("pool", (64, 32), (3, 1), 64, (2, 16, 12), 1),
     "pool-unaligned-channels": ("pool", (12,), (3,), 32, (1, 8, 8), 0),
+    # the deep stages' N blocks: each block reads the seam
+    "up-n384-blocks": ("up", (384, 384), (3, 3), 384, (1, 16, 16), 1),
+    "pool-n512-blocks": ("pool", (256,), (3,), 512, (2, 8, 8), 0),
 }
 
 
@@ -1496,3 +1513,156 @@ def test_load_segmentation_models_puts_the_model_on_the_card(tmp_path):
     assert all(t.device.type == "cuda" for t in loaded.state_dict().values())
     for k, v in model.state_dict().items():
         assert torch.equal(loaded.state_dict()[k].cpu(), v), k
+
+
+# ---- the deep stages (set_pack_max_planes): kernels 1, its f32 route, 7 and
+# 8 at 384-768 planes, their convs in N blocks
+
+
+@pytest.fixture
+def deep_stages():
+    """The gates' eval limit at 768 for the test, back at its default after."""
+    stage_kernel.set_pack_max_planes(768)
+    yield
+    stage_kernel.set_pack_max_planes(256)
+
+
+# (parts' widths, planes, N x H x W): the flagship's deep signatures at
+# small maps, and 320 (a partial last N block)
+DEEP_CASES = [((256,), 384, (2, 16, 16)), ((384, 384), 384, (1, 16, 24)),
+              ((384,), 512, (2, 16, 16)), ((512, 512), 512, (1, 16, 16)),
+              ((512,), 768, (2, 16, 16)), ((64,), 320, (1, 24, 16))]
+
+
+def _deep_stage(dev, chans, planes, gen, head=False):
+    block = BasicBlock(sum(chans), planes, generator=gen)
+    _randomize_bn(block, gen)
+    spade = SPADE("spadebatch3x3", planes, 3, planes / 16, generator=gen)
+    final = Conv2d(planes, 3, 1, generator=gen).to(dev) if head else None
+    block.to(dev).eval()
+    spade.to(dev)
+    return (block.stage_params(), spade.stage_params(),
+            None if final is None else (final.weight, final.bias))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("chans,planes,nhw", DEEP_CASES,
+                         ids=[f"{'+'.join(map(str, c))}-{p}" for c, p, _ in DEEP_CASES])
+def test_deep_stage_kernel_matches_plain(deep_stages, chans, planes, nhw, dtype):
+    """Kernel 1 (bf16: its two convs in N blocks, the tail at 384-768
+    channels) and its f32 route at the deep widths against the stage's plain
+    version, by the shallow stages' bars (bf16: ``_close``; f32: 1e-4 of
+    max |plain| and in relative L2)."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(21)
+    bp, sp, head = _deep_stage(dev, chans, planes, gen, head=planes == 320)
+    parts = tuple(torch.randn(nhw + (c,), generator=gen).to(dev, dtype) for c in chans)
+    before = (stage_kernel.launches, stage_kernel.f32_launches)
+    got = stage_kernel.fused_eval_stage(parts, bp, sp, head)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    assert (stage_kernel.launches - before[0], stage_kernel.f32_launches - before[1]) == (
+        (0, 1) if f32 else (1, 0))
+    want = stage_kernel.fused_stage_reference(parts, bp, sp, head)
+    assert got.shape == want.shape == nhw + (3 if head else planes,)
+    if f32:
+        diff = got - want
+        err, scale = diff.abs().max().item(), want.abs().max().item()
+        assert err <= 1e-4 * scale and (diff.norm() / want.norm()).item() <= 1e-4
+    else:
+        errs, ok = _close(got, want)
+        assert ok, errs
+
+
+@pytest.mark.gpu
+def test_deep_stage_is_refused_at_the_default_limit():
+    """At the default limit (256) the card's gate refuses a 384-plane stage
+    and the wrapper raises rather than run it."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(22)
+    bp, sp, _ = _deep_stage(dev, (256,), 384, gen)
+    x = torch.randn((1, 16, 16, 256), generator=gen).to(dev, torch.bfloat16)
+    assert stage_kernel.max_planes() == 256
+    with pytest.raises(ValueError, match="set_pack_max_planes"):
+        stage_kernel.fused_eval_stage((x,), bp, sp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["dynamic", "emit"])
+@pytest.mark.parametrize("chans,planes,nhw", DEEP_CASES[:5],
+                         ids=[f"{'+'.join(map(str, c))}-{p}" for c, p, _ in DEEP_CASES[:5]])
+def test_deep_int8_stage_kernel_matches_plain(deep_stages, chans, planes, nhw, mode):
+    """Kernel 7 at the deep widths (launch A in N blocks, launch B in blocks
+    of 128, the tail and its s8 epilogue at 384-768 channels): h1 and y
+    bit for bit, the output by ``_close`` or, emitted as s8, equal on
+    99.9% of the elements and never more than one step apart."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(23)
+    bp, sp, _ = _deep_stage(dev, chans, planes, gen)
+    parts = tuple(torch.randn(nhw + (c,), generator=gen).to(dev, torch.bfloat16) for c in chans)
+    kw = {"out_abs_max": 6.0} if mode == "emit" else {}
+    got, want = _int8_both(parts, bp, sp, None, **kw)
+    if mode == "emit":
+        assert got.scale == want.scale and got.q.shape == nhw + (planes,)
+        d = (got.q.int() - want.q.int()).abs()
+        assert d.max().item() <= 1 and (d == 0).float().mean().item() >= 0.999
+    else:
+        errs, ok = _close(got, want)
+        assert ok, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("planes", [384, 768])
+def test_s8_rowmax_covers_every_n_block(planes):
+    """Launch A's row maxima with the largest h1 values in the last N block
+    only (the other blocks' channels scaled down 1000 times): rowmax is
+    each row's maximum over every channel, as the plain version's, so the
+    band scales of launch Q cover the whole of h1."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(24)
+    n, h, w, c = 2, 16, 16, 256
+    q = torch.randint(-127, 128, (n, h, w, c), generator=gen).to(torch.int8).to(dev)
+    conv1 = q8.pack_s8_conv([torch.randint(-127, 128, (planes, c, 3, 3), generator=gen)
+                             .to(torch.int8).to(dev)], "h1")
+    assert conv1["nblk"] == (2 if planes == 384 else 3)
+    last = planes - conv1["nt"]
+    d1 = torch.full((planes,), 1e-5, device=dev)
+    d1[:last] *= 1e-3
+    t1 = torch.zeros(planes, device=dev)
+    h1, rowmax = q8.s8_conv1((q,), conv1, d1, t1)
+    torch.cuda.synchronize()
+    want_h1, want_rowmax = q8.s8_conv1_reference((q,), conv1, d1, t1)
+    assert torch.equal(h1, want_h1) and torch.equal(rowmax, want_rowmax)
+    assert torch.equal(rowmax, h1[..., last:].float().amax((2, 3)))
+    assert (rowmax > 10 * h1[..., :last].float().amax((2, 3))).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chans,nhw", [((256,), (2, 16, 16)), ((512, 1024), (1, 16, 16))],
+                         ids=["conv3_0", "conv3_1"])
+def test_deep_bneck_stage_kernel_matches_plain(deep_stages, chans, nhw):
+    """Kernel 8 at UNet_B_SS's 512-plane signatures: its three convs in two
+    N blocks of 256, the tail at 512 channels."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_bneck
+    from ssunet_gan_tpu_torch.ops.blocks import Bottleneck
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(25)
+    block = Bottleneck(sum(chans), 512, generator=gen)
+    _randomize_bn(block, gen)
+    spade = SPADE("spadebatch3x3", 512, 3, 32.0, generator=gen)
+    block.to(dev).eval()
+    spade.to(dev)
+    parts = tuple(torch.randn(nhw + (c,), generator=gen).to(dev, torch.bfloat16) for c in chans)
+    before = stage_kernel_bneck.launches
+    got = stage_kernel_bneck.fused_eval_stage_bneck(parts, block.stage_params(),
+                                                    spade.stage_params())
+    torch.cuda.synchronize()
+    assert stage_kernel_bneck.launches == before + 1
+    want = stage_kernel_bneck.fused_bneck_reference(parts, block.stage_params(),
+                                                    spade.stage_params())
+    errs, ok = _close(got, want)
+    assert ok, errs

@@ -33,6 +33,7 @@ from ssunet_gan_tpu_torch.infer import api as port_api
 from ssunet_gan_tpu_torch.infer import calibrate as port_calibrate
 from ssunet_gan_tpu_torch.models import build_model, ssunet
 from ssunet_gan_tpu_torch.ops import pool as port_pool
+from ssunet_gan_tpu_torch.ops import stage_kernel
 from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
 from test_torch_stage import _jax_composition, _stage
 from torch_port_helpers import jax_toggles, oihw, randomize_batch_stats, s8_conv_from_packed, vec
@@ -379,7 +380,7 @@ def narrow():
 def fused_like_jax(monkeypatch):
     """The port's fused gate set to split the narrow flagship as the JAX
     gate does at 32x32."""
-    monkeypatch.setattr(ssunet, "FUSED_MAX_PLANES", FUSED_PLANES)
+    monkeypatch.setattr(stage_kernel, "max_planes", lambda train=False: FUSED_PLANES)
 
 
 def _count(monkeypatch, module, name, counts):

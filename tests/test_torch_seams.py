@@ -346,7 +346,7 @@ def test_narrow_forward_seam_counts(monkeypatch, arch, filters, want):
     full-width models' (UNet_R_SS: up conv2_2, conv1_3, conv0_4, pool
     conv1_0, conv2_0; UNet_B_SS: its three fused decoders' up seams, no
     pool: the Bottleneck stages' pools are materialized, as in JAX)."""
-    monkeypatch.setattr(ssunet, "FUSED_MAX_PLANES", 32)
+    monkeypatch.setattr(stage_kernel, "max_planes", lambda train=False: 32)
     port = build_model(arch, 3, 3, filters=filters, device="cpu", seed=0)
     seen = []
     for name in ("fused_eval_stage", "fused_eval_stage_bneck"):

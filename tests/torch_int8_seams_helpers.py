@@ -18,6 +18,7 @@ from ssunet_gan_tpu.ops import stage_kernel_int8 as jq8
 from ssunet_gan_tpu.utils import jit_init
 from ssunet_gan_tpu_torch.compat import from_jax_variables
 from ssunet_gan_tpu_torch.models import build_model, ssunet
+from ssunet_gan_tpu_torch.ops import stage_kernel
 from ssunet_gan_tpu_torch.ops import stage_kernel_int8 as q8
 from torch_port_helpers import (
     R_FILTERS,
@@ -109,7 +110,7 @@ def _int8_forwards(narrow, monkeypatch, calibrated, dtype):
     ``fused_eval_stage_int8``, the port's ``up`` / ``down`` flags.
     Returns (logits, JAX logits, counts, JAX counts)."""
     arch, model, variables, port, tiles = narrow
-    monkeypatch.setattr(ssunet, "FUSED_MAX_PLANES", 32)
+    monkeypatch.setattr(stage_kernel, "max_planes", lambda train=False: 32)
     if calibrated:
         scales = jax_calibrate.record_activation_ranges(model, variables, tiles, batch_size=3)
         jq8.set_int8_calibration(scales)

@@ -21,13 +21,15 @@ from ssunet_gan_tpu.ops.conv import Conv2d as JConv2d
 from ssunet_gan_tpu.train import gan_step as jax_gan_step
 from ssunet_gan_tpu_torch.ops import pool as port_pool
 from ssunet_gan_tpu_torch.ops import resize as port_resize
+from ssunet_gan_tpu_torch.ops import stage_kernel as port_stage_kernel
 from ssunet_gan_tpu_torch.ops import stage_kernel_train as port_stage_kernel_train
 
 
 @contextlib.contextmanager
 def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool = False,
                 int8_stage: bool = False, fused_spade=None, remat: bool = False,
-                lazy_upsample: bool = False, lazy_pool: bool = False, joint_gan: bool = True):
+                lazy_upsample: bool = False, lazy_pool: bool = False, joint_gan: bool = True,
+                pack_max_planes: int = 256):
     """Set every global mode of the JAX package that the port's tests
     reach, and restore the previous values after (another test in the same
     worker may leave, e.g., the upsample-backward decomposition on). The
@@ -47,7 +49,11 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
     their default and are restored after, as are the SPADE, int8 and band
     modes that it sets. ``joint_gan`` is the JAX package's GAN step
     formulation (``train/gan_step.py`` ``set_joint_gan``; True, its default:
-    the joint scalar, False: alternating)."""
+    the joint scalar, False: alternating). ``pack_max_planes`` is the
+    deep-stage opt-in's limit (``ops/stage_kernel.py``
+    ``set_pack_max_planes``), set to the same value in the JAX package and
+    in the port (256, the default of both, unless asked) and restored in
+    both after."""
     saved = (
         jax_stage_kernel._FUSED_STAGE,
         jax_wminor._LAZY_UPSAMPLE,
@@ -65,6 +71,8 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
         port_pool._LAZY_POOL,
         jax_stage_kernel._SEG_STACK,
         jax_gan_step._JOINT_GAN,
+        jax_stage_kernel._PACK_MAX_PLANES,
+        port_stage_kernel._PACK_MAX_PLANES,
     )
     jax_stage_kernel.set_fused_stage(fused_stage)
     jax_wminor.set_lazy_upsample(lazy_upsample)
@@ -82,6 +90,8 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
     jax_blocks.set_remat(remat)
     jax_stage_kernel.set_seg_stack(None)
     jax_gan_step.set_joint_gan(joint_gan)
+    jax_stage_kernel.set_pack_max_planes(pack_max_planes)
+    port_stage_kernel.set_pack_max_planes(pack_max_planes)
     try:
         yield
     finally:
@@ -101,6 +111,8 @@ def jax_toggles(fused_stage: bool, fused_train: bool = False, train_bwd_v3: bool
         port_pool.set_lazy_pool(saved[13])
         jax_stage_kernel.set_seg_stack(saved[14])
         jax_gan_step.set_joint_gan(saved[15])
+        jax_stage_kernel.set_pack_max_planes(saved[16])
+        port_stage_kernel.set_pack_max_planes(saved[17])
 
 
 def oihw(kernel_hwio) -> torch.Tensor:
@@ -330,6 +342,36 @@ def stage_matches_jax(rng, planes, lab, shapes, nh, ncls):
         assert rel < 1e-3, (i, rel)
 
 
+def jax_eval_stage(rng, planes, shapes, bottleneck: bool = False, label: int = 3) -> dict:
+    """A JAX eval stage case (BasicBlock, or Bottleneck, + self-SPADE with
+    hidden planes / 16, as the flagship's): numpy inputs, the JAX
+    variables' parameter bundles (``jbp``, ``jsp``) and the port's
+    (``tbp``, ``tsp``), and the JAX module composition's output."""
+    from ssunet_gan_tpu.ops.spade import SPADE as JSPADE
+
+    block_cls = jax_blocks.Bottleneck if bottleneck else jax_blocks.BasicBlock
+    block = block_cls(planes)
+    spade = JSPADE("spadebatch3x3", planes, label, planes / 16)
+    xs = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    jparts = tuple(jnp.asarray(x) for x in xs)
+    xin = jparts if len(jparts) > 1 else jparts[0]
+    bvars = randomize_batch_stats(jax.jit(lambda: block.init(jax.random.PRNGKey(0), xin,
+                                                             True))())
+    y0 = jnp.zeros(shapes[0][:3] + (planes,), jnp.float32)
+    svars = jax.jit(lambda: spade.init(jax.random.PRNGKey(1), y0, y0))()
+    jbp = block_cls(planes, in_planes=sum(s[-1] for s in shapes)).apply(bvars, None, False)
+    jsp = spade.apply(svars, None, None)
+    if bottleneck:
+        tbp = bneck_bundle(jbp)
+    else:
+        k1, (s1, t1), k2, (s2, t2), ks = jbp
+        tbp = (oihw(k1), (vec(s1), vec(t1)), oihw(k2), (vec(s2), vec(t2)), oihw(ks))
+    tsp = tuple(oihw(a) if np.ndim(a) == 4 else vec(a) for a in jsp)
+    y = block.apply(bvars, xin, False)
+    return dict(xs=xs, jparts=jparts, jbp=jbp, jsp=jsp, tbp=tbp, tsp=tsp,
+                composition=np.asarray(spade.apply(svars, y, y)))
+
+
 def tail_from_packed(y: torch.Tensor, pk: dict) -> torch.Tensor:
     """The SPADE tail (+ folded head) on ``y`` from ``pack_spade``'s operands
     walked in the tail kernel's K orders (csrc/stage_common.cuh), in f32
@@ -368,7 +410,7 @@ def tail_from_packed(y: torch.Tensor, pk: dict) -> torch.Tensor:
 def conv_from_packed(sources, conv: dict) -> torch.Tensor:
     """The eval conv core's sum (before its bias and epilogue) from the
     packed weight of ``pack_eval_conv``, walked in the kernel's K order
-    (csrc/eval_conv.cuh), in f32: per K-segment, per chunk of
+    (csrc/eval_conv.cuh), in f32: per N block, per K-segment, per chunk of
     ``eval_chunk`` channels, per k16 step and k8 half, the (tap, 8-channel
     group) pair's shifted input values (zero ring for a 3×3 segment)
     against that half's core matrices [N/8][8][8]. A pair past the chunk's
@@ -378,26 +420,28 @@ def conv_from_packed(sources, conv: dict) -> torch.Tensor:
 
     from ssunet_gan_tpu_torch.ops.stage_kernel import eval_chunk
 
-    w, nt = conv["w"].float(), conv["nt"]
-    assert w.shape[1:] == (nt // 8, 2, 8, 8)
+    w, nt, nblk = conv["w"].float(), conv["nt"], conv["nblk"]
+    assert w.shape == (nblk * conv["steps"], nt // 8, 2, 8, 8)
     n, h, wd = sources[0].shape[:3]
-    acc = torch.zeros((n, h, wd, nt))
+    acc = torch.zeros((n, h, wd, nblk * nt))
     step = 0
-    for x, (c, k) in zip(sources, conv["segs"]):
-        assert x.shape[-1] == c
-        cc, taps = eval_chunk(c), k * k
-        ngrp, nch = cc // 8, -(-c // cc)
-        xp = F.pad(x.float(), (0, nch * cc - c) + ((1, 1, 1, 1) if k == 3 else ()))
-        for ch in range(nch):
-            for s in range((taps * ngrp + 1) // 2):
-                for half in range(2):
-                    q = 2 * s + half
-                    tap, grp = divmod(q, ngrp) if q < taps * ngrp else (taps // 2, 0)
-                    dy, dx = divmod(tap, 3) if k == 3 else (0, 0)
-                    c0 = ch * cc + grp * 8
-                    acc += xp[:, dy:dy + h, dx:dx + wd, c0:c0 + 8] @ w[step, :, half].reshape(nt, 8).t()
-                step += 1
-    assert step == w.shape[0] == conv["steps"]
+    for b in range(nblk):  # N block b: output channels b·nt ..
+        for x, (c, k) in zip(sources, conv["segs"]):
+            assert x.shape[-1] == c
+            cc, taps = eval_chunk(c), k * k
+            ngrp, nch = cc // 8, -(-c // cc)
+            xp = F.pad(x.float(), (0, nch * cc - c) + ((1, 1, 1, 1) if k == 3 else ()))
+            for ch in range(nch):
+                for s in range((taps * ngrp + 1) // 2):
+                    for half in range(2):
+                        q = 2 * s + half
+                        tap, grp = divmod(q, ngrp) if q < taps * ngrp else (taps // 2, 0)
+                        dy, dx = divmod(tap, 3) if k == 3 else (0, 0)
+                        c0 = ch * cc + grp * 8
+                        wt = w[step, :, half].reshape(nt, 8).t()
+                        acc[..., b * nt:(b + 1) * nt] += xp[:, dy:dy + h, dx:dx + wd, c0:c0 + 8] @ wt
+                    step += 1
+        assert step == (b + 1) * conv["steps"]
     assert not acc[..., conv["cout"]:].any()  # the padded N rows are zero
     return acc[..., :conv["cout"]]
 
