@@ -28,8 +28,9 @@ each rank forwards its contiguous slice (no collective in the eval
 forward), and the probabilities are gathered back in tile order before
 the merge, which every rank then runs.
 
-Not read here: the JAX package's orbax checkpoint directories, and scenes
-other than PNG where PIL does not import (ROADMAP.md).
+Not read here: the JAX package's orbax checkpoint directories (converted
+to ``model.pth`` by ``tools/torch_from_orbax.py``), and scenes other than
+PNG where PIL does not import (ROADMAP.md).
 """
 
 from __future__ import annotations

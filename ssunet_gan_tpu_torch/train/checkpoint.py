@@ -18,7 +18,9 @@ resume state (the JAX package's train/checkpoint.py, there on orbax).
   supervised ``model.pth`` (the JAX package's train/checkpoint.py:115;
   reference models_seg_gan.py:216-233), ``strict=False``.
 
-The JAX package's orbax directories are not read here (ROADMAP.md).
+The JAX package's orbax directories (``model.orbax``) are not read here:
+``tools/torch_from_orbax.py``, run where the JAX package imports, writes
+their ``model.pth``.
 """
 
 from __future__ import annotations
@@ -56,14 +58,16 @@ def save_model(model_dir: str, model: torch.nn.Module) -> str:
 
 def model_file(model_dir: str) -> str:
     """``<model_dir>/model.pth``; raises NotImplementedError where the
-    directory holds only the JAX package's orbax checkpoint, and
-    FileNotFoundError where it holds neither."""
+    directory holds only the JAX package's orbax checkpoint (naming the
+    command that converts it), and FileNotFoundError where it holds
+    neither."""
     path = os.path.join(model_dir, MODEL_FILE)
     if not os.path.isfile(path):
         if os.path.isdir(os.path.join(model_dir, ORBAX_DIR)):
             raise NotImplementedError(
                 f"{model_dir} holds the JAX package's orbax checkpoint only; the port reads "
-                f"{MODEL_FILE} (reading orbax directories is queued in ROADMAP.md)")
+                f"{MODEL_FILE}: write it where the JAX package imports with "
+                f"`JAX_PLATFORMS=cpu python3 tools/torch_from_orbax.py {model_dir}`")
         raise FileNotFoundError(f"no checkpoint in {model_dir}")
     return path
 

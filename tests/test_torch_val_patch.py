@@ -165,7 +165,7 @@ def test_refused_model_directories(tmp_path):
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         api.load_segmentation_models(path, device="cpu")
     os.makedirs(os.path.join(model_dir, "model.orbax"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="tools/torch_from_orbax.py"):
         api.load_segmentation_models(path, device="cpu")
 
 
