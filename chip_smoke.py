@@ -280,7 +280,7 @@ Phases, each of which exits non-zero on failure:
    10's bars; at 768, UNet_R_SS's forward with 11 kernel-1 stages reading 5
    up and 5 pool seams, and SSUNet still 8 kernel-1 stages per forward
    (conv4_0's 128 hidden channels are past the SPADE tail's 64).
-20. The accuracy bars (last; ``accuracy_phase``): ``tools/torch_accuracy_bar.py``'s
+20. The accuracy bars (``accuracy_phase``): ``tools/torch_accuracy_bar.py``'s
    ``main`` in process, ``--hard --scene`` at the JAX tool's defaults (the
    city scenes, 12 epochs of 48 at 256² through ``run_experiment``: every
    step's train kernels counted against PER_STEP v3, the evaluations on
@@ -295,6 +295,23 @@ Phases, each of which exits non-zero on failure:
    or kernel-7 stages per forward, 11 at 768; 5 deep s8 blocks per int8
    forward at 256, none at 768); an ``accuracy:`` line per row and one for
    the phase (the val IoU training reached, its wall time, the card).
+21. f32 training (last; ``f32_train_phase``): the flagship of
+   config_v1.json at full width trained with ``mixed_precision: False`` on
+   kernels 2-6 in f32 (``ops/train_f32.py``, ``csrc/train_f32.cu``, 3xTF32):
+   step 1 on phase 6's seeded batches against the plain versions in f32
+   (TF32 off) and an f64 module composition by phase 6's pooled bars with
+   the kernel's own distance (F32_TRAIN_TOL's comment; the f32 composition
+   in the kernel's place printed as a control); 2 warm-up and 5 timed steps
+   with the f32 launches per step against PER_STEP v3, timed in turns beside
+   the f32 composition with TF32 off and on and the bf16 step (``f32 step:``
+   lines); each of one steady-state step's 83 calls, and the 30 weight
+   gradients of one v2 step (kernel 4 in f32), against its plain version by
+   F32_TRAIN_TOL (weight gradients also against an f64 sum), timed beside
+   the plain version, its 3xTF32 bound and the library call in f32 (``train
+   f32 call:`` / ``mode:`` / ``kernel:`` lines); a profile of one f32 step;
+   the stale-weight check (weights changed in place between two calls);
+   ``run_experiment`` for one epoch of 16 synthetic scenes and one joint GAN
+   step (phase 15's G and D, built anew), each f32 launch counted.
 
 Each path's profile also gives a ``tail:`` line: the shared SPADE tail
 kernel's time and launches per forward or step beside its bound; the
@@ -315,7 +332,8 @@ tools' (phase 17: ``val`` kernel 1 in f32, ``smoke_test`` in bf16), the
 deep-stage opt-in's (phase 19, ``deep``: kernels 1, its f32 route, 7 and 8,
 with each row's ``deep`` per-stage numbers) and the accuracy bars' (phase
 20, ``accuracy``: kernels 2, 3, 5 and 6 in training, 1, its f32 route and
-7 in the rows) added, and each
+7 in the rows) added, the f32 train kernels' rows (phase 21: ``<name>_f32``,
+launches on ``flagship_f32``, ``run_experiment_f32``, ``gan_f32``), and each
 row's ``launches_by_path`` — error, time, plain time, bound, library
 time), and ends with ``{"ok": true, "device": {...}}``. Every check that
 fails is printed and the run exits non-zero
@@ -449,6 +467,32 @@ PER_STEP = {
 # γ|β recompute (none to the input image at conv0_0)
 WGRAD_V2 = ("γ|β", "mlp", "x2map", "conv2", "conv1")
 BWD_DATA_V2 = ("to actv", "to seg", "to y", "to h1", "to input")
+
+
+# Phase 21, f32 training (mixed_precision "False"): kernels 2-6 in float32
+# (ops/train_f32.py, csrc/train_f32.cu) against their plain versions in f32
+# (TF32 off) per call: each output within F32_TRAIN_TOL of its max |plain|
+# and in relative L2, each stat row within F32_TRAIN_TOL of that row's
+# largest |sum|, weight gradients in relative L2 (kernel 1f's bar).
+F32_TRAIN_TOL = F32_STAGE_TOL
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3  # three tensor-core products per f32 product
+# Step 1 of the f32 trainer against an f64 module composition, on phase 6's
+# batches, by phase 6's pooled bars with one change (step1_bars ``own``): the
+# loss and all gradients hold e_k <= NOISE_RATIO x e_p (the kernel step no
+# further from f64 than the plain f32 step is) in place of e_kp <= e_p. In
+# bf16 kernel and plain round to the same bf16 values, so their distance is
+# f32 noise far below bf16's; in f32 their errors are independent and of one
+# size, so kernel-plain is about sqrt(e_k^2 + e_p^2) > e_p for any path not
+# bit-equal to plain: measured on the H100 (700 W) the f32 module
+# composition in the kernel's place failed both e_kp <= e_p bars (loss 6.3e-7
+# against 5.1e-7, all gradients 0.00420 against 0.00409; the control line).
+# Each gradient keeps e_kp <= GRAD_KP x e_p and the scale bar: a zeroed
+# gradient is 1 from plain, a x1.05 one 0.05, against e_p ~ 0.004.
+# the f32 step timed in turns beside these (2 warm-up and 5 timed steps each)
+F32_TURNS = ("f32 kernels", "f32 composition, TF32 off", "f32 composition, TF32 on",
+             "bf16 kernels")
+# the f32 entry point: run_experiment, one epoch of ENTRY_SYNTHETIC scenes
+F32_ENTRY_EPOCHS = 1
 
 
 def kernel_module(name):
@@ -816,8 +860,8 @@ def library_conv(sources, conv):
     return run
 
 
-def library_tail(x, spade_params, parts=None, ws=None, head=None):
-    """A SPADE tail's convs as ``F.conv2d`` calls in bf16, channels-last, on
+def library_tail(x, spade_params, parts=None, ws=None, head=None, dtype=torch.bfloat16):
+    """A SPADE tail's convs as ``F.conv2d`` calls in ``dtype``, channels-last, on
     ``x`` (NHWC; the tail's input, or one of its shape): seg (x → labels),
     act (labels → hidden, ReLU), γ and β as one conv over act (their
     weights concatenated outside the timed region), the head's 1×1 where
@@ -827,21 +871,19 @@ def library_tail(x, spade_params, parts=None, ws=None, head=None):
     yardstick of kernels 3 and 9, timed only and never called by the port."""
     import torch.nn.functional as F
 
-    bf16 = torch.bfloat16
-
     def weight(w):
-        return w.to(bf16).contiguous(memory_format=torch.channels_last)
+        return w.to(dtype).contiguous(memory_format=torch.channels_last)
 
     def bias(b):
-        return None if b is None else b.to(bf16)
+        return None if b is None else b.to(dtype)
 
     wx, bx, wm, bm, wg, bg, wb, bb = spade_params
     convs = [(weight(wx), bias(bx)), (weight(wm), bias(bm)),
              (weight(torch.cat([wg, wb])), bias(torch.cat([bg, bb])))]
-    xc = x.to(bf16).permute(0, 3, 1, 2)
+    xc = x.to(dtype).permute(0, 3, 1, 2)
     res = None
     if ws is not None:
-        res = (torch.cat([p.to(bf16) for p in _parts(parts)], -1).permute(0, 3, 1, 2),
+        res = (torch.cat([p.to(dtype) for p in _parts(parts)], -1).permute(0, 3, 1, 2),
                weight(ws))
     hd = None if head is None else (weight(head[0]), bias(head[1]))
 
@@ -1597,10 +1639,11 @@ def _nbytes(tensors):
     return sum(seen.values())
 
 
-def call_cost(name, args, kwargs):
+def call_cost(name, args, kwargs, esize=2):
     """(FLOPs, bytes) one call must do: the multiply-adds of its products
     at their real (unpadded) widths; each input read and each output
-    written once."""
+    written once (``esize`` bytes per activation and weight: 2 in bf16, 4
+    in f32)."""
     if name == "train_tail":
         f2, parts, _, _, _, sp = args[:6]
         head = args[6] if len(args) > 6 else kwargs.get("head")
@@ -1610,7 +1653,7 @@ def call_cost(name, args, kwargs):
         lab, nh = sp[0].shape[0], sp[2].shape[0]
         ncls = 0 if head is None else head[0].shape[0]
         macs = csum * c + 9 * c * lab + 9 * lab * nh + 9 * nh * 2 * c + c * ncls
-        nbytes = 2 * n * h * w * (c + csum + (ncls or c) + c + lab + nh)
+        nbytes = esize * n * h * w * (c + csum + (ncls or c) + c + lab + nh)
         return 2.0 * macs * n * h * w, nbytes
     if name == "fused_conv3":
         mode, src, weight, side, _, _, shortcut = conv3_call(args, kwargs)
@@ -1618,8 +1661,8 @@ def call_cost(name, args, kwargs):
         n, h, w = src[0].shape[:3]
         cout = weight.shape[0]
         macs = weight[0].numel() * cout + (0 if shortcut is None else shortcut.numel())
-        nbytes = (_nbytes(list(src) + list(side)) + 2 * (weight.numel() + (
-            0 if shortcut is None else shortcut.numel())) + 2 * n * h * w * cout)
+        nbytes = (_nbytes(list(src) + list(side)) + esize * (weight.numel() + (
+            0 if shortcut is None else shortcut.numel())) + esize * n * h * w * cout)
         return 2.0 * macs * n * h * w, nbytes
     if name == "fused_wgrad":
         mode, x, g, _, _ = wgrad3_call(args, kwargs)
@@ -1633,10 +1676,10 @@ def call_cost(name, args, kwargs):
     cin = sum(p.shape[-1] for p in parts)
     if name == "conv_stats":
         cout = args[1].shape[0]
-        nbytes = 2 * (n * h * w * (cin + cout) + 9 * cin * cout)
+        nbytes = esize * (n * h * w * (cin + cout) + 9 * cin * cout)
     else:  # wgrad: f32 dW out
         cout = args[1].shape[-1]
-        nbytes = 2 * n * h * w * (cin + cout) + 4 * 9 * cin * cout
+        nbytes = esize * n * h * w * (cin + cout) + 4 * 9 * cin * cout
     return 2.0 * 9 * cin * cout * n * h * w, nbytes
 
 
@@ -1660,7 +1703,8 @@ def wgrad_inputs(name, args, kwargs):
 
 
 def library_call(name, args, kwargs):
-    """One PyTorch call on the same inputs as a yardstick (cuDNN in bf16):
+    """One PyTorch call on the same inputs as a yardstick (cuDNN in the
+    call's activation dtype, bf16 or f32):
     the convolution for conv_stats (without the sums) and for fused_conv3
     (its 3×3 conv on the raw sources, without the chains), the weight
     gradient on the materialized input and cotangent for wgrad and
@@ -1671,14 +1715,14 @@ def library_call(name, args, kwargs):
 
     if name == "train_tail":
         f2, parts, _, _, ws, sp = args[:6]
-        return library_tail(f2, sp, parts, ws, _arg(args, kwargs, 6, "head"))
+        return library_tail(f2, sp, parts, ws, _arg(args, kwargs, 6, "head"), dtype=f2.dtype)
     if name == "fused_conv3":
         mode, src, weight, _, _, bias, _ = conv3_call(args, kwargs)
         src = _parts(src)
         srcs = (src[0], src[0]) if mode == "modgrad" else src[:1]
         x = torch.cat(srcs, -1).permute(0, 3, 1, 2)
-        wt = weight.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        b = None if bias is None else bias.to(torch.bfloat16)
+        wt = weight.to(x.dtype).contiguous(memory_format=torch.channels_last)
+        b = None if bias is None else bias.to(x.dtype)
         return lambda: F.conv2d(x, wt, b, padding=1)
     if name in ("wgrad", "fused_wgrad"):
         parts, g, pro = wgrad_inputs(name, args, kwargs)
@@ -1693,9 +1737,9 @@ def library_call(name, args, kwargs):
     if pro is not None:
         parts = (tst._prologued(parts[0], pro),)
     x = torch.cat(parts, -1).permute(0, 3, 1, 2)  # NCHW view, channels-last memory
-    wt = args[1].to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wt = args[1].to(x.dtype).contiguous(memory_format=torch.channels_last)
     b = kwargs.get("bias")
-    b = None if b is None else b.to(torch.bfloat16)
+    b = None if b is None else b.to(x.dtype)
     return lambda: F.conv2d(x, wt, b, padding=1)
 
 
@@ -1816,13 +1860,16 @@ def step1_sums(kern, plain, f32) -> np.ndarray:
     return torch.stack(rows).cpu().numpy()
 
 
-def step1_bars(sums, names, pooled=True):
+def step1_bars(sums, names, pooled=True, own=False):
     """The step-1 bars on the per-batch sums of :func:`step1_sums` (shape
     batches × tensors × 9). ``pooled``: each distance over all the batches
     at once, the bars of STEP1_* (above); else the one-batch bars of
     chip_smoke.py before them (the loss strict, each gradient e_kp ≤
-    GRAD_KP·e_p, all gradients strict), for the record. Returns (ok, [(what,
-    e_k, e_p, e_kp, held)], names of the single gradients that failed)."""
+    GRAD_KP·e_p, all gradients strict), for the record. ``own`` (an f32
+    step against f64, the comment above F32_TURNS): the loss and all gradients hold the
+    kernel's own distance, e_k ≤ NOISE_RATIO·e_p, in place of e_kp ≤ e_p.
+    Returns (ok, [(what, e_k, e_p, e_kp, held)], names of the single
+    gradients that failed)."""
     s = np.asarray(sums, dtype=np.float64)
     tot = s.sum(0)  # sums of squares and projections over the batches
     finite = s[..., 5].min(0) > 0
@@ -1834,7 +1881,7 @@ def step1_bars(sums, names, pooled=True):
 
     rows = []
     e_k, e_p, e_kp = ratios(tot[0])
-    held = bool(finite[0]) and (e_kp <= e_p if pooled
+    held = bool(finite[0]) and (e_k <= NOISE_RATIO * e_p if own else e_kp <= e_p if pooled
                                 else e_k <= NOISE_RATIO * e_p and e_kp <= e_p)
     rows.append(("loss", e_k, e_p, e_kp, held))
     bad = []
@@ -1848,19 +1895,24 @@ def step1_bars(sums, names, pooled=True):
             bad.append(n)
     e_k, e_p, e_kp = ratios(tot[1:].sum(0))
     rows.append((f"all {len(names)} parameter gradients", e_k, e_p, e_kp,
-                 bool(finite[1:].all()) and e_k <= NOISE_RATIO * e_p and e_kp <= e_p))
+                 bool(finite[1:].all()) and e_k <= NOISE_RATIO * e_p and (own or e_kp <= e_p)))
     rows.append(("each parameter gradient", float("nan"), float("nan"), float("nan"), not bad))
     return all(r[4] for r in rows), rows, bad
 
 
-def step1_check(tmodel, loss_fn, batches, what, check, first_stage=None):
+def step1_check(tmodel, loss_fn, batches, what, check, first_stage=None,
+                dtype=torch.bfloat16, ref_dtype=torch.float32, control=None):
     """Step 1 from ``tmodel``'s weights on each (x, y) of ``batches``: on the
     kernels (the model's stage, or ``first_stage`` for the first batch), on
     the same autograd Function over the plain versions (bf16), and as plain
     autograd of the f32 module composition (independent of the Function's
     backward); held to the pooled bars of :func:`step1_bars`. The weights
     are as they were after. Returns the first batch's kernel loss and
-    parameter gradients."""
+    parameter gradients. ``dtype`` and ``ref_dtype``: the kernel and plain
+    runs' activations and the composition's (f32 and f64 hold an f32 step,
+    with :func:`step1_bars`' ``own`` bars); ``control``: a stage run in
+    ``dtype`` in the kernel's place too, whose bars are printed, unchecked
+    (a correct path other than the kernels, what the bars give it)."""
     from ssunet_gan_tpu_torch.models import ssunet
 
     snapshot = copy.deepcopy(tmodel.state_dict())
@@ -1877,26 +1929,38 @@ def step1_check(tmodel, loss_fn, batches, what, check, first_stage=None):
         tmodel.zero_grad(set_to_none=True)
         return res
 
-    sums = []
+    sums, control_sums = [], []
+    ref = {torch.float32: "f32", torch.float64: "f64"}[ref_dtype]
     for i, (x, y) in enumerate(batches):
-        kern = grads(x, y, torch.bfloat16, first_stage if i == 0 and first_stage else fused_stage)
+        kern = grads(x, y, dtype, first_stage if i == 0 and first_stage else fused_stage)
         with plain_train_kernels():
-            plain = grads(x, y, torch.bfloat16, fused_stage)
-        f32 = grads(x, y, torch.float32, module_stage)
+            plain = grads(x, y, dtype, fused_stage)
+        f32 = grads(x, y, ref_dtype, module_stage)
         sums.append(step1_sums(kern, plain, f32))
-        print(f"{what} batch {i + 1} loss kernel {kern[0].item():.6f} plain "
-              f"{plain[0].item():.6f} f32 {f32[0].item():.6f}")
+        if control is not None:
+            control_sums.append(step1_sums(grads(x, y, dtype, control), plain, f32))
+        print(f"{what} batch {i + 1} loss kernel {kern[0].item():.9g} plain "
+              f"{plain[0].item():.9g} {ref} {f32[0].item():.9g}")
         if i == 0:
             kern1 = kern
         del kern, plain, f32
     tmodel.load_state_dict(snapshot)
-    ok, rows, bad = step1_bars(sums, [n for n, _ in tmodel.named_parameters()])
+    names = [n for n, _ in tmodel.named_parameters()]
+    own = dtype == torch.float32
+    ok, rows, bad = step1_bars(sums, names, own=own)
     what = f"{what} over batches 1-{len(batches)} (pooled)"
     for name, e_k, e_p, e_kp, held in rows:
-        print(f"{what} {name}: rel_l2 kernel-f32 {e_k:.4g} plain-f32 {e_p:.4g} kernel-plain "
+        print(f"{what} {name}: rel_l2 kernel-{ref} {e_k:.4g} plain-{ref} {e_p:.4g} kernel-plain "
               f"{e_kp:.4g}{'' if held else '  <-- FAILED'}")
     print(f"{what}: single parameter gradients failing: {', '.join(bad) or 'none'}")
     check(ok, f"{what}: bars {[r[0] for r in rows if not r[4]]}, gradients {bad}")
+    if control_sums:
+        for bars, tag in ((own, "these bars"), (False, "phase 6's bars")):
+            c_ok, c_rows, c_bad = step1_bars(control_sums, names, own=bars)
+            print(f"{what}, control (the f32 module composition in the kernel's place), "
+                  f"{tag}: " + "; ".join(f"{r[0]} {r[1]:.4g}/{r[2]:.4g}/{r[3]:.4g} "
+                                          f"{'held' if r[4] else 'FAILED'}" for r in c_rows)
+                  + f"; single gradients failing {len(c_bad)}")
     return kern1
 
 
@@ -2005,35 +2069,41 @@ def call_types(calls):
     return types
 
 
-def hold_call(kname, args, kw, what, train_err, check) -> None:
+def hold_call(kname, args, kw, what, train_err, check, compare=None) -> None:
     """One recorded train kernel call against its plain version on its
-    inputs (phase 4's tolerances); its error kept in ``train_err``."""
-    err, ok, text = compare_call(kname, args, kw)
+    inputs (phase 4's tolerances, or ``compare``'s); its error kept in
+    ``train_err``."""
+    err, ok, text = (compare or compare_call)(kname, args, kw)
     train_err[kname] = max(train_err[kname], err)
     what = f"{what} {describe_call(kname, args, kw)}"
     print(f"{what} {text}")
     check(ok, f"{what}: {text}")
 
 
-def time_calls(calls, kernels, label, train_err, check):
+def time_calls(calls, kernels, label, train_err, check, f32=False, phase="phase 6"):
     """Hold each recorded call of ``kernels`` against its plain version on
-    its inputs (phase 4's tolerances) and time it against the plain
-    version, its bound and the library call. Returns per-kernel totals."""
+    its inputs (phase 4's tolerances; with ``f32`` phase 21's,
+    :func:`f32_compare_call`) and time it against the plain version, its
+    bound (bf16 tensor cores, or 3xTF32 with f32 bytes) and the library
+    call. Returns per-kernel totals."""
+    peak = PEAK_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS
+    tag = "train f32" if f32 else "train"
     totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                   "kinds": set(), "calls": 0, "macs": 0.0} for k in kernels}
     by_type = {}  # (kernel, call type): the per-type sub-tables
     for (kname, args, kw), ctype in zip(calls, call_types(calls)):
         if kname not in kernels:
             continue
-        hold_call(kname, args, kw, f"phase 6: {label} batch {TRAIN_BATCH}", train_err, check)
+        hold_call(kname, args, kw, f"{phase}: {label} batch {TRAIN_BATCH}", train_err, check,
+                  compare=f32_compare_call if f32 else None)
         mod = kernel_module(kname)
         fn, ref = getattr(mod, kname), getattr(mod, kname + "_reference")
         ms = cuda_ms(lambda: fn(*args, **kw), 3, warmup=1)
         plain_ms = cuda_ms(lambda: ref(*args, **kw), 1, warmup=1)
         lib = library_call(kname, args, kw)
         lib_ms = None if lib is None else cuda_ms(lib, 3, warmup=1)
-        flops, nbytes = call_cost(kname, args, kw)
-        bound, kind = bound_of(flops, nbytes)
+        flops, nbytes = call_cost(kname, args, kw, esize=4 if f32 else 2)
+        bound, kind = bound_of(flops, nbytes, peak)
         t = totals[kname]
         t["macs"] += flops / 2
         t["ms"] += ms
@@ -2046,17 +2116,17 @@ def time_calls(calls, kernels, label, train_err, check):
             m = by_type.setdefault((kname, ctype), [0, 0.0, 0.0, 0.0, 0.0])
             for i, v in enumerate((1, ms, plain_ms, bound, lib_ms or 0.0)):
                 m[i] += v
-        print(f"train call: {describe_call(kname, args, kw)} ms {ms:.3f} plain {plain_ms:.3f} "
+        print(f"{tag} call: {describe_call(kname, args, kw)} ms {ms:.3f} plain {plain_ms:.3f} "
               f"bound {bound:.3f} ({kind}) library "
               f"{'none' if lib_ms is None else f'{lib_ms:.3f}'}")
     for (kname, ctype), (n, ms, plain_ms, bound, lib_ms) in sorted(by_type.items()):
-        print(f"train mode: {kname} {ctype} ({label}, {n} calls) per step ms {ms:.3f} "
+        print(f"{tag} mode: {kname} {ctype} ({label}, {n} calls) per step ms {ms:.3f} "
               f"plain {plain_ms:.3f} bound {bound:.3f} library {lib_ms:.3f}")
     for kname, t in totals.items():
-        print(f"train kernel: {kname} ({label}, {t['calls']} calls) per step ms {t['ms']:.3f} "
+        print(f"{tag} kernel: {kname} ({label}, {t['calls']} calls) per step ms {t['ms']:.3f} "
               f"plain {t['plain_ms']:.3f} bound {t['bound_ms']:.3f} "
               f"library {t['library_ms']:.3f}; {t['macs']:.4g} multiply-adds "
-              f"({2e3 * t['macs'] / PEAK_BF16_FLOPS:.3f} ms at the bf16 peak)")
+              f"({2e3 * t['macs'] / peak:.3f} ms at the {'3xTF32' if f32 else 'bf16'} peak)")
     return totals
 
 
@@ -6119,6 +6189,304 @@ def accuracy_forward_check(dev, tool, model, val_ds, size, check) -> None:
     del f32, kern, plain
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: f32 training (kernels 2-6 in float32)
+# ---------------------------------------------------------------------------
+
+
+def f32_counts() -> dict:
+    """The train kernels' f32 launches (ops/train_f32.py), by wrapper."""
+    return {name: kernel_module(name).f32_launches[name] for name in TRAIN_KERNELS}
+
+
+def reset_f32_counts() -> None:
+    reset_launches()
+    for name in TRAIN_KERNELS:
+        kernel_module(name).f32_launches[name] = 0
+
+
+def f32_compare_call(name, args, kwargs):
+    """An f32 train kernel call and its plain version on its inputs, TF32
+    off, by phase 21's bars (F32_TRAIN_TOL): (max abs err, within, text)."""
+    mod = kernel_module(name)
+    got = getattr(mod, name)(*args, **kwargs)
+    want = getattr(mod, name + "_reference")(*args, **kwargs)
+    torch.cuda.synchronize()
+
+    def held(g, w):
+        err, scale, l2 = (g - w).abs().max().item(), w.abs().max().item(), rel_l2(g, w)
+        ok = (g.shape == w.shape and bool(torch.isfinite(g).all())
+              and err <= F32_TRAIN_TOL * scale and l2 <= F32_TRAIN_TOL)
+        return err, ok, f"max_abs_err {err:.3g} (max|plain| {scale:.4g}) rel_l2 {l2:.3g}"
+
+    if name in ("wgrad", "fused_wgrad"):
+        l2 = rel_l2(got, want)
+        ok = got.shape == want.shape and bool(torch.isfinite(got).all()) and l2 <= F32_TRAIN_TOL
+        exact = wgrad_f64(*wgrad_inputs(name, args, kwargs))
+        return ((got - want).abs().max().item(), ok,
+                f"rel_l2 {l2:.3g}; from an f64 sum kernel {rel_l2(got.double(), exact):.3g} "
+                f"plain {rel_l2(want.double(), exact):.3g}")
+    if name == "train_tail":
+        res = [held(g, w) for g, w in zip(got, want)]
+        return (max(r[0] for r in res), all(r[1] for r in res),
+                " ".join(f"{k} {r[2]}" for k, r in zip(("out", "y", "seg", "actv"), res)))
+    (out, sums), (w_out, w_sums) = got, want
+    res = [held(g, w) for g, w in zip(_parts(out), _parts(w_out))]
+    ok, text = all(r[1] for r in res), " ".join(r[2] for r in res)
+    if (sums is None) != (w_sums is None):
+        ok = False
+    elif sums is not None:
+        errs = (sums - w_sums).abs().amax(1)
+        scales = w_sums.abs().amax(1)
+        ok = ok and sums.shape == w_sums.shape and bool(torch.isfinite(sums).all()) and bool(
+            (errs <= F32_TRAIN_TOL * scales).all())
+        text += (" stat rows: err/max|sum| "
+                 + ", ".join(f"{e / max(m, 1e-30):.3g}" for e, m in zip(errs.tolist(),
+                                                                        scales.tolist())))
+    return max(r[0] for r in res), ok, text
+
+
+def f32_stale_weight_check(dev, check) -> None:
+    """Each weight-taking f32 train kernel twice on one set of inputs, its
+    weights changed in place between the calls as Adam changes them: the
+    second call against the plain version on the new weights (the kernels
+    pack their weights at every call; a pack kept from the first call would
+    hand the second the old ones)."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+    from ssunet_gan_tpu_torch.ops import train_bwd as ttb
+
+    g = torch.Generator().manual_seed(SEED + 210)
+    rnd = lambda *shape, s=1.0: (torch.randn(shape, generator=g) * s).to(dev)
+    n, hw, c, nh, lab = TRAIN_BATCH, HW // 2, 128, 8, 3
+    x = rnd(n, hw, hw, 64)
+    f2, y, act = rnd(n, hw, hw, c), rnd(n, hw, hw, c), torch.relu(rnd(n, hw, hw, nh))
+    sp = [rnd(lab, c, 3, 3, s=0.05), rnd(lab), rnd(nh, lab, 3, 3, s=0.3), rnd(nh),
+          rnd(c, nh, 3, 3, s=0.2), rnd(c), rnd(c, nh, 3, 3, s=0.2), rnd(c)]
+    cases = [
+        ("conv_stats", lambda ws: ((x,), ws[0]), [rnd(c, 64, 3, 3, s=0.05)]),
+        ("train_tail", lambda ws: (f2, (x,), rnd(c) * 0 + 1.0, rnd(c) * 0, ws[0], ws[1:]),
+         [rnd(c, 64, 1, 1, s=0.1)] + sp),
+        ("fused_conv3", lambda ws: ("gamma", (act,), ws[0]), [rnd(c, nh, 3, 3, s=0.2)]),
+    ]
+    for name, make, weights in cases:
+        mod = kernel_module(name)
+        first = _parts(getattr(mod, name)(*make(weights)))[0].clone()
+        for w in weights:  # in place, as torch.optim.Adam's update
+            w.add_(torch.randn(w.shape, generator=g).to(dev) * 0.1 * w.abs().mean())
+        err, ok, text = f32_compare_call(name, make(weights), {})
+        moved = rel_l2(_parts(getattr(mod, name)(*make(weights)))[0], first)
+        print(f"phase 21: stale weights: {name} after an in-place update against the plain "
+              f"version on the new weights: {text}; moved {moved:.3g} from the first call")
+        check(ok and moved > 10 * F32_TRAIN_TOL, f"phase 21: stale weights: {name}: {text}, "
+                                                 f"moved {moved}")
+    del x, f2, y, act, sp, cases
+
+
+def f32_train_phase(dev, card, here, cfg, sigs, check, overrides=None):
+    """Phase 21: the flagship trained in f32 (``mixed_precision: False``) on
+    kernels 2-6 in f32: step 1 against an f64 composition, the main path's
+    launches, each call of one steady-state v3 step (and the weight
+    gradients of one v2 step) against its plain version, the step timed in
+    turns beside the f32 composition and the bf16 step, a profile, the
+    stale-weight check, ``run_experiment`` and one joint GAN step in f32.
+    ``overrides`` replace the entry point's opt_config keys (a rehearsal on
+    the CPU makes its tiles small). Returns the f32 kernels' rows of the
+    ``kernels`` line."""
+    import tempfile
+
+    from ssunet_gan_tpu_torch.config import load_experiment_config
+    from ssunet_gan_tpu_torch.data.dataset import SyntheticDataset
+    from ssunet_gan_tpu_torch.data.loader import BatchLoader
+    from ssunet_gan_tpu_torch.data.transforms import val_transform
+    from ssunet_gan_tpu_torch.models import build_model
+    from ssunet_gan_tpu_torch.models.gan import Discriminator, Generator
+    from ssunet_gan_tpu_torch.ops import stage_kernel, stage_kernel_train as tst, train_f32
+    from ssunet_gan_tpu_torch.ops.losses import get_loss
+    from ssunet_gan_tpu_torch.train import gan as gan_train
+    from ssunet_gan_tpu_torch.train import gan_step, supervised
+    from ssunet_gan_tpu_torch.train.optim import adam, build_optimizer, build_scheduler
+    from ssunet_gan_tpu_torch.train.step import make_train_step
+    from ssunet_gan_tpu_torch.train.supervised import train_one_epoch
+
+    t0 = t_start = time.perf_counter()
+    ncls, in_ch = cfg["num_classes"], cfg["input_channels"]
+    cfg32 = dict(cfg, mixed_precision=False)
+    per_step = PER_STEP["v3"]
+    f32_err = {k: 0.0 for k in TRAIN_KERNELS}
+
+    def loader(n_steps, seed, config=cfg32):
+        ds = SyntheticDataset(n_steps * TRAIN_BATCH, HW, HW, ncls, in_ch,
+                              transform=val_transform(config), seed=seed)
+        return BatchLoader(ds, TRAIN_BATCH, shuffle=False, drop_last=True,
+                           num_workers=int(config["num_workers"]))
+
+    def first_batch(seed):
+        it = iter(loader(1, seed))
+        _, img, mask, _ = next(it)
+        it.close()
+        return torch.from_numpy(img).to(dev), torch.from_numpy(mask).to(dev)
+
+    tmodel = build_model(cfg["arch"], ncls, in_ch, cfg["deep_supervision"], seed=SEED,
+                         device=dev).train()
+    loss_fn = get_loss(cfg["loss"])
+    step = make_train_step(tmodel, loss_fn, build_optimizer(tmodel.parameters(), cfg), ncls,
+                           cfg["deep_supervision"], clip=float(cfg["clip"]))
+    lr = build_scheduler(cfg).lr(0)
+    parts = (torch.zeros((1, HW, HW, 64), device=dev),)
+    check(stage_kernel.stage_supported(parts, 64, ncls, 4, train=True),
+          "phase 21: the gate refuses an f32 train stage on the card")
+
+    # step 1 on phase 6's batches: the f32 kernels, the plain versions in f32
+    # (TF32 off) and the f64 module composition; the f32 composition as a control
+    step1_check(tmodel, loss_fn, [first_batch(s) for s in range(1, STEP1_BATCHES + 1)],
+                "phase 21: step 1 (f32)", check, dtype=torch.float32, ref_dtype=torch.float64,
+                control=module_stage)
+    torch.cuda.empty_cache()
+    t0 = phase_done("phase 21 step 1 against f64", t0)
+
+    # the main path: counts to 0, TRAIN_WARM + TRAIN_STEPS f32 steps, counts read
+    def timed_run(what, config):
+        reset_f32_counts()
+        train_one_epoch(0, config, loader(TRAIN_WARM, seed=1, config=config), step, lr,
+                        device=dev)
+        settle()
+        t1 = time.perf_counter()
+        log = train_one_epoch(1, config, loader(TRAIN_STEPS, seed=2, config=config), step, lr,
+                              device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        check(all(np.isfinite(v) for v in log.values()), f"phase 21: {what}: metrics {log}")
+        return dt / TRAIN_STEPS * 1e3, TRAIN_BATCH * TRAIN_STEPS / dt, log
+
+    def turn(what):
+        before = torch.backends.cudnn.allow_tf32
+        if what == "f32 composition, TF32 on":
+            torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+        tst.set_fused_train(False if "composition" in what else None)
+        try:
+            return timed_run(what, cfg if what == "bf16 kernels" else cfg32)
+        finally:
+            tst.set_fused_train(None)
+            torch.backends.cudnn.allow_tf32 = before
+
+    ms, ips, log = turn("f32 kernels")
+    counts = {**read_launches(), **{f"{k} f32": v for k, v in f32_counts().items()}}
+    steps = TRAIN_WARM + TRAIN_STEPS
+    want = {k: steps * v for k, v in per_step.items()}
+    print(f"phase 21: f32 train kernel launches in {steps} steps {f32_counts()} (expected "
+          f"{steps} x {per_step}); all train launches {read_launches()}")
+    check(f32_counts() == want and read_launches() == want,
+          f"phase 21: launches {counts} != {steps} x {per_step}, all f32")
+    main_counts = f32_counts()
+    timings = {"f32 kernels": [(ms, ips)]}
+    print(f"phase 21: flagship train step in f32 (v3) {ms:.2f} ms/step, {ips:.2f} images/s "
+          f"(512x512, batch {TRAIN_BATCH}, Adam, {TRAIN_STEPS} steps after {TRAIN_WARM} "
+          f"warm-up) on {card}; epoch {log}")
+    for what in F32_TURNS[1:] + F32_TURNS[::-1]:
+        ms, ips, _ = turn(what)
+        timings.setdefault(what, []).append((ms, ips))
+    for what in F32_TURNS:
+        runs = timings[what]
+        print(f"f32 step: {what}: " + ", ".join(f"{m:.2f} ms/step ({i:.2f} images/s)"
+                                                for m, i in runs)
+              + f" in turns (order {' / '.join(F32_TURNS + F32_TURNS[::-1])}) on {card}")
+    t0 = phase_done("phase 21 main path and timed turns", t0)
+
+    # one steady-state step (the weights moved by the steps above): each of
+    # its 83 calls against its plain version, timed; the v2 step's 30 weight
+    # gradients (kernel 4 in f32)
+    xf, yf = first_batch(3)
+    with recording() as calls:
+        step(xf, yf, lr)
+    torch.cuda.synchronize()
+    got = dict(Counter(c[0] for c in calls))
+    check({k: got.get(k, 0) for k in TRAIN_KERNELS} == per_step,
+          f"phase 21: one f32 step's calls {got} != {per_step}")
+    totals = time_calls(calls, [k for k in TRAIN_KERNELS if k != "wgrad"], "v3 f32", f32_err,
+                        check, f32=True, phase="phase 21")
+    del calls
+    with train_backward("v2"), recording() as calls:
+        step(xf, yf, lr)
+    torch.cuda.synchronize()
+    n_w = sum(c[0] == "wgrad" for c in calls)
+    check(n_w == PER_STEP["v2"]["wgrad"], f"phase 21: the v2 f32 step's weight gradients {n_w}")
+    totals["wgrad"] = time_calls(calls, ["wgrad"], "v2 f32", f32_err, check, f32=True,
+                                 phase="phase 21")["wgrad"]
+    del calls
+    torch.cuda.empty_cache()
+    t0 = phase_done("phase 21 per-call checks and timing", t0)
+
+    print_profile("f32 v3", lambda: step(xf, yf, lr), timings["f32 kernels"][0][0])
+    f32_stale_weight_check(dev, check)
+    del tmodel, step, xf, yf
+    torch.cuda.empty_cache()
+    t0 = phase_done("phase 21 profile and stale weights", t0)
+
+    # the entry points: run_experiment on a mixed_precision False card, one
+    # joint GAN step in f32
+    yaml_before = sys.modules.get("yaml", None)
+    sys.modules["yaml"] = None  # the card machine has no PyYAML: the flat card
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ecfg = load_experiment_config(os.path.join(here, "configs", "config_v1.json"))
+            ecfg.opt_config.update(overrides or {}, mixed_precision=False)
+            ecfg.file_path.model_path = os.path.join(tmp, "models")
+            ecfg.file_path.checkpoint_path = os.path.join(tmp, "checkpoint")
+            reset_f32_counts()
+            stage_kernel.f32_launches = 0
+            _, best, elog = supervised.run_experiment(ecfg, synthetic=ENTRY_SYNTHETIC,
+                                                      epochs_override=F32_ENTRY_EPOCHS,
+                                                      device=dev)
+            n_steps = F32_ENTRY_EPOCHS * (ENTRY_SYNTHETIC // ecfg.opt_config["batch_size"])
+            entry = f32_counts()
+            print(f"phase 21: run_experiment with mixed_precision False: f32 train launches "
+                  f"{entry} in {n_steps} steps, all train launches {read_launches()}, f32 "
+                  f"eval stages {stage_kernel.f32_launches}; log {dict(elog)}")
+            want = {k: n_steps * v for k, v in per_step.items()}
+            check(entry == want and read_launches() == want and stage_kernel.f32_launches > 0,
+                  f"phase 21: run_experiment f32 launches {entry} != {n_steps} x {per_step}")
+    finally:
+        if yaml_before is None:
+            sys.modules.pop("yaml", None)
+        else:
+            sys.modules["yaml"] = yaml_before
+    opt = dict(cfg32)
+    generator = Generator.from_config(opt, device=dev, seed=SEED + 70)
+    disc = Discriminator(ncls, gan_train.D_KERNEL, gan_train.D_CHANNELS, gan_train.D_BLOCKS,
+                         gan_train.D_FC, generator=torch.Generator().manual_seed(SEED + 71)
+                         ).to(dev)
+    gstep = gan_step.make_gan_train_step(generator, disc, loss_fn, adam(generator.parameters()),
+                                         adam(disc.parameters()), ncls)
+    xg, yg = first_batch(4)
+    reset_f32_counts()
+    metrics = gstep(xg, yg, float(opt["gan_lr"]))
+    torch.cuda.synchronize()
+    gan = f32_counts()
+    print(f"phase 21: one joint GAN step in f32: f32 train launches {gan}, all "
+          f"{read_launches()}; metrics {({k: float(v) for k, v in metrics.items()})}")
+    check(gan == per_step and read_launches() == per_step
+          and all(np.isfinite(float(v)) for v in metrics.values()),
+          f"phase 21: the f32 GAN step's launches {gan} != {per_step}")
+    del generator, disc, gstep, xg, yg
+    torch.cuda.empty_cache()
+    phase_done("phase 21 entry points", t0)
+    phase_done("phase 21", t_start)
+
+    rows = []
+    for kname, t in totals.items():
+        paths = {"flagship_f32": main_counts[kname], "run_experiment_f32": entry[kname],
+                 "gan_f32": gan[kname]}
+        rows.append({
+            "name": f"{kname}_f32", "route": "cuda",
+            "source": f"ssunet_gan_tpu_torch/csrc/{train_f32.SOURCE}",
+            "replaces": kernel_module(kname).REPLACES[kname],
+            "launches": sum(paths.values()), "max_abs_err": f32_err[kname],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "operations" if "operations" in t["kinds"] else "bytes",
+            "library_ms": t["library_ms"], "launches_by_path": paths})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
@@ -6135,6 +6503,7 @@ def main() -> int:
         stage_kernel_int8,
         stage_kernel_train,
         train_bwd,
+        train_f32,
     )
     from ssunet_gan_tpu_torch.ops.blocks import BasicBlock
 
@@ -6158,7 +6527,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = (stage_kernel.SOURCE, stage_kernel_train.SOURCE, train_bwd.SOURCE,
                stage_kernel_int8.SOURCE, stage_kernel_bneck.SOURCE, spade_kernel.SOURCE,
-               stage_kernel.SOURCE_F32)
+               stage_kernel.SOURCE_F32, train_f32.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         list(pool.map(_build.build, sources))
     print(f"phase 0: kernels built in {time.perf_counter() - t0:.2f} s")
@@ -6341,6 +6710,9 @@ def main() -> int:
     accuracy_counts = accuracy_phase(dev, card, here, check, train_err)
     print(f"phase 20: launches on the accuracy path {accuracy_counts}")
 
+    # ---- phase 21: f32 training (kernels 2-6 in float32, csrc/train_f32.cu)
+    f32_rows = f32_train_phase(dev, card, here, cfg, sigs, check)
+
     if failures:
         fail(f"{len(failures)} checks failed: " + "; ".join(failures[:20]))
 
@@ -6400,6 +6772,7 @@ def main() -> int:
             row["up_reads"] = sum(r[0] for r in by_path.values())
             row["pool_reads"] = sum(r[1] for r in by_path.values())
             row["seam_reads_by_path"] = {k: {"up": u, "pool": p} for k, (u, p) in by_path.items()}
+    kernels += f32_rows  # phase 21's: launches by path on the f32 main paths
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,13 @@
-// Shared device code of the port's train kernels (train_bwd.cu, through
-// bwd_core.cuh), on top of stage_common.cuh: the reduction of the conv
-// core's per-block sums (one block per channel and stat row, no
-// same-address atomics from thousands of blocks). Everything is in an
+// Shared device code of the port's train kernels (train_bwd.cu through
+// bwd_core.cuh, and train_f32.cu): the reduction of the conv cores'
+// per-block sums (one block per channel and stat row, no same-address
+// atomics from thousands of blocks). It needs nothing of stage_common.cuh,
+// whose bf16 helpers the f32 sources do not take. Everything is in an
 // anonymous namespace.
 
 #pragma once
 
-#include "stage_common.cuh"
+#include <cuda_runtime.h>
 
 namespace {
 

@@ -208,15 +208,18 @@ def stage_supported(parts, planes: int, labels: int, hidden: int, classes: int =
     is the one the seam reads (:func:`seam_shape`). On a CUDA device, the kernels' own
     limits: bfloat16, contiguous parts, planes a multiple of 32, labels,
     hidden and classes within the tail's ``TAIL_MAX_*``, and for training
-    what the v3 backward takes (``ops/train_bwd.py`` ``bwd_v3_supported``). On the CPU, what the JAX
+    what the backward takes (``ops/train_bwd.py`` ``bwd_v3_supported``). On the CPU, what the JAX
     gate takes there (``fused_stage_supported`` with its interpret-mode
     terms, ssunet_gan_tpu/ops/stage_kernel.py:438; its probe passes in
     interpret mode): H a multiple of 8, and W ≥ 8 after the eval path's
     lane packing. The JAX gate's VMEM estimate answers the TPU's memory and
-    is not ported. An f32 eval stage on the card takes the f32 route
-    (``csrc/fused_stage_f32.cu``, no width limits but :func:`max_planes`) with
-    contiguous parts and its seams materialized; f32 training and int8
-    stages are refused. What it refuses runs the module composition."""
+    is not ported. An f32 stage on the card takes the f32 kernels, which have
+    no width limits but :func:`max_planes`: in eval kernel 1's f32 route
+    (``csrc/fused_stage_f32.cu``), in training kernels 2-6 in f32
+    (``csrc/train_f32.cu``: the v3 backward's, and the v2 backward's kernel 4),
+    with contiguous parts, its seams materialized, and in training what the
+    backward takes; f32 int8 stages are refused. What it refuses runs the
+    module composition."""
     parts = as_parts(parts)
     x0 = parts[0]
     if not 1 <= len(parts) <= 2 or any(len(p.shape) != 4 for p in parts):
@@ -232,16 +235,17 @@ def stage_supported(parts, planes: int, labels: int, hidden: int, classes: int =
     if planes > max_planes(train):
         return False
     if x0.device.type == "cuda":
-        if x0.dtype == torch.float32 and not train and not int8:
+        if train:
+            from ssunet_gan_tpu_torch.ops.train_bwd import bwd_v3_supported
+
+            if not bwd_v3_supported([p.shape[-1] for p in parts], planes):
+                return False
+        if x0.dtype == torch.float32 and not int8:
             return not any(modes) and all(p.is_contiguous() for p in parts)
         if (x0.dtype != torch.bfloat16 or planes % PLANES_MULTIPLE or labels > TAIL_MAX_LAB
                 or hidden > TAIL_MAX_HIDDEN or classes > TAIL_MAX_CLS
                 or not all(getattr(p, "q", p).is_contiguous() for p in parts)):
             return False
-        if train:
-            from ssunet_gan_tpu_torch.ops.train_bwd import bwd_v3_supported
-
-            return bwd_v3_supported([p.shape[-1] for p in parts], planes)
         return True
     if x0.device.type != "cpu":
         return False
@@ -255,7 +259,8 @@ def _refused(parts, c, lab, nh, ncls, **kw) -> ValueError:
         f"{[(tuple(p.shape), p.dtype) for p in parts]}, planes={c} (a multiple of "
         f"{PLANES_MULTIPLE}, <= {max_planes(kw.get('train', False))}: set_pack_max_planes), "
         f"labels={lab} (<= {TAIL_MAX_LAB}), hidden={nh} "
-        f"(<= {TAIL_MAX_HIDDEN}), classes={ncls} (<= {TAIL_MAX_CLS}), bfloat16, contiguous"
+        f"(<= {TAIL_MAX_HIDDEN}), classes={ncls} (<= {TAIL_MAX_CLS}), bfloat16 (or float32 "
+        f"without those width limits, but not int8), contiguous"
         + (f", {kw}" if kw else ""))
 
 
@@ -264,21 +269,23 @@ def _q(t: torch.Tensor, dtype) -> torch.Tensor:
     return t.float().to(dtype).float()
 
 
-def spade_tail_reference(y, spade_params, head=None):
+def spade_tail_reference(y, spade_params, head=None, conv=conv2d_nhwc):
     """The self-SPADE tail on ``y`` (NHWC) in plain PyTorch with the
     kernels' numerics: seg, act and γ|β rounded to ``y``'s dtype, the
     modulate in that dtype, the folded head summed in f32. Returns
-    ``(out, seg, act)``; ``out`` is the logits when ``head`` is given."""
+    ``(out, seg, act)``; ``out`` is the logits when ``head`` is given.
+    ``conv``: ``conv2d_nhwc``, or another with its signature (the f32 train
+    kernels' products, ``ops/train_f32.py`` ``conv_tf32x3``)."""
     dtype = y.dtype
     wx, bx, wm, bm, wg, bg, wb, bb = spade_params
-    seg = conv2d_nhwc(y.float(), _q(wx, dtype), _q(bx, dtype), 1).to(dtype)
-    act = torch.relu(conv2d_nhwc(seg.float(), _q(wm, dtype), _q(bm, dtype), 1)).to(dtype)
-    gamma = conv2d_nhwc(act.float(), _q(wg, dtype), _q(bg, dtype), 1).to(dtype)
-    beta = conv2d_nhwc(act.float(), _q(wb, dtype), _q(bb, dtype), 1).to(dtype)
+    seg = conv(y.float(), _q(wx, dtype), _q(bx, dtype), 1).to(dtype)
+    act = torch.relu(conv(seg.float(), _q(wm, dtype), _q(bm, dtype), 1)).to(dtype)
+    gamma = conv(act.float(), _q(wg, dtype), _q(bg, dtype), 1).to(dtype)
+    beta = conv(act.float(), _q(wb, dtype), _q(bb, dtype), 1).to(dtype)
     out = y * (1 + gamma) + beta
     if head is not None:
         wf, bf = head
-        out = conv2d_nhwc(out.float(), _q(wf, dtype), _q(bf, dtype)).to(dtype)
+        out = conv(out.float(), _q(wf, dtype), _q(bf, dtype)).to(dtype)
     return out, seg, act
 
 
@@ -725,6 +732,13 @@ def f32_k_index(chans, ks) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.long)
 
 
+@functools.lru_cache(maxsize=None)
+def _f32_k_index_on(chans, ks, device) -> torch.Tensor:
+    """:func:`f32_k_index` on ``device``, kept: the train kernels pack their
+    weights at every call."""
+    return f32_k_index(chans, ks).to(device)
+
+
 def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(big, small) of f32 ``x`` as the kernel splits it: big = tf32(x)
     rounded to nearest, ties away (toward zero where rounding up would
@@ -757,7 +771,7 @@ def pack_f32_conv(segments, bias, relu: bool, modulate: bool = False) -> dict:
     cols = torch.arange(cout, device=w.device)
     if modulate:
         cols = torch.stack([cols[:cout // 2], cols[cout // 2:]], 1).reshape(-1)
-    idx = f32_k_index(chans, ks).to(w.device)
+    idx = _f32_k_index_on(chans, ks, w.device)
     wk = torch.zeros((idx.numel(), nb * bn), dtype=torch.float32, device=w.device)
     wk[:, :cout] = torch.where((idx >= 0)[:, None], w[idx.clamp_min(0)][:, cols], 0.0)
     wk = wk.reshape(-1, 4, nb, bn).permute(2, 0, 3, 1)

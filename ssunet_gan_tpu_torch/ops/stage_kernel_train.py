@@ -43,8 +43,11 @@ the JAX package's: f1, f2, y, seg and actv in the activation dtype, the
 stats from sums of the rounded outputs with the one-pass variance
 ``max(E[x²] − μ², 0)``, the cotangent casts at the same places.
 
-Each wrapper decides by the tensors' device: CPU tensors take the plain
-version; CUDA tensors launch the kernel (bf16 only) or raise.
+Each wrapper decides by the tensors' device and dtype: CPU tensors take
+the plain version; CUDA bf16 tensors launch the kernels above, CUDA f32
+tensors their f32 counterparts (``ops/train_f32.py``, ``csrc/train_f32.cu``:
+3xTF32 on the tensor cores), or raise. Launches count under the wrappers'
+names in :data:`launches`, the f32 ones also in :data:`f32_launches`.
 """
 
 from __future__ import annotations
@@ -74,7 +77,8 @@ from ssunet_gan_tpu_torch.ops.stage_kernel import (
 )
 
 SOURCE = "train_stage.cu"  # train_tail's; _lib() loads it
-# each kernel's source: conv_stats and wgrad run on csrc/bwd_core.cuh's cores
+# each kernel's source: conv_stats and wgrad run on csrc/bwd_core.cuh's cores;
+# in f32 all three on csrc/train_f32.cu's
 KERNEL_SOURCE = {"conv_stats": "train_bwd.cu", "train_tail": SOURCE, "wgrad": "train_bwd.cu"}
 REPLACES = {
     "conv_stats": "ssunet_gan_tpu/ops/stage_kernel_train.py:232",  # _conv_stats_call
@@ -118,6 +122,8 @@ def fused_train_enabled() -> bool:
 # Kernel runs on the card, one per wrapper call that launches its kernel
 # (train_tail's call is two CUDA launches, conv_stats's with sums two).
 launches = {"conv_stats": 0, "train_tail": 0, "wgrad": 0}
+# the f32 ones among them (ops/train_f32.py)
+f32_launches = {"conv_stats": 0, "train_tail": 0, "wgrad": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -131,43 +137,49 @@ def _prologued(x: torch.Tensor, prologue) -> torch.Tensor:
     return torch.relu(x.float() * a.float() + b.float()).to(x.dtype)
 
 
-def conv_stats_reference(parts, weight, bias=None, prologue=None, stats=True):
+def conv_stats_reference(parts, weight, bias=None, prologue=None, stats=True,
+                         conv=conv2d_nhwc):
     """``out = conv3x3(parts; weight) [+ bias]`` (pad 1, NHWC, OIHW weight)
     with the kernel's numerics: the input optionally ``relu(x·a + b)``
     first (a single part; the zero padding comes after it), weights and
     bias rounded to the activation dtype, f32 sums, ``out`` rounded to it.
     Returns ``(out, sums)`` with ``sums`` (2, C) f32 = (Σ, Σx²) of the
-    rounded ``out`` over N, H, W, or None without ``stats``."""
+    rounded ``out`` over N, H, W, or None without ``stats``. ``conv``:
+    ``conv2d_nhwc``, or the f32 kernel's products
+    (``ops/train_f32.py`` ``conv_tf32x3``)."""
     parts = as_parts(parts)
     dtype = parts[0].dtype
     if prologue is not None:
         if len(parts) != 1:
             raise ValueError("the prologue takes a single input")
         parts = (_prologued(parts[0], prologue),)
-    out = conv2d_nhwc(tuple(p.float() for p in parts), _q(weight, dtype),
-                      None if bias is None else _q(bias, dtype), 1).to(dtype)
+    out = conv(tuple(p.float() for p in parts), _q(weight, dtype),
+               None if bias is None else _q(bias, dtype), 1).to(dtype)
     if not stats:
         return out, None
     of = out.float()
     return out, torch.stack([of.sum((0, 1, 2)), (of * of).sum((0, 1, 2))])
 
 
-def train_tail_reference(f2, parts, a2, b2, ws, spade_params, head=None):
+def train_tail_reference(f2, parts, a2, b2, ws, spade_params, head=None, conv=conv2d_nhwc):
     """K3 in plain PyTorch: ``y = relu(f2·a2 + b2 + conv1x1(parts; ws))``
     (f32, rounded to the activation dtype), then the self-SPADE tail [+
-    head] on y. Returns ``(out, y, seg, actv)``."""
+    head] on y. Returns ``(out, y, seg, actv)``. ``conv`` as
+    :func:`conv_stats_reference`'s."""
     parts = as_parts(parts)
     dtype = f2.dtype
-    sc = conv2d_nhwc(tuple(p.float() for p in parts), _q(ws, dtype))
+    sc = conv(tuple(p.float() for p in parts), _q(ws, dtype))
     y = torch.relu(f2.float() * a2.float() + b2.float() + sc).to(dtype)
-    out, seg, act = spade_tail_reference(y, spade_params, head)
+    out, seg, act = spade_tail_reference(y, spade_params, head, conv=conv)
     return out, y, seg, act
 
 
-def wgrad_reference(parts, g, prologue=None):
+def wgrad_reference(parts, g, prologue=None, conv_weight=torch.nn.grad.conv2d_weight):
     """dW (OIHW, f32) of ``g = conv3x3(concat(parts), W)`` (pad 1): the
     inputs (optionally ``relu(x·a + b)``, rounded) and ``g`` in their
-    dtype's values, summed in f32."""
+    dtype's values, summed in f32. ``conv_weight``:
+    ``torch.nn.grad.conv2d_weight``, or the f32 kernel's products
+    (``ops/train_f32.py`` ``conv_weight_tf32x3``)."""
     parts = as_parts(parts)
     if prologue is not None:
         if len(parts) != 1:
@@ -175,8 +187,7 @@ def wgrad_reference(parts, g, prologue=None):
         parts = (_prologued(parts[0], prologue),)
     x = torch.cat([p.float() for p in parts], -1).permute(0, 3, 1, 2)
     cout = g.shape[-1]
-    return torch.nn.grad.conv2d_weight(x, (cout, x.shape[1], 3, 3),
-                                       g.float().permute(0, 3, 1, 2), padding=1)
+    return conv_weight(x, (cout, x.shape[1], 3, 3), g.float().permute(0, 3, 1, 2), padding=1)
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +207,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _count(name: str, t: torch.Tensor, counts=launches, f32_counts=f32_launches) -> None:
+    """One launch of ``name`` on ``t``'s dtype: in ``counts``, and in
+    ``f32_counts`` too for f32."""
+    counts[name] += 1
+    if t.dtype == torch.float32:
+        f32_counts[name] += 1
+
+
 def _check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"train stage {what} launch failed: cudaError {err}")
@@ -210,13 +229,15 @@ def _vec(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 def _check_nhwc(tensors, what: str, max_parts: int = 2) -> Tuple[int, int, int]:
-    """(N, H, W) of bf16, contiguous NHWC tensors of one device and size."""
+    """(N, H, W) of contiguous NHWC tensors of one device, size and dtype:
+    bfloat16 (the kernels here) or float32 (``ops/train_f32.py``)."""
     x0 = tensors[0]
     if len(tensors) > max_parts:
         raise ValueError(f"{what} takes at most {max_parts} parts, got {len(tensors)}")
     for t in tensors:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA {what} takes bfloat16 tensors, got {t.dtype}")
+        if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != x0.dtype:
+            raise TypeError(f"the CUDA {what} takes bfloat16 or float32 tensors of one dtype, "
+                            f"got {[u.dtype for u in tensors]}")
         if t.device != x0.device or t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"{what} takes contiguous 4-D NHWC tensors of one device")
         if tuple(t.shape[:3]) != tuple(x0.shape[:3]):
@@ -239,7 +260,7 @@ def _conv_cuda(parts, weight, bias, prologue, stats):
                                           split_in(weight, channels),
                                           consts=() if prologue is None else prologue,
                                           bias=bias, rows=2 if stats else 0)
-    launches["conv_stats"] += 1
+    _count("conv_stats", parts[0])
     return out, sums
 
 
@@ -249,6 +270,12 @@ def _tail_cuda(f2, parts, a2, b2, ws, spade_params, head):
     c = f2.shape[-1]
     if tuple(ws.shape) != (c, sum(channels), 1, 1):
         raise ValueError(f"shortcut {tuple(ws.shape)} does not fit parts of {channels}")
+    if f2.dtype == torch.float32:  # no width limits: kernel 1's f32 route's launches
+        from ssunet_gan_tpu_torch.ops import train_f32
+
+        out = train_f32.train_tail(f2, parts, a2, b2, ws, spade_params, head)
+        _count("train_tail", f2)
+        return out
     lab, nh = spade_params[0].shape[0], spade_params[2].shape[0]
     ncls = 0 if head is None else head[0].shape[0]
     if c % 32 or lab > TAIL_MAX_LAB or nh > TAIL_MAX_HIDDEN or ncls > TAIL_MAX_CLS:
@@ -273,7 +300,7 @@ def _tail_cuda(f2, parts, a2, b2, ws, spade_params, head):
         _check(lib.ssu_spade_tail_train(_ptr(y), n, h, w, c, *tail_args(pk), _ptr(out),
                                         _ptr(seg), _ptr(act), stream),
                "train tail SPADE")
-    launches["train_tail"] += 1
+    _count("train_tail", f2)
     return out, y, seg, act
 
 
@@ -283,7 +310,7 @@ def _wgrad_cuda(parts, g, prologue):
 
     # the weight-gradient core with the cotangent as it is (G_RAW)
     dw = train_bwd.launch_wgrad(0, parts, (g,), (), prologue, g.shape[-1])
-    launches["wgrad"] += 1
+    _count("wgrad", g)
     return dw
 
 

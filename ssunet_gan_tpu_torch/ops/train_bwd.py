@@ -49,8 +49,12 @@ ops, as the JAX package leaves them to XLA.
 (kernel modes ``K_STD`` and ``K_AFF``) and ``wgrad`` (the cotangent as it
 is) run on them too, counted under their own names.
 
-Each wrapper decides by the tensors' device: CPU tensors take the plain
-version; CUDA tensors launch the kernel (bf16 only) or raise.
+Each wrapper decides by the tensors' device and dtype: CPU tensors take
+the plain version; CUDA bf16 tensors launch the kernels above, CUDA f32
+tensors their f32 counterparts (``ops/train_f32.py``: :func:`launch_conv3`
+and :func:`launch_wgrad` hand f32 tensors to its cores), or raise. Launches
+count under the wrappers' names in :data:`launches`, the f32 ones also in
+:data:`f32_launches`.
 """
 
 from __future__ import annotations
@@ -69,6 +73,7 @@ from ssunet_gan_tpu_torch.ops.stage_kernel_train import (
     BN_EPS,
     _check,
     _check_nhwc,
+    _count,
     _device,
     _ptr,
     _vec,
@@ -84,6 +89,8 @@ REPLACES = {
 # Kernel runs on the card, one per wrapper call that launches its kernel
 # (a fused_conv3 call with stat rows is two CUDA launches).
 launches = {"fused_conv3": 0, "fused_wgrad": 0}
+# the f32 ones among them (ops/train_f32.py)
+f32_launches = {"fused_conv3": 0, "fused_wgrad": 0}
 
 # csrc/bwd_core.cuh ConvMode of conv_stats (ops/stage_kernel_train.py),
 # which runs on the same core: a plain conv of one or two parts, and one
@@ -133,14 +140,16 @@ def _bn_input(g, f, consts, dtype):
 
 
 def fused_conv3_reference(mode, src, weight, side=(), consts=(), bias=None,
-                          shortcut=None, out_ch=None):
+                          shortcut=None, out_ch=None, conv=conv2d_nhwc):
     """``epilogue(conv3x3(prologue(src); weight))`` of one chain mode (module
     doc), NHWC, OIHW weight (the conv as it runs: a backward-data conv gets
     the rotated, I/O-swapped weight), pad 1 after the prologue, weights
     rounded to the activation dtype, f32 sums. ``bias`` only with "gamma";
     ``shortcut`` (OIHW 1×1, ΣCp × C) and ``out_ch`` (the parts' channels)
     only with "bn1". Returns ``(out, stats)``: ``out`` a tensor, or a tuple
-    of per-part tensors with ``out_ch``; ``stats`` (rows, Cout) f32 or None."""
+    of per-part tensors with ``out_ch``; ``stats`` (rows, Cout) f32 or None.
+    ``conv``: ``conv2d_nhwc``, or the f32 kernel's products
+    (``ops/train_f32.py`` ``conv_tf32x3``)."""
     _check_mode(CONV_MODES, mode, (len(src), len(side), len(consts)))
     dtype = src[0].dtype
     if mode == "modgrad":
@@ -150,8 +159,8 @@ def fused_conv3_reference(mode, src, weight, side=(), consts=(), bias=None,
         x = (_bn_input(src[0], src[1], consts[:4], dtype),)
     else:
         x = (src[0],)
-    acc = conv2d_nhwc(tuple(p.float() for p in x), _q(weight, dtype),
-                      None if bias is None else _q(bias, dtype), 1)
+    acc = conv(tuple(p.float() for p in x), _q(weight, dtype),
+               None if bias is None else _q(bias, dtype), 1)
     r = acc.to(dtype).float()
     stats = None
     if mode == "gamma":
@@ -177,7 +186,7 @@ def fused_conv3_reference(mode, src, weight, side=(), consts=(), bias=None,
         xhat1 = f1 * r1 - m1r1
         stats = torch.stack([out.sum(_PX), (out * xhat1).sum(_PX)])
     else:  # bn1
-        out = r + conv2d_nhwc(side[0].float(), _q(shortcut, dtype))
+        out = r + conv(side[0].float(), _q(shortcut, dtype))
     out = out.to(dtype)
     if out_ch is not None:
         return tuple(torch.split(out, list(out_ch), -1)), stats
@@ -194,13 +203,15 @@ def _cotangent(mode, g, consts, dtype):
     return g[0]
 
 
-def fused_wgrad_reference(mode, x, g, consts=(), prologue=None):
+def fused_wgrad_reference(mode, x, g, consts=(), prologue=None,
+                          conv_weight=torch.nn.grad.conv2d_weight):
     """dW (OIHW, f32) of ``cotangent = conv3x3(input; W)`` for one chain mode
     (module doc): the input is ``x`` (≤ 2 parts, or ``relu(x·a + b)`` with
-    ``prologue``), the cotangent is rebuilt from ``g`` (and ``consts``)."""
+    ``prologue``), the cotangent is rebuilt from ``g`` (and ``consts``).
+    ``conv_weight`` as ``ops/stage_kernel_train.py`` ``wgrad_reference``'s."""
     x = as_parts(x)
     _check_mode(WGRAD_MODES, mode, (len(g), len(consts)))
-    return wgrad_reference(x, _cotangent(mode, g, consts, x[0].dtype), prologue)
+    return wgrad_reference(x, _cotangent(mode, g, consts, x[0].dtype), prologue, conv_weight)
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +306,7 @@ def _conv3_cuda(mode, src, weight, side, consts, bias, shortcut, out_ch):
     outs, sums = launch_conv3(kmode, sources, segments, pro_f=pro_f, consts=consts,
                               bands=bands, bias=bias, out_ch=out_ch,
                               rows=2 if rows and kmode == K_STD else rows)
-    launches["fused_conv3"] += 1
+    _count("fused_conv3", src[0], launches, f32_launches)
     return (tuple(outs) if split_out else outs[0]), None if sums is None else sums[:rows]
 
 
@@ -306,8 +317,14 @@ def launch_conv3(kmode, sources, segments, pro_f=None, consts=(), bands=(), bias
     bf16, one N×H×W), ``segments`` their OIHW weights, packed by
     :func:`_conv3_weight` at the core's chunk width. Returns the outputs
     (one per ``out_ch`` entry, default one of all output channels) and the
-    ``rows`` stat rows (or None); the caller counts the launch."""
+    ``rows`` stat rows (or None); the caller counts the launch. f32 sources
+    launch the f32 core (``ops/train_f32.py`` ``launch_conv3``)."""
     x0 = sources[0][0]
+    if x0.dtype == torch.float32:
+        from ssunet_gan_tpu_torch.ops import train_f32
+
+        return train_f32.launch_conv3(kmode, sources, segments, pro_f, consts, bands, bias,
+                                      out_ch, rows)
     n, h, w = x0.shape[:3]
     dev, dtype = x0.device, x0.dtype
     cout = segments[0].shape[0]
@@ -348,7 +365,7 @@ def _wgrad_cuda(mode, x, g, consts, prologue):
         raise ValueError(f"fused_wgrad {mode}: g-side tensors differ in channels")
     cout = 2 * g[0].shape[-1] if mode == "gb" else g[0].shape[-1]
     dw = launch_wgrad(gmode, x, g, consts, prologue, cout)
-    launches["fused_wgrad"] += 1
+    _count("fused_wgrad", g[0], launches, f32_launches)
     return dw
 
 
@@ -356,11 +373,16 @@ def launch_wgrad(gmode, x, g, consts, prologue, cout):
     """One launch of the weight-gradient core (``ssu_fused_wgrad``) with
     cotangent mode ``gmode`` (0: ``g[0]`` as it is): dW (OIHW, f32) of
     ``cout`` rows over the input parts ``x`` (≤ 2; ``prologue`` only on a
-    single part). The caller counts the launch."""
+    single part). The caller counts the launch. f32 tensors launch the f32
+    core (``ops/train_f32.py`` ``launch_wgrad``)."""
     if len(x) > 2:
         raise ValueError(f"the weight gradient takes at most 2 input parts, got {len(x)}")
     if prologue is not None and len(x) != 1:
         raise ValueError("the prologue takes a single input")
+    if x[0].dtype == torch.float32:
+        from ssunet_gan_tpu_torch.ops import train_f32
+
+        return train_f32.launch_wgrad(gmode, x, g, consts, prologue, cout)
     channels = [p.shape[-1] for p in x]
     n, h, w = x[0].shape[:3]
     dev = g[0].device

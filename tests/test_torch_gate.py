@@ -73,7 +73,9 @@ class OnCard:
 CARD_CASES = [
     ([OnCard((2, 16, 16, 64))], 128, 3, 8, 0, (True, True, True)),
     ([OnCard((2, 16, 16, 64)), OnCard((2, 16, 16, 64))], 64, 3, 4, 3, (True, True, True)),
-    ([OnCard((2, 16, 16, 64), torch.float32)], 128, 3, 8, 0, (True, False, False)),  # f32 route
+    ([OnCard((2, 16, 16, 64), torch.float32)], 128, 3, 8, 0, (True, True, False)),  # f32 kernels
+    ([OnCard((2, 16, 16, 64), torch.float32)], 128, 9, 65, 9, (True, True, False)),  # no tail limits
+    ([OnCard((2, 16, 16, 8), torch.float32)] * 3, 64, 3, 4, 0, (False,) * 3),  # three parts
     ([OnCard((2, 16, 16, 64), torch.float32)], 288, 3, 8, 0, (False,) * 3),   # f32, > 256
     ([OnCard((2, 16, 16, 64), torch.float32, contiguous=False)], 128, 3, 8, 0, (False,) * 3),
     ([OnCard((2, 16, 16, 64))], 48, 3, 3, 0, (False,) * 3),                   # planes % 32

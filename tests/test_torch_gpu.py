@@ -594,9 +594,7 @@ def _stage_kernel_vs_plain(monkeypatch):
                        (ttb, ("fused_conv3", "fused_wgrad"))):
         for name in names:
             monkeypatch.setattr(mod, name, getattr(mod, name + "_reference"))
-    # the f32 run: the same Function on the plain versions, past the gate
-    # (which refuses f32 on the card, where the model runs the composition)
-    monkeypatch.setattr(tst, "stage_supported", lambda *a, **k: True)
+    # the f32 run: the same Function on the plain versions
     plain, plain_p = run(torch.bfloat16)
     f32, f32_p = run(torch.float32)
     rel = lambda u, v: ((u.float() - v.float()).norm() / v.float().norm()).item()
@@ -766,14 +764,226 @@ def test_fused_wgrad_kernel_matches_plain(mode, xch, c, nh, lab, nhw):
 
 @pytest.mark.gpu
 def test_v3_wrappers_refuse_float32():
+    """The v3 wrappers launch float32 on the f32 kernels (ops/train_f32.py;
+    they refused it before those existed, hence the name) and refuse every
+    other dtype, and float32 mixed with bfloat16."""
     from ssunet_gan_tpu_torch.ops import train_bwd as ttb
 
     dev = _card()
     x = torch.zeros((1, 16, 16, 8), device=dev)
+    before = dict(ttb.f32_launches)
+    ttb.fused_conv3("seg", (x,), torch.zeros((3, 8, 3, 3), device=dev))
+    ttb.fused_wgrad("mlp", (x,), (x,))
+    assert ttb.f32_launches == {k: v + 1 for k, v in before.items()}
+    for bad in (x.half(), x.to(torch.bfloat16)):
+        with pytest.raises(TypeError):
+            ttb.fused_wgrad("mlp", (x,), (bad,))
     with pytest.raises(TypeError):
-        ttb.fused_conv3("seg", (x,), torch.zeros((3, 8, 3, 3), device=dev))
-    with pytest.raises(TypeError):
-        ttb.fused_wgrad("mlp", (x,), (x,))
+        ttb.fused_conv3("seg", (x.half(),), torch.zeros((3, 8, 3, 3), device=dev))
+
+
+# ---- the train kernels in f32 (ops/train_f32.py, csrc/train_f32.cu,
+# 3xTF32): each against its plain version in f32 (TF32 off), outputs and
+# weight gradients to 1e-4 relative (max error over max |plain| and
+# relative L2, kernel 1f's bar), each stat row within 1e-4 of its largest
+# |sum|; counted under their names and in f32_launches.
+
+
+def _f32_close(got, want):
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    l2 = ((got - want).norm() / want.norm()).item()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert err <= 1e-4 * scale and l2 <= 1e-4, (err, scale, l2)
+
+
+def _f32_sums_close(got, want):
+    assert (got is None) == (want is None)
+    if got is not None:
+        for s, ws in zip(got, want):
+            assert (s - ws).abs().max().item() <= 1e-4 * ws.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,c,nh,lab,parts,nhw", CONV3_CASES,
+                         ids=[f"{i}-{m}" for i, (m, *_) in enumerate(CONV3_CASES)])
+def test_fused_conv3_f32_kernel_matches_plain(mode, c, nh, lab, parts, nhw):
+    from ssunet_gan_tpu_torch.ops import train_bwd as ttb
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(4)
+    n, h, w = nhw
+    band = lambda ch: torch.randn((n, h, w, ch), generator=gen).to(dev)
+    wt = lambda o, i, k=3: (torch.randn((o, i, k, k), generator=gen) * 0.1).to(dev)
+    side, consts, bias, shortcut, out_ch = (), (), None, None, None
+    if mode == "gamma":
+        src, weight = (band(nh),), wt(2 * c, nh)
+        bias = (torch.randn(2 * c, generator=gen) * 0.3).to(dev)
+    elif mode == "modgrad":
+        src, side, weight = (band(c), band(c)), (band(nh),), wt(nh, 2 * c)
+    elif mode == "seg":
+        src, weight = (band(nh),), wt(lab, nh)
+    elif mode == "pre":
+        src, side, weight = (band(lab),), tuple(band(c) for _ in range(4)), wt(c, lab)
+        consts = _bn_consts(gen, c, dev, 2)
+    elif mode == "bn2":
+        src, side, weight = (band(c), band(c)), (band(c),), wt(c, c)
+        consts = _bn_consts(gen, c, dev, 8)
+    else:
+        csum = sum(parts)
+        src, side, weight = (band(c), band(c)), (band(c),), wt(csum, c)
+        consts = _bn_consts(gen, c, dev, 4)
+        shortcut, out_ch = wt(csum, c, 1), list(parts)
+    before = ttb.f32_launches["fused_conv3"]
+    got, stats = ttb.fused_conv3(mode, src, weight, side, consts, bias, shortcut, out_ch)
+    torch.cuda.synchronize()
+    assert ttb.f32_launches["fused_conv3"] == before + 1
+    want, want_stats = ttb.fused_conv3_reference(mode, src, weight, side, consts, bias,
+                                                 shortcut, out_ch)
+    for g, wv in zip(got if out_ch else (got,), want if out_ch else (want,)):
+        _f32_close(g, wv)
+    _f32_sums_close(stats, want_stats)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,xch,c,nh,lab,nhw", WGRAD3_CASES,
+                         ids=[f"{i}-{m[0]}" for i, m in enumerate(WGRAD3_CASES)])
+def test_fused_wgrad_f32_kernel_matches_plain(mode, xch, c, nh, lab, nhw):
+    from ssunet_gan_tpu_torch.ops import train_bwd as ttb
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(5)
+    n, h, w = nhw
+    band = lambda ch: torch.randn((n, h, w, ch), generator=gen).to(dev)
+    x = tuple(band(cp) for cp in xch)
+    consts, prologue = (), None
+    g = {"gb": lambda: (band(c), band(c)), "mlp": lambda: (band(nh),),
+         "x2map": lambda: (band(lab),)}.get(mode, lambda: (band(c), band(c)))()
+    if mode in ("conv2", "conv1"):
+        consts = _bn_consts(gen, c, dev, 4)
+    if mode == "conv2":
+        prologue = _bn_consts(gen, c, dev, 2)
+    before = ttb.f32_launches["fused_wgrad"]
+    got = ttb.fused_wgrad(mode, x, g, consts, prologue)
+    torch.cuda.synchronize()
+    assert ttb.f32_launches["fused_wgrad"] == before + 1
+    want = ttb.fused_wgrad_reference(mode, x, g, consts, prologue)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert ((got - want).norm() / want.norm()).item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "chans,cout,nhw,prologue",
+    [
+        ((3,), 64, (2, 40, 36), False),
+        ((64, 128), 64, (2, 12, 20), False),
+        ((256,), 256, (1, 12, 18), True),
+        ((64,), 3, (3, 7, 5), False),
+    ],
+)
+def test_conv_stats_and_wgrad_f32_kernels_match_plain(chans, cout, nhw, prologue):
+    """Kernels 2 and 4 in f32: conv_stats (one or two parts, the prologue)
+    and the v2 weight gradient on the same inputs."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(7)
+    n, h, w = nhw
+    parts = tuple(torch.randn((n, h, w, c), generator=gen).to(dev) for c in chans)
+    wt = (torch.randn((cout, sum(chans), 3, 3), generator=gen) * 0.1).to(dev)
+    pro = None
+    if prologue:
+        pro = ((torch.rand(chans[0], generator=gen) + 0.5).to(dev),
+               (torch.randn(chans[0], generator=gen) * 0.3).to(dev))
+    before = dict(tst.f32_launches)
+    out, sums = tst.conv_stats(parts, wt, prologue=pro)
+    g = torch.randn((n, h, w, cout), generator=gen).to(dev)
+    dw = tst.wgrad(parts, g, pro)
+    torch.cuda.synchronize()
+    assert tst.f32_launches["conv_stats"] == before["conv_stats"] + 1
+    assert tst.f32_launches["wgrad"] == before["wgrad"] + 1
+    want, want_sums = tst.conv_stats_reference(parts, wt, prologue=pro)
+    _f32_close(out, want)
+    _f32_sums_close(sums, want_sums)
+    want = tst.wgrad_reference(parts, g, pro)
+    assert ((dw - want).norm() / want.norm()).item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chans,planes,labels,nhw,ncls",
+                         [((3,), 64, 3, (2, 40, 36), 0), ((64, 128), 64, 3, (2, 48, 40), 3),
+                          ((128,), 128, 9, (1, 24, 20), 9)],
+                         ids=["first", "head", "wide_tail"])
+def test_train_tail_f32_kernel_matches_plain(chans, planes, labels, nhw, ncls):
+    """Kernel 3 in f32: y, seg, actv and the output; the f32 route has no
+    SPADE-tail width limits (9 labels and classes)."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(8)
+    n, h, w = nhw
+    parts = tuple(torch.randn((n, h, w, c), generator=gen).to(dev) for c in chans)
+    f2 = torch.randn((n, h, w, planes), generator=gen).to(dev)
+    a2 = (torch.rand(planes, generator=gen) + 0.5).to(dev)
+    b2 = (torch.randn(planes, generator=gen) * 0.3).to(dev)
+    ws = (torch.randn((planes, sum(chans), 1, 1), generator=gen) * 0.1).to(dev)
+    spade = SPADE("spadebatch3x3", planes, labels, planes / 16, generator=gen).to(dev)
+    head = None
+    if ncls:
+        final = Conv2d(planes, ncls, 1, generator=gen).to(dev)
+        head = (final.weight, final.bias)
+    sp = spade.stage_params()
+    before = tst.f32_launches["train_tail"]
+    got = tst.train_tail(f2, parts, a2, b2, ws, sp, head)
+    torch.cuda.synchronize()
+    assert tst.f32_launches["train_tail"] == before + 1
+    for g, wv in zip(got, tst.train_tail_reference(f2, parts, a2, b2, ws, sp, head)):
+        _f32_close(g, wv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("version", ["v3", "v2"])
+def test_gate_admits_an_f32_train_stage_on_the_card(monkeypatch, version):
+    """The one gate takes an f32 train stage on the card; the model's
+    dispatch runs it on the f32 kernels (kernels 2, 3, 5, 6 under v3; 2,
+    3, 4 under v2), and its forward, statistics and gradients agree with
+    the same Function on the plain versions in f32 (1e-3 relative: the
+    backward's BatchNorm terms subtract sums that nearly cancel)."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+    from ssunet_gan_tpu_torch.ops import train_bwd as ttb
+
+    dev = _card()
+    monkeypatch.setattr(tst, "_TRAIN_BWD_V3", version == "v3")
+    gen = torch.Generator().manual_seed(9)
+    block = BasicBlock(64 + 128, 64, generator=gen).to(dev).train()
+    spade = SPADE("spadebatch3x3", 64, 3, 4.0, generator=gen).to(dev)
+    xs = [torch.randn((2, 32, 32, c), generator=gen).to(dev) for c in (64, 128)]
+    cot = torch.randn((2, 32, 32, 64), generator=gen).to(dev)
+    assert stage_kernel.stage_supported(xs, 64, 3, 4, train=True)
+    params = [*block.parameters(), *spade.parameters()]
+
+    def run():
+        parts = tuple(x.clone().requires_grad_() for x in xs)
+        out, stats = tst.fused_train_stage(parts, block.train_params(), spade.stage_params())
+        grads = torch.autograd.grad((out * cot).sum(), [*parts, *params])
+        return [out, *[s for pair in stats for s in pair], *grads]
+
+    before = {**tst.f32_launches, **ttb.f32_launches}
+    kern = run()
+    after = {**tst.f32_launches, **ttb.f32_launches}
+    want = ({"conv_stats": 2, "train_tail": 1, "wgrad": 0, "fused_conv3": 6, "fused_wgrad": 5}
+            if version == "v3" else
+            {"conv_stats": 2 + 6, "train_tail": 1, "wgrad": 5, "fused_conv3": 0,
+             "fused_wgrad": 0})
+    assert {k: after[k] - before[k] for k in want} == want
+    for mod, names in ((tst, ("conv_stats", "train_tail", "wgrad")),
+                       (ttb, ("fused_conv3", "fused_wgrad"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, getattr(mod, name + "_reference"))
+    plain = run()
+    for i, (k, p) in enumerate(zip(kern, plain)):
+        rel = ((k - p).norm() / p.norm()).item()
+        assert torch.isfinite(k).all() and rel <= 1e-3, (i, rel)
 
 
 # ---------------------------------------------------------------------------

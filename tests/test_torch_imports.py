@@ -25,6 +25,7 @@ MODULES = (
     "ssunet_gan_tpu_torch.data.loader", "ssunet_gan_tpu_torch.data.transforms",
     "ssunet_gan_tpu_torch.train.optim", "ssunet_gan_tpu_torch.train.step",
     "ssunet_gan_tpu_torch.train.supervised", "ssunet_gan_tpu_torch.ops.train_bwd",
+    "ssunet_gan_tpu_torch.ops.train_f32",
     "ssunet_gan_tpu_torch.ops.stage_kernel_int8", "ssunet_gan_tpu_torch.infer.calibrate",
     "ssunet_gan_tpu_torch.ops.stage_kernel_bneck", "ssunet_gan_tpu_torch.ops.spade_kernel",
     "ssunet_gan_tpu_torch.ops.spade", "ssunet_gan_tpu_torch.ops.blocks",

@@ -152,7 +152,7 @@ class _Part:
     ([(2, 19, 13, 6), (2, 19, 13, 10)], 24, 5, 4, 2, {}, True),
     ([(1, 8, 8, 64)], 96, 9, 80, 12, {}, True),       # past the bf16 tail's limits
     ([(1, 8, 8, 64)], 288, 3, 18, 0, {}, False),      # past MAX_PLANES
-    ([(1, 8, 8, 64)], 64, 3, 4, 0, {"train": True}, False),
+    ([(1, 8, 8, 64)], 64, 3, 4, 0, {"train": True}, True),   # the f32 train kernels
     ([(1, 8, 8, 64)], 64, 3, 4, 0, {"int8": True}, False),
     ([(1, 16, 16, 64)], 64, 3, 4, 0, {"down": (True,)}, False),
     ([(1, 8, 8, 64), (1, 4, 8, 64)], 64, 3, 4, 0, {"up": (False, True)}, False),
@@ -160,10 +160,11 @@ class _Part:
 ], ids=["first", "widest", "ragged", "wide_tail", "too_wide", "train", "int8", "pool_seam",
         "up_seam", "three_parts"])
 def test_gate_takes_the_f32_stages_it_took(parts, planes, lab, nh, ncls, kw, takes):
-    """The one gate's decision for f32 eval stages on the card, which the
+    """The one gate's decision for f32 stages on the card, which the
     redesigned route takes as the route before it did: any widths up to
     MAX_PLANES (no tail limits), one or two contiguous parts, no seams; f32
-    training and int8 refused."""
+    training taken too (the f32 train kernels, ops/train_f32.py), int8
+    refused."""
     ps = [_Part(s) for s in parts]
     assert stage_kernel.stage_supported(ps, planes, lab, nh, ncls, **kw) is takes
     if takes:

@@ -33,7 +33,8 @@ a smaller size the forward may not overflow at all. With ``--device cuda``
 (on the card, no JAX) it runs the port's routes there instead: a, the
 kernels in bf16 (kernel 1 in eval, kernels 2 and 3 in the train forwards),
 b-bf16 (the same stages' plain versions on the card) and the kernels in
-f32 (kernel 1's f32 route in eval; f32 training is the composition).
+f32 (kernel 1's f32 route in eval, kernels 2 and 3 in f32 in the train
+forwards).
 """
 
 from __future__ import annotations
