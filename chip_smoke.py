@@ -259,7 +259,7 @@ Phases, each of which exits non-zero on failure:
    ``run_experiment`` epoch, ``load_model_dir`` and a 2048² scene; no
    hand-written kernel launched; a ``families:`` line (ms per forward and
    per step, peak memory).
-19. The deep-stage opt-in (last; ``deep_phase``): ``set_pack_max_planes(768)``
+19. The deep-stage opt-in (``deep_phase``): ``set_pack_max_planes(768)``
    (``ops/stage_kernel.py``; every earlier phase runs at the default 256,
    and the limit is back at 256 after). The flagship's five deep stage
    signatures (conv3_0, conv4_0, conv5_0, conv4_1, conv3_1: 384-768 planes
@@ -295,7 +295,7 @@ Phases, each of which exits non-zero on failure:
    or kernel-7 stages per forward, 11 at 768; 5 deep s8 blocks per int8
    forward at 256, none at 768); an ``accuracy:`` line per row and one for
    the phase (the val IoU training reached, its wall time, the card).
-21. f32 training (last; ``f32_train_phase``): the flagship of
+21. f32 training (``f32_train_phase``): the flagship of
    config_v1.json at full width trained with ``mixed_precision: False`` on
    kernels 2-6 in f32 (``ops/train_f32.py``, ``csrc/train_f32.cu``, 3xTF32):
    step 1 on phase 6's seeded batches against the plain versions in f32
@@ -312,6 +312,26 @@ Phases, each of which exits non-zero on failure:
    the stale-weight check (weights changed in place between two calls);
    ``run_experiment`` for one epoch of 16 synthetic scenes and one joint GAN
    step (phase 15's G and D, built anew), each f32 launch counted.
+22. Kernels 8 and 9 in f32 (last; ``f32_bneck_spade_phase``): kernel 8f
+   (``ops/stage_kernel_bneck.py`` f32 route: conv1, conv2, conv3 with the
+   shortcut's segments, seg, act, γ|β with the modulate [and the head] as
+   launches of the 3xTF32 conv core) for UNet_B_SS's six fused-stage
+   signatures and an identity-shortcut stage, seeded, batch 2 at 512 >>
+   level, against the per-launch plain versions and
+   ``fused_bneck_reference`` (TF32 off) to F32_STAGE_TOL, with inf / -inf /
+   NaN planted (output classes); timed at batch 8 beside the plain version
+   (``f32 bneck stage:`` lines) and each launch alone (``f32 conv:``
+   lines); UNet_B_SS at full width (BN calibrated) in one f32 forward at
+   batch 8, 512², six 8f stages counted, its logits against the f32
+   composition by F32_CARD_TOL, both timed; ``evaluate`` of that model
+   through ``train/supervised.py``, its 8f stages counted; kernel 9f (the
+   f32 self-SPADE: seg, act, γ|β with the modulate) at phase 11's six level
+   shapes, forward and each launch against plain to F32_STAGE_TOL, the
+   backward against autograd of the plain composition; UNet_B_SS trained in
+   f32 under ``set_fused_spade("pallas")`` (1 warm-up and 2 timed steps),
+   one 9f launch per SPADE per step, then each call of one step on its own
+   input against plain, timed beside plain, the library's f32 convs and the
+   3xTF32 bound (``f32 spade stage:`` lines).
 
 Each path's profile also gives a ``tail:`` line: the shared SPADE tail
 kernel's time and launches per forward or step beside its bound; the
@@ -333,7 +353,9 @@ deep-stage opt-in's (phase 19, ``deep``: kernels 1, its f32 route, 7 and 8,
 with each row's ``deep`` per-stage numbers) and the accuracy bars' (phase
 20, ``accuracy``: kernels 2, 3, 5 and 6 in training, 1, its f32 route and
 7 in the rows) added, the f32 train kernels' rows (phase 21: ``<name>_f32``,
-launches on ``flagship_f32``, ``run_experiment_f32``, ``gan_f32``), and each
+launches on ``flagship_f32``, ``run_experiment_f32``, ``gan_f32``), kernels 8f
+and 9f's (phase 22: ``fused_eval_stage_bneck_f32`` on ``UNet_B_SS_f32`` and
+``evaluate_f32``, ``fused_spade_stage_f32`` on ``UNet_B_SS_f32_pallas``), and each
 row's ``launches_by_path`` — error, time, plain time, bound, library
 time), and ends with ``{"ok": true, "device": {...}}``. Every check that
 fails is printed and the run exits non-zero
@@ -1110,20 +1132,66 @@ def output_classes(t):
     return (torch.isnan(t) * 1 + torch.isposinf(t) * 2 + torch.isneginf(t) * 3).to(torch.int8)
 
 
-def f32_launches_of(parts, pk, conv_fn):
+def f32_launches_of(parts, pk, conv_fn, run=None):
     """The f32 route's launches of a stage run through ``conv_fn`` (the
-    card's ``f32_conv``): (launch, sources, packed conv, y) and its output."""
+    card's ``f32_conv``): (launch, sources, packed conv, y) and its output.
+    ``run``: the route's launch sequence (default kernel 1f's
+    ``f32_stage_launches``; kernel 8f's ``f32_bneck_launches``, kernel
+    9f's ``f32_tail_launches``)."""
     launches = []
 
     def traced(sources, conv, y=None):
-        name = next(k for k in ("conv1", "conv2", "seg", "act", "gb", "head") if pk[k] is conv)
+        name = next(k for k in ("conv1", "conv2", "conv3", "seg", "act", "gb", "head")
+                    if pk.get(k) is conv)
         launches.append((name, tuple(sources), conv, y))
         return conv_fn(sources, conv, y)
 
     from ssunet_gan_tpu_torch.ops import stage_kernel
 
-    out = stage_kernel.f32_stage_launches(parts, pk, traced)
+    out = (run or stage_kernel.f32_stage_launches)(parts, pk, traced)
     return launches, out
+
+
+def f32_launch_lines(phase, name, launches, side, check, ltot) -> float:
+    """Each f32 launch alone at BATCH on the inputs its stage gave it,
+    against its plain version (``f32_conv_reference``) to F32_STAGE_TOL,
+    timed beside its two bounds (f32 operations on the CUDA cores; three
+    TF32 products per f32 product on the tensor cores) and the ``F.conv2d``
+    f32 call of the same convs (``f32 conv:`` lines); adds to ``ltot``.
+    Returns the largest error."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel
+
+    worst = 0.0
+    for lname, sources, conv, y in launches:
+        lgot = stage_kernel.f32_conv(sources, conv, y)
+        lwant = stage_kernel.f32_conv_reference(sources, conv, y)
+        lerr, lscale, ll2, _ = close(lgot, lwant)
+        ok = (bool(torch.isfinite(lgot).all()) and lerr <= F32_STAGE_TOL * lscale
+              and ll2 <= F32_STAGE_TOL)
+        check(ok, f"{phase}: f32 conv {name} {lname}: the launch disagrees with its plain "
+                  f"version (err {lerr}, max {lscale}, l2 {ll2})")
+        worst = max(worst, lerr)
+        del lgot, lwant
+        n = sources[0].shape[0]
+        kk = sum(c * k * k for c, k in zip(conv["chans"], conv["ks"]))
+        lflops = 2.0 * n * side * side * conv["cout"] * kk
+        lbytes = 4 * (sum(s.numel() for s in sources) + conv["w"].numel()
+                      + n * side * side * conv["cout"] // (2 if y is not None else 1)
+                      + (y.numel() if y is not None else 0))
+        b32, bkind = bound_of(lflops, lbytes, PEAK_F32_FLOPS)
+        b3 = bound_of(3 * lflops, lbytes, PEAK_TF32_FLOPS)[0]
+        lms = cuda_ms(lambda: stage_kernel.f32_conv(sources, conv, y), 10)
+        lib_ms = cuda_ms(library_conv_f32(sources, conv, y), 10)
+        for k, v in (("ms", lms), ("library_ms", lib_ms), ("bound_f32_ms", b32),
+                     ("bound_tf32_ms", b3), ("launches", 1)):
+            ltot[k] += v
+        print("f32 conv: " + json.dumps(dict(
+            stage=name, launch=lname, shape=[n, side, side],
+            segments=[[c, k] for c, k in zip(conv["chans"], conv["ks"])],
+            cout=conv["cout"], bn=conv["bn"], modulate=conv["modulate"], max_abs_err=lerr,
+            rel_l2=ll2, ms=lms, bound_f32_ms=b32, bound_tf32_ms=b3, bound_by=bkind,
+            library_ms=lib_ms, tflops=lflops / lms / 1e9)))
+    return worst
 
 
 def nan_witness(dev, block_cls, gen, check) -> None:
@@ -1241,34 +1309,7 @@ def f32_stage_phase(dev, sigs, block_cls, gen, check, phase="phase 2") -> dict:
         tot["bytes"] += nbytes
         # each launch alone at BATCH on the inputs the stage gave it
         launches, _ = f32_launches_of(parts, pk, stage_kernel.f32_conv)
-        for lname, sources, conv, y in launches:
-            lgot = stage_kernel.f32_conv(sources, conv, y)
-            lwant = stage_kernel.f32_conv_reference(sources, conv, y)
-            lerr, lscale, ll2, _ = close(lgot, lwant)
-            ok = (bool(torch.isfinite(lgot).all()) and lerr <= F32_STAGE_TOL * lscale
-                  and ll2 <= F32_STAGE_TOL)
-            check(ok, f"{phase}: f32 conv {name} {lname}: the launch disagrees with its plain "
-                      f"version (err {lerr}, max {lscale}, l2 {ll2})")
-            worst = max(worst, lerr)
-            del lgot, lwant
-            kk = sum(c * k * k for c, k in zip(conv["chans"], conv["ks"]))
-            lflops = 2.0 * BATCH * side * side * conv["cout"] * kk
-            lbytes = 4 * (sum(s.numel() for s in sources) + conv["w"].numel()
-                          + BATCH * side * side * conv["cout"] // (2 if y is not None else 1)
-                          + (y.numel() if y is not None else 0))
-            b32, bkind = bound_of(lflops, lbytes, PEAK_F32_FLOPS)
-            b3 = bound_of(3 * lflops, lbytes, PEAK_TF32_FLOPS)[0]
-            lms = cuda_ms(lambda: stage_kernel.f32_conv(sources, conv, y), 10)
-            lib_ms = cuda_ms(library_conv_f32(sources, conv, y), 10)
-            for k, v in (("ms", lms), ("library_ms", lib_ms), ("bound_f32_ms", b32),
-                         ("bound_tf32_ms", b3), ("launches", 1)):
-                ltot[k] += v
-            print("f32 conv: " + json.dumps(dict(
-                stage=name, launch=lname, shape=[BATCH, side, side],
-                segments=[[c, k] for c, k in zip(conv["chans"], conv["ks"])],
-                cout=conv["cout"], bn=conv["bn"], modulate=conv["modulate"], max_abs_err=lerr,
-                rel_l2=ll2, ms=lms, bound_f32_ms=b32, bound_tf32_ms=b3, bound_by=bkind,
-                library_ms=lib_ms, tflops=lflops / lms / 1e9)))
+        worst = max(worst, f32_launch_lines(phase, name, launches, side, check, ltot))
         del parts, block, spade, pk, launches
     torch.cuda.empty_cache()
     bound, kind = bound_of(tot["flops"], tot["bytes"], PEAK_F32_FLOPS)
@@ -6487,6 +6528,334 @@ def f32_train_phase(dev, card, here, cfg, sigs, check, overrides=None):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 22: kernels 8 and 9 in float32 (kernels 8f and 9f: launches of the
+# 3xTF32 conv core of csrc/f32_conv.cuh, as kernel 1f)
+# ---------------------------------------------------------------------------
+
+# UNet_B_SS's f32 evaluations through train/supervised.py evaluate: batches
+# of F32_EVAL_BATCH tiles at 512² (each forward six kernel-8f stages)
+F32_EVAL_BATCHES, F32_EVAL_BATCH = 2, 2
+# UNet_B_SS's f32 trainer under set_fused_spade("pallas"): warm-up and
+# timed steps at 512², batch TRAIN_BATCH
+F32_SPADE_WARM, F32_SPADE_STEPS = 1, 2
+
+
+def f32_close(what, got, want, check) -> float:
+    """An f32 route's output against its plain version (TF32 off) to
+    F32_STAGE_TOL: max abs error over max |plain| and relative L2. Returns
+    the max abs error."""
+    err, scale, l2, _ = close(got, want)
+    print(f"{what} max_abs_err={err:.4g} max_rel_err={err / max(scale, 1e-30):.4g} "
+          f"rel_l2={l2:.3g} (max|plain|={scale:.4g})")
+    check(bool(torch.isfinite(got).all()) and got.shape == want.shape
+          and err <= F32_STAGE_TOL * scale and l2 <= F32_STAGE_TOL,
+          f"{what}: the f32 route disagrees with plain (err {err}, max {scale}, l2 {l2})")
+    return err
+
+
+def f32_bneck_spade_phase(dev, card, cfg, calib, check):
+    """Phase 22: kernels 8 and 9 in f32 (8f, 9f). Returns their rows of the
+    ``kernels`` line."""
+    from ssunet_gan_tpu_torch.data.dataset import SyntheticDataset
+    from ssunet_gan_tpu_torch.data.loader import BatchLoader
+    from ssunet_gan_tpu_torch.data.transforms import val_transform
+    from ssunet_gan_tpu_torch.infer.api import _norm_consts
+    from ssunet_gan_tpu_torch.models import build_model, ssunet
+    from ssunet_gan_tpu_torch.ops import spade as spade_mod
+    from ssunet_gan_tpu_torch.ops import spade_kernel as sk
+    from ssunet_gan_tpu_torch.ops import stage_kernel, stage_kernel_bneck as kb
+    from ssunet_gan_tpu_torch.ops.blocks import Bottleneck
+    from ssunet_gan_tpu_torch.ops.conv import Conv2d
+    from ssunet_gan_tpu_torch.ops.losses import get_loss
+    from ssunet_gan_tpu_torch.ops.spade import SPADE
+    from ssunet_gan_tpu_torch.train.optim import build_optimizer, build_scheduler
+    from ssunet_gan_tpu_torch.train.step import make_eval_step, make_train_step
+    from ssunet_gan_tpu_torch.train.supervised import evaluate, train_one_epoch
+
+    t_start = t_phase = time.perf_counter()
+    ncls, in_ch = cfg["num_classes"], cfg["input_channels"]
+    cfg32 = dict(cfg, mixed_precision=False)
+    gen = torch.Generator().manual_seed(SEED + 80)
+    model = build_model("UNet_B_SS", ncls, in_ch, seed=SEED, device=dev)
+    calibrate_batchnorm(model, calib)
+    sigs = bneck_signatures(model.filters, ncls, in_ch)
+    identity = ("identity", (sigs[1][2],), sigs[1][2], sigs[1][3], sigs[1][4], 0, 1)
+
+    # 8f per stage: UNet_B_SS's six signatures and an identity-shortcut
+    # stage, seeded, batch 2 at 512 >> level, against the per-launch plain
+    # versions; inf / -inf / NaN planted at 64²; at BATCH timed beside the
+    # stage's plain version and each launch alone (``f32 conv:`` lines)
+    worst8 = 0.0
+    tot = {"ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    ltot = {"ms": 0.0, "library_ms": 0.0, "bound_f32_ms": 0.0, "bound_tf32_ms": 0.0,
+            "launches": 0}
+    for name, chans, planes, lab, nh, head_cls, level in sigs + [identity]:
+        block = Bottleneck(sum(chans), planes, generator=gen)
+        check((block.shortcut is None) == (name == "identity"),
+              f"phase 22: {name}: unexpected shortcut kind")
+        random_bn_stats(block, gen)
+        spade = SPADE("spadebatch3x3", planes, lab, float(nh), generator=gen)
+        head = None
+        if head_cls:
+            final = Conv2d(planes, head_cls, 1, generator=gen).to(dev)
+            head = (final.weight, final.bias)
+        block.to(dev).eval()
+        spade.to(dev)
+        bp, sp = block.stage_params(), spade.stage_params()
+        pk = kb.pack_stage_bneck_f32(chans, bp, sp, head)
+        side = HW >> level
+        what = f"phase 22: f32 bottleneck stage {name} parts={chans} planes={planes} hidden={nh}"
+        parts = tuple(torch.randn((2, side, side, c), generator=gen).to(dev) for c in chans)
+        before = kb.f32_launches, stage_kernel.f32_conv_launches, kb.launches
+        got = kb.fused_eval_stage_bneck(parts, bp, sp, head, pk)
+        counted = (kb.f32_launches - before[0], stage_kernel.f32_conv_launches - before[1],
+                   kb.launches - before[2])
+        check(counted == (1, 6 + bool(head_cls), 0),
+              f"{what}: counted (stages, conv launches, bf16 stages) {counted}")
+        worst8 = max(worst8, f32_close(f"{what} {side}x{side} batch 2", got,
+                                       kb.f32_bneck_launches(parts, pk), check))
+        worst8 = max(worst8, f32_close(f"{what} {side}x{side} batch 2, against "
+                                       f"fused_bneck_reference", got,
+                                       kb.fused_bneck_reference(parts, bp, sp, head), check))
+        del parts, got
+        parts = tuple(torch.randn((2, 64, 64, c), generator=gen).to(dev) for c in chans)
+        parts = (plant_non_finite(parts[0], gen),) + parts[1:]
+        got = output_classes(kb.fused_eval_stage_bneck(parts, bp, sp, head, pk))
+        want = output_classes(kb.f32_bneck_launches(parts, pk))
+        counts = [int((want == k).sum()) for k in range(4)]
+        same = bool(torch.equal(got, want))
+        print(f"{what} 64x64 batch 2, inf / -inf / NaN planted in part 0: output classes "
+              f"(finite, NaN, +inf, -inf) of plain {counts}, equal to the kernel's: {same}")
+        check(same and counts[1] > 0, f"{what}: planted non-finite inputs: the kernel's output "
+              f"classes differ from plain at {int((got != want).sum())} elements")
+        del parts, got, want
+        if name == "identity":
+            continue
+        parts = tuple(torch.randn((BATCH, side, side, c), generator=gen).to(dev) for c in chans)
+        settle()
+        ms = cuda_ms(lambda: kb.fused_eval_stage_bneck(parts, bp, sp, head, pk), 3)
+        plain_ms = cuda_ms(lambda: kb.fused_bneck_reference(parts, bp, sp, head), 3)
+        cin = sum(chans)
+        macs = (cin * planes + 9 * planes * planes + planes * planes
+                + (cin * planes if bp[6] is not None else 0)
+                + spade_macs(planes, lab, nh) + planes * head_cls)
+        flops = 2.0 * macs * BATCH * side * side
+        nbytes = 4 * (sum(p.numel() for p in parts) + sum(
+            pk[k]["w"].numel() for k in ("conv1", "conv2", "conv3", "seg", "act", "gb"))
+            + BATCH * side * side * (head_cls or planes))
+        bound3, kind = bound_of(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        print(f"f32 bneck stage: {name} {side}x{side} batch {BATCH}: {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, 3xTF32 bound {bound3:.3f} ms ({kind}); "
+              f"{flops / ms / 1e9:.1f} TFLOP/s f32-equivalent")
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("flops", flops), ("bytes", nbytes)):
+            tot[k] += v
+        launches, _ = f32_launches_of(parts, pk, stage_kernel.f32_conv, kb.f32_bneck_launches)
+        worst8 = max(worst8, f32_launch_lines("phase 22", name, launches, side, check, ltot))
+        del parts, block, spade, pk, launches
+    torch.cuda.empty_cache()
+    bound8, kind8 = bound_of(3 * tot["flops"], tot["bytes"], PEAK_TF32_FLOPS)
+    print(f"f32 bneck stage: per UNet_B_SS forward (batch {BATCH}, {len(sigs)} stages): "
+          f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, 3xTF32 bound {bound8:.3f} ms "
+          f"({kind8}); {tot['flops'] / tot['ms'] / 1e9:.1f} TFLOP/s; its {ltot['launches']} "
+          f"launches {ltot['ms']:.3f} ms, F.conv2d f32 {ltot['library_ms']:.3f} ms, bounds f32 "
+          f"{ltot['bound_f32_ms']:.3f} / 3xTF32 {ltot['bound_tf32_ms']:.3f} ms on {card}")
+    t_phase = phase_done("phase 22 f32 bottleneck stages", t_phase)
+
+    # 8f on the model: one f32 forward at batch 8, 512² (the counts set to 0
+    # just before it), against the f32 composition (TF32 off); timed
+    a, b = _norm_consts()
+    tiles = np.random.default_rng(SEED).integers(0, 256, (BATCH, HW, HW, in_ch), dtype=np.uint8)
+    xn = torch.from_numpy(tiles).to(dev).float() * a.to(dev) + b.to(dev)
+    kb.f32_launches = kb.launches = stage_kernel.f32_launches = 0
+    with torch.no_grad():
+        logits = model(xn)
+    torch.cuda.synchronize()
+    forward_counts = (kb.f32_launches, kb.launches, stage_kernel.f32_launches)
+    with fused_stages_off(), torch.no_grad():
+        logits_c = model(xn)
+    check(kb.f32_launches == forward_counts[0], "phase 22: the f32 composition launched 8f")
+    e = rel_l2(logits, logits_c)
+    print(f"phase 22: UNet_B_SS f32 forward at batch {BATCH}, {HW}x{HW}: (8f, bf16 kernel-8, "
+          f"1f) stages {forward_counts}; logits against the f32 composition (TF32 off): "
+          f"rel_l2 {e:.4g} (bar {F32_CARD_TOL:g}), max|composition| "
+          f"{logits_c.abs().max().item():.4g}")
+    check(forward_counts == (len(sigs), 0, 0) and bool(torch.isfinite(logits).all())
+          and logits.shape == logits_c.shape and e <= F32_CARD_TOL,
+          f"phase 22: UNet_B_SS f32 forward: stages {forward_counts}, rel_l2 {e}")
+    del logits, logits_c
+    settle()
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: model(xn), 3, warmup=1)
+        with fused_stages_off():
+            comp_ms = cuda_ms(lambda: model(xn), 3, warmup=1)
+    print(f"phase 22: UNet_B_SS f32 forward at batch {BATCH}: {fwd_ms:.3f} ms on kernel 8f, "
+          f"{comp_ms:.3f} ms as the f32 composition (TF32 off); its six stages' 3xTF32 bound "
+          f"{bound8:.3f} ms on {card}")
+    del xn
+    t_phase = phase_done("phase 22 UNet_B_SS f32 forward", t_phase)
+
+    # 8f through the trainer's evaluation (train/supervised.py evaluate)
+    ds = SyntheticDataset(F32_EVAL_BATCHES * F32_EVAL_BATCH, HW, HW, ncls, in_ch,
+                          transform=val_transform(cfg), seed=SEED + 81)
+    loader = BatchLoader(ds, F32_EVAL_BATCH, shuffle=False, drop_last=True,
+                         num_workers=int(cfg["num_workers"]))
+    kb.f32_launches = kb.launches = 0
+    elog = evaluate(cfg, loader, make_eval_step(model, get_loss(cfg["loss"]), ncls), device=dev)
+    eval_launches = kb.f32_launches
+    print(f"phase 22: evaluate over {F32_EVAL_BATCHES} batches of {F32_EVAL_BATCH}: "
+          f"{eval_launches} kernel-8f stages, {kb.launches} bf16 ones; {elog}")
+    check(eval_launches == len(sigs) * F32_EVAL_BATCHES and kb.launches == 0
+          and all(np.isfinite(v) for v in elog.values()),
+          f"phase 22: evaluate launched {eval_launches} 8f stages, expected "
+          f"{len(sigs) * F32_EVAL_BATCHES}; log {elog}")
+    del model, loader, ds
+    torch.cuda.empty_cache()
+    t_phase = phase_done("phase 22 evaluate", t_phase)
+
+    # 9f: the self-SPADE in f32 at phase 11's six level shapes, batch 2:
+    # forward against plain (TF32 off), each launch alone, the backward
+    # against autograd of the plain composition
+    worst9 = 0.0
+    for name, _, planes, lab, nh, _, level in sigs:
+        side = HW >> level
+        spade = SPADE("spadebatch3x3", planes, lab, planes / 16, generator=gen).to(dev)
+        params = spade.stage_params()
+        x = torch.randn((2, side, side, planes), generator=gen).to(dev)
+        cot = torch.randn((2, side, side, planes), generator=gen).to(dev)
+        what = f"phase 22: f32 SPADE{name[4:]} {planes} channels {side}x{side} batch 2"
+        before = sk.launches_f32, stage_kernel.f32_conv_launches, sk.launches
+        with torch.no_grad():
+            got = sk.fused_spade_stage(x, *params)
+        counted = (sk.launches_f32 - before[0], stage_kernel.f32_conv_launches - before[1],
+                   sk.launches - before[2])
+        check(counted == (1, 3, 0), f"{what}: counted (calls, conv launches, bf16) {counted}")
+        worst9 = max(worst9, f32_close(what, got, sk.self_spade_reference(x, params), check))
+        pk = sk.spade_f32_operands(params)
+        check(sk.spade_f32_operands(params) is pk, f"{what}: the operands were packed again")
+        for lname, sources, conv, y in f32_launches_of(x, pk, stage_kernel.f32_conv,
+                                                       stage_kernel.f32_tail_launches)[0]:
+            worst9 = max(worst9, f32_close(
+                f"{what} launch {lname}", stage_kernel.f32_conv(sources, conv, y),
+                stage_kernel.f32_conv_reference(sources, conv, y), check))
+        xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+        grads = torch.autograd.grad(sk.fused_spade_stage(xk, *params), [xk, *params], cot)
+        plain = torch.autograd.grad(sk.self_spade_composition(xp, *params), [xp, *params], cot)
+        l2s = [rel_l2(g, p) for g, p in zip(grads, plain)]
+        print(f"{what} backward: rel_l2 from autograd of the plain composition, x and the "
+              f"eight parameters: {[float(f'{v:.3g}') for v in l2s]}")
+        check(all(v <= F32_STAGE_TOL and g.shape == p.shape
+                  for v, g, p in zip(l2s, grads, plain)),
+              f"{what}: backward disagrees with the plain composition's: {l2s}")
+        del x, cot, xk, xp, grads, plain, spade, got, pk
+    torch.cuda.empty_cache()
+    t_phase = phase_done("phase 22 f32 self-SPADE calls", t_phase)
+
+    # 9f on its main path: UNet_B_SS trained in f32 under
+    # set_fused_spade("pallas") (the counts set to 0 just before it), one
+    # launch per step for each SPADE the gate takes; then each call of one
+    # step on its own input against plain, timed
+    tmodel = build_model("UNet_B_SS", ncls, in_ch, cfg["deep_supervision"], seed=SEED,
+                         device=dev).train()
+    step = make_train_step(tmodel, get_loss(cfg["loss"]), build_optimizer(tmodel.parameters(),
+                           cfg32), ncls, cfg["deep_supervision"], clip=float(cfg["clip"]))
+    lr = build_scheduler(cfg32).lr(0)
+    per_step = sum(
+        sk.fused_spade_supported(
+            torch.empty((1, 1, 1, m.x2map.weight.shape[1]), device=dev), m.ks, m.label_nc,
+            m.nhidden)
+        for m in tmodel.modules() if isinstance(m, SPADE))
+
+    def train_loader(n_steps, seed):
+        ds = SyntheticDataset(n_steps * TRAIN_BATCH, HW, HW, ncls, in_ch,
+                              transform=val_transform(cfg32), seed=seed)
+        return BatchLoader(ds, TRAIN_BATCH, shuffle=False, drop_last=True,
+                           num_workers=int(cfg32["num_workers"]))
+
+    mode_before = sk._FUSED
+    calls = []
+    try:
+        sk.set_fused_spade("pallas")
+        sk.launches_f32 = sk.launches = 0
+        warm_log = train_one_epoch(0, cfg32, train_loader(F32_SPADE_WARM, SEED + 82), step, lr,
+                                   device=dev)
+        settle()
+        t1 = time.perf_counter()
+        log = train_one_epoch(1, cfg32, train_loader(F32_SPADE_STEPS, SEED + 83), step, lr,
+                              device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        steps = F32_SPADE_WARM + F32_SPADE_STEPS
+        train_launches = sk.launches_f32
+        print(f"phase 22: UNet_B_SS f32 train step (\"pallas\"): 9f launches in {steps} steps "
+              f"{train_launches} (expected {steps} x {per_step}), bf16 ones {sk.launches}; "
+              f"{dt / F32_SPADE_STEPS * 1e3:.2f} ms/step ({HW}x{HW}, batch {TRAIN_BATCH}, f32, "
+              f"TF32 off, {F32_SPADE_STEPS} steps after {F32_SPADE_WARM}) on {card}; warm-up "
+              f"epoch {warm_log}; timed epoch {log}")
+        check(per_step > 0 and train_launches == per_step * steps and sk.launches == 0
+              and all(np.isfinite(v) for lg in (warm_log, log) for k, v in lg.items()
+                      if k != "images_per_sec"),
+              f"phase 22: the f32 pallas step launched {train_launches} 9f calls, expected "
+              f"{steps} x {per_step}; logs {warm_log} {log}")
+
+        def capture(x, *params):
+            calls.append((x.detach(), tuple(p.detach() for p in params)))
+            return sk.fused_spade_stage(x, *params)
+
+        _, img, mask, _ = next(iter(train_loader(1, SEED + 84)))
+        with patched(spade_mod, "fused_spade_stage", capture):
+            step(torch.from_numpy(img).to(dev), torch.from_numpy(mask).to(dev), lr)
+        torch.cuda.synchronize()
+    finally:
+        sk.set_fused_spade(mode_before)
+    del step, tmodel
+    torch.cuda.empty_cache()
+    check(len(calls) == per_step and all(x.dtype == torch.float32 for x, _ in calls),
+          f"phase 22: the f32 step's self-SPADE calls {[tuple(c[0].shape) for c in calls]}")
+    sums = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    kinds = set()
+    for x, params in calls:
+        planes, lab, nh = x.shape[-1], params[0].shape[0], params[2].shape[0]
+        what = (f"phase 22: UNet_B_SS's f32 self-SPADE of {planes} channels (hidden {nh}) at "
+                f"{x.shape[1]}x{x.shape[2]}, batch {x.shape[0]}, on the step's own input")
+        with torch.no_grad():
+            worst9 = max(worst9, f32_close(what, sk.fused_spade_stage(x, *params),
+                                           sk.self_spade_reference(x, params), check))
+            ms = cuda_ms(lambda: sk.fused_spade_stage(x, *params), 10)
+            plain_ms = cuda_ms(lambda: sk.self_spade_reference(x, params), 3, warmup=1)
+            lib_ms = cuda_ms(library_tail(x, params, dtype=torch.float32), 10)
+        bound, kind = bound_of(3 * 2.0 * spade_macs(planes, lab, nh) * x.numel() / planes,
+                               4 * (2 * x.numel() + sum(p.numel() for p in params)),
+                               PEAK_TF32_FLOPS)
+        kinds.add(kind)
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
+                     ("library_ms", lib_ms)):
+            sums[k] += v
+        print("f32 spade stage:", json.dumps(dict(
+            model="UNet_B_SS", stage=f"SPADE {planes} channels", shape=list(x.shape), hidden=nh,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=kind, library_ms=lib_ms)))
+    del calls
+    torch.cuda.empty_cache()
+    phase_done("phase 22 f32 pallas train step and its calls", t_phase)
+    phase_done("phase 22", t_start)
+    row8 = {
+        "name": "fused_eval_stage_bneck_f32", "row": "8f", "route": "cuda",
+        "source": f"ssunet_gan_tpu_torch/csrc/{kb.SOURCE_F32}", "replaces": kb.REPLACES,
+        "launches": forward_counts[0] + eval_launches, "max_abs_err": worst8,
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": bound8, "bound_by": kind8,
+        "library_ms": ltot["library_ms"], "conv_ms": ltot["ms"],
+        "launches_by_path": {"UNet_B_SS_f32": forward_counts[0], "evaluate_f32": eval_launches},
+    }
+    row9 = {
+        "name": "fused_spade_stage_f32", "row": "9f", "route": "cuda",
+        "source": f"ssunet_gan_tpu_torch/csrc/{sk.SOURCE_F32}", "replaces": sk.REPLACES,
+        "launches": train_launches, "max_abs_err": worst9, **sums,
+        "bound_by": "operations" if "operations" in kinds else "bytes",
+        "launches_by_path": {"UNet_B_SS_f32_pallas": train_launches},
+    }
+    return [row8, row9]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
@@ -6713,6 +7082,12 @@ def main() -> int:
     # ---- phase 21: f32 training (kernels 2-6 in float32, csrc/train_f32.cu)
     f32_rows = f32_train_phase(dev, card, here, cfg, sigs, check)
 
+    # ---- phase 22: kernels 8 and 9 in float32 (8f, 9f: the 3xTF32 conv core)
+    calib = np.random.default_rng(SEED + 2).integers(0, 256, (2, HW, HW, in_ch), dtype=np.uint8)
+    calib = torch.from_numpy(calib).to(dev).float() * a.to(dev) + b.to(dev)
+    f32_rows += f32_bneck_spade_phase(dev, card, cfg, calib, check)
+    del calib
+
     if failures:
         fail(f"{len(failures)} checks failed: " + "; ".join(failures[:20]))
 
@@ -6772,7 +7147,7 @@ def main() -> int:
             row["up_reads"] = sum(r[0] for r in by_path.values())
             row["pool_reads"] = sum(r[1] for r in by_path.values())
             row["seam_reads_by_path"] = {k: {"up": u, "pool": p} for k, (u, p) in by_path.items()}
-    kernels += f32_rows  # phase 21's: launches by path on the f32 main paths
+    kernels += f32_rows  # phases 21-22's: launches by path on the f32 main paths
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,10 +22,11 @@ shortcut, its conv biases folded into the BN offsets), in training, for
 the BasicBlock stages only and not under remat
 (:func:`ops.blocks.set_remat`), through
 :func:`ops.stage_kernel_train.fused_train_stage`, whose batch statistics
-then move the BatchNorms' running averages. What the gate refuses (f32 on
-the card, planes not a multiple of 32, more than 8 labels or classes,
-more than ``TAIL_MAX_HIDDEN`` (64) hidden channels) runs the module
-composition, as in JAX (:316-330). In the flagship these are
+then move the BatchNorms' running averages. f32 eval stages on the card
+run the f32 routes (kernels 1f and 8f, which have no width limits). What
+the gate refuses (in bf16 on the card planes not a multiple of 32, more
+than 8 labels or classes, more than ``TAIL_MAX_HIDDEN`` (64) hidden
+channels) runs the module composition, as in JAX (:316-330). In the flagship these are
 conv0_0, conv1_0, conv2_0, conv2_1, conv1_1 and conv0_1, the last with
 ``final`` folded in; in ``UNet_R_SS`` conv0_0, conv1_0, conv2_0, conv2_2,
 conv1_3 and conv0_4; in ``SSUNet`` every stage but conv4_0 (512 planes).
@@ -34,8 +35,9 @@ default 256) raises the gates' eval limit (:func:`ops.stage_kernel.max_planes`):
 at 768 the flagship's five deep stages (384-768 planes) run fused too, in
 bf16, f32 and int8, and so do UNet_R_SS's; SSUNet's conv4_0 only on the
 CPU, since its 128 hidden channels are past the card's tail. Bottleneck
-stages that
-:func:`ops.stage_kernel_bneck.bneck_supported` admits run in eval through
+stages that :func:`ops.stage_kernel_bneck.bneck_supported` admits run in
+eval, unless :func:`ops.stage_kernel.set_fused_stage` turns them off too
+(as in JAX, :249), through
 :func:`ops.stage_kernel_bneck.fused_eval_stage_bneck` (the same six names
 in ``UNet_B_SS``, and conv3_0 and conv3_1 with the limit at 512 or more);
 in training, and in the int8 mode, they are the module
@@ -117,6 +119,7 @@ from ssunet_gan_tpu_torch.ops.stage_kernel_bneck import (
     bneck_supported,
     fused_eval_stage_bneck,
     pack_stage_bneck,
+    pack_stage_bneck_f32,
 )
 from ssunet_gan_tpu_torch.ops.stage_kernel_int8 import (
     QTensor,
@@ -161,9 +164,10 @@ def _stage_operands(parts, block, spade: SPADE, final: Optional[Conv2d],
             head = None if final is None else (final.weight, final.bias)
             if int8:
                 packed = pack_stage_int8(bp, sp, head, x0.dtype)
-            elif (x0.device.type == "cuda" and x0.dtype == torch.float32
-                  and not isinstance(block, Bottleneck)):
-                packed = pack_stage_f32(key[2], bp, sp, head)  # the f32 route
+            elif x0.device.type == "cuda" and x0.dtype == torch.float32:
+                # the f32 routes (kernels 1f and 8f)
+                pack = pack_stage_bneck_f32 if isinstance(block, Bottleneck) else pack_stage_f32
+                packed = pack(key[2], bp, sp, head)
             else:
                 pack = pack_stage_bneck if isinstance(block, Bottleneck) else pack_stage
                 packed = pack(key[2], bp, sp, head, x0.dtype)
@@ -279,10 +283,11 @@ def spade_stage(parts, block, spade: SPADE,
               0 if final is None else final.weight.shape[0])
     if bneck:
         # the int8 mode covers the BasicBlock stages only; training is the
-        # composition, whose SPADE follows the fused-SPADE mode; the gate
-        # holds the planes limit (set_pack_max_planes)
+        # composition, whose SPADE follows the fused-SPADE mode; the eval
+        # toggle covers these stages too (JAX :249); the gate holds the
+        # planes limit (set_pack_max_planes)
         parts = _dequantized(parts)
-        ok = not block.training and not int8
+        ok = not block.training and not int8 and fused_stage_enabled()
         fused, parts, up, _ = _admit(
             lambda p, u, d: ok and bneck_supported(p, *widths, up=u), parts, up, down)
         if fused:

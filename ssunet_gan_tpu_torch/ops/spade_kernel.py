@@ -15,6 +15,16 @@ channels, far under the ridge point, so it is bound by bytes. The kernel
 actv and γ|β stay in shared memory and registers. Its narrow convs
 (3 labels, ≤ 16 hidden channels) run as f32 FMAs.
 
+The f32 route (kernel 9f): the TPU kernel casts its weights to the
+activation dtype (:536-546), so an f32 self-SPADE runs it in f32. On the
+card that is three launches of kernel 1f's f32 conv core
+(``csrc/f32_conv.cuh`` through ``csrc/fused_stage_f32.cu``: 3xTF32 on
+``mma.sync``): seg, act with ReLU, and γ|β with the modulate in its
+epilogue (``ops/stage_kernel.py`` ``f32_tail_launches``), with no width
+limits. Its operands (``pack_spade_f32``: the weights split into TF32 big
+and small parts) are kept per weight version (:func:`spade_f32_operands`),
+so a step repacks them once after the optimizer updates the weights.
+
 The mode is the JAX package's (``spade_kernel.py:70-95``) and is opt-in
 there as here: ``"off"`` is the module composition; ``"fast"`` computes
 γ|β as one 1×1 conv over the im2col of the small actv tensor
@@ -37,23 +47,37 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ssunet_gan_tpu_torch import _build
 from ssunet_gan_tpu_torch.ops.conv import conv2d_nhwc
+from ssunet_gan_tpu_torch.ops import stage_kernel
 from ssunet_gan_tpu_torch.ops.stage_kernel import (
     TAIL_MAX_HIDDEN,
     TAIL_MAX_LAB,
     _ptr,
+    f32_conv,
+    f32_tail_launches,
     pack_spade,
+    pack_spade_f32,
     spade_tail_reference,
     tail_args,
 )
 
 SOURCE = "spade_stage.cu"
 REPLACES = "ssunet_gan_tpu/ops/spade_kernel.py:518"  # fused_spade_stage
+# the f32 route (kernel 9f) launches kernel 1f's conv core
+SOURCE_F32 = stage_kernel.SOURCE_F32
 
-# Fused self-SPADE stages run on the card (one CUDA launch each).
+# Fused self-SPADE stages run on the card (one CUDA launch each); f32 ones
+# (kernel 9f) apart, one per stage (three f32 conv launches each, counted in
+# ``stage_kernel.f32_conv_launches``).
 launches = 0
+launches_f32 = 0
+
+# the f32 route's packed operands per x2map weight: (the eight weights'
+# identities, storages and versions, the operands)
+_F32_OPERANDS = WeakIdKeyDictionary()
 
 # the kernel's channel chunk (csrc/stage_common.cuh); its label and hidden
 # bounds are the tail's (stage_kernel.TAIL_MAX_*)
@@ -84,9 +108,14 @@ def fused_spade_supported(x: torch.Tensor, ks: int, labels: int, hidden: int) ->
     a 4-D NHWC tensor, labels ≤ 8; on a CUDA device also channels a
     multiple of 32, hidden within the tail's ``TAIL_MAX_HIDDEN`` and
     bfloat16 (the kernel's terms; the plain version on the CPU has none of
-    them, and like the JAX gate no hidden term). What it refuses runs the
+    them, and like the JAX gate no hidden term), or float32 for the f32
+    route (kernel 9f), which has no width limits. What it refuses runs the
     module's other paths."""
-    if ks != 3 or x.dim() != 4 or labels > TAIL_MAX_LAB:
+    if ks != 3 or x.dim() != 4:
+        return False
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        return True
+    if labels > TAIL_MAX_LAB:
         return False
     if x.device.type == "cuda":
         return (x.shape[-1] % CHANNEL_MULTIPLE == 0 and hidden <= TAIL_MAX_HIDDEN
@@ -138,20 +167,40 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def spade_f32_operands(spade_params) -> dict:
+    """The f32 route's operands of these eight weights
+    (``stage_kernel.pack_spade_f32``), kept until one of them changes (its
+    object, its storage or its version, as an optimizer's in-place update
+    bumps it)."""
+    key = tuple((id(t), t.data_ptr(), t._version) for t in spade_params)
+    hit = _F32_OPERANDS.get(spade_params[0])
+    if hit is None or hit[0] != key:
+        with torch.no_grad():
+            hit = (key, pack_spade_f32(spade_params))
+        _F32_OPERANDS[spade_params[0]] = hit
+    return hit[1]
+
+
 def _run_cuda(x: torch.Tensor, spade_params) -> torch.Tensor:
-    global launches
+    global launches, launches_f32
     lab, nh = spade_params[0].shape[0], spade_params[2].shape[0]
     if not fused_spade_supported(x, spade_params[0].shape[-1], lab, nh):
         raise ValueError(
             f"the CUDA self-SPADE stage does not take x {tuple(x.shape)} {x.dtype}, "
             f"labels={lab} (<= {TAIL_MAX_LAB}), hidden={nh} (<= {TAIL_MAX_HIDDEN}): 3x3 convs, "
             f"channels "
-            f"a multiple of {CHANNEL_MULTIPLE}, bfloat16 only")
+            f"a multiple of {CHANNEL_MULTIPLE}, bfloat16 (or float32 without those limits)")
     if spade_params[0].shape[1] != x.shape[-1]:
         raise ValueError(f"x2map takes {spade_params[0].shape[1]} channels, x has {x.shape[-1]}")
     if any(t.device != x.device for t in spade_params):
         raise ValueError("SPADE weights must lie on x's device")
     x = x.contiguous()
+    if x.dtype == torch.float32:  # kernel 9f
+        pk = spade_f32_operands(spade_params)
+        with torch.cuda.device(x.device):
+            out = f32_tail_launches(x, pk, f32_conv)
+        launches_f32 += 1
+        return out
     n, h, w, c = x.shape
     pk = pack_spade(spade_params, None, x.dtype)
     with torch.cuda.device(x.device):
@@ -190,7 +239,8 @@ class _FusedSpadeStage(torch.autograd.Function):
 def fused_spade_stage(x, wx, bx, wm, bm, wg, bg, wb, bb) -> torch.Tensor:
     """Self-SPADE stage ``x → x·(1 + γ(x)) + β(x)`` on one NHWC tensor, with
     the module's OIHW weights. Forward: the hand-written kernel on a CUDA
-    tensor (or it raises), :func:`self_spade_reference` on a CPU tensor.
+    tensor (an f32 one its f32 route, kernel 9f; or it raises),
+    :func:`self_spade_reference` on a CPU tensor.
     Backward: autograd of :func:`self_spade_composition`, for x and all
     eight parameters."""
     return _FusedSpadeStage.apply(x, wx, bx, wm, bm, wg, bg, wb, bb)

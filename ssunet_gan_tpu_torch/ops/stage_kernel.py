@@ -106,16 +106,17 @@ PLANES_MULTIPLE = 32  # csrc/stage_common.cuh: the tail's channel chunk
 TRAIN_MAX_PLANES = 256
 _PACK_MAX_PLANES = 256
 
-# The fused eval stages (this one and the int8 one): on unless set to False
-# (JAX ``set_fused_stage``, ssunet_gan_tpu/ops/stage_kernel.py:84, whose
-# default is on for the TPU; the card's default is on).
+# The fused eval stages (this one, the int8 one and the bottleneck one): on
+# unless set to False (JAX ``set_fused_stage``,
+# ssunet_gan_tpu/ops/stage_kernel.py:84, whose default is on for the TPU;
+# the card's default is on).
 _FUSED_STAGE: Optional[bool] = None
 
 
 def set_fused_stage(enabled: Optional[bool]) -> None:
     """Fused eval stages on (True, or None: the default) or off (False:
-    every BasicBlock stage of an eval forward runs the module composition,
-    the int8 mode's deep s8 block)."""
+    every BasicBlock, VGG and Bottleneck stage of an eval forward runs the
+    module composition, in the int8 mode the deep s8 block)."""
     global _FUSED_STAGE
     _FUSED_STAGE = enabled
 
@@ -797,13 +798,25 @@ def f32_weight_parts(conv: dict) -> Tuple[torch.Tensor, torch.Tensor]:
     return flat[0], flat[1]
 
 
+def pack_spade_f32(spade_params, head=None) -> dict:
+    """The f32 route's SPADE tail (kernels 1f and 8f, and kernel 9f alone):
+    seg, act with ReLU, γ and β as one conv of 2C outputs with the modulate
+    in its epilogue, and the folded head's 1×1 conv or None."""
+    wx, bx, wm, bm, wg, bg, wb, bb = spade_params
+    return {
+        "seg": pack_f32_conv([wx], bx, False),
+        "act": pack_f32_conv([wm], bm, True),
+        "gb": pack_f32_conv([torch.cat([wg, wb])], torch.cat([bg, bb]), False, modulate=True),
+        "head": None if head is None else pack_f32_conv([head[0]], head[1], False),
+    }
+
+
 def pack_stage_f32(part_channels, block_params, spade_params, head) -> dict:
     """The f32 route's operands of a stage (arguments as
     :func:`fused_stage_reference`): BN folded into the convs in f32, conv2
-    with the shortcut's parts as K-segments, γ and β as one conv of 2C
-    outputs with the modulate in its epilogue."""
+    with the shortcut's parts as K-segments, the tail as
+    :func:`pack_spade_f32`."""
     w1, (s1, t1), w2, (s2, t2), ws = block_params
-    wx, bx, wm, bm, wg, bg, wb, bb = spade_params
     w1f = w1.float() * s1.float()[:, None, None, None]
     w2f = w2.float() * s2.float()[:, None, None, None]
     short = [] if ws is None else split_in(ws.float(), part_channels)
@@ -812,10 +825,7 @@ def pack_stage_f32(part_channels, block_params, spade_params, head) -> dict:
         "shortcut": ws is not None,
         "conv1": pack_f32_conv(split_in(w1f, part_channels), t1, True),
         "conv2": pack_f32_conv([w2f] + short, t2, True),
-        "seg": pack_f32_conv([wx], bx, False),
-        "act": pack_f32_conv([wm], bm, True),
-        "gb": pack_f32_conv([torch.cat([wg, wb])], torch.cat([bg, bb]), False, modulate=True),
-        "head": None if head is None else pack_f32_conv([head[0]], head[1], False),
+        **pack_spade_f32(spade_params, head),
     }
 
 
@@ -869,15 +879,21 @@ def f32_modulate_reference(y: torch.Tensor, gb: torch.Tensor) -> torch.Tensor:
     return y * (1 + gb[..., :c]) + gb[..., c:]
 
 
-def f32_stage_launches(parts, pk: dict, conv=f32_conv_reference) -> torch.Tensor:
-    """A stage as the f32 route runs it, launch by launch (``conv``: the
-    CUDA launch, or by default its plain version): conv1, conv2 with the
-    shortcut's segments, seg, act, γ|β with the modulate, [the head]."""
-    h1 = conv(parts, pk["conv1"])
-    y = conv((h1,) + tuple(parts) if pk["shortcut"] else (h1,), pk["conv2"])
+def f32_tail_launches(y, pk: dict, conv=f32_conv_reference) -> torch.Tensor:
+    """The SPADE tail of :func:`pack_spade_f32`'s operands on ``y``, launch
+    by launch: seg, act, γ|β with the modulate, [the head]."""
     act = conv((conv((y,), pk["seg"]),), pk["act"])
     out = conv((act,), pk["gb"], y)
     return out if pk["head"] is None else conv((out,), pk["head"])
+
+
+def f32_stage_launches(parts, pk: dict, conv=f32_conv_reference) -> torch.Tensor:
+    """A stage as the f32 route runs it, launch by launch (``conv``: the
+    CUDA launch, or by default its plain version): conv1, conv2 with the
+    shortcut's segments, then :func:`f32_tail_launches`."""
+    h1 = conv(parts, pk["conv1"])
+    y = conv((h1,) + tuple(parts) if pk["shortcut"] else (h1,), pk["conv2"])
+    return f32_tail_launches(y, pk, conv)
 
 
 @functools.lru_cache(maxsize=None)

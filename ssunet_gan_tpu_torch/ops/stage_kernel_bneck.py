@@ -44,10 +44,22 @@ input at the image border (h1 outside the image is 0, not relu(t1)); sums
 run in f32; h1, h2, y and the tail's intermediates are rounded to the
 activation dtype.
 
+The f32 route (kernel 8f): the TPU kernel takes the activation dtype, so
+an f32 evaluation (the trainers' val and test passes) runs it in f32. On
+the card such a stage runs as six or seven launches of the f32 conv core
+of kernel 1f (``csrc/f32_conv.cuh`` through ``csrc/fused_stage_f32.cu``:
+3xTF32 on ``mma.sync``, up to three K-segments of 3×3 or 1×1): conv1 1×1
+over the parts, conv2 3×3, conv3 1×1 over h2 with the shortcut's 1×1
+segments over the parts in the same sum (the identity shortcut as a unit
+weight per part, as the TPU kernel's ``jnp.eye`` columns, :1636), then
+seg, act and γ|β with the modulate [and the head] as
+``ops/stage_kernel.py`` ``f32_tail_launches``. BN is folded in f32
+(:func:`pack_stage_bneck_f32`); up seams are materialized first.
+
 :func:`bneck_supported` is the one gate: the model's dispatch and the
 wrapper both call it. :func:`fused_eval_stage_bneck` decides by the
 tensors' device: CPU tensors take :func:`fused_bneck_reference`; CUDA
-tensors launch the kernel or raise.
+tensors launch the kernel (bf16) or its f32 route, or raise.
 """
 
 from __future__ import annotations
@@ -68,9 +80,14 @@ from ssunet_gan_tpu_torch.ops.stage_kernel import (
     TAIL_MAX_LAB,
     _ptr,
     _q,
+    f32_conv,
+    f32_conv_reference,
+    f32_tail_launches,
     materialize_seams,
     pack_eval_conv,
+    pack_f32_conv,
     pack_spade,
+    pack_spade_f32,
     packed_tensors,
     seam_modes,
     seam_shape,
@@ -82,10 +99,15 @@ from ssunet_gan_tpu_torch.ops.stage_kernel import (
 
 SOURCE = "bneck_stage.cu"
 REPLACES = "ssunet_gan_tpu/ops/stage_kernel.py:1603"  # fused_eval_stage_bneck
+# the f32 route (kernel 8f) launches kernel 1f's conv core
+SOURCE_F32 = stage_kernel.SOURCE_F32
 
 # Fused bottleneck stages run on the card, one per stage (four CUDA launches
 # each); the up seams they read count in ``stage_kernel.up_reads``.
 launches = 0
+# f32 stages run on the card (kernel 8f), one per stage; their conv launches
+# (six per stage, seven with the head) count in ``stage_kernel.f32_conv_launches``
+f32_launches = 0
 
 # the kernel's planes multiple (csrc/stage_common.cuh: the tail's channel
 # chunk); the planes limit is the one gate's (``stage_kernel.max_planes``),
@@ -104,7 +126,10 @@ def bneck_supported(parts, planes: int, labels: int, hidden: int, classes: int =
     height twice its own; on a CUDA device also planes a multiple of 32,
     hidden within the tail's ``TAIL_MAX_HIDDEN`` and bfloat16 (the kernel's
     terms; the plain version on the CPU has none of them, and like the JAX
-    gate no hidden term). What it refuses runs the module composition."""
+    gate no hidden term), or float32 with contiguous parts for the f32 route
+    (kernel 8f), which has no width limits but the planes limit (an up part
+    is bf16, so f32 seams are materialized). What it refuses runs the
+    module composition."""
     parts = as_parts(parts)
     x0 = parts[0]
     if not 1 <= len(parts) <= 2 or any(p.dim() != 4 for p in parts):
@@ -117,7 +142,11 @@ def bneck_supported(parts, planes: int, labels: int, hidden: int, classes: int =
     if any(seam_shape(p, m) != shape or p.device != x0.device or p.dtype != x0.dtype
            for p, m in zip(parts, modes)):
         return False
-    if planes > stage_kernel.max_planes() or labels > TAIL_MAX_LAB or classes > TAIL_MAX_CLS:
+    if planes > stage_kernel.max_planes():
+        return False
+    if x0.device.type == "cuda" and x0.dtype == torch.float32:
+        return all(p.is_contiguous() for p in parts)
+    if labels > TAIL_MAX_LAB or classes > TAIL_MAX_CLS:
         return False
     if x0.device.type == "cuda":
         return (planes % PLANES_MULTIPLE == 0 and hidden <= TAIL_MAX_HIDDEN
@@ -174,6 +203,17 @@ def fused_bneck_reference(parts, block_params, spade_params, head=None):
     return spade_tail_reference(y, spade_params, head)[0]
 
 
+def _shortcut(part_channels, ks, like: torch.Tensor):
+    """The shortcut's 1×1 weight, or for the identity a unit matrix (exact
+    in bf16, and split by the f32 route into 1 and 0)."""
+    if ks is not None:
+        return ks
+    planes = like.shape[0]
+    if sum(part_channels) != planes:
+        raise ValueError("an identity shortcut needs parts of planes channels in all")
+    return torch.eye(planes, dtype=like.dtype, device=like.device)[:, :, None, None]
+
+
 def pack_stage_bneck(part_channels, block_params, spade_params, head, dtype) -> dict:
     """Fold BN into the weights and lay every operand out for the kernel:
     the three convs' operands (``ops/stage_kernel.py`` ``pack_eval_conv``):
@@ -185,11 +225,7 @@ def pack_stage_bneck(part_channels, block_params, spade_params, head, dtype) -> 
     :func:`fused_eval_stage_bneck` as ``packed``."""
     part_channels = tuple(part_channels)
     k1, k2, k3, ks, b1, b2, b3 = _folded(block_params, dtype)
-    planes = k2.shape[0]
-    if ks is None:
-        if sum(part_channels) != planes:
-            raise ValueError("an identity shortcut needs parts of planes channels in all")
-        ks = torch.eye(planes, dtype=k3.dtype, device=k3.device)[:, :, None, None]
+    ks = _shortcut(part_channels, ks, k3)
     packed = {
         "channels": part_channels, "dtype": dtype,
         "conv1": pack_eval_conv(split_in(k1, part_channels), b1, dtype),
@@ -198,6 +234,57 @@ def pack_stage_bneck(part_channels, block_params, spade_params, head, dtype) -> 
     }
     packed.update(pack_spade(spade_params, head, dtype))
     return packed
+
+
+def pack_stage_bneck_f32(part_channels, block_params, spade_params, head) -> dict:
+    """The f32 route's operands of a stage (arguments as
+    :func:`fused_bneck_reference`), each conv packed by ``ops/stage_kernel.py``
+    ``pack_f32_conv`` (BN folded in f32, the weights split into TF32 big and
+    small parts once): ``conv1`` 1×1 over the parts with t1 and ReLU,
+    ``conv2`` 3×3 with t2 and ReLU, ``conv3`` 1×1 over h2 and the
+    shortcut's 1×1 segments over the parts (a unit weight for the identity)
+    in one sum with ``t3 + ts`` and ReLU; the tail as ``pack_spade_f32``."""
+    part_channels = tuple(part_channels)
+    k1, k2, k3, ks, b1, b2, b3 = _folded(block_params, torch.float32)
+    ks = _shortcut(part_channels, ks, k3)
+    return {
+        "route": "f32", "channels": part_channels, "dtype": torch.float32,
+        "conv1": pack_f32_conv(split_in(k1, part_channels), b1, True),
+        "conv2": pack_f32_conv([k2], b2, True),
+        "conv3": pack_f32_conv([k3] + split_in(ks, part_channels), b3, True),
+        **pack_spade_f32(spade_params, head),
+    }
+
+
+def f32_bneck_launches(parts, pk: dict, conv=f32_conv_reference) -> torch.Tensor:
+    """A stage as the f32 route runs it, launch by launch (``conv``: the
+    CUDA launch ``stage_kernel.f32_conv``, or by default its plain version):
+    conv1, conv2, conv3 with the shortcut's segments, then the tail
+    (``stage_kernel.f32_tail_launches``)."""
+    parts = tuple(parts)
+    h2 = conv((conv(parts, pk["conv1"]),), pk["conv2"])
+    y = conv((h2,) + parts, pk["conv3"])
+    return f32_tail_launches(y, pk, conv)
+
+
+def _run_cuda_f32(parts: Tuple[torch.Tensor, ...], pk: dict, up=None) -> torch.Tensor:
+    global f32_launches
+    c = pk["conv2"]["cout"]
+    if not bneck_supported(parts, c, pk["seg"]["cout"], pk["act"]["cout"],
+                           0 if pk["head"] is None else pk["head"]["cout"], up=up):
+        raise ValueError(f"the f32 route does not take this bottleneck stage (bneck_supported): "
+                         f"parts {[(tuple(p.shape), p.dtype) for p in parts]}, planes={c} "
+                         f"(<= {stage_kernel.max_planes()}), up={up}: f32, contiguous, seams "
+                         f"materialized")
+    if pk["channels"] != tuple(p.shape[-1] for p in parts):
+        raise ValueError(f"packed operands are for parts of {pk['channels']} channels, got "
+                         f"{[tuple(p.shape) for p in parts]}")
+    if any(t.device != parts[0].device for t in packed_tensors(pk)):
+        raise ValueError("stage weights must lie on the parts' device")
+    with torch.cuda.device(parts[0].device):
+        out = f32_bneck_launches(parts, pk, f32_conv)
+    f32_launches += 1
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -257,17 +344,23 @@ def fused_eval_stage_bneck(parts, block_params, spade_params, head=None,
     """Eval [Bottleneck + self-SPADE] stage (+ folded head), NHWC in/out.
 
     Arguments as in :func:`fused_bneck_reference`; ``packed``, if given, is
-    :func:`pack_stage_bneck` of the same weights, which spares the CUDA path
-    its packing; ``up`` (a bool per part) marks decoder seams, each the
-    half-height tensor after its W-interpolation. CPU tensors run the plain
-    version on ``stage_kernel.materialize_seams``' parts; CUDA tensors run
-    the hand-written kernel, which reads the seams, or raise for what
-    :func:`bneck_supported` refuses."""
+    :func:`pack_stage_bneck` of the same weights (for f32 CUDA parts
+    :func:`pack_stage_bneck_f32`), which spares the CUDA path its packing;
+    ``up`` (a bool per part) marks decoder seams, each the half-height
+    tensor after its W-interpolation. CPU tensors run the plain version on
+    ``stage_kernel.materialize_seams``' parts; CUDA tensors run the
+    hand-written kernel, which reads the seams (f32 ones its f32 route,
+    which reads none), or raise for what :func:`bneck_supported` refuses."""
     parts = as_parts(parts)
     dev = parts[0].device
     if dev.type == "cpu":
         return fused_bneck_reference(materialize_seams(parts, up), block_params, spade_params,
                                      head)
+    if dev.type == "cuda" and parts[0].dtype == torch.float32:
+        if packed is None or packed.get("route") != "f32":
+            packed = pack_stage_bneck_f32(tuple(p.shape[-1] for p in parts), block_params,
+                                          spade_params, head)
+        return _run_cuda_f32(parts, packed, up)
     if dev.type == "cuda":
         if packed is None:
             packed = pack_stage_bneck(tuple(p.shape[-1] for p in parts), block_params,

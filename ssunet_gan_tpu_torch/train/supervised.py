@@ -114,8 +114,8 @@ def train_one_epoch(epoch: int, config: Dict, loader, train_step, lr: float,
 def evaluate(config: Dict, loader, eval_step, device="cuda", mesh=None) -> Dict[str, float]:
     """Mean metrics of ``eval_step`` over ``loader``, the images in the
     loader's dtype as the JAX package passes them (f32: on the card the
-    fused stages then take kernel 1's f32 route, as the JAX package runs
-    its stage kernel in f32). ``config`` is accepted for the JAX
+    fused stages then take the f32 routes of kernels 1 and 8, as the JAX
+    package runs its stage kernels in f32). ``config`` is accepted for the JAX
     signature. Under ``mesh`` every rank returns rank 0's reading (one
     broadcast), so that the decisions taken on it agree."""
     device = resolve_device(device)

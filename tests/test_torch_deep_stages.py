@@ -109,7 +109,7 @@ CARD_SIGS = [
     ([(8, 64, 64, 256)], 384, 24, torch.bfloat16, (False,) * 4, (True, False, True, True)),
     ([(8, 32, 32, 512)] * 2, 512, 32, torch.bfloat16, (False,) * 4, (True, False, True, True)),
     ([(8, 16, 16, 512)], 768, 48, torch.bfloat16, (False,) * 4, (True, False, True, True)),
-    ([(8, 16, 16, 512)], 768, 48, torch.float32, (False,) * 4, (True, False, False, False)),
+    ([(8, 16, 16, 512)], 768, 48, torch.float32, (False,) * 4, (True, False, False, True)),
     ([(8, 32, 32, 256)], 512, 128, torch.bfloat16, (False,) * 4, (False,) * 4),  # SSUNet 4_0
     ([(8, 16, 16, 768)], 800, 50, torch.bfloat16, (False,) * 4, (False,) * 4),   # past 768
     ([(8, 64, 64, 64)], 128, 8, torch.bfloat16, (True,) * 4, (True,) * 4),       # shallow
@@ -121,8 +121,9 @@ CARD_SIGS = [
 def test_card_gates_take_the_deep_stages_only_when_raised(shapes, planes, nh, dtype, at256,
                                                          at768):
     """On the card the deep stages enter kernels 1 (bf16 and its f32
-    route), 7 and 8 with the limit raised and never in training; hidden 128
-    (SSUNet's 512-plane stage) stays past the SPADE tail's 64."""
+    route), 7 and 8 (bf16 and its f32 route) with the limit raised and
+    never in training; hidden 128 (SSUNet's 512-plane stage) stays past
+    the SPADE tail's 64."""
     parts = [OnCard(s, dtype) for s in shapes]
     for limit, want in ((256, at256), (768, at768)):
         stage_kernel.set_pack_max_planes(limit)

@@ -1372,29 +1372,170 @@ def test_bneck_stage_kernel_matches_plain(chans, planes, labels, nhw, ncls):
 
 @pytest.mark.gpu
 def test_bneck_stage_kernel_refuses_float32_and_the_model_composes_it():
-    """The wrapper raises for f32 on the card; the model's gate sends an f32
-    forward to the module composition instead (no launch)."""
+    """Since kernel 8f the card takes f32 bottleneck stages too: the wrapper
+    raises for float16 (neither kernel's dtype), and the model's f32 forward
+    runs its six fused stages on kernel 8f (no bf16 launch), its bf16
+    forward on kernel 8; the two forwards agree to bf16's error."""
     from ssunet_gan_tpu_torch.ops import stage_kernel_bneck
     from ssunet_gan_tpu_torch.ops.blocks import Bottleneck
 
     dev = _card()
     block = Bottleneck(64, 128).to(dev).eval()
     spade = SPADE("spadebatch3x3", 128, 3, 8.0).to(dev)
-    x = torch.zeros((1, 16, 16, 64), device=dev)
+    x = torch.zeros((1, 16, 16, 64), device=dev, dtype=torch.float16)
     with pytest.raises(ValueError):
         stage_kernel_bneck.fused_eval_stage_bneck((x,), block.stage_params(),
                                                   spade.stage_params())
     model = build_model("UNet_B_SS", 3, filters=(32, 64, 96, 288, 320), seed=0, device=dev)
     x = torch.randn((1, 32, 32, 3), generator=torch.Generator().manual_seed(1)).to(dev)
-    before = stage_kernel_bneck.launches
+    before = stage_kernel_bneck.launches, stage_kernel_bneck.f32_launches
     with torch.no_grad():
         f32 = model(x)
-        assert stage_kernel_bneck.launches == before
+        assert (stage_kernel_bneck.launches, stage_kernel_bneck.f32_launches) == (
+            before[0], before[1] + 6)
         got = model(x.bfloat16())
     torch.cuda.synchronize()
-    assert stage_kernel_bneck.launches == before + 6
+    assert stage_kernel_bneck.launches == before[0] + 6
     rel = ((got.float() - f32).norm() / f32.norm()).item()
     assert torch.isfinite(got.float()).all() and rel < 0.2, rel
+
+
+def _bneck_f32_stage(dev, chans, planes, labels, ncls, gen):
+    from ssunet_gan_tpu_torch.ops.blocks import Bottleneck
+
+    block = Bottleneck(sum(chans), planes, generator=gen)
+    _randomize_bn(block, gen)
+    block.to(dev).eval()
+    spade = SPADE("spadebatch3x3", planes, labels, max(planes / 16, 4), generator=gen).to(dev)
+    head = None
+    if ncls:
+        final = Conv2d(planes, ncls, 1, generator=gen).to(dev)
+        head = (final.weight, final.bias)
+    return block.stage_params(), spade.stage_params(), head
+
+
+def _f32_err(got, want):
+    diff = (got - want).double()
+    err, scale = diff.abs().max().item(), want.double().abs().max().item()
+    return (err, scale, (diff.norm() / want.double().norm()).item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "chans,planes,labels,nhw,ncls",
+    [
+        ((3,), 64, 3, (2, 40, 36), 0),          # 3-channel first block, ragged tiles
+        ((64,), 128, 3, (1, 32, 32), 0),        # encoder
+        ((128,), 128, 3, (2, 24, 20), 0),       # identity shortcut
+        ((256, 512), 256, 3, (1, 16, 16), 0),   # widest fused stage, two parts
+        ((64, 128), 64, 3, (2, 48, 40), 3),     # folded final head
+        ((32, 32), 64, 2, (1, 9, 13), 2),       # odd sizes, identity over two parts
+        ((6, 10), 24, 5, (1, 19, 13), 0),       # widths off the chunk grid
+    ],
+)
+def test_bneck_f32_route_matches_plain(chans, planes, labels, nhw, ncls):
+    """Kernel 8f (the f32 bottleneck stage as launches of the 3xTF32 conv
+    core) against its plain version launch by launch (each launch on the
+    stage's own inputs, exact f32 products) and the stage against
+    ``fused_bneck_reference`` in f32 (TF32 off): max error ≤ 1e-4 of max
+    |plain| and relative L2 ≤ 1e-4; one stage, six conv launches (seven
+    with the head), no bf16 launch."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_bneck
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(6)
+    bp, sp, head = _bneck_f32_stage(dev, chans, planes, labels, ncls, gen)
+    parts = tuple(torch.randn(nhw + (c,), generator=gen).to(dev) for c in chans)
+    before = (stage_kernel_bneck.f32_launches, stage_kernel.f32_conv_launches,
+              stage_kernel_bneck.launches)
+    got = stage_kernel_bneck.fused_eval_stage_bneck(parts, bp, sp, head)
+    torch.cuda.synchronize()
+    assert (stage_kernel_bneck.f32_launches, stage_kernel.f32_conv_launches,
+            stage_kernel_bneck.launches) == (before[0] + 1, before[1] + 6 + bool(ncls),
+                                             before[2])
+    want = stage_kernel_bneck.fused_bneck_reference(parts, bp, sp, head)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    err, scale, l2 = _f32_err(got, want)
+    assert err <= 1e-4 * scale and l2 <= 1e-4, (err, scale, l2)
+    pk = stage_kernel_bneck.pack_stage_bneck_f32(chans, bp, sp, head)
+    errs = []
+
+    def both(sources, conv, y=None):
+        out = stage_kernel.f32_conv(sources, conv, y)
+        errs.append(_f32_err(out, stage_kernel.f32_conv_reference(sources, conv, y)))
+        return out
+
+    stage_kernel_bneck.f32_bneck_launches(parts, pk, both)
+    assert len(errs) == 6 + bool(ncls)
+    assert all(e <= 1e-4 * s and l2 <= 1e-4 for e, s, l2 in errs), errs
+
+
+@pytest.mark.gpu
+def test_bneck_f32_route_keeps_non_finite_classes():
+    """+inf, -inf and NaN planted in a bottleneck stage's first part: each
+    output's class equals the one the per-launch plain versions give."""
+    from ssunet_gan_tpu_torch.ops import stage_kernel_bneck
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(8)
+    chans = (64, 128)
+    bp, sp, _ = _bneck_f32_stage(dev, chans, 64, 3, 0, gen)
+    parts = [torch.randn((2, 32, 24, c), generator=gen) for c in chans]
+    flat = parts[0].view(-1)
+    pos = torch.randperm(flat.numel(), generator=gen)[:9]
+    flat[pos] = torch.tensor([float("inf"), float("-inf"), float("nan")] * 3)
+    parts = tuple(p.to(dev) for p in parts)
+    pk = stage_kernel_bneck.pack_stage_bneck_f32(chans, bp, sp, None)
+    got = stage_kernel_bneck.fused_eval_stage_bneck(parts, bp, sp, None, pk)
+    want = stage_kernel_bneck.f32_bneck_launches(parts, pk)
+
+    def classes(t):
+        return torch.isnan(t) * 1 + torch.isposinf(t) * 2 + torch.isneginf(t) * 3
+
+    assert bool(torch.isnan(want).any())
+    assert torch.equal(classes(got), classes(want))
+    fin = torch.isfinite(want)
+    assert torch.allclose(got[fin], want[fin], rtol=1e-4,
+                          atol=1e-4 * want[fin].abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,labels,nh,nhw", [
+    (64, 3, 4, (2, 40, 36)), (128, 3, 8, (1, 32, 32)), (1024, 3, 64, (2, 16, 16)),
+    (48, 9, 128, (1, 9, 13)),
+])
+def test_spade_f32_route_matches_plain_forward_and_backward(c, labels, nh, nhw):
+    """Kernel 9f (seg, act, γ|β with the modulate: three launches of the
+    3xTF32 conv core) against ``self_spade_reference`` in f32 (TF32 off),
+    max error ≤ 1e-4 of max |plain| and relative L2 ≤ 1e-4; its backward
+    (autograd of the composition) against autograd of the plain
+    composition on the same inputs by the same bar (the same calls; cuDNN's
+    weight gradients need not be bit-reproducible)."""
+    from ssunet_gan_tpu_torch.ops import spade_kernel
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(0)
+    spade = SPADE("spadebatch3x3", c, labels, float(nh), generator=gen).to(dev)
+    n, h, w = nhw
+    x = torch.randn((n, h, w, c), generator=gen).to(dev).requires_grad_()
+    cot = torch.randn((n, h, w, c), generator=gen).to(dev)
+    params = spade.stage_params()
+    before = (spade_kernel.launches_f32, stage_kernel.f32_conv_launches, spade_kernel.launches)
+    got = spade_kernel.fused_spade_stage(x, *params)
+    torch.cuda.synchronize()
+    assert (spade_kernel.launches_f32, stage_kernel.f32_conv_launches,
+            spade_kernel.launches) == (before[0] + 1, before[1] + 3, before[2])
+    want = spade_kernel.self_spade_reference(x.detach(), params)
+    err, scale, l2 = _f32_err(got.detach(), want)
+    assert err <= 1e-4 * scale and l2 <= 1e-4, (err, scale, l2)
+    grads = torch.autograd.grad(got, [x, *params], cot)
+    x2 = x.detach().clone().requires_grad_()
+    plain = torch.autograd.grad(spade_kernel.self_spade_composition(x2, *params),
+                                [x2, *params], cot)
+    for g, p in zip(grads, plain):
+        assert g.shape == p.shape and g.dtype == p.dtype
+        err, scale, l2 = _f32_err(g, p)
+        assert err <= 1e-4 * scale and l2 <= 1e-4, (err, scale, l2)
 
 
 @pytest.mark.gpu
@@ -1530,8 +1671,10 @@ def test_spade_module_pallas_mode_launches_only_for_self_spade():
             assert spade_kernel.launches == before + 1
             spade(x, x.clone())          # a general segmap: the composition
             xf = x.float()
-            spade(xf, xf)                # f32 on the card: refused by the gate
+            before_f32 = spade_kernel.launches_f32
+            spade(xf, xf)                # f32 on the card: kernel 9f
             assert spade_kernel.launches == before + 1
+            assert spade_kernel.launches_f32 == before_f32 + 1
         finally:
             spade_kernel.set_fused_spade(None)
     errs, ok = _close(got, off)

@@ -3,6 +3,7 @@ package: explicit JAX mode toggles, JAX stage parameters in the port's
 layout, and the train-stage comparison with the JAX package."""
 
 import contextlib
+import os
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +24,16 @@ from ssunet_gan_tpu_torch.ops import pool as port_pool
 from ssunet_gan_tpu_torch.ops import resize as port_resize
 from ssunet_gan_tpu_torch.ops import stage_kernel as port_stage_kernel
 from ssunet_gan_tpu_torch.ops import stage_kernel_train as port_stage_kernel_train
+
+# Under pytest-xdist every worker is a process of its own, and torch's
+# intra-op pool takes every core by default: six workers then run some 48
+# threads on 8 cores, and a torch-bound test ran ~10-30x its time alone
+# (the GAN trainer end to end: 9.8 s alone, 277 s in the six-worker suite).
+# Each worker takes its share of the cores instead (xdist imports every test
+# module in every worker, so this holds for the whole session).
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 
 @contextlib.contextmanager
