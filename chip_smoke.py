@@ -297,18 +297,22 @@ Phases, each of which exits non-zero on failure:
    the phase (the val IoU training reached, its wall time, the card).
 21. f32 training (``f32_train_phase``): the flagship of
    config_v1.json at full width trained with ``mixed_precision: False`` on
-   kernels 2-6 in f32 (``ops/train_f32.py``, ``csrc/train_f32.cu``, 3xTF32):
+   kernels 2-6 in f32 (``ops/train_f32.py``, ``csrc/train_f32.cu``, the
+   weight gradient's ``csrc/wgrad_f32.cu``, 3xTF32):
    step 1 on phase 6's seeded batches against the plain versions in f32
    (TF32 off) and an f64 module composition by phase 6's pooled bars with
    the kernel's own distance (F32_TRAIN_TOL's comment; the f32 composition
    in the kernel's place printed as a control); 2 warm-up and 5 timed steps
-   with the f32 launches per step against PER_STEP v3, timed in turns beside
+   with the f32 launches per step against PER_STEP v3 (and the weight
+   gradient's pre-pass, one per weight gradient), timed in turns beside
    the f32 composition with TF32 off and on and the bf16 step (``f32 step:``
    lines); each of one steady-state step's 83 calls, and the 30 weight
    gradients of one v2 step (kernel 4 in f32), against its plain version by
    F32_TRAIN_TOL (weight gradients also against an f64 sum), timed beside
    the plain version, its 3xTF32 bound and the library call in f32 (``train
-   f32 call:`` / ``mode:`` / ``kernel:`` lines); a profile of one f32 step;
+   f32 call:`` / ``mode:`` / ``kernel:`` lines; the weight gradients' also
+   split into the pre-pass and the product, timed apart); a profile of one
+   f32 step;
    the stale-weight check (weights changed in place between two calls);
    ``run_experiment`` for one epoch of 16 synthetic scenes and one joint GAN
    step (phase 15's G and D, built anew), each f32 launch counted.
@@ -492,10 +496,10 @@ BWD_DATA_V2 = ("to actv", "to seg", "to y", "to h1", "to input")
 
 
 # Phase 21, f32 training (mixed_precision "False"): kernels 2-6 in float32
-# (ops/train_f32.py, csrc/train_f32.cu) against their plain versions in f32
-# (TF32 off) per call: each output within F32_TRAIN_TOL of its max |plain|
-# and in relative L2, each stat row within F32_TRAIN_TOL of that row's
-# largest |sum|, weight gradients in relative L2 (kernel 1f's bar).
+# (ops/train_f32.py, csrc/train_f32.cu, csrc/wgrad_f32.cu) against their plain
+# versions in f32 (TF32 off) per call: each output within F32_TRAIN_TOL of its
+# max |plain| and in relative L2, each stat row within F32_TRAIN_TOL of that
+# row's largest |sum|, weight gradients in relative L2 (kernel 1f's bar).
 F32_TRAIN_TOL = F32_STAGE_TOL
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3  # three tensor-core products per f32 product
 # Step 1 of the f32 trainer against an f64 module composition, on phase 6's
@@ -2130,7 +2134,8 @@ def time_calls(calls, kernels, label, train_err, check, f32=False, phase="phase 
     peak = PEAK_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS
     tag = "train f32" if f32 else "train"
     totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                  "kinds": set(), "calls": 0, "macs": 0.0} for k in kernels}
+                  "kinds": set(), "calls": 0, "macs": 0.0, "prep_ms": 0.0, "product_ms": 0.0}
+              for k in kernels}
     by_type = {}  # (kernel, call type): the per-type sub-tables
     for (kname, args, kw), ctype in zip(calls, call_types(calls)):
         if kname not in kernels:
@@ -2143,6 +2148,11 @@ def time_calls(calls, kernels, label, train_err, check, f32=False, phase="phase 
         plain_ms = cuda_ms(lambda: ref(*args, **kw), 1, warmup=1)
         lib = library_call(kname, args, kw)
         lib_ms = None if lib is None else cuda_ms(lib, 3, warmup=1)
+        split = None  # the f32 weight gradient's pre-pass and product apart
+        if f32 and kname in ("wgrad", "fused_wgrad"):
+            split = wgrad_parts_ms(kname, args, kw)
+            totals[kname]["prep_ms"] += split[0]
+            totals[kname]["product_ms"] += split[1]
         flops, nbytes = call_cost(kname, args, kw, esize=4 if f32 else 2)
         bound, kind = bound_of(flops, nbytes, peak)
         t = totals[kname]
@@ -2154,18 +2164,22 @@ def time_calls(calls, kernels, label, train_err, check, f32=False, phase="phase 
         t["kinds"].add(kind)
         t["calls"] += 1
         if ctype is not None:
-            m = by_type.setdefault((kname, ctype), [0, 0.0, 0.0, 0.0, 0.0])
-            for i, v in enumerate((1, ms, plain_ms, bound, lib_ms or 0.0)):
+            m = by_type.setdefault((kname, ctype), [0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0])
+            for i, v in enumerate((1, ms, plain_ms, bound, lib_ms or 0.0) + (split or (0.0, 0.0))):
                 m[i] += v
-        print(f"{tag} call: {describe_call(kname, args, kw)} ms {ms:.3f} plain {plain_ms:.3f} "
-              f"bound {bound:.3f} ({kind}) library "
+        parts = "" if split is None else f" (pre-pass {split[0]:.3f}, product {split[1]:.3f})"
+        print(f"{tag} call: {describe_call(kname, args, kw)} ms {ms:.3f}{parts} plain "
+              f"{plain_ms:.3f} bound {bound:.3f} ({kind}) library "
               f"{'none' if lib_ms is None else f'{lib_ms:.3f}'}")
-    for (kname, ctype), (n, ms, plain_ms, bound, lib_ms) in sorted(by_type.items()):
-        print(f"{tag} mode: {kname} {ctype} ({label}, {n} calls) per step ms {ms:.3f} "
+    for (kname, ctype), (n, ms, plain_ms, bound, lib_ms, prep, prod) in sorted(by_type.items()):
+        parts = f" (pre-pass {prep:.3f}, product {prod:.3f})" if prep or prod else ""
+        print(f"{tag} mode: {kname} {ctype} ({label}, {n} calls) per step ms {ms:.3f}{parts} "
               f"plain {plain_ms:.3f} bound {bound:.3f} library {lib_ms:.3f}")
     for kname, t in totals.items():
-        print(f"{tag} kernel: {kname} ({label}, {t['calls']} calls) per step ms {t['ms']:.3f} "
-              f"plain {t['plain_ms']:.3f} bound {t['bound_ms']:.3f} "
+        parts = (f" (pre-pass {t['prep_ms']:.3f}, product {t['product_ms']:.3f})"
+                 if t["prep_ms"] else "")
+        print(f"{tag} kernel: {kname} ({label}, {t['calls']} calls) per step ms {t['ms']:.3f}"
+              f"{parts} plain {t['plain_ms']:.3f} bound {t['bound_ms']:.3f} "
               f"library {t['library_ms']:.3f}; {t['macs']:.4g} multiply-adds "
               f"({2e3 * t['macs'] / peak:.3f} ms at the {'3xTF32' if f32 else 'bf16'} peak)")
     return totals
@@ -5329,17 +5343,19 @@ def all_launches() -> dict:
             "fused_eval_stage_int8": stage_kernel_int8.launches,
             "s8_conv": stage_kernel_int8.conv_launches,
             "quantize": stage_kernel_int8.quant_launches,
-            "fused_spade_stage": spade_kernel.launches, **read_launches()}
+            "fused_spade_stage": spade_kernel.launches, "wgrad_prep": prep_count(),
+            **read_launches()}
 
 
 def zero_all_launches() -> None:
     from ssunet_gan_tpu_torch.ops import (spade_kernel, stage_kernel, stage_kernel_bneck,
-                                          stage_kernel_int8)
+                                          stage_kernel_int8, train_f32)
 
     stage_kernel.launches = stage_kernel.f32_launches = stage_kernel.conv_launches = 0
     stage_kernel_bneck.launches = spade_kernel.launches = 0
     stage_kernel_int8.launches = stage_kernel_int8.conv_launches = 0
     stage_kernel_int8.quant_launches = 0
+    train_f32.launches["wgrad_prep"] = 0
     reset_launches()
 
 
@@ -6241,9 +6257,46 @@ def f32_counts() -> dict:
 
 
 def reset_f32_counts() -> None:
+    from ssunet_gan_tpu_torch.ops import train_f32
+
     reset_launches()
     for name in TRAIN_KERNELS:
         kernel_module(name).f32_launches[name] = 0
+    train_f32.launches["wgrad_prep"] = 0
+
+
+def prep_count() -> int:
+    """The f32 weight gradient's pre-pass launches (ops/train_f32.py): one
+    per f32 wgrad or fused_wgrad call."""
+    from ssunet_gan_tpu_torch.ops import train_f32
+
+    return train_f32.launches["wgrad_prep"]
+
+
+def wgrad_parts_ms(kname, args, kwargs):
+    """An f32 weight-gradient call's pre-pass and product timed apart, on
+    one plan (ops/train_f32.py wgrad_prep, wgrad_product): (prep ms,
+    product ms); the timing launches leave the pre-pass's count as it was."""
+    from ssunet_gan_tpu_torch.ops import train_bwd as ttb
+    from ssunet_gan_tpu_torch.ops import train_f32
+
+    if kname == "wgrad":
+        x, g, pro = _parts(args[0]), (args[1],), _arg(args, kwargs, 2, "prologue")
+        gmode, consts, cout = 0, (), args[1].shape[-1]
+    else:
+        mode, x, g, consts, pro = wgrad3_call(args, kwargs)
+        x, g = _parts(x), _parts(g)
+        gmode = ttb.WGRAD_MODES[mode][0]
+        cout = 2 * g[0].shape[-1] if mode == "gb" else g[0].shape[-1]
+    n, h, w = x[0].shape[:3]
+    plan = train_f32.wgrad_plan(tuple(p.shape[-1] for p in x), cout, n, h, w)
+    before = train_f32.launches["wgrad_prep"]
+    planes, xs = train_f32.wgrad_prep(gmode, g, consts, cout, plan, x, pro)
+    prep = cuda_ms(lambda: train_f32.wgrad_prep(gmode, g, consts, cout, plan, x, pro), 3,
+                   warmup=1)
+    product = cuda_ms(lambda: train_f32.wgrad_product(xs, planes, cout, plan), 3, warmup=1)
+    train_f32.launches["wgrad_prep"] = before
+    return prep, product
 
 
 def f32_compare_call(name, args, kwargs):
@@ -6414,10 +6467,14 @@ def f32_train_phase(dev, card, here, cfg, sigs, check, overrides=None):
     counts = {**read_launches(), **{f"{k} f32": v for k, v in f32_counts().items()}}
     steps = TRAIN_WARM + TRAIN_STEPS
     want = {k: steps * v for k, v in per_step.items()}
+    main_prep = prep_count()
     print(f"phase 21: f32 train kernel launches in {steps} steps {f32_counts()} (expected "
-          f"{steps} x {per_step}); all train launches {read_launches()}")
+          f"{steps} x {per_step}); all train launches {read_launches()}; the weight "
+          f"gradient's pre-pass {main_prep} (one per f32 weight gradient)")
     check(f32_counts() == want and read_launches() == want,
           f"phase 21: launches {counts} != {steps} x {per_step}, all f32")
+    check(main_prep == want["fused_wgrad"] + want["wgrad"],
+          f"phase 21: pre-pass launches {main_prep} != {want['fused_wgrad'] + want['wgrad']}")
     main_counts = f32_counts()
     timings = {"f32 kernels": [(ms, ips)]}
     print(f"phase 21: flagship train step in f32 (v3) {ms:.2f} ms/step, {ips:.2f} images/s "
@@ -6484,8 +6541,11 @@ def f32_train_phase(dev, card, here, cfg, sigs, check, overrides=None):
                   f"{entry} in {n_steps} steps, all train launches {read_launches()}, f32 "
                   f"eval stages {stage_kernel.f32_launches}; log {dict(elog)}")
             want = {k: n_steps * v for k, v in per_step.items()}
-            check(entry == want and read_launches() == want and stage_kernel.f32_launches > 0,
-                  f"phase 21: run_experiment f32 launches {entry} != {n_steps} x {per_step}")
+            entry_prep = prep_count()
+            check(entry == want and read_launches() == want and stage_kernel.f32_launches > 0
+                  and entry_prep == want["fused_wgrad"],
+                  f"phase 21: run_experiment f32 launches {entry} (pre-pass {entry_prep}) != "
+                  f"{n_steps} x {per_step}")
     finally:
         if yaml_before is None:
             sys.modules.pop("yaml", None)
@@ -6503,9 +6563,11 @@ def f32_train_phase(dev, card, here, cfg, sigs, check, overrides=None):
     metrics = gstep(xg, yg, float(opt["gan_lr"]))
     torch.cuda.synchronize()
     gan = f32_counts()
-    print(f"phase 21: one joint GAN step in f32: f32 train launches {gan}, all "
-          f"{read_launches()}; metrics {({k: float(v) for k, v in metrics.items()})}")
-    check(gan == per_step and read_launches() == per_step
+    gan_prep = prep_count()
+    print(f"phase 21: one joint GAN step in f32: f32 train launches {gan} (pre-pass "
+          f"{gan_prep}), all {read_launches()}; metrics "
+          f"{({k: float(v) for k, v in metrics.items()})}")
+    check(gan == per_step and read_launches() == per_step and gan_prep == per_step["fused_wgrad"]
           and all(np.isfinite(float(v)) for v in metrics.values()),
           f"phase 21: the f32 GAN step's launches {gan} != {per_step}")
     del generator, disc, gstep, xg, yg
@@ -6517,14 +6579,17 @@ def f32_train_phase(dev, card, here, cfg, sigs, check, overrides=None):
     for kname, t in totals.items():
         paths = {"flagship_f32": main_counts[kname], "run_experiment_f32": entry[kname],
                  "gan_f32": gan[kname]}
+        wgrad = kname in ("wgrad", "fused_wgrad")  # csrc/wgrad_f32.cu: pre-pass + product
         rows.append({
             "name": f"{kname}_f32", "route": "cuda",
-            "source": f"ssunet_gan_tpu_torch/csrc/{train_f32.SOURCE}",
+            "source": f"ssunet_gan_tpu_torch/csrc/"
+                      f"{train_f32.WGRAD_SOURCE if wgrad else train_f32.SOURCE}",
             "replaces": kernel_module(kname).REPLACES[kname],
             "launches": sum(paths.values()), "max_abs_err": f32_err[kname],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "operations" if "operations" in t["kinds"] else "bytes",
-            "library_ms": t["library_ms"], "launches_by_path": paths})
+            "library_ms": t["library_ms"], "launches_by_path": paths,
+            **({"prep_ms": t["prep_ms"], "product_ms": t["product_ms"]} if wgrad else {})})
     return rows
 
 
@@ -6896,7 +6961,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = (stage_kernel.SOURCE, stage_kernel_train.SOURCE, train_bwd.SOURCE,
                stage_kernel_int8.SOURCE, stage_kernel_bneck.SOURCE, spade_kernel.SOURCE,
-               stage_kernel.SOURCE_F32, train_f32.SOURCE)
+               stage_kernel.SOURCE_F32, train_f32.SOURCE, train_f32.WGRAD_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         list(pool.map(_build.build, sources))
     print(f"phase 0: kernels built in {time.perf_counter() - t0:.2f} s")
@@ -6908,6 +6973,11 @@ def main() -> int:
         print(f"phase 0: HGMMA in {source}'s eval conv core: {sorted(counts.values())}")
         check(len(counts) > 0 and all(counts.values()),
               f"phase 0: {source}: an eval conv core instantiation without wgmma: {counts}")
+    counts = hgmma_counts(_build.build(train_f32.WGRAD_SOURCE), "wgrad_f32_kernel")
+    if counts is not None:  # tf32 wgmma: HGMMA.64xNx8.F32.TF32
+        print(f"phase 0: HGMMA in {train_f32.WGRAD_SOURCE}'s product: {sorted(counts.values())}")
+        check(len(counts) > 0 and all(counts.values()),
+              f"phase 0: a wgrad_f32_kernel instantiation without wgmma: {counts}")
     counts = hgmma_counts(_build.build(stage_kernel_int8.SOURCE), "s8_conv_core", "IGMMA")
     if counts is not None:
         print(f"phase 0: IGMMA in {stage_kernel_int8.SOURCE}'s s8 conv core: "
@@ -7079,7 +7149,7 @@ def main() -> int:
     accuracy_counts = accuracy_phase(dev, card, here, check, train_err)
     print(f"phase 20: launches on the accuracy path {accuracy_counts}")
 
-    # ---- phase 21: f32 training (kernels 2-6 in float32, csrc/train_f32.cu)
+    # ---- phase 21: f32 training (kernels 2-6 in float32, csrc/train_f32.cu, wgrad_f32.cu)
     f32_rows = f32_train_phase(dev, card, here, cfg, sigs, check)
 
     # ---- phase 22: kernels 8 and 9 in float32 (8f, 9f: the 3xTF32 conv core)

@@ -6,7 +6,8 @@
 
 #pragma once
 
-#include "stage_common.cuh"
+// The includer brings smem_u32 (stage_common.cuh or f32_conv.cuh) first.
+#include <stdint.h>
 
 namespace {
 

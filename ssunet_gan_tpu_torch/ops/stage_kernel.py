@@ -217,7 +217,8 @@ def stage_supported(parts, planes: int, labels: int, hidden: int, classes: int =
     is not ported. An f32 stage on the card takes the f32 kernels, which have
     no width limits but :func:`max_planes`: in eval kernel 1's f32 route
     (``csrc/fused_stage_f32.cu``), in training kernels 2-6 in f32
-    (``csrc/train_f32.cu``: the v3 backward's, and the v2 backward's kernel 4),
+    (``csrc/train_f32.cu``, the weight gradient ``csrc/wgrad_f32.cu``: the v3
+    backward's, and the v2 backward's kernel 4),
     with contiguous parts, its seams materialized, and in training what the
     backward takes; f32 int8 stages are refused. What it refuses runs the
     module composition."""

@@ -45,8 +45,9 @@ stats from sums of the rounded outputs with the one-pass variance
 
 Each wrapper decides by the tensors' device and dtype: CPU tensors take
 the plain version; CUDA bf16 tensors launch the kernels above, CUDA f32
-tensors their f32 counterparts (``ops/train_f32.py``, ``csrc/train_f32.cu``:
-3xTF32 on the tensor cores), or raise. Launches count under the wrappers'
+tensors their f32 counterparts (``ops/train_f32.py``, ``csrc/train_f32.cu``
+and the weight gradient's ``csrc/wgrad_f32.cu``: 3xTF32 on the tensor
+cores), or raise. Launches count under the wrappers'
 names in :data:`launches`, the f32 ones also in :data:`f32_launches`.
 """
 
@@ -78,7 +79,8 @@ from ssunet_gan_tpu_torch.ops.stage_kernel import (
 
 SOURCE = "train_stage.cu"  # train_tail's; _lib() loads it
 # each kernel's source: conv_stats and wgrad run on csrc/bwd_core.cuh's cores;
-# in f32 all three on csrc/train_f32.cu's
+# in f32 conv_stats and train_tail on csrc/train_f32.cu's, wgrad on
+# csrc/wgrad_f32.cu's
 KERNEL_SOURCE = {"conv_stats": "train_bwd.cu", "train_tail": SOURCE, "wgrad": "train_bwd.cu"}
 REPLACES = {
     "conv_stats": "ssunet_gan_tpu/ops/stage_kernel_train.py:232",  # _conv_stats_call

@@ -9,14 +9,18 @@ The wrappers of ``ops/stage_kernel_train.py`` and ``ops/train_bwd.py``
 launch these for CUDA f32 tensors (bf16 ones keep their kernels): the
 conv core's launch (:func:`launch_conv3`) and the weight-gradient core's
 (:func:`launch_wgrad`) take the bf16 cores' arguments, and
-:func:`train_tail` is kernel 3. ``csrc/train_f32.cu`` holds the kernels:
-3xTF32 on ``mma.sync`` (each f32 operand split into big = tf32(x) and
-small = tf32(x − big), products small·big + big·small + big·big in f32
-sums), the convs on the core of ``csrc/f32_conv.cuh`` (shared with kernel
-1's f32 route) with each chain mode's prologue run in f32 on segment 0's
-window before the split, the weight gradient as a GEMM over the pixels.
-The weights change every step, so every call packs and splits them anew
-(``ops/stage_kernel.py`` ``pack_f32_conv``); nothing is kept per model.
+:func:`train_tail` is kernel 3. The products run as 3xTF32 (each f32
+operand split into big = tf32(x) and small = tf32(x − big), products
+small·big + big·small + big·big in f32 sums). ``csrc/train_f32.cu`` holds
+the convs, on ``mma.sync`` in the core of ``csrc/f32_conv.cuh`` (shared
+with kernel 1's f32 route) with each chain mode's prologue run in f32 on
+segment 0's window before the split; the weights change every step, so
+every call packs and splits them anew (``ops/stage_kernel.py``
+``pack_f32_conv``); nothing is kept per model. ``csrc/wgrad_f32.cu`` holds
+the weight gradient, a GEMM over the pixels on ``wgmma``: a pre-pass
+(:func:`wgrad_prep`) runs the cotangent's chain and split once per value
+into planes laid out as the product (:func:`wgrad_product`) reads them,
+on the launch plan of :func:`wgrad_plan`.
 
 The plain versions are the modules' own (dtype-generic); the kernels'
 arithmetic in plain PyTorch is the ``*_emulated`` functions here (the
@@ -27,10 +31,12 @@ versions and against the JAX package.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from ssunet_gan_tpu_torch import _build
 from ssunet_gan_tpu_torch.ops.conv import as_parts
@@ -43,6 +49,7 @@ from ssunet_gan_tpu_torch.ops.stage_kernel import (
     split_tf32,
 )
 from ssunet_gan_tpu_torch.ops.stage_kernel_train import (
+    _prologued,
     _vec,
     conv_stats_reference,
     train_tail_reference,
@@ -51,6 +58,10 @@ from ssunet_gan_tpu_torch.ops.stage_kernel_train import (
 from ssunet_gan_tpu_torch.ops.train_bwd import fused_conv3_reference, fused_wgrad_reference
 
 SOURCE = "train_f32.cu"
+WGRAD_SOURCE = "wgrad_f32.cu"  # kernels 4 and 6 in f32
+# Kernel runs on the card: the weight gradient's pre-pass (its products count
+# as the callers' wgrad and fused_wgrad launches)
+launches = {"wgrad_prep": 0}
 
 # csrc/f32_conv.cuh F32Mode: the train modes (0 and 1 are the eval route's)
 FM_STD, FM_AFF, FM_MODGRAD, FM_PRE, FM_BN2, FM_BN1, FM_RES, FM_SEG, FM_GB = range(2, 11)
@@ -77,8 +88,6 @@ def _lib() -> ctypes.CDLL:
     lib.ssu_train_f32_blocks.restype = ll
     lib.ssu_train_f32_conv.argtypes = [i, p, p, p]
     lib.ssu_train_f32_conv.restype = i
-    lib.ssu_train_f32_wgrad.argtypes = [i, p, i, p, i, p, p, p, p, p, i, i, p, i, i, i, p]
-    lib.ssu_train_f32_wgrad.restype = i
     return lib
 
 
@@ -139,26 +148,212 @@ def launch_conv3(kmode, sources, segments, pro_f=None, consts=(), bands=(), bias
 
 def launch_wgrad(gmode, x, g, consts, prologue, cout):
     """``ops/train_bwd.py`` ``launch_wgrad``'s arguments on f32 tensors: dW
-    (OIHW, f32) of ``cout`` rows over the input parts ``x`` (≤ 2), the
-    cotangent in mode ``gmode`` (0 as it is, 1 [g·y ; g], 2 the BN chain)."""
-    channels = [p.shape[-1] for p in x]
+    (OIHW, f32) of ``cout`` rows over the input parts ``x`` (≤ 2; the
+    ``prologue`` relu(x·a + b) on a single one), the cotangent in mode
+    ``gmode`` (0 as it is, 1 [g·y ; g], 2 the BN chain): the pre-pass
+    (:func:`wgrad_prep`) and the product (:func:`wgrad_product`) of one
+    :func:`wgrad_plan`."""
     n, h, w = x[0].shape[:3]
+    plan = wgrad_plan(tuple(p.shape[-1] for p in x), cout, n, h, w)
+    planes, x = wgrad_prep(gmode, g, consts, cout, plan, x, prologue)
+    return wgrad_product(x, planes, cout, plan)
+
+
+# ---------------------------------------------------------------------------
+# The weight gradient (csrc/wgrad_f32.cu): the launch plan, the pre-pass and
+# the product, each with its plain version
+# ---------------------------------------------------------------------------
+
+WG_TH, WG_TW = 4, 16  # the pixel tile (csrc/wgrad_f32.cu WG_TH, WG_TW)
+WG_TP = WG_TH * WG_TW
+WG_RING = 4  # the ring's slots: a window and a B tile each (csrc/wgrad_f32.cu)
+
+
+def wg_xfloats(nb: int) -> int:
+    """Window rows × row stride that a slot holds (csrc ``wg_xfloats``)."""
+    return 4 * 72 if nb == 64 else (WG_TH + 2) * 72
+
+
+def wg_slot_bytes(nb: int) -> int:
+    """A ring slot's bytes: its window and its B tile (csrc ``wg_slot_bytes``)."""
+    return (WG_TW + 2) * wg_xfloats(nb) * 4 + nb * WG_TP * 8
+
+
+SMS = 132  # the H100's SMs; the product keeps one block on each
+# ssu_wgrad_f32_prep's and ssu_wgrad_f32's plan integers, by position
+# (csrc/wgrad_f32.cu L_*)
+_PLAN_INTS = ("cc", "xs", "nb", "mt", "nrb", "nblk", "coutp", "tiles_h", "tiles_w", "ntiles",
+              "tiles_per_split", "splits")
+WgradPlan = collections.namedtuple("WgradPlan", _PLAN_INTS)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(channels: tuple, cout: int, n: int, h: int, w: int) -> WgradPlan:
+    """The product's launch (``csrc/wgrad_f32.cu`` wgrad_f32_kernel): input
+    chunks of ``cc`` channels (64, or the narrow parts' width as a power of
+    two from 4) whose (tap, channel) rows fall in row blocks of 3·``mt`` m64
+    tiles, N blocks of ``nb`` dW rows (``coutp`` padded): past 32 rows, 64
+    over one tap row of 64 channels (``mt`` 1), else 8–32 over all nine taps
+    (``mt`` 3); ``ntiles`` pixel tiles of WG_TH × WG_TW split into
+    ``splits`` runs of ``tiles_per_split``, as many as fill the SMs in whole
+    waves. ``xs`` is the window's row stride (8 floats of padding from 16
+    channels: the A reads' lanes fall on distinct banks)."""
+    widest = max(channels)
+    cc = 64 if widest > 32 else max(4, 1 << (widest - 1).bit_length())
+    xs = cc + 8 if cc >= 16 else cc
+    nb = 8 if cout <= 8 else 16 if cout <= 16 else 32 if cout <= 32 else 64
+    mt = 1 if nb == 64 else 3
+    nrb = _cdiv(9 * cc, 64 * 3 * mt)
+    nblk = _cdiv(cout, nb)
+    tiles_h, tiles_w = _cdiv(h, WG_TH), _cdiv(w, WG_TW)
+    ntiles = n * tiles_h * tiles_w
+    base = sum(_cdiv(c, cc) for c in channels) * nrb * nblk
+
+    def cost(s):  # whole waves of one block per SM, each its tiles plus two
+        return _cdiv(base * s, SMS) * (_cdiv(ntiles, s) + 2)
+
+    splits = min((min(ntiles, _cdiv(SMS * k, base)) for k in range(1, 17)), key=cost)
+    tps = _cdiv(ntiles, splits)
+    return WgradPlan(cc, xs, nb, mt, nrb, nblk, nblk * nb, tiles_h, tiles_w, ntiles, tps,
+                     _cdiv(ntiles, tps))
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_lib() -> ctypes.CDLL:
+    lib = _build.load(WGRAD_SOURCE)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ssu_wgrad_f32_prep.argtypes = [i, p, p, p, i, i, p, i, i, p, p, i, p, p, p,
+                                       ctypes.c_longlong, p]
+    lib.ssu_wgrad_f32_prep.restype = i
+    lib.ssu_wgrad_f32.argtypes = [p, i, p, i, p, i, p, i, i, i, p, p]
+    lib.ssu_wgrad_f32.restype = i
+    return lib
+
+
+def _plan_ints(plan: WgradPlan):
+    return (ctypes.c_int * len(_PLAN_INTS))(*plan)
+
+
+def wgrad_prep(gmode, g, consts, cout, plan, x, prologue=None):
+    """The pre-pass: the cotangent of mode ``gmode`` from ``g`` (one or two
+    NHWC f32 tensors) and ``consts``, split into TF32 big and small parts,
+    in the planes' layout (:func:`wgrad_prep_reference`); with a
+    ``prologue``, also the single input part through relu(x·a + b). Returns
+    (planes, the product's input parts). On the card one launch of
+    ``wgrad_prep_kernel``, counted in :data:`launches`; CPU tensors take the
+    plain version."""
+    if g[0].device.type == "cpu":
+        return wgrad_prep_reference(gmode, g, consts, cout, plan, x, prologue)
+    n, h, w, c_g = g[0].shape
     dev = g[0].device
-    lib = _lib()
+    lib = _wgrad_lib()
     with torch.cuda.device(dev):
-        pa, pb = (None, None) if prologue is None else map(_vec, prologue)
         cvs = [_vec(c) for c in consts]
         carr = (ctypes.c_void_p * 4)(*([c.data_ptr() for c in cvs] + [None] * (4 - len(cvs))))
-        # the blocks' f32 sums go into dW (OIHW) with f64 atomics
+        planes = torch.empty(plan.ntiles * plan.coutp * WG_TP * 2, dtype=torch.float32,
+                             device=dev)
+        pa = pb = xout = None
+        if prologue is not None:
+            if len(x) != 1:
+                raise ValueError("the prologue takes a single input")
+            pa, pb = map(_vec, prologue)
+            xout = torch.empty_like(x[0])
+        _check(lib.ssu_wgrad_f32_prep(gmode, g[0].data_ptr(), _ptr(g[1] if len(g) > 1 else None),
+                                      carr, cout, c_g, planes.data_ptr(), h, w, _plan_ints(plan),
+                                      _ptr(x[0] if xout is not None else None), x[0].shape[-1],
+                                      _ptr(pa), _ptr(pb), _ptr(xout), n * h * w,
+                                      torch.cuda.current_stream(dev).cuda_stream),
+               f"f32 weight-gradient pre-pass (mode {gmode})")
+    launches["wgrad_prep"] += 1
+    return planes, (tuple(x) if xout is None else (xout,))
+
+
+def wgrad_product(x, planes, cout, plan):
+    """The product: dW (OIHW, f32) over the input parts ``x`` (≤ 2) and the
+    pre-pass's ``planes``. On the card one launch of ``wgrad_f32_kernel``
+    (3xTF32 on wgmma, the blocks' f32 sums into dW with f64 atomics; the
+    caller counts it); CPU tensors take the plain version."""
+    if x[0].device.type == "cpu":
+        return wgrad_product_reference(x, planes, cout, plan)
+    channels = [p.shape[-1] for p in x]
+    n, h, w = x[0].shape[:3]
+    dev = x[0].device
+    lib = _wgrad_lib()
+    with torch.cuda.device(dev):
         dw = torch.zeros((cout, sum(channels), 3, 3), dtype=torch.float64, device=dev)
         x1 = x[1] if len(x) > 1 else None
-        _check(lib.ssu_train_f32_wgrad(gmode, x[0].data_ptr(), channels[0], _ptr(x1),
-                                       channels[1] if x1 is not None else 0, _ptr(pa), _ptr(pb),
-                                       g[0].data_ptr(), _ptr(g[1] if len(g) > 1 else None), carr,
-                                       cout, g[0].shape[-1], dw.data_ptr(), n, h, w,
-                                       torch.cuda.current_stream(dev).cuda_stream),
-               f"f32 weight-gradient core (mode {gmode})")
+        _check(lib.ssu_wgrad_f32(x[0].data_ptr(), channels[0], _ptr(x1),
+                                 channels[1] if x1 is not None else 0, planes.data_ptr(), cout,
+                                 dw.data_ptr(), n, h, w, _plan_ints(plan),
+                                 torch.cuda.current_stream(dev).cuda_stream),
+               "f32 weight-gradient product")
     return dw.float()
+
+
+def wgrad_cotangent(gmode, g, consts):
+    """The pre-pass's chain in plain PyTorch, per dW row as the kernel runs
+    it (each operation rounded in f32): ``g``; [g·y ; g]; or p·((g − q) −
+    (f·r′ − m′))."""
+    g0 = g[0].float()
+    if gmode == 0:
+        return g0
+    if gmode == 1:
+        return torch.cat([g0 * g[1].float(), g0], -1)
+    p, q, r, m = (c.float() for c in consts)
+    return p * ((g0 - q) - (g[1].float() * r - m))
+
+
+def _tiled(t, plan):
+    """NHWC ``t`` [.., cout] zero-padded to whole tiles and ``coutp`` and
+    laid out as the planes: [tile][N block][nb / 8][WG_TP / 4][8][4]."""
+    n, h, w, c = t.shape
+    t = F.pad(t, (0, plan.coutp - c, 0, plan.tiles_w * WG_TW - w, 0, plan.tiles_h * WG_TH - h))
+    t = t.reshape(n, plan.tiles_h, WG_TH, plan.tiles_w, WG_TW // 4, 4, plan.nblk, plan.nb // 8, 8)
+    # -> n, tiles_h, tiles_w, N block, row group, tile row, pixel quad, row, pixel
+    return t.permute(0, 1, 3, 6, 7, 2, 4, 8, 5)
+
+
+def wgrad_prep_reference(gmode, g, consts, cout, plan, x, prologue=None):
+    """The pre-pass in plain PyTorch: :func:`wgrad_cotangent` split into
+    TF32 big and small parts (``ops/stage_kernel.py`` ``split_tf32``), zero
+    outside the image and past ``cout``, flat in the kernel's layout
+    [tile][N block][big | small][nb / 8][WG_TP / 4][8 rows][4 pixels]; and
+    the input parts, the single one through the ``prologue``."""
+    big, small = split_tf32(wgrad_cotangent(gmode, g, consts))
+    planes = torch.stack([_tiled(big, plan), _tiled(small, plan)], 4).reshape(-1)
+    parts = as_parts(x)
+    if prologue is not None:
+        if len(parts) != 1:
+            raise ValueError("the prologue takes a single input")
+        parts = (_prologued(parts[0].float(), prologue),)
+    return planes, tuple(p.float() for p in parts)
+
+
+def wgrad_planes(planes, plan, n, h, w, cout):
+    """The pre-pass's planes back to NHWC (big, small), [n, h, w, cout]
+    each."""
+    t = planes.reshape(n, plan.tiles_h, plan.tiles_w, plan.nblk, 2, plan.nb // 8, WG_TH,
+                       WG_TW // 4, 8, 4)
+    t = t.permute(4, 0, 1, 6, 2, 7, 9, 3, 5, 8).reshape(
+        2, n, plan.tiles_h * WG_TH, plan.tiles_w * WG_TW, plan.coutp)
+    return t[0, :, :h, :w, :cout], t[1, :, :h, :w, :cout]
+
+
+def wgrad_product_reference(x, planes, cout, plan):
+    """The product in plain PyTorch: the input parts split into TF32 big and
+    small parts, the planes' cotangent parts, small·big + big·small +
+    big·big summed in f32 (``torch.nn.grad.conv2d_weight``)."""
+    xt = torch.cat([p.float() for p in as_parts(x)], -1).permute(0, 3, 1, 2)
+    n, _, h, w = xt.shape
+    gb, gs = (t.permute(0, 3, 1, 2) for t in wgrad_planes(planes, plan, n, h, w, cout))
+    xb, xs = split_tf32(xt)
+    cw = functools.partial(torch.nn.grad.conv2d_weight, weight_size=(cout, xt.shape[1], 3, 3),
+                           padding=1)
+    return (cw(xs, grad_output=gb) + cw(xb, grad_output=gs)) + cw(xb, grad_output=gb)
 
 
 def train_tail(f2, parts, a2, b2, ws, spade_params, head=None):

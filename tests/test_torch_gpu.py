@@ -844,11 +844,27 @@ def test_fused_conv3_f32_kernel_matches_plain(mode, c, nh, lab, parts, nhw):
     _f32_sums_close(stats, want_stats)
 
 
+# the f32 weight gradient's edges (csrc/wgrad_f32.cu): the 3-channel input,
+# two parts 256 + 384, cout 3, γ|β at 512 rows, W off the 16-pixel tile, and
+# a planted inf or NaN ("inf" in x, "nan" in g), which must give a
+# non-finite dW
+WGRAD3_F32_CASES = WGRAD3_CASES + [
+    ("conv1", (3,), 64, 4, 3, (2, 24, 37)),
+    ("conv1", (256, 384), 256, 8, 3, (1, 8, 20)),
+    ("x2map", (256,), 64, 4, 3, (2, 9, 18)),
+    ("gb", (16,), 256, 16, 3, (1, 12, 21)),
+    ("conv2", (64,), 64, 4, 3, (2, 16, 16), "inf"),
+    ("conv1", (64,), 64, 4, 3, (2, 16, 16), "nan"),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode,xch,c,nh,lab,nhw", WGRAD3_CASES,
-                         ids=[f"{i}-{m[0]}" for i, m in enumerate(WGRAD3_CASES)])
-def test_fused_wgrad_f32_kernel_matches_plain(mode, xch, c, nh, lab, nhw):
+@pytest.mark.parametrize("mode,xch,c,nh,lab,nhw,plant",
+                         [case if len(case) == 7 else case + (None,) for case in WGRAD3_F32_CASES],
+                         ids=[f"{i}-{m[0]}" for i, m in enumerate(WGRAD3_F32_CASES)])
+def test_fused_wgrad_f32_kernel_matches_plain(mode, xch, c, nh, lab, nhw, plant):
     from ssunet_gan_tpu_torch.ops import train_bwd as ttb
+    from ssunet_gan_tpu_torch.ops import train_f32
 
     dev = _card()
     gen = torch.Generator().manual_seed(5)
@@ -862,10 +878,18 @@ def test_fused_wgrad_f32_kernel_matches_plain(mode, xch, c, nh, lab, nhw):
         consts = _bn_consts(gen, c, dev, 4)
     if mode == "conv2":
         prologue = _bn_consts(gen, c, dev, 2)
-    before = ttb.f32_launches["fused_wgrad"]
+    if plant == "inf":
+        x[0][0, h // 2, w // 3, 1] = float("inf")
+    elif plant == "nan":
+        g[0][n - 1, h - 1, w - 1, 2] = float("nan")
+    before = ttb.f32_launches["fused_wgrad"], train_f32.launches["wgrad_prep"]
     got = ttb.fused_wgrad(mode, x, g, consts, prologue)
     torch.cuda.synchronize()
-    assert ttb.f32_launches["fused_wgrad"] == before + 1
+    assert (ttb.f32_launches["fused_wgrad"], train_f32.launches["wgrad_prep"]) == (
+        before[0] + 1, before[1] + 1)
+    if plant:
+        assert not bool(torch.isfinite(got).all())
+        return
     want = ttb.fused_wgrad_reference(mode, x, g, consts, prologue)
     assert got.shape == want.shape and got.dtype == torch.float32
     assert ((got - want).norm() / want.norm()).item() <= 1e-4
@@ -879,6 +903,11 @@ def test_fused_wgrad_f32_kernel_matches_plain(mode, xch, c, nh, lab, nhw):
         ((64, 128), 64, (2, 12, 20), False),
         ((256,), 256, (1, 12, 18), True),
         ((64,), 3, (3, 7, 5), False),
+        # the f32 weight gradient's edges: 256 + 384 parts, γ|β's 512 rows
+        # over 16 channels, W off the tile
+        ((256, 384), 256, (1, 8, 19), False),
+        ((16,), 512, (2, 8, 9), False),
+        ((3,), 64, (2, 13, 37), False),
     ],
 )
 def test_conv_stats_and_wgrad_f32_kernels_match_plain(chans, cout, nhw, prologue):
