@@ -502,6 +502,12 @@ BWD_DATA_V2 = ("to actv", "to seg", "to y", "to h1", "to input")
 # row's largest |sum|, weight gradients in relative L2 (kernel 1f's bar).
 F32_TRAIN_TOL = F32_STAGE_TOL
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3  # three tensor-core products per f32 product
+# The f32 conv launches of the wgmma kernel (csrc/f32_wgmma_conv.cuh) that one
+# flagship step must make, by the kernel's launch plan (csrc/train_f32.cu
+# conv_plan): its 12 conv_stats and, of its 35 fused_conv3, the 6 gamma, 6 bn2
+# and 5 bn1 calls (more than 16 output channels); modgrad (hidden 4-16), seg
+# and pre stay on mma.sync
+WGMMA_PER_STEP = 12 + 6 + 6 + 5
 # Step 1 of the f32 trainer against an f64 module composition, on phase 6's
 # batches, by phase 6's pooled bars with one change (step1_bars ``own``): the
 # loss and all gradients hold e_k <= NOISE_RATIO x e_p (the kernel step no
@@ -2153,6 +2159,9 @@ def time_calls(calls, kernels, label, train_err, check, f32=False, phase="phase 
             split = wgrad_parts_ms(kname, args, kw)
             totals[kname]["prep_ms"] += split[0]
             totals[kname]["product_ms"] += split[1]
+        f64 = None  # an f32 conv call's distances from an f64 sum
+        if f32 and kname in ("conv_stats", "fused_conv3"):
+            f64 = conv_f64_errors(kname, args, kw)
         flops, nbytes = call_cost(kname, args, kw, esize=4 if f32 else 2)
         bound, kind = bound_of(flops, nbytes, peak)
         t = totals[kname]
@@ -2164,17 +2173,24 @@ def time_calls(calls, kernels, label, train_err, check, f32=False, phase="phase 
         t["kinds"].add(kind)
         t["calls"] += 1
         if ctype is not None:
-            m = by_type.setdefault((kname, ctype), [0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0])
+            m = by_type.setdefault((kname, ctype), [0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0])
             for i, v in enumerate((1, ms, plain_ms, bound, lib_ms or 0.0) + (split or (0.0, 0.0))):
                 m[i] += v
+            if f64 is not None:  # the worst call of the type
+                m[7], m[8] = max(m[7], f64[0]), max(m[8], f64[1])
         parts = "" if split is None else f" (pre-pass {split[0]:.3f}, product {split[1]:.3f})"
+        errs = "" if f64 is None else (f"; from an f64 sum kernel {f64[0]:.3g} plain "
+                                       f"{f64[1]:.3g}")
         print(f"{tag} call: {describe_call(kname, args, kw)} ms {ms:.3f}{parts} plain "
               f"{plain_ms:.3f} bound {bound:.3f} ({kind}) library "
-              f"{'none' if lib_ms is None else f'{lib_ms:.3f}'}")
-    for (kname, ctype), (n, ms, plain_ms, bound, lib_ms, prep, prod) in sorted(by_type.items()):
+              f"{'none' if lib_ms is None else f'{lib_ms:.3f}'}{errs}")
+    for (kname, ctype), (n, ms, plain_ms, bound, lib_ms, prep, prod, e_k, e_p) in sorted(
+            by_type.items()):
         parts = f" (pre-pass {prep:.3f}, product {prod:.3f})" if prep or prod else ""
+        errs = (f"; worst from an f64 sum kernel {e_k:.3g} plain {e_p:.3g}"
+                if f32 and kname in ("conv_stats", "fused_conv3") else "")
         print(f"{tag} mode: {kname} {ctype} ({label}, {n} calls) per step ms {ms:.3f}{parts} "
-              f"plain {plain_ms:.3f} bound {bound:.3f} library {lib_ms:.3f}")
+              f"plain {plain_ms:.3f} bound {bound:.3f} library {lib_ms:.3f}{errs}")
     for kname, t in totals.items():
         parts = (f" (pre-pass {t['prep_ms']:.3f}, product {t['product_ms']:.3f})"
                  if t["prep_ms"] else "")
@@ -5355,7 +5371,7 @@ def zero_all_launches() -> None:
     stage_kernel_bneck.launches = spade_kernel.launches = 0
     stage_kernel_int8.launches = stage_kernel_int8.conv_launches = 0
     stage_kernel_int8.quant_launches = 0
-    train_f32.launches["wgrad_prep"] = 0
+    train_f32.launches["wgrad_prep"] = train_f32.launches["wgmma_conv"] = 0
     reset_launches()
 
 
@@ -6256,10 +6272,18 @@ def f32_counts() -> dict:
     return {name: kernel_module(name).f32_launches[name] for name in TRAIN_KERNELS}
 
 
+def wgmma_count() -> int:
+    """The f32 conv launches of the wgmma kernel (ops/train_f32.py)."""
+    from ssunet_gan_tpu_torch.ops import train_f32
+
+    return train_f32.launches["wgmma_conv"]
+
+
 def reset_f32_counts() -> None:
     from ssunet_gan_tpu_torch.ops import train_f32
 
     reset_launches()
+    train_f32.launches["wgmma_conv"] = 0
     for name in TRAIN_KERNELS:
         kernel_module(name).f32_launches[name] = 0
     train_f32.launches["wgrad_prep"] = 0
@@ -6297,6 +6321,29 @@ def wgrad_parts_ms(kname, args, kwargs):
     product = cuda_ms(lambda: train_f32.wgrad_product(xs, planes, cout, plan), 3, warmup=1)
     train_f32.launches["wgrad_prep"] = before
     return prep, product
+
+
+def conv_f64(x, weight, bias=None, padding=0):
+    """``ops/conv.py`` ``conv2d_nhwc`` summed in f64 and rounded to f32: the
+    plain versions' ``conv`` for an f32 call's yardstick (its chains still in
+    f32, as the kernel and the plain version compute them)."""
+    from ssunet_gan_tpu_torch.ops.conv import as_parts, conv2d_nhwc
+
+    parts = tuple(p.double() for p in as_parts(x))
+    return conv2d_nhwc(parts, weight.double(), None if bias is None else bias.double(),
+                       padding).float()
+
+
+def conv_f64_errors(name, args, kwargs):
+    """An f32 conv call's (kernel, plain f32 version) relative L2 distances
+    from the same call with its convs summed in f64 (:func:`conv_f64`), over
+    all its outputs."""
+    mod = kernel_module(name)
+    flat = lambda res: torch.cat([o.reshape(-1).double() for o in _parts(res[0])])
+    exact = flat(getattr(mod, name + "_reference")(*args, **kwargs, conv=conv_f64))
+    got = flat(getattr(mod, name)(*args, **kwargs))
+    want = flat(getattr(mod, name + "_reference")(*args, **kwargs))
+    return rel_l2(got, exact), rel_l2(want, exact)
 
 
 def f32_compare_call(name, args, kwargs):
@@ -6468,13 +6515,17 @@ def f32_train_phase(dev, card, here, cfg, sigs, check, overrides=None):
     steps = TRAIN_WARM + TRAIN_STEPS
     want = {k: steps * v for k, v in per_step.items()}
     main_prep = prep_count()
+    main_wgmma = wgmma_count()
     print(f"phase 21: f32 train kernel launches in {steps} steps {f32_counts()} (expected "
           f"{steps} x {per_step}); all train launches {read_launches()}; the weight "
-          f"gradient's pre-pass {main_prep} (one per f32 weight gradient)")
+          f"gradient's pre-pass {main_prep} (one per f32 weight gradient); the wgmma conv "
+          f"{main_wgmma} (expected {steps} x {WGMMA_PER_STEP})")
     check(f32_counts() == want and read_launches() == want,
           f"phase 21: launches {counts} != {steps} x {per_step}, all f32")
     check(main_prep == want["fused_wgrad"] + want["wgrad"],
           f"phase 21: pre-pass launches {main_prep} != {want['fused_wgrad'] + want['wgrad']}")
+    check(main_wgmma == steps * WGMMA_PER_STEP,
+          f"phase 21: wgmma conv launches {main_wgmma} != {steps} x {WGMMA_PER_STEP}")
     main_counts = f32_counts()
     timings = {"f32 kernels": [(ms, ips)]}
     print(f"phase 21: flagship train step in f32 (v3) {ms:.2f} ms/step, {ips:.2f} images/s "
@@ -6537,15 +6588,18 @@ def f32_train_phase(dev, card, here, cfg, sigs, check, overrides=None):
                                                       device=dev)
             n_steps = F32_ENTRY_EPOCHS * (ENTRY_SYNTHETIC // ecfg.opt_config["batch_size"])
             entry = f32_counts()
+            entry_wgmma = wgmma_count()
             print(f"phase 21: run_experiment with mixed_precision False: f32 train launches "
                   f"{entry} in {n_steps} steps, all train launches {read_launches()}, f32 "
-                  f"eval stages {stage_kernel.f32_launches}; log {dict(elog)}")
+                  f"eval stages {stage_kernel.f32_launches}, wgmma conv {entry_wgmma}; log "
+                  f"{dict(elog)}")
             want = {k: n_steps * v for k, v in per_step.items()}
             entry_prep = prep_count()
             check(entry == want and read_launches() == want and stage_kernel.f32_launches > 0
-                  and entry_prep == want["fused_wgrad"],
-                  f"phase 21: run_experiment f32 launches {entry} (pre-pass {entry_prep}) != "
-                  f"{n_steps} x {per_step}")
+                  and entry_prep == want["fused_wgrad"]
+                  and entry_wgmma == n_steps * WGMMA_PER_STEP,
+                  f"phase 21: run_experiment f32 launches {entry} (pre-pass {entry_prep}, "
+                  f"wgmma conv {entry_wgmma}) != {n_steps} x {per_step}")
     finally:
         if yaml_before is None:
             sys.modules.pop("yaml", None)
@@ -6564,12 +6618,14 @@ def f32_train_phase(dev, card, here, cfg, sigs, check, overrides=None):
     torch.cuda.synchronize()
     gan = f32_counts()
     gan_prep = prep_count()
+    gan_wgmma = wgmma_count()
     print(f"phase 21: one joint GAN step in f32: f32 train launches {gan} (pre-pass "
-          f"{gan_prep}), all {read_launches()}; metrics "
+          f"{gan_prep}, wgmma conv {gan_wgmma}), all {read_launches()}; metrics "
           f"{({k: float(v) for k, v in metrics.items()})}")
     check(gan == per_step and read_launches() == per_step and gan_prep == per_step["fused_wgrad"]
+          and gan_wgmma == WGMMA_PER_STEP
           and all(np.isfinite(float(v)) for v in metrics.values()),
-          f"phase 21: the f32 GAN step's launches {gan} != {per_step}")
+          f"phase 21: the f32 GAN step's launches {gan} (wgmma conv {gan_wgmma}) != {per_step}")
     del generator, disc, gstep, xg, yg
     torch.cuda.empty_cache()
     phase_done("phase 21 entry points", t0)
@@ -6580,16 +6636,21 @@ def f32_train_phase(dev, card, here, cfg, sigs, check, overrides=None):
         paths = {"flagship_f32": main_counts[kname], "run_experiment_f32": entry[kname],
                  "gan_f32": gan[kname]}
         wgrad = kname in ("wgrad", "fused_wgrad")  # csrc/wgrad_f32.cu: pre-pass + product
+        conv = kname in ("conv_stats", "fused_conv3")  # wide modes: the wgmma kernel
+        source = (train_f32.WGRAD_SOURCE if wgrad else train_f32.WGMMA_HEADER if conv
+                  else train_f32.SOURCE)
         rows.append({
             "name": f"{kname}_f32", "route": "cuda",
-            "source": f"ssunet_gan_tpu_torch/csrc/"
-                      f"{train_f32.WGRAD_SOURCE if wgrad else train_f32.SOURCE}",
+            "source": f"ssunet_gan_tpu_torch/csrc/{source}",
             "replaces": kernel_module(kname).REPLACES[kname],
             "launches": sum(paths.values()), "max_abs_err": f32_err[kname],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "operations" if "operations" in t["kinds"] else "bytes",
             "library_ms": t["library_ms"], "launches_by_path": paths,
-            **({"prep_ms": t["prep_ms"], "product_ms": t["product_ms"]} if wgrad else {})})
+            **({"prep_ms": t["prep_ms"], "product_ms": t["product_ms"]} if wgrad else {}),
+            **({"wgmma_launches_by_path": {"flagship_f32": main_wgmma,
+                                           "run_experiment_f32": entry_wgmma,
+                                           "gan_f32": gan_wgmma}} if conv else {})})
     return rows
 
 
@@ -6978,6 +7039,14 @@ def main() -> int:
         print(f"phase 0: HGMMA in {train_f32.WGRAD_SOURCE}'s product: {sorted(counts.values())}")
         check(len(counts) > 0 and all(counts.values()),
               f"phase 0: a wgrad_f32_kernel instantiation without wgmma: {counts}")
+    counts = hgmma_counts(_build.build(train_f32.SOURCE), "f32_wgmma_conv_kernel")
+    if counts is not None:  # the wide f32 train convs (csrc/f32_wgmma_conv.cuh)
+        print(f"phase 0: HGMMA in {train_f32.SOURCE}'s wgmma conv: {sorted(counts.values())}")
+        check(len(counts) == 5 and all(counts.values()),
+              f"phase 0: an f32_wgmma_conv_kernel instantiation without wgmma: {counts}")
+    spills = ptxas_spills(_build.build_log(train_f32.SOURCE), "f32_wgmma_conv_kernel")
+    print(f"phase 0: f32 wgmma conv instantiations {len(spills)}, spill bytes (stores, loads) "
+          f"{sorted(spills.values())}")
     counts = hgmma_counts(_build.build(stage_kernel_int8.SOURCE), "s8_conv_core", "IGMMA")
     if counts is not None:
         print(f"phase 0: IGMMA in {stage_kernel_int8.SOURCE}'s s8 conv core: "

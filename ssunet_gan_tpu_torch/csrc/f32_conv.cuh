@@ -1,7 +1,9 @@
 // The f32 conv core on Hopper (sm_90a): 3xTF32 on mma.sync, shared by the
 // f32 route of the eval stage (fused_stage_f32.cu, whose header gives the
 // design: the products, the tiles, the windows, non-finite inputs) and the
-// f32 train kernels (train_f32.cu). One kernel template, f32_conv_kernel<WMW,
+// f32 train kernels (train_f32.cu; their wide modes run on
+// f32_wgmma_conv.cuh's wgmma kernel, which takes this mode table, the
+// arguments and the helpers below). One kernel template, f32_conv_kernel<WMW,
 // WN, MODE>: the main loop is the same for every mode; MODE picks a
 // prologue, applied once per window value of segment 0 as its window is
 // split (before the split: the split is taken of the chain's f32 result),
@@ -132,6 +134,7 @@ struct F32ConvArgs {
   int h, w, cout;     // cout: the conv's columns (2C with the modulate)
   int relu;
   int tiles_w, tiles_h;
+  int pixel_blocks;  // the wgmma kernel's: n * tiles_h * tiles_w
   // the train modes
   const float* pro_f;    // segment 0's chain tensor [m][seg[0].c] (FM_MODGRAD, FM_BN*)
   const float* pc[4];    // segment 0's per-channel prologue constants
@@ -594,12 +597,6 @@ int f32_bn(int cout) { return cout <= 8 ? 8 : cout <= 16 ? 16 : 64; }
 
 // tile rows of a block for the N tile bn
 int f32_th(int bn) { return bn == 64 ? FCfg<4, 4>::TH : FCfg<8, 1>::TH; }
-
-// blocks along the pixels (gridDim.x) of a conv of cout columns
-long long f32_pixel_blocks(int cout, int n, int h, int w) {
-  const int th = f32_th(f32_bn(cout));
-  return (long long)n * ((h + th - 1) / th) * ((w + F_TW - 1) / F_TW);
-}
 
 template <int MODE>
 cudaError_t f32_launch_bn(F32ConvArgs& a, int n, int bn, int nblocks, cudaStream_t stream) {

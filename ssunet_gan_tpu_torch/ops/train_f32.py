@@ -12,15 +12,19 @@ conv core's launch (:func:`launch_conv3`) and the weight-gradient core's
 :func:`train_tail` is kernel 3. The products run as 3xTF32 (each f32
 operand split into big = tf32(x) and small = tf32(x − big), products
 small·big + big·small + big·big in f32 sums). ``csrc/train_f32.cu`` holds
-the convs, on ``mma.sync`` in the core of ``csrc/f32_conv.cuh`` (shared
-with kernel 1's f32 route) with each chain mode's prologue run in f32 on
-segment 0's window before the split; the weights change every step, so
-every call packs and splits them anew (``ops/stage_kernel.py``
-``pack_f32_conv``); nothing is kept per model. ``csrc/wgrad_f32.cu`` holds
-the weight gradient, a GEMM over the pixels on ``wgmma``: a pre-pass
-(:func:`wgrad_prep`) runs the cotangent's chain and split once per value
-into planes laid out as the product (:func:`wgrad_product`) reads them,
-on the launch plan of :func:`wgrad_plan`.
+the convs, each chain mode's prologue run in f32 on segment 0's window
+before the split, on one of two cores by the kernel's own launch plan
+(:func:`conv_plan` asks for it): the wide modes (conv1 / conv2 of kernel 2,
+κ1, κ3, κ6, κ7 of kernel 5 at more than 16 output channels) on ``wgmma``
+(``csrc/f32_wgmma_conv.cuh``), the rest on ``mma.sync``
+(``csrc/f32_conv.cuh``, shared with kernel 1's f32 route); the
+weights change every step, so every call packs and splits them anew
+(``ops/stage_kernel.py`` ``pack_f32_conv``); nothing is kept per model.
+``csrc/wgrad_f32.cu`` holds the weight gradient, a GEMM over the pixels on
+``wgmma``: a pre-pass (:func:`wgrad_prep`) runs the cotangent's chain and
+split once per value into planes laid out as the product
+(:func:`wgrad_product`) reads them, on the launch plan of
+:func:`wgrad_plan`.
 
 The plain versions are the modules' own (dtype-generic); the kernels'
 arithmetic in plain PyTorch is the ``*_emulated`` functions here (the
@@ -58,10 +62,13 @@ from ssunet_gan_tpu_torch.ops.stage_kernel_train import (
 from ssunet_gan_tpu_torch.ops.train_bwd import fused_conv3_reference, fused_wgrad_reference
 
 SOURCE = "train_f32.cu"
+WGMMA_HEADER = "f32_wgmma_conv.cuh"  # the wide convs' kernel, built into SOURCE
 WGRAD_SOURCE = "wgrad_f32.cu"  # kernels 4 and 6 in f32
 # Kernel runs on the card: the weight gradient's pre-pass (its products count
-# as the callers' wgrad and fused_wgrad launches)
-launches = {"wgrad_prep": 0}
+# as the callers' wgrad and fused_wgrad launches), and the conv launches that
+# the kernel's plan routes to the wgmma kernel (counted also as the callers'
+# conv_stats and fused_conv3 launches)
+launches = {"wgrad_prep": 0, "wgmma_conv": 0}
 
 # csrc/f32_conv.cuh F32Mode: the train modes (0 and 1 are the eval route's)
 FM_STD, FM_AFF, FM_MODGRAD, FM_PRE, FM_BN2, FM_BN1, FM_RES, FM_SEG, FM_GB = range(2, 11)
@@ -83,12 +90,23 @@ _CONV_INTS = ("nseg", "c0", "c1", "c2", "k0", "k1", "k2", "kq", "bn", "n", "h", 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssu_train_f32_blocks.argtypes = [i, i, i, i]
-    lib.ssu_train_f32_blocks.restype = ll
+    p, i = ctypes.c_void_p, ctypes.c_int
     lib.ssu_train_f32_conv.argtypes = [i, p, p, p]
     lib.ssu_train_f32_conv.restype = i
+    lib.ssu_train_f32_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+    lib.ssu_train_f32_plan.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(mode: int, cout: int, n: int, h: int, w: int) -> tuple[bool, int]:
+    """The kernel's launch plan (``csrc/train_f32.cu`` ``conv_plan``) for a
+    conv of ``cout`` columns in ``mode`` over n images of h × w: (whether
+    the wgmma kernel runs it, its blocks along the pixels, the columns of the
+    stat rows' per-block partial sums)."""
+    blocks = ctypes.c_longlong()
+    wide = _lib().ssu_train_f32_plan(mode, cout, n, h, w, ctypes.byref(blocks))
+    return bool(wide), blocks.value
 
 
 def conv_launch(mode, sources, conv, *, y=None, pro_f=None, pc=(), ec=(), bands=(),
@@ -98,7 +116,8 @@ def conv_launch(mode, sources, conv, *, y=None, pro_f=None, pc=(), ec=(), bands=
     N×H×W), ``conv`` their weight as :func:`pack_f32_conv` packs it.
     Returns the outputs (one per ``out_ch`` entry, default one of all
     output channels; with ``y`` the modulate's C) and the ``rows`` stat rows
-    (or None); the caller counts the launch."""
+    (or None); the caller counts the launch, :data:`launches` its route to
+    the wgmma kernel."""
     x0 = sources[0]
     n, h, w = x0.shape[:3]
     dev = x0.device
@@ -107,13 +126,13 @@ def conv_launch(mode, sources, conv, *, y=None, pro_f=None, pc=(), ec=(), bands=
         raise ValueError(f"f32 conv: sources of {[s.shape[-1] for s in sources]} channels "
                          f"for segments of {conv['chans']}")
     out_ch = tuple(out_ch or ((cout // 2,) if y is not None else (cout,)))
+    wide, blocks = conv_plan(mode, cout, n, h, w)
     lib = _lib()
     with torch.cuda.device(dev):
         outs = [torch.empty((n, h, w, c), dtype=torch.float32, device=dev) for c in out_ch]
         partial = sums = None
         if rows:
-            nb = lib.ssu_train_f32_blocks(cout, n, h, w)
-            partial = torch.empty(rows * cout * nb, dtype=torch.float32, device=dev)
+            partial = torch.empty(rows * cout * blocks, dtype=torch.float32, device=dev)
             sums = torch.empty((rows, cout), dtype=torch.float32, device=dev)
         ptrs = {f"seg{i}": s for i, s in enumerate(sources)}
         ptrs.update({"weight": conv["wk"], "bias": conv["bk"], "y": y, "pro_f": pro_f,
@@ -131,6 +150,8 @@ def conv_launch(mode, sources, conv, *, y=None, pro_f=None, pc=(), ec=(), bands=
         iarr = (ctypes.c_int * len(_CONV_INTS))(*(ints[k] for k in _CONV_INTS))
         stream = torch.cuda.current_stream(dev).cuda_stream
         _check(lib.ssu_train_f32_conv(mode, parr, iarr, stream), f"f32 conv core (mode {mode})")
+    if wide:
+        launches["wgmma_conv"] += 1
     return outs, sums
 
 

@@ -803,11 +803,105 @@ def _f32_sums_close(got, want):
             assert (s - ws).abs().max().item() <= 1e-4 * ws.abs().max().item()
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("mode,c,nh,lab,parts,nhw", CONV3_CASES,
-                         ids=[f"{i}-{m}" for i, (m, *_) in enumerate(CONV3_CASES)])
-def test_fused_conv3_f32_kernel_matches_plain(mode, c, nh, lab, parts, nhw):
+# the wgmma kernel's edges (csrc/f32_wgmma_conv.cuh; the f32 modes of more
+# than 16 output channels but pre): N past one block of 64 (cout 256, γ|β at
+# 512), modgrad at hidden 32 and 64, bn1's two-part split with the shortcut
+# segment, W off the 16-column tile and odd H; and +inf / -inf / NaN planted
+# in segment 0 ("plant"), where every output's class must equal the plain
+# version's
+CONV3_F32_CASES = [case + (None,) for case in CONV3_CASES] + [
+    ("bn2", 256, 16, 3, None, (2, 17, 23), None),
+    ("gamma", 256, 16, 3, None, (1, 13, 29), None),
+    ("bn1", 64, 4, 3, (64, 128), (2, 15, 19), None),
+    ("modgrad", 64, 32, 3, None, (2, 16, 20), None),
+    ("modgrad", 128, 64, 3, None, (1, 9, 33), None),
+    ("bn2", 64, 4, 3, None, (2, 16, 16), "plant"),
+    ("bn1", 64, 4, 3, (64, 128), (1, 24, 20), "plant"),
+    ("gamma", 64, 16, 3, None, (2, 16, 20), "plant"),
+    ("modgrad", 64, 32, 3, None, (2, 16, 20), "plant"),
+]
+
+
+def _plant(t, gen):
+    """``t`` with +inf, -inf and NaN at seeded positions, three of each."""
+    t = t.clone()
+    flat = t.view(-1)
+    pos = torch.randperm(flat.numel(), generator=gen)[:9].to(t.device)
+    flat[pos] = torch.tensor([float("inf"), float("-inf"), float("nan")] * 3, device=t.device)
+    return t
+
+
+def _classes(t):
+    """Each element's class: 0 finite, 1 NaN, 2 +inf, 3 -inf."""
+    return (torch.isnan(t) * 1 + torch.isposinf(t) * 2 + torch.isneginf(t) * 3).to(torch.int8)
+
+
+def _same_classes(got, want):
+    """Planted inputs: every output's class equals the plain version's
+    (computed with the kernels' products, ``ops/train_f32.py``
+    ``*_emulated``: an exact f32 convolution by a library may transform its
+    inputs and spread an inf), and the plants reach the output."""
+    for g, wv in zip(got, want):
+        assert torch.equal(_classes(g), _classes(wv))
+        assert bool(torch.isnan(wv).any())
+
+
+def _wgmma_launches(mode, cout, nhw):
+    """The wgmma kernel's launches that one f32 call of ``fused_conv3`` mode
+    ``mode`` (or of ``conv_stats``: "conv1", "conv2") with ``cout`` output
+    channels over (n, h, w) makes: the kernel's own launch plan
+    (``csrc/train_f32.cu`` ``conv_plan``, read through
+    ``ops/train_f32.py``)."""
     from ssunet_gan_tpu_torch.ops import train_bwd as ttb
+    from ssunet_gan_tpu_torch.ops import train_f32
+
+    fmode = {"conv1": train_f32.FM_STD, "conv2": train_f32.FM_AFF}.get(mode)
+    if fmode is None:
+        fmode = train_f32._MODES[ttb.CONV_MODES[mode][0]]
+    return int(train_f32.conv_plan(fmode, cout, *nhw)[0])
+
+
+# The flagship's six fused train stages (UNet_R_SS_v2, configs/config_v1.json:
+# filters 64-256 at levels 0-2, 3 labels, hidden planes / 16): (part
+# channels, planes, hidden, side at 512², whether κ1 computes γ|β for the
+# folded head, whether the input gradient κ7 runs)
+FLAGSHIP_TRAIN_STAGES = [
+    ((3,), 64, 4, 512, False, False),         # conv0_0: the image needs no gradient
+    ((64,), 128, 8, 256, False, True),        # conv1_0
+    ((128,), 256, 16, 128, False, True),      # conv2_0
+    ((256, 256), 256, 16, 128, False, True),  # conv2_1
+    ((128, 256), 128, 8, 256, False, True),   # conv1_1
+    ((64, 128), 64, 4, 512, True, True),      # conv0_1, the head
+]
+
+
+@pytest.mark.gpu
+def test_one_flagship_f32_step_sends_29_of_its_47_convs_to_wgmma():
+    """The kernel's launch plan for the f32 conv calls of one flagship v3
+    step at batch 8 (12 conv_stats, 35 fused_conv3, ops/train_bwd.py's
+    counts): the 12 conv_stats, 6 γ, 6 bn2 and 5 bn1 take the wgmma kernel
+    (chip_smoke.py WGMMA_PER_STEP); modgrad (hidden 4-16), seg (3 labels)
+    and pre stay on mma.sync."""
+    _card()
+    calls = []
+    for parts, planes, nh, side, head, bn1 in FLAGSHIP_TRAIN_STAGES:
+        stage = [("conv1", planes), ("conv2", planes), ("gamma", 2 * planes if head else planes),
+                 ("modgrad", nh), ("seg", 3), ("pre", planes), ("bn2", planes)]
+        stage += [("bn1", sum(parts))] if bn1 else []
+        calls += [(m, c, (8, side, side)) for m, c in stage]
+    assert len(calls) == 47
+    wide = [m for m, c, nhw in calls if _wgmma_launches(m, c, nhw)]
+    assert {m: wide.count(m) for m in set(wide)} == {"conv1": 6, "conv2": 6, "gamma": 6,
+                                                     "bn2": 6, "bn1": 5}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,c,nh,lab,parts,nhw,plant", CONV3_F32_CASES,
+                         ids=[f"{i}-{m}" + (f"-{p}" if p else "")
+                              for i, (m, *_, p) in enumerate(CONV3_F32_CASES)])
+def test_fused_conv3_f32_kernel_matches_plain(mode, c, nh, lab, parts, nhw, plant):
+    from ssunet_gan_tpu_torch.ops import train_bwd as ttb
+    from ssunet_gan_tpu_torch.ops import train_f32
 
     dev = _card()
     gen = torch.Generator().manual_seed(4)
@@ -833,13 +927,24 @@ def test_fused_conv3_f32_kernel_matches_plain(mode, c, nh, lab, parts, nhw):
         src, side, weight = (band(c), band(c)), (band(c),), wt(csum, c)
         consts = _bn_consts(gen, c, dev, 4)
         shortcut, out_ch = wt(csum, c, 1), list(parts)
-    before = ttb.f32_launches["fused_conv3"]
+    if plant:
+        src = (_plant(src[0], gen),) + src[1:]
+    before = ttb.f32_launches["fused_conv3"], train_f32.launches["wgmma_conv"]
     got, stats = ttb.fused_conv3(mode, src, weight, side, consts, bias, shortcut, out_ch)
     torch.cuda.synchronize()
-    assert ttb.f32_launches["fused_conv3"] == before + 1
-    want, want_stats = ttb.fused_conv3_reference(mode, src, weight, side, consts, bias,
-                                                 shortcut, out_ch)
-    for g, wv in zip(got if out_ch else (got,), want if out_ch else (want,)):
+    assert ttb.f32_launches["fused_conv3"] == before[0] + 1
+    wide = _wgmma_launches(mode, weight.shape[0], nhw)
+    # the wgmma kernel's edges run it once each
+    assert wide == 1 or (mode, c, nh, lab, parts, nhw) in CONV3_CASES
+    assert train_f32.launches["wgmma_conv"] == before[1] + wide
+    args = (mode, src, weight, side, consts, bias, shortcut, out_ch)
+    gots = got if out_ch else (got,)
+    if plant:
+        want, _ = train_f32.fused_conv3_emulated(*args)
+        _same_classes(gots, want if out_ch else (want,))
+        return
+    want, want_stats = ttb.fused_conv3_reference(*args)
+    for g, wv in zip(gots, want if out_ch else (want,)):
         _f32_close(g, wv)
     _f32_sums_close(stats, want_stats)
 
@@ -897,40 +1002,57 @@ def test_fused_wgrad_f32_kernel_matches_plain(mode, xch, c, nh, lab, nhw, plant)
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "chans,cout,nhw,prologue",
+    "chans,cout,nhw,prologue,plant",
     [
-        ((3,), 64, (2, 40, 36), False),
-        ((64, 128), 64, (2, 12, 20), False),
-        ((256,), 256, (1, 12, 18), True),
-        ((64,), 3, (3, 7, 5), False),
+        ((3,), 64, (2, 40, 36), False, False),
+        ((64, 128), 64, (2, 12, 20), False, False),
+        ((256,), 256, (1, 12, 18), True, False),
+        ((64,), 3, (3, 7, 5), False, False),
         # the f32 weight gradient's edges: 256 + 384 parts, γ|β's 512 rows
         # over 16 channels, W off the tile
-        ((256, 384), 256, (1, 8, 19), False),
-        ((16,), 512, (2, 8, 9), False),
-        ((3,), 64, (2, 13, 37), False),
+        ((256, 384), 256, (1, 8, 19), False, False),
+        ((16,), 512, (2, 8, 9), False, False),
+        ((3,), 64, (2, 13, 37), False, False),
+        # the wgmma conv's edges: cin 3 and 64 + 128 parts into 256 (N past
+        # one block) at odd H and W off the tile; +inf / -inf / NaN planted
+        # in part 0, with and without conv2's prologue
+        ((3,), 256, (2, 17, 21), False, False),
+        ((64, 128), 256, (1, 11, 35), False, False),
+        ((64,), 128, (2, 16, 20), False, True),
+        ((64,), 64, (2, 16, 20), True, True),
     ],
 )
-def test_conv_stats_and_wgrad_f32_kernels_match_plain(chans, cout, nhw, prologue):
+def test_conv_stats_and_wgrad_f32_kernels_match_plain(chans, cout, nhw, prologue, plant):
     """Kernels 2 and 4 in f32: conv_stats (one or two parts, the prologue)
-    and the v2 weight gradient on the same inputs."""
+    and the v2 weight gradient on the same inputs; with planted inputs
+    conv_stats's output classes."""
     from ssunet_gan_tpu_torch.ops import stage_kernel_train as tst
+    from ssunet_gan_tpu_torch.ops import train_f32
 
     dev = _card()
     gen = torch.Generator().manual_seed(7)
     n, h, w = nhw
     parts = tuple(torch.randn((n, h, w, c), generator=gen).to(dev) for c in chans)
+    if plant:
+        parts = (_plant(parts[0], gen),) + parts[1:]
     wt = (torch.randn((cout, sum(chans), 3, 3), generator=gen) * 0.1).to(dev)
     pro = None
     if prologue:
         pro = ((torch.rand(chans[0], generator=gen) + 0.5).to(dev),
                (torch.randn(chans[0], generator=gen) * 0.3).to(dev))
-    before = dict(tst.f32_launches)
+    before = dict(tst.f32_launches), train_f32.launches["wgmma_conv"]
     out, sums = tst.conv_stats(parts, wt, prologue=pro)
+    torch.cuda.synchronize()
+    assert tst.f32_launches["conv_stats"] == before[0]["conv_stats"] + 1
+    assert train_f32.launches["wgmma_conv"] == before[1] + _wgmma_launches(
+        "conv2" if prologue else "conv1", cout, nhw)
+    if plant:
+        _same_classes((out,), (train_f32.conv_stats_emulated(parts, wt, prologue=pro)[0],))
+        return
     g = torch.randn((n, h, w, cout), generator=gen).to(dev)
     dw = tst.wgrad(parts, g, pro)
     torch.cuda.synchronize()
-    assert tst.f32_launches["conv_stats"] == before["conv_stats"] + 1
-    assert tst.f32_launches["wgrad"] == before["wgrad"] + 1
+    assert tst.f32_launches["wgrad"] == before[0]["wgrad"] + 1
     want, want_sums = tst.conv_stats_reference(parts, wt, prologue=pro)
     _f32_close(out, want)
     _f32_sums_close(sums, want_sums)

@@ -253,4 +253,4 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing(rng):
                                rtol=0, atol=0)
     tf.launch_wgrad(2, x, g, consts, prologue, cout)
     assert (tf.launches, ttb.f32_launches, tst.f32_launches) == before
-    assert set(tf.launches) == {"wgrad_prep"}
+    assert set(tf.launches) == {"wgrad_prep", "wgmma_conv"}

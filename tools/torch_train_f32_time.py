@@ -1,21 +1,26 @@
-"""The f32 weight gradient (kernels 4 and 6 in float32) per flagship step,
-and the f32 train step's ms/step, on one CUDA card, for the port in the
-tree this runs from or the one given with ``--root``:
+"""The f32 train kernels per flagship step, and the f32 train step's
+ms/step, on one CUDA card, for the port in the tree this runs from or the
+one given with ``--root``:
 
-    python3 tools/torch_wgrad_f32_time.py [--root DIR] [--tag TAG]
+    python3 tools/torch_train_f32_time.py [--root DIR] [--tag TAG]
 
 UNet_R_SS_v2 of configs/config_v1.json, seeded weights, batch 8 of
 SyntheticDataset(512, 512), Adam, f32 activations (mixed_precision False),
-cuDNN's TF32 off. One steady-state v3 step's 30 ``fused_wgrad`` calls and
-one v2 step's 30 ``wgrad`` calls are recorded and each is timed through
-its wrapper (CUDA events, 3 runs after 1 warm-up), summed per mode; then
-the f32 v3 step, in three rounds of 5 steps: through ``train_one_epoch``
-(the loader beside it) and bare, on one batch. Only the wrappers' public
-names are used, so a parent tree (unpacked with ``git archive``) runs it
-too: compare two trees only inside one call to the card, in turns
-(parent, change, change, parent).
+cuDNN's TF32 off. One steady-state v3 step's calls are recorded: its 12
+``conv_stats`` (row 2f) and 35 ``fused_conv3`` calls (row 5f), each timed
+through its wrapper and summed per mode, with each mode's worst relative
+L2 distance from the same conv summed in f64 (``chip_smoke.py``
+``conv_f64_errors`` of this tool's tree: the chains in f32, as the plain
+versions; the plain f32 version's beside it), and its 30
+``fused_wgrad`` calls (row 6f); then one v2 step's 30 ``wgrad`` calls (row
+4f) (CUDA events, 3 runs after 1 warm-up); then the f32 v3 step, in three
+rounds of 5 steps: through ``train_one_epoch`` (the loader beside it) and
+bare, on one batch. Only the wrappers' public names are used, so a parent
+tree (unpacked with ``git archive``) runs it too: compare two trees only
+inside one call to the card, in turns (parent, change, change, parent).
 """
 import argparse
+import importlib.util
 import os
 import subprocess
 import sys
@@ -27,6 +32,17 @@ import torch
 BATCH, HW, WARM, STEPS, ROUNDS = 8, 512, 2, 5, 3
 
 
+def smoke_module():
+    """``chip_smoke.py`` of this tool's own tree (its f64 yardstick), which
+    imports the port from ``sys.path``: the tree given with ``--root``."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.getcwd())
@@ -34,6 +50,7 @@ def main():
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
+    smoke = smoke_module()
     from ssunet_gan_tpu_torch.config import load_experiment_config
     from ssunet_gan_tpu_torch.data.dataset import SyntheticDataset
     from ssunet_gan_tpu_torch.data.loader import BatchLoader
@@ -102,6 +119,30 @@ def main():
             tst.set_train_bwd_v3(before)
         return fn, calls
 
+    for module, name, row in ((tst, "conv_stats", "2f"), (ttb, "fused_conv3", "5f")):
+        fn, calls = recorded(module, name, True)
+        per_mode = defaultdict(lambda: [0, 0.0, 0.0, 0.0])
+        for a, k in calls:
+            if name == "fused_conv3":
+                mode = a[0]
+            elif (a[3] if len(a) > 3 else k.get("prologue")) is not None:
+                mode = "conv2"
+            else:
+                mode = "conv1"
+            m = per_mode[mode]
+            m[0] += 1
+            m[1] += ms(lambda: fn(*a, **k))
+            kernel, plain = smoke.conv_f64_errors(name, a, k)
+            m[2], m[3] = max(m[2], kernel), max(m[3], plain)
+        del calls
+        torch.cuda.empty_cache()
+        print(f"{tag}: {name} f32 (row {row}), {sum(m[0] for m in per_mode.values())} calls of "
+              f"one v3 step: {sum(m[1] for m in per_mode.values()):.3f} ms; "
+              + ", ".join(f"{md} ({m[0]}) {m[1]:.3f}" for md, m in sorted(per_mode.items()))
+              + f" on {card}", flush=True)
+        print(f"{tag}: {name} f32 (row {row}), worst rel L2 from an f64 sum per mode, kernel / "
+              f"plain f32: " + ", ".join(f"{md} {m[2]:.3g} / {m[3]:.3g}"
+                                         for md, m in sorted(per_mode.items())), flush=True)
     fn, calls = recorded(ttb, "fused_wgrad", True)
     per_mode = defaultdict(float)
     for a, k in calls:
